@@ -1,0 +1,454 @@
+"""Chip smoke test of the PyTorch + CUDA port (fedmse_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with an NVIDIA Hopper card. It
+builds the CUDA kernels from fedmse_tpu_torch/csrc (one nvcc per source,
+into build/fedmse_tpu_torch/), then:
+
+  1. device     prints the card (nvidia-smi name and power limit), torch and
+                CUDA versions and the kernels' build time;
+  2. kernels    holds each kernel against its plain PyTorch version on the
+                card, at every listed shape and dtype;
+  3. evaluate   per-client AUC of both model types in f32 and bf16 over a
+                10-gateway synthetic federation at the paper's width
+                (115 -> 27 -> 7), ~70k rows per evaluation;
+  4. serve      ServingEngine.from_federation -> fit_calibration ->
+                MicroBatcher over >= 8192 interleaved rows (scores held to
+                the evaluator's oracle), then a 512-gateway engine with
+                gather routing scoring 1024-row buckets;
+  5. report     kernel time, plain-version time and bound at the main
+                path's shapes.
+
+Phases 3 and 4 are the main path: the kernels' launch counters are set to 0
+just before them and read just after, and each kernel must have launched
+there. Prints, as its last three lines, the card's name and power limit,
+one JSON line of kernel numbers, and {"ok": true, "device": {...}}. Any
+failure raises and exits non-zero with no result line; so does a machine
+without CUDA.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SEED = 0
+DIMS = (115, 27, 7)  # the paper's width: ExperimentConfig's defaults
+# scale-normalized tolerances (max |kernel - plain| / max |plain| per output)
+# f32: the kernel and the plain version differ in summation order only.
+# bf16: activations round to bf16 between layers; a last-bit difference in
+# an f32 sum can round an activation one bf16 ulp (2**-8 relative) the
+# other way, and four ulps cover such a flip carried through later layers.
+TOL = {"f32": 1e-5, "bf16": 2.0 ** -6}
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): f32 outside the tensor
+# cores, bf16 tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_BYTES = 3.35e12
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def scaled_err(got, want) -> float:
+    if want.numel() == 0:
+        return 0.0
+    diff = (got.double() - want.double()).abs().max().item()
+    return diff / max(want.double().abs().max().item(), 1e-30)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over `reps` calls after a warm-up,
+    by CUDA events."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(rows: int, models: int, precision: str, dims=DIMS):
+    """Least time (ms) for the fused forward's work on an H100: FLOPs of the
+    four matmuls over the peak for the input type, or the bytes it must
+    move (x, model index and outputs once, every used model's weights once)
+    over HBM bandwidth, whichever is larger."""
+    d, h, lat = dims
+    esize = 2 if precision == "bf16" else 4
+    macs = d * h + h * lat + lat * h + h * d
+    flops = 2.0 * macs * rows
+    nbytes = (rows * (d * esize + 4 + 4 * (lat + 2))
+              + min(models, rows) * (macs * esize + 4 * (2 * h + lat + d)))
+    t_ops, t_bytes = flops / PEAK_FLOPS[precision], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def random_params(torch, g, d, h, lat, gen, device, cdt):
+    from fedmse_tpu_torch.ops.precision import cast_params
+
+    def dense(i, o):
+        return {"kernel": (torch.rand((g, i, o), generator=gen) * 2 - 1)
+                / i ** 0.5,
+                "bias": torch.randn((g, o), generator=gen) * 0.1}
+    tree = {"encoder": {"Dense_0": dense(d, h), "Dense_1": dense(h, lat)},
+            "decoder": {"Dense_0": dense(lat, h), "Dense_1": dense(h, d)}}
+    return {c: {n: {k: v.to(device) for k, v in layer.items()}
+                for n, layer in coder.items()}
+            for c, coder in cast_params(tree, cdt).items()}
+
+
+def phase_kernels(torch, device):
+    """Kernel vs its plain version at every listed shape and dtype."""
+    from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
+                                               fused_forward_stats_plain)
+    gen = torch.Generator().manual_seed(SEED)
+    worst = {p: {"abs": 0.0, "scaled": 0.0} for p in TOL}
+    checked = 0
+    for dims in (DIMS, (37, 9, 3)):
+        for precision, cdt in (("f32", torch.float32),
+                               ("bf16", torch.bfloat16)):
+            for g in (1, 10, 512):
+                params = random_params(torch, g, *dims, gen, device, cdt)
+                for rows in (0, 1, 7, 256, 1024, 70_000):
+                    x = (torch.randn((rows, dims[0]), generator=gen)
+                         * 1.5).to(device=device, dtype=cdt)
+                    idx = torch.randint(0, g, (rows,), generator=gen,
+                                        dtype=torch.int32).to(device)
+                    got = fused_forward_stats(params, x, idx,
+                                              compute_dtype=cdt)
+                    want = fused_forward_stats_plain(params, x, idx,
+                                                     compute_dtype=cdt)
+                    torch.cuda.synchronize()
+                    for name, a, b in zip(("latent", "mse", "znorm"),
+                                          got, want):
+                        if a.shape != b.shape or a.dtype != torch.float32:
+                            raise AssertionError(f"{name} shape/dtype "
+                                                 f"{a.shape} {a.dtype}")
+                        if rows and not torch.isfinite(a).all():
+                            raise AssertionError(f"{name} not finite")
+                        err = scaled_err(a, b)
+                        if err > TOL[precision]:
+                            raise AssertionError(
+                                f"kernel vs plain {name} dims={dims} "
+                                f"{precision} G={g} R={rows}: scaled error "
+                                f"{err:.3e} > {TOL[precision]:.1e}")
+                        w = worst[precision]
+                        w["scaled"] = max(w["scaled"], err)
+                        if rows:
+                            w["abs"] = max(w["abs"], (a - b).abs().max()
+                                           .item())
+                    checked += 1
+    log(f"[kernels] {checked} kernel-vs-plain cases agree; worst "
+        f"{json.dumps(worst)}")
+    return worst
+
+
+def interleave(test_m, max_rows):
+    """Round-robin the gateways' valid test rows into one arrival stream
+    (row 0 of every gateway, then row 1, ...), as fedmse_tpu's serving
+    smoke orders them. Returns (gateway, row) index arrays."""
+    r, g = np.nonzero(test_m.T > 0)  # C order: by row, then by gateway
+    return g[:max_rows], r[:max_rows]
+
+
+def phase_evaluate(torch, device, cfg, clients):
+    """Both model types x both precisions over the 10-gateway federation."""
+    from fedmse_tpu_torch.data import stack_clients
+    from fedmse_tpu_torch.evaluation import make_evaluate_all
+    from fedmse_tpu_torch.models import init_stacked_params, make_model
+    from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
+    dev_x = np.concatenate([c.dev_raw[:100] for c in clients]).astype(
+        np.float32)
+    results = {}
+    for model_type in ("autoencoder", "hybrid"):
+        aucs = {}
+        for precision in ("f32", "bf16"):
+            model = make_model(model_type, *DIMS,
+                               shrink_lambda=cfg.shrink_lambda,
+                               precision=precision, device=device)
+            params = init_stacked_params(
+                model, len(clients), torch.Generator().manual_seed(SEED),
+                device=device)
+            data = stack_clients(clients, dev_x, cfg.batch_size,
+                                 dtype=model.compute_dtype, device=device)
+            args = (data.test_x, data.test_m, data.test_y, data.train_xb,
+                    data.train_mb)
+            before = fused_forward_stats.launches
+            t0 = time.perf_counter()
+            auc = make_evaluate_all(model, model_type)(params, *args)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched = fused_forward_stats.launches - before
+            if launched < 1:
+                raise AssertionError("evaluation did not launch the kernel")
+            if auc.shape != (len(clients),) or not torch.isfinite(auc).all():
+                raise AssertionError(f"AUC not finite: {auc}")
+            aucs[precision] = auc.cpu().numpy()
+            rows = data.test_x.shape[0] * (
+                data.test_x.shape[1]
+                + (data.train_xb.shape[1] * data.train_xb.shape[2]
+                   if model_type == "hybrid" else 0))
+            log(f"[evaluate] {model_type} {precision}: {launched} launch(es) "
+                f"over {rows} rows in {secs * 1e3:.3f} ms; per-client AUC "
+                f"{np.round(aucs[precision], 6).tolist()}")
+            if precision == "f32":
+                results[model_type] = (model, params, data)
+                # the same evaluation on the CPU (the plain path) agrees on
+                # a small slice
+                cpu = lambda t: t[:2, :200].cpu()  # noqa: E731
+                small = [cpu(t) for t in args[:3]] + \
+                    [args[3][:2].cpu(), args[4][:2].cpu()]
+                fn = make_evaluate_all(model, model_type, metric="scores")
+                on_card = fn(params, *(t.to(device) for t in small)).cpu()
+                on_cpu = fn({c: {n: {k: v.cpu() for k, v in layer.items()}
+                                 for n, layer in coder.items()}
+                             for c, coder in params.items()}, *small)
+                err = scaled_err(on_card, on_cpu)
+                if err > TOL["f32"]:
+                    raise AssertionError(f"card vs CPU scores: {err:.3e}")
+        delta = np.abs(aucs["bf16"] - aucs["f32"]).max()
+        log(f"[evaluate] {model_type}: max |AUC bf16 - AUC f32| = {delta:.3e}")
+        if delta > 2e-3:
+            raise AssertionError(f"bf16 AUC off f32 by {delta:.3e} > 2e-3")
+    return results
+
+
+def phase_serve(torch, device, cfg, evaluated, smi):
+    """10-gateway micro-batched serving, then 512 gateways with gather
+    routing at 1024-row buckets; scores held to the evaluator's oracle."""
+    from fedmse_tpu_torch.data import stack_clients, synthetic_clients
+    from fedmse_tpu_torch.evaluation import make_evaluate_all
+    from fedmse_tpu_torch.models import init_stacked_params, make_model
+    from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
+    from fedmse_tpu_torch.serving import (MicroBatcher, ServingEngine,
+                                          fit_calibration)
+    report = {}
+    for model_type, (model, params, data) in evaluated.items():
+        before = fused_forward_stats.launches
+        oracle = make_evaluate_all(model, model_type, metric="scores")(
+            params, data.test_x, data.test_m, data.test_y, data.train_xb,
+            data.train_mb).cpu().numpy()
+        engine = ServingEngine.from_federation(
+            model, model_type, params, data.train_xb, data.train_mb,
+            max_bucket=cfg.serve_max_batch, device=device)
+        calib = fit_calibration(engine, data.valid_x.cpu().numpy(),
+                                data.valid_m.cpu().numpy())
+        engine.warmup()
+        test_x = data.test_x.cpu().numpy()
+        gws, ridx = interleave(data.test_m.cpu().numpy(), 8192)
+        rows = test_x[gws, ridx]
+        batcher = MicroBatcher(engine, max_batch=cfg.serve_max_batch,
+                               max_wait_ms=cfg.serve_latency_budget_ms,
+                               calibration=calib)
+        t0 = time.perf_counter()
+        tickets = [batcher.submit(rows[i], int(gws[i]))
+                   for i in range(len(rows))]
+        batcher.drain()
+        wall = time.perf_counter() - t0
+        if len(tickets) < 8192 or not all(t.done for t in tickets):
+            raise AssertionError("not every ticket was served")
+        served = np.array([t.score for t in tickets], np.float32)
+        want = oracle[gws, ridx]
+        err = float(np.max(np.abs(served - want)
+                           / np.maximum(1.0, np.abs(want))))
+        if err > TOL["f32"]:
+            raise AssertionError(f"{model_type} served scores off the "
+                                 f"evaluator oracle by {err:.3e}")
+        launched = fused_forward_stats.launches - before
+        st = batcher.stats()
+        report[f"serve10_{model_type}"] = {
+            "rows": len(tickets), "rows_per_s": len(tickets) / wall,
+            "latency_p50_ms": st["latency_p50_ms"],
+            "latency_p99_ms": st["latency_p99_ms"],
+            "dispatches": st["dispatches"], "launches": launched,
+            "max_err_vs_oracle": err}
+        log(f"[serve] {model_type} 10 gateways on {smi}: {len(tickets)} rows "
+            f"in {st['dispatches']} buckets, {len(tickets) / wall:.1f} rows/s"
+            f", latency p50 {st['latency_p50_ms']:.4f} ms p99 "
+            f"{st['latency_p99_ms']:.4f} ms, {launched} launches, max err "
+            f"vs oracle {err:.3e}")
+
+    clients = synthetic_clients(n_clients=512, dim=DIMS[0], n_normal=100,
+                                n_abnormal=40, seed=SEED + 1)
+    for model_type in ("autoencoder", "hybrid"):
+        model = make_model(model_type, *DIMS,
+                           shrink_lambda=cfg.shrink_lambda, device=device)
+        params = init_stacked_params(
+            model, 512, torch.Generator().manual_seed(SEED + 1),
+            device=device)
+        data = stack_clients(clients, np.zeros((1, DIMS[0]), np.float32),
+                             cfg.batch_size, device=device)
+        before = fused_forward_stats.launches
+        oracle = make_evaluate_all(model, model_type, metric="scores")(
+            params, data.test_x, data.test_m, data.test_y, data.train_xb,
+            data.train_mb).cpu().numpy()
+        engine = ServingEngine.from_federation(
+            model, model_type, params, data.train_xb, data.train_mb,
+            max_bucket=1024, routing="gather", device=device)
+        engine.warmup()
+        test_x = data.test_x.cpu().numpy()
+        gws, ridx = interleave(data.test_m.cpu().numpy(), 1 << 30)
+        rows = test_x[gws, ridx]
+        served = np.empty(len(rows), np.float32)
+        bucket_s = []
+        for s in range(0, len(rows), 1024):
+            t0 = time.perf_counter()
+            served[s:s + 1024] = engine.score(rows[s:s + 1024],
+                                              gws[s:s + 1024])
+            bucket_s.append(time.perf_counter() - t0)
+        want = oracle[gws, ridx]
+        err = float(np.max(np.abs(served - want)
+                           / np.maximum(1.0, np.abs(want))))
+        if err > TOL["f32"] or not np.isfinite(served).all():
+            raise AssertionError(f"512-gateway {model_type} scores off the "
+                                 f"oracle by {err:.3e}")
+        launched = fused_forward_stats.launches - before
+        ms = np.array(bucket_s) * 1e3
+        report[f"serve512_{model_type}"] = {
+            "rows": len(rows), "buckets": len(bucket_s),
+            "rows_per_s": len(rows) / sum(bucket_s),
+            "bucket_p50_ms": float(np.percentile(ms, 50)),
+            "bucket_p99_ms": float(np.percentile(ms, 99)),
+            "launches": launched, "max_err_vs_oracle": err}
+        log(f"[serve] {model_type} 512 gateways gather on {smi}: "
+            f"{len(rows)} rows in {len(bucket_s)} buckets of 1024, "
+            f"{len(rows) / sum(bucket_s):.1f} rows/s, bucket p50 "
+            f"{np.percentile(ms, 50):.4f} ms p99 {np.percentile(ms, 99):.4f}"
+            f" ms, {launched} launches, max err vs oracle {err:.3e}")
+    return report
+
+
+def phase_report(torch, device, launches, worst):
+    """Kernel and plain-version times and bounds at the main path's shapes."""
+    from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
+                                               fused_forward_stats_plain)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    shapes = [  # (what, rows, models, precision)
+        ("evaluate hybrid, 10 gateways", 70_080, 10, "f32"),
+        ("evaluate hybrid, 10 gateways", 70_080, 10, "bf16"),
+        ("serve bucket, 10 gateways", 256, 10, "f32"),
+        ("serve bucket, 512 gateways gather", 1024, 512, "f32"),
+    ]
+    rows_out = []
+    for what, rows, g, precision in shapes:
+        cdt = torch.bfloat16 if precision == "bf16" else torch.float32
+        params = random_params(torch, g, *DIMS, gen, device, cdt)
+        x = torch.randn((rows, DIMS[0]), generator=gen).to(device=device,
+                                                            dtype=cdt)
+        idx = torch.randint(0, g, (rows,), generator=gen,
+                            dtype=torch.int32).to(device)
+        if what.startswith("evaluate"):
+            idx = torch.sort(idx).values  # the evaluator's rows are grouped
+        k_ms = cuda_ms(lambda: fused_forward_stats(
+            params, x, idx, compute_dtype=cdt), 200)
+        p_ms = cuda_ms(lambda: fused_forward_stats_plain(
+            params, x, idx, compute_dtype=cdt), 5)
+        b_ms, b_by = bound(rows, g, precision)
+        rows_out.append({"what": what, "rows": rows, "models": g,
+                         "precision": precision, "ms": k_ms,
+                         "plain_ms": p_ms, "bound_ms": b_ms,
+                         "bound_by": b_by})
+        log(f"[report] {what} {precision} R={rows} G={g}: kernel "
+            f"{k_ms:.5f} ms, plain {p_ms:.5f} ms, bound {b_ms:.5f} ms "
+            f"({b_by})")
+    main = rows_out[0]
+    return {"kernels": [{
+        "name": "fused_ae_forward",
+        "route": "cuda",
+        "source": "fedmse_tpu_torch/csrc/fused_ae.cu",
+        "replaces": "fedmse_tpu/ops/pallas_ae.py:130 (_kernel)",
+        "launches": launches,
+        "max_abs_err": worst["f32"]["abs"],
+        "ms": main["ms"], "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the fused forward "
+                        "with its per-row MSE and latent norm",
+        "max_abs_err_by_dtype": {p: worst[p]["abs"] for p in worst},
+        "max_scaled_err_by_dtype": {p: worst[p]["scaled"] for p in worst},
+        "tolerance_scaled": TOL,
+        "shapes": rows_out,
+    }]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this test needs an NVIDIA "
+              "card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from fedmse_tpu_torch.config import ExperimentConfig
+    from fedmse_tpu_torch.data import synthetic_clients
+    from fedmse_tpu_torch.ops import native
+    from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
+
+    t_start = time.perf_counter()
+    cfg = ExperimentConfig()
+    if (cfg.dim_features, cfg.hidden_neus, cfg.latent_dim) != DIMS:
+        raise AssertionError(f"config widths differ from {DIMS}")
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+    smi = smi_line()
+    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
+        f"{torch.cuda.device_count()} device(s)")
+    t0 = time.perf_counter()
+    built = native.build()
+    log(f"[device] kernels built in {time.perf_counter() - t0:.2f} s "
+        f"({json.dumps(built)})")
+    for name in native.KERNEL_SOURCES:
+        for line in native.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[device] {name}: {line.strip()}")
+
+    worst = phase_kernels(torch, device)
+
+    clients = synthetic_clients(n_clients=10, dim=DIMS[0], n_normal=10_000,
+                                n_abnormal=2_000, seed=SEED)
+    fused_forward_stats.launches = 0  # the main path starts here
+    evaluated = phase_evaluate(torch, device, cfg, clients)
+    serve = phase_serve(torch, device, cfg, evaluated, smi)
+    torch.cuda.synchronize()
+    launches = fused_forward_stats.launches  # ... and ends here
+    if launches < 1:
+        raise AssertionError("the main path never launched fused_ae_forward")
+    log(f"[main path] fused_ae_forward launched {launches} times")
+
+    line = phase_report(torch, device, launches, worst)
+    line["serving"] = serve
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(smi)
+    log(json.dumps(line))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

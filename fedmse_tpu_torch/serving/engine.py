@@ -1,0 +1,530 @@
+"""Bucketed multi-tenant anomaly scorer (port of fedmse_tpu/serving/engine.py).
+
+  * **Buckets**: requests pad up to the next rung of a row-bucket ladder
+    (powers of two up to max_bucket) and larger requests are chunked at
+    max_bucket. Eager PyTorch compiles nothing per shape; the ladder stays
+    so that one bucket is one fixed-shape launch, the unit a later CUDA
+    graph captures. Padding rows are dropped after the launch; the score
+    math is per row, so they cannot perturb real rows.
+  * **Every score goes through the fused kernel** (ops/fused_ae.py): one
+    launch per bucket, each row routed to its gateway's model by the
+    kernel's per-row model index (multi-tenant) or all rows on model 0
+    (single-global). `routing` keeps the JAX engine's options: 'gather'
+    and 'dense' both resolve to that one launch.
+  * **Score parity**: AE-MSE straight from the kernel; hybrid centroid
+    density of the kernel's latent against the row's gateway centroid; the
+    evaluator's nan_to_num guard. `make_evaluate_all(..., metric="scores")`
+    is the oracle.
+  * **State as an operand**: the resident state {params, centroids} is one
+    dict handed to each launch, so `swap_state` is one rebind between
+    dispatches and a dispatched bucket keeps the state it was launched
+    with.
+  * **Dispatch / harvest**: `dispatch` stages the rows in pinned host
+    memory, copies them to the card, launches, and starts a non-blocking
+    copy of the scores into pinned memory followed by a CUDA event;
+    `PendingScores.is_ready` is the event's query and `harvest` waits on
+    it.
+
+kNN scoring (score_kind='knn') and mesh placement wait for later
+slices and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from bisect import bisect_left
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from fedmse_tpu_torch.device import DeviceLike, resolve_device
+from fedmse_tpu_torch.evaluation.evaluator import (client_index,
+                                                   knn_not_ported,
+                                                   resolve_score_kind)
+from fedmse_tpu_torch.models.autoencoder import params_from_numpy
+from fedmse_tpu_torch.models.centroid import CentroidClassifier, fit_centroid
+from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
+from fedmse_tpu_torch.ops.precision import (PrecisionPolicy, cast_params,
+                                            get_policy)
+
+
+class UnknownGatewayError(ValueError):
+    """A request routed to a gateway slot that is not currently a member of
+    the federation (left, or never joined). Raised at dispatch validation:
+    the launch itself would score the row against whatever model the slot
+    holds. The serving verdict for such a row is UNKNOWN_GATEWAY."""
+
+    verdict = "UNKNOWN_GATEWAY"
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingRoster:
+    """Which gateway slots are occupied, and by which tenant generation.
+    Host-side metadata, installed at build (`roster=`) or swapped between
+    dispatches."""
+
+    member: np.ndarray      # [N] bool — slot currently serves a tenant
+    generation: np.ndarray  # [N] int64 — tenant generation per slot
+
+    def __post_init__(self):
+        object.__setattr__(self, "member",
+                           np.ascontiguousarray(self.member, dtype=bool))
+        object.__setattr__(self, "generation",
+                           np.ascontiguousarray(self.generation,
+                                                dtype=np.int64))
+        if self.member.shape != self.generation.shape:
+            raise ValueError(
+                f"roster member {self.member.shape} and generation "
+                f"{self.generation.shape} must describe the same slots")
+
+    @property
+    def num_gateways(self) -> int:
+        return len(self.member)
+
+
+class PendingScores:
+    """One in-flight bucket: `harvest()` waits for its scores (the launch
+    and the copy into pinned host memory) and returns the unpadded float32
+    scores."""
+
+    __slots__ = ("take", "_host", "_event", "_out")
+
+    def __init__(self, host: torch.Tensor, take: int,
+                 event: Optional[torch.cuda.Event] = None):
+        self._host = host
+        self._event = event
+        self.take = take
+        self._out: Optional[np.ndarray] = None
+
+    def is_ready(self) -> bool:
+        """True when harvest() would not block."""
+        return (self._out is not None or self._event is None
+                or self._event.query())
+
+    def harvest(self) -> np.ndarray:
+        """Block (if needed) and return the float32 scores [take]."""
+        if self._out is None:
+            if self._event is not None:
+                self._event.synchronize()
+            self._out = self._host[:self.take].numpy().copy()
+            self._host = self._event = None
+        return self._out
+
+
+def _as_rows(t, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(t) if not isinstance(t, torch.Tensor)
+                           else t).to(device)
+
+
+@torch.no_grad()
+def fit_gateway_centroids(model, stacked_params, train_x,
+                          train_m=None) -> CentroidClassifier:
+    """Per-gateway CentroidClassifier, leaves stacked [N, ...]: the
+    evaluator's hybrid fit. Each gateway's train rows (batch-major
+    [N, NB, B, D] or flat [N, S, D]) encode under its own params in ONE
+    fused launch; the centroid fits on the masked latents. Runs on the
+    params' device."""
+    params = cast_params(stacked_params, model.compute_dtype)
+    dev = params["encoder"]["Dense_0"]["kernel"].device
+    train_x = _as_rows(train_x, dev)
+    n, d = train_x.shape[0], train_x.shape[-1]
+    rows = train_x.reshape(n, -1, d)
+    s = rows.shape[1]
+    mask = None if train_m is None else _as_rows(train_m, dev).reshape(n, s)
+    latent, _, _ = fused_forward_stats(
+        params, rows.reshape(n * s, d).to(model.compute_dtype),
+        client_index(n, s, dev), compute_dtype=model.compute_dtype)
+    return fit_centroid(latent.view(n, s, -1), mask)
+
+
+def _leaves(component) -> List[Tuple[str, torch.Tensor]]:
+    """(name, tensor) of a params tree or a CentroidClassifier, in a fixed
+    order: what a hot swap must match."""
+    if isinstance(component, CentroidClassifier):
+        return [(f.name, getattr(component, f.name))
+                for f in dataclasses.fields(component)]
+    out = []
+    for k in sorted(component):
+        v = component[k]
+        out += ([(f"{k}/{n}", t) for n, t in _leaves(v)]
+                if isinstance(v, dict) else [(k, v)])
+    return out
+
+
+class ServingEngine:
+    """Bucketed scorer over a trained federation.
+
+    model: the port's Autoencoder/ShrinkAutoencoder (supplies input_dim
+        and the widths). model_type: 'autoencoder' or 'hybrid'.
+    params: stacked [N, ...] tree (multi_tenant=True) or one model's tree
+        ([in, out] leaves, or stacked with N = 1) for the single-global
+        engine; numpy or tensors, f32 masters.
+    centroids: CentroidClassifier, required for the centroid score; leaves
+        stacked [N, ...] (multi-tenant) or one classifier.
+    score_kind: 'auto' (autoencoder -> 'mse', hybrid -> 'centroid'),
+        'mse' or 'centroid'. 'knn' raises NotImplementedError.
+    max_bucket: largest row bucket (rounded up to a power of two); larger
+        requests are chunked.
+    bucket_ladder: 'auto' (the pow2 ladder until the autotuner is ported),
+        'pow2', or an explicit ascending sequence ending at max_bucket.
+    precision: 'f32' (the pinned mode) or 'bf16': the resident kernels and
+        the staged rows are bf16, biases and centroid statistics f32, every
+        score f32.
+    routing: 'auto' | 'gather' | 'dense', kept for the JAX engine's API;
+        every routing is the one fused launch with per-row model indices.
+    roster: optional ServingRoster; rows routed to a slot that is not a
+        member fail with UnknownGatewayError.
+    device: 'cuda' by default (raises without a card); 'cpu' runs the
+        kernel's plain PyTorch version.
+    """
+
+    def __init__(self, model, model_type: str, params: Any,
+                 centroids: Optional[CentroidClassifier] = None, *,
+                 score_kind: str = "auto", multi_tenant: bool = True,
+                 max_bucket: int = 1024,
+                 bucket_ladder: Union[str, Sequence[int]] = "auto",
+                 precision: Union[str, PrecisionPolicy] = "f32",
+                 mesh: Any = None, routing: str = "auto",
+                 roster: Optional[ServingRoster] = None,
+                 device: DeviceLike = "cuda"):
+        if model_type not in ("autoencoder", "hybrid"):
+            raise ValueError(f"unknown model_type {model_type!r}")
+        score_kind = resolve_score_kind(model_type, score_kind)
+        if score_kind == "knn":
+            raise knn_not_ported()
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= serving waits for the port of fedmse_tpu/parallel/ "
+                "(ROADMAP.md queue 1)")
+        if score_kind == "centroid" and centroids is None:
+            raise ValueError("centroid serving needs fitted centroids "
+                             "(fit_gateway_centroids)")
+        if max_bucket < 1:
+            raise ValueError(f"max_bucket must be >= 1, got {max_bucket}")
+        if routing not in ("auto", "gather", "dense"):
+            raise ValueError(f"unknown routing {routing!r} "
+                             "(auto | gather | dense)")
+        self.device = resolve_device(device)
+        self.policy = get_policy(precision)
+        self.model = model
+        self.model_type = model_type
+        self.multi_tenant = multi_tenant
+        self.score_kind = score_kind
+        self._state: Dict[str, Any] = {
+            "params": self._place_params(params),
+            "centroids": self._place_centroids(centroids),
+        }
+        n = self._state["params"]["encoder"]["Dense_0"]["kernel"].shape[0]
+        if not multi_tenant and n != 1:
+            raise ValueError(f"a single-global engine serves one model; "
+                             f"params stack {n}")
+        self.num_gateways = n
+        if routing == "auto":
+            routing = "dense" if n <= 32 else "gather"
+        self.routing = routing
+        self.max_bucket = 1 << (max_bucket - 1).bit_length()
+        self._ladder = self._resolve_ladder(bucket_ladder)
+        if roster is not None and roster.num_gateways != n:
+            raise ValueError(
+                f"roster describes {roster.num_gateways} gateway slots but "
+                f"this engine serves {n}")
+        self.roster = roster
+        self.dim = int(model.input_dim)
+        self.dispatches: collections.Counter = collections.Counter()
+        self.swap_count = 0
+
+    @property
+    def params(self):
+        return self._state["params"]
+
+    @property
+    def centroids(self):
+        return self._state["centroids"]
+
+    # --------------------------- placement ------------------------------- #
+
+    def _place_params(self, params):
+        """The resident compute copy: kernels in the policy's compute
+        dtype, biases f32, stacked, on the engine's device."""
+        return params_from_numpy(params, self.device,
+                                 self.policy.compute_dtype)
+
+    def _place_centroids(self, centroids):
+        return None if centroids is None else centroids.to(self.device)
+
+    # ----------------------------- hot swap ------------------------------ #
+
+    def _check_roster(self, gw: np.ndarray) -> None:
+        """Rows routed to a retired slot fail here: the slot's resident
+        model belongs to another tenant (or none)."""
+        if self.roster is None or not len(gw):
+            return
+        bad = ~self.roster.member[gw]
+        if bad.any():
+            slots = sorted(set(int(g) for g in gw[bad]))
+            shown = slots[:5]
+            gens = {s: int(self.roster.generation[s]) for s in shown}
+            raise UnknownGatewayError(
+                f"UNKNOWN_GATEWAY: rows route to retired gateway slot(s) "
+                f"{shown}{'...' if len(slots) > 5 else ''} (last tenant "
+                f"generation {gens}); the tenant left the federation — "
+                f"install the updated roster (swap_state(roster=...)) "
+                f"alongside the recycled slot's params and calibration "
+                f"if the slot was re-tenanted")
+
+    def _merge_state(self, *, params=None, centroids=None):
+        """Validated, device-placed copy of the resident state with the
+        given components replaced. Returns (new_state, swapped names)."""
+        new = dict(self._state)
+        swapped = []
+        if params is not None:
+            params = self._place_params(params)
+            self._check_swap("params", self._state["params"], params)
+            new["params"] = params
+            swapped.append("params")
+        if centroids is not None:
+            if self._state["centroids"] is None:
+                raise ValueError("engine was built without centroids; "
+                                 "cannot swap them in (score_kind="
+                                 f"{self.score_kind!r})")
+            centroids = self._place_centroids(centroids)
+            self._check_swap("centroids", self._state["centroids"], centroids)
+            new["centroids"] = centroids
+            swapped.append("centroids")
+        return new, swapped
+
+    def swap_state(self, *, params=None, centroids=None,
+                   roster=None) -> Dict:
+        """Install new params / centroids / roster for the NEXT dispatch;
+        dispatched buckets keep the state they were launched with. Shapes,
+        dtypes and tree structure must match the resident state (a swap
+        comes from the same federation). Returns what was swapped."""
+        new, swapped = self._merge_state(params=params, centroids=centroids)
+        roster_delta = None
+        if roster is not None:
+            if roster.num_gateways != self.num_gateways:
+                raise ValueError(
+                    f"swap roster describes {roster.num_gateways} gateway "
+                    f"slots, engine serves {self.num_gateways}")
+            old = self.roster
+            if old is not None:
+                roster_delta = {
+                    "joined": np.flatnonzero(roster.member
+                                             & ~old.member).tolist(),
+                    "left": np.flatnonzero(old.member
+                                           & ~roster.member).tolist(),
+                    "recycled": np.flatnonzero(roster.generation
+                                               > old.generation).tolist()}
+            swapped.append("roster")
+        if not swapped:
+            raise ValueError("swap_state: nothing to swap")
+        self._state = new  # one rebind; the next dispatch sees it whole
+        if roster is not None:
+            self.roster = roster
+        self.swap_count += 1
+        out = {"swapped": swapped, "swap_count": self.swap_count}
+        if roster_delta is not None:
+            out["roster_delta"] = roster_delta
+        return out
+
+    def candidate_state(self, *, params=None,
+                        centroids=None) -> Dict[str, Any]:
+        """A validated state dict carrying the given replacements over the
+        resident state WITHOUT installing it (score it with
+        `score_candidate`)."""
+        new, swapped = self._merge_state(params=params, centroids=centroids)
+        if not swapped:
+            raise ValueError("candidate_state: nothing replaced")
+        return new
+
+    def score_candidate(self, state: Dict[str, Any], x,
+                        gateway_ids=None) -> np.ndarray:
+        """`score` against a `candidate_state`; nothing is installed."""
+        return self.score(x, gateway_ids, state=state)
+
+    @staticmethod
+    def _check_swap(name: str, old, new):
+        lo, ln = _leaves(old), _leaves(new)
+        if [k for k, _ in lo] != [k for k, _ in ln]:
+            raise ValueError(f"swap {name}: structure mismatch "
+                             f"({[k for k, _ in ln]} vs resident "
+                             f"{[k for k, _ in lo]})")
+        for (key, a), (_, b) in zip(lo, ln):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise ValueError(
+                    f"swap {name}: {key} {tuple(b.shape)}/{b.dtype} does not "
+                    f"match resident {tuple(a.shape)}/{a.dtype}; a hot swap "
+                    "must come from the same federation architecture")
+
+    # ----------------------------- buckets ------------------------------- #
+
+    def _resolve_ladder(self, bucket_ladder) -> List[int]:
+        if isinstance(bucket_ladder, str):
+            if bucket_ladder not in ("auto", "pow2"):
+                raise ValueError(f"unknown bucket_ladder {bucket_ladder!r} "
+                                 "('auto' | 'pow2' | explicit sequence)")
+            return [1 << i for i in range(self.max_bucket.bit_length())]
+        ladder = sorted({int(b) for b in bucket_ladder})
+        if not ladder or ladder[0] < 1 or ladder[-1] != self.max_bucket:
+            raise ValueError(
+                f"bucket ladder {ladder} must be ascending positive rungs "
+                f"ending at max_bucket {self.max_bucket}")
+        return ladder
+
+    @property
+    def buckets(self) -> List[int]:
+        return list(self._ladder)
+
+    def bucket_for(self, n_rows: int) -> int:
+        """Smallest ladder bucket holding n_rows (<= max_bucket)."""
+        if n_rows > self.max_bucket:
+            raise ValueError(f"{n_rows} rows exceed max_bucket "
+                             f"{self.max_bucket}; chunk first")
+        return self._ladder[bisect_left(self._ladder, max(n_rows, 1))]
+
+    def warmup(self) -> Dict[int, float]:
+        """Score one zero bucket at every rung (builds the kernel library on
+        first use and warms the allocators); returns wall seconds per
+        bucket."""
+        out: Dict[int, float] = {}
+        for b in self.buckets:
+            t0 = time.perf_counter()
+            self._dispatch_chunk(np.zeros((b, self.dim), np.float32),
+                                 np.zeros(b, np.int32)).harvest()
+            out[b] = time.perf_counter() - t0
+        return out
+
+    # ----------------------------- scoring ------------------------------ #
+
+    def _gateway_ids(self, gateway_ids, n: int) -> np.ndarray:
+        if gateway_ids is None:
+            if self.multi_tenant:
+                raise ValueError(
+                    "multi-tenant engine: pass gateway_ids so each row is "
+                    "routed to its gateway's model")
+            return np.zeros(n, np.int32)
+        gw = np.asarray(gateway_ids, np.int32)
+        if gw.shape != (n,):
+            gw = np.broadcast_to(gw, (n,)).copy()
+        if self.multi_tenant and n and (
+                gw.min() < 0 or gw.max() >= self.num_gateways):
+            raise ValueError(
+                f"gateway ids must be in [0, {self.num_gateways}); "
+                f"got range [{gw.min()}, {gw.max()}]")
+        self._check_roster(gw)
+        return gw
+
+    def score(self, x, gateway_ids=None, *,
+              state: Optional[Dict[str, Any]] = None) -> np.ndarray:
+        """Anomaly scores [B] for rows `x` [B, D] (a single row [D] returns
+        its scalar score). `gateway_ids` ([B] or a scalar) is required on
+        the multi-tenant path and ignored on the single-global one.
+        Requests pad up to the next bucket; oversize requests chunk at
+        max_bucket."""
+        x = np.asarray(x, dtype=np.float32)
+        squeeze = x.ndim == 1
+        if squeeze:
+            x = x[None, :]
+        n = x.shape[0]
+        gw = self._gateway_ids(gateway_ids, n)
+        out = np.empty(n, np.float32)
+        for start in range(0, n, self.max_bucket):
+            take = min(self.max_bucket, n - start)
+            out[start:start + take] = self._dispatch_chunk(
+                x[start:start + take], gw[start:start + take],
+                state=state).harvest()
+        return out[0] if squeeze else out
+
+    def dispatch(self, x, gateway_ids=None) -> PendingScores:
+        """Launch ONE bucket without waiting for its scores (the
+        asynchronous half of `score`); rows must fit one bucket."""
+        x = np.asarray(x, dtype=np.float32)
+        if x.ndim == 1:
+            x = x[None, :]
+        n = x.shape[0]
+        if n > self.max_bucket:
+            raise ValueError(f"dispatch takes at most one bucket "
+                             f"({self.max_bucket} rows); got {n} — chunk "
+                             "through score()")
+        return self._dispatch_chunk(x, self._gateway_ids(gateway_ids, n))
+
+    @torch.no_grad()
+    def _dispatch_chunk(self, x: np.ndarray, gw: np.ndarray,
+                        state: Optional[Dict[str, Any]] = None
+                        ) -> PendingScores:
+        """Pad one validated chunk to its bucket in pinned host memory,
+        copy it to the card, launch, and start the copy back."""
+        take, b = x.shape[0], self.bucket_for(x.shape[0])
+        pin = self.device.type == "cuda"
+        xh = torch.zeros((b, self.dim), dtype=self.policy.compute_dtype,
+                         pin_memory=pin)
+        xh[:take] = torch.from_numpy(x if x.flags.writeable else x.copy())
+        gh = torch.zeros(b, dtype=torch.int32, pin_memory=pin)
+        gh[:take] = torch.from_numpy(np.ascontiguousarray(gw))
+        scores = self._score_rows(self._state if state is None else state,
+                                  xh.to(self.device, non_blocking=True),
+                                  gh.to(self.device, non_blocking=True))
+        self.dispatches[b] += 1
+        if not pin:
+            return PendingScores(scores, take)
+        host = torch.empty(b, dtype=torch.float32, pin_memory=True)
+        host.copy_(scores, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return PendingScores(host, take, event)
+
+    def _score_rows(self, state: Dict[str, Any], x: torch.Tensor,
+                    gw: torch.Tensor) -> torch.Tensor:
+        cdt = self.policy.compute_dtype
+        latent, mse, _ = fused_forward_stats(
+            state["params"], x, gw if self.multi_tenant else None,
+            compute_dtype=cdt)
+        if self.score_kind == "mse":
+            scores = mse
+        else:
+            cen = state["centroids"]
+            scores = (cen.take(gw) if self.multi_tenant
+                      else cen).get_density(latent)
+        return torch.nan_to_num(scores)
+
+    # --------------------------- constructors ---------------------------- #
+
+    @classmethod
+    def from_federation(cls, model, model_type: str, stacked_params,
+                        train_x=None, train_m=None, *, score_kind="auto",
+                        device: DeviceLike = "cuda",
+                        **kw) -> "ServingEngine":
+        """Multi-tenant engine from in-memory stacked params. The centroid
+        score fits its per-gateway centroids on the train rows (the
+        FederatedData train_xb / train_mb)."""
+        kind = resolve_score_kind(model_type, score_kind)
+        if kind == "knn":
+            raise knn_not_ported()
+        dev = resolve_device(device)
+        params = params_from_numpy(stacked_params, dev)
+        centroids = None
+        if kind == "centroid":
+            if train_x is None:
+                raise ValueError("centroid serving needs train rows to fit "
+                                 "the per-gateway centroids")
+            centroids = fit_gateway_centroids(model, params, train_x, train_m)
+        return cls(model, model_type, params, centroids,
+                   score_kind=score_kind, multi_tenant=True, device=dev, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, writer, model, model_type: str,
+                        update_type: str, device_names, run: int = 0,
+                        train_x=None, train_m=None, *,
+                        device: DeviceLike = "cuda",
+                        **kw) -> "ServingEngine":
+        """Multi-tenant engine from the ClientModel tree (`model.npz` per
+        device, as either package's `save_client_models` writes it)."""
+        from fedmse_tpu_torch.checkpointing.io import load_client_models
+        params = load_client_models(writer, run, model_type, update_type,
+                                    device_names, device=device)
+        return cls.from_federation(model, model_type, params,
+                                   train_x=train_x, train_m=train_m,
+                                   device=device, **kw)

@@ -1,0 +1,99 @@
+"""The port stands alone: no module of fedmse_tpu_torch (nor chip_smoke.py)
+imports jax or anything of the JAX package, and its entry points refuse to
+drop to the CPU when CUDA is absent."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import fedmse_tpu_torch
+from fedmse_tpu_torch.checkpointing import ResultsWriter, load_client_models
+from fedmse_tpu_torch.data import stack_clients, synthetic_clients
+from fedmse_tpu_torch.models import (init_stacked_params, make_model,
+                                     params_from_numpy)
+from fedmse_tpu_torch.serving import ServingEngine
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        fedmse_tpu_torch.__path__, prefix="fedmse_tpu_torch."))
+
+
+def test_every_port_module_imports_without_jax():
+    mods = _port_modules()
+    assert "fedmse_tpu_torch.ops.fused_ae" in mods
+    assert "fedmse_tpu_torch.serving.engine" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'pandas')) or "
+        "m == 'fedmse_tpu' or m.startswith('fedmse_tpu.'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module)
+    return roots
+
+
+def _forbidden(name):
+    return (name in ("jax", "fedmse_tpu")
+            or name.startswith(("jax.", "jaxlib", "fedmse_tpu.")))
+
+
+def test_chip_smoke_and_port_sources_import_neither_jax_nor_reference():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    pkg = os.path.join(REPO, "fedmse_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        bad = sorted(n for n in _imported_roots(path) if _forbidden(n))
+        assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
+    clients = synthetic_clients(n_clients=2, dim=6, n_normal=20,
+                                n_abnormal=5)
+    model = make_model("autoencoder", 6, 4, 2, device="cpu")
+    params = init_stacked_params(model, 2, device="cpu")
+    calls = [
+        lambda: make_model("autoencoder", 6, 4, 2),
+        lambda: init_stacked_params(model, 2),
+        lambda: params_from_numpy(params),
+        lambda: stack_clients(clients, np.zeros((2, 6), np.float32), 4),
+        lambda: ServingEngine(model, "autoencoder", params),
+        lambda: ServingEngine.from_federation(model, "autoencoder", params),
+        lambda: load_client_models(ResultsWriter(str(tmp_path), 2, "e", "s",
+                                                 "AUC", 1.0),
+                                   0, "autoencoder", "avg", ["a", "b"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
