@@ -4,12 +4,13 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card. It
 builds the CUDA kernels from fedmse_tpu_torch/csrc (one nvcc per source,
-into build/fedmse_tpu_torch/), then:
+all started together, into build/fedmse_tpu_torch/), then:
 
   1. device     prints the card (nvidia-smi name and power limit), torch and
                 CUDA versions and the kernels' build time;
-  2. kernels    holds each kernel against its plain PyTorch version on the
-                card, at every listed shape and dtype;
+  2. kernels    holds each kernel (the fused forward and the fused train
+                step) against its plain PyTorch version on the card, at
+                every listed shape and dtype;
   3. evaluate   per-client AUC of both model types in f32 and bf16 over a
                 10-gateway synthetic federation at the paper's width
                 (115 -> 27 -> 7), ~70k rows per evaluation;
@@ -17,10 +18,20 @@ into build/fedmse_tpu_torch/), then:
                 MicroBatcher over >= 8192 interleaved rows (scores held to
                 the evaluator's oracle), then a 512-gateway engine with
                 gather routing scoring 1024-row buckets;
-  5. report     kernel time, plain-version time and bound at the main
-                path's shapes.
+  5. train      main.run_combination on the same federation with the
+                quick-run schedule (3 rounds, 5 epochs, batch 12, 50%
+                participation): all six combinations in f32 and hybrid /
+                mse_avg in bf16; the trained hybrid checkpoint is then
+                served by ServingEngine.from_checkpoint and held to the
+                evaluator's oracle;
+  6. card-cpu   one combination's first round, cut to one epoch, on the
+                card and on the CPU (the plain versions) from one init;
+  7. report     kernel time (per wrapper call by CUDA events, and the
+                kernel's own device time by torch.profiler), plain-version
+                time and bound at the main path's shapes, and one more
+                training round under the profiler (device busy share).
 
-Phases 3 and 4 are the main path: the kernels' launch counters are set to 0
+Phases 3 to 5 are the main path: the kernels' launch counters are set to 0
 just before them and read just after, and each kernel must have launched
 there. Prints, as its last three lines, the card's name and power limit,
 one JSON line of kernel numbers, and {"ok": true, "device": {...}}. Any
@@ -30,8 +41,10 @@ without CUDA.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -89,6 +102,33 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device milliseconds per call of the CUDA kernels whose name
+    contains `kernel`, from torch.profiler over `reps` calls (the kernel's
+    own time, without the host's time between launches); NaN when the
+    profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(_device_us(e) for e in prof.key_averages()
+                if kernel in e.key)
+    return total / 1e3 / reps if total > 0 else float("nan")
+
+
+def _device_us(event) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        value = getattr(event, name, None)
+        if value:
+            return float(value)
+    return 0.0
+
+
 def bound(rows: int, models: int, precision: str, dims=DIMS):
     """Least time (ms) for the fused forward's work on an H100: FLOPs of the
     four matmuls over the peak for the input type, or the bytes it must
@@ -126,41 +166,146 @@ def phase_kernels(torch, device):
     gen = torch.Generator().manual_seed(SEED)
     worst = {p: {"abs": 0.0, "scaled": 0.0} for p in TOL}
     checked = 0
-    for dims in (DIMS, (37, 9, 3)):
+    # (dims, models, rows): a grid of both widths, then the training path's
+    # own launches at the paper's width: validation (5 clients x 1,008
+    # rows), the vote (10 models x 1,000 rows), mse_avg's dev scoring (5
+    # models x 40,000 rows)
+    cases = [(dims, g, (0, 1, 7, 256, 1024, 70_000))
+             for dims in (DIMS, (37, 9, 3)) for g in (1, 10, 512)]
+    cases += [(DIMS, 5, (5_040, 200_000)), (DIMS, 10, (10_000,))]
+    for dims, g, row_counts in cases:
         for precision, cdt in (("f32", torch.float32),
                                ("bf16", torch.bfloat16)):
-            for g in (1, 10, 512):
-                params = random_params(torch, g, *dims, gen, device, cdt)
-                for rows in (0, 1, 7, 256, 1024, 70_000):
-                    x = (torch.randn((rows, dims[0]), generator=gen)
-                         * 1.5).to(device=device, dtype=cdt)
-                    idx = torch.randint(0, g, (rows,), generator=gen,
-                                        dtype=torch.int32).to(device)
-                    got = fused_forward_stats(params, x, idx,
-                                              compute_dtype=cdt)
-                    want = fused_forward_stats_plain(params, x, idx,
-                                                     compute_dtype=cdt)
-                    torch.cuda.synchronize()
-                    for name, a, b in zip(("latent", "mse", "znorm"),
-                                          got, want):
-                        if a.shape != b.shape or a.dtype != torch.float32:
-                            raise AssertionError(f"{name} shape/dtype "
-                                                 f"{a.shape} {a.dtype}")
-                        if rows and not torch.isfinite(a).all():
-                            raise AssertionError(f"{name} not finite")
-                        err = scaled_err(a, b)
-                        if err > TOL[precision]:
-                            raise AssertionError(
-                                f"kernel vs plain {name} dims={dims} "
-                                f"{precision} G={g} R={rows}: scaled error "
-                                f"{err:.3e} > {TOL[precision]:.1e}")
-                        w = worst[precision]
-                        w["scaled"] = max(w["scaled"], err)
-                        if rows:
-                            w["abs"] = max(w["abs"], (a - b).abs().max()
-                                           .item())
-                    checked += 1
+            params = random_params(torch, g, *dims, gen, device, cdt)
+            for rows in row_counts:
+                x = (torch.randn((rows, dims[0]), generator=gen)
+                     * 1.5).to(device=device, dtype=cdt)
+                idx = torch.randint(0, g, (rows,), generator=gen,
+                                    dtype=torch.int32).to(device)
+                got = fused_forward_stats(params, x, idx,
+                                          compute_dtype=cdt)
+                want = fused_forward_stats_plain(params, x, idx,
+                                                 compute_dtype=cdt)
+                torch.cuda.synchronize()
+                for name, a, b in zip(("latent", "mse", "znorm"),
+                                      got, want):
+                    if a.shape != b.shape or a.dtype != torch.float32:
+                        raise AssertionError(f"{name} shape/dtype "
+                                             f"{a.shape} {a.dtype}")
+                    if rows and not torch.isfinite(a).all():
+                        raise AssertionError(f"{name} not finite")
+                    err = scaled_err(a, b)
+                    if err > TOL[precision]:
+                        raise AssertionError(
+                            f"kernel vs plain {name} dims={dims} "
+                            f"{precision} G={g} R={rows}: scaled error "
+                            f"{err:.3e} > {TOL[precision]:.1e}")
+                    w = worst[precision]
+                    w["scaled"] = max(w["scaled"], err)
+                    if rows:
+                        w["abs"] = max(w["abs"], (a - b).abs().max()
+                                       .item())
+                checked += 1
     log(f"[kernels] {checked} kernel-vs-plain cases agree; worst "
+        f"{json.dumps(worst)}")
+    return worst
+
+
+def train_flops_per_row(dims=DIMS) -> int:
+    """Forward 2(DH + HL + LH + HD) plus backward 2(2HD + 2LH + 2HL + DH)."""
+    d, h, lat = dims
+    return 2 * (d * h + h * lat + lat * h + h * d) \
+        + 2 * (2 * h * d + 2 * lat * h + 2 * h * lat + d * h)
+
+
+def train_bound(rows: int, clients: int, precision: str, dims=DIMS):
+    """Least time (ms) for the fused train step's work on an H100: its
+    FLOPs over the peak for the input type, or the bytes it must move (x
+    and the mask once, each client's f32 parameters read once and its
+    P + 2 f32 outputs written once) over HBM bandwidth."""
+    d, h, lat = dims
+    esize = 2 if precision == "bf16" else 4
+    p = 2 * d * h + 2 * h * lat + 2 * h + lat + d
+    flops = float(train_flops_per_row(dims)) * rows * clients
+    nbytes = clients * (rows * (d * esize + 4) + 4 * p + 4 * (p + 2))
+    t_ops, t_bytes = flops / PEAK_FLOPS[precision], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def random_flat(torch, layout, g, gen, device):
+    """[G, P] f32 parameters: U(+-1/sqrt(fan_in)) kernels, N(0, 0.1) biases."""
+    flat = torch.empty((g, layout.size))
+    for sl, (path, _, shape) in zip(layout.slices(), layout.leaves()):
+        n = sl.stop - sl.start
+        if path[-1] == "kernel":
+            flat[:, sl] = (torch.rand((g, n), generator=gen) * 2 - 1) \
+                / shape[0] ** 0.5
+        else:
+            flat[:, sl] = torch.randn((g, n), generator=gen) * 0.1
+    return flat.to(device)
+
+
+def phase_train_kernels(torch, device):
+    """The train kernel vs its plain version: G in {1, 5, 512}, R in {0, 1,
+    12, 200} (200 rows take two row chunks), both widths, both dtypes,
+    lambda in {0, 10}, with masked rows and (G > 1) an all-masked client,
+    whose loss and grads must be NaN on both."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.fused_train import (fused_train_grads,
+                                                  fused_train_grads_plain)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    worst = {p: {"abs": 0.0, "scaled": 0.0} for p in TOL}
+    checked = 0
+    for dims in (DIMS, (37, 9, 3)):
+        layout = ParamLayout(*dims)
+        for precision, cdt in (("f32", torch.float32),
+                               ("bf16", torch.bfloat16)):
+            for g in (1, 5, 512):
+                flat = random_flat(torch, layout, g, gen, device)
+                for rows in (0, 1, 12, 200):
+                    x = (torch.randn((g, rows, dims[0]), generator=gen)
+                         * 1.5).to(device=device, dtype=cdt)
+                    m = (torch.rand((g, rows), generator=gen) < 0.85).float()
+                    if g > 1:
+                        m[-1] = 0.0
+                    m = m.to(device)
+                    for lam in (0.0, 10.0):
+                        got = fused_train_grads(flat, x, m, layout=layout,
+                                                shrink_lambda=lam,
+                                                compute_dtype=cdt)
+                        want = fused_train_grads_plain(
+                            flat, x, m, layout=layout, shrink_lambda=lam,
+                            compute_dtype=cdt)
+                        torch.cuda.synchronize()
+                        live = m.sum(dim=1) > 0
+                        for name, a, b in zip(("loss", "grads"), got, want):
+                            if a.dtype != torch.float32 or a.shape != b.shape:
+                                raise AssertionError(f"train {name} shape/"
+                                                     f"dtype {a.shape}")
+                            if not (torch.isnan(a[~live]).all()
+                                    and torch.isnan(b[~live]).all()):
+                                raise AssertionError(
+                                    f"train {name}: an all-masked client "
+                                    "must give NaN")
+                            a, b = a[live], b[live]
+                            if not torch.isfinite(a).all():
+                                raise AssertionError(f"train {name} not "
+                                                     "finite")
+                            err = scaled_err(a, b)
+                            if err > TOL[precision]:
+                                raise AssertionError(
+                                    f"train kernel vs plain {name} dims="
+                                    f"{dims} {precision} G={g} R={rows} "
+                                    f"lam={lam}: scaled error {err:.3e} > "
+                                    f"{TOL[precision]:.1e}")
+                            w = worst[precision]
+                            w["scaled"] = max(w["scaled"], err)
+                            if a.numel():
+                                w["abs"] = max(w["abs"], (a - b).abs().max()
+                                               .item())
+                        checked += 1
+    log(f"[kernels] {checked} train-kernel-vs-plain cases agree; worst "
         f"{json.dumps(worst)}")
     return worst
 
@@ -340,6 +485,249 @@ def phase_serve(torch, device, cfg, evaluated, smi):
     return report
 
 
+def phase_train(torch, device, cfg, clients):
+    """The training path at the paper's width: every combination in f32,
+    hybrid / mse_avg in bf16. Per round: the aggregator (or why there is
+    none), mean AUC, wall time by phase and each kernel's launches. The f32
+    hybrid / mse_avg run writes its checkpoint for phase_serve_trained."""
+    from fedmse_tpu_torch.checkpointing import ResultsWriter
+    from fedmse_tpu_torch.data import build_dev_dataset, stack_clients
+    from fedmse_tpu_torch.main import run_combination
+    from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
+    from fedmse_tpu_torch.ops.fused_train import fused_train_grads
+    from fedmse_tpu_torch.ops.precision import get_policy
+    dev_x = build_dev_dataset(clients, np.random.default_rng(cfg.data_seed))
+    names = [c.name for c in clients]
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_checkpoint")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    writer = ResultsWriter(ckpt, cfg.network_size, "chip-smoke",
+                           cfg.scen_name, cfg.metric, cfg.num_participants)
+    datas, report, outs = {}, {}, {}
+    runs = [(mt, ut, "f32") for mt in ("hybrid", "autoencoder")
+            for ut in ("avg", "fedprox", "mse_avg")]
+    runs.append(("hybrid", "mse_avg", "bf16"))
+    for model_type, update_type, precision in runs:
+        c = cfg.replace(precision=precision)
+        if precision not in datas:
+            datas[precision] = stack_clients(
+                clients, dev_x, c.batch_size,
+                dtype=get_policy(precision).compute_dtype, device=device)
+        tag = f"{model_type}/{update_type}/{precision}"
+        last = [fused_train_grads.launches, fused_forward_stats.launches]
+        counts = np.zeros(len(clients), np.int64)  # aggregations so far
+        rows = []
+
+        def on_round(result, sec, tag=tag, last=last, counts=counts,
+                     rows=rows, thr=c.max_aggregation_threshold):
+            now = [fused_train_grads.launches, fused_forward_stats.launches]
+            launched = [a - b for a, b in zip(now, last)]
+            last[:] = now
+            auc = result.client_metrics
+            if not np.isfinite(auc).all():
+                raise AssertionError(f"{tag}: AUC not finite: {auc}")
+            why = ""
+            if result.aggregator is None:
+                sel = result.selected
+                if len(sel) > 1 and any(counts[i] < thr for i in sel):
+                    raise AssertionError(f"{tag}: no aggregator though a "
+                                         "cohort client is under the quota")
+                why = (" (none: a cohort of one)" if len(sel) < 2 else
+                       " (none: every cohort client is over the quota)")
+            else:
+                counts[result.aggregator] += 1
+            rows.append({"round": result.round_index + 1,
+                         "aggregator": result.aggregator,
+                         "mean_auc": float(np.mean(auc)), "seconds": sec,
+                         "phase_seconds": result.phase_seconds,
+                         "train_launches": launched[0],
+                         "forward_launches": launched[1]})
+            log(f"[train] {tag} round {result.round_index + 1}: aggregator "
+                f"{result.aggregator}{why}, mean AUC {np.mean(auc):.6f}, "
+                f"{sec:.4f} s {json.dumps(result.phase_seconds)}, "
+                f"fused_ae_train x{launched[0]}, fused_ae_forward "
+                f"x{launched[1]}")
+
+        serve = (model_type, update_type, precision) == \
+            ("hybrid", "mse_avg", "f32")
+        t0 = time.perf_counter()
+        out = run_combination(c, datas[precision], len(clients), model_type,
+                              update_type, 0, writer=writer,
+                              device_names=names, save_checkpoints=serve,
+                              profile=True, on_round=on_round)
+        torch.cuda.synchronize()
+        outs[tag] = out
+        report[tag] = {"rounds": rows,
+                       "final_mean_auc": float(np.mean(out["final_metrics"])),
+                       "seconds": time.perf_counter() - t0}
+        log(f"[train] {tag}: final mean AUC "
+            f"{report[tag]['final_mean_auc']:.6f} in "
+            f"{report[tag]['seconds']:.2f} s")
+    delta = abs(report["hybrid/mse_avg/bf16"]["final_mean_auc"]
+                - report["hybrid/mse_avg/f32"]["final_mean_auc"])
+    log(f"[train] hybrid/mse_avg: |final mean AUC bf16 - f32| = {delta:.3e}")
+    if delta > 2e-3:
+        raise AssertionError(f"bf16 training's AUC off f32 by {delta:.3e}")
+    return report, outs["hybrid/mse_avg/f32"], datas["f32"], writer, names
+
+
+def phase_serve_trained(torch, device, cfg, out, data, writer, names):
+    """The trained hybrid federation's checkpoint, served: scores equal to
+    the evaluator's oracle on the trained params."""
+    from fedmse_tpu_torch.evaluation import make_evaluate_all
+    from fedmse_tpu_torch.serving import ServingEngine
+    engine = out["engine"]
+    oracle = make_evaluate_all(engine.model, "hybrid", metric="scores")(
+        engine.model_params(), data.test_x, data.test_m, data.test_y,
+        data.train_xb, data.train_mb).cpu().numpy()
+    served_engine = ServingEngine.from_checkpoint(
+        writer, engine.model, "hybrid", "mse_avg", names, run=0,
+        train_x=data.train_xb, train_m=data.train_mb,
+        max_bucket=cfg.serve_max_batch, device=device)
+    gws, ridx = interleave(data.test_m.cpu().numpy(), 8192)
+    test_x = data.test_x.cpu().numpy()
+    served = np.concatenate([
+        served_engine.score(test_x[gws[s:s + 256], ridx[s:s + 256]],
+                            gws[s:s + 256])
+        for s in range(0, len(gws), 256)])
+    want = oracle[gws, ridx]
+    err = float(np.max(np.abs(served - want) / np.maximum(1.0, np.abs(want))))
+    if err > TOL["f32"] or not np.isfinite(served).all():
+        raise AssertionError(f"served trained checkpoint off the oracle by "
+                             f"{err:.3e}")
+    log(f"[train] trained hybrid/mse_avg checkpoint served: {len(served)} "
+        f"rows, max error vs the evaluator oracle {err:.3e}")
+    return err
+
+
+def profile_round(torch, out):
+    """One more round of the trained hybrid / mse_avg federation, twice from
+    the same state and cohort: timed on the host clock, then under
+    torch.profiler (whose per-launch cost inflates the wall clock) for the
+    device time by kernel. Busy share = device time / unprofiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedmse_tpu_torch.ops.fused_train import fused_train_grads
+    engine = out["engine"]
+    k = engine.cfg.num_rounds
+    selected = engine.select_clients()
+    states, host = engine.states.clone(), copy.deepcopy(engine.host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run_round(k, selected=selected)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    engine.states, engine.host = states, host
+    before = fused_train_grads.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.run_round(k, selected=selected)
+        torch.cuda.synchronize()
+    steps = fused_train_grads.launches - before
+    by_name = {}
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if us > 0:
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    result = {"wall_ms": wall_ms, "device_busy_ms": busy,
+              "device_busy_share": busy / wall_ms, "train_steps": steps,
+              "top_kernels_ms": dict(top)}
+    log(f"[profile] one hybrid/mse_avg round: wall {wall_ms:.2f} ms, "
+        f"{steps} train steps, device busy {busy:.2f} ms "
+        f"({100 * busy / wall_ms:.1f}%); top kernels "
+        f"{json.dumps({n[:60]: round(v, 3) for n, v in top})}")
+    return result
+
+
+def phase_card_vs_cpu(torch, device, cfg, clients):
+    """hybrid / fedprox, round 1 cut to one epoch (334 steps of the 5-client
+    cohort), on the card and on the CPU's plain versions from one init:
+    params 1e-4 scale-normalized per leaf. One epoch, because the quick-run
+    schedule's later epochs sit on a loss plateau where Adam's normalized
+    step turns a last-bit difference of a gradient into an O(1) parameter
+    difference and flips early-stop decisions (a 1e-7 relative gradient
+    perturbation on the CPU alone: 4e-7 after one epoch, 2.0 after five)."""
+    from fedmse_tpu_torch.data import build_dev_dataset, stack_clients
+    from fedmse_tpu_torch.federation import init_client_states
+    from fedmse_tpu_torch.main import run_combination
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    c = cfg.replace(num_rounds=1, epochs=1)
+    dev_x = build_dev_dataset(clients, np.random.default_rng(cfg.data_seed))
+    init = init_client_states(make_model("hybrid", *DIMS, device="cpu"),
+                              len(clients),
+                              torch.Generator().manual_seed(SEED + 4),
+                              device="cpu")
+    params = []
+    t0 = time.perf_counter()
+    for where in (device, torch.device("cpu")):
+        data = stack_clients(clients, dev_x, c.batch_size, device=where)
+        out = run_combination(c, data, len(clients), "hybrid", "fedprox", 0,
+                              states=init.to(where))
+        params.append(out["engine"].states.params.cpu())
+    card, cpu = params
+    layout = ParamLayout(*DIMS)
+    err = max(float((card[:, sl] - cpu[:, sl]).abs().max()
+                    / cpu[:, sl].abs().max()) for sl in layout.slices())
+    log(f"[card-cpu] hybrid/fedprox round 1, one epoch, from one init: "
+        f"worst per-leaf "
+        f"scaled param error {err:.3e} ({time.perf_counter() - t0:.1f} s)")
+    if err > 1e-4:
+        raise AssertionError(f"card vs CPU training: {err:.3e} > 1e-4")
+    return err
+
+
+def report_train(torch, device, launches, worst):
+    """The train kernel's and its plain version's times and bounds at the
+    main path's step shape (5 clients x 12 rows) and at 512 clients."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.fused_train import (fused_train_grads,
+                                                  fused_train_grads_plain)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    layout = ParamLayout(*DIMS)
+    rows_out = []
+    for what, g, rows, precision in (
+            ("train step, main path", 5, 12, "f32"),
+            ("train step, main path", 5, 12, "bf16"),
+            ("train step, 512 clients", 512, 12, "f32")):
+        cdt = torch.bfloat16 if precision == "bf16" else torch.float32
+        flat = random_flat(torch, layout, g, gen, device)
+        x = torch.randn((g, rows, DIMS[0]), generator=gen).to(device, cdt)
+        m = torch.ones((g, rows), device=device)
+        kw = dict(layout=layout, shrink_lambda=10.0, compute_dtype=cdt)
+        call = lambda: fused_train_grads(flat, x, m, **kw)  # noqa: E731
+        k_ms = cuda_ms(call, 500)
+        d_ms = device_ms(call, "fused_ae_train_kernel", 100)
+        p_ms = cuda_ms(lambda: fused_train_grads_plain(flat, x, m, **kw), 50)
+        b_ms, b_by = train_bound(rows, g, precision)
+        rows_out.append({"what": what, "rows": rows, "clients": g,
+                         "precision": precision, "ms": k_ms,
+                         "device_ms": d_ms, "plain_ms": p_ms,
+                         "bound_ms": b_ms, "bound_by": b_by})
+        log(f"[report] {what} {precision} G={g} R={rows}: wrapper call "
+            f"{k_ms:.5f} ms (kernel on the device {d_ms:.5f} ms), plain "
+            f"{p_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by})")
+    main = rows_out[0]
+    return {
+        "name": "fused_ae_train",
+        "route": "cuda",
+        "source": "fedmse_tpu_torch/csrc/fused_train.cu",
+        "replaces": "fedmse_tpu/ops/pallas_ae.py:309 (_train_kernel)",
+        "launches": launches,
+        "max_abs_err": worst["f32"]["abs"],
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the fused loss and "
+                        "grads",
+        "max_abs_err_by_dtype": {p: worst[p]["abs"] for p in worst},
+        "max_scaled_err_by_dtype": {p: worst[p]["scaled"] for p in worst},
+        "tolerance_scaled": TOL,
+        "shapes": rows_out,
+    }
+
+
 def phase_report(torch, device, launches, worst):
     """Kernel and plain-version times and bounds at the main path's shapes."""
     from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
@@ -404,6 +792,7 @@ def main() -> int:
     from fedmse_tpu_torch.data import synthetic_clients
     from fedmse_tpu_torch.ops import native
     from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
+    from fedmse_tpu_torch.ops.fused_train import fused_train_grads
 
     t_start = time.perf_counter()
     cfg = ExperimentConfig()
@@ -427,20 +816,39 @@ def main() -> int:
                 log(f"[device] {name}: {line.strip()}")
 
     worst = phase_kernels(torch, device)
+    worst_train = phase_train_kernels(torch, device)
 
     clients = synthetic_clients(n_clients=10, dim=DIMS[0], n_normal=10_000,
                                 n_abnormal=2_000, seed=SEED)
-    fused_forward_stats.launches = 0  # the main path starts here
+    # the main path starts here
+    fused_forward_stats.launches = 0
+    fused_train_grads.launches = 0
     evaluated = phase_evaluate(torch, device, cfg, clients)
     serve = phase_serve(torch, device, cfg, evaluated, smi)
+    training, trained, data, writer, names = phase_train(torch, device, cfg,
+                                                         clients)
+    serve["trained_checkpoint_max_err"] = phase_serve_trained(
+        torch, device, cfg, trained, data, writer, names)
     torch.cuda.synchronize()
-    launches = fused_forward_stats.launches  # ... and ends here
-    if launches < 1:
-        raise AssertionError("the main path never launched fused_ae_forward")
-    log(f"[main path] fused_ae_forward launched {launches} times")
+    launches = {"fused_ae_forward": fused_forward_stats.launches,
+                "fused_ae_train": fused_train_grads.launches}
+    # ... and ends here
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"the main path never launched {name}")
+    log(f"[main path] launches {json.dumps(launches)}")
+    round_profile = profile_round(torch, trained)
+    card_vs_cpu = phase_card_vs_cpu(torch, device, cfg, clients)
 
-    line = phase_report(torch, device, launches, worst)
+    line = phase_report(torch, device, launches["fused_ae_forward"], worst)
+    line["kernels"].append(report_train(torch, device,
+                                        launches["fused_ae_train"],
+                                        worst_train))
     line["serving"] = serve
+    line["training"] = training
+    line["card_vs_cpu_param_err"] = card_vs_cpu
+    line["round_profile"] = round_profile
+    shutil.rmtree(writer.root, ignore_errors=True)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(line))

@@ -1,21 +1,33 @@
-"""The ClientModel tree (port of the serving half of
-fedmse_tpu/checkpointing/io.py).
+"""Results artifacts and the ClientModel tree (port of
+fedmse_tpu/checkpointing/io.py; same paths and file formats).
 
-Per-client best models live at
-`{root}/{N}/{exp}/{run}/ClientModel/{scen}/{model}/{update}/{device}/model.npz`
-with one array per parameter, keyed like `jax.tree_util.keystr`
-("['encoder']['Dense_0']['kernel']"), and serving artifacts beside them
-under `{root}/{N}/{exp}/{run}/Serving/{scen}`. A tree the JAX package's
-`save_client_models` wrote loads here as it is, and the reverse. The
-per-round results files and full-federation resume wait for the training
-slice.
+Under one checkpoint root:
+  * per-round metrics, JSON lines appended to
+    `Results/Update/{N}/{exp}/Run_{r}/{metric}/
+     {scen}_{ratio}_{model}_{update}_results.json`
+    ({round, client_metrics, update_type, model_type, global_loss});
+  * verification rows, JSON lines appended to
+    `Results/Update/{N}/{exp}/Run_{r}/verification_results.json`;
+  * `Results/Update/{N}/{exp}/training_summary.json`;
+  * per-client models at
+    `{N}/{exp}/{run}/ClientModel/{scen}/{model}/{update}/{device}/model.npz`
+    with one array per parameter, keyed like `jax.tree_util.keystr`
+    ("['encoder']['Dense_0']['kernel']"), and `training_tracking.pkl`
+    [(train_loss, valid_loss), ...] beside each;
+  * the hybrid's test latents, `LatentData/{N}/{exp}/Run_{r}/
+    latent_hybrid_{update}.pkl`;
+  * serving artifacts under `{N}/{exp}/{run}/Serving/{scen}`.
+A tree the JAX package's writer wrote loads here as it is, and the
+reverse. Full-federation resume is not ported yet.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import pickle
 import re
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +49,60 @@ class ResultsWriter:
         self.scen = scen_name
         self.metric = metric
         self.ratio = num_participants
+        self.results_dir = os.path.join(checkpoint_root, "Results", "Update",
+                                        str(network_size), experiment_name)
+
+    def append_round_metrics(self, run: int, round_index: int,
+                             client_metrics: Sequence[float],
+                             model_type: str, update_type: str) -> str:
+        d = os.path.join(self.results_dir, f"Run_{run}", self.metric)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"{self.scen}_{self.ratio}_{model_type}_"
+                               f"{update_type}_results.json")
+        metrics = np.asarray(client_metrics, dtype=float)
+        finite = metrics.size and bool(np.any(~np.isnan(metrics)))
+        with open(path, "a") as f:
+            json.dump({
+                "round": round_index + 1,
+                "client_metrics": [None if np.isnan(m) else float(m)
+                                   for m in metrics],
+                "update_type": update_type,
+                "model_type": model_type,
+                "global_loss": (float(np.nanmin(metrics)) if finite
+                                else float("inf")),
+            }, f)
+            f.write("\n")
+        return path
+
+    def append_verification(self, run: int, round_index: int,
+                            rows: List[Dict]) -> Optional[str]:
+        if not rows:
+            return None
+        d = os.path.join(self.results_dir, f"Run_{run}")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, "verification_results.json")
+        with open(path, "a") as f:
+            json.dump({"round": round_index + 1,
+                       "verification_results": rows}, f)
+            f.write("\n")
+        return path
+
+    def write_summary(self, best_metrics: Dict, num_runs: int,
+                      results: Optional[Dict] = None) -> str:
+        os.makedirs(self.results_dir, exist_ok=True)
+        path = os.path.join(self.results_dir, "training_summary.json")
+        doc = {"best_metrics": best_metrics, "metric_type": self.metric,
+               "num_runs": num_runs, "network_size": self.network_size,
+               "experiment_name": self.exp}
+        if results is not None:
+            doc["results"] = results
+        with open(path, "w") as f:
+            json.dump(doc, f, indent=4)
+        return path
+
+    def latent_dir(self, run: int) -> str:
+        return os.path.join(self.root, "LatentData", str(self.network_size),
+                            self.exp, f"Run_{run}")
 
     def client_model_dir(self, run: int, model_type: str, update_type: str,
                          device_name: str) -> str:
@@ -116,3 +182,28 @@ def load_client_models(writer: ResultsWriter, run: int, model_type: str,
         node[path[-1]] = torch.from_numpy(
             np.stack(parts, axis=0).astype(np.float32)).to(dev)
     return tree
+
+
+def save_training_tracking(writer: ResultsWriter, run: int, model_type: str,
+                           update_type: str, device_names: Sequence[str],
+                           tracking: np.ndarray) -> None:
+    """Per-client training_tracking.pkl: [(train_loss, valid_loss), ...]
+    for the epochs that ran (tracking [N, E, 3] with an active flag)."""
+    for i, name in enumerate(device_names):
+        d = writer.client_model_dir(run, model_type, update_type, name)
+        os.makedirs(d, exist_ok=True)
+        rows = [(float(t), float(v)) for t, v, active in tracking[i]
+                if active > 0 and np.isfinite(t)]
+        with open(os.path.join(d, "training_tracking.pkl"), "wb") as f:
+            pickle.dump(rows, f)
+
+
+def save_latent_data(writer: ResultsWriter, run: int, update_type: str,
+                     test_latent: np.ndarray, labels: np.ndarray) -> str:
+    """The hybrid's (latents, labels) pickle for the latent plots."""
+    d = writer.latent_dir(run)
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"latent_hybrid_{update_type}.pkl")
+    with open(path, "wb") as f:
+        pickle.dump((np.asarray(test_latent), np.asarray(labels)), f)
+    return path

@@ -1,0 +1,67 @@
+"""The three aggregation rules (port of
+fedmse_tpu/federation/aggregation.py).
+
+  * avg, fedprox: the plain mean over the selected cohort (fedprox's
+    difference lives in local training);
+  * mse_avg: weight_i = 1 / MSE(dev set, recon_i(dev set)) over the
+    selected clients, normalized to sum 1. The dev MSEs of the cohort are
+    ONE fused forward launch over dev rows x cohort models.
+
+The merged model is `weights @ params` [N] x [N, P] in f32 (TF32 must be
+off on the card: the broadcast every client verifies is this product).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from fedmse_tpu_torch.evaluation.evaluator import client_index
+from fedmse_tpu_torch.models.flat import ParamLayout
+from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
+
+UPDATE_TYPES = ("avg", "fedprox", "mse_avg")
+
+
+def weighted_mean(params: torch.Tensor, weights: torch.Tensor
+                  ) -> torch.Tensor:
+    """sum_n w_n params_n in f32: [N] x [N, P] -> [P]."""
+    if params.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("aggregation on the card needs "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+    return weights.to(torch.float32) @ params.to(torch.float32)
+
+
+def make_aggregate_fn(model, update_type: str) -> Callable:
+    """fn(params [N, P], sel_mask [N], dev_x [M, D], sel_idx=None) ->
+    (merged [P], weights [N]). sel_idx restricts mse_avg's dev scoring to
+    the cohort (the weights are the same either way)."""
+    if update_type not in UPDATE_TYPES:
+        raise ValueError(f"unknown update_type {update_type!r}; expected "
+                         f"one of {UPDATE_TYPES}")
+    layout = ParamLayout.of(model)
+    cdt = model.compute_dtype
+
+    @torch.no_grad()
+    def aggregate(params: torch.Tensor, sel_mask: torch.Tensor,
+                  dev_x: torch.Tensor,
+                  sel_idx: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if update_type == "mse_avg":
+            sub = params if sel_idx is None else params.index_select(
+                0, sel_idx)
+            s, (m, d) = sub.shape[0], dev_x.shape
+            _, mse, _ = fused_forward_stats(
+                layout.tree(sub, cdt), dev_x.to(cdt).repeat(s, 1),
+                client_index(s, m, params.device), compute_dtype=cdt)
+            mses = mse.view(s, m).mean(dim=1)
+            if sel_idx is not None:
+                mses = torch.ones_like(sel_mask).index_copy(0, sel_idx, mses)
+            raw = sel_mask / mses
+        else:
+            raw = sel_mask
+        weights = raw / raw.sum()
+        return weighted_mean(params, weights), weights
+
+    return aggregate

@@ -2,7 +2,7 @@
 
   * `per_sample_mse` — per-row mean squared error, the AE anomaly score.
   * `masked_mean`    — mean over rows where mask == 1, with the
-                       reference's 1e-38 safe division (`_safe_div`): an
+                       reference's 1e-38 safe division (`safe_div`): an
                        all-zero mask (M = 0) gives NaN.
   * `mse_loss`       — torch MSELoss('mean') over valid rows.
   * `shrink_loss`    — MSE + lambda * mean_rows ||latent||_2 with the safe
@@ -25,7 +25,9 @@ ACCUM = torch.float32
 _DEN_FLOOR = 0.0
 
 
-def _safe_div(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+def safe_div(num, den: torch.Tensor) -> torch.Tensor:
+    """num / max(den, floor) with the reference's flushed floor: a zero
+    denominator gives x / 0."""
     return num / torch.clamp(den, min=_DEN_FLOOR)
 
 
@@ -34,7 +36,7 @@ def masked_mean(values: torch.Tensor,
     """Mean of `values` rows where mask == 1; accumulates and returns f32."""
     if mask is None:
         return values.to(ACCUM).mean()
-    return _safe_div((values.to(ACCUM) * mask).sum(dtype=ACCUM),
+    return safe_div((values.to(ACCUM) * mask).sum(dtype=ACCUM),
                      mask.sum(dtype=ACCUM))
 
 
@@ -57,3 +59,15 @@ def shrink_loss(x: torch.Tensor, recon: torch.Tensor, latent: torch.Tensor,
     pos = sq > 0
     norms = torch.sqrt(torch.where(pos, sq, torch.ones_like(sq))) * pos
     return mse_loss(x, recon, mask) + shrink_lambda * masked_mean(norms, mask)
+
+
+def prox_term(params, global_params) -> torch.Tensor:
+    """sum over all parameters of (p - p_global)^2, accumulated in f32.
+    A flat [..., P] buffer (models/flat.py) gives one term per leading
+    index (one per client of an [S, P] cohort); a param tree (nested dicts
+    of tensors) gives one scalar, the sum over its leaves."""
+    if isinstance(params, dict):
+        return sum(prox_term(params[k], global_params[k]).sum()
+                   for k in sorted(params))
+    d = params.to(ACCUM) - global_params.to(ACCUM)
+    return torch.square(d).sum(dim=-1)

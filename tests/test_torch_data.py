@@ -65,3 +65,47 @@ def test_scaler_minmax_and_zero_variance():
     np.testing.assert_allclose(mm[:, 0], [0.0, 0.5, 1.0])
     with pytest.raises(ValueError):
         IoTDataProcessor("robust").fit(x)
+
+
+@pytest.mark.parametrize("network_size,new_device", [(5, True), (3, False)])
+def test_csv_pipeline_equals_jax_copy(tmp_path, network_size, new_device):
+    """load_data, prepare_clients and build_dev_dataset give the JAX
+    package's arrays for the same seed: the device sample, the shuffles,
+    the splits, the scalers and the dev set, with a client missing its
+    abnormal shard."""
+    import shutil
+
+    from fedmse_tpu.config import DatasetConfig as JaxDataset
+    from fedmse_tpu.config import ExperimentConfig as JaxConfig
+    from fedmse_tpu.data import build_dev_dataset as jax_dev
+    from fedmse_tpu.data import load_data as jax_load
+    from fedmse_tpu.data import prepare_clients as jax_prepare
+    from fedmse_tpu_torch.config import DatasetConfig, ExperimentConfig
+    from fedmse_tpu_torch.data import (build_dev_dataset, load_data,
+                                       prepare_clients)
+    from tests.test_data import _write_client_csvs
+
+    _write_client_csvs(str(tmp_path), 5, dim=7, n_normal=53, n_abnormal=19,
+                       seed=3)
+    shutil.rmtree(tmp_path / "Client-2" / "abnormal")
+    np.testing.assert_array_equal(
+        load_data(str(tmp_path / "Client-1" / "normal")),
+        jax_load(str(tmp_path / "Client-1" / "normal")).to_numpy())
+    kw = dict(dim_features=7, network_size=network_size,
+              new_device=new_device)
+    ours = prepare_clients(DatasetConfig.for_client_dirs(str(tmp_path), 5),
+                           ExperimentConfig(**kw), np.random.default_rng(9))
+    rng = np.random.default_rng(9)
+    theirs = jax_prepare(JaxDataset.for_client_dirs(str(tmp_path), 5),
+                         JaxConfig(**kw), rng)
+    assert [c.name for c in ours] == [c.name for c in theirs]
+    for a, b in zip(ours, theirs):
+        for field in ("train_x", "valid_x", "test_x", "test_y"):
+            np.testing.assert_array_equal(getattr(a, field),
+                                          getattr(b, field))
+        np.testing.assert_array_equal(a.dev_raw, b.dev_raw.to_numpy())
+    mine = np.random.default_rng(9)
+    prepare_clients(DatasetConfig.for_client_dirs(str(tmp_path), 5),
+                    ExperimentConfig(**kw), mine)
+    np.testing.assert_array_equal(build_dev_dataset(ours, mine),
+                                  jax_dev(theirs, rng))

@@ -5,7 +5,9 @@ machine with a card and no JAX it runs alone:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Tolerances as in chip_smoke.py: scale-normalized 1e-5 in f32 (summation
-order only) and 2**-6 in bf16 (a bf16 rounding flip between layers).
+order only) and 2**-6 in bf16 (a bf16 rounding flip between layers); a
+whole training run on the card against the CPU, 1e-4 per leaf and 2e-3
+AUC (summation order compounded over the run's Adam steps).
 """
 
 import numpy as np
@@ -15,8 +17,11 @@ import torch
 from fedmse_tpu_torch.data import stack_clients, synthetic_clients
 from fedmse_tpu_torch.evaluation import make_evaluate_all
 from fedmse_tpu_torch.models import init_stacked_params, make_model
+from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
                                            fused_forward_stats_plain)
+from fedmse_tpu_torch.ops.fused_train import (fused_train_grads,
+                                              fused_train_grads_plain)
 from fedmse_tpu_torch.ops.precision import cast_params
 from fedmse_tpu_torch.serving import ServingEngine
 
@@ -104,3 +109,94 @@ def test_evaluation_and_serving_on_card_match_cpu(cuda, model_type):
     np.testing.assert_allclose(e_gpu, e_cpu, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(e_gpu, s_gpu[1, :100].numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+def _flat_params(layout, g, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    flat = torch.rand((g, layout.size), generator=gen) * 0.6 - 0.3
+    for sl, (path, _, _) in zip(layout.slices(), layout.leaves()):
+        if path[-1] == "bias":  # non-zero biases exercise every add
+            flat[:, sl] = torch.randn((g, sl.stop - sl.start),
+                                      generator=gen) * 0.1
+    return flat.to(device)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lam", [0.0, 10.0])
+@pytest.mark.parametrize("shape", [(1, 115, 27, 7, 12), (5, 115, 27, 7, 12),
+                                   (3, 37, 9, 3, 200), (512, 115, 27, 7, 12),
+                                   (2, 16, 8, 3, 1)])
+def test_train_kernel_matches_plain_and_counts(cuda, cdt, lam, shape):
+    g, d, h, lat, rows = shape
+    layout = ParamLayout(d, h, lat)
+    flat = _flat_params(layout, g, cuda)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((g, rows, d), generator=gen).to(cuda, cdt)
+    mask = (torch.rand((g, rows), generator=gen) < 0.8).float().to(cuda)
+    if g > 1:
+        mask[-1] = 0.0  # an all-masked client: NaN, as in the reference
+    before = fused_train_grads.launches
+    loss, grads = fused_train_grads(flat, x, mask, layout=layout,
+                                    shrink_lambda=lam, compute_dtype=cdt)
+    assert fused_train_grads.launches == before + 1
+    want_l, want_g = fused_train_grads_plain(flat, x, mask, layout=layout,
+                                             shrink_lambda=lam,
+                                             compute_dtype=cdt)
+    live = mask.sum(dim=1) > 0
+    assert torch.isnan(loss[~live]).all() and torch.isnan(grads[~live]).all()
+    for a, b in ((loss[live], want_l[live]), (grads[live], want_g[live])):
+        err = (a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+        assert err <= TOL[cdt]
+
+
+def test_train_kernel_edges(cuda):
+    layout = ParamLayout(16, 8, 3)
+    flat = _flat_params(layout, 3, cuda)
+    x = torch.randn((3, 0, 16), device=cuda)
+    before = fused_train_grads.launches
+    loss, grads = fused_train_grads(flat, x, torch.zeros((3, 0),
+                                                         device=cuda),
+                                    layout=layout)
+    assert fused_train_grads.launches == before
+    assert torch.isnan(loss).all() and grads.shape == (3, layout.size)
+    wide = ParamLayout(128, 128, 120)  # parameters beyond shared memory
+    with pytest.raises(ValueError, match="too wide"):
+        fused_train_grads(torch.zeros((1, wide.size), device=cuda),
+                          torch.zeros((1, 4, 128), device=cuda),
+                          torch.ones((1, 4), device=cuda), layout=wide)
+
+
+@pytest.mark.parametrize("update_type", ["mse_avg", "fedprox"])
+def test_run_combination_on_card_matches_cpu(cuda, update_type):
+    """One training combination on the card and on the CPU twins from one
+    init: params 1e-4 scale-normalized per leaf after the run, AUC 2e-3."""
+    from fedmse_tpu_torch.config import ExperimentConfig
+    from fedmse_tpu_torch.federation import init_client_states
+    from fedmse_tpu_torch.main import run_combination
+    cfg = ExperimentConfig(dim_features=16, hidden_neus=8, latent_dim=3,
+                           network_size=4, num_rounds=2, epochs=3)
+    clients = synthetic_clients(n_clients=4, dim=16, n_normal=240,
+                                n_abnormal=120, seed=0)
+    dev_x = np.concatenate([c.dev_raw for c in clients])[:200].astype(
+        np.float32)
+    init = init_client_states(make_model("hybrid", 16, 8, 3, device="cpu"),
+                              4, torch.Generator().manual_seed(1),
+                              device="cpu")
+    outs = {}
+    for device in ("cpu", cuda):
+        data = stack_clients(clients, dev_x, 12, device=device)
+        states = init.to(device)
+        before = fused_train_grads.launches
+        out = run_combination(cfg, data, 4, "hybrid", update_type, 0,
+                              states=states)
+        launched = fused_train_grads.launches - before
+        outs[str(device)] = (out, launched)
+    (cpu, n_cpu), (gpu, n_gpu) = outs["cpu"], outs[str(cuda)]
+    assert n_cpu == 0 and n_gpu > 0
+    layout = ParamLayout(16, 8, 3)
+    a = gpu["engine"].states.params.cpu()
+    b = cpu["engine"].states.params
+    for sl in layout.slices():
+        assert (a[:, sl] - b[:, sl]).abs().max() <= 1e-4 * b[:, sl].abs().max()
+    np.testing.assert_allclose(gpu["final_metrics"], cpu["final_metrics"],
+                               atol=2e-3)

@@ -14,9 +14,12 @@ import torch
 
 import fedmse_tpu_torch
 from fedmse_tpu_torch.checkpointing import ResultsWriter, load_client_models
+from fedmse_tpu_torch.config import DatasetConfig, ExperimentConfig
 from fedmse_tpu_torch.data import stack_clients, synthetic_clients
 from fedmse_tpu_torch.models import (init_stacked_params, make_model,
                                      params_from_numpy)
+from fedmse_tpu_torch.federation import init_client_states
+from fedmse_tpu_torch.main import prepare_federation, run_experiment
 from fedmse_tpu_torch.serving import ServingEngine
 
 torch.set_num_threads(1)
@@ -31,8 +34,12 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
-    assert "fedmse_tpu_torch.ops.fused_ae" in mods
-    assert "fedmse_tpu_torch.serving.engine" in mods
+    for m in ("ops.fused_ae", "ops.fused_train", "serving.engine",
+              "models.flat", "utils.seeding", "federation.optim",
+              "federation.state", "federation.local_training",
+              "federation.voting", "federation.aggregation",
+              "federation.verification", "federation.rounds", "main"):
+        assert "fedmse_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -45,6 +52,28 @@ def test_every_port_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+def test_training_driver_runs_as_a_module_without_jax(tmp_path):
+    """`python -m fedmse_tpu_torch.main` parses its CLI, and the package's
+    import graph (the module run as __main__ included) pulls in no jax,
+    flax, optax, pandas or JAX package."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['fedmse_tpu_torch.main', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('fedmse_tpu_torch.main', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'pandas', "
+        "'sklearn')) or m == 'fedmse_tpu' or m.startswith('fedmse_tpu.'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "--dataset-config" in out.stdout and "--device" in out.stdout
 
 
 def _imported_roots(path):
@@ -93,6 +122,13 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
         lambda: load_client_models(ResultsWriter(str(tmp_path), 2, "e", "s",
                                                  "AUC", 1.0),
                                    0, "autoencoder", "avg", ["a", "b"]),
+        lambda: init_client_states(model, 2, torch.Generator()),
+        lambda: prepare_federation(ExperimentConfig(dim_features=6),
+                                   DatasetConfig.for_client_dirs(
+                                       str(tmp_path), 2)),
+        lambda: run_experiment(ExperimentConfig(dim_features=6),
+                               DatasetConfig.for_client_dirs(
+                                   str(tmp_path), 2)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -183,5 +183,42 @@ def test_config_reads_the_jax_json_layout():
     raw = JaxConfig(precision="bf16", serve_max_batch=512).to_json()
     cfg = ExperimentConfig.from_json(raw)
     for f in dataclasses.fields(cfg):
-        assert getattr(cfg, f.name) == raw[f.name], f.name
+        got = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(got):  # the nested compat switches
+            got = dataclasses.asdict(got)
+        assert got == raw[f.name], f.name
     assert cfg.replace(latent_dim=3).latent_dim == 3
+
+
+def test_cli_overrides_and_seeding_match_jax():
+    import argparse
+
+    from fedmse_tpu.config import ExperimentConfig as JaxConfig
+    from fedmse_tpu.config import add_cli_overrides as jax_add
+    from fedmse_tpu.config import apply_cli_overrides as jax_apply
+    from fedmse_tpu.config import paper_scale as jax_paper
+    from fedmse_tpu.utils.seeding import ExperimentRngs as JaxRngs
+    from fedmse_tpu_torch.config import (ExperimentConfig, add_cli_overrides,
+                                         apply_cli_overrides, paper_scale)
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+
+    argv = ["--num-rounds", "7", "--model-types", "hybrid",
+            "--compat-vote-tie-break", "false", "--compact-cohort", "false",
+            "--hardened-verification", "true", "--lr-rate", "0.01",
+            "--recovery-budget", "2.5"]
+    ours, theirs = argparse.ArgumentParser(), argparse.ArgumentParser()
+    add_cli_overrides(ours)
+    jax_add(theirs)
+    cfg = paper_scale(apply_cli_overrides(ExperimentConfig(),
+                                          ours.parse_args(argv)))
+    jargs, _ = theirs.parse_known_args(argv)
+    want = jax_paper(jax_apply(JaxConfig(), jargs)).to_json()
+    want["recovery_budget"] = 2.5  # the JAX CLI has no flag for it
+    got = cfg.to_json()
+    assert {k: got[k] for k in got} == {k: want[k] for k in got}
+    for run in (0, 2):
+        a, b = ExperimentRngs(run=run), JaxRngs(run=run)
+        assert a.select_rng.sample(range(10), 5) == \
+            b.select_rng.sample(range(10), 5)
+        np.testing.assert_array_equal(a.data_rng.permutation(20),
+                                      b.data_rng.permutation(20))

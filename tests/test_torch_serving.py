@@ -269,7 +269,7 @@ def test_engine_refuses_what_waits_for_later_slices(fed):
         _port_engine("autoencoder", fed, mesh=object())
     with pytest.raises(NotImplementedError, match="knn"):
         make_evaluate_all(model, "autoencoder", score_kind="knn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_evaluate_all(model, "autoencoder", metric="time")
+    with pytest.raises(ValueError, match="unknown metric"):
+        make_evaluate_all(model, "autoencoder", metric="latency")
     with pytest.raises(ValueError, match="gateway_ids"):
         _port_engine("autoencoder", fed).score(np.zeros((2, DIM)))
