@@ -8,28 +8,36 @@ all started together, into build/fedmse_tpu_torch/), then:
 
   1. device     prints the card (nvidia-smi name and power limit), torch and
                 CUDA versions and the kernels' build time;
-  2. kernels    holds each kernel (the fused forward and the fused train
-                step) against its plain PyTorch version on the card, at
-                every listed shape and dtype;
+  2. kernels    holds each kernel (the fused forward, the fused train step
+                and the kNN distance tiles) against its plain PyTorch
+                version on the card, at every listed shape and dtype;
   3. evaluate   per-client AUC of both model types in f32 and bf16 over a
                 10-gateway synthetic federation at the paper's width
-                (115 -> 27 -> 7), ~70k rows per evaluation;
+                (115 -> 27 -> 7), ~70k rows per evaluation, with the
+                model's own score and with the kNN score (512-slot banks,
+                k = 8, exact and approximate top-k);
   4. serve      ServingEngine.from_federation -> fit_calibration ->
                 MicroBatcher over >= 8192 interleaved rows (scores held to
                 the evaluator's oracle), then a 512-gateway engine with
-                gather routing scoring 1024-row buckets;
+                gather routing scoring 1024-row buckets; the same for the
+                kNN score, plus a ContinuousBatcher stream with a
+                build_banks(existing=...) bank swap in its middle;
   5. train      main.run_combination on the same federation with the
                 quick-run schedule (3 rounds, 5 epochs, batch 12, 50%
                 participation): all six combinations in f32 and hybrid /
                 mse_avg in bf16; the trained hybrid checkpoint is then
                 served by ServingEngine.from_checkpoint and held to the
-                evaluator's oracle;
+                evaluator's oracle, and run through the CLI's --serve
+                pass (serving.run_serve_smoke) with the kNN score and the
+                continuous front;
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events, and the
                 kernel's own device time by torch.profiler), plain-version
-                time and bound at the main path's shapes, and one more
-                training round under the profiler (device busy share).
+                time, library time where one PyTorch call computes the
+                same function, and bound at the main path's shapes, and
+                one more training round under the profiler (device busy
+                share).
 
 Phases 3 to 5 are the main path: the kernels' launch counters are set to 0
 just before them and read just after, and each kernel must have launched
@@ -60,6 +68,10 @@ DIMS = (115, 27, 7)  # the paper's width: ExperimentConfig's defaults
 # an f32 sum can round an activation one bf16 ulp (2**-8 relative) the
 # other way, and four ulps cover such a flip carried through later layers.
 TOL = {"f32": 1e-5, "bf16": 2.0 ** -6}
+# the distance kernel's math is f32 in both dtypes (bf16 queries upcast
+# exactly): summation order only
+DIST_TOL = 1e-5
+KNN = dict(knn_bank_size=512, knn_k=8)  # ExperimentConfig's kNN defaults
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): f32 outside the tensor
 # cores, bf16 tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
@@ -310,6 +322,76 @@ def phase_train_kernels(torch, device):
     return worst
 
 
+def dist_bound(rows: int, bank: int, banks_read: int, lat: int = DIMS[2]):
+    """Least time (ms) for the distance tiles on an H100: the cross term's
+    2 L T B f32 FLOPs over the f32 peak, or the bytes (the [T, B] f32
+    output written once, q [T, L] and the bank index [T] read once, each
+    distinct bank [B, L] read once) over HBM bandwidth."""
+    flops = 2.0 * lat * rows * bank
+    nbytes = 4.0 * (rows * bank + rows * (lat + 1) + banks_read * bank * lat)
+    t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def dist_inputs(torch, n, rows, bank, lat, gw_kind, gen, device, cdt):
+    """Queries (bf16 or f32), f32 banks with ragged zeroed tails, and the
+    bank index: absent, client-major (the evaluator's) or random (a
+    serving bucket's)."""
+    q = (torch.randn((rows, lat), generator=gen) * 1.5).to(device, cdt)
+    banks = torch.randn((n, bank, lat), generator=gen)
+    count = torch.randint(0, bank + 1, (n,), generator=gen)
+    banks[torch.arange(bank)[None, :] >= count[:, None]] = 0.0
+    gw = None
+    if gw_kind == "client_major":
+        gw = torch.arange(n, dtype=torch.int32).repeat_interleave(
+            -(-rows // n))[:rows]
+    elif gw_kind == "random":
+        gw = torch.randint(0, n, (rows,), generator=gen, dtype=torch.int32)
+    return q, banks.to(device), None if gw is None else gw.to(device)
+
+
+def phase_dist_kernels(torch, device):
+    """The distance kernel vs its plain version: every (N, T, B) of N in
+    {1, 10, 512}, T in {1, 17, 256, 1024, 30000}, B in {1, 8, 100, 512,
+    1024}, cycling through f32 / bf16 queries, the three bank-index kinds
+    and L in {7, 3, 16} (16 takes the kernel's generic path; 75 cases)."""
+    from fedmse_tpu_torch.knn.score import dist_tiles, dist_tiles_plain
+    gen = torch.Generator().manual_seed(SEED + 6)
+    kinds = ("none", "client_major", "random")
+    worst = {p: {"abs": 0.0, "scaled": 0.0} for p in TOL}
+    i = 0
+    for n in (1, 10, 512):
+        for rows in (1, 17, 256, 1024, 30_000):
+            for bank in (1, 8, 100, 512, 1024):
+                precision = ("f32", "bf16")[i % 2]
+                gw_kind = kinds[(i // 2) % 3]
+                lat = (7, 3, 16)[(i // 6) % 3]
+                cdt = torch.bfloat16 if precision == "bf16" else torch.float32
+                q, banks, gw = dist_inputs(torch, n, rows, bank, lat,
+                                           gw_kind, gen, device, cdt)
+                got = dist_tiles(q, banks, gw)
+                want = dist_tiles_plain(q, banks, gw)
+                torch.cuda.synchronize()
+                if got.shape != (rows, bank) or got.dtype != torch.float32:
+                    raise AssertionError(f"dist shape/dtype {got.shape}")
+                if not torch.isfinite(got).all() or (got < 0).any():
+                    raise AssertionError("distances not finite and >= 0")
+                err = scaled_err(got, want)
+                if err > DIST_TOL:
+                    raise AssertionError(
+                        f"dist kernel vs plain N={n} T={rows} B={bank} "
+                        f"L={lat} {precision} gw={gw_kind}: scaled error "
+                        f"{err:.3e} > {DIST_TOL:.1e}")
+                w = worst[precision]
+                w["scaled"] = max(w["scaled"], err)
+                w["abs"] = max(w["abs"], (got - want).abs().max().item())
+                i += 1
+    log(f"[kernels] {i} dist-kernel-vs-plain cases agree; worst "
+        f"{json.dumps(worst)}")
+    return worst
+
+
 def interleave(test_m, max_rows):
     """Round-robin the gateways' valid test rows into one arrival stream
     (row 0 of every gateway, then row 1, ...), as fedmse_tpu's serving
@@ -319,14 +401,17 @@ def interleave(test_m, max_rows):
 
 
 def phase_evaluate(torch, device, cfg, clients):
-    """Both model types x both precisions over the 10-gateway federation."""
+    """Both model types x both precisions over the 10-gateway federation,
+    each with its own score and with the kNN score (exact and approximate
+    top-k); every kNN evaluation is one distance launch."""
     from fedmse_tpu_torch.data import stack_clients
     from fedmse_tpu_torch.evaluation import make_evaluate_all
+    from fedmse_tpu_torch.knn import dist_tiles
     from fedmse_tpu_torch.models import init_stacked_params, make_model
     from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
     dev_x = np.concatenate([c.dev_raw[:100] for c in clients]).astype(
         np.float32)
-    results = {}
+    results, knn_report = {}, {}
     for model_type in ("autoencoder", "hybrid"):
         aucs = {}
         for precision in ("f32", "bf16"):
@@ -340,44 +425,75 @@ def phase_evaluate(torch, device, cfg, clients):
                                  dtype=model.compute_dtype, device=device)
             args = (data.test_x, data.test_m, data.test_y, data.train_xb,
                     data.train_mb)
-            before = fused_forward_stats.launches
-            t0 = time.perf_counter()
-            auc = make_evaluate_all(model, model_type)(params, *args)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            launched = fused_forward_stats.launches - before
-            if launched < 1:
-                raise AssertionError("evaluation did not launch the kernel")
-            if auc.shape != (len(clients),) or not torch.isfinite(auc).all():
-                raise AssertionError(f"AUC not finite: {auc}")
-            aucs[precision] = auc.cpu().numpy()
-            rows = data.test_x.shape[0] * (
-                data.test_x.shape[1]
-                + (data.train_xb.shape[1] * data.train_xb.shape[2]
-                   if model_type == "hybrid" else 0))
-            log(f"[evaluate] {model_type} {precision}: {launched} launch(es) "
-                f"over {rows} rows in {secs * 1e3:.3f} ms; per-client AUC "
-                f"{np.round(aucs[precision], 6).tolist()}")
+            for score in ("own", "knn/exact", "knn/approx"):
+                kw = ({} if score == "own" else
+                      dict(score_kind="knn", knn_topk=score[4:], **KNN))
+                before = fused_forward_stats.launches
+                before_dist = dist_tiles.launches
+                t0 = time.perf_counter()
+                auc = make_evaluate_all(model, model_type, **kw)(params,
+                                                                 *args)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launched = fused_forward_stats.launches - before
+                dist_launched = dist_tiles.launches - before_dist
+                if launched < 1:
+                    raise AssertionError("evaluation did not launch the "
+                                         "kernel")
+                if dist_launched != (0 if score == "own" else 1):
+                    raise AssertionError(f"{score} evaluation launched the "
+                                         f"distance kernel {dist_launched}"
+                                         " times")
+                if auc.shape != (len(clients),) or \
+                        not torch.isfinite(auc).all():
+                    raise AssertionError(f"AUC not finite: {auc}")
+                aucs[(score, precision)] = auc.cpu().numpy()
+                rows = data.test_x.shape[0] * (
+                    data.test_x.shape[1]
+                    + (data.train_xb.shape[1] * data.train_xb.shape[2]
+                       if model_type == "hybrid" or score != "own" else 0))
+                log(f"[evaluate] {model_type} {score} {precision}: "
+                    f"{launched} forward + {dist_launched} distance "
+                    f"launch(es) over {rows} rows in {secs * 1e3:.3f} ms; "
+                    f"per-client AUC "
+                    f"{np.round(aucs[(score, precision)], 6).tolist()}")
+                if score != "own":
+                    knn_report[f"{model_type}/{score}/{precision}"] = {
+                        "ms": secs * 1e3,
+                        "mean_auc": float(aucs[(score, precision)].mean()),
+                        "test_rows": int(data.test_x.shape[0]
+                                         * data.test_x.shape[1])}
+                if precision == "f32":
+                    check_card_vs_cpu(torch, device, model, model_type,
+                                      params, args, kw)
             if precision == "f32":
                 results[model_type] = (model, params, data)
-                # the same evaluation on the CPU (the plain path) agrees on
-                # a small slice
-                cpu = lambda t: t[:2, :200].cpu()  # noqa: E731
-                small = [cpu(t) for t in args[:3]] + \
-                    [args[3][:2].cpu(), args[4][:2].cpu()]
-                fn = make_evaluate_all(model, model_type, metric="scores")
-                on_card = fn(params, *(t.to(device) for t in small)).cpu()
-                on_cpu = fn({c: {n: {k: v.cpu() for k, v in layer.items()}
-                                 for n, layer in coder.items()}
-                             for c, coder in params.items()}, *small)
-                err = scaled_err(on_card, on_cpu)
-                if err > TOL["f32"]:
-                    raise AssertionError(f"card vs CPU scores: {err:.3e}")
-        delta = np.abs(aucs["bf16"] - aucs["f32"]).max()
-        log(f"[evaluate] {model_type}: max |AUC bf16 - AUC f32| = {delta:.3e}")
-        if delta > 2e-3:
-            raise AssertionError(f"bf16 AUC off f32 by {delta:.3e} > 2e-3")
-    return results
+        for score in ("own", "knn/exact", "knn/approx"):
+            delta = np.abs(aucs[(score, "bf16")]
+                           - aucs[(score, "f32")]).max()
+            log(f"[evaluate] {model_type} {score}: max |AUC bf16 - AUC f32|"
+                f" = {delta:.3e}")
+            if delta > 2e-3:
+                raise AssertionError(f"{model_type} {score}: bf16 AUC off "
+                                     f"f32 by {delta:.3e} > 2e-3")
+    return results, knn_report
+
+
+def check_card_vs_cpu(torch, device, model, model_type, params, args, kw):
+    """The same evaluation on the CPU (the plain path) agrees on a small
+    slice: 2 clients, 200 test rows each, their train rows."""
+    from fedmse_tpu_torch.evaluation import make_evaluate_all
+    cpu = lambda t: t[:2, :200].cpu()  # noqa: E731
+    small = [cpu(t) for t in args[:3]] + \
+        [args[3][:2].cpu(), args[4][:2].cpu()]
+    fn = make_evaluate_all(model, model_type, metric="scores", **kw)
+    on_card = fn(params, *(t.to(device) for t in small)).cpu()
+    on_cpu = fn({c: {n: {k: v.cpu() for k, v in layer.items()}
+                     for n, layer in coder.items()}
+                 for c, coder in params.items()}, *small)
+    err = scaled_err(on_card, on_cpu)
+    if err > TOL["f32"]:
+        raise AssertionError(f"card vs CPU scores {kw}: {err:.3e}")
 
 
 def phase_serve(torch, device, cfg, evaluated, smi):
@@ -482,6 +598,147 @@ def phase_serve(torch, device, cfg, evaluated, smi):
             f"{len(rows) / sum(bucket_s):.1f} rows/s, bucket p50 "
             f"{np.percentile(ms, 50):.4f} ms p99 {np.percentile(ms, 99):.4f}"
             f" ms, {launched} launches, max err vs oracle {err:.3e}")
+    return report
+
+
+def phase_serve_knn(torch, device, cfg, evaluated, smi):
+    """kNN serving (512-slot banks, k = 8, approximate top-k): the hybrid
+    10-gateway federation through MicroBatcher and through
+    ContinuousBatcher with a build_banks(existing=...) swap in the middle
+    of the stream, then 512 gateways with gather routing at 1024-row
+    buckets; scores held to the evaluator's oracle."""
+    from fedmse_tpu_torch.data import stack_clients, synthetic_clients
+    from fedmse_tpu_torch.evaluation import make_evaluate_all
+    from fedmse_tpu_torch.knn import build_banks, dist_tiles
+    from fedmse_tpu_torch.models import init_stacked_params, make_model
+    from fedmse_tpu_torch.serving import (ContinuousBatcher, MicroBatcher,
+                                          ServingEngine, fit_calibration)
+    kw = dict(score_kind="knn", knn_topk=cfg.knn_topk, **KNN)
+    report = {}
+    model, params, data = evaluated["hybrid"]
+    oracle = make_evaluate_all(model, "hybrid", metric="scores", **kw)(
+        params, data.test_x, data.test_m, data.test_y, data.train_xb,
+        data.train_mb).cpu().numpy()
+    engine = ServingEngine.from_federation(
+        model, "hybrid", params, data.train_xb, data.train_mb,
+        max_bucket=cfg.serve_max_batch, device=device, **kw)
+    calib = fit_calibration(engine, data.valid_x.cpu().numpy(),
+                            data.valid_m.cpu().numpy())
+    engine.warmup()
+    test_x = data.test_x.cpu().numpy()
+    gws, ridx = interleave(data.test_m.cpu().numpy(), 8192)
+    rows, want = test_x[gws, ridx], oracle[gws, ridx]
+
+    def held(served, ref, what):
+        err = float(np.max(np.abs(served - ref)
+                           / np.maximum(1.0, np.abs(ref))))
+        if err > TOL["f32"] or not np.isfinite(served).all():
+            raise AssertionError(f"{what} off its oracle by {err:.3e}")
+        return err
+
+    before = dist_tiles.launches
+    batcher = MicroBatcher(engine, max_batch=cfg.serve_max_batch,
+                           max_wait_ms=cfg.serve_latency_budget_ms,
+                           calibration=calib)
+    t0 = time.perf_counter()
+    tickets = [batcher.submit(rows[i], int(gws[i])) for i in range(len(rows))]
+    batcher.drain()
+    wall = time.perf_counter() - t0
+    err = held(np.array([t.score for t in tickets], np.float32), want,
+               "knn micro-batched scores")
+    st = batcher.stats()
+    report["serve10_knn_sync"] = {
+        "rows": len(tickets), "rows_per_s": len(tickets) / wall,
+        "latency_p50_ms": st["latency_p50_ms"],
+        "latency_p99_ms": st["latency_p99_ms"],
+        "dispatches": st["dispatches"],
+        "dist_launches": dist_tiles.launches - before,
+        "max_err_vs_oracle": err}
+    log(f"[serve] knn 10 gateways sync on {smi}: {len(tickets)} rows in "
+        f"{st['dispatches']} buckets, {len(tickets) / wall:.1f} rows/s, "
+        f"latency p50 {st['latency_p50_ms']:.4f} ms p99 "
+        f"{st['latency_p99_ms']:.4f} ms, max err vs oracle {err:.3e}")
+
+    # continuous front, the refreshed bank swapped in mid-stream
+    refreshed = build_banks(model, params, data.valid_x, data.valid_m,
+                            existing=engine.banks, seed=SEED + 7)
+    front = ContinuousBatcher(engine, max_batch=cfg.serve_max_batch,
+                              latency_budget_ms=cfg.serve_latency_budget_ms,
+                              calibration=calib)
+    half = len(rows) // 2
+    t0 = time.perf_counter()
+    tickets = [front.submit(rows[i], int(gws[i])) for i in range(half)]
+    old_rows = front.rows_submitted - front.forming_rows
+    event = front.swap(banks=refreshed)
+    tickets += [front.submit(rows[i], int(gws[i]))
+                for i in range(half, len(rows))]
+    front.drain()
+    wall = time.perf_counter() - t0
+    st = front.stats()
+    if not (st["rows_served"] == st["rows_submitted"] == len(rows)
+            and sum(front.dispatch_batch_sizes) == len(rows)
+            and all(t.done for t in tickets)):
+        raise AssertionError(f"continuous front dropped or re-scored rows: "
+                             f"{st['rows_served']} of {len(rows)}")
+    served = np.array([t.score for t in tickets], np.float32)
+    err_old = held(served[:old_rows], want[:old_rows],
+                   "pre-swap continuous scores")
+    err_new = held(served[old_rows:],
+                   engine.score(rows[old_rows:], gws[old_rows:]),
+                   "post-swap continuous scores")
+    report["serve10_knn_continuous"] = {
+        "rows": len(rows), "rows_per_s": len(rows) / wall,
+        "latency_p50_ms": st["latency_p50_ms"],
+        "latency_p99_ms": st["latency_p99_ms"],
+        "dispatches": st["dispatches"], "swap": event,
+        "rows_before_swap": int(old_rows),
+        "max_err_vs_oracle": max(err_old, err_new)}
+    log(f"[serve] knn 10 gateways continuous on {smi}: {len(rows)} rows in "
+        f"{st['dispatches']} buckets, {len(rows) / wall:.1f} rows/s, p99 "
+        f"{st['latency_p99_ms']:.4f} ms, bank swap after {old_rows} rows "
+        f"({event['kinds']}), rows_served == rows_submitted == "
+        f"{st['rows_served']}, max err {max(err_old, err_new):.3e}")
+
+    clients = synthetic_clients(n_clients=512, dim=DIMS[0], n_normal=100,
+                                n_abnormal=40, seed=SEED + 1)
+    model = make_model("autoencoder", *DIMS, shrink_lambda=cfg.shrink_lambda,
+                       device=device)
+    params = init_stacked_params(model, 512,
+                                 torch.Generator().manual_seed(SEED + 1),
+                                 device=device)
+    data = stack_clients(clients, np.zeros((1, DIMS[0]), np.float32),
+                         cfg.batch_size, device=device)
+    oracle = make_evaluate_all(model, "autoencoder", metric="scores", **kw)(
+        params, data.test_x, data.test_m, data.test_y, data.train_xb,
+        data.train_mb).cpu().numpy()
+    engine = ServingEngine.from_federation(
+        model, "autoencoder", params, data.train_xb, data.train_mb,
+        max_bucket=1024, routing="gather", device=device, **kw)
+    engine.warmup()
+    test_x = data.test_x.cpu().numpy()
+    gws, ridx = interleave(data.test_m.cpu().numpy(), 1 << 30)
+    rows = test_x[gws, ridx]
+    served = np.empty(len(rows), np.float32)
+    bucket_s = []
+    before = dist_tiles.launches
+    for s0 in range(0, len(rows), 1024):
+        t0 = time.perf_counter()
+        served[s0:s0 + 1024] = engine.score(rows[s0:s0 + 1024],
+                                            gws[s0:s0 + 1024])
+        bucket_s.append(time.perf_counter() - t0)
+    err = held(served, oracle[gws, ridx], "512-gateway knn scores")
+    ms = np.array(bucket_s) * 1e3
+    report["serve512_knn"] = {
+        "rows": len(rows), "buckets": len(bucket_s),
+        "rows_per_s": len(rows) / sum(bucket_s),
+        "bucket_p50_ms": float(np.percentile(ms, 50)),
+        "bucket_p99_ms": float(np.percentile(ms, 99)),
+        "dist_launches": dist_tiles.launches - before,
+        "max_err_vs_oracle": err}
+    log(f"[serve] knn 512 gateways gather on {smi}: {len(rows)} rows in "
+        f"{len(bucket_s)} buckets of 1024, {len(rows) / sum(bucket_s):.1f} "
+        f"rows/s, bucket p50 {np.percentile(ms, 50):.4f} ms p99 "
+        f"{np.percentile(ms, 99):.4f} ms, max err vs oracle {err:.3e}")
     return report
 
 
@@ -597,6 +854,108 @@ def phase_serve_trained(torch, device, cfg, out, data, writer, names):
     log(f"[train] trained hybrid/mse_avg checkpoint served: {len(served)} "
         f"rows, max error vs the evaluator oracle {err:.3e}")
     return err
+
+
+def phase_serve_pass(torch, cfg, data, writer, names):
+    """The CLI's --serve pass (serving.run_serve_smoke) on the trained
+    hybrid / mse_avg checkpoint, with the kNN score and the continuous
+    front, cold (the CLI's default) and then with --serve-warmup: the
+    bank npz and the calibration JSON must be written."""
+    from fedmse_tpu_torch.knn import dist_tiles, load_bank
+    from fedmse_tpu_torch.serving import run_serve_smoke
+    c = cfg.replace(score_kind="knn", **KNN)
+    out = {}
+    for warmup in (False, True):
+        before = dist_tiles.launches
+        t0 = time.perf_counter()
+        rep = run_serve_smoke(c, data, len(names), writer, names, "hybrid",
+                              "mse_avg", run=0, max_rows=8192,
+                              max_batch=c.serve_max_batch,
+                              max_wait_ms=c.serve_latency_budget_ms,
+                              warmup=warmup, continuous=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        bank = load_bank(rep["knn_bank_path"], device=data.train_xb.device)
+        if not (rep["score_kind"] == "knn" and rep["front"] == "continuous"
+                and os.path.exists(rep["calibration_path"])
+                and bank.num_gateways == len(names)
+                and bank.bank_size == c.knn_bank_size
+                and rep["batcher"]["rows_served"] == rep["rows"] > 0
+                and rep["verdict_label_agreement"] is not None):
+            raise AssertionError(f"--serve pass report: "
+                                 f"{json.dumps(rep)[:800]}")
+        tag = "warm" if warmup else "cold"
+        out[tag] = {
+            "rows": rep["rows"], "seconds": secs,
+            "rows_per_sec_wall": rep["batcher"]["rows_per_sec_wall"],
+            "latency_p50_ms": rep["batcher"]["latency_p50_ms"],
+            "latency_p99_ms": rep["batcher"]["latency_p99_ms"],
+            "mean_batch": rep["batcher"]["mean_batch"],
+            "verdict_label_agreement": rep["verdict_label_agreement"],
+            "drifted_gateways": rep["drift"]["drifted_gateways"],
+            "dist_launches": dist_tiles.launches - before}
+        log(f"[serve-pass] --serve ({tag}) on the trained hybrid/mse_avg "
+            f"checkpoint, knn, continuous front: {json.dumps(out[tag])}; "
+            f"bank {os.path.basename(rep['knn_bank_path'])} and calibration"
+            f" written")
+    return out
+
+
+def report_dist(torch, device, launches, worst, eval_rows):
+    """The distance kernel's, its plain version's and torch.cdist's times
+    and the bound at the main path's shapes: the 10-gateway evaluation
+    (its `eval_rows` test rows client-major against 512-slot banks) and the
+    two serving buckets."""
+    from fedmse_tpu_torch.knn.score import dist_tiles, dist_tiles_plain
+    gen = torch.Generator().manual_seed(SEED + 8)
+    bank = KNN["knn_bank_size"]
+    rows_out = []
+    for what, n, rows, gw_kind in (
+            ("evaluate, 10 gateways", 10, eval_rows, "client_major"),
+            ("serve bucket, 10 gateways", 10, 256, "random"),
+            ("serve bucket, 512 gateways gather", 512, 1024, "random")):
+        q, banks, gw = dist_inputs(torch, n, rows, bank, DIMS[2], gw_kind,
+                                   gen, device, torch.float32)
+        call = lambda: dist_tiles(q, banks, gw)  # noqa: E731
+        k_ms = cuda_ms(call, 200)
+        d_ms = device_ms(call, "dist_tiles", 50)
+        p_ms = cuda_ms(lambda: dist_tiles_plain(q, banks, gw), 10)
+        lib_ms = None
+        if gw_kind == "client_major":
+            # one library call on the batched [N, T/N, L] x [N, B, L] shape;
+            # it computes the square root of the same function
+            qb = q.view(n, rows // n, DIMS[2])
+            lib_ms = cuda_ms(lambda: torch.cdist(
+                qb, banks, compute_mode="use_mm_for_euclid_dist"), 50)
+        used = n if gw is None else int(torch.unique(gw).numel())
+        b_ms, b_by = dist_bound(rows, bank, used)
+        rows_out.append({"what": what, "rows": rows, "banks": n,
+                         "bank_size": bank, "ms": k_ms, "device_ms": d_ms,
+                         "plain_ms": p_ms, "library_ms": lib_ms,
+                         "bound_ms": b_ms, "bound_by": b_by})
+        log(f"[report] dist {what} T={rows} B={bank} N={n}: wrapper call "
+            f"{k_ms:.5f} ms (kernel on the device {d_ms:.5f} ms), plain "
+            f"{p_ms:.5f} ms, torch.cdist {lib_ms} ms, bound {b_ms:.6f} ms "
+            f"({b_by})")
+    main = rows_out[0]
+    return {
+        "name": "dist_tiles",
+        "route": "cuda",
+        "source": "fedmse_tpu_torch/csrc/dist_tiles.cu",
+        "replaces": "fedmse_tpu/knn/score.py:51 (_dist_kernel)",
+        "launches": launches,
+        "max_abs_err": worst["f32"]["abs"],
+        "ms": main["ms"], "device_ms": main["device_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "library_call": "torch.cdist(q [N, T/N, L], banks [N, B, L], "
+                        "compute_mode='use_mm_for_euclid_dist')",
+        "max_abs_err_by_dtype": {p: worst[p]["abs"] for p in worst},
+        "max_scaled_err_by_dtype": {p: worst[p]["scaled"] for p in worst},
+        "tolerance_scaled": DIST_TOL,
+        "shapes": rows_out,
+    }
 
 
 def profile_round(torch, out):
@@ -791,6 +1150,7 @@ def main() -> int:
     from fedmse_tpu_torch.config import ExperimentConfig
     from fedmse_tpu_torch.data import synthetic_clients
     from fedmse_tpu_torch.ops import native
+    from fedmse_tpu_torch.knn import dist_tiles
     from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
     from fedmse_tpu_torch.ops.fused_train import fused_train_grads
 
@@ -817,21 +1177,27 @@ def main() -> int:
 
     worst = phase_kernels(torch, device)
     worst_train = phase_train_kernels(torch, device)
+    worst_dist = phase_dist_kernels(torch, device)
 
     clients = synthetic_clients(n_clients=10, dim=DIMS[0], n_normal=10_000,
                                 n_abnormal=2_000, seed=SEED)
     # the main path starts here
     fused_forward_stats.launches = 0
     fused_train_grads.launches = 0
-    evaluated = phase_evaluate(torch, device, cfg, clients)
+    dist_tiles.launches = 0
+    evaluated, knn_eval = phase_evaluate(torch, device, cfg, clients)
     serve = phase_serve(torch, device, cfg, evaluated, smi)
+    serve.update(phase_serve_knn(torch, device, cfg, evaluated, smi))
     training, trained, data, writer, names = phase_train(torch, device, cfg,
                                                          clients)
     serve["trained_checkpoint_max_err"] = phase_serve_trained(
         torch, device, cfg, trained, data, writer, names)
+    serve["serve_pass_knn_continuous"] = phase_serve_pass(
+        torch, cfg, data, writer, names)
     torch.cuda.synchronize()
     launches = {"fused_ae_forward": fused_forward_stats.launches,
-                "fused_ae_train": fused_train_grads.launches}
+                "fused_ae_train": fused_train_grads.launches,
+                "dist_tiles": dist_tiles.launches}
     # ... and ends here
     for name, n in launches.items():
         if n < 1:
@@ -844,6 +1210,10 @@ def main() -> int:
     line["kernels"].append(report_train(torch, device,
                                         launches["fused_ae_train"],
                                         worst_train))
+    line["kernels"].append(report_dist(
+        torch, device, launches["dist_tiles"], worst_dist,
+        knn_eval["hybrid/knn/approx/f32"]["test_rows"]))
+    line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training
     line["card_vs_cpu_param_err"] = card_vs_cpu

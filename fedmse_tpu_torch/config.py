@@ -146,7 +146,15 @@ class ExperimentConfig:
     # trains every client and masks the unselected away; None = True
     compact_cohort: Optional[bool] = None
     # 'auto' (autoencoder -> mse, hybrid -> centroid) | 'mse' | 'centroid'
+    # | 'knn': distance to the knn_k-th nearest neighbour in a per-gateway
+    # bank of knn_bank_size normal train latents (knn/); knn_topk 'approx'
+    # keeps each strided bin's minimum (exact whenever a gateway's valid
+    # rows fit the bins), 'exact' is the blocked partial top-k. The JAX
+    # package's defaults.
     score_kind: str = "auto"
+    knn_bank_size: int = 512
+    knn_k: int = 8
+    knn_topk: str = "approx"
     # serving front: largest dispatch bucket and the micro-batcher's wait
     serve_max_batch: int = 256
     serve_latency_budget_ms: float = 2.0

@@ -5,11 +5,17 @@
     rows under the client's own model;
   * score 'centroid' (the hybrid's): encode the client's train rows, fit
     the centroid classifier on their masked latents, score the test latents
-    by centroid density.
+    by centroid density;
+  * score 'knn' (either model): encode the train rows, downsample each
+    client's masked latents into a bank of knn_bank_size (knn/bank.py, the
+    same per-gateway draws as knn.build_banks), score each test latent by
+    its distance to the knn_k-th nearest bank latent.
 
 The forward always goes through `ops.fused_ae.fused_forward_stats`, ONE
 launch over all clients' rows ([N, T] test rows, plus the [N, S] train
-rows for the centroid fit, each row routed to its client's model). Scores
+rows for the centroid fit or the banks, each row routed to its client's
+model). The kNN distances are ONE launch of knn.dist_tiles over all N x T
+test rows, each against its own client's bank. Scores
 get the reference's nan_to_num guard; the metric is the per-client AUC,
 (f1, precision, recall) or the raw scores. metric='time' is the
 reference's inference-latency mode: each client's scoring, one launch per
@@ -24,8 +30,11 @@ from typing import Callable
 
 import torch
 
+from fedmse_tpu_torch.knn.bank import (ReferenceBank, bank_priorities,
+                                       downsample_stacked)
+from fedmse_tpu_torch.knn.score import routed_kth_distance
 from fedmse_tpu_torch.models.centroid import fit_centroid
-from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
+from fedmse_tpu_torch.ops.fused_ae import client_index, fused_forward_stats
 from fedmse_tpu_torch.ops.metrics import classification_metrics, roc_auc
 from fedmse_tpu_torch.ops.precision import cast_params
 
@@ -43,37 +52,29 @@ def resolve_score_kind(model_type: str, score_kind: str) -> str:
     return score_kind
 
 
-def knn_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "score_kind='knn' waits for the port of fedmse_tpu/knn/ and its "
-        "_dist_kernel (ROADMAP.md queue 1, the knn slice; queue 2, item 3)")
-
-
-def client_index(n: int, rows_each: int, device) -> torch.Tensor:
-    """The model index of n clients' rows laid out client-major."""
-    return torch.arange(n, dtype=torch.int32,
-                        device=device).repeat_interleave(rows_each)
-
-
 def make_evaluate_all(model, model_type: str, metric: str = "AUC",
-                      score_kind: str = "auto",
-                      latency_reps: int = 5) -> Callable:
+                      score_kind: str = "auto", latency_reps: int = 5,
+                      knn_bank_size: int = 1024, knn_k: int = 8,
+                      knn_topk: str = "exact",
+                      knn_seed: int = 0) -> Callable:
     """fn(stacked_params, test_x [N, T, D], test_m [N, T], test_y [N, T],
     train_xb [N, NB, B, D], train_mb [N, NB, B]) -> per-client AUC [N],
     (f1, precision, recall) [N, 3] for 'classification', the
     nan_to_num'd scores [N, T] for 'scores' (the serving engine's oracle),
     or the steady-state seconds of one client's scoring [N] (float64, on
     the CPU) for 'time'. Runs where the tensors are: on the card through
-    the fused kernel."""
+    the fused kernel (and, for 'knn', the distance kernel). The knn_*
+    arguments configure score_kind 'knn'; client i's bank draw is seeded
+    from (knn_seed, i), as knn.build_banks seeds it."""
     kind = resolve_score_kind(model_type, score_kind)
-    if kind == "knn":
-        raise knn_not_ported()
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}; expected one of "
                          f"{METRICS}")
     cdt = model.compute_dtype
 
-    def anomaly_scores(params, test_x, train_xb, train_mb):
+    def anomaly_scores(params, test_x, train_xb, train_mb, first=0):
+        # first: the absolute index of client 0 of these tensors (the
+        # 'time' metric scores one client at a time)
         n, t, d = test_x.shape
         dev = test_x.device
         rows = test_x.reshape(n * t, d).to(cdt)
@@ -87,8 +88,16 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
         latent, _, _ = fused_forward_stats(
             params, torch.cat([rows, train_rows.reshape(n * s, d).to(cdt)]),
             torch.cat([idx, client_index(n, s, dev)]), compute_dtype=cdt)
-        cen = fit_centroid(latent[n * t:].view(n, s, -1),
-                           train_mb.reshape(n, s))
+        train_latent = latent[n * t:].view(n, s, -1)
+        train_m = train_mb.reshape(n, s)
+        if kind == "knn":
+            bank = ReferenceBank(*downsample_stacked(
+                train_latent, train_m > 0,
+                bank_priorities(knn_seed, n, s, first=first, device=dev),
+                knn_bank_size))
+            return routed_kth_distance(latent[:n * t], idx, bank, knn_k,
+                                       topk=knn_topk).view(n, t)
+        cen = fit_centroid(train_latent, train_m)
         return cen.get_density(latent[:n * t].view(n, t, -1))
 
     def sync(t):
@@ -106,7 +115,7 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
                 {c: {k: {leaf: take(v) for leaf, v in layer.items()}
                      for k, layer in coder.items()}
                  for c, coder in params.items()},
-                take(test_x), take(train_xb), take(train_mb))
+                take(test_x), take(train_xb), take(train_mb), first=i)
 
         sync(one(0))  # warm-up, out of the clock
         lat = torch.zeros(test_x.shape[0], dtype=torch.float64)

@@ -116,8 +116,10 @@ class RoundEngine:
             model, cfg.verification_threshold, cfg.performance_threshold,
             hardened=cfg.hardened_verification,
             recovery_budget=cfg.recovery_budget)
-        self.evaluate_all = make_evaluate_all(model, model_type, cfg.metric,
-                                              score_kind=cfg.score_kind)
+        self.evaluate_all = make_evaluate_all(
+            model, model_type, cfg.metric, score_kind=cfg.score_kind,
+            knn_bank_size=cfg.knn_bank_size, knn_k=cfg.knn_k,
+            knn_topk=cfg.knn_topk)
         self._init_states = None if states is None else states.clone()
         self.states = self._fresh_states()
         self.host = HostState.create(n_real)

@@ -11,13 +11,16 @@ path).
     its state shared across combinations (compat switches);
   * `run_experiment` sweeps every combination and writes the summary.
 
+  * `--serve` then runs the serving pass (serving/smoke.py) on the first
+    combination's checkpoint.
+
 CLI (runs on the card unless --device cpu):
     python -m fedmse_tpu_torch.main --dataset-config <reference json>
         [--data-root DIR] [--device cpu] [--no-save] [--paper-scale]
-        [--num-rounds 20] [--epochs 100] ...
-Not ported: resume (--resume-dir), meshes, batched runs, the serving,
-network and flywheel smokes, attacks, chaos, elastic membership and
-clustering.
+        [--num-rounds 20] [--epochs 100] [--score-kind knn]
+        [--serve [--serve-rows N] [--serve-warmup] [--serve-continuous]] ...
+Not ported: resume (--resume-dir), meshes, batched runs, the network and
+flywheel smokes, attacks, chaos, elastic membership and clustering.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from fedmse_tpu_torch.federation import (ClientStates, RoundEngine,
 from fedmse_tpu_torch.models import make_model
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.precision import get_policy
+from fedmse_tpu_torch.serving.smoke import run_serve_smoke
 from fedmse_tpu_torch.utils.seeding import ExperimentRngs
 
 logger = logging.getLogger(__name__)
@@ -191,8 +195,13 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
 
 def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                    save_checkpoints: bool = True, *,
-                   device: DeviceLike = "cuda") -> Dict:
-    """The full sweep -> training summary dict."""
+                   device: DeviceLike = "cuda", serve: bool = False,
+                   serve_rows: int = 2048, serve_warmup: bool = False,
+                   serve_continuous: bool = False) -> Dict:
+    """The full sweep -> training summary dict. `serve=True` appends the
+    serving pass on the first combination's checkpoint (its report under
+    "serve_smoke"); it needs the checkpoints, so under
+    save_checkpoints=False it is skipped with a warning."""
     dev = resolve_device(device)
     clients, data, n_real = prepare_federation(cfg, dataset, device=dev)
     device_names = [c.name for c in clients]
@@ -226,8 +235,22 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
     summary_path = writer.write_summary(best_metrics, cfg.num_runs,
                                         results=all_results)
     logger.info("Saved training summary to %s", summary_path)
-    return {"best_metrics": best_metrics, "results": all_results,
-            "summary_path": summary_path}
+    out = {"best_metrics": best_metrics, "results": all_results,
+           "summary_path": summary_path}
+    if serve:
+        if not save_checkpoints:
+            logger.warning("--serve needs the checkpointed ClientModel tree"
+                           " (run without --no-save); skipping the serving"
+                           " pass")
+        else:
+            out["serve_smoke"] = run_serve_smoke(
+                cfg, data, n_real, writer, device_names,
+                model_type=cfg.model_types[0],
+                update_type=cfg.update_types[0], run=0,
+                max_rows=serve_rows, max_batch=cfg.serve_max_batch,
+                max_wait_ms=cfg.serve_latency_budget_ms,
+                warmup=serve_warmup, continuous=serve_continuous)
+    return out
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -244,6 +267,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="skip the per-client model and tracking artifacts")
     p.add_argument("--paper-scale", action="store_true",
                    help="epochs=100 rounds=20 lr=1e-5 lambda=10")
+    p.add_argument("--serve", action="store_true",
+                   help="after the sweep, serve the first combination's "
+                        "checkpoint: build (and, for --score-kind knn, "
+                        "persist) its scoring state, calibrate per-gateway "
+                        "thresholds on validation normals, stream test "
+                        "traffic through the bucketed scorer, report "
+                        "latency, verdicts and drift")
+    p.add_argument("--serve-rows", type=int, default=2048,
+                   help="max test rows streamed by the --serve pass")
+    p.add_argument("--serve-warmup", action="store_true",
+                   help="score one bucket of every rung before the served "
+                        "stream; the seconds land in the report")
+    p.add_argument("--serve-continuous", action="store_true",
+                   help="stream the --serve pass through the "
+                        "continuous-batching front (double-buffered "
+                        "dispatch, adaptive bucket pick) instead of the "
+                        "micro-batcher")
     add_cli_overrides(p)
     return p
 
@@ -255,7 +295,10 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         cfg = paper_scale(cfg)
     dataset = DatasetConfig.from_json(args.dataset_config, args.data_root)
     return run_experiment(cfg, dataset, save_checkpoints=not args.no_save,
-                          device=args.device)
+                          device=args.device, serve=args.serve,
+                          serve_rows=args.serve_rows,
+                          serve_warmup=args.serve_warmup,
+                          serve_continuous=args.serve_continuous)
 
 
 if __name__ == "__main__":

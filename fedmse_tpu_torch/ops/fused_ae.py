@@ -22,7 +22,8 @@ emulated as bf16 operands upcast to f32, f32 matmuls, activations rounded
 to bf16 between layers: the `_fused_xla` contract, under which bf16 x bf16
 products are exact in f32). The wrapper takes it only for tensors on the
 CPU; a CUDA tensor launches the kernel or raises. `fused_forward_stats.launches`
-counts kernel launches.
+counts kernel launches. `encode_rows` is the one launch that encodes every
+gateway's rows under its own model (kNN banks, centroid fits).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from fedmse_tpu_torch.ops import native
+from fedmse_tpu_torch.ops.precision import cast_params
 
 MAX_WIDTH = 128  # D, H <= 128 and L + 2 <= 128: at least what the TPU entry takes
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -223,3 +225,27 @@ def fused_forward_stats(params: Dict[str, Any], x: torch.Tensor,
 
 
 fused_forward_stats.launches = 0
+
+
+def client_index(n: int, rows_each: int, device) -> torch.Tensor:
+    """The model index of n clients' rows laid out client-major."""
+    return torch.arange(n, dtype=torch.int32,
+                        device=device).repeat_interleave(rows_each)
+
+
+@torch.no_grad()
+def encode_rows(model, stacked_params: Dict[str, Any], rows) -> torch.Tensor:
+    """Each gateway's rows (batch-major [N, NB, B, D] or flat [N, S, D];
+    numpy or tensors) under its own params, in ONE fused launch on the
+    params' device -> latents [N, S, L] f32."""
+    cdt = model.compute_dtype
+    params = cast_params(stacked_params, cdt)
+    dev = params["encoder"]["Dense_0"]["kernel"].device
+    x = torch.as_tensor(rows).to(dev)
+    n, d = x.shape[0], x.shape[-1]
+    x = x.reshape(n, -1, d)
+    s = x.shape[1]
+    latent, _, _ = fused_forward_stats(params, x.reshape(n * s, d).to(cdt),
+                                       client_index(n, s, dev),
+                                       compute_dtype=cdt)
+    return latent.view(n, s, -1)

@@ -26,7 +26,7 @@ from typing import Dict, Sequence
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "fedmse_tpu_torch"
-KERNEL_SOURCES = ("fused_ae", "fused_train")
+KERNEL_SOURCES = ("fused_ae", "fused_train", "dist_tiles")
 # sm_90a keeps wgmma/setmaxnreg available to later kernels; no
 # --use_fast_math: the kernels' sqrt and divisions must stay IEEE
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -47,7 +47,7 @@ class MicroBatcher:
 
     `calibration` (optional) turns scores into verdicts on the way out;
     `drift` (optional, anything with `update(scores, gateway_ids)`, such as
-    the later DriftMonitor port) absorbs every served batch.
+    drift.DriftMonitor) absorbs every served batch.
     """
 
     def __init__(self, engine, max_batch: int = 1024,

@@ -9,8 +9,8 @@ high percentile for a controlled false-positive rate — the percentile is
 the knob here, default 95).
 
 The calibration also records the validation score distribution (mean /
-std / count) per gateway — the reference distribution a drift monitor compares live
-traffic against (serving/drift.py, a later slice) — and persists as
+std / count) per gateway — the reference distribution the drift monitor
+compares live traffic against (serving/drift.py) — and persists as
 JSON alongside the checkpoint tree it was fit from
 (`ResultsWriter.serving_dir`), so a serving process can load params +
 thresholds from disk with no training-side state.

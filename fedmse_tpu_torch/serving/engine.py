@@ -12,21 +12,22 @@
     (single-global). `routing` keeps the JAX engine's options: 'gather'
     and 'dense' both resolve to that one launch.
   * **Score parity**: AE-MSE straight from the kernel; hybrid centroid
-    density of the kernel's latent against the row's gateway centroid; the
+    density of the kernel's latent against the row's gateway centroid; kNN
+    k-th distance of the kernel's latent to the row's gateway bank (one
+    launch of the distance kernel per bucket, knn/score.py); the
     evaluator's nan_to_num guard. `make_evaluate_all(..., metric="scores")`
     is the oracle.
-  * **State as an operand**: the resident state {params, centroids} is one
-    dict handed to each launch, so `swap_state` is one rebind between
-    dispatches and a dispatched bucket keeps the state it was launched
-    with.
+  * **State as an operand**: the resident state {params, centroids, banks}
+    is one dict handed to each launch, so `swap_state` is one rebind
+    between dispatches and a dispatched bucket keeps the state it was
+    launched with. A bank swap may change the bank capacity B, never L.
   * **Dispatch / harvest**: `dispatch` stages the rows in pinned host
     memory, copies them to the card, launches, and starts a non-blocking
     copy of the scores into pinned memory followed by a CUDA event;
     `PendingScores.is_ready` is the event's query and `harvest` waits on
     it.
 
-kNN scoring (score_kind='knn') and mesh placement wait for later
-slices and raise NotImplementedError.
+Mesh placement waits for a later slice and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,14 +42,13 @@ import numpy as np
 import torch
 
 from fedmse_tpu_torch.device import DeviceLike, resolve_device
-from fedmse_tpu_torch.evaluation.evaluator import (client_index,
-                                                   knn_not_ported,
-                                                   resolve_score_kind)
+from fedmse_tpu_torch.evaluation.evaluator import resolve_score_kind
+from fedmse_tpu_torch.knn.bank import ReferenceBank, build_banks
+from fedmse_tpu_torch.knn.score import knn_kth_distance, routed_kth_distance
 from fedmse_tpu_torch.models.autoencoder import params_from_numpy
 from fedmse_tpu_torch.models.centroid import CentroidClassifier, fit_centroid
-from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
-from fedmse_tpu_torch.ops.precision import (PrecisionPolicy, cast_params,
-                                            get_policy)
+from fedmse_tpu_torch.ops.fused_ae import encode_rows, fused_forward_stats
+from fedmse_tpu_torch.ops.precision import PrecisionPolicy, get_policy
 
 
 class UnknownGatewayError(ValueError):
@@ -127,17 +127,11 @@ def fit_gateway_centroids(model, stacked_params, train_x,
     [N, NB, B, D] or flat [N, S, D]) encode under its own params in ONE
     fused launch; the centroid fits on the masked latents. Runs on the
     params' device."""
-    params = cast_params(stacked_params, model.compute_dtype)
-    dev = params["encoder"]["Dense_0"]["kernel"].device
-    train_x = _as_rows(train_x, dev)
-    n, d = train_x.shape[0], train_x.shape[-1]
-    rows = train_x.reshape(n, -1, d)
-    s = rows.shape[1]
-    mask = None if train_m is None else _as_rows(train_m, dev).reshape(n, s)
-    latent, _, _ = fused_forward_stats(
-        params, rows.reshape(n * s, d).to(model.compute_dtype),
-        client_index(n, s, dev), compute_dtype=model.compute_dtype)
-    return fit_centroid(latent.view(n, s, -1), mask)
+    latent = encode_rows(model, stacked_params, train_x)
+    n, s = latent.shape[:2]
+    mask = (None if train_m is None
+            else _as_rows(train_m, latent.device).reshape(n, s))
+    return fit_centroid(latent, mask)
 
 
 def _leaves(component) -> List[Tuple[str, torch.Tensor]]:
@@ -164,8 +158,11 @@ class ServingEngine:
         engine; numpy or tensors, f32 masters.
     centroids: CentroidClassifier, required for the centroid score; leaves
         stacked [N, ...] (multi-tenant) or one classifier.
+    banks: knn.ReferenceBank, required for the kNN score: [N, B, L] banks
+        (multi-tenant) or one bank [1, B, L] (single-global).
     score_kind: 'auto' (autoencoder -> 'mse', hybrid -> 'centroid'),
-        'mse' or 'centroid'. 'knn' raises NotImplementedError.
+        'mse', 'centroid' or 'knn'.
+    knn_k, knn_topk: the kNN score's k and top-k mode ('exact' | 'approx').
     max_bucket: largest row bucket (rounded up to a power of two); larger
         requests are chunked.
     bucket_ladder: 'auto' (the pow2 ladder until the autotuner is ported),
@@ -183,7 +180,9 @@ class ServingEngine:
 
     def __init__(self, model, model_type: str, params: Any,
                  centroids: Optional[CentroidClassifier] = None, *,
-                 score_kind: str = "auto", multi_tenant: bool = True,
+                 banks: Optional[ReferenceBank] = None,
+                 score_kind: str = "auto", knn_k: int = 8,
+                 knn_topk: str = "exact", multi_tenant: bool = True,
                  max_bucket: int = 1024,
                  bucket_ladder: Union[str, Sequence[int]] = "auto",
                  precision: Union[str, PrecisionPolicy] = "f32",
@@ -193,8 +192,6 @@ class ServingEngine:
         if model_type not in ("autoencoder", "hybrid"):
             raise ValueError(f"unknown model_type {model_type!r}")
         score_kind = resolve_score_kind(model_type, score_kind)
-        if score_kind == "knn":
-            raise knn_not_ported()
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= serving waits for the port of fedmse_tpu/parallel/ "
@@ -202,6 +199,12 @@ class ServingEngine:
         if score_kind == "centroid" and centroids is None:
             raise ValueError("centroid serving needs fitted centroids "
                              "(fit_gateway_centroids)")
+        if score_kind == "knn" and banks is None:
+            raise ValueError("knn serving needs reference banks "
+                             "(knn.build_banks / knn.load_bank)")
+        if knn_topk not in ("exact", "approx"):
+            raise ValueError(f"unknown knn_topk {knn_topk!r} "
+                             "(exact | approx)")
         if max_bucket < 1:
             raise ValueError(f"max_bucket must be >= 1, got {max_bucket}")
         if routing not in ("auto", "gather", "dense"):
@@ -213,15 +216,26 @@ class ServingEngine:
         self.model_type = model_type
         self.multi_tenant = multi_tenant
         self.score_kind = score_kind
+        self.knn_k = knn_k
+        self.knn_topk = knn_topk
         self._state: Dict[str, Any] = {
             "params": self._place_params(params),
             "centroids": self._place_centroids(centroids),
+            "banks": None if banks is None else banks.to(self.device),
         }
         n = self._state["params"]["encoder"]["Dense_0"]["kernel"].shape[0]
         if not multi_tenant and n != 1:
             raise ValueError(f"a single-global engine serves one model; "
                              f"params stack {n}")
         self.num_gateways = n
+        if banks is not None and banks.num_gateways != n:
+            # a stale persisted bank must fail here: scoring would otherwise
+            # route rows to another federation's banks
+            raise ValueError(
+                f"banks hold {banks.num_gateways} gateways but this "
+                f"{'multi-tenant' if multi_tenant else 'single-tenant'} "
+                f"engine serves {n}; was the bank persisted from a "
+                "different federation?")
         if routing == "auto":
             routing = "dense" if n <= 32 else "gather"
         self.routing = routing
@@ -243,6 +257,10 @@ class ServingEngine:
     @property
     def centroids(self):
         return self._state["centroids"]
+
+    @property
+    def banks(self):
+        return self._state["banks"]
 
     # --------------------------- placement ------------------------------- #
 
@@ -275,7 +293,7 @@ class ServingEngine:
                 f"alongside the recycled slot's params and calibration "
                 f"if the slot was re-tenanted")
 
-    def _merge_state(self, *, params=None, centroids=None):
+    def _merge_state(self, *, params=None, centroids=None, banks=None):
         """Validated, device-placed copy of the resident state with the
         given components replaced. Returns (new_state, swapped names)."""
         new = dict(self._state)
@@ -294,15 +312,33 @@ class ServingEngine:
             self._check_swap("centroids", self._state["centroids"], centroids)
             new["centroids"] = centroids
             swapped.append("centroids")
+        if banks is not None:
+            old = self._state["banks"]
+            if old is None:
+                raise ValueError("engine was built without kNN banks; "
+                                 "cannot swap them in (score_kind="
+                                 f"{self.score_kind!r})")
+            if banks.num_gateways != self.num_gateways:
+                raise ValueError(
+                    f"swap banks hold {banks.num_gateways} gateways, "
+                    f"engine serves {self.num_gateways}")
+            if banks.latent_dim != old.latent_dim:
+                raise ValueError(
+                    f"swap banks latent_dim {banks.latent_dim} != "
+                    f"resident {old.latent_dim}")
+            new["banks"] = banks.to(self.device)  # B may change
+            swapped.append("banks")
         return new, swapped
 
-    def swap_state(self, *, params=None, centroids=None,
+    def swap_state(self, *, params=None, centroids=None, banks=None,
                    roster=None) -> Dict:
-        """Install new params / centroids / roster for the NEXT dispatch;
-        dispatched buckets keep the state they were launched with. Shapes,
-        dtypes and tree structure must match the resident state (a swap
-        comes from the same federation). Returns what was swapped."""
-        new, swapped = self._merge_state(params=params, centroids=centroids)
+        """Install new params / centroids / kNN banks / roster for the
+        NEXT dispatch; dispatched buckets keep the state they were launched
+        with. Shapes, dtypes and tree structure must match the resident
+        state (a swap comes from the same federation); a bank swap may
+        change the capacity B, not L. Returns what was swapped."""
+        new, swapped = self._merge_state(params=params, centroids=centroids,
+                                         banks=banks)
         roster_delta = None
         if roster is not None:
             if roster.num_gateways != self.num_gateways:
@@ -330,12 +366,13 @@ class ServingEngine:
             out["roster_delta"] = roster_delta
         return out
 
-    def candidate_state(self, *, params=None,
-                        centroids=None) -> Dict[str, Any]:
+    def candidate_state(self, *, params=None, centroids=None,
+                        banks=None) -> Dict[str, Any]:
         """A validated state dict carrying the given replacements over the
         resident state WITHOUT installing it (score it with
         `score_candidate`)."""
-        new, swapped = self._merge_state(params=params, centroids=centroids)
+        new, swapped = self._merge_state(params=params, centroids=centroids,
+                                         banks=banks)
         if not swapped:
             raise ValueError("candidate_state: nothing replaced")
         return new
@@ -484,6 +521,15 @@ class ServingEngine:
             compute_dtype=cdt)
         if self.score_kind == "mse":
             scores = mse
+        elif self.score_kind == "knn":
+            banks = state["banks"]
+            if self.multi_tenant:
+                scores = routed_kth_distance(latent, gw, banks, self.knn_k,
+                                             topk=self.knn_topk)
+            else:
+                scores = knn_kth_distance(latent, banks.latents[0],
+                                          banks.count[0], self.knn_k,
+                                          topk=self.knn_topk)
         else:
             cen = state["centroids"]
             scores = (cen.take(gw) if self.multi_tenant
@@ -495,14 +541,16 @@ class ServingEngine:
     @classmethod
     def from_federation(cls, model, model_type: str, stacked_params,
                         train_x=None, train_m=None, *, score_kind="auto",
+                        banks: Optional[ReferenceBank] = None,
+                        knn_bank_size: int = 1024, knn_seed: int = 0,
                         device: DeviceLike = "cuda",
                         **kw) -> "ServingEngine":
         """Multi-tenant engine from in-memory stacked params. The centroid
         score fits its per-gateway centroids on the train rows (the
-        FederatedData train_xb / train_mb)."""
+        FederatedData train_xb / train_mb); the kNN score builds its banks
+        from the same rows (knn.build_banks, seed knn_seed) unless `banks`
+        (a prebuilt or reloaded ReferenceBank) is given."""
         kind = resolve_score_kind(model_type, score_kind)
-        if kind == "knn":
-            raise knn_not_ported()
         dev = resolve_device(device)
         params = params_from_numpy(stacked_params, dev)
         centroids = None
@@ -511,7 +559,14 @@ class ServingEngine:
                 raise ValueError("centroid serving needs train rows to fit "
                                  "the per-gateway centroids")
             centroids = fit_gateway_centroids(model, params, train_x, train_m)
-        return cls(model, model_type, params, centroids,
+        if kind == "knn" and banks is None:
+            if train_x is None:
+                raise ValueError("knn serving needs train rows (or a "
+                                 "prebuilt `banks`) to build the "
+                                 "per-gateway reference banks")
+            banks = build_banks(model, params, train_x, train_m,
+                                bank_size=knn_bank_size, seed=knn_seed)
+        return cls(model, model_type, params, centroids, banks=banks,
                    score_kind=score_kind, multi_tenant=True, device=dev, **kw)
 
     @classmethod
@@ -521,7 +576,8 @@ class ServingEngine:
                         device: DeviceLike = "cuda",
                         **kw) -> "ServingEngine":
         """Multi-tenant engine from the ClientModel tree (`model.npz` per
-        device, as either package's `save_client_models` writes it)."""
+        device, as either package's `save_client_models` writes it);
+        `banks`, `knn_bank_size` and `knn_seed` pass to from_federation."""
         from fedmse_tpu_torch.checkpointing.io import load_client_models
         params = load_client_models(writer, run, model_type, update_type,
                                     device_names, device=device)

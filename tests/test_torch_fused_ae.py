@@ -145,4 +145,5 @@ def test_module_imports_without_cuda_or_nvcc():
     """Nothing builds at import: the library is built by the first CUDA
     tensor that reaches the wrapper."""
     assert fused_ae._library.cache_info().currsize == 0
-    assert fused_ae.native.KERNEL_SOURCES == ("fused_ae", "fused_train")
+    assert fused_ae.native.KERNEL_SOURCES == ("fused_ae", "fused_train",
+                                              "dist_tiles")

@@ -5,7 +5,8 @@ machine with a card and no JAX it runs alone:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Tolerances as in chip_smoke.py: scale-normalized 1e-5 in f32 (summation
-order only) and 2**-6 in bf16 (a bf16 rounding flip between layers); a
+order only) and 2**-6 in bf16 (a bf16 rounding flip between layers); the
+distance kernel 1e-5 in both (its math is f32 for bf16 queries too); a
 whole training run on the card against the CPU, 1e-4 per leaf and 2e-3
 AUC (summation order compounded over the run's Adam steps).
 """
@@ -200,3 +201,84 @@ def test_run_combination_on_card_matches_cpu(cuda, update_type):
         assert (a[:, sl] - b[:, sl]).abs().max() <= 1e-4 * b[:, sl].abs().max()
     np.testing.assert_allclose(gpu["final_metrics"], cpu["final_metrics"],
                                atol=2e-3)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gw_kind", ["none", "client_major", "random"])
+@pytest.mark.parametrize("shape", [(1, 1, 1, 7), (10, 1000, 512, 7),
+                                   (512, 1024, 512, 7), (3, 77, 100, 3),
+                                   (4, 300, 1024, 128)])
+def test_dist_kernel_matches_plain_and_counts(cuda, cdt, gw_kind, shape):
+    from fedmse_tpu_torch.knn.score import dist_tiles, dist_tiles_plain
+    n, t, b, lat = shape
+    gen = torch.Generator().manual_seed(4)
+    q = torch.randn((t, lat), generator=gen).to(cuda, cdt)
+    banks = torch.randn((n, b, lat), generator=gen).to(cuda)
+    gw = {"none": None,
+          "client_major": torch.arange(n, dtype=torch.int32).repeat_interleave(
+              -(-t // n))[:t].to(cuda),
+          "random": torch.randint(0, n, (t,), generator=gen,
+                                  dtype=torch.int32).to(cuda)}[gw_kind]
+    before = dist_tiles.launches
+    got = dist_tiles(q, banks, gw)
+    assert dist_tiles.launches == before + 1
+    want = dist_tiles_plain(q, banks, gw)
+    assert got.shape == (t, b) and got.dtype == torch.float32
+    err = (got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+    assert err <= 1e-5
+
+
+def test_dist_kernel_edges(cuda):
+    from fedmse_tpu_torch.knn.score import dist_tiles
+    banks = torch.randn((2, 16, 7), device=cuda)
+    q = torch.randn((5, 7), device=cuda)
+    before = dist_tiles.launches
+    assert dist_tiles(q[:0], banks).shape == (0, 16)
+    assert dist_tiles.launches == before
+    gw = torch.tensor([0, 1, 2, -1, 1], dtype=torch.int32, device=cuda)
+    out = dist_tiles(q, banks, gw)
+    assert torch.isnan(out[2:4]).all() and torch.isfinite(out[[0, 1, 4]]).all()
+    assert (out[[0, 1, 4]] >= 0).all()
+    with pytest.raises(ValueError, match="latent_dim"):
+        dist_tiles(torch.zeros((2, 129), device=cuda),
+                   torch.zeros((1, 4, 129), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        dist_tiles(torch.randn((7, 5), device=cuda).T, banks)
+
+
+@pytest.mark.parametrize("topk", ["exact", "approx"])
+def test_knn_evaluation_and_serving_on_card_match_cpu(cuda, topk):
+    from fedmse_tpu_torch.knn.score import dist_tiles
+    clients = synthetic_clients(n_clients=3, dim=20, n_normal=400,
+                                n_abnormal=50, seed=2)
+    out = {}
+    for device in ("cpu", cuda):
+        model = make_model("hybrid", 20, 9, 4, device=device)
+        params = init_stacked_params(model, 3,
+                                     torch.Generator().manual_seed(3),
+                                     device=device)
+        data = stack_clients(clients, np.zeros((1, 20), np.float32), 12,
+                             device=device)
+        kw = dict(score_kind="knn", knn_bank_size=64, knn_k=8,
+                  knn_topk=topk)
+        before = dist_tiles.launches
+        scores = make_evaluate_all(model, "hybrid", metric="scores", **kw)(
+            params, data.test_x, data.test_m, data.test_y, data.train_xb,
+            data.train_mb).cpu()
+        launched = dist_tiles.launches - before
+        engine = ServingEngine.from_federation(
+            model, "hybrid", params, data.train_xb, data.train_mb,
+            max_bucket=64, device=device, **kw)
+        rows = data.test_x[1, :100].cpu().numpy()
+        out[str(device)] = (scores, engine.score(rows, 1), launched,
+                            engine.banks.latents.cpu())
+    (s_cpu, e_cpu, n_cpu, b_cpu) = out["cpu"]
+    (s_gpu, e_gpu, n_gpu, b_gpu) = out[str(cuda)]
+    assert n_cpu == 0 and n_gpu == 1
+    # the bank draw is made on the CPU: the same rows on both, up to the
+    # latents' summation order
+    torch.testing.assert_close(b_gpu, b_cpu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s_gpu, s_cpu, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(e_gpu, e_cpu, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(e_gpu, s_gpu[1, :100].numpy(), rtol=1e-5,
+                               atol=1e-5)
