@@ -10,7 +10,9 @@ all started together, into build/fedmse_tpu_torch/), then:
                 CUDA versions and the kernels' build time;
   2. kernels    holds each kernel (the fused forward, the fused train step
                 and the kNN distance tiles) against its plain PyTorch
-                version on the card, at every listed shape and dtype;
+                version on the card, at every listed shape and dtype (the
+                distance tiles' cases run after the main path, as they
+                include its evaluation shape, which phase 3 sets);
   3. evaluate   per-client AUC of both model types in f32 and bf16 over a
                 10-gateway synthetic federation at the paper's width
                 (115 -> 27 -> 7), ~70k rows per evaluation, with the
@@ -334,6 +336,14 @@ def dist_bound(rows: int, bank: int, banks_read: int, lat: int = DIMS[2]):
                                        else "bytes")
 
 
+def main_dist_shapes(eval_rows):
+    """(what, banks N, rows T, bank-index kind) of the distance launches on
+    the main path, each against 512-slot banks at L = 7."""
+    return (("evaluate, 10 gateways", 10, eval_rows, "client_major"),
+            ("serve bucket, 10 gateways", 10, 256, "random"),
+            ("serve bucket, 512 gateways gather", 512, 1024, "random"))
+
+
 def dist_inputs(torch, n, rows, bank, lat, gw_kind, gen, device, cdt):
     """Queries (bf16 or f32), f32 banks with ragged zeroed tails, and the
     bank index: absent, client-major (the evaluator's) or random (a
@@ -351,53 +361,62 @@ def dist_inputs(torch, n, rows, bank, lat, gw_kind, gen, device, cdt):
     return q, banks.to(device), None if gw is None else gw.to(device)
 
 
-def phase_dist_kernels(torch, device):
+def dist_check(torch, q, banks, gw, what):
+    """One distance launch against its plain version on the same inputs;
+    raises past DIST_TOL. Returns (kernel output, abs error, scaled
+    error)."""
+    from fedmse_tpu_torch.knn.score import dist_tiles, dist_tiles_plain
+    got = dist_tiles(q, banks, gw)
+    want = dist_tiles_plain(q, banks, gw)
+    torch.cuda.synchronize()
+    if got.shape != (q.shape[0], banks.shape[1]) or \
+            got.dtype != torch.float32:
+        raise AssertionError(f"dist {what}: shape/dtype {got.shape}")
+    if not torch.isfinite(got).all() or (got < 0).any():
+        raise AssertionError(f"dist {what}: distances not finite and >= 0")
+    err = scaled_err(got, want)
+    if err > DIST_TOL:
+        raise AssertionError(f"dist kernel vs plain {what}: scaled error "
+                             f"{err:.3e} > {DIST_TOL:.1e}")
+    return got, (got - want).abs().max().item(), err
+
+
+def phase_dist_kernels(torch, device, eval_rows):
     """The distance kernel vs its plain version: every (N, T, B) of N in
     {1, 10, 512}, T in {1, 17, 256, 1024, 30000}, B in {1, 8, 100, 512,
     1024}, cycling through f32 / bf16 queries, the three bank-index kinds
-    and L in {7, 3, 16} (16 takes the kernel's generic path; 75 cases)."""
-    from fedmse_tpu_torch.knn.score import dist_tiles, dist_tiles_plain
+    and L in {7, 3, 16} (16 takes the kernel's generic path), then the
+    main path's three shapes at L = 7 in both dtypes: the evaluation
+    (`eval_rows` client-major rows, 10 banks of 512) and the serving
+    buckets (256 rows over 10 banks, 1024 rows over 512 banks, random
+    routing). 81 cases."""
     gen = torch.Generator().manual_seed(SEED + 6)
     kinds = ("none", "client_major", "random")
-    worst = {p: {"abs": 0.0, "scaled": 0.0} for p in TOL}
-    i = 0
+    cases = []
     for n in (1, 10, 512):
         for rows in (1, 17, 256, 1024, 30_000):
             for bank in (1, 8, 100, 512, 1024):
-                precision = ("f32", "bf16")[i % 2]
-                gw_kind = kinds[(i // 2) % 3]
-                lat = (7, 3, 16)[(i // 6) % 3]
-                cdt = torch.bfloat16 if precision == "bf16" else torch.float32
-                q, banks, gw = dist_inputs(torch, n, rows, bank, lat,
-                                           gw_kind, gen, device, cdt)
-                got = dist_tiles(q, banks, gw)
-                want = dist_tiles_plain(q, banks, gw)
-                torch.cuda.synchronize()
-                if got.shape != (rows, bank) or got.dtype != torch.float32:
-                    raise AssertionError(f"dist shape/dtype {got.shape}")
-                if not torch.isfinite(got).all() or (got < 0).any():
-                    raise AssertionError("distances not finite and >= 0")
-                err = scaled_err(got, want)
-                if err > DIST_TOL:
-                    raise AssertionError(
-                        f"dist kernel vs plain N={n} T={rows} B={bank} "
-                        f"L={lat} {precision} gw={gw_kind}: scaled error "
-                        f"{err:.3e} > {DIST_TOL:.1e}")
-                w = worst[precision]
-                w["scaled"] = max(w["scaled"], err)
-                w["abs"] = max(w["abs"], (got - want).abs().max().item())
-                i += 1
-    log(f"[kernels] {i} dist-kernel-vs-plain cases agree; worst "
+                i = len(cases)
+                cases.append((n, rows, bank, (7, 3, 16)[(i // 6) % 3],
+                              ("f32", "bf16")[i % 2], kinds[(i // 2) % 3]))
+    for _, n, rows, gw_kind in main_dist_shapes(eval_rows):
+        for precision in ("f32", "bf16"):
+            cases.append((n, rows, KNN["knn_bank_size"], DIMS[2], precision,
+                          gw_kind))
+    worst = {p: {"abs": 0.0, "scaled": 0.0} for p in TOL}
+    for n, rows, bank, lat, precision, gw_kind in cases:
+        cdt = torch.bfloat16 if precision == "bf16" else torch.float32
+        q, banks, gw = dist_inputs(torch, n, rows, bank, lat, gw_kind, gen,
+                                   device, cdt)
+        _, abs_err, err = dist_check(
+            torch, q, banks, gw, f"N={n} T={rows} B={bank} L={lat} "
+            f"{precision} gw={gw_kind}")
+        w = worst[precision]
+        w["scaled"] = max(w["scaled"], err)
+        w["abs"] = max(w["abs"], abs_err)
+    log(f"[kernels] {len(cases)} dist-kernel-vs-plain cases agree; worst "
         f"{json.dumps(worst)}")
     return worst
-
-
-def interleave(test_m, max_rows):
-    """Round-robin the gateways' valid test rows into one arrival stream
-    (row 0 of every gateway, then row 1, ...), as fedmse_tpu's serving
-    smoke orders them. Returns (gateway, row) index arrays."""
-    r, g = np.nonzero(test_m.T > 0)  # C order: by row, then by gateway
-    return g[:max_rows], r[:max_rows]
 
 
 def phase_evaluate(torch, device, cfg, clients):
@@ -504,7 +523,7 @@ def phase_serve(torch, device, cfg, evaluated, smi):
     from fedmse_tpu_torch.models import init_stacked_params, make_model
     from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
     from fedmse_tpu_torch.serving import (MicroBatcher, ServingEngine,
-                                          fit_calibration)
+                                          fit_calibration, interleave_order)
     report = {}
     for model_type, (model, params, data) in evaluated.items():
         before = fused_forward_stats.launches
@@ -518,7 +537,7 @@ def phase_serve(torch, device, cfg, evaluated, smi):
                                 data.valid_m.cpu().numpy())
         engine.warmup()
         test_x = data.test_x.cpu().numpy()
-        gws, ridx = interleave(data.test_m.cpu().numpy(), 8192)
+        gws, ridx = interleave_order(data.test_m.cpu().numpy(), 8192)
         rows = test_x[gws, ridx]
         batcher = MicroBatcher(engine, max_batch=cfg.serve_max_batch,
                                max_wait_ms=cfg.serve_latency_budget_ms,
@@ -570,7 +589,7 @@ def phase_serve(torch, device, cfg, evaluated, smi):
             max_bucket=1024, routing="gather", device=device)
         engine.warmup()
         test_x = data.test_x.cpu().numpy()
-        gws, ridx = interleave(data.test_m.cpu().numpy(), 1 << 30)
+        gws, ridx = interleave_order(data.test_m.cpu().numpy(), 1 << 30)
         rows = test_x[gws, ridx]
         served = np.empty(len(rows), np.float32)
         bucket_s = []
@@ -606,13 +625,17 @@ def phase_serve_knn(torch, device, cfg, evaluated, smi):
     10-gateway federation through MicroBatcher and through
     ContinuousBatcher with a build_banks(existing=...) swap in the middle
     of the stream, then 512 gateways with gather routing at 1024-row
-    buckets; scores held to the evaluator's oracle."""
+    buckets; scores held to the evaluator's oracle (after the swap: to the
+    plain CPU path on the refreshed bank)."""
     from fedmse_tpu_torch.data import stack_clients, synthetic_clients
     from fedmse_tpu_torch.evaluation import make_evaluate_all
-    from fedmse_tpu_torch.knn import build_banks, dist_tiles
+    from fedmse_tpu_torch.knn import (build_banks, dist_tiles,
+                                      routed_kth_distance)
     from fedmse_tpu_torch.models import init_stacked_params, make_model
+    from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
     from fedmse_tpu_torch.serving import (ContinuousBatcher, MicroBatcher,
-                                          ServingEngine, fit_calibration)
+                                          ServingEngine, fit_calibration,
+                                          interleave_order)
     kw = dict(score_kind="knn", knn_topk=cfg.knn_topk, **KNN)
     report = {}
     model, params, data = evaluated["hybrid"]
@@ -626,7 +649,7 @@ def phase_serve_knn(torch, device, cfg, evaluated, smi):
                             data.valid_m.cpu().numpy())
     engine.warmup()
     test_x = data.test_x.cpu().numpy()
-    gws, ridx = interleave(data.test_m.cpu().numpy(), 8192)
+    gws, ridx = interleave_order(data.test_m.cpu().numpy(), 8192)
     rows, want = test_x[gws, ridx], oracle[gws, ridx]
 
     def held(served, ref, what):
@@ -683,9 +706,24 @@ def phase_serve_knn(torch, device, cfg, evaluated, smi):
     served = np.array([t.score for t in tickets], np.float32)
     err_old = held(served[:old_rows], want[:old_rows],
                    "pre-swap continuous scores")
-    err_new = held(served[old_rows:],
-                   engine.score(rows[old_rows:], gws[old_rows:]),
-                   "post-swap continuous scores")
+    installed = engine.banks
+    if not (torch.equal(installed.latents.cpu(), refreshed.latents.cpu())
+            and torch.equal(installed.count.cpu(), refreshed.count.cpu())):
+        raise AssertionError("the swap did not install the refreshed bank")
+    # the rows after the swap, scored independently: the plain forward and
+    # plain distances on the CPU against a CPU copy of the refreshed bank
+    cdt = engine.policy.compute_dtype
+    gw_cpu = torch.from_numpy(gws[old_rows:].astype(np.int32))
+    latent, _, _ = fused_forward_stats(
+        {c: {n: {k: v.cpu() for k, v in layer.items()}
+             for n, layer in coder.items()}
+         for c, coder in engine.params.items()},
+        torch.from_numpy(rows[old_rows:]).to(cdt), gw_cpu,
+        compute_dtype=cdt)
+    ref_new = torch.nan_to_num(routed_kth_distance(
+        latent, gw_cpu, refreshed.to("cpu"), engine.knn_k,
+        topk=engine.knn_topk)).numpy()
+    err_new = held(served[old_rows:], ref_new, "post-swap continuous scores")
     report["serve10_knn_continuous"] = {
         "rows": len(rows), "rows_per_s": len(rows) / wall,
         "latency_p50_ms": st["latency_p50_ms"],
@@ -716,7 +754,7 @@ def phase_serve_knn(torch, device, cfg, evaluated, smi):
         max_bucket=1024, routing="gather", device=device, **kw)
     engine.warmup()
     test_x = data.test_x.cpu().numpy()
-    gws, ridx = interleave(data.test_m.cpu().numpy(), 1 << 30)
+    gws, ridx = interleave_order(data.test_m.cpu().numpy(), 1 << 30)
     rows = test_x[gws, ridx]
     served = np.empty(len(rows), np.float32)
     bucket_s = []
@@ -831,7 +869,7 @@ def phase_serve_trained(torch, device, cfg, out, data, writer, names):
     """The trained hybrid federation's checkpoint, served: scores equal to
     the evaluator's oracle on the trained params."""
     from fedmse_tpu_torch.evaluation import make_evaluate_all
-    from fedmse_tpu_torch.serving import ServingEngine
+    from fedmse_tpu_torch.serving import ServingEngine, interleave_order
     engine = out["engine"]
     oracle = make_evaluate_all(engine.model, "hybrid", metric="scores")(
         engine.model_params(), data.test_x, data.test_m, data.test_y,
@@ -840,7 +878,7 @@ def phase_serve_trained(torch, device, cfg, out, data, writer, names):
         writer, engine.model, "hybrid", "mse_avg", names, run=0,
         train_x=data.train_xb, train_m=data.train_mb,
         max_bucket=cfg.serve_max_batch, device=device)
-    gws, ridx = interleave(data.test_m.cpu().numpy(), 8192)
+    gws, ridx = interleave_order(data.test_m.cpu().numpy(), 8192)
     test_x = data.test_x.cpu().numpy()
     served = np.concatenate([
         served_engine.score(test_x[gws[s:s + 256], ridx[s:s + 256]],
@@ -905,17 +943,16 @@ def report_dist(torch, device, launches, worst, eval_rows):
     """The distance kernel's, its plain version's and torch.cdist's times
     and the bound at the main path's shapes: the 10-gateway evaluation
     (its `eval_rows` test rows client-major against 512-slot banks) and the
-    two serving buckets."""
+    two serving buckets. Each timed call's output is first held to the
+    plain version on the same inputs."""
     from fedmse_tpu_torch.knn.score import dist_tiles, dist_tiles_plain
     gen = torch.Generator().manual_seed(SEED + 8)
     bank = KNN["knn_bank_size"]
     rows_out = []
-    for what, n, rows, gw_kind in (
-            ("evaluate, 10 gateways", 10, eval_rows, "client_major"),
-            ("serve bucket, 10 gateways", 10, 256, "random"),
-            ("serve bucket, 512 gateways gather", 512, 1024, "random")):
+    for what, n, rows, gw_kind in main_dist_shapes(eval_rows):
         q, banks, gw = dist_inputs(torch, n, rows, bank, DIMS[2], gw_kind,
                                    gen, device, torch.float32)
+        _, _, err = dist_check(torch, q, banks, gw, f"timed {what}")
         call = lambda: dist_tiles(q, banks, gw)  # noqa: E731
         k_ms = cuda_ms(call, 200)
         d_ms = device_ms(call, "dist_tiles", 50)
@@ -932,11 +969,12 @@ def report_dist(torch, device, launches, worst, eval_rows):
         rows_out.append({"what": what, "rows": rows, "banks": n,
                          "bank_size": bank, "ms": k_ms, "device_ms": d_ms,
                          "plain_ms": p_ms, "library_ms": lib_ms,
-                         "bound_ms": b_ms, "bound_by": b_by})
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "scaled_err_vs_plain": err})
         log(f"[report] dist {what} T={rows} B={bank} N={n}: wrapper call "
             f"{k_ms:.5f} ms (kernel on the device {d_ms:.5f} ms), plain "
             f"{p_ms:.5f} ms, torch.cdist {lib_ms} ms, bound {b_ms:.6f} ms "
-            f"({b_by})")
+            f"({b_by}); scaled error vs plain {err:.3e}")
     main = rows_out[0]
     return {
         "name": "dist_tiles",
@@ -1177,7 +1215,6 @@ def main() -> int:
 
     worst = phase_kernels(torch, device)
     worst_train = phase_train_kernels(torch, device)
-    worst_dist = phase_dist_kernels(torch, device)
 
     clients = synthetic_clients(n_clients=10, dim=DIMS[0], n_normal=10_000,
                                 n_abnormal=2_000, seed=SEED)
@@ -1203,6 +1240,8 @@ def main() -> int:
         if n < 1:
             raise AssertionError(f"the main path never launched {name}")
     log(f"[main path] launches {json.dumps(launches)}")
+    eval_rows = knn_eval["hybrid/knn/approx/f32"]["test_rows"]
+    worst_dist = phase_dist_kernels(torch, device, eval_rows)
     round_profile = profile_round(torch, trained)
     card_vs_cpu = phase_card_vs_cpu(torch, device, cfg, clients)
 
@@ -1211,8 +1250,7 @@ def main() -> int:
                                         launches["fused_ae_train"],
                                         worst_train))
     line["kernels"].append(report_dist(
-        torch, device, launches["dist_tiles"], worst_dist,
-        knn_eval["hybrid/knn/approx/f32"]["test_rows"]))
+        torch, device, launches["dist_tiles"], worst_dist, eval_rows))
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

@@ -25,10 +25,12 @@ from fedmse_tpu_torch.serving.engine import (PendingScores, ServingEngine,
                                              ServingRoster,
                                              UnknownGatewayError,
                                              fit_gateway_centroids)
-from fedmse_tpu_torch.serving.smoke import interleave_test_rows, run_serve_smoke
+from fedmse_tpu_torch.serving.smoke import (interleave_order,
+                                            interleave_test_rows,
+                                            run_serve_smoke)
 
 __all__ = ["MicroBatcher", "Ticket", "ServingCalibration", "fit_calibration",
            "ContinuousBatcher", "StreamTicket", "TicketBlock",
            "DriftMonitor", "PendingScores", "ServingEngine", "ServingRoster",
            "UnknownGatewayError", "fit_gateway_centroids",
-           "interleave_test_rows", "run_serve_smoke"]
+           "interleave_order", "interleave_test_rows", "run_serve_smoke"]

@@ -37,13 +37,20 @@ def _host(t) -> np.ndarray:
     return np.asarray(t, np.float32)
 
 
+def interleave_order(test_m: np.ndarray, max_rows: int):
+    """The arrival order of the gateways' valid test rows: row 0 of every
+    gateway, then row 1, ... Returns (gateway [R], row [R]) index arrays
+    into the stacked [N, T] test tensors."""
+    r, g = np.nonzero(np.asarray(test_m).T > 0)  # by row, then by gateway
+    return g[:max_rows], r[:max_rows]
+
+
 def interleave_test_rows(test_x: np.ndarray, test_m: np.ndarray,
                          test_y: np.ndarray, max_rows: int):
     """Round-robin the gateways' valid test rows into one arrival stream
-    (row 0 of every gateway, then row 1, ...). Returns (rows [R, D],
-    gateway_ids [R], labels [R])."""
-    r, g = np.nonzero(np.asarray(test_m).T > 0)  # by row, then by gateway
-    r, g = r[:max_rows], g[:max_rows]
+    (interleave_order). Returns (rows [R, D], gateway_ids [R],
+    labels [R])."""
+    g, r = interleave_order(test_m, max_rows)
     return (np.asarray(test_x, np.float32)[g, r], g.astype(np.int32),
             np.asarray(test_y, np.float32)[g, r])
 

@@ -24,6 +24,8 @@ from fedmse_tpu.models import make_model as jax_make_model
 from fedmse_tpu.serving import DriftMonitor as JaxDrift
 from fedmse_tpu.serving import ServingCalibration as JaxCalibration
 from fedmse_tpu.serving import ServingEngine as JaxEngine
+from fedmse_tpu.serving.smoke import \
+    interleave_test_rows as jax_interleave_test_rows
 from fedmse_tpu_torch.config import DatasetConfig
 from fedmse_tpu_torch.data import stack_clients, synthetic_clients
 from fedmse_tpu_torch.evaluation import make_evaluate_all
@@ -32,7 +34,8 @@ from fedmse_tpu_torch.main import main as port_main
 from fedmse_tpu_torch.models import make_model, params_from_numpy
 from fedmse_tpu_torch.serving import (ContinuousBatcher, DriftMonitor,
                                       MicroBatcher, ServingCalibration,
-                                      ServingEngine, fit_calibration)
+                                      ServingEngine, fit_calibration,
+                                      interleave_order, interleave_test_rows)
 
 torch.set_num_threads(1)
 
@@ -213,6 +216,23 @@ def test_continuous_front_mid_stream_bank_swap(fed):
     assert [t.verdict for t in pre] == verdicts.tolist()
     with pytest.raises(NotImplementedError, match="flywheel"):
         ContinuousBatcher(eng, max_batch=8, intake=lambda *a: None)
+
+
+@pytest.mark.parametrize("max_rows", [7, 1 << 30])
+def test_interleaved_stream_matches_jax(max_rows):
+    """The arrival stream (ragged per-gateway masks) is JAX's row for row,
+    and interleave_order indexes the same rows."""
+    rng = np.random.default_rng(6)
+    test_x = rng.normal(size=(4, 9, 3)).astype(np.float32)
+    test_m = (rng.random((4, 9)) < 0.6).astype(np.float32)
+    test_y = (rng.random((4, 9)) < 0.3).astype(np.float32)
+    ours = interleave_test_rows(test_x, test_m, test_y, max_rows)
+    theirs = jax_interleave_test_rows(test_x, test_m, test_y, max_rows)
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+    g, r = interleave_order(test_m, max_rows)
+    np.testing.assert_array_equal(test_x[g, r], theirs[0])
+    np.testing.assert_array_equal(g, theirs[1])
 
 
 def test_drift_monitor_matches_jax():
