@@ -19,10 +19,12 @@ layout and none of math:
     [G, R] f32. Returns loss [G] and grads [G, P], both f32;
   * no 128-lane packing: the kernel runs at the model's own widths.
 
-The kernel emits un-normalized partials (the gradient of the loss times
-sum(m), plus s_mse and s_zn); this wrapper scales them by 1 / sum(m) with
-the reference's FLUSHED floor (ops/losses.py): a client whose mask is all
-zero gets NaN loss and NaN grads, as the reference gives under XLA.
+The kernel normalizes in its epilogue: it scales the loss partials and
+the gradient of the loss times sum(m) by 1 / sum(m) with the reference's
+FLUSHED floor (ops/losses.py), so a client whose mask is all zero gets NaN
+loss and NaN grads, as the reference gives under XLA. One call on a CUDA
+tensor is one launch of one kernel and nothing after it; `cluster_size`
+picks the CTAs per client.
 
 `fused_train_grads_plain` is the same function in plain PyTorch with
 explicit backward matmuls (the `_fused_train_xla` contract) and the same
@@ -47,6 +49,16 @@ from fedmse_tpu_torch.ops.losses import safe_div
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 _ERR_TOO_WIDE = 1000  # kErrTooWide in csrc/fused_train.cu
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_MAX_CLUSTER = 8  # the portable thread-block cluster size
+
+
+def cluster_size(clients: int, hidden: int) -> int:
+    """CTAs per client of the train kernel: each owns a slice of the
+    `hidden` units, so at most min(8, hidden); as many as spread `clients`
+    clusters over the card's SMs without a second wave, and 1 once the
+    clients alone fill it."""
+    return max(1, min(_MAX_CLUSTER, hidden, _SMS // max(clients, 1)))
 
 
 def _check(params_flat: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
@@ -76,7 +88,9 @@ def _check(params_flat: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
 def _normalize(partials: torch.Tensor, mask: torch.Tensor, dim: int,
                lam: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss [G], grads [G, P]) from the un-normalized [G, P + 2] partials,
-    as the TPU entry: inv_m * (s_mse / D + lam * s_zn) and inv_m * grads."""
+    as the TPU entry: inv_m * (s_mse / D + lam * s_zn) and inv_m * grads.
+    The plain path's; the kernel's epilogue does the same operations in the
+    same order."""
     msum = mask.sum(dim=1, dtype=torch.float32)
     inv_m = safe_div(torch.ones_like(msum), msum)
     s_mse, s_zn = partials[:, -2], partials[:, -1]
@@ -162,10 +176,9 @@ def _library() -> ctypes.CDLL:
     lib = native.load("fused_train")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fused_ae_train.argtypes = [ptr, i64, ptr, i64, ptr, ptr, ptr,
-                                   i32, i32, i32, i32, i32, ctypes.c_float,
-                                   i32, ptr]
+                                   i32, i32, i32, i32, i32, i32,
+                                   ctypes.c_float, i32, i32, ptr]
     lib.fused_ae_train.restype = i32
-    lib.fused_ae_train_chunk_rows.restype = i32
     lib.fused_ae_train_error_string.argtypes = [i32]
     lib.fused_ae_train_error_string.restype = ctypes.c_char_p
     return lib
@@ -183,10 +196,11 @@ def fused_train_grads(params_flat: torch.Tensor, x: torch.Tensor,
     `compute_dtype`, rows contiguous (any client stride). mask: [G, R] f32
     row mask, rows contiguous. Under bf16 the kernel rounds the weights to
     bf16 as it loads them. CPU tensors run `fused_train_grads_plain`; CUDA
-    tensors launch csrc/fused_train.cu on the current stream (and raise
-    ValueError for a model too wide for the kernel's shared memory). R = 0
-    or G = 0 launches nothing: every loss and gradient is then NaN, as an
-    all-masked client's."""
+    tensors launch csrc/fused_train.cu once, on their device's current
+    stream, as G clusters of `cluster_size(G, H)` CTAs, and nothing runs
+    after it (it raises ValueError for a model too wide for the kernel's
+    shared memory). R = 0 or G = 0 launches nothing: every loss and
+    gradient is then NaN, as an all-masked client's."""
     _check(params_flat, x, mask, layout, compute_dtype)
     lam = float(shrink_lambda)
     if x.device.type == "cpu":
@@ -198,29 +212,29 @@ def fused_train_grads(params_flat: torch.Tensor, x: torch.Tensor,
                          f"{x.device}")
     g, r, d = x.shape
     if g == 0 or r == 0:
-        return _normalize(torch.zeros((g, layout.size + 2), device=x.device),
-                          mask, d, lam)
+        nan = float("nan")
+        return (torch.full((g,), nan, device=x.device),
+                torch.full((g, layout.size), nan, device=x.device))
     if x.stride(2) != 1 or (r > 1 and (x.stride(1) != d
                                        or mask.stride(1) != 1)) \
             or not params_flat.is_contiguous():
         raise ValueError("the fused train kernel takes x and mask with "
                          "contiguous rows and contiguous params_flat")
     lib = _library()
-    # every element is written by the kernel (or by its chunk sum)
-    out = torch.empty((g, layout.size + 2), dtype=torch.float32,
-                      device=x.device)
-    chunk = lib.fused_ae_train_chunk_rows()
-    chunks = -(-r // chunk)
-    scratch = (torch.empty((g, chunks, layout.size + 2), dtype=torch.float32,
-                           device=x.device) if chunks > 1 else None)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.fused_ae_train(
-            x.data_ptr(), x.stride(0), mask.data_ptr(), mask.stride(0),
-            params_flat.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            g, r, layout.dim, layout.hidden, layout.latent, lam,
-            int(compute_dtype == torch.bfloat16), stream)
+    # the kernel writes every element of both
+    loss = torch.empty((g,), dtype=torch.float32, device=x.device)
+    grads = torch.empty((g, layout.size), dtype=torch.float32,
+                        device=x.device)
+    index = x.device.index
+    # the device's current stream in one C call (what torch's own compiled
+    # kernels use), with no device context entered around the launch
+    rc = lib.fused_ae_train(
+        x.data_ptr(), x.stride(0), mask.data_ptr(), mask.stride(0),
+        params_flat.data_ptr(), loss.data_ptr(), grads.data_ptr(),
+        g, r, d, layout.hidden, layout.latent,
+        cluster_size(g, layout.hidden), lam,
+        int(compute_dtype == torch.bfloat16), index,
+        torch._C._cuda_getCurrentRawStream(index))
     if rc == _ERR_TOO_WIDE:
         raise ValueError(f"fused train kernel: {layout} is too wide: "
                          + lib.fused_ae_train_error_string(rc).decode())
@@ -228,7 +242,7 @@ def fused_train_grads(params_flat: torch.Tensor, x: torch.Tensor,
         raise RuntimeError("fused_ae_train launch failed: "
                            + lib.fused_ae_train_error_string(rc).decode())
     fused_train_grads.launches += 1
-    return _normalize(out, mask, d, lam)
+    return loss, grads
 
 
 fused_train_grads.launches = 0

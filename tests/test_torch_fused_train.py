@@ -24,7 +24,7 @@ from fedmse_tpu.ops.losses import prox_term as jax_prox_term
 from fedmse_tpu.ops.pallas_ae import (fused_train_grads as jax_fused_grads,
                                       make_fused_train_loss)
 from fedmse_tpu_torch.models.flat import ParamLayout
-from fedmse_tpu_torch.ops.fused_train import (FusedTrainLoss,
+from fedmse_tpu_torch.ops.fused_train import (FusedTrainLoss, cluster_size,
                                               fused_train_grads,
                                               fused_train_grads_plain)
 from fedmse_tpu_torch.ops.losses import prox_term
@@ -71,8 +71,11 @@ def _leaf_err(layout, got, want_tree):
 
 
 @pytest.mark.parametrize("model_type", ["autoencoder", "hybrid"])
-@pytest.mark.parametrize("dims", [(16, 8, 3), (115, 27, 7)])
-@pytest.mark.parametrize("rows", [1, 12, 37])
+# (37, 9, 3) and (16, 3, 2) split unevenly over the kernel's clusters (and
+# H = 3 < 8 shrinks them); 129 rows take more than one of its row tiles
+@pytest.mark.parametrize("dims", [(16, 8, 3), (115, 27, 7), (37, 9, 3),
+                                  (16, 3, 2)])
+@pytest.mark.parametrize("rows", [1, 12, 37, 129])
 def test_twin_matches_jax_modes_and_autodiff(model_type, dims, rows):
     lam = LAM[model_type]
     layout = ParamLayout(*dims)
@@ -216,3 +219,18 @@ def test_plain_twin_is_the_cpu_path_and_checks_inputs():
         fused_train_grads(flat[:, 1:], x, m, layout=layout)
     with pytest.raises(ValueError, match="mask"):
         fused_train_grads(flat, x, m[:, 1:], layout=layout)
+
+
+def test_cluster_size_rules():
+    """1 <= C <= min(8, H); a small cohort gets the widest clusters (8 CTAs
+    per client at the main path's G = 5, H = 27); clusters never ask for a
+    second wave of the card's 132 SMs, and shrink to 1 once G fills it."""
+    assert cluster_size(5, 27) == 8
+    assert cluster_size(1, 3) == 3 and cluster_size(512, 27) == 1
+    for g in range(1, 700):
+        for h in range(1, 40):
+            c = cluster_size(g, h)
+            assert 1 <= c <= min(8, h)
+            assert c == 1 or g * c <= 132
+            assert c == 1 or c == min(8, h, 132 // g)
+    assert cluster_size(0, 27) == 8

@@ -122,20 +122,35 @@ def _flat_params(layout, g, device, seed=0):
     return flat.to(device)
 
 
-@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("lam", [0.0, 10.0])
-@pytest.mark.parametrize("shape", [(1, 115, 27, 7, 12), (5, 115, 27, 7, 12),
-                                   (3, 37, 9, 3, 200), (512, 115, 27, 7, 12),
-                                   (2, 16, 8, 3, 1)])
-def test_train_kernel_matches_plain_and_counts(cuda, cdt, lam, shape):
+# (G, D, H, L, R): uneven hidden slices (27 or 9 units over 8 CTAs), H < 8
+# (3 units: clusters of 3), 129 and 1,008 rows (row tiles walked inside one
+# launch), G = 133 and 512 (one CTA per client), and (128, 128, 120), whose
+# parameters and gradient overflow one CTA's shared memory but whose slices
+# fit
+TRAIN_SHAPES = [(1, 115, 27, 7, 12), (5, 115, 27, 7, 12), (3, 37, 9, 3, 200),
+                (512, 115, 27, 7, 12), (2, 16, 8, 3, 1), (5, 37, 9, 3, 12),
+                (5, 16, 3, 2, 12), (2, 115, 27, 7, 129), (1, 16, 3, 2, 129),
+                (1, 115, 27, 7, 1008), (133, 115, 27, 7, 12),
+                (1, 128, 128, 120, 4)]
+
+
+def _train_inputs(shape, cdt, device):
     g, d, h, lat, rows = shape
     layout = ParamLayout(d, h, lat)
-    flat = _flat_params(layout, g, cuda)
+    flat = _flat_params(layout, g, device)
     gen = torch.Generator().manual_seed(2)
-    x = torch.randn((g, rows, d), generator=gen).to(cuda, cdt)
-    mask = (torch.rand((g, rows), generator=gen) < 0.8).float().to(cuda)
+    x = torch.randn((g, rows, d), generator=gen).to(device, cdt)
+    mask = (torch.rand((g, rows), generator=gen) < 0.8).float().to(device)
     if g > 1:
         mask[-1] = 0.0  # an all-masked client: NaN, as in the reference
+    return layout, flat, x, mask
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lam", [0.0, 10.0])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_train_kernel_matches_plain_and_counts(cuda, cdt, lam, shape):
+    layout, flat, x, mask = _train_inputs(shape, cdt, cuda)
     before = fused_train_grads.launches
     loss, grads = fused_train_grads(flat, x, mask, layout=layout,
                                     shrink_lambda=lam, compute_dtype=cdt)
@@ -160,11 +175,51 @@ def test_train_kernel_edges(cuda):
                                     layout=layout)
     assert fused_train_grads.launches == before
     assert torch.isnan(loss).all() and grads.shape == (3, layout.size)
-    wide = ParamLayout(128, 128, 120)  # parameters beyond shared memory
+    # at H = 8, L = 4 a CTA holds one hidden unit; its slices and a one-row
+    # tile take about 4 (10 D + 150) bytes, beyond the card's 227 KB from
+    # D ~ 5,800
+    wide = ParamLayout(8192, 8, 4)
     with pytest.raises(ValueError, match="too wide"):
         fused_train_grads(torch.zeros((1, wide.size), device=cuda),
-                          torch.zeros((1, 4, 128), device=cuda),
+                          torch.zeros((1, 4, 8192), device=cuda),
                           torch.ones((1, 4), device=cuda), layout=wide)
+    assert fused_train_grads.launches == before
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(5, 115, 27, 7, 12), (2, 115, 27, 7, 129),
+                                   (5, 16, 3, 2, 12), (512, 115, 27, 7, 12)])
+def test_train_kernel_is_bitwise_repeatable(cuda, cdt, shape):
+    """No atomics and fixed sum orders: the same inputs give the same bits."""
+    layout, flat, x, mask = _train_inputs(shape, cdt, cuda)
+    kw = dict(layout=layout, shrink_lambda=10.0, compute_dtype=cdt)
+    first = fused_train_grads(flat, x, mask, **kw)
+    for _ in range(3):
+        again = fused_train_grads(flat, x, mask, **kw)
+        for a, b in zip(first, again):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(5, 115, 27, 7, 12), (1, 115, 27, 7, 1008),
+                                   (512, 115, 27, 7, 12)])
+def test_train_kernel_is_one_kernel_per_call(cuda, shape):
+    """One call runs exactly one CUDA kernel, whatever R: no second pass
+    and no torch op after the launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    layout, flat, x, mask = _train_inputs(shape, torch.float32, cuda)
+    call = lambda: fused_train_grads(flat, x, mask, layout=layout,  # noqa: E731
+                                     shrink_lambda=10.0)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "fused_ae_train_kernel" in kernels[0], \
+        kernels
 
 
 @pytest.mark.parametrize("update_type", ["mse_avg", "fedprox"])
