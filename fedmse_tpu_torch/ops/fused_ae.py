@@ -38,6 +38,7 @@ from fedmse_tpu_torch.ops import native
 from fedmse_tpu_torch.ops.precision import cast_params
 
 MAX_WIDTH = 128  # D, H <= 128 and L + 2 <= 128: at least what the TPU entry takes
+MIN_TILE, MAX_TILE = 8, 64  # rows per tile of the kernel (tile_plan)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 _LAYERS = (("encoder", "Dense_0"), ("encoder", "Dense_1"),
            ("decoder", "Dense_0"), ("decoder", "Dense_1"))
@@ -167,12 +168,32 @@ def fused_forward_stats_plain(params: Dict[str, Any], x: torch.Tensor,
     return latent, mse, znorm
 
 
+def tile_plan(rows: int, sms: int) -> Tuple[int, int]:
+    """(rows per tile, CTAs) of one launch over `rows` rows on a card of
+    `sms` SMs, from R alone (the kernel reads the model indices and picks
+    each tile's path itself). Tiles halve from 64 rows down to 8 until the
+    launch has at least one per SM, so a serving bucket spreads over tens of
+    CTAs while an evaluation keeps 64-row tiles, whose staged weights serve
+    the most rows; at most two CTAs per SM (the f32 path's shared memory at
+    64-row tiles), each walking a contiguous run of tiles (mostly of one
+    model), so a CTA stages a model's weights once for all of them."""
+    tile = MAX_TILE
+    while tile > MIN_TILE and -(-rows // tile) < sms:
+        tile //= 2
+    return tile, max(1, min(-(-rows // tile), 2 * sms))
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = native.load("fused_ae")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_ae_forward.argtypes = ([ptr] * 13 + [ctypes.c_longlong]
-                                     + [i32] * 5 + [ptr])
+                                     + [i32] * 8 + [ptr])
     lib.fused_ae_forward.restype = i32
     lib.fused_ae_error_string.argtypes = [i32]
     lib.fused_ae_error_string.restype = ctypes.c_char_p
@@ -190,8 +211,9 @@ def fused_forward_stats(params: Dict[str, Any], x: torch.Tensor,
     gets NaN. Raises ValueError on shapes the kernel does not take (D, H >
     128 or L + 2 > 128), wrong dtypes, mixed devices or, on the card,
     non-contiguous tensors. CPU tensors run `fused_forward_stats_plain`;
-    CUDA tensors launch csrc/fused_ae.cu on the current stream. R = 0
-    returns empty tensors without a launch."""
+    CUDA tensors launch csrc/fused_ae.cu once, on their device's current
+    stream, over the tiles of `tile_plan`. R = 0 returns empty tensors
+    without a launch."""
     g, d, h, lat = _check(params, x, model_idx, compute_dtype)
     if x.device.type == "cpu":
         return fused_forward_stats_plain(params, x, model_idx,
@@ -209,14 +231,16 @@ def fused_forward_stats(params: Dict[str, Any], x: torch.Tensor,
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("the fused AE kernel takes contiguous tensors")
     lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.fused_ae_forward(
-            x.data_ptr(),
-            None if model_idx is None else model_idx.data_ptr(),
-            *(t.data_ptr() for t in weights),
-            latent.data_ptr(), mse.data_ptr(), znorm.data_ptr(),
-            rows, g, d, h, lat, int(compute_dtype == torch.bfloat16), stream)
+    index = x.device.index
+    tile, ctas = tile_plan(rows, _sm_count(index))
+    # the device's current stream in one C call, with no device context
+    # entered around the launch (the C entry sets the device if it must)
+    rc = lib.fused_ae_forward(
+        x.data_ptr(), None if model_idx is None else model_idx.data_ptr(),
+        *(t.data_ptr() for t in weights),
+        latent.data_ptr(), mse.data_ptr(), znorm.data_ptr(),
+        rows, g, d, h, lat, tile, ctas, int(compute_dtype == torch.bfloat16),
+        index, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError("fused_ae_forward launch failed: "
                            + lib.fused_ae_error_string(rc).decode())

@@ -112,6 +112,11 @@ def run_serve_smoke(cfg, data, n_real: int, writer,
     batcher.drain()
 
     verdicts = np.asarray([t.verdict for t in tickets], bool)
+    # where the tail sits in the stream: the slowest row of each eighth, in
+    # arrival order (a cold start shows in the first eighth)
+    lat_ms = np.asarray([t.latency_s for t in tickets], np.float64) * 1e3
+    by_eighth = [float(part.max()) for part in np.array_split(lat_ms, 8)
+                 if len(part)]
     anomaly = labels > 0
     # the drift baseline is the normals-only calibration, so it sees the
     # stream's normal-labeled rows; the served scores are reused
@@ -137,6 +142,7 @@ def run_serve_smoke(cfg, data, n_real: int, writer,
         "verdict_label_agreement": agree,
         "front": "continuous" if continuous else "sync",
         "batcher": batcher.stats(),
+        "latency_max_ms_by_eighth": by_eighth,
         "bucket_dispatches": {str(k): int(v)
                               for k, v in sorted(engine.dispatches.items())},
         "drift": drift.report(),

@@ -147,3 +147,67 @@ def test_module_imports_without_cuda_or_nvcc():
     assert fused_ae._library.cache_info().currsize == 0
     assert fused_ae.native.KERNEL_SOURCES == ("fused_ae", "fused_train",
                                               "dist_tiles")
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["client_major", "random"])
+def test_plain_fused_matches_jax_at_main_path_layouts(precision, layout):
+    """The main path's two layouts of one launch: client-major rows (the
+    evaluator's, the vote's, validation's: 3 clients of 45 rows, so client
+    boundaries fall inside the kernel's 8- to 128-row tiles) and a routed
+    bucket over many models (40 models, 200 rows)."""
+    d, h, lat = 115, 27, 7
+    n_models, rows = (3, 135) if layout == "client_major" else (40, 200)
+    rng = np.random.default_rng(11 + n_models)
+    trees = [jax_params(rng, d, h, lat) for _ in range(n_models)]
+    x = rng.normal(0, 1.5, (rows, d)).astype(np.float32)
+    if layout == "client_major":
+        idx = np.repeat(np.arange(n_models), rows // n_models).astype(np.int32)
+    else:
+        idx = rng.integers(0, n_models, rows).astype(np.int32)
+    cdt = TORCH_DT[precision]
+    params = params_from_numpy(stacked(trees), device="cpu", dtype=cdt)
+    got = fused_forward_stats(params, torch.from_numpy(x).to(cdt),
+                              torch.from_numpy(idx), compute_dtype=cdt)
+    want = [np.zeros((rows, lat)), np.zeros(rows), np.zeros(rows)]
+    for g in range(n_models):
+        sel = idx == g
+        out = jax_fused(trees[g], jnp.asarray(x[sel]), latent_dim=lat,
+                        mode="xla", compute_dtype=JAX_DT[precision])
+        for w, o in zip(want, out):
+            w[sel] = np.asarray(o)
+    for name, g, w in zip(("latent", "mse", "znorm"), got, want):
+        assert_scaled(g.numpy(), w, TOL[precision],
+                      f"{name} {layout} {precision}")
+
+
+@pytest.mark.parametrize("rows, tile, ctas", [
+    (1, 8, 1), (65, 8, 9), (256, 8, 32), (1024, 8, 128), (5_040, 32, 158),
+    (10_000, 64, 157), (35_040, 64, 264), (70_080, 64, 264),
+    (200_000, 64, 264)])
+def test_tile_plan_rules(rows, tile, ctas):
+    """Tiles halve from 64 rows to 8 until the launch has one per SM; at
+    most two CTAs per SM, each walking a contiguous run of tiles."""
+    assert fused_ae.tile_plan(rows, 132) == (tile, ctas)
+
+
+def test_tile_plan_covers_every_row_on_any_card():
+    for sms in (1, 16, 108, 132):
+        for rows in (1, 7, 8, 9, 255, 1000, 4097, 70_080, 1_000_003):
+            tile, ctas = fused_ae.tile_plan(rows, sms)
+            tiles = -(-rows // tile)
+            assert tile in (8, 16, 32, 64)
+            assert 1 <= ctas <= min(tiles, 2 * sms)
+            # a larger tile only where it still gives one per SM
+            assert tile == 8 or tiles >= sms
+
+
+def test_wrapper_enters_no_device_context():
+    """The launch passes the device index and the current raw stream to
+    the C entry: no torch.cuda.device context and no stream object per
+    call."""
+    import inspect
+    src = inspect.getsource(fused_ae.fused_forward_stats)
+    assert "torch.cuda.device(" not in src
+    assert "current_stream" not in src
+    assert "_cuda_getCurrentRawStream" in src

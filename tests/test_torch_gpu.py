@@ -85,6 +85,159 @@ def test_kernel_edges(cuda):
         fused_forward_stats(params, torch.randn((16, 4), device=cuda).T)
 
 
+def _grid_params(g, d, h, lat, cdt, device, seed=0):
+    """Weights and biases in Z/16, |v| <= 1/4: with x in Z/4 the forward is
+    exact up to its ReLU gates in f32, so two summation orders gate alike."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def grid(shape):
+        return torch.randint(-4, 5, shape, generator=gen) / 16.0
+
+    tree = {"encoder": {"Dense_0": {"kernel": grid((g, d, h)),
+                                    "bias": grid((g, h))},
+                        "Dense_1": {"kernel": grid((g, h, lat)),
+                                    "bias": grid((g, lat))}},
+            "decoder": {"Dense_0": {"kernel": grid((g, lat, h)),
+                                    "bias": grid((g, h))},
+                        "Dense_1": {"kernel": grid((g, h, d)),
+                                    "bias": grid((g, d))}}}
+    return {c: {n: {k: v.to(device) for k, v in layer.items()}
+                for n, layer in coder.items()}
+            for c, coder in cast_params(tree, cdt).items()}
+
+
+def _forward_inputs(layout, cdt, device, seed=5):
+    """(params, x, model_idx) of one forward launch. layout: (kind, G,
+    rows, D, H, L); kind 'client_major' (G clients' rows in order, as every
+    launch outside serving: boundaries fall mid-tile when rows per client
+    are not a multiple of the tile), 'random' (a routed serving bucket) or
+    'none' (every row model 0). f32 runs on dyadic grids, bf16 on floats."""
+    kind, g, rows, d, h, lat = layout
+    gen = torch.Generator().manual_seed(seed)
+    if cdt == torch.float32:
+        params = _grid_params(g, d, h, lat, cdt, device, seed)
+        x = torch.randint(-6, 7, (rows, d), generator=gen) / 4.0
+    else:
+        params = _params(g, d, h, lat, cdt, device, seed)
+        x = torch.randn((rows, d), generator=gen) * 1.5
+    idx = None
+    if kind == "client_major":
+        idx = torch.arange(g, dtype=torch.int32).repeat_interleave(
+            -(-rows // g))[:rows]
+    elif kind == "random":
+        idx = torch.randint(0, g, (rows,), generator=gen, dtype=torch.int32)
+    return (params, x.to(device, cdt),
+            None if idx is None else idx.to(device))
+
+
+# (kind, G, R, D, H, L): the evaluation (70,080 rows: 64-row tiles, client
+# boundaries every 7,008 rows, mid-tile; a partial last tile), dev scoring,
+# the vote (10 x 1,000: 64-row tiles, boundaries mid-tile), validation (5 x
+# 1,008), a single-global bucket, the routed serving buckets, a 1,001-row
+# client layout, odd and the widest accepted widths
+FORWARD_LAYOUTS = [
+    ("client_major", 10, 70_080, 115, 27, 7),
+    ("client_major", 5, 35_040, 115, 27, 7),
+    ("client_major", 10, 10_000, 115, 27, 7),
+    ("client_major", 5, 5_040, 115, 27, 7),
+    ("client_major", 3, 3_003, 115, 27, 7),
+    ("none", 1, 1_000, 115, 27, 7),
+    ("random", 10, 256, 115, 27, 7),
+    ("random", 512, 1024, 115, 27, 7),
+    ("client_major", 4, 999, 13, 5, 3),
+    ("random", 3, 77, 13, 5, 3),
+    ("client_major", 2, 4_100, 128, 128, 126),
+    ("random", 2, 65, 128, 128, 126),
+]
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", FORWARD_LAYOUTS)
+def test_forward_kernel_tiles_match_plain(cuda, cdt, layout):
+    """Uniform tiles (staged weights: FFMA in f32, mma.sync in bf16), mixed
+    tiles (warp per row) and tiles across a model boundary, against the
+    plain version; one launch per call; a second call equal bit for bit."""
+    params, x, idx = _forward_inputs(layout, cdt, cuda)
+    before = fused_forward_stats.launches
+    got = fused_forward_stats(params, x, idx, compute_dtype=cdt)
+    again = fused_forward_stats(params, x, idx, compute_dtype=cdt)
+    assert fused_forward_stats.launches == before + 2
+    want = fused_forward_stats_plain(params, x, idx, compute_dtype=cdt)
+    for a, a2, b in zip(got, again, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert torch.isfinite(a).all()
+        assert torch.equal(a.view(torch.int32), a2.view(torch.int32))
+        err = (a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+        assert err <= TOL[cdt], (layout, err)
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", [FORWARD_LAYOUTS[0], FORWARD_LAYOUTS[3],
+                                    FORWARD_LAYOUTS[6], FORWARD_LAYOUTS[7]])
+def test_forward_kernel_is_one_kernel_per_call(cuda, cdt, layout):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    params, x, idx = _forward_inputs(layout, cdt, cuda)
+    call = lambda: fused_forward_stats(params, x, idx,  # noqa: E731
+                                       compute_dtype=cdt)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "fused_ae_forward_kernel" in kernels[0], \
+        kernels
+
+
+@pytest.mark.parametrize("rows", [1_000, 10_000, 70_080])
+def test_forward_kernel_f32_paths_agree_bitwise(cuda, rows):
+    """A row's f32 outputs do not depend on the kind of tile it lands in:
+    client-major rows (uniform tiles, staged weights) and the same rows in
+    a routed order (mixed tiles, warp per row) give the same bits, so a
+    served score equals the evaluator's."""
+    g = 10
+    params = _params(g, 115, 27, 7, torch.float32, cuda, seed=9)
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn((rows, 115), generator=gen).to(cuda)
+    idx = torch.arange(g, dtype=torch.int32).repeat_interleave(
+        -(-rows // g))[:rows].to(cuda)
+    perm = torch.randperm(rows, generator=gen).to(cuda)
+    grouped = fused_forward_stats(params, x, idx)
+    routed = fused_forward_stats(params, x[perm].contiguous(),
+                                 idx[perm].contiguous())
+    for a, b in zip(grouped, routed):
+        assert torch.equal(a[perm].view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["client_major", "random"])
+def test_forward_kernel_bad_index_gives_nan(cuda, cdt, kind):
+    """NaN in all three outputs for an index outside [0, G): a whole
+    client's rows (uniform tiles of a bad model), scattered rows inside
+    otherwise uniform tiles, and rows of a routed bucket; every other row
+    as the plain version."""
+    layout = (kind, 6, 6_000, 115, 27, 7)
+    params, x, idx = _forward_inputs(layout, cdt, cuda)
+    bad = torch.zeros(x.shape[0], dtype=torch.bool, device=cuda)
+    if kind == "client_major":
+        bad[3_000:4_000] = True          # client 3, whole tiles
+    bad[torch.arange(17, 6_000, 613, device=cuda)] = True
+    idx = torch.where(bad, torch.where(torch.arange(
+        x.shape[0], device=cuda) % 2 == 0, -1, 6), idx).to(torch.int32)
+    got = fused_forward_stats(params, x, idx, compute_dtype=cdt)
+    want = fused_forward_stats_plain(params, x, idx, compute_dtype=cdt)
+    for a, b in zip(got, want):
+        rows_bad = a[bad]
+        assert torch.isnan(rows_bad).all() and torch.isnan(b[bad]).all()
+        a, b = a[~bad], b[~bad]
+        assert torch.isfinite(a).all()
+        err = (a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+        assert err <= TOL[cdt]
+
+
 @pytest.mark.parametrize("model_type", ["autoencoder", "hybrid"])
 def test_evaluation_and_serving_on_card_match_cpu(cuda, model_type):
     clients = synthetic_clients(n_clients=3, dim=20, n_normal=200,
