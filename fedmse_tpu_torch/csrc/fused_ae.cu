@@ -27,10 +27,10 @@
 //     (0.00012 / 0.0043 ms); in practice by the latency of each row's
 //     chain of weight loads.
 //
-// Design. The launch walks tiles of `tile` rows (the wrapper plans 8 to 64
-// from R alone, ops/fused_ae.tile_plan; up to 128 is accepted); each CTA of
-// 256 threads takes a contiguous run of tiles, so consecutive tiles mostly
-// share a model. Per tile the CTA reads the tile's model indices, finds its
+// Design. The launch walks tiles of `tile` rows (8, 16, 32 or 64, planned by
+// the wrapper from R alone, ops/fused_ae.tile_plan; the entry takes no other
+// size); each CTA of 256 threads takes a contiguous run of tiles, so
+// consecutive tiles mostly share a model. Per tile the CTA reads the tile's model indices, finds its
 // runs of rows of one model, and picks a path itself (the wrapper reads no
 // device data):
 //   - Uniform path (at most 4 runs, averaging 16 rows or more: every launch
@@ -83,7 +83,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxTile = 128;
+constexpr int kMaxTile = 64;  // ops/fused_ae.py MAX_TILE
 constexpr int kMaxDevices = 64;
 constexpr int kMaxRuns = 4;    // model runs in a tile the uniform path takes
 constexpr int kMinRun = 16;    // ... when its runs average this many rows
@@ -1049,7 +1049,7 @@ int launch(int slot, const void* x, const void* model_idx, const void* w1,
 extern "C" {
 
 // Launches the fused forward on `stream` of `device` as at most `ctas` CTAs
-// over tiles of `tile` rows (a multiple of 8, at most 128); returns
+// over tiles of `tile` rows (8, 16, 32 or 64: tile_plan's sizes); returns
 // cudaGetLastError() after the launch (0 on success). x and w1..w4 are bf16
 // when use_bf16 != 0, else f32; biases and outputs are f32; model_idx is int32
 // [rows] or null (model 0). The caller guarantees rows > 0, D, H <= 128 and
@@ -1061,7 +1061,7 @@ int fused_ae_forward(const void* x, const void* model_idx, const void* w1,
                      long long rows, int n_models, int D, int H, int L,
                      int tile, int ctas, int use_bf16, int device,
                      void* stream) {
-  if (tile < 8 || tile > kMaxTile || tile % 8 != 0 || ctas < 1 ||
+  if (tile < 8 || tile > kMaxTile || (tile & (tile - 1)) != 0 || ctas < 1 ||
       device < 0 || device >= kMaxDevices || D < 1 || H < 1 || L < 1 ||
       D > 128 || H > 128 || L + 2 > 128 || rows < 1 ||
       (rows + tile - 1) / tile > 0x7fffffffLL)

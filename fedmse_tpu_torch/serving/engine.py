@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import gc
 import time
 from bisect import bisect_left
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -425,18 +424,14 @@ class ServingEngine:
 
     def warmup(self) -> Dict[int, float]:
         """Score one zero bucket at every rung (builds the kernel library on
-        first use and warms the allocators), then run one full garbage
-        collection, so that the stream does not pay one: after training, a
-        full collection walks every live object of the process (~100 ms on
-        the card's host), and the first one due would land in the middle of
-        the stream. Returns wall seconds per bucket."""
+        first use and warms the allocators); returns wall seconds per
+        bucket."""
         out: Dict[int, float] = {}
         for b in self.buckets:
             t0 = time.perf_counter()
             self._dispatch_chunk(np.zeros((b, self.dim), np.float32),
                                  np.zeros(b, np.int32)).harvest()
             out[b] = time.perf_counter() - t0
-        gc.collect()
         return out
 
     # ----------------------------- scoring ------------------------------ #

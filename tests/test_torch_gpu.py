@@ -212,6 +212,17 @@ def test_forward_kernel_f32_paths_agree_bitwise(cuda, rows):
         assert torch.equal(a[perm].view(torch.int32), b.view(torch.int32))
 
 
+@pytest.mark.parametrize("tile", [0, 4, 24, 128])
+def test_forward_entry_takes_only_the_plans_tiles(cuda, tile):
+    """The C entry refuses a tile size that tile_plan never gives (it gives
+    8, 16, 32 or 64 rows) before it touches a pointer."""
+    from fedmse_tpu_torch.ops import fused_ae
+    rc = fused_ae._library().fused_ae_forward(
+        *([None] * 13), 256, 10, 115, 27, 7, tile, 32, 0, cuda.index, None)
+    assert fused_ae._library().fused_ae_error_string(rc) \
+        == b"invalid argument"
+
+
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["client_major", "random"])
 def test_forward_kernel_bad_index_gives_nan(cuda, cdt, kind):

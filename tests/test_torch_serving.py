@@ -278,17 +278,3 @@ def test_engine_refuses_what_waits_for_later_slices(fed):
         make_evaluate_all(model, "autoencoder", metric="latency")
     with pytest.raises(ValueError, match="gateway_ids"):
         _port_engine("autoencoder", fed).score(np.zeros((2, DIM)))
-
-
-def test_warmup_runs_one_full_collection_after_the_buckets(fed, monkeypatch):
-    """--serve-warmup pays the process's pending full garbage collection
-    before the stream (the cold --serve p99's cause), after scoring one
-    bucket of every rung."""
-    import gc
-    engine = _port_engine("autoencoder", fed)
-    calls = []
-    monkeypatch.setattr(gc, "collect",
-                        lambda *a: calls.append(dict(engine.dispatches)))
-    secs = engine.warmup()
-    assert sorted(secs) == engine.buckets == [1, 2, 4, 8]
-    assert calls == [{b: 1 for b in engine.buckets}]
