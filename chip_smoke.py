@@ -15,8 +15,10 @@ all started together, into build/fedmse_tpu_torch/), then:
                 layouts; the forward and the train step also against a
                 second call, bit for bit, and as exactly one CUDA kernel
                 per call, their f32 cases on dyadic grids; the distance
-                tiles' cases run after the main path, as they include its
-                evaluation shape, which phase 3 sets);
+                tiles' cases include the evaluation's shape, whose rows
+                phase 3 then checks: each also bit-equal to a second
+                call, one CUDA kernel per call in f32 and bf16, routed
+                rows the client-major rows' bits);
   3. evaluate   per-client AUC of both model types in f32 and bf16 over a
                 10-gateway synthetic federation at the paper's width
                 (115 -> 27 -> 7), ~70k rows per evaluation, with the
@@ -35,7 +37,9 @@ all started together, into build/fedmse_tpu_torch/), then:
                 served by ServingEngine.from_checkpoint and held to the
                 evaluator's oracle, and run through the CLI's --serve
                 pass (serving.run_serve_smoke) with the kNN score and the
-                continuous front;
+                continuous front, three times cold and once warm, after
+                one forced full collection timed with and without the
+                gc.freeze() the pass holds over its stream;
      orders     (after the main path) hybrid / mse_avg again in both
                 dtypes at 4, 2 and 1 CTAs per client: bf16 is held to f32
                 on the mean final AUC over the four summation orders;
@@ -45,7 +49,11 @@ all started together, into build/fedmse_tpu_torch/), then:
                 kernel's own device time by torch.profiler), plain-version
                 time, library time where one PyTorch call computes the
                 same function, and bound at the main path's shapes (the
-                forward also at the training path's own launches), and
+                forward also at the training path's own launches; the
+                distance kernel beside its predecessor, built from
+                csrc/dist_tiles_baseline.cu, whose bits it reproduces, and
+                inside the kNN score it starts, with a one-element fill
+                as the floor of a launch), and
                 one more training round under the profiler (device busy
                 share).
 
@@ -165,6 +173,27 @@ def device_ms(fn, kernel: str, reps: int) -> float:
             torch.cuda.synchronize()
         total = sum(_device_us(e) for e in prof.key_averages()
                     if kernel in e.key)
+        if total > 0:
+            return total / 1e3 / reps
+    return float("nan")
+
+
+def all_device_ms(torch, fn, reps: int) -> float:
+    """Mean device milliseconds per call of every CUDA kernel and copy that
+    fn() runs, from torch.profiler over `reps` calls; NaN when the profiler
+    records no device event in three tries."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
         if total > 0:
             return total / 1e3 / reps
     return float("nan")
@@ -573,11 +602,16 @@ def phase_dist_kernels(torch, device, eval_rows):
     """The distance kernel vs its plain version: every (N, T, B) of N in
     {1, 10, 512}, T in {1, 17, 256, 1024, 30000}, B in {1, 8, 100, 512,
     1024}, cycling through f32 / bf16 queries, the three bank-index kinds
-    and L in {7, 3, 16} (16 takes the kernel's generic path), then the
+    and L in {7, 3, 16} (16 takes the kernel's streamed path), then the
     main path's three shapes at L = 7 in both dtypes: the evaluation
     (`eval_rows` client-major rows, 10 banks of 512) and the serving
     buckets (256 rows over 10 banks, 1024 rows over 512 banks, random
-    routing). 81 cases."""
+    routing). 81 cases, each also bit-equal to a second call. Then, at the
+    main path's shapes in both dtypes, one CUDA kernel per call (bf16
+    queries are upcast inside it), and the evaluation's rows permuted with
+    their bank index (each row then loads its bank, as a routed bucket's
+    does) give the client-major rows' bits."""
+    from fedmse_tpu_torch.knn.score import dist_tiles
     gen = torch.Generator().manual_seed(SEED + 6)
     kinds = ("none", "client_major", "random")
     cases = []
@@ -596,14 +630,37 @@ def phase_dist_kernels(torch, device, eval_rows):
         cdt = torch.bfloat16 if precision == "bf16" else torch.float32
         q, banks, gw = dist_inputs(torch, n, rows, bank, lat, gw_kind, gen,
                                    device, cdt)
-        _, abs_err, err = dist_check(
-            torch, q, banks, gw, f"N={n} T={rows} B={bank} L={lat} "
-            f"{precision} gw={gw_kind}")
+        what = (f"N={n} T={rows} B={bank} L={lat} {precision} "
+                f"gw={gw_kind}")
+        got, abs_err, err = dist_check(torch, q, banks, gw, what)
+        if not torch.equal(dist_tiles(q, banks, gw).view(torch.int32),
+                           got.view(torch.int32)):
+            raise AssertionError(f"dist {what}: a second call differs")
         w = worst[precision]
         w["scaled"] = max(w["scaled"], err)
         w["abs"] = max(w["abs"], abs_err)
-    log(f"[kernels] {len(cases)} dist-kernel-vs-plain cases agree; worst "
-        f"{json.dumps(worst)}")
+    for what, n, rows, gw_kind in main_dist_shapes(eval_rows):
+        for cdt in (torch.float32, torch.bfloat16):
+            q, banks, gw = dist_inputs(torch, n, rows, KNN["knn_bank_size"],
+                                       DIMS[2], gw_kind, gen, device, cdt)
+            ran = cuda_kernels(torch, lambda: dist_tiles(q, banks, gw))
+            if len(ran) != 1 or "dist_tiles" not in ran[0]:
+                raise AssertionError(f"dist {what} {cdt}: one call ran "
+                                     f"{ran}")
+            if gw_kind != "client_major":
+                continue
+            perm = torch.randperm(rows, generator=gen).to(device)
+            routed = dist_tiles(q[perm].contiguous(), banks,
+                                gw[perm].contiguous())
+            if not torch.equal(routed.view(torch.int32),
+                               dist_tiles(q, banks, gw)[perm]
+                               .view(torch.int32)):
+                raise AssertionError(f"dist {what} {cdt}: routed rows "
+                                     "differ from client-major rows")
+    log(f"[kernels] {len(cases)} dist-kernel-vs-plain cases agree, each "
+        f"bitwise equal to a second call; one CUDA kernel per call in f32 "
+        f"and bf16 at the main path's shapes; routed = client-major bits "
+        f"at the evaluation; worst {json.dumps(worst)}")
     return worst
 
 
@@ -1133,16 +1190,44 @@ def phase_serve_trained(torch, device, cfg, out, data, writer, names):
     return err
 
 
+def forced_gc_ms() -> dict:
+    """Milliseconds of one forced full collection in this process as it
+    stands (after training): without a freeze, under gc.freeze() (what
+    run_serve_smoke does for its stream) and without one again."""
+    def timed():
+        t0 = time.perf_counter()
+        gc.collect()
+        return (time.perf_counter() - t0) * 1e3
+    gc.collect()  # the garbage that training left
+    out = {"tracked_objects": len(gc.get_objects()), "unfrozen": timed()}
+    gc.freeze()
+    try:
+        out["frozen"] = timed()
+    finally:
+        gc.unfreeze()
+    out["unfrozen_again"] = timed()
+    return out
+
+
 def phase_serve_pass(torch, cfg, data, writer, names):
     """The CLI's --serve pass (serving.run_serve_smoke) on the trained
     hybrid / mse_avg checkpoint, with the kNN score and the continuous
-    front, cold (the CLI's default) and then with --serve-warmup: the
-    bank npz and the calibration JSON must be written."""
+    front, cold (the CLI's default) three times and then with
+    --serve-warmup: the bank npz and the calibration JSON must be written.
+    First, one forced full collection timed with and without the freeze
+    the pass puts around its stream; each pass records every GC pause."""
     from fedmse_tpu_torch.knn import dist_tiles, load_bank
     from fedmse_tpu_torch.serving import run_serve_smoke
     c = cfg.replace(score_kind="knn", **KNN)
-    out = {}
-    for warmup in (False, True):
+    gc_ms = forced_gc_ms()
+    log(f"[serve-pass] one forced full collection after training: "
+        f"{json.dumps(gc_ms)} ms ({gc_ms['tracked_objects']} objects "
+        f"tracked)")
+    watched("forced full collection under gc.freeze / without, ratio",
+            gc_ms["frozen"] / max(gc_ms["unfrozen"], 1e-9), 0.5, False)
+    out = {"forced_gc_ms": gc_ms, "cold_passes": []}
+    for tag in ("cold", "cold", "cold", "warm"):
+        warmup = tag == "warm"
         before = dist_tiles.launches
         pauses = []  # the garbage collector's pauses during the pass
 
@@ -1162,6 +1247,9 @@ def phase_serve_pass(torch, cfg, data, writer, names):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         gc.callbacks.remove(on_gc)
+        if gc.get_freeze_count() != 0:
+            raise AssertionError("the --serve pass left the collector "
+                                 "frozen")
         bank = load_bank(rep["knn_bank_path"], device=data.train_xb.device)
         if not (rep["score_kind"] == "knn" and rep["front"] == "continuous"
                 and os.path.exists(rep["calibration_path"])
@@ -1171,8 +1259,7 @@ def phase_serve_pass(torch, cfg, data, writer, names):
                 and rep["verdict_label_agreement"] is not None):
             raise AssertionError(f"--serve pass report: "
                                  f"{json.dumps(rep)[:800]}")
-        tag = "warm" if warmup else "cold"
-        out[tag] = {
+        entry = {
             "rows": rep["rows"], "seconds": secs,
             "rows_per_sec_wall": rep["batcher"]["rows_per_sec_wall"],
             "latency_p50_ms": rep["batcher"]["latency_p50_ms"],
@@ -1186,32 +1273,80 @@ def phase_serve_pass(torch, cfg, data, writer, names):
             "gc_pauses": len(pauses),
             "gc_max_pause_ms": max((ms for _, ms in pauses), default=0.0),
             "gc_full_collections": sum(g == 2 for g, _ in pauses)}
+        if warmup:
+            out["warm"] = entry
+        else:
+            out["cold_passes"].append(entry)
+            tag = f"cold {len(out['cold_passes'])}"
         log(f"[serve-pass] --serve ({tag}) on the trained hybrid/mse_avg "
-            f"checkpoint, knn, continuous front: {json.dumps(out[tag])}; "
+            f"checkpoint, knn, continuous front: {json.dumps(entry)}; "
             f"bank {os.path.basename(rep['knn_bank_path'])} and calibration"
             f" written")
         watched(f"verdict p99 ms, --serve pass ({tag})",
-                out[tag]["latency_p99_ms"], 4.0, False)
+                entry["latency_p99_ms"], 4.0, False)
     return out
 
 
+def baseline_dist(torch):
+    """fn(q, banks, gw) -> [T, B] launching the distance kernel's
+    predecessor (csrc/dist_tiles_baseline.cu, f32 queries) on the current
+    stream: the yardstick the redesign is timed against."""
+    import ctypes
+    from fedmse_tpu_torch.ops import native
+    lib = native.load("dist_tiles_baseline")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dist_tiles.argtypes = [ptr] * 4 + [ctypes.c_longlong] + [i32] * 3 \
+        + [ptr]
+    lib.dist_tiles.restype = i32
+
+    def call(q, banks, gw):
+        out = torch.empty((q.shape[0], banks.shape[1]), device=q.device)
+        rc = lib.dist_tiles(q.data_ptr(), banks.data_ptr(),
+                            None if gw is None else gw.data_ptr(),
+                            out.data_ptr(), q.shape[0], banks.shape[0],
+                            banks.shape[1], q.shape[1],
+                            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"the baseline distance launch failed ({rc})")
+        return out
+    return call
+
+
 def report_dist(torch, device, launches, worst, eval_rows):
-    """The distance kernel's, its plain version's and torch.cdist's times
-    and the bound at the main path's shapes: the 10-gateway evaluation
-    (its `eval_rows` test rows client-major against 512-slot banks) and the
-    two serving buckets. Each timed call's output is first held to the
-    plain version on the same inputs."""
-    from fedmse_tpu_torch.knn.score import dist_tiles, dist_tiles_plain
+    """The distance kernel's, its predecessor's (csrc/dist_tiles_baseline.cu,
+    whose bits it must reproduce), its plain version's and torch.cdist's
+    times and the bound at the main path's shapes: the 10-gateway
+    evaluation (its `eval_rows` test rows client-major against 512-slot
+    banks) and the two serving buckets. At each shape also the kNN score
+    around the kernel (routed_kth_distance with exact and approximate
+    top-k: the launch, the padding mask, the top-k and the gather) on the
+    device, the kernel's share of it, and a one-element fill as the floor
+    of any launch. Each timed call's output is first held to the plain
+    version on the same inputs."""
+    from fedmse_tpu_torch.knn.bank import ReferenceBank
+    from fedmse_tpu_torch.knn.score import (dist_tiles, dist_tiles_plain,
+                                            routed_kth_distance)
     gen = torch.Generator().manual_seed(SEED + 8)
     bank = KNN["knn_bank_size"]
+    parent = baseline_dist(torch)
+    one = torch.zeros(1, device=device)
+    fill_ms = all_device_ms(torch, lambda: one.fill_(1.0), 50)
+    log(f"[report] one-element fill on the device {fill_ms:.5f} ms (the "
+        f"floor of any launch)")
     rows_out = []
     for what, n, rows, gw_kind in main_dist_shapes(eval_rows):
         q, banks, gw = dist_inputs(torch, n, rows, bank, DIMS[2], gw_kind,
                                    gen, device, torch.float32)
-        _, _, err = dist_check(torch, q, banks, gw, f"timed {what}")
+        got, _, err = dist_check(torch, q, banks, gw, f"timed {what}")
+        if not torch.equal(parent(q, banks, gw).view(torch.int32),
+                           got.view(torch.int32)):
+            raise AssertionError(f"dist {what}: the kernel's bits differ "
+                                 "from its predecessor's")
         call = lambda: dist_tiles(q, banks, gw)  # noqa: E731
         k_ms = cuda_ms(call, 200)
         d_ms = device_ms(call, "dist_tiles", 50)
+        parent_ms = device_ms(lambda: parent(q, banks, gw), "dist_tiles", 50)
+        d2_ms = device_ms(call, "dist_tiles", 50)
         p_ms = cuda_ms(lambda: dist_tiles_plain(q, banks, gw), 10)
         lib_ms = None
         if gw_kind == "client_major":
@@ -1220,17 +1355,37 @@ def report_dist(torch, device, launches, worst, eval_rows):
             qb = q.view(n, rows // n, DIMS[2])
             lib_ms = cuda_ms(lambda: torch.cdist(
                 qb, banks, compute_mode="use_mm_for_euclid_dist"), 50)
+        count = torch.randint(bank // 2, bank + 1, (n,), generator=gen,
+                              dtype=torch.int32).to(device)
+        ref = ReferenceBank(latents=banks, count=count)
+        g = gw if gw is not None else torch.zeros(rows, dtype=torch.int32,
+                                                  device=device)
+        path_ms = {topk: all_device_ms(torch, lambda topk=topk:
+                                       routed_kth_distance(
+                                           q, g, ref, KNN["knn_k"],
+                                           topk=topk), 20)
+                   for topk in ("exact", "approx")}
         used = n if gw is None else int(torch.unique(gw).numel())
         b_ms, b_by = dist_bound(rows, bank, used)
-        rows_out.append({"what": what, "rows": rows, "banks": n,
-                         "bank_size": bank, "ms": k_ms, "device_ms": d_ms,
-                         "plain_ms": p_ms, "library_ms": lib_ms,
-                         "bound_ms": b_ms, "bound_by": b_by,
-                         "scaled_err_vs_plain": err})
+        rows_out.append({
+            "what": what, "rows": rows, "banks": n, "bank_size": bank,
+            "ms": k_ms, "device_ms": d_ms, "device_ms_again": d2_ms,
+            "parent_device_ms": parent_ms, "plain_ms": p_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "knn_path_device_ms": path_ms,
+            "kernel_share_of_knn_path": {
+                k: d_ms / v for k, v in path_ms.items()},
+            "fill_device_ms": fill_ms,
+            "scaled_err_vs_plain": err})
         log(f"[report] dist {what} T={rows} B={bank} N={n}: wrapper call "
-            f"{k_ms:.5f} ms (kernel on the device {d_ms:.5f} ms), plain "
-            f"{p_ms:.5f} ms, torch.cdist {lib_ms} ms, bound {b_ms:.6f} ms "
-            f"({b_by}); scaled error vs plain {err:.3e}")
+            f"{k_ms:.5f} ms, kernel on the device {d_ms:.5f} / {d2_ms:.5f} "
+            f"ms against its predecessor's {parent_ms:.5f} (same bits), "
+            f"plain {p_ms:.5f} ms, torch.cdist {lib_ms} ms, bound "
+            f"{b_ms:.6f} ms ({b_by}); kNN score on the device "
+            f"{path_ms['exact']:.5f} (exact) / {path_ms['approx']:.5f} "
+            f"(approx) ms, the kernel {d_ms / path_ms['exact']:.1%} / "
+            f"{d_ms / path_ms['approx']:.1%} of it; scaled error vs plain "
+            f"{err:.3e}")
     main = rows_out[0]
     return {
         "name": "dist_tiles",
@@ -1240,11 +1395,15 @@ def report_dist(torch, device, launches, worst, eval_rows):
         "launches": launches,
         "max_abs_err": worst["f32"]["abs"],
         "ms": main["ms"], "device_ms": main["device_ms"],
+        "parent_device_ms": main["parent_device_ms"],
+        "parent_source": "fedmse_tpu_torch/csrc/dist_tiles_baseline.cu",
+        "knn_path_ms": main["knn_path_device_ms"]["exact"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "library_call": "torch.cdist(q [N, T/N, L], banks [N, B, L], "
                         "compute_mode='use_mm_for_euclid_dist')",
+        "fill_device_ms": fill_ms,
         "max_abs_err_by_dtype": {p: worst[p]["abs"] for p in worst},
         "max_scaled_err_by_dtype": {p: worst[p]["scaled"] for p in worst},
         "tolerance_scaled": DIST_TOL,
@@ -1490,7 +1649,7 @@ def main() -> int:
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
         f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
-    built = native.build()
+    built = native.build(native.KERNEL_SOURCES + native.BASELINE_SOURCES)
     log(f"[device] kernels built in {time.perf_counter() - t0:.2f} s "
         f"({json.dumps(built)})")
     for name in native.KERNEL_SOURCES:
@@ -1500,14 +1659,20 @@ def main() -> int:
 
     worst = phase_kernels(torch, device)
     worst_train = phase_train_kernels(torch, device)
-
     clients = synthetic_clients(n_clients=10, dim=DIMS[0], n_normal=10_000,
                                 n_abnormal=2_000, seed=SEED)
+    # the evaluation's distance launch: every client's test rows, padded
+    eval_rows = len(clients) * max(len(c.test_x) for c in clients)
+    worst_dist = phase_dist_kernels(torch, device, eval_rows)
+
     # the main path starts here
     fused_forward_stats.launches = 0
     fused_train_grads.launches = 0
     dist_tiles.launches = 0
     evaluated, knn_eval = phase_evaluate(torch, device, cfg, clients)
+    if knn_eval["hybrid/knn/approx/f32"]["test_rows"] != eval_rows:
+        raise AssertionError("the evaluation's distance launch is not the "
+                             f"{eval_rows} rows phase_dist_kernels held")
     serve = phase_serve(torch, device, cfg, evaluated, smi)
     serve.update(phase_serve_knn(torch, device, cfg, evaluated, smi))
     training, trained, datas, writer, names = phase_train(torch, device,
@@ -1526,8 +1691,6 @@ def main() -> int:
         if n < 1:
             raise AssertionError(f"the main path never launched {name}")
     log(f"[main path] launches {json.dumps(launches)}")
-    eval_rows = knn_eval["hybrid/knn/approx/f32"]["test_rows"]
-    worst_dist = phase_dist_kernels(torch, device, eval_rows)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
     round_profile = profile_round(torch, trained)

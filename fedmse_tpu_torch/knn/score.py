@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -88,12 +88,54 @@ def dist_tiles_plain(q: torch.Tensor, banks: torch.Tensor,
     return torch.where(valid[:, None], d, torch.full_like(d, float("nan")))
 
 
+GROUP = 4  # consecutive slots per thread of the kernel
+MIN_GROUPS, MAX_GROUPS = 32, 256  # slot groups per pass: a warp to a CTA
+CTA_WARPS, BLOCKS_PER_SM = 8, 3
+STREAM_BYTES = 48 << 20  # outputs above this take evict-first stores
+
+
+def dist_plan(rows: int, bank: int, lat: int, sms: int
+              ) -> Tuple[int, int, bool]:
+    """(slot groups per pass, CTAs, evict-first stores) of one distance
+    launch over `rows` rows of `bank` slots at latent width `lat` on a card
+    of `sms` SMs; csrc/dist_tiles.cu refuses any other plan.
+
+    A thread owns 4 consecutive slots; one pass over a row takes the power
+    of two of such groups covering the bank, from one warp (128 slots) to
+    the CTA's 256 threads (1,024 slots; wider banks take several passes),
+    so a CTA of 8 warps works on 8 / (groups / 32) rows at a time. CTAs:
+    enough for every such row set to run at once, at most 3 per SM (the
+    kernel's launch bound, which leaves it 80 registers a thread), each
+    then given an equal contiguous run of rows. Stores are evict-first
+    when the [rows, bank] f32 output exceeds STREAM_BYTES (most of the
+    H100's 50 MB L2: nothing would find it there; on an H100 the hint took
+    the evaluation's launch from 0.0255 to 0.0232 ms and its kNN path down
+    by 0.001-0.007 ms, and moved neither serving bucket beyond noise)."""
+    if rows < 1 or bank < 1 or not 1 <= lat <= MAX_LATENT or sms < 1:
+        raise ValueError(f"no distance plan for rows={rows}, bank={bank}, "
+                         f"latent_dim={lat}, sms={sms}")
+    groups = MIN_GROUPS
+    while groups < -(-bank // GROUP) and groups < MAX_GROUPS:
+        groups *= 2
+    row_step = CTA_WARPS // (groups // 32)
+    ctas = min(-(-rows // row_step), BLOCKS_PER_SM * sms)
+    if rows // ctas >= 1 << 30:  # the kernel indexes a CTA's rows in 32 bits
+        raise ValueError(f"no distance plan for rows={rows}: over 2**30 "
+                         f"rows a CTA")
+    return groups, ctas, 4 * rows * bank > STREAM_BYTES
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = native.load("dist_tiles")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dist_tiles.argtypes = [ptr] * 4 + [ctypes.c_longlong] + [i32] * 3 \
-        + [ptr]
+    lib.dist_tiles.argtypes = ([ptr] * 4 + [ctypes.c_longlong] + [i32] * 8
+                               + [ptr])
     lib.dist_tiles.restype = i32
     lib.dist_tiles_error_string.argtypes = [i32]
     lib.dist_tiles_error_string.restype = ctypes.c_char_p
@@ -106,14 +148,15 @@ def dist_tiles(q: torch.Tensor, banks: torch.Tensor,
 
     q: [T, L] f32 or bf16. banks: [N, B, L] f32 (or one bank [B, L]).
     gw: int32 [T], each row's bank (None: bank 0); a row outside [0, N)
-    gets NaN. bf16 queries are upcast to f32 before the launch, which is
-    exact; the JAX package's banks are always f32 and its bf16 x bf16
-    products are exact in f32, so an f32 kernel carries the whole contract
-    of `_dist_kernel` (f32 accumulation whatever the operand dtype). CPU
-    tensors run `dist_tiles_plain`; CUDA tensors launch csrc/dist_tiles.cu
-    on the current stream or raise (L > 128, non-contiguous operands, a
-    failed build or launch). T = 0 or B = 0 returns an empty tensor without
-    a launch."""
+    gets NaN. The kernel reads bf16 queries itself and upcasts them in
+    registers, which is exact; the JAX package's banks are always f32 and
+    its bf16 x bf16 products are exact in f32, so the f32 arithmetic
+    carries the whole contract of `_dist_kernel` (f32 accumulation whatever
+    the operand dtype). CPU tensors run `dist_tiles_plain`; CUDA tensors
+    launch csrc/dist_tiles.cu once, in either dtype, on their device's
+    current stream over the plan of `dist_plan`, or raise (L > 128,
+    non-contiguous operands, a failed build or launch). T = 0 or B = 0
+    returns an empty tensor without a launch."""
     banks = _check(q, banks, gw)
     if q.device.type == "cpu":
         return dist_tiles_plain(q, banks, gw)
@@ -127,16 +170,20 @@ def dist_tiles(q: torch.Tensor, banks: torch.Tensor,
     out = torch.empty((rows, b), dtype=torch.float32, device=q.device)
     if rows == 0 or b == 0:
         return out
-    q = q.to(torch.float32)
     operands = (q, banks) + ((gw,) if gw is not None else ())
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("the distance kernel takes contiguous tensors")
     lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.dist_tiles(q.data_ptr(), banks.data_ptr(),
-                            None if gw is None else gw.data_ptr(),
-                            out.data_ptr(), rows, n, b, lat, stream)
+    index = q.device.index
+    groups, ctas, streaming = dist_plan(rows, b, lat, _sm_count(index))
+    # the device's current stream in one C call, with no device context
+    # entered around the launch (the C entry sets the device if it must)
+    rc = lib.dist_tiles(q.data_ptr(), banks.data_ptr(),
+                        None if gw is None else gw.data_ptr(),
+                        out.data_ptr(), rows, n, b, lat,
+                        int(q.dtype == torch.bfloat16), groups, ctas,
+                        int(streaming), index,
+                        torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError("dist_tiles launch failed: "
                            + lib.dist_tiles_error_string(rc).decode())

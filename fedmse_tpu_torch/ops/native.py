@@ -27,6 +27,9 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "fedmse_tpu_torch"
 KERNEL_SOURCES = ("fused_ae", "fused_train", "dist_tiles")
+# an earlier design kept as the yardstick of its successor: chip_smoke.py
+# times it beside csrc/dist_tiles.cu; nothing in the package calls it
+BASELINE_SOURCES = ("dist_tiles_baseline",)
 # sm_90a keeps wgmma/setmaxnreg available to later kernels; no
 # --use_fast_math: the kernels' sqrt and divisions must stay IEEE
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -501,3 +501,150 @@ def test_knn_evaluation_and_serving_on_card_match_cpu(cuda, topk):
     np.testing.assert_allclose(e_gpu, e_cpu, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(e_gpu, s_gpu[1, :100].numpy(), rtol=1e-5,
                                atol=1e-5)
+
+
+def _dist_case(n, t, b, lat, cdt, gw_kind, device, seed=4):
+    gen = torch.Generator().manual_seed(seed)
+    q = (torch.randn((t, lat), generator=gen) * 1.5).to(device, cdt)
+    banks = torch.randn((n, b, lat), generator=gen).to(device)
+    gw = {"none": None,
+          "client_major": torch.arange(n, dtype=torch.int32).repeat_interleave(
+              -(-t // n))[:t],
+          "random": torch.randint(0, n, (t,), generator=gen,
+                                  dtype=torch.int32)}[gw_kind]
+    return q, banks, None if gw is None else gw.to(device)
+
+
+def _dist_err(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+# B x L x T around the plan's edges: 1, 3, 100 and 1,024 slots (one warp,
+# a ragged group, a partial warp, the whole CTA), L = 1, 7 (registers), 16
+# and 128 (streamed), rows around a warp's 32-row batch and an 8-row pass
+DIST_GRID = [(b, lat, t) for b in (1, 3, 100, 1024) for lat in (1, 7, 16, 128)
+             for t in (1, 63, 64, 65) + ((30_000,) if lat <= 7 else ())]
+
+
+@pytest.mark.parametrize("case", range(len(DIST_GRID)))
+def test_dist_kernel_grid_matches_plain(cuda, case):
+    from fedmse_tpu_torch.knn.score import dist_tiles, dist_tiles_plain
+    b, lat, t = DIST_GRID[case]
+    cdt = (torch.float32, torch.bfloat16)[case % 2]
+    gw_kind = ("random", "client_major", "none")[case % 3]
+    q, banks, gw = _dist_case(5, t, b, lat, cdt, gw_kind, cuda, seed=case)
+    got = dist_tiles(q, banks, gw)
+    want = dist_tiles_plain(q, banks, gw)
+    assert got.shape == (t, b) and torch.isfinite(got).all()
+    assert _dist_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(10, 30_000, 512, 7), (512, 1024, 512, 7),
+                                   (3, 77, 100, 3), (4, 300, 1024, 128)])
+def test_dist_kernel_is_bitwise_repeatable(cuda, cdt, shape):
+    from fedmse_tpu_torch.knn.score import dist_tiles
+    n, t, b, lat = shape
+    q, banks, gw = _dist_case(n, t, b, lat, cdt, "random", cuda)
+    first = dist_tiles(q, banks, gw)
+    assert torch.equal(dist_tiles(q, banks, gw).view(torch.int32),
+                       first.view(torch.int32))
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(10, 30_000, 512, 7), (10, 256, 512, 7),
+                                   (512, 1024, 512, 7), (4, 300, 1024, 128)])
+def test_dist_kernel_is_one_kernel_per_call(cuda, cdt, shape):
+    """One CUDA kernel per call in either dtype: bf16 queries are read and
+    upcast by the kernel, with no conversion launched before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedmse_tpu_torch.knn.score import dist_tiles
+    n, t, b, lat = shape
+    q, banks, gw = _dist_case(n, t, b, lat, cdt, "random", cuda)
+    dist_tiles(q, banks, gw)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a window the profiler dropped is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            dist_tiles(q, banks, gw)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "dist_tiles" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(10, 30_000, 512, 7), (10, 1000, 100, 7),
+                                   (4, 300, 1024, 128), (3, 500, 8, 3)])
+def test_dist_kernel_paths_agree_bitwise(cuda, cdt, shape):
+    """A row's distances are the same bits whichever tile computes them:
+    client-major rows (a bank kept across rows), the same rows permuted
+    (routed: a bank loaded per row) and a misaligned copy of the banks
+    (scalar loads and stores) all give the evaluator's bits."""
+    from fedmse_tpu_torch.knn.score import dist_tiles, dist_tiles_plain
+    n, t, b, lat = shape
+    q, banks, gw = _dist_case(n, t, b, lat, cdt, "client_major", cuda)
+    grouped = dist_tiles(q, banks, gw)
+    perm = torch.randperm(t, generator=torch.Generator().manual_seed(1)
+                          ).to(cuda)
+    routed = dist_tiles(q[perm].contiguous(), banks, gw[perm].contiguous())
+    assert torch.equal(routed.view(torch.int32),
+                       grouped[perm].view(torch.int32))
+    flat = torch.empty(banks.numel() + 1, device=cuda)
+    flat[1:] = banks.reshape(-1)
+    shifted = flat[1:].view(banks.shape)  # 4 bytes past a 16-byte boundary
+    assert shifted.data_ptr() % 16 != 0
+    assert torch.equal(dist_tiles(q, shifted, gw).view(torch.int32),
+                       grouped.view(torch.int32))
+    assert _dist_err(grouped, dist_tiles_plain(q, banks, gw)) <= 1e-5
+
+
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_dist_kernel_some_gateways_unused(cuda, cdt):
+    """20 banks of which a bucket routes to three, plus rows whose index
+    lies outside [0, 20): those rows are NaN, every other row as the plain
+    version, and unused banks change nothing."""
+    from fedmse_tpu_torch.knn.score import dist_tiles, dist_tiles_plain
+    gen = torch.Generator().manual_seed(7)
+    q = torch.randn((1024, 7), generator=gen).to(cuda, cdt)
+    banks = torch.randn((20, 512, 7), generator=gen).to(cuda)
+    used = torch.tensor([3, 7, 19], dtype=torch.int32)
+    gw = used[torch.randint(0, 3, (1024,), generator=gen)]
+    gw[::97] = torch.tensor([-1, 20], dtype=torch.int32).repeat(6)[:11]
+    gw = gw.to(cuda)
+    got = dist_tiles(q, banks, gw)
+    bad = (gw < 0) | (gw >= 20)
+    assert torch.isnan(got[bad]).all() and torch.isfinite(got[~bad]).all()
+    want = dist_tiles_plain(q, banks, gw)
+    assert _dist_err(got[~bad], want[~bad]) <= 1e-5
+    other = banks.clone()
+    other[[0, 1, 2, 4, 5]] = 1e6  # banks no row routes to
+    assert torch.equal(dist_tiles(q, other, gw).view(torch.int32),
+                       got.view(torch.int32))
+
+
+@pytest.mark.parametrize("change", ["groups", "ctas", "ctas_zero",
+                                    "streaming", "q_bf16", "device"])
+def test_dist_entry_refuses_plans_dist_plan_would_not_give(cuda, change):
+    """The C entry takes only dist_plan's plan for (rows, B, L) on this
+    card, and refuses any other before it touches a pointer."""
+    from fedmse_tpu_torch.knn import score
+    rows, b, lat = 30_000, 512, 7
+    groups, ctas, streaming = score.dist_plan(
+        rows, b, lat, score._sm_count(cuda.index))
+    args = dict(groups=groups, ctas=ctas, streaming=int(streaming),
+                q_bf16=0, device=cuda.index)
+    args.update({"groups": dict(groups=groups * 2),
+                 "ctas": dict(ctas=ctas - 1), "ctas_zero": dict(ctas=0),
+                 "streaming": dict(streaming=1 - int(streaming)),
+                 "q_bf16": dict(q_bf16=2), "device": dict(device=64)}[change])
+    lib = score._library()
+    rc = lib.dist_tiles(None, None, None, None, rows, 10, b, lat,
+                        args["q_bf16"], args["groups"], args["ctas"],
+                        args["streaming"], args["device"], None)
+    assert lib.dist_tiles_error_string(rc) == b"invalid argument"

@@ -93,7 +93,8 @@ def _forbidden(name):
 
 
 def test_chip_smoke_and_port_sources_import_neither_jax_nor_reference():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                              "profile_dist.py")]
     pkg = os.path.join(REPO, "fedmse_tpu_torch")
     for root, _, files in os.walk(pkg):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
