@@ -32,8 +32,11 @@ all started together, into build/fedmse_tpu_torch/), then:
                 build_banks(existing=...) bank swap in its middle;
   5. train      main.run_combination on the same federation with the
                 quick-run schedule (3 rounds, 5 epochs, batch 12, 50%
-                participation): all six combinations in f32 and hybrid /
-                mse_avg in bf16; the trained hybrid checkpoint is then
+                participation) on the driver's default path, the fused,
+                pipelined schedule (each round's bodies CUDA graphs
+                captured once per engine and replayed): all six
+                combinations in f32 and hybrid / mse_avg in bf16; the
+                trained hybrid checkpoint is then
                 served by ServingEngine.from_checkpoint and held to the
                 evaluator's oracle, and run through the CLI's --serve
                 pass (serving.run_serve_smoke) with the kNN score and the
@@ -43,6 +46,12 @@ all started together, into build/fedmse_tpu_torch/), then:
      orders     (after the main path) hybrid / mse_avg again in both
                 dtypes at 4, 2 and 1 CTAs per client: bf16 is held to f32
                 on the mean final AUC over the four summation orders;
+     fused-hold the fused round held to the per-phase round from one
+                init, cohort and data, tie-break off (hybrid / mse_avg
+                and autoencoder / fedprox in f32, hybrid / mse_avg in
+                bf16, one kNN-scored round): states and round results
+                within 1e-6 scale-normalized, and a second fused round
+                from the same state (a replay) the first's bits;
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events, and the
@@ -54,8 +63,13 @@ all started together, into build/fedmse_tpu_torch/), then:
                 csrc/dist_tiles_baseline.cu, whose bits it reproduces, and
                 inside the kNN score it starts, with a one-element fill
                 as the floor of a launch), and
-                one more training round under the profiler (device busy
-                share).
+                one more training round on each path, fused and
+                per-phase, timed and under the profiler (wall, device
+                busy share, device ms per train step; for the fused round
+                its host reads, graph replays, capture seconds and nodes),
+                and 12 fused rounds in chunks of 2 with the chunk loop
+                pipelined and serial (--no-pipeline): wall per round,
+                the same final bits.
 
 PERF.md's speed limits (served rows/s, verdict p99, round wall) are logged
 as "[watch]" lines beside their limits and listed under "watched" in the
@@ -64,15 +78,16 @@ calls on the same code).
 
 Phases 3 to 5 are the main path: the kernels' launch counters are set to 0
 just before them and read just after, and each kernel must have launched
-there. Prints, as its last three lines, the card's name and power limit,
-one JSON line of kernel numbers, and {"ok": true, "device": {...}}. Any
+there. A launch inside a replayed CUDA graph counts: each graph keeps the
+kernels it captured, and each replay adds them (ops/graphs.py). Prints,
+as its last three lines, the card's name and power limit, one JSON line
+of kernel numbers, and {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero with no result line; so does a machine
 without CUDA.
 """
 
 from __future__ import annotations
 
-import copy
 import gc
 import json
 import os
@@ -1037,16 +1052,26 @@ def phase_serve_knn(torch, device, cfg, evaluated, smi):
 
 
 def phase_train(torch, device, cfg, clients):
-    """The training path at the paper's width: every combination in f32,
-    hybrid / mse_avg in bf16. Per round: the aggregator (or why there is
-    none), mean AUC, wall time by phase and each kernel's launches. The f32
-    hybrid / mse_avg run writes its checkpoint for phase_serve_trained."""
+    """The training path at the paper's width through the driver's default,
+    the fused, pipelined schedule (federation/fused.py, pipeline.py):
+    every combination in f32, hybrid / mse_avg in bf16. Per round: the
+    aggregator (or why there is none), mean AUC and wall time (the
+    chunk's wall over its rounds: with the three quick-run rounds in one
+    chunk, each carries a third of the graphs' capture, so the steady
+    round is watched in phase_fused_hold and profile_round); per
+    combination each kernel's launches
+    (graph replays times the kernels each graph holds, and the eager
+    warm-ups). The f32 hybrid / mse_avg run writes its checkpoint for
+    phase_serve_trained."""
     from fedmse_tpu_torch.checkpointing import ResultsWriter
     from fedmse_tpu_torch.data import build_dev_dataset, stack_clients
     from fedmse_tpu_torch.main import run_combination
     from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
     from fedmse_tpu_torch.ops.fused_train import fused_train_grads
     from fedmse_tpu_torch.ops.precision import get_policy
+    if not (cfg.fused_rounds and cfg.fused_schedule and cfg.fused_pipeline):
+        raise AssertionError("the driver's default is not the fused, "
+                             "pipelined schedule")
     dev_x = build_dev_dataset(clients, np.random.default_rng(cfg.data_seed))
     names = [c.name for c in clients]
     ckpt = os.path.join(ROOT, "build", "chip_smoke_checkpoint")
@@ -1068,11 +1093,8 @@ def phase_train(torch, device, cfg, clients):
         counts = np.zeros(len(clients), np.int64)  # aggregations so far
         rows = []
 
-        def on_round(result, sec, tag=tag, last=last, counts=counts,
-                     rows=rows, thr=c.max_aggregation_threshold):
-            now = [fused_train_grads.launches, fused_forward_stats.launches]
-            launched = [a - b for a, b in zip(now, last)]
-            last[:] = now
+        def on_round(result, sec, tag=tag, counts=counts, rows=rows,
+                     thr=c.max_aggregation_threshold):
             auc = result.client_metrics
             if not np.isfinite(auc).all():
                 raise AssertionError(f"{tag}: AUC not finite: {auc}")
@@ -1088,17 +1110,10 @@ def phase_train(torch, device, cfg, clients):
                 counts[result.aggregator] += 1
             rows.append({"round": result.round_index + 1,
                          "aggregator": result.aggregator,
-                         "mean_auc": float(np.mean(auc)), "seconds": sec,
-                         "phase_seconds": result.phase_seconds,
-                         "train_launches": launched[0],
-                         "forward_launches": launched[1]})
+                         "mean_auc": float(np.mean(auc)), "seconds": sec})
             log(f"[train] {tag} round {result.round_index + 1}: aggregator "
                 f"{result.aggregator}{why}, mean AUC {np.mean(auc):.6f}, "
-                f"{sec:.4f} s {json.dumps(result.phase_seconds)}, "
-                f"fused_ae_train x{launched[0]}, fused_ae_forward "
-                f"x{launched[1]}")
-            watched(f"round seconds, {tag} round {result.round_index + 1}",
-                    sec, 2.0, False)
+                f"{sec:.4f} s")
 
         serve = (model_type, update_type, precision) == \
             ("hybrid", "mse_avg", "f32")
@@ -1106,20 +1121,167 @@ def phase_train(torch, device, cfg, clients):
         out = run_combination(c, datas[precision], len(clients), model_type,
                               update_type, 0, writer=writer,
                               device_names=names, save_checkpoints=serve,
-                              profile=True, on_round=on_round)
+                              on_round=on_round)
         torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = [fused_train_grads.launches - last[0],
+                    fused_forward_stats.launches - last[1]]
         outs[tag] = out
+        fused = out["engine"].fused_round().stats()
         report[tag] = {"rounds": rows,
                        "final_mean_auc": float(np.mean(out["final_metrics"])),
-                       "seconds": time.perf_counter() - t0}
+                       "seconds": seconds, "train_launches": launched[0],
+                       "forward_launches": launched[1], "fused": fused}
         log(f"[train] {tag}: final mean AUC "
-            f"{report[tag]['final_mean_auc']:.6f} in "
-            f"{report[tag]['seconds']:.2f} s")
+            f"{report[tag]['final_mean_auc']:.6f} in {seconds:.2f} s; "
+            f"fused_ae_train x{launched[0]}, fused_ae_forward "
+            f"x{launched[1]}; epochs {fused['epochs_run']}, "
+            f"{fused['host_reads']} host reads; graphs "
+            f"{json.dumps(fused['graphs'])}")
     delta = abs(report["hybrid/mse_avg/bf16"]["final_mean_auc"]
                 - report["hybrid/mse_avg/f32"]["final_mean_auc"])
     log(f"[train] hybrid/mse_avg: |final mean AUC bf16 - f32| = {delta:.3e} "
         f"(the pin is phase_train_orders')")
     return report, outs["hybrid/mse_avg/f32"], datas, writer, names
+
+
+def _nan_scaled_err(torch, got, want) -> float:
+    """scaled_err over two arrays whose NaNs (an unselected client's
+    min_valid and curve) must sit at the same places."""
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        return float("inf")
+    return scaled_err(torch.nan_to_num(got), torch.nan_to_num(want))
+
+
+def _state_errs(torch, layout, got, want) -> dict:
+    """Per-leaf scale-normalized errors of two ClientStates: params,
+    prev_global and hist_params by leaf, the Adam state and the verifier's
+    vectors."""
+    errs = {}
+    for name in ("params", "prev_global", "hist_params"):
+        a, b = getattr(got, name).cpu(), getattr(want, name).cpu()
+        errs[name] = max(scaled_err(a[:, sl], b[:, sl])
+                         for sl in layout.slices())
+    for name, a, b in zip(("count", "mu", "nu"), got.opt_state,
+                          want.opt_state):
+        errs[f"opt_{name}"] = max(
+            scaled_err(a.cpu()[:, sl] if a.dim() == 2 else a.cpu(),
+                       b.cpu()[:, sl] if b.dim() == 2 else b.cpu())
+            for sl in layout.slices())
+    for name in ("hist_perf", "hist_seen", "rejected", "waived"):
+        errs[name] = scaled_err(getattr(got, name).cpu().double(),
+                                getattr(want, name).cpu().double())
+    return errs
+
+
+def _same_bits(torch, a, b) -> bool:
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return a.shape == b.shape and bool(torch.equal(
+        torch.nan_to_num(a.double(), nan=1e300),
+        torch.nan_to_num(b.double(), nan=1e300)))
+
+
+def phase_fused_hold(torch, device, cfg, clients):
+    """The fused round (CUDA graphs) held to the per-phase round at the
+    paper's width: 10 gateways, a 5-client cohort, the quick run's 5
+    epochs, the same init, cohort and data, the vote tie-break off.
+    hybrid / mse_avg and autoencoder / fedprox in f32, hybrid / mse_avg in
+    bf16, and one kNN-scored hybrid / mse_avg round. After one round the
+    states (every leaf, the Adam state, the verifier's history) and the
+    RoundResult fields must agree within 1e-6 scale-normalized (the same
+    kernels in the same order: bit-equal expected), with the same
+    aggregator and verification rows; a second fused round from the same
+    state replays the captured graphs and must give the first's bits."""
+    import dataclasses
+    from fedmse_tpu_torch.data import build_dev_dataset, stack_clients
+    from fedmse_tpu_torch.federation import (HostState, RoundEngine,
+                                             init_client_states)
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.precision import get_policy
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    base = cfg.replace(compat=dataclasses.replace(cfg.compat,
+                                                  vote_tie_break=False))
+    dev_x = build_dev_dataset(clients, np.random.default_rng(cfg.data_seed))
+    layout, n = ParamLayout(*DIMS), len(clients)
+    datas, report, worst = {}, {}, 0.0
+    cases = [("hybrid", "mse_avg", "f32", "auto"),
+             ("autoencoder", "fedprox", "f32", "auto"),
+             ("hybrid", "mse_avg", "bf16", "auto"),
+             ("hybrid", "mse_avg", "f32", "knn")]
+    for model_type, update_type, precision, kind in cases:
+        c = base.replace(precision=precision, score_kind=kind,
+                         **(KNN if kind == "knn" else {}))
+        if precision not in datas:
+            datas[precision] = stack_clients(
+                clients, dev_x, c.batch_size,
+                dtype=get_policy(precision).compute_dtype, device=device)
+        model = make_model(model_type, *DIMS, c.shrink_lambda,
+                           precision=precision, device=device)
+        init = init_client_states(model, n, torch.Generator().manual_seed(
+            SEED + 5), device=device)
+
+        def engine(fused):
+            return RoundEngine(model, c, datas[precision], n_real=n,
+                               rngs=ExperimentRngs(run=0),
+                               model_type=model_type,
+                               update_type=update_type, states=init,
+                               fused=fused)
+        per, fus = engine(False), engine(True)
+        selected = per.select_clients()
+        t0 = time.perf_counter()
+        want = per.run_round(0, selected=selected)
+        torch.cuda.synchronize()
+        per_s = time.perf_counter() - t0
+        got, seconds, states = [], [], []
+        for _ in range(2):  # capture, then a replay from the same state
+            fus.states, fus.host = init, HostState.create(n)
+            t0 = time.perf_counter()
+            got.append(fus.run_round(0, selected=selected))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            states.append(fus.states.clone())
+        tag = f"{model_type}/{update_type}/{precision}/{kind}"
+        for g in got:
+            if (g.aggregator != want.aggregator
+                    or g.verification_results != want.verification_results):
+                raise AssertionError(f"[fused-hold] {tag}: aggregator "
+                                     f"{g.aggregator} vs {want.aggregator}"
+                                     " or verification rows differ")
+        errs = _state_errs(torch, layout, states[0], per.states)
+        for field in ("client_metrics", "mse_scores", "agg_weights",
+                      "min_valid", "tracking"):
+            errs[field] = _nan_scaled_err(torch, getattr(got[0], field),
+                                          getattr(want, field))
+        replay_bits = all(
+            _same_bits(torch, getattr(got[1], f), getattr(got[0], f))
+            for f in ("client_metrics", "mse_scores", "agg_weights",
+                      "min_valid", "tracking")) and max(
+            _state_errs(torch, layout, states[1], states[0]).values()) == 0
+        err = max(errs.values())
+        worst = max(worst, err)
+        bitwise = err == 0.0
+        stats = fus.fused_round().stats()
+        report[tag] = {"max_scaled_err": err, "errs": errs,
+                       "bit_equal": bitwise, "replay_bit_equal": replay_bits,
+                       "aggregator": want.aggregator,
+                       "per_phase_round_s": per_s,
+                       "fused_round_s": seconds, "fused": stats}
+        watched(f"fused round seconds (graphs replayed), {tag}",
+                seconds[1], 0.5, False)
+        log(f"[fused-hold] {tag}: aggregator {want.aggregator}, fused vs "
+            f"per-phase max scaled error {err:.3e} (bit-equal: {bitwise}); "
+            f"replay bit-equal: {replay_bits}; per-phase {per_s:.3f} s, "
+            f"fused {seconds[0]:.3f} s (capture) / {seconds[1]:.3f} s; "
+            f"graphs {json.dumps(stats['graphs'])}")
+        if not err <= 1e-6 or not replay_bits:
+            raise AssertionError(f"[fused-hold] {tag}: fused vs per-phase "
+                                 f"{json.dumps(errs)}, replay bit-equal "
+                                 f"{replay_bits}")
+    log(f"[fused-hold] worst scaled error over {len(cases)} cases: "
+        f"{worst:.3e} (limit 1e-6)")
+    return {"cases": report, "worst_scaled_err": worst}
 
 
 def phase_train_orders(torch, cfg, datas, n_clients, report):
@@ -1411,29 +1573,36 @@ def report_dist(torch, device, launches, worst, eval_rows):
     }
 
 
-def profile_round(torch, out):
-    """One more round of the trained hybrid / mse_avg federation, twice from
-    the same state and cohort: timed on the host clock, then under
-    torch.profiler (whose per-launch cost inflates the wall clock) for the
-    device time by kernel. Busy share = device time / unprofiled wall."""
+def _profile_path(torch, engine, path, states, host, k, selected):
+    """One round on `path` from (states, host), twice: timed on the host
+    clock, then under torch.profiler for the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from fedmse_tpu_torch.ops.fused_train import fused_train_grads
-    engine = out["engine"]
-    k = engine.cfg.num_rounds
-    selected = engine.select_clients()
-    states, host = engine.states.clone(), copy.deepcopy(engine.host)
+    fused = engine.fused_round()
+    engine.profile = path == "per_phase"  # profile forces per-phase
+    engine.states, engine.host = states, host.copy()
+    bodies = (fused.enter, fused.epoch, fused.leave)
+    reads = fused.host_reads
+    replays = sum(b.replays for b in bodies)
+    epoch_s = (fused.epoch.replays, fused.epoch.replay_seconds)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.run_round(k, selected=selected)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    engine.states, engine.host = states, host
+    reads = fused.host_reads - reads
+    replays = sum(b.replays for b in bodies) - replays
+    # the host's milliseconds in one replay() of the epoch graph
+    epoch_replay_ms = ((fused.epoch.replay_seconds - epoch_s[1]) * 1e3
+                       / max(fused.epoch.replays - epoch_s[0], 1))
+    engine.states, engine.host = states, host.copy()
     before = fused_train_grads.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         engine.run_round(k, selected=selected)
         torch.cuda.synchronize()
     steps = fused_train_grads.launches - before
+    engine.profile = False
     by_name, calls = {}, {}
     for e in prof.key_averages():
         us = _device_us(e)
@@ -1442,18 +1611,116 @@ def profile_round(torch, out):
             calls[e.key] = calls.get(e.key, 0) + e.count
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    result = {"wall_ms": wall_ms, "device_busy_ms": busy,
-              "device_busy_share": busy / wall_ms, "train_steps": steps,
-              "host_ms_per_step": wall_ms / max(steps, 1),
-              "device_ops_per_step": sum(calls.values()) / max(steps, 1),
-              # kernel name (cut to 80 characters): [device ms, launches]
-              "top_kernels": {n[:80]: [v, calls[n]] for n, v in top}}
-    log(f"[profile] one hybrid/mse_avg round: wall {wall_ms:.2f} ms, "
-        f"{steps} train steps ({result['host_ms_per_step']:.4f} ms each, "
-        f"{result['device_ops_per_step']:.2f} device ops per step), device "
-        f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%); top kernels "
-        f"{json.dumps({n[:60]: [round(v, 3), calls[n]] for n, v in top})}")
-    return result
+    r = {"wall_ms": wall_ms, "device_busy_ms": busy,
+         "device_busy_share": busy / wall_ms, "train_steps": steps,
+         "host_ms_per_step": wall_ms / max(steps, 1),
+         "device_ms_per_step": busy / max(steps, 1),
+         "device_ops_per_step": sum(calls.values()) / max(steps, 1),
+         # kernel name (cut to 80 characters): [device ms, launches]
+         "top_kernels": {n[:80]: [v, calls[n]] for n, v in top}}
+    if path != "per_phase":
+        r.update({"host_reads": reads, "graph_replays": replays,
+                  "epoch_replay_host_ms": epoch_replay_ms,
+                  "epochs_run": fused.epochs_run[-1],
+                  "graphs": fused.stats()["graphs"]})
+    return r, {n[:60]: [round(v, 3), calls[n]] for n, v in top}
+
+
+def profile_round(torch, out):
+    """One more round of the trained hybrid / mse_avg federation on each
+    path, the fused round (CUDA graphs) and the per-phase round, each
+    twice from the same state and cohort: timed on the host clock, then
+    under torch.profiler (whose per-launch cost inflates the wall clock)
+    for the device time by kernel. Busy share = device time / unprofiled
+    wall. For the fused round also the host's reads (one early-stop flag
+    per epoch but the first), the graph replays, the host's time per
+    epoch replay, the epochs run and the capture seconds and nodes of its
+    graphs (captured in phase_train)."""
+    engine = out["engine"]
+    states, host = engine.states.clone(), engine.host.copy()
+    selected = engine.select_clients()
+    results = {}
+    for path in ("fused", "per_phase"):
+        r, tops = _profile_path(torch, engine, path, states, host,
+                                engine.cfg.num_rounds, selected)
+        results[path] = r
+        log(f"[profile] one hybrid/mse_avg round, {path}: wall "
+            f"{r['wall_ms']:.2f} ms, {r['train_steps']} train steps "
+            f"({r['host_ms_per_step']:.4f} ms of wall and "
+            f"{r['device_ms_per_step']:.4f} ms of device time each, "
+            f"{r['device_ops_per_step']:.2f} device ops), device busy "
+            f"{r['device_busy_ms']:.2f} ms "
+            f"({100 * r['device_busy_share']:.1f}%)"
+            + (f", {r['epochs_run']} epochs, {r['host_reads']} host "
+               f"reads, {r['graph_replays']} graph replays "
+               f"({r['epoch_replay_host_ms']:.3f} ms of host time per "
+               f"epoch replay)" if path == "fused" else "")
+            + f"; top kernels {json.dumps(tops)}")
+    engine.states, engine.host = states, host
+    watched("fused round wall seconds, profiled round",
+            results["fused"]["wall_ms"] / 1e3, 0.5, False)
+    watched("device-busy share of a fused round",
+            results["fused"]["device_busy_share"], 0.5, True)
+    return results
+
+
+def profile_pipeline(torch, out):
+    """The fused schedule's chunk loop pipelined (the driver's default)
+    against serial (--no-pipeline), on the trained hybrid / mse_avg
+    engine, whose graphs phase_train captured: 12 rounds in chunks of 2,
+    each run from the engine's init and fresh streams (the same
+    selections, draws and work), in the order pipelined, serial, serial,
+    pipelined. `consume` does the driver's per-round host work (a
+    ResultsWriter appends the round's metrics and verification rows).
+    Reports each run's wall per round and the pipelined runs' host gaps;
+    the two loops' final states must be the same bits."""
+    from fedmse_tpu_torch.checkpointing import ResultsWriter
+    from fedmse_tpu_torch.federation import run_pipelined_schedule
+    engine = out["engine"]
+    cfg = engine.cfg
+    keep = engine.states.clone(), engine.host.copy(), engine.rngs
+    root = os.path.join(ROOT, "build", "chip_smoke_pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    writer = ResultsWriter(root, cfg.network_size, "chip-smoke",
+                           cfg.scen_name, cfg.metric, cfg.num_participants)
+    rounds, chunk = 12, 2
+
+    def consume(results, sec):
+        for r in results:
+            writer.append_round_metrics(0, r.round_index, r.client_metrics,
+                                        engine.model_type,
+                                        engine.update_type)
+            writer.append_verification(0, r.round_index,
+                                       r.verification_results)
+        return None
+
+    runs, final = [], {}
+    for pipelined in (True, False, False, True):
+        engine.reset_federation()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = run_pipelined_schedule(engine, 0, rounds, chunk, consume,
+                                       can_rewind=False, pipelined=pipelined)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        final.setdefault(pipelined, engine.states.params.clone())
+        runs.append({"pipelined": pipelined, "wall_s": wall,
+                     "round_ms": wall * 1e3 / rounds,
+                     "host_gap_ms": [g * 1e3 for g in stats.host_gaps]})
+        log(f"[pipeline] {rounds} fused rounds in chunks of {chunk}, "
+            f"{'pipelined' if pipelined else 'serial'}: {wall:.4f} s, "
+            f"{wall * 1e3 / rounds:.3f} ms a round; host gaps (ms) "
+            f"{[round(g * 1e3, 3) for g in stats.host_gaps]}")
+    engine.states, engine.host, engine.rngs = keep
+    shutil.rmtree(root, ignore_errors=True)
+    if not torch.equal(final[True], final[False]):
+        raise AssertionError("[pipeline] pipelined and serial chunk loops "
+                             "ended on different params")
+    ms = {p: [r["round_ms"] for r in runs if r["pipelined"] == p]
+          for p in (True, False)}
+    log(f"[pipeline] mean ms a round: pipelined "
+        f"{np.mean(ms[True]):.3f}, serial {np.mean(ms[False]):.3f}")
+    return {"rounds": rounds, "chunk": chunk, "runs": runs}
 
 
 def phase_card_vs_cpu(torch, device, cfg, clients):
@@ -1693,7 +1960,9 @@ def main() -> int:
     log(f"[main path] launches {json.dumps(launches)}")
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
+    training["fused_hold"] = phase_fused_hold(torch, device, cfg, clients)
     round_profile = profile_round(torch, trained)
+    round_profile["pipeline"] = profile_pipeline(torch, trained)
     card_vs_cpu = phase_card_vs_cpu(torch, device, cfg, clients)
 
     line = phase_report(torch, device, launches["fused_ae_forward"], worst)

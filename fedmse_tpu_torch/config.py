@@ -158,6 +158,22 @@ class ExperimentConfig:
     # serving front: largest dispatch bucket and the micro-batcher's wait
     serve_max_batch: int = 256
     serve_latency_budget_ms: float = 2.0
+    # the fused round (federation/fused.py): vote, aggregation,
+    # verification and evaluation with no host read, local training in
+    # epoch bodies; on the card each is a replayed CUDA graph. The same
+    # math as the per-phase path (bitwise with compat.vote_tie_break off;
+    # with it on, only the tie-break draws' bookkeeping differs)
+    fused_rounds: bool = True
+    # the driver runs the fused rounds in chunks of fused_schedule_chunk,
+    # early stopping checked per round from the chunk's stacked outputs (a
+    # mid-chunk stop restores the chunk-entry snapshot and replays the
+    # prefix with the same selections and draws)
+    fused_schedule: bool = True
+    fused_schedule_chunk: int = 32
+    # chunk k + 1 is enqueued before chunk k is harvested, the quota
+    # carried on the device (federation/pipeline.py); --no-pipeline runs
+    # the serial chunk loop
+    fused_pipeline: bool = True
 
     compat: CompatConfig = dataclasses.field(default_factory=CompatConfig)
 

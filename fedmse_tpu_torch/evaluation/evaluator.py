@@ -26,7 +26,7 @@ the end of each client's repetitions).
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -58,21 +58,26 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
                       knn_topk: str = "exact",
                       knn_seed: int = 0) -> Callable:
     """fn(stacked_params, test_x [N, T, D], test_m [N, T], test_y [N, T],
-    train_xb [N, NB, B, D], train_mb [N, NB, B]) -> per-client AUC [N],
-    (f1, precision, recall) [N, 3] for 'classification', the
-    nan_to_num'd scores [N, T] for 'scores' (the serving engine's oracle),
-    or the steady-state seconds of one client's scoring [N] (float64, on
-    the CPU) for 'time'. Runs where the tensors are: on the card through
-    the fused kernel (and, for 'knn', the distance kernel). The knn_*
-    arguments configure score_kind 'knn'; client i's bank draw is seeded
-    from (knn_seed, i), as knn.build_banks seeds it."""
+    train_xb [N, NB, B, D], train_mb [N, NB, B], priorities=None) ->
+    per-client AUC [N], (f1, precision, recall) [N, 3] for
+    'classification', the nan_to_num'd scores [N, T] for 'scores' (the
+    serving engine's oracle), or the steady-state seconds of one client's
+    scoring [N] (float64, on the CPU) for 'time'. Runs where the tensors
+    are: on the card through the fused kernel (and, for 'knn', the
+    distance kernel). The knn_* arguments configure score_kind 'knn';
+    client i's bank draw is seeded from (knn_seed, i), as knn.build_banks
+    seeds it. The draw is made on the CPU; a caller that evaluates again
+    and again (the fused round, whose CUDA graph cannot copy from the
+    host) draws it once with the returned function's
+    `bank_priorities(N, NB * B, device)` and passes it as `priorities`."""
     kind = resolve_score_kind(model_type, score_kind)
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}; expected one of "
                          f"{METRICS}")
     cdt = model.compute_dtype
 
-    def anomaly_scores(params, test_x, train_xb, train_mb, first=0):
+    def anomaly_scores(params, test_x, train_xb, train_mb, first=0,
+                       priorities=None):
         # first: the absolute index of client 0 of these tensors (the
         # 'time' metric scores one client at a time)
         n, t, d = test_x.shape
@@ -91,10 +96,11 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
         train_latent = latent[n * t:].view(n, s, -1)
         train_m = train_mb.reshape(n, s)
         if kind == "knn":
+            if priorities is None:
+                priorities = bank_priorities(knn_seed, n, s, first=first,
+                                             device=dev)
             bank = ReferenceBank(*downsample_stacked(
-                train_latent, train_m > 0,
-                bank_priorities(knn_seed, n, s, first=first, device=dev),
-                knn_bank_size))
+                train_latent, train_m > 0, priorities, knn_bank_size))
             return routed_kth_distance(latent[:n * t], idx, bank, knn_k,
                                        topk=knn_topk).view(n, t)
         cen = fit_centroid(train_latent, train_m)
@@ -129,10 +135,11 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
 
     @torch.no_grad()
     def evaluate_all(stacked_params, test_x, test_m, test_y, train_xb,
-                     train_mb):
+                     train_mb, priorities=None):
         params = cast_params(stacked_params, cdt)
         scores = torch.nan_to_num(anomaly_scores(params, test_x, train_xb,
-                                                 train_mb))
+                                                 train_mb,
+                                                 priorities=priorities))
         if metric == "scores":
             return scores
         if metric == "AUC":
@@ -140,4 +147,14 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
         return torch.stack(classification_metrics(test_y, scores, test_m),
                            dim=-1)
 
-    return latency_all if metric == "time" else evaluate_all
+    def priorities(n: int, rows: int, device) -> Optional[torch.Tensor]:
+        """The kNN bank priorities of n clients' `rows` train rows that an
+        evaluation draws by default, on `device`; None unless the score is
+        'knn'."""
+        if kind != "knn":
+            return None
+        return bank_priorities(knn_seed, n, rows, device=device)
+
+    fn = latency_all if metric == "time" else evaluate_all
+    fn.bank_priorities = priorities
+    return fn

@@ -13,25 +13,38 @@ The reference's semantics, as the JAX package reproduces them:
     ones (restore_best=True); the Adam state persists across rounds.
 
 The JAX package vmaps one client's epoch while_loop over the client axis.
-Here it is a host loop over epochs and batches in which every batch step
-is ONE fused train-kernel launch over the whole cohort (ops/fused_train.py)
-followed by the stacked Adam update (optim.py) on [S, P]. A per-client
-`active` flag plays the vmapped while_loop's frozen lanes: an early-stopped
-client keeps its params, state and curve. Validation is one fused forward
-launch per epoch over every cohort client's valid rows, and the loop ends
-when no client is active: one device-to-host read per epoch, none per
-batch.
+Here `LocalTrainer` keeps one cohort's training in static buffers
+(`Cohort`) and runs it in three steps that update them in place:
+
+  * `begin` gathers the cohort's rows (its clients' params, Adam state,
+    anchors and data, at `Cohort.idx`) and resets the early-stop state;
+  * `epoch` runs one epoch: every batch step is ONE fused train-kernel
+    launch over the whole cohort (ops/fused_train.py) followed by the
+    stacked in-place Adam update (optim.adam_step_) on [S, P], then one
+    fused forward launch validates every cohort client. A per-client
+    `active` flag plays the vmapped while_loop's frozen lanes: an
+    early-stopped client keeps its params, state and curve. The epoch
+    index lives on the device, and the epoch writes `go[e]`: whether any
+    client is still active for epoch e + 1. Nothing in it reads the host,
+    so a CUDA graph captures it (federation/fused.py);
+  * `finish` scatters the results back into new [N, ...] tensors.
+
+Once every client is inactive an epoch changes nothing (Adam is masked
+by `has_b & active`, `improved` is false, `tracking` keeps its rows), so
+running one more epoch than needed is exact. The per-round call
+(`LocalTrainer.__call__`, the per-phase path) reads `go[e - 1]` before
+epoch e and stops: one device-to-host read per epoch, none per batch.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 
 from fedmse_tpu_torch.evaluation.evaluator import client_index
-from fedmse_tpu_torch.federation.optim import AdamState, adam_step
-from fedmse_tpu_torch.federation.state import tree_select_clients
+from fedmse_tpu_torch.federation.optim import AdamState, adam_step_
 from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.fused_train import fused_train_grads
@@ -46,109 +59,185 @@ class LocalTrainResult(NamedTuple):
     tracking: torch.Tensor     # [N, E, 3] (train loss, valid loss, active)
 
 
-def make_local_train_all(model, epochs: int, patience: int, fedprox: bool,
-                         mu: float, lr: float,
-                         restore_best: bool = False) -> Callable:
-    """fn(params [N, P], opt_state, prev_global [N, P], sel_mask [N],
+@dataclasses.dataclass
+class Cohort:
+    """One cohort's local training state, C clients, updated in place."""
+
+    idx: torch.Tensor       # [C] int64: the cohort's rows of the federation
+    p: torch.Tensor         # [C, P] params being trained
+    opt: AdamState          # [C] their Adam state
+    prev: torch.Tensor      # [C, P] fedprox anchors
+    best: torch.Tensor      # [C, P] best-valid-loss params
+    train_xb: torch.Tensor  # [C, NB, B, D]
+    train_mb: torch.Tensor  # [C, NB, B]
+    valid_xb: torch.Tensor
+    valid_mb: torch.Tensor
+    has_b: torch.Tensor     # [C, NB] bool: real batches
+    nb: torch.Tensor        # [C] f32: real train batches (>= 1)
+    nvb: torch.Tensor       # [C] f32: real valid batches (>= 1)
+    min_v: torch.Tensor     # [C] best valid loss so far
+    worse: torch.Tensor     # [C] int32 epochs without improvement
+    tracking: torch.Tensor  # [C, E, 3]
+    epoch: torch.Tensor     # int64 0-d: the next epoch's index
+    go: torch.Tensor        # [E] bool: go[e] = some client active in e + 1
+
+
+class LocalTrainer:
+    """Local training of a cohort (see the module docstring). Called as
+    fn(params [N, P], opt_state, prev_global [N, P], sel_mask [N],
     train_xb [N, NB, B, D], train_mb [N, NB, B], valid_xb, valid_mb,
-    sel_idx=None) -> LocalTrainResult.
+    sel_idx=None) -> LocalTrainResult, it is the per-phase path's round.
 
     sel_idx (int64 [S], no duplicates) trains the compact cohort: gather
     its rows, train S clients, scatter back. Without it every client trains
     and the unselected results are masked away (dense). Unselected clients
     keep their params and state; their min_valid and tracking are NaN."""
-    layout = ParamLayout.of(model)
-    lam = float(getattr(model, "shrink_lambda", 0.0))
-    cdt = model.compute_dtype
 
-    def valid_loss(p, prev_global, valid_xb, valid_mb, nvb):
-        s, nvb_max, b, d = valid_xb.shape
+    def __init__(self, model, epochs: int, patience: int, fedprox: bool,
+                 mu: float, lr: float, restore_best: bool = False):
+        self.layout = ParamLayout.of(model)
+        self.lam = float(getattr(model, "shrink_lambda", 0.0))
+        self.cdt = model.compute_dtype
+        self.epochs, self.patience = epochs, patience
+        self.fedprox, self.mu, self.lr = fedprox, mu, lr
+        self.restore_best = restore_best
+
+    def cohort(self, idx: torch.Tensor, params: torch.Tensor,
+               train_xb: torch.Tensor, train_mb: torch.Tensor,
+               valid_xb: torch.Tensor, valid_mb: torch.Tensor) -> Cohort:
+        """Buffers for the cohort of the rows in `idx` (read at `begin`)."""
+        c, dev = idx.shape[0], params.device
+
+        def like(t, dtype=None):
+            return torch.empty((c,) + tuple(t.shape[1:]),
+                               dtype=dtype or t.dtype, device=dev)
+
+        f32 = torch.float32
+        return Cohort(
+            idx=idx, p=like(params), opt=AdamState(
+                like(params[:, 0], torch.int32), like(params),
+                like(params)),
+            prev=like(params), best=like(params), train_xb=like(train_xb),
+            train_mb=like(train_mb), valid_xb=like(valid_xb),
+            valid_mb=like(valid_mb),
+            has_b=like(train_mb[:, :, 0], torch.bool),
+            nb=like(params[:, 0], f32), nvb=like(params[:, 0], f32),
+            min_v=like(params[:, 0], f32),
+            worse=like(params[:, 0], torch.int32),
+            tracking=torch.empty((c, self.epochs, 3), device=dev),
+            epoch=torch.zeros((), dtype=torch.int64, device=dev),
+            go=torch.zeros(self.epochs, dtype=torch.bool, device=dev))
+
+    def begin(self, co: Cohort, params, opt_state: AdamState, prev_global,
+              train_xb, train_mb, valid_xb, valid_mb) -> None:
+        """Gather the cohort's rows and reset its early-stop state."""
+        idx = co.idx
+        for full, mine in ((params, co.p), (prev_global, co.prev),
+                           (train_xb, co.train_xb), (train_mb, co.train_mb),
+                           (valid_xb, co.valid_xb), (valid_mb, co.valid_mb),
+                           *zip(opt_state, co.opt)):
+            torch.index_select(full, 0, idx, out=mine)
+        co.has_b.copy_((co.train_mb > 0).any(dim=2))
+        co.nb.copy_(torch.clamp(co.has_b.sum(dim=1), min=1))
+        co.nvb.copy_(torch.clamp((co.valid_mb > 0).any(dim=2).sum(dim=1),
+                                 min=1))
+        co.best.copy_(co.p)
+        co.min_v.fill_(float("inf"))
+        co.worse.zero_()
+        co.tracking.zero_()
+        co.epoch.zero_()
+        co.go.zero_()
+
+    def _valid_loss(self, co: Cohort) -> torch.Tensor:
+        s, nvb_max, b, d = co.valid_xb.shape
+        lam, p = self.lam, co.p
         _, mse, zn = fused_forward_stats(
-            layout.tree(p, cdt), valid_xb.reshape(-1, d),
-            client_index(s, nvb_max * b, p.device), compute_dtype=cdt)
-        m = valid_mb
+            self.layout.tree(p, self.cdt), co.valid_xb.reshape(-1, d),
+            client_index(s, nvb_max * b, p.device), compute_dtype=self.cdt)
+        m = co.valid_mb
         msum = m.sum(dim=2)
         loss = safe_div((mse.view(s, nvb_max, b) * m).sum(dim=2), msum)
         if lam:
             loss = loss + lam * safe_div(
                 (zn.view(s, nvb_max, b) * m).sum(dim=2), msum)
-        if fedprox:
-            loss = loss + mu * prox_term(p, prev_global)[:, None]
+        if self.fedprox:
+            loss = loss + self.mu * prox_term(p, co.prev)[:, None]
         has = (m > 0).any(dim=2)
-        return torch.where(has, loss, 0.0).sum(dim=1) / nvb
+        return torch.where(has, loss, 0.0).sum(dim=1) / co.nvb
 
-    def train_cohort(params, opt_state, prev_global, train_xb, train_mb,
-                     valid_xb, valid_mb):
-        s, nb_max = train_xb.shape[:2]
-        dev = params.device
-        has_b = (train_mb > 0).any(dim=2)                       # [S, NB]
-        nb = torch.clamp(has_b.sum(dim=1), min=1).to(torch.float32)
-        nvb = torch.clamp((valid_mb > 0).any(dim=2).sum(dim=1),
-                          min=1).to(torch.float32)
-        p, opt, best = params, opt_state, params
-        min_v = torch.full((s,), float("inf"), device=dev)
-        worse = torch.zeros(s, dtype=torch.int32, device=dev)
-        tracking = torch.zeros((s, epochs, 3), device=dev)
-        for epoch in range(epochs):
-            # the first epoch always runs (the scan version's patience=0)
-            active = (worse < patience) | (epoch == 0)
-            if epoch > 0 and not bool(active.any()):
-                break
-            loss_sum = torch.zeros(s, device=dev)
-            for b in range(nb_max):
-                loss, grads = fused_train_grads(
-                    p, train_xb[:, b], train_mb[:, b], layout=layout,
-                    shrink_lambda=lam, compute_dtype=cdt)
-                if fedprox:
-                    loss = loss + mu * prox_term(p, prev_global)
-                    grads = grads + mu * (2.0 * (p - prev_global))
-                # a padded batch is skipped entirely, no Adam time step
-                p, opt = adam_step(p, opt, grads, has_b[:, b] & active, lr)
-                loss_sum = loss_sum + torch.where(has_b[:, b], loss, 0.0)
-            train_loss = loss_sum / nb
-            v_loss = valid_loss(p, prev_global, valid_xb, valid_mb, nvb)
-            improved = (v_loss < min_v) & active
-            min_v = torch.where(improved, v_loss, min_v)
-            best = tree_select_clients(improved, p, best)
-            worse = torch.where(active, torch.where(improved, 0, worse + 1),
-                                worse).to(torch.int32)
-            row = torch.stack([train_loss, v_loss, torch.ones_like(v_loss)],
-                              dim=1)
-            tracking[:, epoch] = torch.where(active[:, None], row,
-                                             tracking[:, epoch])
-        return LocalTrainResult(p, opt, best, min_v, tracking)
+    def epoch(self, co: Cohort) -> None:
+        """One epoch of every cohort client, in place (no host read)."""
+        s, nb_max = co.train_xb.shape[:2]
+        p, mu = co.p, self.mu
+        # the first epoch always runs (the scan version's patience=0)
+        active = (co.worse < self.patience) | (co.epoch == 0)
+        loss_sum = torch.zeros(s, device=p.device)
+        for b in range(nb_max):
+            loss, grads = fused_train_grads(
+                p, co.train_xb[:, b], co.train_mb[:, b], layout=self.layout,
+                shrink_lambda=self.lam, compute_dtype=self.cdt)
+            if self.fedprox:
+                loss = loss + mu * prox_term(p, co.prev)
+                grads = grads + mu * (2.0 * (p - co.prev))
+            # a padded batch is skipped entirely, no Adam time step
+            adam_step_(p, co.opt, grads, co.has_b[:, b] & active, self.lr)
+            loss_sum = loss_sum + torch.where(co.has_b[:, b], loss, 0.0)
+        train_loss = loss_sum / co.nb
+        v_loss = self._valid_loss(co)
+        improved = (v_loss < co.min_v) & active
+        torch.where(improved, v_loss, co.min_v, out=co.min_v)
+        torch.where(improved[:, None], p, co.best, out=co.best)
+        torch.where(active, torch.where(improved, 0, co.worse + 1),
+                    co.worse, out=co.worse)
+        row = torch.stack([train_loss, v_loss, torch.ones_like(v_loss)],
+                          dim=1)
+        at = torch.arange(self.epochs, device=p.device) == co.epoch
+        torch.where(at[None, :, None] & active[:, None, None],
+                    row[:, None, :], co.tracking, out=co.tracking)
+        torch.where(at, (co.worse < self.patience).any(), co.go, out=co.go)
+        co.epoch += 1
 
-    def train_all(params, opt_state, prev_global, sel_mask, train_xb,
-                  train_mb, valid_xb, valid_mb,
-                  sel_idx: Optional[torch.Tensor] = None) -> LocalTrainResult:
-        n = params.shape[0]
-        if sel_idx is not None:
-            take = lambda t: t.index_select(0, sel_idx)  # noqa: E731
-            res = train_cohort(take(params), opt_state.take(sel_idx),
-                               take(prev_global), take(train_xb),
-                               take(train_mb), take(valid_xb),
-                               take(valid_mb))
-            final = res.best_params if restore_best else res.params
-            nan = float("nan")
-            return LocalTrainResult(
-                params.index_copy(0, sel_idx, final),
-                opt_state.put(sel_idx, res.opt_state),
-                params.index_copy(0, sel_idx, res.best_params),
-                torch.full((n,), nan, device=params.device).index_copy(
-                    0, sel_idx, res.min_valid),
-                torch.full((n,) + res.tracking.shape[1:], nan,
-                           device=params.device).index_copy(
-                    0, sel_idx, res.tracking))
-        res = train_cohort(params, opt_state, prev_global, train_xb,
-                           train_mb, valid_xb, valid_mb)
+    def finish(self, co: Cohort, params, opt_state: AdamState,
+               sel_mask: torch.Tensor) -> LocalTrainResult:
+        """The cohort's results scattered into the federation's rows:
+        selected clients take theirs, the others keep params and state,
+        with NaN min_valid and tracking."""
+        n, idx = params.shape[0], co.idx
         sel = sel_mask > 0
-        final = res.best_params if restore_best else res.params
-        nanmask = torch.where(sel, 1.0, float("nan"))
+        nan = float("nan")
+        nanmask = torch.where(sel, 1.0, nan)
+        final = co.best if self.restore_best else co.p
+        rows = sel[:, None]
         return LocalTrainResult(
-            tree_select_clients(sel, final, params),
-            res.opt_state.where(sel, opt_state),
-            tree_select_clients(sel, res.best_params, params),
-            res.min_valid * nanmask,
-            res.tracking * nanmask[:, None, None])
+            torch.where(rows, params.index_copy(0, idx, final), params),
+            opt_state.put(idx, co.opt).where(sel, opt_state),
+            torch.where(rows, params.index_copy(0, idx, co.best), params),
+            torch.full((n,), nan, device=params.device).index_copy(
+                0, idx, co.min_v) * nanmask,
+            torch.full((n,) + co.tracking.shape[1:], nan,
+                       device=params.device).index_copy(
+                0, idx, co.tracking) * nanmask[:, None, None])
 
-    return train_all
+    def __call__(self, params, opt_state, prev_global, sel_mask, train_xb,
+                 train_mb, valid_xb, valid_mb,
+                 sel_idx: Optional[torch.Tensor] = None) -> LocalTrainResult:
+        idx = (torch.arange(params.shape[0], device=params.device)
+               if sel_idx is None else sel_idx.to(params.device).long())
+        co = self.cohort(idx, params, train_xb, train_mb, valid_xb,
+                         valid_mb)
+        self.begin(co, params, opt_state, prev_global, train_xb, train_mb,
+                   valid_xb, valid_mb)
+        for e in range(self.epochs):
+            if e > 0 and not bool(co.go[e - 1]):
+                break
+            self.epoch(co)
+        return self.finish(co, params, opt_state, sel_mask)
+
+
+def make_local_train_all(model, epochs: int, patience: int, fedprox: bool,
+                         mu: float, lr: float,
+                         restore_best: bool = False) -> LocalTrainer:
+    """The LocalTrainer of these settings (called as train_all, see its
+    docstring)."""
+    return LocalTrainer(model, epochs, patience, fedprox, mu, lr,
+                        restore_best)

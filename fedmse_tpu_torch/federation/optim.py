@@ -30,11 +30,16 @@ class AdamState(NamedTuple):
     mu: torch.Tensor     # [S, P] f32
     nu: torch.Tensor     # [S, P] f32
 
-    def take(self, idx: torch.Tensor) -> "AdamState":
-        return AdamState(*(t.index_select(0, idx) for t in self))
-
     def put(self, idx: torch.Tensor, sub: "AdamState") -> "AdamState":
         return AdamState(*(t.index_copy(0, idx, s) for t, s in zip(self, sub)))
+
+    def clone(self) -> "AdamState":
+        return AdamState(*(t.clone() for t in self))
+
+    def copy_(self, other: "AdamState") -> None:
+        """Take `other`'s values into these buffers."""
+        for t, o in zip(self, other):
+            t.copy_(o)
 
     def where(self, keep_new: torch.Tensor, old: "AdamState") -> "AdamState":
         """Rows of self where keep_new [S] is true, of `old` elsewhere."""
@@ -53,10 +58,12 @@ def adam_init(params: torch.Tensor) -> AdamState:
         mu=torch.zeros_like(params), nu=torch.zeros_like(params))
 
 
-def adam_step(params: torch.Tensor, state: AdamState, grads: torch.Tensor,
-              step: torch.Tensor, lr: float) -> Tuple[torch.Tensor, AdamState]:
-    """One Adam update of the rows where `step` [S] is true; the others
-    keep their params and state."""
+def adam_step_(params: torch.Tensor, state: AdamState,
+               grads: torch.Tensor, step: torch.Tensor, lr: float) -> None:
+    """One Adam update of the rows where `step` [S] is true, in place:
+    params and the state's buffers take the new values there and keep
+    theirs elsewhere. In place, so a CUDA graph that captured it feeds each
+    replay from the last (federation/fused.py)."""
     mu = (1 - B1) * grads + B1 * state.mu
     nu = (1 - B2) * (grads * grads) + B2 * state.nu
     count = torch.where(state.count < _COUNT_MAX, state.count + 1,
@@ -68,8 +75,19 @@ def adam_step(params: torch.Tensor, state: AdamState, grads: torch.Tensor,
     nu_hat = nu / bc2[:, None]
     updates = (-lr) * (mu_hat / (torch.sqrt(nu_hat + EPS_ROOT) + EPS))
     keep = step[:, None]
-    return (torch.where(keep, params + updates, params),
-            AdamState(count, mu, nu).where(step, state))
+    torch.where(keep, params + updates, params, out=params)
+    torch.where(step, count, state.count, out=state.count)
+    torch.where(keep, mu, state.mu, out=state.mu)
+    torch.where(keep, nu, state.nu, out=state.nu)
+
+
+def adam_step(params: torch.Tensor, state: AdamState, grads: torch.Tensor,
+              step: torch.Tensor, lr: float) -> Tuple[torch.Tensor, AdamState]:
+    """One Adam update of the rows where `step` [S] is true; the others
+    keep their params and state. New tensors, the values of adam_step_."""
+    params, state = params.clone(), state.clone()
+    adam_step_(params, state, grads, step, lr)
+    return params, state
 
 
 def opt_state_from_numpy(opt_state: Any, layout: ParamLayout, *,

@@ -60,7 +60,24 @@ class ClientStates:
                                for f in dataclasses.fields(self)})
 
     def clone(self) -> "ClientStates":
+        """A device snapshot: every tensor copied (the rewind's snapshot)."""
         return self.apply(torch.clone)
+
+    def copy_(self, other: "ClientStates") -> None:
+        """Restore `other`'s values into these tensors, in place: the
+        buffers a captured round reads keep their addresses."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).copy_(getattr(other, f.name))
+
+    def where_(self, keep: torch.Tensor, new: "ClientStates") -> None:
+        """Take `new`'s values where the device predicate `keep` (a 0-d
+        bool) holds, in place: a branch without a host read."""
+        for f in dataclasses.fields(self):
+            mine, theirs = getattr(self, f.name), getattr(new, f.name)
+            pairs = zip(mine, theirs) if isinstance(mine, AdamState) \
+                else [(mine, theirs)]
+            for a, b in pairs:
+                torch.where(keep, b, a, out=a)
 
     def to(self, device: DeviceLike) -> "ClientStates":
         dev = resolve_device(device)
@@ -74,6 +91,11 @@ class HostState:
     aggregation_count: np.ndarray
     votes_received: np.ndarray
     rounds_aggregated: list
+
+    def copy(self) -> "HostState":
+        return HostState(self.aggregation_count.copy(),
+                         self.votes_received.copy(),
+                         list(self.rounds_aggregated))
 
     @staticmethod
     def create(n_real: int) -> "HostState":

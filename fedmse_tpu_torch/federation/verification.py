@@ -73,7 +73,7 @@ def make_verify_fn(model, verification_threshold: float = 3.0,
         k, v, d = x.shape
         _, mse, _ = fused_forward_stats(
             layout.tree(models, cdt), x.reshape(k * v, d).to(cdt),
-            model_of.to(torch.int32).repeat_interleave(v),
+            model_of.to(torch.int32)[:, None].repeat(1, v).view(-1),
             compute_dtype=cdt)
         loss = safe_div((mse.view(k, v) * m).sum(dim=1), m.sum(dim=1))
         return 1.0 / (1.0 + loss)

@@ -187,11 +187,12 @@ def dist_tiles(q: torch.Tensor, banks: torch.Tensor,
     if rc != 0:
         raise RuntimeError("dist_tiles launch failed: "
                            + lib.dist_tiles_error_string(rc).decode())
-    dist_tiles.launches += 1
+    native.count_launch(dist_tiles)
     return out
 
 
 dist_tiles.launches = 0
+dist_tiles.captured = 0
 
 
 # ------------------------------- top-k --------------------------------- #

@@ -1,14 +1,21 @@
 """Experiment driver: the sweep {model_type x update_type x run} with the
-reference's results artifacts (port of fedmse_tpu/main.py, per-round
-path).
+reference's results artifacts (port of fedmse_tpu/main.py).
 
   * data is prepared ONCE and shared by every combination (the reference
     re-seeds to data_seed before each, so every combination sees the same
     splits);
   * `run_combination` is the reference round loop, the final evaluation
-    and the artifacts of one (model_type, update_type, run);
+    and the artifacts of one (model_type, update_type, run). By default
+    it runs the fused schedule (federation/fused.py): chunks of
+    `fused_schedule_chunk` fused rounds, pipelined so that the host's
+    bookkeeping of a chunk overlaps the next one on the card
+    (federation/pipeline.py). `--no-pipeline` (fused_pipeline=False) runs
+    the serial chunk loop, `--fused-schedule false` or `--fused-rounds
+    false` round by round (the latter on the per-phase path);
   * global early stopping keeps the reference's inverted-AUC comparison and
-    its state shared across combinations (compat switches);
+    its state shared across combinations (compat switches), checked per
+    round; a stop inside a chunk rewinds to the chunk's entry and replays
+    its prefix with the same selections and draws;
   * `run_experiment` sweeps every combination and writes the summary.
 
   * `--serve` then runs the serving pass (serving/smoke.py) on the first
@@ -17,7 +24,7 @@ path).
 CLI (runs on the card unless --device cpu):
     python -m fedmse_tpu_torch.main --dataset-config <reference json>
         [--data-root DIR] [--device cpu] [--no-save] [--paper-scale]
-        [--num-rounds 20] [--epochs 100] [--score-kind knn]
+        [--num-rounds 20] [--epochs 100] [--score-kind knn] [--no-pipeline]
         [--serve [--serve-rows N] [--serve-warmup] [--serve-continuous]] ...
 Not ported: resume (--resume-dir), meshes, batched runs, the network and
 flywheel smokes, attacks, chaos, elastic membership and clustering.
@@ -47,6 +54,7 @@ from fedmse_tpu_torch.device import DeviceLike, resolve_device
 from fedmse_tpu_torch.evaluation.evaluator import client_index
 from fedmse_tpu_torch.federation import (ClientStates, RoundEngine,
                                          split_metric_columns)
+from fedmse_tpu_torch.federation.pipeline import run_pipelined_schedule
 from fedmse_tpu_torch.models import make_model
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.precision import get_policy
@@ -126,8 +134,8 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
     """One (model_type, update_type, run): the reference round loop, the
     final evaluation and the artifacts. Runs where `data` lives. `states`
     replaces the port's own init (a JAX-exported init, say); `profile`
-    times each round's phases (RoundResult.phase_seconds); `on_round(result,
-    seconds)` sees every round."""
+    times each round's phases (RoundResult.phase_seconds) on the
+    per-phase path; `on_round(result, seconds)` sees every round."""
     rngs = ExperimentRngs(run=run, data_seed=cfg.data_seed,
                           run_seed_stride=cfg.run_seed_stride)
     device = data.train_xb.device
@@ -136,33 +144,58 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
                        precision=cfg.precision, device=device)
     engine = RoundEngine(model, cfg, data, n_real=n_real, rngs=rngs,
                          model_type=model_type, update_type=update_type,
-                         states=states, profile=profile)
+                         states=states, profile=profile,
+                         fused=cfg.fused_rounds)
     round_times: List[float] = []
     all_tracking: List[np.ndarray] = []  # every round's [n_real, E, 3]
     results = []
-    for round_index in range(cfg.num_rounds):
-        t0 = time.perf_counter()
-        result = engine.run_round(round_index)
-        sec = time.perf_counter() - t0
+
+    def bookkeep(result, sec: float) -> bool:
+        """Per-round logging and artifacts; True when early stop fires."""
         round_times.append(sec)
         all_tracking.append(result.tracking)
         results.append(result)
         if on_round is not None:
             on_round(result, sec)
         logger.info("[%s/%s run %d] round %d: agg=%s mean %s=%.4f (%.2fs)",
-                    model_type, update_type, run, round_index + 1,
+                    model_type, update_type, run, result.round_index + 1,
                     result.aggregator, cfg.metric,
                     float(np.nanmean(result.client_metrics)), sec)
         if writer is not None:
-            writer.append_round_metrics(run, round_index,
+            writer.append_round_metrics(run, result.round_index,
                                         result.client_metrics, model_type,
                                         update_type)
-            writer.append_verification(run, round_index,
+            writer.append_verification(run, result.round_index,
                                        result.verification_results)
         if early_stop is not None and early_stop.should_stop(
                 result.client_metrics):
             logger.info("Early stopping in global round!")
-            break
+            return True
+        return False
+
+    use_schedule = (cfg.fused_schedule and engine.fused
+                    and not engine.profile)
+    if use_schedule and cfg.fused_schedule_chunk < 1:
+        raise ValueError(f"fused_schedule_chunk must be >= 1, got "
+                         f"{cfg.fused_schedule_chunk}")
+    pipeline = None
+    if use_schedule:
+        def consume(chunk_results, sec):
+            for j, result in enumerate(chunk_results):
+                if bookkeep(result, sec):
+                    return j
+            return None
+
+        pipeline = run_pipelined_schedule(
+            engine, 0, cfg.num_rounds, cfg.fused_schedule_chunk, consume,
+            can_rewind=early_stop is not None,
+            pipelined=cfg.fused_pipeline).summary()
+    else:
+        for round_index in range(cfg.num_rounds):
+            t0 = time.perf_counter()
+            result = engine.run_round(round_index)
+            if bookkeep(result, time.perf_counter() - t0):
+                break
 
     final_metrics, final_full = split_metric_columns(engine.evaluate())
     if writer is not None and save_checkpoints and device_names:
@@ -187,6 +220,8 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
         "aggregation_backend_effective": "einsum",
         "rounds": results,
         "engine": engine,
+        # the chunk loop's telemetry (None off the fused schedule)
+        "pipeline": pipeline,
     }
     if final_full is not None:
         out["final_metrics_full"] = final_full
@@ -265,6 +300,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "plain PyTorch versions)")
     p.add_argument("--no-save", action="store_true",
                    help="skip the per-client model and tracking artifacts")
+    p.add_argument("--no-pipeline", action="store_true",
+                   help="run the fused schedule's serial chunk loop "
+                        "(dispatch, harvest, bookkeep, then the next "
+                        "chunk) instead of the pipelined one")
     p.add_argument("--paper-scale", action="store_true",
                    help="epochs=100 rounds=20 lr=1e-5 lambda=10")
     p.add_argument("--serve", action="store_true",
@@ -291,6 +330,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = build_parser().parse_args(argv)
     cfg = apply_cli_overrides(ExperimentConfig(), args)
+    if args.no_pipeline:
+        cfg = cfg.replace(fused_pipeline=False)
     if args.paper_scale:
         cfg = paper_scale(cfg)
     dataset = DatasetConfig.from_json(args.dataset_config, args.data_root)

@@ -22,8 +22,9 @@ emulated as bf16 operands upcast to f32, f32 matmuls, activations rounded
 to bf16 between layers: the `_fused_xla` contract, under which bf16 x bf16
 products are exact in f32). The wrapper takes it only for tensors on the
 CPU; a CUDA tensor launches the kernel or raises. `fused_forward_stats.launches`
-counts kernel launches. `encode_rows` is the one launch that encodes every
-gateway's rows under its own model (kNN banks, centroid fits).
+counts kernel launches (`.captured` the kernels a CUDA graph recorded).
+`encode_rows` is the one launch that encodes every gateway's rows under
+its own model (kNN banks, centroid fits).
 """
 
 from __future__ import annotations
@@ -244,17 +245,20 @@ def fused_forward_stats(params: Dict[str, Any], x: torch.Tensor,
     if rc != 0:
         raise RuntimeError("fused_ae_forward launch failed: "
                            + lib.fused_ae_error_string(rc).decode())
-    fused_forward_stats.launches += 1
+    native.count_launch(fused_forward_stats)
     return latent, mse, znorm
 
 
 fused_forward_stats.launches = 0
+fused_forward_stats.captured = 0
 
 
 def client_index(n: int, rows_each: int, device) -> torch.Tensor:
-    """The model index of n clients' rows laid out client-major."""
-    return torch.arange(n, dtype=torch.int32,
-                        device=device).repeat_interleave(rows_each)
+    """The model index of n clients' rows laid out client-major (elementwise
+    on the device: no host read, so a CUDA graph can capture it)."""
+    return torch.div(torch.arange(n * rows_each, dtype=torch.int32,
+                                  device=device), max(rows_each, 1),
+                     rounding_mode="floor")
 
 
 @torch.no_grad()

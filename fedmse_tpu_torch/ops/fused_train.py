@@ -241,11 +241,12 @@ def fused_train_grads(params_flat: torch.Tensor, x: torch.Tensor,
     if rc != 0:
         raise RuntimeError("fused_ae_train launch failed: "
                            + lib.fused_ae_train_error_string(rc).decode())
-    fused_train_grads.launches += 1
+    native.count_launch(fused_train_grads)
     return loss, grads
 
 
 fused_train_grads.launches = 0
+fused_train_grads.captured = 0
 
 
 class FusedTrainLoss(torch.autograd.Function):

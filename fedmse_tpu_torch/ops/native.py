@@ -9,6 +9,12 @@ reaches a kernel's wrapper builds it, and `build()` compiles several sources
 at once, one nvcc process each (chip_smoke.py does this up front). nvcc's
 register and shared-memory report (-Xptxas -v) is kept beside each library
 as `<name>.log`.
+
+`count_launch` is where each kernel wrapper counts: a call on a stream
+that is being captured into a CUDA graph records its kernel without
+launching it, so it counts in the wrapper's `captured` and not in its
+`launches`; the graph adds its recorded kernels to `launches` at each
+replay (ops/graphs.py).
 """
 
 from __future__ import annotations
@@ -34,6 +40,16 @@ BASELINE_SOURCES = ("dist_tiles_baseline",)
 # --use_fast_math: the kernels' sqrt and divisions must stay IEEE
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def count_launch(wrapper) -> None:
+    """One kernel of `wrapper` went onto the current stream: a launch, or a
+    recorded node when the stream is capturing a CUDA graph."""
+    import torch
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
 
 
 def find_nvcc() -> str:

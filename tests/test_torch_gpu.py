@@ -648,3 +648,285 @@ def test_dist_entry_refuses_plans_dist_plan_would_not_give(cuda, change):
                         args["q_bf16"], args["groups"], args["ctas"],
                         args["streaming"], args["device"], None)
     assert lib.dist_tiles_error_string(rc) == b"invalid argument"
+
+
+# ---- CUDA graphs: the kernels and the fused round captured and replayed ----
+
+def _bits(t):
+    """A tensor's bits, for bitwise comparisons (NaN included)."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def _captured(fn, outs):
+    """fn() writing `outs` in place, wrapped as a CapturedBody."""
+    from fedmse_tpu_torch.ops.graphs import CapturedBody
+    return CapturedBody(fn, outs[0].device, "test")
+
+
+@pytest.mark.parametrize("kernel", ["fused_ae_forward", "fused_ae_train",
+                                    "dist_tiles"])
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_wrapper_captured_alone_replays_its_call(cuda, kernel, cdt):
+    """Each wrapper captured alone in a CUDA graph: the replay gives a
+    direct call's bits, the capture counts in `captured` and not in
+    `launches`, and every replay adds one launch."""
+    from fedmse_tpu_torch.knn.score import dist_tiles
+    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    wrapper = WRAPPERS[kernel]
+    if kernel == "fused_ae_forward":
+        params = _params(10, 115, 27, 7, cdt, cuda)
+        x = torch.randn((10 * 1000, 115), device=cuda).to(cdt)
+        idx = torch.randint(0, 10, (10 * 1000,), dtype=torch.int32,
+                            device=cuda)
+
+        def call():
+            return fused_forward_stats(params, x, idx, compute_dtype=cdt)
+    elif kernel == "fused_ae_train":
+        layout, flat, x, mask = _train_inputs((5, 115, 27, 7, 12), cdt, cuda)
+
+        def call():
+            return fused_train_grads(flat, x, mask, layout=layout,
+                                     shrink_lambda=5.0, compute_dtype=cdt)
+    else:
+        q = torch.randn((10 * 300, 7), device=cuda).to(cdt)
+        banks = torch.randn((10, 512, 7), device=cuda)
+        gw = torch.randint(0, 10, (10 * 300,), dtype=torch.int32,
+                           device=cuda)
+
+        def call():
+            return (dist_tiles(q, banks, gw),)
+    want = [t.clone() for t in call()]
+    outs = [torch.empty_like(t) for t in want]
+
+    def body():
+        for o, t in zip(outs, call()):
+            o.copy_(t)
+
+    graphed = _captured(body, outs)
+    launches, captured = wrapper.launches, wrapper.captured
+    graphed()  # the warm-up (a launch) and the capture (none)
+    assert wrapper.launches == launches + 1
+    assert wrapper.captured == captured + 1
+    assert graphed.kernels == {kernel: 1}
+    for o in outs:
+        o.zero_()
+    for _ in range(3):
+        graphed()
+    torch.cuda.synchronize()
+    assert wrapper.launches == launches + 4 and graphed.replays == 3
+    for o, w in zip(outs, want):
+        assert torch.equal(_bits(o), _bits(w))
+
+
+@pytest.mark.parametrize("g", [5, 512])
+def test_train_cluster_launch_replays_bitwise(cuda, g):
+    """The train kernel's thread-block-cluster launch keeps its cluster
+    under capture: the replayed grads are a direct call's bits, at the
+    main path's 8 CTAs per client (G = 5) and 1 (G = 512)."""
+    from fedmse_tpu_torch.ops.fused_train import cluster_size
+    layout, flat, x, mask = _train_inputs((g, 115, 27, 7, 12),
+                                          torch.float32, cuda)
+    assert cluster_size(g, 27) == (8 if g == 5 else 1)
+    want = fused_train_grads(flat, x, mask, layout=layout, shrink_lambda=5.0)
+    loss, grads = torch.empty_like(want[0]), torch.empty_like(want[1])
+
+    def body():
+        a, b = fused_train_grads(flat, x, mask, layout=layout,
+                                 shrink_lambda=5.0)
+        loss.copy_(a)
+        grads.copy_(b)
+
+    graphed = _captured(body, [loss])
+    graphed()
+    loss.zero_()
+    grads.zero_()
+    graphed()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(loss), _bits(want[0]))
+    assert torch.equal(_bits(grads), _bits(want[1]))
+
+
+def _paper_federation(device, n_normal=1_200, n_abnormal=300):
+    clients = synthetic_clients(n_clients=10, dim=115, n_normal=n_normal,
+                                n_abnormal=n_abnormal, seed=0)
+    dev_x = np.concatenate([c.dev_raw for c in clients])[:2000].astype(
+        np.float32)
+    return clients, dev_x
+
+
+def _cohort_snapshot(co):
+    import dataclasses as dc
+    from fedmse_tpu_torch.federation.optim import AdamState
+    snap = {}
+    for f in dc.fields(co):
+        v = getattr(co, f.name)
+        snap[f.name] = (AdamState(*(t.clone() for t in v))
+                        if isinstance(v, AdamState) else v.clone())
+    return snap
+
+
+def _cohort_restore(co, snap):
+    for name, v in snap.items():
+        getattr(co, name).copy_(v)
+
+
+@pytest.mark.parametrize("update_type", ["mse_avg", "fedprox"])
+def test_epoch_graph_replays_bitwise(cuda, update_type):
+    """One cohort epoch at the paper's width: the eager warm-up, a replay
+    and a second replay from the same state give the same bits."""
+    from fedmse_tpu_torch.federation.local_training import LocalTrainer
+    from fedmse_tpu_torch.federation.state import init_client_states
+    clients, dev_x = _paper_federation(cuda)
+    data = stack_clients(clients, dev_x, 12, device=cuda)
+    model = make_model("hybrid", 115, 27, 7, 5.0, device=cuda)
+    states = init_client_states(model, 10, torch.Generator().manual_seed(3),
+                                device=cuda)
+    trainer = LocalTrainer(model, epochs=3, patience=1,
+                           fedprox=update_type == "fedprox", mu=0.001,
+                           lr=1e-3)
+    idx = torch.tensor([1, 3, 4, 7, 8], device=cuda)
+    co = trainer.cohort(idx, states.params, data.train_xb, data.train_mb,
+                        data.valid_xb, data.valid_mb)
+    trainer.begin(co, states.params, states.opt_state, states.prev_global,
+                  data.train_xb, data.train_mb, data.valid_xb, data.valid_mb)
+    start = _cohort_snapshot(co)
+    graphed = _captured(lambda: trainer.epoch(co), [co.p])
+    runs = []
+    for _ in range(3):  # eager warm-up, replay, replay
+        _cohort_restore(co, start)
+        graphed()
+        torch.cuda.synchronize()
+        runs.append(_cohort_snapshot(co))
+    assert graphed.replays == 2 and graphed.kernels["fused_ae_train"] == \
+        data.train_xb.shape[1]
+    for name in ("p", "best", "min_v", "tracking", "worse", "go", "epoch"):
+        for other in runs[1:]:
+            assert torch.equal(_bits(other[name].float()),
+                               _bits(runs[0][name].float())), name
+    for a, b in zip(runs[0]["opt"], runs[2]["opt"]):
+        assert torch.equal(_bits(a.float()), _bits(b.float()))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_fused_round_matches_per_phase_round_on_card(cuda, precision):
+    """The fused round (CUDA graphs) against the per-phase round at the
+    paper's width, from one state and cohort, tie-break off: the same
+    aggregator and verification rows, and params, opt state, AUC, scores
+    and weights within 1e-6 scale-normalized (the same kernels in the same
+    order: expected bit-equal). A second fused round from the same state
+    replays the captured graphs and gives the first's bits."""
+    from fedmse_tpu_torch.config import CompatConfig, ExperimentConfig
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.ops.precision import get_policy
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    cfg = ExperimentConfig(epochs=2, precision=precision,
+                           compat=CompatConfig(vote_tie_break=False))
+    clients, dev_x = _paper_federation(cuda)
+    data = stack_clients(clients, dev_x, 12, device=cuda,
+                         dtype=get_policy(precision).compute_dtype)
+
+    def engine(fused):
+        model = make_model("hybrid", 115, 27, 7, cfg.shrink_lambda,
+                           precision=precision, device=cuda)
+        return RoundEngine(model, cfg, data, n_real=10,
+                           rngs=ExperimentRngs(run=0), model_type="hybrid",
+                           update_type="mse_avg", fused=fused)
+    per, fus = engine(False), engine(True)
+    selected = per.select_clients()
+    start = fus.states.clone()
+    want = per.run_round(0, selected=selected)
+    got = [fus.run_round(0, selected=selected)]
+    after = fus.states.clone()
+    fus.states = start
+    fus.host.aggregation_count[:] = 0
+    fus.host.votes_received[:] = 0
+    got.append(fus.run_round(0, selected=selected))
+    torch.cuda.synchronize()
+    assert fus.fused_round().epoch.replays >= 1
+    for g in got:
+        assert g.aggregator == want.aggregator
+        assert g.verification_results == want.verification_results
+
+    def err(a, b):
+        """Scale-normalized max difference; NaN (an unselected client's
+        min_valid and curve) must sit at the same places."""
+        a, b = torch.as_tensor(a).float(), torch.as_tensor(b).float()
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    layout = ParamLayout(115, 27, 7)
+    for sl in layout.slices():
+        assert err(after.params[:, sl].cpu(),
+                   per.states.params[:, sl].cpu()) <= 1e-6
+    for a, b in zip(after.opt_state, per.states.opt_state):
+        assert err(a.cpu(), b.cpu()) <= 1e-6
+    for field in ("client_metrics", "mse_scores", "agg_weights",
+                  "min_valid", "tracking"):
+        assert err(getattr(got[0], field), getattr(want, field)) <= 1e-6
+    assert torch.equal(_bits(fus.states.params), _bits(after.params))
+    np.testing.assert_array_equal(got[1].client_metrics,
+                                  got[0].client_metrics)
+
+
+def test_cli_default_runs_the_fused_schedule_on_card(cuda, tmp_path):
+    """`python -m fedmse_tpu_torch.main` with the default config runs on
+    the card through the fused, pipelined schedule: its epoch graph is
+    captured and replayed, and the sweep writes finite metrics."""
+    import json
+    from fedmse_tpu_torch.config import DatasetConfig
+    from fedmse_tpu_torch.main import main
+    rng = np.random.default_rng(0)
+    shards = tmp_path / "shards"
+    for k in range(1, 5):
+        for split, n, shift in (("normal", 300, 0.0), ("abnormal", 60, 4.0),
+                                ("test_normal", 30, 0.0)):
+            d = shards / f"Client-{k}" / split
+            d.mkdir(parents=True)
+            np.savetxt(d / "data.csv", rng.normal(shift, 1.0, (n, 115)),
+                       delimiter=",")
+    cfg_path = tmp_path / "dataset.json"
+    cfg_path.write_text(json.dumps(
+        DatasetConfig.for_client_dirs(str(shards), 4).to_json()))
+    captured, launched = fused_train_grads.captured, fused_train_grads.launches
+    out = main(["--dataset-config", str(cfg_path), "--network-size", "4",
+                "--model-types", "hybrid", "--update-types", "mse_avg",
+                "--num-rounds", "2", "--checkpoint-dir",
+                str(tmp_path / "ckpt")])
+    per_epoch = fused_train_grads.captured - captured  # one epoch graph
+    assert per_epoch > 0
+    # the eager warm-up epoch, then replays of the captured one
+    assert fused_train_grads.launches - launched > per_epoch
+    finals = out["results"]["hybrid/mse_avg/run0"]["final_metrics"]
+    assert len(finals) == 4 and np.isfinite(finals).all()
+
+
+@pytest.mark.parametrize("chunk", [2, 3])
+def test_pipelined_early_stop_on_card_matches_per_phase(cuda, chunk):
+    """The pipelined driver on the card, with a global early stop at round
+    index 2: before its chunk's last round (chunk 2: the snapshot is
+    copied back into the captured buffers and the prefix replayed) or at
+    it (chunk 3: the in-flight successor's entry snapshot). Its final
+    states are the per-phase driver's bits on the card."""
+    from fedmse_tpu_torch.config import CompatConfig, ExperimentConfig
+    from fedmse_tpu_torch.main import GlobalEarlyStop, run_combination
+    cfg = ExperimentConfig(dim_features=12, hidden_neus=8, latent_dim=3,
+                           network_size=4, epochs=2, batch_size=8,
+                           num_rounds=8, fused_schedule_chunk=chunk,
+                           compat=CompatConfig(vote_tie_break=False))
+    clients = synthetic_clients(n_clients=4, dim=12, n_normal=120,
+                                n_abnormal=60, seed=0)
+    dev_x = np.concatenate([c.dev_raw for c in clients])[:100].astype(
+        np.float32)
+    data = stack_clients(clients, dev_x, 8, device=cuda)
+    outs = [run_combination(c, data, 4, "autoencoder", "avg", 0,
+                            early_stop=GlobalEarlyStop())
+            for c in (cfg, cfg.replace(fused_rounds=False))]
+    (fused, per) = outs
+    assert fused["rounds_run"] == per["rounds_run"] == 3
+    assert fused["aggregation_count"] == per["aggregation_count"]
+    a, b = fused["engine"].states, per["engine"].states
+    for name in ("params", "prev_global", "hist_params", "rejected"):
+        assert torch.equal(_bits(getattr(a, name)), _bits(getattr(b, name)))
+    for x, y in zip(a.opt_state, b.opt_state):
+        assert torch.equal(_bits(x), _bits(y))
