@@ -52,6 +52,23 @@ all started together, into build/fedmse_tpu_torch/), then:
                 bf16, one kNN-scored round): states and round results
                 within 1e-6 scale-normalized, and a second fused round
                 from the same state (a replay) the first's bits;
+     robust     (after the main path) the fault path at 115/27/7 on the
+                10 gateways, hybrid / mse_avg: (b) run_combination on the
+                driver's default schedule, one round a chunk, with a scale
+                attack from round 1, chaos (dropout 0.2, straggler 0.1,
+                crash 0.3, broadcast loss 0.1) and elastic membership
+                (leave 0.1, join 0.3, preempt 0.05): per round the
+                aggregator, crashed aggregator, rejected counters, members
+                and generations, every verifying client rejecting the
+                scaled broadcast, each body captured once across the
+                churning chunks, then each round alone (wall, device-busy
+                share) beside a clean engine's and round 1 of both in
+                turns; (f) a kNN-scored fault round; (a) every hook built
+                in with null specs bit-equal to the clean round, with the
+                graphs' nodes hooks off and on; (c) round 1 cut to one
+                epoch on the card and the CPU, the same masks; (d) a noise
+                attack on the fused and the per-phase round; (e) 2 rounds
+                with a snapshot resumed to 3 against 3 uninterrupted;
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events, and the
@@ -78,7 +95,8 @@ calls on the same code).
 
 Phases 3 to 5 are the main path: the kernels' launch counters are set to 0
 just before them and read just after, and each kernel must have launched
-there. A launch inside a replayed CUDA graph counts: each graph keeps the
+there. The robust phase's (b) and (f) are the fault path, read the same
+way ("fault_path_launches" in the kernels line). A launch inside a replayed CUDA graph counts: each graph keeps the
 kernels it captured, and each replay adds them (ops/graphs.py). Prints,
 as its last three lines, the card's name and power limit, one JSON line
 of kernel numbers, and {"ok": true, "device": {...}}. Any
@@ -1761,6 +1779,509 @@ def phase_card_vs_cpu(torch, device, cfg, clients):
     return err
 
 
+# ---- the fault path (phase "robust") ---- #
+
+# the fault path's flags, beside --attack-kind and --attack-start
+FAULT_FLAGS = ["--chaos-dropout", "0.2", "--chaos-straggler", "0.1",
+               "--chaos-crash", "0.3", "--chaos-broadcast-loss", "0.1",
+               "--elastic-leave", "0.1", "--elastic-join", "0.3",
+               "--elastic-preempt", "0.05"]
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def fault_specs(attack_kind="scale", attack_start=1):
+    """The attack, chaos and elastic specs the driver makes of
+    `--attack-kind <kind> --attack-start <start>` and FAULT_FLAGS (its
+    parser and main.fault_specs)."""
+    from fedmse_tpu_torch.config import ExperimentConfig
+    from fedmse_tpu_torch.main import build_parser
+    from fedmse_tpu_torch.main import fault_specs as driver_specs
+    args = build_parser().parse_args(
+        ["--dataset-config", "unused", "--attack-kind", attack_kind,
+         "--attack-start", str(attack_start)] + FAULT_FLAGS)
+    _, attack, chaos, elastic = driver_specs(args, ExperimentConfig())
+    return dict(attack=attack, chaos=chaos, elastic=elastic)
+
+
+def _hooks(specs):
+    """RoundEngine keywords of the driver's fault specs."""
+    from fedmse_tpu_torch.federation.attack import make_poison_fn
+    return dict(poison_fn=make_poison_fn(specs["attack"]),
+                chaos=specs["chaos"], elastic=specs["elastic"])
+
+
+def _round_row(result, sec):
+    return {"round": result.round_index + 1,
+            "aggregator": result.aggregator,
+            "crashed": result.crashed_aggregator,
+            "selected": result.selected, "effective": result.effective,
+            "rejected": {r["client_id"]: r["rejected_updates"]
+                         for r in result.verification_results},
+            "members": result.members,
+            "generations": None if result.generations is None
+            else result.generations.tolist(), "seconds": sec}
+
+
+def _check_rejections(engine, results):
+    """Every client that verifies an attacked broadcast rejects it. The
+    host follows each client's verifier: who received the broadcast (up,
+    not broadcast-lost, not the crashed aggregator, a member; the
+    aggregator holds it), who saw one before (a join clears that), and the
+    rejected counters, which must read +1 for every verifying receiver of
+    an attacked round, 0 for a first contact and unchanged elsewhere.
+    Returns the rounds' (verifying, rejecting) counts."""
+    n = engine.n_real
+    seen, rej = np.zeros(n, bool), np.zeros(n, np.int64)
+    gen = np.zeros(n, np.int64)
+    counts = []
+    for r in results:
+        joined = r.generations > gen
+        seen[joined], rej[joined] = False, 0
+        gen = r.generations
+        if r.aggregator is None:
+            counts.append((0, 0))
+            continue
+        masks = engine._chaos_masks(r.round_index, 1)
+        got = ((masks.available[0][:n] > 0) & (masks.bcast_drop[0][:n] <= 0)
+               & np.isin(np.arange(n), r.members))
+        if r.crashed_aggregator is not None:
+            got[r.crashed_aggregator] = False
+        got[r.aggregator] = False
+        attacked = engine.poison_fn.active(r.round_index, 1)[0] > 0
+        rows = {row["client_id"]: row["rejected_updates"]
+                for row in r.verification_results}
+        verifying = got & seen
+        for i in range(n):
+            if i == r.aggregator:
+                continue
+            if not got[i]:
+                want = rej[i]
+            elif not seen[i]:
+                want = 0  # first contact: accepted unconditionally
+            elif attacked:
+                want = rej[i] + 1
+            else:
+                want = rows[i]  # an honest broadcast: either way
+            if rows[i] != want:
+                raise AssertionError(
+                    f"[robust] round {r.round_index + 1}: client {i} "
+                    f"rejected counter {rows[i]}, expected {want} "
+                    f"(received {bool(got[i])}, verified before "
+                    f"{bool(seen[i])}, attacked {attacked})")
+            rej[i] = rows[i]
+        seen |= got
+        counts.append((int(verifying.sum()),
+                       int((verifying & attacked).sum())))
+    return counts
+
+
+def _profiled(torch, engine, r):
+    """Device milliseconds (torch.profiler) of fused round r run from the
+    engine's current state, which is restored afterwards, streams
+    included."""
+    from torch.profiler import ProfilerActivity, profile
+    states, host = engine.states.clone(), engine.host.copy()
+    rngs = engine.rngs.state_dict()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.run_round_fused(r)
+        _sync(torch, engine.device)
+    engine.states, engine.host = states, host
+    engine.rngs.load_state_dict(rngs)
+    return sum(_device_us(e) for e in prof.key_averages()) / 1e3
+
+
+def _timed(torch, engine, r):
+    """(result, host ms) of fused round r."""
+    _sync(torch, engine.device)
+    t0 = time.perf_counter()
+    result = engine.run_round_fused(r)
+    _sync(torch, engine.device)
+    return result, (time.perf_counter() - t0) * 1e3
+
+
+def _rounds_alone(torch, engine, n_rounds):
+    """The engine's first rounds again from its init and fresh streams, one
+    fused round at a time: each profiled (on the card) for its device time,
+    then run timed on the host clock. Returns [(result, wall_ms, busy_ms or
+    None, epochs run)]."""
+    engine.reset_federation()
+    cuda = engine.device.type == "cuda"
+    out = []
+    for r in range(n_rounds):
+        busy = _profiled(torch, engine, r) if cuda else None
+        result, wall = _timed(torch, engine, r)
+        out.append((result, wall, busy,
+                    engine.fused_round().epochs_run[-1]))
+    return out
+
+
+def _first_round_ab(torch, engines, reps=3):
+    """Round 1 of each engine from its init (the same work on every path
+    that trains the whole selection), in turns a, b, b, a, ...: the host
+    wall of each run, then one profiled run each. {name: {"wall_ms": [...],
+    "busy_ms": x}}."""
+    names = list(engines)
+    order = (names + names[::-1]) * reps
+    out = {k: {"wall_ms": []} for k in names}
+    for k in order:
+        engines[k].reset_federation()
+        out[k]["wall_ms"].append(_timed(torch, engines[k], 0)[1])
+    for k in names:
+        engines[k].reset_federation()
+        out[k]["busy_ms"] = (_profiled(torch, engines[k], 0)
+                             if engines[k].device.type == "cuda" else None)
+    return out
+
+
+def robust_fault_run(torch, device, cfg, data, n):
+    """(b) The fault path through the driver's run_combination on its
+    default schedule (fused, pipelined, CUDA graphs), each round a chunk of
+    its own so the roster churns between chunks: a scale attack from round
+    1, chaos and elastic membership. Per round the aggregator, crashed
+    aggregator, rejected counters, members and generations; every
+    verifying client must reject the scaled broadcast, and each of the
+    round's three bodies is captured once across the churning chunks.
+    Returns (report, engine). `robust_round_times` then runs the same
+    rounds one at a time from the init (the same masks: absolute rounds)
+    for each round's wall and device-busy share, and round 1 in turns with
+    a clean engine's from the same init, three times each (the same
+    training: both paths train the whole selection)."""
+    from fedmse_tpu_torch.main import run_combination
+    c = cfg.replace(fused_schedule_chunk=1)
+    rows = []
+    out = run_combination(c, data, n, "hybrid", "mse_avg", 0,
+                          on_round=lambda r, s: rows.append(_round_row(r, s)),
+                          **fault_specs())
+    engine = out["engine"]
+    results = out["rounds"]
+    counts = _check_rejections(engine, results)
+    f = engine.fused_round()
+    stats = f.stats()
+    calls = len(results)
+    for body in (f.enter, f.leave):
+        if body.replays != calls - 1 and device.type == "cuda":
+            raise AssertionError(f"[robust] the {body.name} body was "
+                                 f"captured more than once: {body.replays}"
+                                 f" replays in {calls} rounds")
+    if not any(r.aggregator is not None for r in results[1:]):
+        raise AssertionError("[robust] no attacked round aggregated")
+    for row, (ver, rej) in zip(rows, counts):
+        row.update(verifying=ver, rejecting=rej)
+    if not sum(rej for _, rej in counts):
+        raise AssertionError("[robust] no verifying client saw an attacked "
+                             "broadcast: the rejection check held nothing")
+    return {"rounds": rows, "fused": stats,
+            "final_metrics": out["final_metrics"].tolist()}, engine
+
+
+def robust_round_times(torch, report, engine):
+    """(b, continued) The fault run's rounds one at a time from the init
+    (docstring of robust_fault_run), and its round 1 in turns with a clean
+    engine's."""
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    rows = report["rounds"]
+    clean = RoundEngine(engine.model, engine.cfg, engine.data,
+                        n_real=engine.n_real,
+                        rngs=ExperimentRngs(run=0), model_type="hybrid",
+                        update_type="mse_avg", fused=True)
+    clean.run_round_fused(0)  # its capture, outside the timed rounds
+
+    def share(busy, wall):
+        return None if busy is None else busy / wall
+    for row, (res, wall, busy, ep) in zip(
+            rows, _rounds_alone(torch, engine, len(rows))):
+        if (res.aggregator, res.crashed_aggregator, res.members) != (
+                row["aggregator"], row["crashed"], row["members"]):
+            raise AssertionError("[robust] round alone differs from the "
+                                 f"chunked run: {row} vs {res}")
+        row.update(alone_wall_ms=wall, device_busy_ms=busy,
+                   busy_share=share(busy, wall), epochs=ep)
+        log(f"[robust] round {row['round']}: aggregator {row['aggregator']}"
+            f", crashed {row['crashed']}, effective {row['effective']} of "
+            f"{row['selected']}, rejected {json.dumps(row['rejected'])} "
+            f"({row['rejecting']} of {row['verifying']} verifying clients "
+            f"rejected), members {row['members']}, generations "
+            f"{row['generations']}; {row['seconds']:.4f} s in the run; "
+            f"alone {wall:.2f} ms"
+            + ("" if busy is None else f" ({100 * busy / wall:.1f}% busy)")
+            + f", {ep} epochs")
+    ab = _first_round_ab(torch, {"fault": engine, "clean": clean})
+    for k, v in ab.items():
+        v["mean_wall_ms"] = float(np.mean(v["wall_ms"]))
+        v["busy_share"] = share(v["busy_ms"], v["mean_wall_ms"])
+        log(f"[robust] round 1 in turns, {k}: wall (ms) "
+            f"{[round(w, 3) for w in v['wall_ms']]}, mean "
+            f"{v['mean_wall_ms']:.3f}"
+            + ("" if v["busy_ms"] is None else
+               f"; device {v['busy_ms']:.3f} ms "
+               f"({100 * v['busy_share']:.1f}% busy)"))
+    watched("fault-path round wall seconds, round 1 in turns",
+            ab["fault"]["mean_wall_ms"] / 1e3, 0.5, False)
+    report["first_round_ab"] = ab
+
+
+def robust_null_hooks(torch, device, cfg, data, n):
+    """(a) Every hook built in with null specs (an attack that never fires,
+    a zero-probability ChaosSpec, a null ElasticSpec) against the clean
+    fused round from one init: two rounds (a capture, then a replay), the
+    same bits. The graphs' nodes with the hooks off and on, and the
+    forward launches of each leave graph (the crash re-election reuses the
+    vote's scores: no second launch)."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.chaos import ChaosSpec
+    from fedmse_tpu_torch.federation import RoundEngine, init_client_states
+    from fedmse_tpu_torch.federation.attack import AttackSpec, make_poison_fn
+    from fedmse_tpu_torch.federation.elastic import ElasticSpec
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    model = make_model("hybrid", *DIMS, cfg.shrink_lambda, device=device)
+    init = init_client_states(model, n, torch.Generator().manual_seed(
+        SEED + 6), device=device)
+    hooks = dict(poison_fn=make_poison_fn(AttackSpec(
+        kind="noise", start_round=10 ** 6)), chaos=ChaosSpec(),
+        elastic=ElasticSpec())
+    engines = [RoundEngine(model, cfg, data, n_real=n,
+                           rngs=ExperimentRngs(run=0), model_type="hybrid",
+                           update_type="mse_avg", states=init, fused=True,
+                           **kw) for kw in ({}, hooks)]
+    runs = [e.run_rounds(0, 2) for e in engines]
+    _sync(torch, device)
+    for a, b in zip(*runs):
+        same = (a.aggregator == b.aggregator
+                and a.verification_results == b.verification_results
+                and all(_same_bits(torch, getattr(a, f), getattr(b, f))
+                        for f in ("client_metrics", "min_valid", "tracking")))
+        if not same:
+            raise AssertionError(f"[robust] null hooks changed round "
+                                 f"{a.round_index + 1}")
+    errs = _state_errs(torch, ParamLayout(*DIMS), engines[1].states,
+                       engines[0].states)
+    if max(errs.values()) != 0:
+        raise AssertionError(f"[robust] null hooks changed the states: "
+                             f"{json.dumps(errs)}")
+    graphs = [e.fused_round().stats()["graphs"] for e in engines]
+    nodes = {k: {g: graphs[i][g]["nodes"] for g in graphs[i]}
+             for i, k in enumerate(("hooks_off", "hooks_on"))}
+    kernels = {k: graphs[i]["leave"]["kernels_per_replay"]
+               for i, k in enumerate(("hooks_off", "hooks_on"))}
+    if device.type == "cuda" and kernels["hooks_on"].get(
+            "fused_ae_forward") != kernels["hooks_off"].get(
+            "fused_ae_forward"):
+        raise AssertionError(f"[robust] the fault hooks changed the leave "
+                             f"graph's forward launches: {kernels}")
+    log(f"[robust] (a) null hooks bit-equal to the clean fused round over "
+        f"2 rounds; graph nodes {json.dumps(nodes)}; leave kernels per "
+        f"replay {json.dumps(kernels)}")
+    return {"bit_equal": True, "nodes": nodes, "leave_kernels": kernels}
+
+
+def robust_card_vs_cpu(torch, device, cfg, clients):
+    """(c) The fault path's first round cut to one epoch, the attack on
+    from round 0, on the card and on the CPU from one init, with the same
+    masks (the streams are pure functions of the seed and the absolute
+    round): states within 1e-4 scale-normalized; aggregator, crashed,
+    effective cohort, members and generations equal. One round: a second
+    one-epoch round already parts card and CPU by ~3e-4 (Adam on a
+    plateau, ROADMAP queue 3; PERF.md section 6)."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.data import build_dev_dataset, stack_clients
+    from fedmse_tpu_torch.federation import RoundEngine, init_client_states
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    c = cfg.replace(epochs=1)
+    dev_x = build_dev_dataset(clients, np.random.default_rng(cfg.data_seed))
+    init = init_client_states(make_model("hybrid", *DIMS, device="cpu"),
+                              len(clients),
+                              torch.Generator().manual_seed(SEED + 7),
+                              device="cpu")
+    runs = []
+    for where in (device, torch.device("cpu")):
+        eng = RoundEngine(make_model("hybrid", *DIMS, c.shrink_lambda,
+                                     device=where), c,
+                          stack_clients(clients, dev_x, c.batch_size,
+                                        device=where),
+                          n_real=len(clients), rngs=ExperimentRngs(run=0),
+                          model_type="hybrid", update_type="mse_avg",
+                          states=init.to(where), fused=True,
+                          **_hooks(fault_specs(attack_start=0)))
+        runs.append((eng.run_rounds(0, 1), eng.states))
+    (card_res, card), (cpu_res, cpu) = runs
+    for a, b in zip(card_res, cpu_res):
+        for f in ("aggregator", "crashed_aggregator", "effective",
+                  "members"):
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"[robust] (c) card vs CPU {f}: "
+                                     f"{getattr(a, f)} vs {getattr(b, f)}")
+        if not np.array_equal(a.generations, b.generations):
+            raise AssertionError("[robust] (c) card vs CPU generations")
+    errs = _state_errs(torch, ParamLayout(*DIMS), card, cpu)
+    err = max(errs[k] for k in ("params", "prev_global", "hist_params"))
+    log(f"[robust] (c) the fault path's round 1 at one epoch, card vs "
+        f"CPU: aggregators {[r.aggregator for r in card_res]}, crashed "
+        f"{[r.crashed_aggregator for r in card_res]}, members "
+        f"{[r.members for r in card_res]} equal; worst scaled state error "
+        f"{err:.3e} (limit 1e-4)")
+    if err > 1e-4:
+        raise AssertionError(f"[robust] (c) card vs CPU: {json.dumps(errs)}")
+    return {"max_scaled_err": err, "errs": errs}
+
+
+def robust_noise_paths(torch, device, cfg, data, n):
+    """(d) A noise attack on the fused and on the per-phase round, from one
+    init and cohort, tie-break off: the same draws (drawn per absolute
+    round on the host), states and results within 1e-6 (bit-equal
+    expected)."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    import dataclasses
+    from fedmse_tpu_torch.federation import RoundEngine, init_client_states
+    from fedmse_tpu_torch.federation.attack import AttackSpec, make_poison_fn
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    c = cfg.replace(compat=dataclasses.replace(cfg.compat,
+                                               vote_tie_break=False))
+    model = make_model("hybrid", *DIMS, c.shrink_lambda, device=device)
+    init = init_client_states(model, n, torch.Generator().manual_seed(
+        SEED + 8), device=device)
+    spec = AttackSpec(kind="noise", strength=0.05, start_round=0)
+    per, fus = (RoundEngine(model, c, data, n_real=n,
+                            rngs=ExperimentRngs(run=0), model_type="hybrid",
+                            update_type="mse_avg", states=init, fused=fused,
+                            poison_fn=make_poison_fn(spec))
+                for fused in (False, True))
+    want, got = per.run_round(0), fus.run_round(0)
+    _sync(torch, device)
+    if want.aggregator is None or got.aggregator != want.aggregator or \
+            got.verification_results != want.verification_results:
+        raise AssertionError("[robust] (d) noise attack: the paths elected "
+                             f"{got.aggregator} vs {want.aggregator}")
+    errs = _state_errs(torch, ParamLayout(*DIMS), fus.states, per.states)
+    for field in ("client_metrics", "agg_weights", "min_valid", "tracking"):
+        errs[field] = _nan_scaled_err(torch, getattr(got, field),
+                                      getattr(want, field))
+    err = max(errs.values())
+    log(f"[robust] (d) noise attack, fused vs per-phase round: aggregator "
+        f"{got.aggregator}, worst scaled error {err:.3e} (limit 1e-6; "
+        f"bit-equal: {err == 0})")
+    if err > 1e-6:
+        raise AssertionError(f"[robust] (d) {json.dumps(errs)}")
+    return {"max_scaled_err": err, "bit_equal": err == 0}
+
+
+def robust_resume(torch, device, cfg, data, n):
+    """(e) The fault path with --resume-dir: 2 rounds, then a resumed run
+    to 3 (a fresh engine: restored states copied into newly captured
+    graphs' buffers, the streams where they were), against 3 rounds
+    uninterrupted: within 1e-6 (bit-equal expected)."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.checkpointing import CheckpointManager
+    from fedmse_tpu_torch.main import run_combination
+    root = os.path.join(ROOT, "build", "chip_smoke_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    mgr = CheckpointManager(root)
+
+    def run(rounds, resume):
+        return run_combination(cfg.replace(num_rounds=rounds), data, n,
+                               "hybrid", "mse_avg", 0, resume=resume,
+                               **fault_specs())
+    whole = run(3, None)
+    first = run(2, mgr)
+    rest = run(3, mgr)
+    shutil.rmtree(root, ignore_errors=True)
+    if (first["rounds_run"], rest["rounds_run"]) != (2, 1):
+        raise AssertionError("[robust] (e) the resumed run did not continue "
+                             "at round 3")
+    for a, b in zip(first["rounds"] + rest["rounds"], whole["rounds"]):
+        if (a.aggregator, a.crashed_aggregator, a.members) != (
+                b.aggregator, b.crashed_aggregator, b.members):
+            raise AssertionError(f"[robust] (e) round {a.round_index + 1} "
+                                 "differs after the resume")
+    errs = _state_errs(torch, ParamLayout(*DIMS), rest["engine"].states,
+                       whole["engine"].states)
+    errs["final_metrics"] = _nan_scaled_err(torch, rest["final_metrics"],
+                                            whole["final_metrics"])
+    err = max(errs.values())
+    log(f"[robust] (e) 2 rounds, resumed to 3, vs 3 uninterrupted: worst "
+        f"scaled error {err:.3e} (limit 1e-6; bit-equal: {err == 0})")
+    if err > 1e-6:
+        raise AssertionError(f"[robust] (e) {json.dumps(errs)}")
+    return {"max_scaled_err": err, "bit_equal": err == 0}
+
+
+def robust_knn_round(torch, device, cfg, data, n):
+    """(f) One kNN-scored fault round (the evaluation's distance launch in
+    the leave graph): present members' metrics finite, retired slots
+    NaN."""
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    c = cfg.replace(score_kind="knn", **KNN)
+    eng = RoundEngine(make_model("hybrid", *DIMS, c.shrink_lambda,
+                                 device=device), c, data, n_real=n,
+                      rngs=ExperimentRngs(run=0), model_type="hybrid",
+                      update_type="mse_avg", fused=True,
+                      **_hooks(fault_specs()))
+    res = eng.run_rounds(0, 2)[-1]
+    present = np.isin(np.arange(n), res.members)
+    if not np.isfinite(res.client_metrics[present]).all() or \
+            not np.isnan(res.client_metrics[~present]).all():
+        raise AssertionError(f"[robust] (f) kNN metrics {res.client_metrics}"
+                             f" with members {res.members}")
+    log(f"[robust] (f) kNN-scored fault round 2: aggregator "
+        f"{res.aggregator}, members {res.members}, mean AUC "
+        f"{np.nanmean(res.client_metrics):.6f}")
+    return {"aggregator": res.aggregator, "members": res.members,
+            "mean_auc": float(np.nanmean(res.client_metrics))}
+
+
+def phase_robust(torch, device, cfg, clients, data):
+    """The fault path (attack, chaos, elastic membership, resume) at the
+    paper's width on the 10-gateway federation. (b) and (f) are the
+    slice's main path: every kernel's launch counter is set to 0 before
+    them and read after, and each must have launched. Then (a), (c), (d)
+    and (e) hold the path to its references."""
+    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    n = len(clients)
+    t0 = time.perf_counter()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    fault, engine = robust_fault_run(torch, device, cfg, data, n)
+    report = {"fault_run": fault,
+              "knn_round": robust_knn_round(torch, device, cfg, data, n)}
+    _sync(torch, device)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    log(f"[robust] fault path launches {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"the fault path never launched {name}")
+    report["launches"] = launches
+    seconds = {"b_f_fault_path": time.perf_counter() - t0}
+    for name, step in (
+            ("b_round_times", lambda: robust_round_times(torch, fault,
+                                                         engine)),
+            ("null_hooks", lambda: robust_null_hooks(torch, device, cfg,
+                                                     data, n)),
+            ("card_vs_cpu", lambda: robust_card_vs_cpu(torch, device, cfg,
+                                                       clients)),
+            ("noise_paths", lambda: robust_noise_paths(torch, device, cfg,
+                                                       data, n)),
+            ("resume", lambda: robust_resume(torch, device, cfg, data, n))):
+        t1 = time.perf_counter()
+        result = step()
+        seconds[name] = time.perf_counter() - t1
+        if result is not None:
+            report[name] = result
+    report["seconds"] = time.perf_counter() - t0
+    report["phase_seconds"] = seconds
+    log(f"[robust] done in {report['seconds']:.1f} s "
+        f"({json.dumps({k: round(v, 2) for k, v in seconds.items()})})")
+    return report
+
+
 def report_train(torch, device, launches, worst):
     """The train kernel's and its plain version's times and bounds at the
     main path's step shape (5 clients x 12 rows) and at 512 clients."""
@@ -1958,6 +2479,7 @@ def main() -> int:
         if n < 1:
             raise AssertionError(f"the main path never launched {name}")
     log(f"[main path] launches {json.dumps(launches)}")
+    robust = phase_robust(torch, device, cfg, clients, data)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
     training["fused_hold"] = phase_fused_hold(torch, device, cfg, clients)
@@ -1971,6 +2493,9 @@ def main() -> int:
                                         worst_train))
     line["kernels"].append(report_dist(
         torch, device, launches["dist_tiles"], worst_dist, eval_rows))
+    for kernel in line["kernels"]:
+        kernel["fault_path_launches"] = robust["launches"][kernel["name"]]
+    line["robust"] = robust
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

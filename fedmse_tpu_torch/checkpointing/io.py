@@ -18,7 +18,17 @@ Under one checkpoint root:
     latent_hybrid_{update}.pkl`;
   * serving artifacts under `{N}/{exp}/{run}/Serving/{scen}`.
 A tree the JAX package's writer wrote loads here as it is, and the
-reverse. Full-federation resume is not ported yet.
+reverse.
+
+`CheckpointManager` snapshots the whole federation for a resume: the
+client states, the host counters, the round index, the loss curve so far
+and a dict `extra` of run metadata. It writes the JAX package's
+pod-sharded format with one shard (its `save_shard` / `restore_sharded`
+at H = 1): `{tag}.podshard0of1.npz` holds every ClientStates leaf under
+its `jax.tree_util.keystr` name ("['params']['encoder']['Dense_0']
+['kernel']", "['opt_state'][0].mu[...]"), `{tag}.pod.json` the manifest
+(blocks, host counters, round index, extra) and `{tag}.pod.tracking.npz`
+the curve. A snapshot written by either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -33,6 +43,12 @@ import numpy as np
 import torch
 
 from fedmse_tpu_torch.device import DeviceLike, resolve_device
+from fedmse_tpu_torch.federation.state import (ClientStates, HostState,
+                                               NumpyClientStates,
+                                               client_states_from_numpy,
+                                               client_states_to_numpy,
+                                               fresh_states)
+from fedmse_tpu_torch.models.flat import ParamLayout
 
 _KEY = re.compile(r"\['([^']*)'\]")
 
@@ -117,30 +133,48 @@ class ResultsWriter:
                             str(run), "Serving", self.scen)
 
 
-def _flatten(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()
-             ) -> List[Tuple[Tuple[str, ...], Any]]:
-    out = []
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            out += _flatten(v, prefix + (k,))
-        else:
-            out.append((prefix + (k,), v))
-    return out
-
-
 def keystr(path: Sequence[str]) -> str:
     """The `jax.tree_util.keystr` spelling of a dict path."""
     return "".join(f"['{k}']" for k in path)
+
+
+def _keyed_leaves(node: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(keystr, leaf) pairs of a tree of dicts (sorted keys, "['k']"),
+    NamedTuples (".field") and tuples ("[i]"), as jax.tree_util spells
+    them."""
+    if isinstance(node, dict):
+        return [kv for k in sorted(node)
+                for kv in _keyed_leaves(node[k], f"{prefix}['{k}']")]
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return [kv for f in node._fields
+                for kv in _keyed_leaves(getattr(node, f), f"{prefix}.{f}")]
+    if isinstance(node, tuple):
+        return [kv for i, v in enumerate(node)
+                for kv in _keyed_leaves(v, f"{prefix}[{i}]")]
+    return [(prefix, node)]
+
+
+def _rebuilt(node: Any, arrays: Dict[str, np.ndarray], prefix: str = ""):
+    """`node`'s structure with each leaf replaced by arrays[its keystr]."""
+    if isinstance(node, dict):
+        return {k: _rebuilt(v, arrays, f"{prefix}['{k}']")
+                for k, v in node.items()}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return type(node)(*(_rebuilt(getattr(node, f), arrays,
+                                     f"{prefix}.{f}") for f in node._fields))
+    if isinstance(node, tuple):
+        return tuple(_rebuilt(v, arrays, f"{prefix}[{i}]")
+                     for i, v in enumerate(node))
+    return arrays[prefix]
 
 
 def save_client_models(writer: ResultsWriter, run: int, model_type: str,
                        update_type: str, device_names: Sequence[str],
                        stacked_params: Dict[str, Any]) -> None:
     """Per-client `model.npz` (f32 arrays) in the ClientModel layout."""
-    arrays = {keystr(path): torch.as_tensor(leaf).detach().to(
+    arrays = {key: torch.as_tensor(leaf).detach().to(
                   "cpu", torch.float32).numpy()
-              for path, leaf in _flatten(stacked_params)}
+              for key, leaf in _keyed_leaves(stacked_params)}
     for i, name in enumerate(device_names):
         d = writer.client_model_dir(run, model_type, update_type, name)
         os.makedirs(d, exist_ok=True)
@@ -207,3 +241,122 @@ def save_latent_data(writer: ResultsWriter, run: int, update_type: str,
     with open(path, "wb") as f:
         pickle.dump((np.asarray(test_latent), np.asarray(labels)), f)
     return path
+
+
+class CheckpointManager:
+    """Whole-federation snapshots under one directory, in the JAX package's
+    pod-sharded format at one shard (module docstring)."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, tag: str) -> str:
+        return os.path.join(self.directory, tag)
+
+    def _shard_path(self, tag: str) -> str:
+        return self._path(tag) + ".podshard0of1.npz"
+
+    def save(self, tag: str, states: ClientStates, host: HostState,
+             round_index: int, *, layout: ParamLayout,
+             extra: Optional[Dict] = None,
+             tracking: Optional[np.ndarray] = None) -> None:
+        """Write the snapshot of `round_index` rounds done; each file is
+        written to a temporary name and moved into place."""
+        arrays = dict(_keyed_leaves(
+            client_states_to_numpy(states, layout)._asdict()))
+        n = states.params.shape[0]
+        path = self._shard_path(tag)
+        np.savez(path + ".tmp.npz", **arrays)
+        os.replace(path + ".tmp.npz", path)
+        meta = {"n_real": n, "blocks": [[0, n]],
+                "aggregation_count": host.aggregation_count.tolist(),
+                "votes_received": host.votes_received.tolist(),
+                "rounds_aggregated": [list(map(int, x))
+                                      for x in host.rounds_aggregated],
+                "round_index": int(round_index), "extra": extra or {}}
+        mpath = self._path(tag) + ".pod.json"
+        with open(mpath + ".tmp", "w") as f:
+            json.dump(meta, f)
+        os.replace(mpath + ".tmp", mpath)
+        tpath = self._path(tag) + ".pod.tracking.npz"
+        if tracking is not None:
+            np.savez(tpath + ".tmp.npz", tracking=tracking)
+            os.replace(tpath + ".tmp.npz", tpath)
+        elif os.path.exists(tpath):
+            os.remove(tpath)  # an older curve must not outlive its round
+
+    @staticmethod
+    def _validate_extra(tag: str, saved: Dict,
+                        expected_extra: Optional[Dict],
+                        extra_defaults: Optional[Dict]) -> None:
+        """A setting that changes what the snapshot means must fail with
+        its NAME; a key the snapshot never recorded compares against its
+        default (a snapshot written before the setting existed)."""
+        for key, want in (expected_extra or {}).items():
+            if key in saved:
+                recorded = saved[key]
+            elif extra_defaults is not None and key in extra_defaults:
+                recorded = extra_defaults[key]
+            else:
+                continue
+            if recorded != want:
+                raise ValueError(
+                    f"checkpoint {tag!r} was written with {key}="
+                    f"{recorded!r} but this run uses {key}={want!r};"
+                    f" resume with the matching setting or start fresh")
+
+    def restore(self, tag: str, *, layout: ParamLayout,
+                device: DeviceLike = "cuda",
+                expected_extra: Optional[Dict] = None,
+                extra_defaults: Optional[Dict] = None):
+        """(states on `device`, host, round_index, tracking or None) of a
+        one-shard snapshot, after `expected_extra` is checked against the
+        recorded extra."""
+        device = resolve_device(device)  # before any file is read
+        with open(self._path(tag) + ".pod.json") as f:
+            meta = json.load(f)
+        self._validate_extra(tag, meta.get("extra", {}), expected_extra,
+                             extra_defaults)
+        if len(meta["blocks"]) != 1:
+            raise ValueError(f"checkpoint {tag!r} has {len(meta['blocks'])}"
+                             " shards; this manager restores one")
+        n = meta["n_real"]
+        like = client_states_to_numpy(
+            fresh_states(torch.zeros((n, layout.size))), layout)._asdict()
+        path = self._shard_path(tag)
+        with np.load(path) as z:
+            shapes = {k: np.shape(v) for k, v in _keyed_leaves(like)}
+            missing = [k for k in shapes if k not in z.files]
+            if missing:
+                raise ValueError(
+                    f"{path} lacks state leaves {missing[:3]}"
+                    f"{'...' if len(missing) > 3 else ''}; was it saved "
+                    f"for another model or state layout?")
+            arrays = {k: z[k] for k in shapes}
+        for k, shape in shapes.items():
+            if arrays[k].shape != shape:
+                raise ValueError(f"{path} holds {k} of shape "
+                                 f"{arrays[k].shape}; this model's is "
+                                 f"{shape}")
+        states = client_states_from_numpy(
+            NumpyClientStates(**_rebuilt(like, arrays)), layout,
+            device=device)
+        host = HostState(
+            aggregation_count=np.asarray(meta["aggregation_count"]),
+            votes_received=np.asarray(meta["votes_received"]),
+            rounds_aggregated=[tuple(x) for x in meta["rounds_aggregated"]])
+        tpath = self._path(tag) + ".pod.tracking.npz"
+        tracking = (np.load(tpath)["tracking"] if os.path.exists(tpath)
+                    else None)
+        return states, host, int(meta["round_index"]), tracking
+
+    def exists(self, tag: str) -> bool:
+        """True iff the manifest and the shard are on disk."""
+        return (os.path.exists(self._path(tag) + ".pod.json")
+                and os.path.exists(self._shard_path(tag)))
+
+    def extra(self, tag: str) -> Dict:
+        """The snapshot's recorded extra."""
+        with open(self._path(tag) + ".pod.json") as f:
+            return json.load(f).get("extra", {})

@@ -27,10 +27,36 @@ and replayed; called eagerly on the CPU (the same code, op for op):
 
 A chunk of R rounds is R x (enter, <= E epochs, leave) replays after one
 upload of the selections and draws; its outputs come back in one copy
-into pinned memory. The chaos, elastic, cluster, red-team, poison and
-divergence hooks of the JAX round body are not ported (RoundEngine
-raises on them, as the per-phase engine does). Semantics are the
-per-phase path's exactly, bit for bit with the tie-break off; with it on,
+into pinned memory.
+
+The fault hooks of the JAX round body, each built in only when its spec is
+given (with none the bodies hold exactly the clean round's ops), take
+every per-round value from a [R, ...] buffer the chunk uploads, as the
+selections are:
+
+  * `poison` (federation/attack.py): the merged model is tampered with
+    between aggregation and verification where the round's attack bit is
+    set, with the round's noise row for a noise attack;
+  * `chaos` (chaos/): at `leave`, the effective cohort selected ∧
+    available ∧ ¬straggler; the lost clients' training is reverted (their
+    curves NaN), the vote owner is the first effective selected client,
+    voters outside the effective cohort cast no vote, a crash bit fells
+    the elected aggregator and the others re-elect (a second
+    `elect_on_device` on the same scores with the crashed one masked
+    out, its own tie-break draws), the crashed client carries no
+    aggregation weight, a client that is down, lost the broadcast or
+    crashed keeps its whole state across the merge, and each client's
+    distance to the federation's mean model is reported;
+  * `elastic` (federation/elastic.py): at `enter`, before the cohort is
+    gathered, joining slots take the incumbent-mean params and
+    prev_global, joined or left slots get zeroed Adam state, and a
+    joiner's verifier history is cleared; retired slots leave the
+    effective cohort, receive no broadcast and report NaN metrics.
+The epoch body is the same either way: as in the JAX package the whole
+selection trains and the lost clients are discarded afterwards.
+
+Clean, the semantics are the per-phase path's exactly, bit for bit with
+the tie-break off; with it on,
 the per-phase path draws each voter's uniforms when the voter votes and
 the fused one draws every voter's per round ahead of it
 (ExperimentRngs.vote_draws), as the JAX package's fused and per-phase
@@ -40,13 +66,20 @@ paths differ only in their key bookkeeping.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
-from fedmse_tpu_torch.federation.local_training import LocalTrainer
-from fedmse_tpu_torch.federation.state import ClientStates
+from fedmse_tpu_torch.federation.aggregation import weighted_mean
+from fedmse_tpu_torch.federation.attack import PoisonFn
+from fedmse_tpu_torch.federation.local_training import (LocalTrainer,
+                                                        LocalTrainResult)
+from fedmse_tpu_torch.federation.state import (ClientStates,
+                                               client_mean_weights,
+                                               tree_client_divergence,
+                                               tree_select_clients)
 from fedmse_tpu_torch.federation.voting import elect_on_device
 from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.ops.graphs import CapturedBody
@@ -63,23 +96,41 @@ class FusedRoundOut(NamedTuple):
     rejected: np.ndarray     # [N] int32 consecutive rejected broadcasts
     min_valid: np.ndarray    # [N] best local valid loss this round
     tracking: np.ndarray     # [N, E, 3] train/valid loss curves
+    # the fault hooks' observables, None where their hook is off:
+    eff_mask: Optional[np.ndarray] = None    # [N] effective cohort
+    crashed: Optional[int] = None            # crashed aggregator, -1: none
+    divergence: Optional[np.ndarray] = None  # [N] distance to the mean
+    member: Optional[np.ndarray] = None      # [N] 1 = slot occupied
+    generation: Optional[np.ndarray] = None  # [N] tenant generation
 
 
 @dataclasses.dataclass(frozen=True)
 class OutLayout:
-    """A round's outputs packed into one f32 row (the aggregator and the
-    rejected counters are small integers, exact in f32), so a chunk's
-    outputs are one [R, width] stack and one device-to-host copy."""
+    """A round's outputs packed into one f32 row (the aggregator, the
+    rejected counters and the hooks' integers are small, exact in f32), so
+    a chunk's outputs are one [R, width] stack and one device-to-host
+    copy. The hooks' observables have parts only where their hook is on:
+    eff_mask under chaos or elastic, crashed and divergence under chaos,
+    member and generation under elastic."""
 
     n: int
     metric_shape: Tuple[int, ...]
     epochs: int
+    chaos: bool = False
+    elastic: bool = False
 
     def parts(self) -> List[Tuple[str, Tuple[int, ...]]]:
         n = self.n
-        return [("aggregator", ()), ("metrics", (n,) + self.metric_shape),
-                ("scores", (n,)), ("weights", (n,)), ("rejected", (n,)),
-                ("min_valid", (n,)), ("tracking", (n, self.epochs, 3))]
+        parts = [("aggregator", ()), ("metrics", (n,) + self.metric_shape),
+                 ("scores", (n,)), ("weights", (n,)), ("rejected", (n,)),
+                 ("min_valid", (n,)), ("tracking", (n, self.epochs, 3))]
+        if self.chaos or self.elastic:
+            parts.append(("eff_mask", (n,)))
+        if self.chaos:
+            parts += [("crashed", ()), ("divergence", (n,))]
+        if self.elastic:
+            parts += [("member", (n,)), ("generation", (n,))]
+        return parts
 
     @property
     def width(self) -> int:
@@ -95,11 +146,14 @@ class OutLayout:
             size = int(np.prod(shape))
             out[name] = row[at:at + size].reshape(shape)
             at += size
+        hooks = {}
+        if "crashed" in out:
+            hooks["crashed"] = int(out.pop("crashed"))
+        if "generation" in out:
+            hooks["generation"] = out.pop("generation").astype(np.int64)
         return FusedRoundOut(
-            aggregator=int(out["aggregator"]), metrics=out["metrics"],
-            scores=out["scores"], weights=out["weights"],
-            rejected=out["rejected"].astype(np.int32),
-            min_valid=out["min_valid"], tracking=out["tracking"])
+            aggregator=int(out.pop("aggregator")),
+            rejected=out.pop("rejected").astype(np.int32), **out, **hooks)
 
 
 class FusedRound:
@@ -109,7 +163,9 @@ class FusedRound:
     in place. `cohort` is S, the selection's size; `capacity` the most
     rounds a chunk holds; `compact` trains the selected clients only
     (else every client, the unselected masked away, as the per-phase
-    path); `tie_break` takes each chunk's [R, S, N] uniforms."""
+    path); `tie_break` takes each chunk's [R, S, N] uniforms. `poison`,
+    `chaos` and `elastic` build the fault hooks in (their per-round
+    inputs are `dispatch`'s `inputs`, named by `input_names`)."""
 
     def __init__(self, *, trainer: LocalTrainer, base_scores: Callable,
                  aggregate: Callable, verify: Callable,
@@ -117,7 +173,9 @@ class FusedRound:
                  states: ClientStates, data, ver_x, ver_m,
                  priorities: Optional[torch.Tensor], max_threshold: int,
                  cohort: int, capacity: int, compact: bool,
-                 tie_break: bool, metric_shape: Tuple[int, ...]):
+                 tie_break: bool, metric_shape: Tuple[int, ...],
+                 poison: Optional[PoisonFn] = None, chaos: bool = False,
+                 elastic: bool = False):
         self.trainer, self.base_scores = trainer, base_scores
         self.aggregate, self.verify = aggregate, verify
         self.evaluate_all, self.layout = evaluate_all, layout
@@ -126,6 +184,7 @@ class FusedRound:
         self.priorities, self.max_threshold = priorities, max_threshold
         self.cohort_size, self.capacity = cohort, capacity
         self.compact = compact
+        self.poison, self.chaos, self.elastic = poison, chaos, elastic
         dev = states.params.device
         self.device = dev
         n = states.params.shape[0]
@@ -140,11 +199,12 @@ class FusedRound:
         self.sel_mask = torch.zeros(n, device=dev)
         self.u = (torch.zeros((cohort, n), device=dev) if tie_break
                   else None)
+        self._hook_buffers(n, states.params.shape[1], tie_break)
         idx = (torch.zeros(cohort, dtype=i64, device=dev) if compact
                else torch.arange(n, device=dev))
         self.co = trainer.cohort(idx, states.params, data.train_xb,
                                  data.train_mb, data.valid_xb, data.valid_mb)
-        self.out = OutLayout(n, metric_shape, trainer.epochs)
+        self.out = OutLayout(n, metric_shape, trainer.epochs, chaos, elastic)
         self.out_stack = torch.zeros((capacity, self.out.width), device=dev)
         cuda = dev.type == "cuda"
         # the early-stop flags come back through pinned memory
@@ -158,6 +218,41 @@ class FusedRound:
         # the epochs each round ran (its speculative no-op epoch not counted)
         self.epochs_run: List[int] = []
 
+    def _hook_buffers(self, n: int, p: int, tie_break: bool) -> None:
+        """Each built-in hook's [capacity, ...] chunk inputs and the round's
+        slice of them, by input name."""
+        cap, dev = self.capacity, self.device
+        shapes = {}
+        if self.poison is not None:
+            shapes["attack"] = ((), torch.float32)
+            if self.poison.needs_noise:
+                shapes["noise"] = ((p,), torch.float32)
+        if self.chaos:
+            shapes.update(available=((n,), torch.float32),
+                          straggler=((n,), torch.float32),
+                          crash=((), torch.bool),
+                          bcast_drop=((n,), torch.float32))
+            if tie_break:
+                shapes["reelect_draws"] = ((self.cohort_size, n),
+                                           torch.float32)
+        if self.elastic:
+            shapes.update(member=((n,), torch.float32),
+                          joined=((n,), torch.float32),
+                          left=((n,), torch.float32),
+                          generation=((n,), torch.int32))
+        self.chunk_in = {k: torch.zeros((cap,) + shape, dtype=dt, device=dev)
+                         for k, (shape, dt) in shapes.items()}
+        self.round_in = {k: torch.zeros(shape, dtype=dt, device=dev)
+                         for k, (shape, dt) in shapes.items()}
+
+    @property
+    def input_names(self) -> Tuple[str, ...]:
+        return tuple(self.chunk_in)
+
+    @property
+    def faults(self) -> bool:
+        return self.chaos or self.elastic
+
     # ---- the three bodies (no host read in any of them) ---- #
 
     def _enter(self) -> None:
@@ -170,39 +265,136 @@ class FusedRound:
             self.co.idx.copy_(torch.sort(self.sel).values)
         if self.u is not None:
             self.u.copy_(self.u_all.index_select(0, at)[0])
+        for k, buf in self.round_in.items():
+            buf.copy_(self.chunk_in[k].index_select(0, at)[0])
+        if self.elastic:
+            self._join_and_leave()
         self.trainer.begin(self.co, st.params, st.opt_state, st.prev_global,
                            d.train_xb, d.train_mb, d.valid_xb, d.valid_mb)
 
+    def _join_and_leave(self) -> None:
+        """The slot pool's entry transitions, in place (JAX fused.py
+        round_body's elastic block)."""
+        st, r = self.states, self.round_in
+        r["member"].mul_(self.data.client_mask)  # padding never joins
+        joined, left = r["joined"] > 0, r["left"] > 0
+        mean = weighted_mean(st.params, client_mean_weights(
+            r["member"] * (1.0 - r["joined"])))
+        rows = joined[:, None]
+        torch.where(rows, mean, st.params, out=st.params)
+        torch.where(rows, mean, st.prev_global, out=st.prev_global)
+        reset = joined | left
+        for t in st.opt_state:
+            t.masked_fill_(reset.view((-1,) + (1,) * (t.dim() - 1)), 0)
+        st.hist_params.masked_fill_(rows, 0)
+        for t in (st.hist_perf, st.hist_seen, st.rejected, st.waived):
+            t.masked_fill_(joined, 0)
+
+    def _effective(self, res: LocalTrainResult):
+        """The effective cohort and the training result with the lost
+        clients (selected, not effective) reverted: their params and Adam
+        state pass through, their curves are NaN."""
+        st, r = self.states, self.round_in
+        eff = self.sel_mask
+        if self.chaos:
+            eff = eff * r["available"] * (1.0 - r["straggler"])
+        if self.elastic:
+            eff = eff * r["member"]
+        lost = (self.sel_mask > 0) & (eff <= 0)
+        nan = float("nan")
+        return eff, LocalTrainResult(
+            params=tree_select_clients(lost, st.params, res.params),
+            opt_state=res.opt_state.where(~lost, st.opt_state),
+            best_params=res.best_params,
+            min_valid=torch.where(lost, nan, res.min_valid),
+            tracking=torch.where(lost[:, None, None], nan, res.tracking))
+
+    def _reelect(self, base, eff, aggregator, scores):
+        """A crash fells the elected aggregator: the others elect again on
+        the same scores. Returns (aggregator, scores, crashed)."""
+        r = self.round_in
+        crash_now = r["crash"] & (aggregator >= 0)
+        mask2 = torch.where(self.ids == aggregator, 0.0, eff)
+        again, scores2 = elect_on_device(
+            base, r.get("reelect_draws"), self.sel, mask2, self.agg_count,
+            self.max_threshold, voters=mask2)
+        crashed = torch.where(crash_now, aggregator, -1)
+        return (torch.where(crash_now, again, aggregator),
+                torch.where(crash_now, scores2, scores), crashed)
+
+    def _received(self, aggregator, crashed) -> torch.Tensor:
+        """[N] bool: who gets the broadcast. The down, the broadcast-lost,
+        the crashed and retired slots do not; the aggregator holds it."""
+        r = self.round_in
+        if self.chaos:
+            got = ((r["bcast_drop"] <= 0) & (r["available"] > 0)
+                   & (self.ids != crashed))
+            if self.elastic:
+                got = got & (r["member"] > 0)
+        else:
+            got = r["member"] > 0
+        return got | (self.ids == aggregator)
+
     def _leave(self) -> None:
-        d, st = self.data, self.states
+        d, st, r = self.data, self.states, self.round_in
         res = self.trainer.finish(self.co, st.params, st.opt_state,
                                   self.sel_mask)
+        eff = self.sel_mask
+        if self.faults:
+            eff, res = self._effective(res)
         st.params.copy_(res.params)
         st.opt_state.copy_(res.opt_state)
-        # the vote tensor: the first selected client's valid split
-        voter0 = self.sel[:1]
+        # the vote tensor: the first (effective) selected client's valid split
+        if self.faults:
+            first = (eff.index_select(0, self.sel) > 0).to(
+                torch.int32).argmax().view(1)
+            voter0 = self.sel.index_select(0, first)
+        else:
+            voter0 = self.sel[:1]
         base = self.base_scores(st.params,
                                 d.valid_x.index_select(0, voter0)[0],
                                 d.valid_m.index_select(0, voter0)[0])
         aggregator, scores = elect_on_device(
-            base, self.u, self.sel, self.sel_mask, self.agg_count,
-            self.max_threshold)
+            base, self.u, self.sel, eff, self.agg_count,
+            self.max_threshold, voters=eff if self.faults else None)
+        crashed, agg_mask = None, eff
+        if self.chaos:
+            aggregator, scores, crashed = self._reelect(base, eff,
+                                                        aggregator, scores)
+            agg_mask = torch.where(self.ids == crashed, 0.0, eff)
         won = aggregator >= 0
         merged, weights = self.aggregate(
-            st.params, self.sel_mask, d.dev_x,
+            st.params, agg_mask, d.dev_x,
             sel_idx=self.co.idx if self.compact else None)
+        if self.poison is not None:
+            merged = self.poison(merged, r["attack"], r.get("noise"))
         is_agg = self.ids == aggregator  # all false for -1
         outcome = self.verify(st, merged, self.ver_x, self.ver_m,
                               is_agg.to(torch.float32), d.client_mask)
-        st.where_(won, outcome.states)
+        new = outcome.states
+        if self.faults:
+            new = new.select(self._received(aggregator, crashed), st)
+        st.where_(won, new)
         self.agg_count += (is_agg & won).to(torch.int32)
         metrics = self.evaluate_all(self.layout.tree(st.params), d.test_x,
                                     d.test_m, d.test_y, d.train_xb,
                                     d.train_mb, priorities=self.priorities)
+        hooks = {}
+        if self.faults:
+            hooks["eff_mask"] = eff
+        if self.chaos:
+            hooks["crashed"] = crashed
+            hooks["divergence"] = tree_client_divergence(st.params,
+                                                         d.client_mask)
+        if self.elastic:
+            present = r["member"] > 0
+            metrics = torch.where(present.view((-1,) + (1,) * (
+                metrics.dim() - 1)), metrics, float("nan"))
+            hooks.update(member=r["member"], generation=r["generation"])
         row = self.out.pack(
             aggregator=aggregator, metrics=metrics, scores=scores,
             weights=torch.where(won, weights, 0.0), rejected=st.rejected,
-            min_valid=res.min_valid, tracking=res.tracking)
+            min_valid=res.min_valid, tracking=res.tracking, **hooks)
         self.out_stack.index_copy_(0, self.slot.view(1), row[None])
         self.slot += 1
 
@@ -240,18 +432,25 @@ class FusedRound:
 
     def dispatch(self, schedule: Sequence[Sequence[int]],
                  draws: Optional[torch.Tensor],
-                 agg_count: Optional[np.ndarray]) -> Callable[[], list]:
-        """Run len(schedule) rounds: upload the selections and draws (and
-        the quota, unless None: then the device carries it from the last
-        chunk), replay the bodies round by round and start one copy of the
-        output stack to the host. Returns the harvest: a call that waits
-        for that copy and returns the rounds' FusedRoundOuts."""
+                 agg_count: Optional[np.ndarray],
+                 inputs: Optional[Dict[str, np.ndarray]] = None
+                 ) -> Callable[[], list]:
+        """Run len(schedule) rounds: upload the selections and draws, the
+        hooks' `inputs` ([k, ...] each, by `input_names`), and the quota
+        (unless None: then the device carries it from the last chunk),
+        replay the bodies round by round and start one copy of the output
+        stack to the host. Returns the harvest: a call that waits for that
+        copy and returns the rounds' FusedRoundOuts."""
         k = len(schedule)
         if k > self.capacity or any(len(s) != self.cohort_size
                                     for s in schedule):
             raise ValueError(f"a chunk of {k} rounds of {self.cohort_size} "
                              f"clients each fits this round's buffers; got "
                              f"{[len(s) for s in schedule]}")
+        inputs = inputs or {}
+        if set(inputs) != set(self.chunk_in):
+            raise ValueError(f"this round's hooks take inputs "
+                             f"{sorted(self.chunk_in)}; got {sorted(inputs)}")
         cuda = self.device.type == "cuda"
 
         def up(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -260,6 +459,9 @@ class FusedRound:
         up(self.sel_all[:k], torch.tensor(schedule, dtype=torch.int64))
         if self.u_all is not None:
             up(self.u_all[:k], draws)
+        for name, value in inputs.items():
+            buf = self.chunk_in[name]
+            up(buf[:k], torch.as_tensor(np.array(value)).to(buf.dtype))
         if agg_count is not None:
             up(self.agg_count, torch.as_tensor(
                 np.asarray(agg_count, dtype=np.int32)))

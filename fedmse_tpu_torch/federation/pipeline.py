@@ -29,8 +29,10 @@ behind the card, federation/fused.py), so the overlap is what the card
 still has queued then: that epoch and the round's close.
 
 `pipelined=False` is the serial chunk loop (the driver's
-`--no-pipeline`): each chunk is harvested and absorbed before the next is
-dispatched, with the same rewind.
+`--no-pipeline`, and `--resume-dir`): each chunk is harvested and absorbed
+before the next is dispatched, with the same rewind, and `on_chunk` sees
+the rounds done after each chunk (the driver checkpoints there: the state
+is never speculative, and a rewound chunk has been replayed by then).
 
 `PipelineStats.host_gaps` records at each chunk boundary t_dispatch(k + 1)
 - t_harvest_done(k), negative by construction when pipelined.
@@ -82,7 +84,9 @@ def run_pipelined_schedule(engine, start_round: int, num_rounds: int,
                            chunk_size: int,
                            consume: Callable[[list, float], Optional[int]],
                            can_rewind: bool = True,
-                           pipelined: bool = True) -> PipelineStats:
+                           pipelined: bool = True,
+                           on_chunk: Optional[Callable[[int], None]] = None
+                           ) -> PipelineStats:
     """Drive a RoundEngine's fused schedule in chunks, double-buffered
     unless `pipelined=False` (the serial chunk loop).
 
@@ -90,13 +94,21 @@ def run_pipelined_schedule(engine, start_round: int, num_rounds: int,
     RoundResults (logging, writer IO, early stop) and returns the 0-based
     position of the stop round inside the chunk, or None; when pipelined
     it runs while the next chunk is in flight. `can_rewind=False` promises
-    it never stops, and no snapshot is taken."""
+    it never stops, and no snapshot is taken. `on_chunk(rounds_done)`, of
+    the serial loop only, runs after each absorbed chunk with the absolute
+    number of rounds done."""
+    if on_chunk is not None and pipelined:
+        raise ValueError("on_chunk needs the serial chunk loop "
+                         "(pipelined=False): a pipelined boundary's state "
+                         "is speculative")
     stats = PipelineStats()
     prev: Optional[InFlightChunk] = None
     round_index = start_round
 
     def absorb(chunk: InFlightChunk,
-               successor: Optional[InFlightChunk]) -> bool:
+               successor: Optional[InFlightChunk]) -> Optional[int]:
+        """Harvest and consume a chunk, rewinding on a stop inside it:
+        None, or the rounds of the chunk done when the run stops."""
         results, schedule, draws = engine.harvest_schedule_chunk(chunk)
         t_done = time.time()
         if successor is not None:
@@ -104,7 +116,7 @@ def run_pipelined_schedule(engine, start_round: int, num_rounds: int,
         sec = (t_done - chunk.t_dispatch) / chunk.n_rounds
         stop = consume(results, sec)
         if stop is None:
-            return False
+            return None
         done = stop + 1
         if done < chunk.n_rounds:
             # a mid-chunk stop: rewind to the chunk's entry and replay the
@@ -119,7 +131,7 @@ def run_pipelined_schedule(engine, start_round: int, num_rounds: int,
             # a stop at the chunk's last round with the successor in
             # flight: its entry snapshot is the state after the stop
             engine.states = successor.snap_states
-        return True
+        return done
 
     while round_index < num_rounds:
         k = min(chunk_size, num_rounds - round_index)
@@ -128,14 +140,17 @@ def run_pipelined_schedule(engine, start_round: int, num_rounds: int,
             snapshot=can_rewind)
         stats.chunks += 1
         round_index += k
-        if prev is not None and absorb(prev, cur):
+        if prev is not None and absorb(prev, cur) is not None:
             return stats  # cur is speculative: never harvested
         if can_rewind:
             cur.host_snap = engine.host.copy()
         prev = cur
         if not pipelined:
             prev = None
-            if absorb(cur, None):
+            done = absorb(cur, None)
+            if on_chunk is not None:
+                on_chunk(cur.start_round + (k if done is None else done))
+            if done is not None:
                 return stats
     if prev is not None:
         absorb(prev, None)

@@ -20,8 +20,18 @@ Two paths run the same round, as in the JAX package:
     5. every client but the aggregator verifies the broadcast (one forward
        launch);
     6. every client is evaluated (one forward launch).
-Meshes, attacks, chaos, elastic membership, clustering and the red-team
-hooks are not ported.
+
+The fault hooks (`poison_fn=`, `chaos=`, `elastic=`, `elastic_masks=`):
+the attack runs on both paths, between aggregation and verification;
+chaos and elastic membership exist in the fused round only, and the
+engine refuses them on the per-phase path (`fused=False` or
+`profile=True`), as the JAX engine does. Their per-round inputs are
+evaluated on the host per absolute round and uploaded per chunk: the
+attack bit and noise, the chaos masks and the crash re-election's draws,
+the membership timeline. The membership timeline is a Markov chain, so
+the engine expands it from round 0 for the whole horizon and slices it
+(`_elastic_masks`); the memoryless chaos masks are cached the same way.
+Meshes, clustering and the red-team hooks are not ported.
 """
 
 from __future__ import annotations
@@ -37,7 +47,13 @@ import torch
 from fedmse_tpu_torch.config import ExperimentConfig
 from fedmse_tpu_torch.data.stacking import FederatedData
 from fedmse_tpu_torch.evaluation.evaluator import make_evaluate_all
+from fedmse_tpu_torch.chaos.masks import (ChaosMasks, make_chaos_masks,
+                                          reelection_draws)
 from fedmse_tpu_torch.federation.aggregation import make_aggregate_fn
+from fedmse_tpu_torch.federation.attack import noise_draws
+from fedmse_tpu_torch.federation.elastic import (MembershipMasks,
+                                                 make_membership_masks,
+                                                 membership_at)
 from fedmse_tpu_torch.federation.fused import FusedRound, FusedRoundOut
 from fedmse_tpu_torch.federation.local_training import make_local_train_all
 from fedmse_tpu_torch.federation.pipeline import InFlightChunk
@@ -69,6 +85,16 @@ class RoundResult:
     # host seconds of each phase, with the device synchronized at each
     # phase's end (RoundEngine(profile=True) only)
     phase_seconds: Optional[Dict[str, float]] = None
+    # the fault hooks' observables (fused path; None where not measured):
+    # the selected clients that contributed (everyone selected without
+    # chaos or elastic), the aggregator that crashed and was replaced,
+    # each client's distance to the federation's mean model (chaos), the
+    # occupied real slots and their tenant generations (elastic)
+    effective: Optional[List[int]] = None
+    crashed_aggregator: Optional[int] = None
+    divergence: Optional[np.ndarray] = None
+    members: Optional[List[int]] = None
+    generations: Optional[np.ndarray] = None
 
 
 def split_metric_columns(metrics: np.ndarray):
@@ -127,6 +153,8 @@ def absorb_fused_out(out: FusedRoundOut, round_index: int,
     else:
         logger.warning("No aggregator selected for round %d", round_index)
     metrics, metrics_full = split_metric_columns(out.metrics[:n_real])
+    eff = out.eff_mask
+    crashed = -1 if out.crashed is None else out.crashed
     return RoundResult(
         round_index=round_index, selected=list(selected),
         aggregator=None if aggregator < 0 else aggregator,
@@ -134,7 +162,16 @@ def absorb_fused_out(out: FusedRoundOut, round_index: int,
         verification_results=rows,
         mse_scores=None if aggregator < 0 else out.scores[:n_real],
         agg_weights=None if aggregator < 0 else out.weights,
-        tracking=out.tracking[:n_real], min_valid=out.min_valid[:n_real])
+        tracking=out.tracking[:n_real], min_valid=out.min_valid[:n_real],
+        effective=(list(selected) if eff is None
+                   else [i for i in selected if eff[i] > 0]),
+        crashed_aggregator=None if crashed < 0 else crashed,
+        divergence=(None if out.divergence is None
+                    else out.divergence[:n_real]),
+        members=(None if out.member is None else
+                 np.flatnonzero(out.member[:n_real] > 0).tolist()),
+        generations=(None if out.generation is None
+                     else out.generation[:n_real]))
 
 
 class RoundEngine:
@@ -146,16 +183,41 @@ class RoundEngine:
     (federation/fused.py), unless `profile=True`, which times the phases
     and so runs the per-phase path. The fused round updates the tensors of
     `states` in place; clone them to keep a copy (the JAX package donates
-    them)."""
+    them).
+
+    `poison_fn` (federation/attack.make_poison_fn) tampers with the merged
+    model on either path; `chaos` (a ChaosSpec) and `elastic` (an
+    ElasticSpec) need the fused path. `elastic_masks` (a MembershipMasks
+    with [T, N] leaves) replaces the spec's drawn timeline, as in the
+    JAX engine; the spec still builds the hook in."""
 
     def __init__(self, model, cfg: ExperimentConfig, data: FederatedData,
                  n_real: int, rngs: ExperimentRngs, model_type: str,
                  update_type: str, states: Optional[ClientStates] = None,
-                 profile: bool = False, fused: bool = False):
+                 profile: bool = False, fused: bool = False,
+                 poison_fn=None, chaos=None, elastic=None,
+                 elastic_masks: Optional[MembershipMasks] = None):
         if fused and cfg.metric == "time":
             raise ValueError(
                 "metric='time' times each client's scoring on the host and "
                 "cannot run inside the fused round; use fused=False")
+        for name, spec in (("chaos fault injection", chaos),
+                           ("elastic membership", elastic)):
+            if spec is not None and (not fused or profile):
+                raise ValueError(
+                    f"{name} is compiled into the fused round; construct "
+                    "the engine with fused=True (and profile=False)")
+        if elastic_masks is not None and elastic is None:
+            raise ValueError(
+                "elastic_masks needs an ElasticSpec: the override "
+                "replaces the spec's TIMELINE, not the elastic hook "
+                "itself (pass any non-null spec to build it in)")
+        self.poison_fn, self.chaos, self.elastic = poison_fn, chaos, elastic
+        self._elastic_override = elastic_masks
+        self._chaos_premade: Optional[ChaosMasks] = None
+        self._reelect_premade: Optional[np.ndarray] = None
+        self._premade_seed = rngs.run_seed  # the streams the caches hold
+        self._elastic_premade = elastic_masks
         self.model = model
         self.cfg = cfg
         self.data = data
@@ -259,7 +321,9 @@ class RoundEngine:
                 max_threshold=cfg.max_aggregation_threshold, cohort=cohort,
                 capacity=max(n_rounds, cfg.fused_schedule_chunk, 1),
                 compact=self.compact, tie_break=cfg.compat.vote_tie_break,
-                metric_shape=metric_shape)
+                metric_shape=metric_shape, poison=self.poison_fn,
+                chaos=self.chaos is not None,
+                elastic=self.elastic is not None)
             self._fused = f
             self.states = f.states
         elif self.states is not f.states:
@@ -268,6 +332,108 @@ class RoundEngine:
             f.states.copy_(self.states)
             self.states = f.states
         return f
+
+    # ---- the fault hooks' per-round inputs ---- #
+
+    def _check_premade(self) -> None:
+        """Drop the cached timelines if `rngs` now holds another run's
+        streams (a reset keeps the run, and the caches with it)."""
+        if self._premade_seed != self.rngs.run_seed:
+            self._premade_seed = self.rngs.run_seed
+            self._chaos_premade = self._reelect_premade = None
+            self._elastic_premade = self._elastic_override
+
+    @staticmethod
+    def _too_short(cached, end: int) -> bool:
+        """Whether a cached [T, ...] timeline misses round end - 1."""
+        return cached is None or end > cached[0].shape[0]
+
+    def _chaos_masks(self, start_round: int, n_rounds: int) -> ChaosMasks:
+        """The chunk's fault masks, sliced from the whole horizon's (a pure
+        function of the spec, the run's chaos key and the absolute round,
+        so every chunking and replay sees the same masks)."""
+        self._check_premade()
+        end = start_round + n_rounds
+        if self._too_short(self._chaos_premade, end):
+            self._chaos_premade = make_chaos_masks(
+                self.chaos, self.rngs.chaos_key(), 0,
+                max(end, self.cfg.num_rounds), self.n_pad)
+        return ChaosMasks(*(m[start_round:end] for m in self._chaos_premade))
+
+    def _reelect_draws(self, start_round: int, n_rounds: int,
+                       cohort: int) -> np.ndarray:
+        """The crash re-election's tie-break draws [R, S, N] of the chunk,
+        sliced from the horizon's like the masks (redrawn for another
+        cohort size)."""
+        self._check_premade()
+        end, cached = start_round + n_rounds, self._reelect_premade
+        if cached is None or end > cached.shape[0] or \
+                cached.shape[1] != cohort:
+            self._reelect_premade = reelection_draws(
+                self.rngs.chaos_key(), 0, max(end, self.cfg.num_rounds),
+                cohort, self.n_pad)
+        return self._reelect_premade[start_round:end]
+
+    def _elastic_masks(self, start_round: int, n_rounds: int
+                       ) -> MembershipMasks:
+        """The chunk's membership masks, sliced from the timeline expanded
+        from round 0 (a Markov chain; regrowing the horizon keeps its
+        prefix)."""
+        self._check_premade()
+        end = start_round + n_rounds
+        if self._too_short(self._elastic_premade, end):
+            if self._elastic_override is not None:
+                raise ValueError(
+                    f"elastic_masks override covers "
+                    f"{self._elastic_override.member.shape[0]} rounds but "
+                    f"the schedule needs {end}")
+            self._elastic_premade = make_membership_masks(
+                self.elastic, self.rngs.elastic_key(),
+                max(end, self.cfg.num_rounds), self.n_pad)
+        return MembershipMasks(*(m[start_round:end]
+                                 for m in self._elastic_premade))
+
+    def generation_at(self, round_index: int) -> Optional[np.ndarray]:
+        """[n_real] tenant generations after `round_index` rounds (None
+        without an ElasticSpec): the checkpoint's roster record."""
+        if self.elastic is None:
+            return None
+        self._elastic_masks(max(round_index - 1, 0), 1)
+        return membership_at(self._elastic_premade, round_index,
+                             self.n_real)[1]
+
+    def members_at(self, round_index: int) -> Optional[np.ndarray]:
+        """[n_real] bool occupancy after `round_index` rounds (None without
+        an ElasticSpec): the final evaluation's NaN mask."""
+        if self.elastic is None:
+            return None
+        self._elastic_masks(max(round_index - 1, 0), 1)
+        return membership_at(self._elastic_premade, round_index,
+                             self.n_real)[0]
+
+    def _attack_inputs(self, start_round: int, n_rounds: int) -> dict:
+        """The attack bit [R] and, for a noise attack, the noise [R, P]."""
+        out = {"attack": self.poison_fn.active(start_round, n_rounds)}
+        if self.poison_fn.needs_noise:
+            out["noise"] = noise_draws(self.rngs.attack_key(), start_round,
+                                       n_rounds, self.layout.size)
+        return out
+
+    def _hook_inputs(self, start_round: int, n_rounds: int,
+                     cohort: int) -> dict:
+        """Every built-in hook's inputs for rounds [start_round, +n_rounds),
+        by FusedRound.input_names."""
+        out = {}
+        if self.poison_fn is not None:
+            out.update(self._attack_inputs(start_round, n_rounds))
+        if self.chaos is not None:
+            out.update(self._chaos_masks(start_round, n_rounds)._asdict())
+            if self.cfg.compat.vote_tie_break:
+                out["reelect_draws"] = self._reelect_draws(
+                    start_round, n_rounds, cohort)
+        if self.elastic is not None:
+            out.update(self._elastic_masks(start_round, n_rounds)._asdict())
+        return out
 
     def _host_agg_count(self) -> np.ndarray:
         return np.pad(self.host.aggregation_count,
@@ -297,9 +463,11 @@ class RoundEngine:
             draws = self.rngs.vote_draws(n_rounds, f.cohort_size, self.n_pad)
         snap = self.states.clone() if snapshot else None
         t0 = time.time()
+        inputs = self._hook_inputs(start_round, n_rounds, f.cohort_size)
         harvest = f.dispatch(
             schedule, draws,
-            None if agg_count is f.agg_count else self._host_agg_count())
+            None if agg_count is f.agg_count else self._host_agg_count(),
+            inputs)
         return InFlightChunk(start_round=start_round, n_rounds=n_rounds,
                              schedule=schedule, draws=draws,
                              agg_count=f.agg_count, harvest=harvest,
@@ -344,6 +512,10 @@ class RoundEngine:
                   selected: Optional[List[int]] = None) -> RoundResult:
         if self.fused and not self.profile:
             return self.run_round_fused(round_index, selected)
+        if self.chaos is not None or self.elastic is not None:
+            raise ValueError("chaos and elastic membership run in the fused "
+                             "round only (profile=True forces the per-phase "
+                             "path)")
         cfg, data, dev = self.cfg, self.data, self.device
         if selected is None:
             selected = self.select_clients()
@@ -388,6 +560,11 @@ class RoundEngine:
                 aggregator] < cfg.max_aggregation_threshold:
             merged, weights = self.aggregate(self.states.params, sel_mask,
                                              data.dev_x, sel_idx=sel_idx)
+            if self.poison_fn is not None:  # the malicious aggregator
+                attack = {k: torch.as_tensor(v[0]).to(dev) for k, v in
+                          self._attack_inputs(round_index, 1).items()}
+                merged = self.poison_fn(merged, attack["attack"],
+                                        attack.get("noise"))
             agg_weights = weights.cpu().numpy()
             self.host.aggregation_count[aggregator] += 1
             self.host.rounds_aggregated.append((round_index, aggregator))

@@ -19,20 +19,25 @@ history: each update of the round is a few ops on one tensor.
 `HostState` keeps the election's counters on the host.
 `client_states_from_numpy` takes the JAX package's ClientStates (as numpy),
 so both packages can start from one init: jax.random's draws cannot be
-reproduced in torch.
+reproduced in torch; `client_states_to_numpy` is its inverse, in the JAX
+package's structure (the checkpoint's leaves, checkpointing/io.py).
+The per-client selects and the divergence observable of the fault hooks
+(federation/fused.py) close the module.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from fedmse_tpu_torch.device import DeviceLike, resolve_device
+from fedmse_tpu_torch.federation.aggregation import weighted_mean
 from fedmse_tpu_torch.federation.optim import (AdamState, adam_init,
-                                               opt_state_from_numpy)
+                                               opt_state_from_numpy,
+                                               opt_state_to_numpy)
 from fedmse_tpu_torch.models.autoencoder import init_stacked_params
 from fedmse_tpu_torch.models.flat import ParamLayout
 
@@ -78,6 +83,18 @@ class ClientStates:
                 else [(mine, theirs)]
             for a, b in pairs:
                 torch.where(keep, b, a, out=a)
+
+    def select(self, keep: torch.Tensor, other: "ClientStates"
+               ) -> "ClientStates":
+        """Per client: this state's rows where keep [N] is true, `other`'s
+        elsewhere (new tensors)."""
+        def each(a, b):
+            if isinstance(a, AdamState):
+                return AdamState(*map(each, a, b))
+            return tree_select_clients(keep, a, b)
+        return ClientStates(**{f.name: each(getattr(self, f.name),
+                                            getattr(other, f.name))
+                               for f in dataclasses.fields(self)})
 
     def to(self, device: DeviceLike) -> "ClientStates":
         dev = resolve_device(device)
@@ -159,3 +176,65 @@ def tree_select_clients(accept: torch.Tensor, a: torch.Tensor,
     """Per-client select: rows of `a` where accept [N] is true, of `b`
     elsewhere (`a` may be one [P] row, broadcast to every client)."""
     return torch.where(accept.reshape(-1, *([1] * (b.dim() - 1))), a, b)
+
+
+class AdamNumpy(NamedTuple):
+    """optax's ScaleByAdamState fields, as numpy."""
+
+    count: np.ndarray
+    mu: Dict[str, Any]
+    nu: Dict[str, Any]
+
+
+class NumpyClientStates(NamedTuple):
+    """ClientStates in the JAX package's structure, numpy leaves: param
+    trees, and the Adam state as optax chains it (a tuple whose first
+    element holds count, mu and nu)."""
+
+    params: Dict[str, Any]
+    opt_state: Tuple[AdamNumpy]
+    prev_global: Dict[str, Any]
+    hist_params: Dict[str, Any]
+    hist_perf: np.ndarray
+    hist_seen: np.ndarray
+    rejected: np.ndarray
+    waived: np.ndarray
+
+
+def client_states_to_numpy(states: ClientStates,
+                           layout: ParamLayout) -> NumpyClientStates:
+    """The inverse of `client_states_from_numpy`."""
+    def tree(t):
+        return {c: {d: {k: v.numpy() for k, v in layer.items()}
+                    for d, layer in coder.items()}
+                for c, coder in layout.tree(t.detach().cpu()).items()}
+
+    def vec(t, dtype):
+        return t.detach().cpu().numpy().astype(dtype)
+
+    return NumpyClientStates(
+        params=tree(states.params),
+        opt_state=(AdamNumpy(**opt_state_to_numpy(states.opt_state,
+                                                  layout)),),
+        prev_global=tree(states.prev_global),
+        hist_params=tree(states.hist_params),
+        hist_perf=vec(states.hist_perf, np.float32),
+        hist_seen=vec(states.hist_seen, bool),
+        rejected=vec(states.rejected, np.int32),
+        waived=vec(states.waived, np.float32))
+
+
+def client_mean_weights(client_mask: torch.Tensor) -> torch.Tensor:
+    """The uniform mean's weights over client_mask [N], with the empty-mask
+    clamp (all zeros: a zero model)."""
+    return client_mask / torch.clamp(client_mask.sum(), min=1.0)
+
+
+def tree_client_divergence(params: torch.Tensor,
+                           client_mask: torch.Tensor) -> torch.Tensor:
+    """Per-client L2 distance [N] of each params row [N, P] from the
+    client_mask-weighted mean model, in f32: the chaos axis's resilience
+    observable (padded clients weigh nothing but report a distance)."""
+    mean = weighted_mean(params, client_mean_weights(client_mask))
+    d = params.to(torch.float32) - mean
+    return torch.sqrt((d * d).sum(dim=1))

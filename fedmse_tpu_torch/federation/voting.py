@@ -80,7 +80,8 @@ def tie_break_jitter(scores: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
                     sel: torch.Tensor, sel_mask: torch.Tensor,
-                    agg_count: torch.Tensor, max_threshold: int
+                    agg_count: torch.Tensor, max_threshold: int,
+                    voters: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """First-voter-wins over the S selected voters, on the device with no
     host read (port of fedmse_tpu/federation/fused.py `_elect_on_device`).
@@ -91,7 +92,9 @@ def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
     int64: the selection in selection order; agg_count [N] int32: the
     quota. Voter i ranks the selected clients but itself that are under
     the quota; NaN ranks worst, and equal scores go to the earliest
-    selected. The first voter with a candidate wins. Returns (aggregator
+    selected. The first voter with a candidate wins; `voters` [N] (the
+    effective cohort under the fault hooks) also gates the voters: one
+    outside it casts no vote and its turn passes. Returns (aggregator
     int64 0-d, -1 when no voter has a candidate; the winning voter's
     scores [N], zeros then)."""
     s, n = sel.shape[0], base.shape[0]
@@ -104,6 +107,8 @@ def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
     cand = ((sel_mask > 0) & (agg_count < max_threshold))[None, :] \
         & (ids[None, :] != sel[:, None])
     found = cand.any(dim=1)
+    if voters is not None:
+        found = found & (voters.index_select(0, sel) > 0)
     masked = torch.where(cand & ~torch.isnan(scores), scores,
                          torch.full_like(scores, float("inf")))
     tie = cand & (masked == masked.min(dim=1, keepdim=True).values)

@@ -18,6 +18,17 @@ reference's results artifacts (port of fedmse_tpu/main.py).
     its prefix with the same selections and draws;
   * `run_experiment` sweeps every combination and writes the summary.
 
+  * the fault path: `--attack-*` (a malicious aggregator,
+    federation/attack.py), `--chaos-*` (churn, stragglers, aggregator
+    crashes, broadcast loss; chaos/) and `--elastic-*` (joins, leaves and
+    preemptions of client slots; federation/elastic.py) compose in the
+    fused round; each tags the experiment name so its artifacts land in a
+    tree of their own, and the summary records the specs;
+  * `--resume-dir` snapshots the federation after every chunk (or round)
+    and resumes a killed run where it stopped (checkpointing/io.py
+    CheckpointManager), with the selection and torch streams where they
+    were: a resumed run is the uninterrupted one. It runs the serial chunk
+    loop, as in the JAX package (a pipelined boundary is speculative);
   * `--serve` then runs the serving pass (serving/smoke.py) on the first
     combination's checkpoint.
 
@@ -25,9 +36,11 @@ CLI (runs on the card unless --device cpu):
     python -m fedmse_tpu_torch.main --dataset-config <reference json>
         [--data-root DIR] [--device cpu] [--no-save] [--paper-scale]
         [--num-rounds 20] [--epochs 100] [--score-kind knn] [--no-pipeline]
+        [--attack-kind scale ...] [--chaos-dropout 0.2 ...]
+        [--elastic-leave 0.1 ...] [--resume-dir DIR]
         [--serve [--serve-rows N] [--serve-warmup] [--serve-continuous]] ...
-Not ported: resume (--resume-dir), meshes, batched runs, the network and
-flywheel smokes, attacks, chaos, elastic membership and clustering.
+Not ported: meshes, batched runs, the tiered state layout, the network and
+flywheel smokes, clustering and the red team.
 """
 
 from __future__ import annotations
@@ -42,7 +55,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from fedmse_tpu_torch.checkpointing import (ResultsWriter, save_client_models,
+from fedmse_tpu_torch.chaos import ChaosSpec
+from fedmse_tpu_torch.checkpointing import (CheckpointManager, ResultsWriter,
+                                            save_client_models,
                                             save_latent_data,
                                             save_training_tracking)
 from fedmse_tpu_torch.config import (DatasetConfig, ExperimentConfig,
@@ -54,6 +69,8 @@ from fedmse_tpu_torch.device import DeviceLike, resolve_device
 from fedmse_tpu_torch.evaluation.evaluator import client_index
 from fedmse_tpu_torch.federation import (ClientStates, RoundEngine,
                                          split_metric_columns)
+from fedmse_tpu_torch.federation.attack import AttackSpec, make_poison_fn
+from fedmse_tpu_torch.federation.elastic import ElasticSpec
 from fedmse_tpu_torch.federation.pipeline import run_pipelined_schedule
 from fedmse_tpu_torch.models import make_model
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
@@ -130,12 +147,19 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
                     save_checkpoints: bool = False,
                     states: Optional[ClientStates] = None,
                     profile: bool = False,
-                    on_round=None) -> Dict:
+                    on_round=None,
+                    resume: Optional[CheckpointManager] = None,
+                    attack: Optional[AttackSpec] = None,
+                    chaos: Optional[ChaosSpec] = None,
+                    elastic: Optional[ElasticSpec] = None) -> Dict:
     """One (model_type, update_type, run): the reference round loop, the
     final evaluation and the artifacts. Runs where `data` lives. `states`
     replaces the port's own init (a JAX-exported init, say); `profile`
     times each round's phases (RoundResult.phase_seconds) on the
-    per-phase path; `on_round(result, seconds)` sees every round."""
+    per-phase path; `on_round(result, seconds)` sees every round.
+    `attack`, `chaos` and `elastic` are the fault specs; `resume`
+    snapshots the run after each chunk (or round) and resumes it from its
+    snapshot when there is one."""
     rngs = ExperimentRngs(run=run, data_seed=cfg.data_seed,
                           run_seed_stride=cfg.run_seed_stride)
     device = data.train_xb.device
@@ -145,10 +169,46 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
     engine = RoundEngine(model, cfg, data, n_real=n_real, rngs=rngs,
                          model_type=model_type, update_type=update_type,
                          states=states, profile=profile,
-                         fused=cfg.fused_rounds)
+                         fused=cfg.fused_rounds,
+                         poison_fn=None if attack is None
+                         else make_poison_fn(attack),
+                         chaos=chaos, elastic=elastic)
     round_times: List[float] = []
     all_tracking: List[np.ndarray] = []  # every round's [n_real, E, 3]
     results = []
+
+    tag = f"{model_type}_{update_type}_run{run}"
+    start_round = 0
+    # a snapshot resumes only under the membership timeline it was written
+    # with (the generations are recomputed from the spec); the port has no
+    # flattened optimizer and no clustering, the JAX package's defaults
+    elastic_sig = None if elastic is None else elastic.signature()
+    expected = {"flatten_optimizer": False, "elastic": elastic_sig,
+                "cluster": None}
+    defaults = {"flatten_optimizer": False, "elastic": None,
+                "cluster": None}
+
+    def snapshot(rounds_done: int) -> None:
+        gen = engine.generation_at(rounds_done)
+        resume.save(tag, engine.states, engine.host, rounds_done,
+                    layout=engine.layout,
+                    extra={**expected,
+                           "elastic_generation": None if gen is None
+                           else gen.tolist(),
+                           "rngs": engine.rngs.state_dict()},
+                    tracking=(np.concatenate(all_tracking, axis=1)
+                              if all_tracking else None))
+
+    if resume is not None and resume.exists(tag):
+        engine.states, engine.host, start_round, tracking = resume.restore(
+            tag, layout=engine.layout, device=device,
+            expected_extra=expected, extra_defaults=defaults)
+        saved_rngs = resume.extra(tag).get("rngs")
+        if saved_rngs is not None:  # a snapshot the JAX package wrote has none
+            engine.rngs.load_state_dict(saved_rngs)
+        if tracking is not None:
+            all_tracking.append(tracking)
+        logger.info("resumed %s at round %d", tag, start_round)
 
     def bookkeep(result, sec: float) -> bool:
         """Per-round logging and artifacts; True when early stop fires."""
@@ -187,17 +247,28 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
             return None
 
         pipeline = run_pipelined_schedule(
-            engine, 0, cfg.num_rounds, cfg.fused_schedule_chunk, consume,
-            can_rewind=early_stop is not None,
-            pipelined=cfg.fused_pipeline).summary()
+            engine, start_round, cfg.num_rounds, cfg.fused_schedule_chunk,
+            consume, can_rewind=early_stop is not None,
+            pipelined=cfg.fused_pipeline and resume is None,
+            on_chunk=None if resume is None else snapshot).summary()
     else:
-        for round_index in range(cfg.num_rounds):
+        for round_index in range(start_round, cfg.num_rounds):
             t0 = time.perf_counter()
             result = engine.run_round(round_index)
-            if bookkeep(result, time.perf_counter() - t0):
+            fired = bookkeep(result, time.perf_counter() - t0)
+            if resume is not None:
+                snapshot(round_index + 1)
+            if fired:
                 break
 
     final_metrics, final_full = split_metric_columns(engine.evaluate())
+    if elastic is not None:
+        # a retired slot's params belong to a departed tenant: NaN
+        member = engine.members_at(results[-1].round_index + 1 if results
+                                   else start_round)
+        final_metrics = np.where(member, final_metrics, np.nan)
+        if final_full is not None:
+            final_full = np.where(member[:, None], final_full, np.nan)
     if writer is not None and save_checkpoints and device_names:
         n = n_real
         save_client_models(writer, run, model_type, update_type,
@@ -232,12 +303,27 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                    save_checkpoints: bool = True, *,
                    device: DeviceLike = "cuda", serve: bool = False,
                    serve_rows: int = 2048, serve_warmup: bool = False,
-                   serve_continuous: bool = False) -> Dict:
+                   serve_continuous: bool = False,
+                   resume_dir: Optional[str] = None,
+                   attack: Optional[AttackSpec] = None,
+                   chaos: Optional[ChaosSpec] = None,
+                   elastic: Optional[ElasticSpec] = None) -> Dict:
     """The full sweep -> training summary dict. `serve=True` appends the
     serving pass on the first combination's checkpoint (its report under
     "serve_smoke"); it needs the checkpoints, so under
-    save_checkpoints=False it is skipped with a warning."""
+    save_checkpoints=False it is skipped with a warning. `resume_dir`
+    snapshots every combination there and resumes from it; the fault
+    specs go to every combination and into the summary."""
     dev = resolve_device(device)
+    resume = CheckpointManager(resume_dir) if resume_dir else None
+    if resume is not None and cfg.fused_pipeline and cfg.fused_rounds \
+            and cfg.fused_schedule:
+        logger.warning(
+            "--resume-dir disables fused_pipeline: per-chunk checkpoints "
+            "need a non-speculative state at every chunk boundary, so the "
+            "schedule runs the serial chunk loop (pass --no-pipeline to "
+            "silence this, or drop --resume-dir to keep the pipelined "
+            "executor)")
     clients, data, n_real = prepare_federation(cfg, dataset, device=dev)
     device_names = [c.name for c in clients]
     writer = ResultsWriter(cfg.checkpoint_dir, cfg.network_size,
@@ -258,7 +344,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                     cfg, data, n_real, model_type, update_type, run,
                     writer=writer, early_stop=early_stop,
                     device_names=device_names,
-                    save_checkpoints=save_checkpoints)
+                    save_checkpoints=save_checkpoints, resume=resume,
+                    attack=attack, chaos=chaos, elastic=elastic)
                 best_metrics[model_type][update_type] = max(
                     best_metrics[model_type][update_type], out["best_final"])
                 all_results[f"{model_type}/{update_type}/run{run}"] = {
@@ -272,6 +359,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
     logger.info("Saved training summary to %s", summary_path)
     out = {"best_metrics": best_metrics, "results": all_results,
            "summary_path": summary_path}
+    for name, spec in (("attack", attack), ("chaos", chaos),
+                       ("elastic", elastic)):
+        if spec is not None:
+            out[name] = dataclasses.asdict(spec)
     if serve:
         if not save_checkpoints:
             logger.warning("--serve needs the checkpointed ClientModel tree"
@@ -323,8 +414,99 @@ def build_parser() -> argparse.ArgumentParser:
                         "continuous-batching front (double-buffered "
                         "dispatch, adaptive bucket pick) instead of the "
                         "micro-batcher")
+    p.add_argument("--resume-dir", default=None,
+                   help="snapshot every combination here after each chunk "
+                        "(or round) and resume from the snapshot when one "
+                        "exists; runs the serial chunk loop")
+    p.add_argument("--attack-kind", default=None,
+                   choices=("scale", "noise", "sign_flip", "zero"),
+                   help="a malicious aggregator tampers with the broadcast "
+                        "(federation/attack.py)")
+    p.add_argument("--attack-strength", type=float, default=10.0)
+    p.add_argument("--attack-every-k", type=int, default=1,
+                   help="attack every k-th round from --attack-start")
+    p.add_argument("--attack-start", type=int, default=1,
+                   help="first attacked round (default 1: round 0 builds "
+                        "the verification history)")
+    p.add_argument("--attack-stop", type=int, default=None,
+                   help="first round NOT attacked (default: none)")
+    p.add_argument("--chaos-dropout", type=float, default=0.0,
+                   help="per-client per-round dropout probability (never "
+                        "trains, casts no vote, misses the broadcast)")
+    p.add_argument("--chaos-straggler", type=float, default=0.0,
+                   help="per-client per-round straggler probability (its "
+                        "update misses the deadline)")
+    p.add_argument("--chaos-crash", type=float, default=0.0,
+                   help="per-round probability the ELECTED aggregator "
+                        "crashes; the others re-elect on the device")
+    p.add_argument("--chaos-broadcast-loss", type=float, default=0.0,
+                   help="per-client probability of missing the broadcast")
+    p.add_argument("--chaos-start", type=int, default=0,
+                   help="first chaotic round")
+    p.add_argument("--chaos-stop", type=int, default=None,
+                   help="first round chaos stops (default: never)")
+    p.add_argument("--elastic-leave", type=float, default=0.0,
+                   help="per-slot per-round probability an occupied slot's "
+                        "tenant leaves")
+    p.add_argument("--elastic-join", type=float, default=0.0,
+                   help="per-slot per-round probability a retired slot is "
+                        "recycled by a joining tenant")
+    p.add_argument("--elastic-preempt", type=float, default=0.0,
+                   help="per-slot per-round probability an occupied slot is "
+                        "preempted (a leave and a join in one round)")
+    p.add_argument("--elastic-start", type=int, default=0,
+                   help="first round membership may change")
+    p.add_argument("--elastic-stop", type=int, default=None,
+                   help="first round membership freezes again (default: "
+                        "never)")
+    p.add_argument("--elastic-initial-members", type=float, default=1.0,
+                   help="fraction of slots occupied at round 0")
     add_cli_overrides(p)
     return p
+
+
+def fault_specs(args, cfg: ExperimentConfig):
+    """(cfg with the fault tags in its experiment name, attack, chaos,
+    elastic) from the parsed flags. A nonzero probability (not "> 0")
+    turns a spec on, so a negative typo reaches its validation."""
+    attack = chaos = elastic = None
+    name = cfg.experiment_name
+    if args.attack_kind:
+        attack = AttackSpec(kind=args.attack_kind,
+                            strength=args.attack_strength,
+                            every_k=args.attack_every_k,
+                            start_round=args.attack_start,
+                            stop_round=args.attack_stop)
+        name += (f"_attack-{attack.kind}-{attack.strength:g}"
+                 f"-k{attack.every_k}s{attack.start_round}"
+                 + ("" if attack.stop_round is None
+                    else f"e{attack.stop_round}"))
+    if any(p != 0 for p in (args.chaos_dropout, args.chaos_straggler,
+                            args.chaos_crash, args.chaos_broadcast_loss)):
+        chaos = ChaosSpec(dropout_p=args.chaos_dropout,
+                          straggler_p=args.chaos_straggler,
+                          crash_p=args.chaos_crash,
+                          broadcast_loss_p=args.chaos_broadcast_loss,
+                          start_round=args.chaos_start,
+                          stop_round=args.chaos_stop)
+        name += (f"_chaos-d{chaos.dropout_p:g}g{chaos.straggler_p:g}"
+                 f"c{chaos.crash_p:g}b{chaos.broadcast_loss_p:g}"
+                 f"s{chaos.start_round}"
+                 + ("" if chaos.stop_round is None
+                    else f"e{chaos.stop_round}"))
+    if any(p != 0 for p in (args.elastic_leave, args.elastic_join,
+                            args.elastic_preempt)) \
+            or args.elastic_initial_members != 1.0:
+        elastic = ElasticSpec(
+            leave_p=args.elastic_leave, join_p=args.elastic_join,
+            preempt_p=args.elastic_preempt, start_round=args.elastic_start,
+            stop_round=args.elastic_stop,
+            initial_member_frac=args.elastic_initial_members)
+        name += (f"_elastic-l{elastic.leave_p:g}j{elastic.join_p:g}"
+                 f"p{elastic.preempt_p:g}s{elastic.start_round}"
+                 + ("" if elastic.stop_round is None
+                    else f"e{elastic.stop_round}"))
+    return cfg.replace(experiment_name=name), attack, chaos, elastic
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:
@@ -334,12 +516,16 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         cfg = cfg.replace(fused_pipeline=False)
     if args.paper_scale:
         cfg = paper_scale(cfg)
+    # the specs validate before any file is read
+    cfg, attack, chaos, elastic = fault_specs(args, cfg)
     dataset = DatasetConfig.from_json(args.dataset_config, args.data_root)
     return run_experiment(cfg, dataset, save_checkpoints=not args.no_save,
                           device=args.device, serve=args.serve,
                           serve_rows=args.serve_rows,
                           serve_warmup=args.serve_warmup,
-                          serve_continuous=args.serve_continuous)
+                          serve_continuous=args.serve_continuous,
+                          resume_dir=args.resume_dir, attack=attack,
+                          chaos=chaos, elastic=elastic)
 
 
 if __name__ == "__main__":

@@ -930,3 +930,138 @@ def test_pipelined_early_stop_on_card_matches_per_phase(cuda, chunk):
         assert torch.equal(_bits(getattr(a, name)), _bits(getattr(b, name)))
     for x, y in zip(a.opt_state, b.opt_state):
         assert torch.equal(_bits(x), _bits(y))
+
+
+def _fault_hooks(attack_kind="scale", attack_start=1):
+    """The driver's fault path: an attack, chaos and elastic membership."""
+    from fedmse_tpu_torch.chaos import ChaosSpec
+    from fedmse_tpu_torch.federation.attack import AttackSpec, make_poison_fn
+    from fedmse_tpu_torch.federation.elastic import ElasticSpec
+    return dict(poison_fn=make_poison_fn(AttackSpec(
+        kind=attack_kind, start_round=attack_start)),
+        chaos=ChaosSpec(dropout_p=0.2, straggler_p=0.1, crash_p=0.3,
+                        broadcast_loss_p=0.1),
+        elastic=ElasticSpec(leave_p=0.1, join_p=0.3, preempt_p=0.05))
+
+
+def test_null_fault_hooks_are_the_clean_round_on_card(cuda):
+    """Every fault hook built in with null specs (an attack that never
+    fires, a zero-probability ChaosSpec, a null ElasticSpec) against the
+    clean fused round at the paper's width, from one init: two rounds (a
+    capture, then a replay), the same bits. The leave graph launches the
+    forward as often (the crash re-election reuses the vote's scores), and
+    each body is captured once."""
+    from fedmse_tpu_torch.chaos import ChaosSpec
+    from fedmse_tpu_torch.config import ExperimentConfig
+    from fedmse_tpu_torch.federation import RoundEngine, init_client_states
+    from fedmse_tpu_torch.federation.attack import AttackSpec, make_poison_fn
+    from fedmse_tpu_torch.federation.elastic import ElasticSpec
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    cfg = ExperimentConfig(epochs=2)
+    clients, dev_x = _paper_federation(cuda)
+    data = stack_clients(clients, dev_x, 12, device=cuda)
+    model = make_model("hybrid", 115, 27, 7, cfg.shrink_lambda, device=cuda)
+    init = init_client_states(model, 10, torch.Generator().manual_seed(6),
+                              device=cuda)
+    null = dict(poison_fn=make_poison_fn(AttackSpec(
+        kind="noise", start_round=10 ** 6)), chaos=ChaosSpec(),
+        elastic=ElasticSpec())
+    engines = [RoundEngine(model, cfg, data, n_real=10,
+                           rngs=ExperimentRngs(run=0), model_type="hybrid",
+                           update_type="mse_avg", states=init, fused=True,
+                           **kw) for kw in ({}, null)]
+    runs = [e.run_rounds(0, 2) for e in engines]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert a.aggregator == b.aggregator
+        assert a.verification_results == b.verification_results
+        for f in ("client_metrics", "min_valid", "tracking"):
+            assert torch.equal(_bits(torch.as_tensor(getattr(a, f))),
+                               _bits(torch.as_tensor(getattr(b, f)))), f
+    a, b = engines[0].states, engines[1].states
+    for name in ("params", "prev_global", "hist_params", "rejected"):
+        assert torch.equal(_bits(getattr(a, name)), _bits(getattr(b, name)))
+    for x, y in zip(a.opt_state, b.opt_state):
+        assert torch.equal(_bits(x), _bits(y))
+    clean, hooked = (e.fused_round() for e in engines)
+    assert hooked.leave.kernels == clean.leave.kernels
+    assert hooked.enter.replays == hooked.leave.replays == 1
+    assert hooked.leave.nodes > clean.leave.nodes
+
+
+def test_fault_round_on_card_matches_cpu(cuda):
+    """The fault path's first round at the paper's width, one epoch, the
+    attack on from round 0, on the card and on the CPU from one init with
+    the same masks: the same aggregator, crashed aggregator, effective
+    cohort, members and generations; params within 1e-4 per leaf."""
+    from fedmse_tpu_torch.config import ExperimentConfig
+    from fedmse_tpu_torch.federation import RoundEngine, init_client_states
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    cfg = ExperimentConfig(epochs=1)
+    clients, dev_x = _paper_federation(cuda)
+    init = init_client_states(make_model("hybrid", 115, 27, 7, device="cpu"),
+                              10, torch.Generator().manual_seed(7),
+                              device="cpu")
+    runs = []
+    for where in (cuda, torch.device("cpu")):
+        eng = RoundEngine(
+            make_model("hybrid", 115, 27, 7, cfg.shrink_lambda,
+                       device=where), cfg,
+            stack_clients(clients, dev_x, 12, device=where), n_real=10,
+            rngs=ExperimentRngs(run=0), model_type="hybrid",
+            update_type="mse_avg", states=init.to(where), fused=True,
+            **_fault_hooks(attack_start=0))
+        runs.append((eng.run_rounds(0, 1), eng.states.params.cpu()))
+    (card_res, card), (cpu_res, cpu) = runs
+    for a, b in zip(card_res, cpu_res):
+        for f in ("aggregator", "crashed_aggregator", "effective",
+                  "members"):
+            assert getattr(a, f) == getattr(b, f), f
+        np.testing.assert_array_equal(a.generations, b.generations)
+    layout = ParamLayout(115, 27, 7)
+    for sl in layout.slices():
+        err = (card[:, sl] - cpu[:, sl]).abs().max() / cpu[:, sl].abs().max()
+        assert float(err) <= 1e-4
+
+
+def test_resumed_fault_run_on_card_is_the_uninterrupted_run(cuda,
+                                                            tmp_path):
+    """2 rounds of the fault path with a snapshot, resumed to 3 in a fresh
+    engine (new graphs, the restored state copied into their buffers),
+    against 3 rounds uninterrupted: the same bits."""
+    from fedmse_tpu_torch.checkpointing import CheckpointManager
+    from fedmse_tpu_torch.config import CompatConfig, ExperimentConfig
+    from fedmse_tpu_torch.main import run_combination
+    from fedmse_tpu_torch.chaos import ChaosSpec
+    from fedmse_tpu_torch.federation.attack import AttackSpec
+    from fedmse_tpu_torch.federation.elastic import ElasticSpec
+    cfg = ExperimentConfig(dim_features=12, hidden_neus=8, latent_dim=3,
+                           network_size=4, epochs=2, batch_size=8,
+                           fused_schedule_chunk=2, num_participants=0.75,
+                           compat=CompatConfig(vote_tie_break=True))
+    clients = synthetic_clients(n_clients=4, dim=12, n_normal=120,
+                                n_abnormal=60, seed=0)
+    dev_x = np.concatenate([c.dev_raw for c in clients])[:100].astype(
+        np.float32)
+    data = stack_clients(clients, dev_x, 8, device=cuda)
+    faults = dict(attack=AttackSpec(kind="noise", strength=0.2,
+                                    start_round=1),
+                  chaos=ChaosSpec(dropout_p=0.2, crash_p=0.5,
+                                  broadcast_loss_p=0.1),
+                  elastic=ElasticSpec(leave_p=0.2, join_p=0.5))
+    mgr = CheckpointManager(str(tmp_path))
+
+    def run(rounds, resume):
+        return run_combination(cfg.replace(num_rounds=rounds), data, 4,
+                               "hybrid", "mse_avg", 0, resume=resume,
+                               **faults)
+    whole = run(3, None)
+    assert run(2, mgr)["rounds_run"] == 2
+    rest = run(3, mgr)
+    assert rest["rounds_run"] == 1
+    got, want = rest["engine"].states, whole["engine"].states
+    for name in ("params", "prev_global", "hist_params", "rejected"):
+        assert torch.equal(_bits(getattr(got, name)),
+                           _bits(getattr(want, name))), name
+    for x, y in zip(got.opt_state, want.opt_state):
+        assert torch.equal(_bits(x), _bits(y))

@@ -13,12 +13,14 @@ import pytest
 import torch
 
 import fedmse_tpu_torch
-from fedmse_tpu_torch.checkpointing import ResultsWriter, load_client_models
+from fedmse_tpu_torch.checkpointing import (CheckpointManager, ResultsWriter,
+                                            load_client_models)
 from fedmse_tpu_torch.config import DatasetConfig, ExperimentConfig
 from fedmse_tpu_torch.data import stack_clients, synthetic_clients
 from fedmse_tpu_torch.models import (init_stacked_params, make_model,
                                      params_from_numpy)
 from fedmse_tpu_torch.federation import init_client_states
+from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.main import prepare_federation, run_experiment
 from fedmse_tpu_torch.serving import ServingEngine
 
@@ -38,7 +40,10 @@ def test_every_port_module_imports_without_jax():
               "models.flat", "utils.seeding", "federation.optim",
               "federation.state", "federation.local_training",
               "federation.voting", "federation.aggregation",
-              "federation.verification", "federation.rounds", "main"):
+              "federation.verification", "federation.rounds", "main",
+              "federation.attack", "federation.elastic", "chaos",
+              "chaos.spec", "chaos.masks", "chaos.metrics",
+              "checkpointing.io"):
         assert "fedmse_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
@@ -124,6 +129,8 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
                                                  "AUC", 1.0),
                                    0, "autoencoder", "avg", ["a", "b"]),
         lambda: init_client_states(model, 2, torch.Generator()),
+        lambda: CheckpointManager(str(tmp_path)).restore(
+            "t", layout=ParamLayout.of(model)),
         lambda: prepare_federation(ExperimentConfig(dim_features=6),
                                    DatasetConfig.for_client_dirs(
                                        str(tmp_path), 2)),
