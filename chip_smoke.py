@@ -69,6 +69,28 @@ all started together, into build/fedmse_tpu_torch/), then:
                 epoch on the card and the CPU, the same masks; (d) a noise
                 attack on the fused and the per-phase round; (e) 2 rounds
                 with a snapshot resumed to 3 against 3 uninterrupted;
+     cluster    (after the main path) clustered federation on the typed
+                fleet (synthetic_typed_clients: 16 gateways of 4 device
+                types at 115/27/7), the quick run, autoencoder / mse_avg:
+                first the kernels at the clustered path's own shapes (the
+                probe encode, the per-client verification, the routed
+                2N-model verification = the uniform launch's bits, the
+                cohort's train step, the kNN evaluation's distances);
+                (b) run_combination with --cluster-k 4: the card's
+                assignment equal to the CPU's fit from the same states,
+                its purity against the types, every client that accepted
+                the last broadcast holding its cluster's merge (<= 1e-6);
+                (g) a kNN-scored clustered round; (a) ClusterSpec(k=1)
+                bit-equal to no spec with the same graphs; (c)
+                --cluster-personalize: cluster encoder + own post-training
+                decoder, bit for bit; (d) with --elastic-join 0.3
+                --elastic-leave 0.1 --chaos-dropout 0.2: every joiner its
+                cluster's (or the fleet's) incumbent mean, checked on the
+                host after each round (<= 1e-6); (e) round 1 at one epoch,
+                card vs CPU (<= 1e-4); (f) --cluster-refit-every 1 with
+                --resume-dir, resumed vs uninterrupted (<= 1e-6); then
+                the clustered round timed in turns with the clean one
+                (wall, busy share, nodes) and each fit's seconds;
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events, and the
@@ -96,8 +118,10 @@ calls on the same code).
 Phases 3 to 5 are the main path: the kernels' launch counters are set to 0
 just before them and read just after, and each kernel must have launched
 there. The robust phase's (b) and (f) are the fault path, read the same
-way ("fault_path_launches" in the kernels line). A launch inside a replayed CUDA graph counts: each graph keeps the
-kernels it captured, and each replay adds them (ops/graphs.py). Prints,
+way ("fault_path_launches" in the kernels line), and the cluster phase's
+(b) and (g) the clustered path ("cluster_path_launches"). A launch
+inside a replayed CUDA graph counts: each graph keeps the kernels it
+captured, and each replay adds them (ops/graphs.py). Prints,
 as its last three lines, the card's name and power limit, one JSON line
 of kernel numbers, and {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero with no result line; so does a machine
@@ -106,6 +130,7 @@ without CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -2282,6 +2307,589 @@ def phase_robust(torch, device, cfg, clients, data):
     return report
 
 
+# the [cluster] phase: the typed fleet the clustered federation is measured
+# on (4 device types, 8.0 apart), at the paper's width
+CLUSTER_FLEET = dict(n_clients=16, types=4, dim=DIMS[0], n_normal=10_000,
+                     n_abnormal=2_000, modes=3, seed=11)
+CLUSTER_K = 4
+# (d) runs until these rounds' joins were all checked: slots 7 (round 2),
+# 5 (round 4) and 4 and 7 (round 5) join under --elastic-join 0.3
+# --elastic-leave 0.1 at 16 slots (the run's elastic stream, run 0)
+CLUSTER_ELASTIC_ROUNDS = 5
+
+
+def cluster_fleet(cfg, devices):
+    """The typed fleet stacked on each of `devices`."""
+    from fedmse_tpu_torch.data import (build_dev_dataset, stack_clients,
+                                       synthetic_typed_clients)
+    clients = synthetic_typed_clients(**CLUSTER_FLEET)
+    dev_x = build_dev_dataset(clients, np.random.default_rng(cfg.data_seed))
+    return [stack_clients(clients, dev_x, cfg.batch_size, device=d)
+            for d in devices]
+
+
+def cluster_kernel_shapes(torch, device, data, n):
+    """The forward kernel at the clustered path's own launches, against its
+    plain version in f32 on dyadic grids (phase_kernels' rule): the probe
+    encode (one model over every gateway's train rows) and the per-client
+    verification (n models client-major over the shared rows); then the
+    routed verification launch (the 2n models of the hardened rule, the
+    broadcasts all one model) against the uniform launch of that model:
+    the same bits. The train kernel at the cohort's step (n / 2 clients x
+    12 rows) and the distance kernel at the kNN evaluation's rows (n banks)
+    against theirs. Returns the worst scaled errors."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
+                                               fused_forward_stats_plain)
+    from fedmse_tpu_torch.ops.fused_train import (fused_train_grads,
+                                                  fused_train_grads_plain)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    layout = ParamLayout(*DIMS)
+    probe_rows = n * data.train_xb.shape[1] * data.train_xb.shape[2]
+    ver_rows = data.valid_x.shape[1]
+    worst = {}
+    for what, g, rows, idx in (
+            ("probe encode", 1, probe_rows, None),
+            ("per-client verification", n, n * ver_rows, "client_major")):
+        params = grid_params(torch, g, *DIMS, gen, device, torch.float32)
+        x = (torch.randint(-6, 7, (rows, DIMS[0]), generator=gen) / 4.0
+             ).to(device)
+        index = None if idx is None else forward_index(torch, idx, g, rows,
+                                                       gen, device)
+        got = fused_forward_stats(params, x, index)
+        want = fused_forward_stats_plain(params, x, index)
+        err = max(scaled_err(a, b) for a, b in zip(got, want))
+        if err > TOL["f32"]:
+            raise AssertionError(f"[cluster] forward kernel vs plain, {what}"
+                                 f" (G={g}, R={rows}): {err:.3e}")
+        worst[what] = err
+    # the routed 2n-model launch: own models 0..n-1, broadcasts n..2n-1 all
+    # one model; each broadcast row must be that model's uniform-launch bits
+    own = random_flat(torch, layout, n, gen, device)
+    bcast = random_flat(torch, layout, 1, gen, device)
+    x = torch.randn((ver_rows, DIMS[0]), generator=gen).to(device)
+    models = torch.cat([bcast.expand(n, -1), own])
+    ids = torch.arange(n, device=device, dtype=torch.int32)
+    route = torch.cat([ids, ids + n])[:, None].repeat(1, ver_rows).view(-1)
+    routed = fused_forward_stats(layout.tree(models),
+                                 x.repeat(2 * n, 1), route)
+    uniform = fused_forward_stats(layout.tree(bcast), x, None)
+    for r, u in zip(routed, uniform):
+        head = r[: n * ver_rows].view((n, ver_rows) + tuple(u.shape[1:]))
+        if not torch.equal(head.view(torch.int32),
+                           u[None].expand_as(head).view(torch.int32)):
+            raise AssertionError("[cluster] the routed verification launch "
+                                 "differs from the uniform launch's bits")
+    cohort = n // 2
+    flat, xt = grid_inputs(torch, layout, cohort, 12, gen, device)
+    m = torch.ones((cohort, 12), device=device)
+    kw = dict(layout=layout, shrink_lambda=10.0)
+    worst["train step, cohort"] = max(
+        scaled_err(a, b) for a, b in zip(fused_train_grads(flat, xt, m, **kw),
+                                         fused_train_grads_plain(flat, xt, m,
+                                                                 **kw)))
+    if worst["train step, cohort"] > TOL["f32"]:
+        raise AssertionError(f"[cluster] train kernel vs plain at G="
+                             f"{cohort}: {worst['train step, cohort']:.3e}")
+    q, banks, gw = dist_inputs(torch, n, n * data.test_x.shape[1],
+                               KNN["knn_bank_size"], DIMS[2], "client_major",
+                               gen, device, torch.float32)
+    _, _, worst["distances, kNN evaluation"] = dist_check(
+        torch, q, banks, gw, f"[cluster] kNN evaluation, {n} banks")
+    log(f"[cluster] kernels at the clustered path's shapes agree with their "
+        f"plain versions (routed verification = uniform bits): "
+        f"{json.dumps(worst)}")
+    return worst
+
+
+@contextlib.contextmanager
+def _cluster_stash():
+    """Keep, by reference, a copy of the post-training params the fused
+    round's local training hands back (LocalTrainer.finish, before any
+    merge or broadcast touches them). Captured in a CUDA graph, the copy
+    holds what the last replay wrote."""
+    from fedmse_tpu_torch.federation.local_training import LocalTrainer
+    stash = {}
+    finish = LocalTrainer.finish
+
+    def keep_trained(self, *args, **kwargs):
+        res = finish(self, *args, **kwargs)
+        stash["trained"] = res.params.clone()
+        return res
+    LocalTrainer.finish = keep_trained
+    try:
+        yield stash
+    finally:
+        LocalTrainer.finish = finish
+
+
+def _host_merges(result, trained, assignment, k):
+    """[K, P] f64: each cluster's merge rebuilt on the host from the
+    round's post-training params and its aggregation weights (each
+    client's weight inside its own cluster's merge), one cluster at a
+    time. Checks the weights first: zero off the selected cohort, summing
+    to 1 in every cluster with a selected member."""
+    w = np.asarray(result.agg_weights, np.float64)
+    selected = np.zeros(len(w), bool)
+    selected[result.selected] = True
+    if np.abs(w[~selected]).max(initial=0.0) != 0.0:
+        raise AssertionError(f"[cluster] weight off the cohort: {w}")
+    n = len(assignment)
+    w, selected, trained = w[:n], selected[:n], trained[:n].cpu().double()
+    merges = trained.new_zeros((k, trained.shape[1]))
+    for c in range(k):
+        mine = assignment == c
+        if not (mine & selected).any():
+            continue
+        if abs(w[mine].sum() - 1.0) > 1e-6:
+            raise AssertionError(f"[cluster] cluster {c}'s weights sum to "
+                                 f"{w[mine].sum()}")
+        for i in np.flatnonzero(mine & selected):
+            merges[c] += float(w[i]) * trained[i]
+    return merges
+
+
+def _encoder_columns(torch, layout):
+    """[P] bool: the encoder's columns (W1, b1, W2, b2), from the layout's
+    own offsets."""
+    cols = torch.zeros(layout.size, dtype=torch.bool)
+    for (coder, _, _), off, shape in layout.leaves():
+        if coder == "encoder":
+            cols[off: off + int(np.prod(shape))] = True
+    return cols
+
+
+def _accepting(result, assignment, k):
+    """[n] bool: who loaded its cluster's broadcast in `result`'s round (no
+    fault hooks): the aggregator, and every client of a cluster with a
+    selected member (a merge was made) whose rejected counter reads 0."""
+    n = len(assignment)
+    has_update = np.zeros(k, bool)
+    has_update[assignment[result.selected]] = True
+    rejected = {r["client_id"]: r["rejected_updates"]
+                for r in result.verification_results}
+    out = np.zeros(n, bool)
+    if result.aggregator is None:
+        return out
+    for i in range(n):
+        out[i] = i == result.aggregator or (
+            has_update[assignment[i]] and rejected[i] == 0)
+    return out
+
+
+def cluster_driver_run(torch, cfg, data, n, init, spec, keep=True):
+    """run_combination (autoencoder / mse_avg, the driver's default fused,
+    pipelined schedule) from `init` under `spec`; with `keep`, the last
+    round's post-training params stashed (one copy node in the leave
+    graph)."""
+    from fedmse_tpu_torch.main import run_combination
+    with (_cluster_stash() if keep else contextlib.nullcontext({})) as stash:
+        out = run_combination(cfg, data, n, "autoencoder", "mse_avg", 0,
+                              states=init, cluster=spec)
+    _sync(torch, data.train_xb.device)
+    return out, stash
+
+
+def cluster_main_run(torch, cfg, data, cpu_data, n, init):
+    """(b) --cluster-k 4, autoencoder / mse_avg: the card's fit equals the
+    plain path's fit on the CPU from the same states; its purity against
+    the device types; every client that accepted the last round's
+    broadcast holds its own cluster's merge as the host rebuilds it in f64
+    from the round's post-training params and weights (<= 1e-6
+    scale-normalized)."""
+    from fedmse_tpu_torch.cluster import ClusterSpec, fit_from_states
+    from fedmse_tpu_torch.models import make_model
+    spec = ClusterSpec(k=CLUSTER_K)
+    out, stash = cluster_driver_run(torch, cfg, data, n, init, spec)
+    engine = out["engine"]
+    a = engine.cluster_assignment
+    cpu_fit = fit_from_states(
+        make_model("autoencoder", *DIMS, device="cpu"), spec,
+        init.params.cpu(), cpu_data.train_xb, cpu_data.train_mb,
+        cpu_data.client_mask, n)
+    if not np.array_equal(cpu_fit.assignment, a):
+        raise AssertionError(f"[cluster] (b) the card's assignment {a} is "
+                             f"not the CPU's {cpu_fit.assignment}")
+    types = np.arange(n) % CLUSTER_FLEET["types"]
+    purity = sum(np.bincount(types[a == c]).max() for c in set(a.tolist())
+                 ) / n
+    last = out["rounds"][-1]
+    accept = _accepting(last, a, CLUSTER_K)
+    if not accept.any():
+        raise AssertionError("[cluster] (b) no client accepted the last "
+                             "round's broadcast: the merge check held "
+                             "nothing")
+    merged = _host_merges(last, stash["trained"], a, CLUSTER_K)
+    params = engine.states.params.cpu()
+    err = max(scaled_err(params[i], merged[a[i]])
+              for i in np.flatnonzero(accept))
+    if err > 1e-6:
+        raise AssertionError(f"[cluster] (b) an accepting client holds "
+                             f"another model than its cluster's merge: {err}")
+    fit = engine.cluster_fit_seconds
+    report = {"assignment": a.tolist(),
+              "sizes": np.bincount(a, minlength=CLUSTER_K).tolist(),
+              "purity": purity, "cpu_fit_equal": True,
+              "accepting_last_round": int(accept.sum()),
+              "merge_max_scaled_err": err,
+              "aggregators": [r.aggregator for r in out["rounds"]],
+              "fit_seconds": fit,
+              "final_auc_mean": float(np.mean(out["final_metrics"])),
+              "final_auc_min": float(np.min(out["final_metrics"]))}
+    log(f"[cluster] (b) --cluster-k {CLUSTER_K}: assignment {a.tolist()} "
+        f"(sizes {report['sizes']}, purity {purity:.3f} against the device "
+        f"types), the CPU's fit from the same states equal; fit "
+        f"{json.dumps(fit)}; aggregators {report['aggregators']}; "
+        f"{int(accept.sum())} clients accepted the last broadcast, each "
+        f"holding its cluster's merge (worst scaled error {err:.3e}, limit "
+        f"1e-6)")
+    return report, engine
+
+
+def cluster_knn_round(torch, device, cfg, data, n, assignment):
+    """(g) One kNN-scored clustered round (the distance launch in the leave
+    graph): every metric finite."""
+    from fedmse_tpu_torch.cluster import ClusterSpec
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    c = cfg.replace(score_kind="knn", **KNN)
+    eng = RoundEngine(make_model("autoencoder", *DIMS, device=device), c,
+                      data, n_real=n, rngs=ExperimentRngs(run=0),
+                      model_type="autoencoder", update_type="mse_avg",
+                      fused=True, cluster=ClusterSpec(k=CLUSTER_K),
+                      cluster_assignment=assignment)
+    res = eng.run_round_fused(0)
+    if not np.isfinite(res.client_metrics).all():
+        raise AssertionError(f"[cluster] (g) kNN metrics "
+                             f"{res.client_metrics}")
+    log(f"[cluster] (g) kNN-scored clustered round: aggregator "
+        f"{res.aggregator}, mean AUC {np.mean(res.client_metrics):.6f}")
+    return {"aggregator": res.aggregator,
+            "mean_auc": float(np.mean(res.client_metrics))}
+
+
+def cluster_null(torch, cfg, data, n, init):
+    """(a) ClusterSpec(k=1) against no spec from one init through the
+    driver: states and every round's results bit-equal, the same graphs
+    (nodes and kernels per replay)."""
+    from fedmse_tpu_torch.cluster import ClusterSpec
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    plain, _ = cluster_driver_run(torch, cfg, data, n, init, None,
+                                  keep=False)
+    null, _ = cluster_driver_run(torch, cfg, data, n, init,
+                                 ClusterSpec(k=1), keep=False)
+    errs = _state_errs(torch, ParamLayout(*DIMS), null["engine"].states,
+                       plain["engine"].states)
+    same = max(errs.values()) == 0 and all(
+        a.aggregator == b.aggregator
+        and a.verification_results == b.verification_results
+        and all(_same_bits(torch, getattr(a, f), getattr(b, f))
+                for f in ("client_metrics", "min_valid", "tracking"))
+        for a, b in zip(null["rounds"], plain["rounds"]))
+    graphs = [o["engine"].fused_round().stats()["graphs"]
+              for o in (plain, null)]
+    shape = [{g: (s["nodes"], s["kernels_per_replay"]) for g, s in x.items()}
+             for x in graphs]
+    if not same or shape[0] != shape[1]:
+        raise AssertionError(f"[cluster] (a) ClusterSpec(k=1) differs from "
+                             f"no spec: {json.dumps(errs)}, graphs {shape}")
+    nodes = {g: s["nodes"] for g, s in graphs[0].items()}
+    log(f"[cluster] (a) ClusterSpec(k=1) bit-equal to no spec over "
+        f"{len(plain['rounds'])} rounds; graph nodes equal {nodes}")
+    return {"bit_equal": True, "nodes": nodes}, plain
+
+
+def cluster_personalized(torch, cfg, data, n, init):
+    """(c) --cluster-k 4 --cluster-personalize: after the last round every
+    client's decoder columns are its own post-training params, bit for
+    bit, and every accepting client's encoder columns its cluster's merge
+    as the host rebuilds it in f64 (<= 1e-6 scale-normalized)."""
+    from fedmse_tpu_torch.cluster import ClusterSpec
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    out, stash = cluster_driver_run(torch, cfg, data, n, init,
+                                    ClusterSpec(k=CLUSTER_K,
+                                                personalize=True))
+    engine = out["engine"]
+    a = engine.cluster_assignment
+    last = out["rounds"][-1]
+    accept = _accepting(last, a, CLUSTER_K)
+    if not accept.any():
+        raise AssertionError("[cluster] (c) no client accepted the last "
+                             "round's broadcast: the encoder check held "
+                             "nothing")
+    enc = _encoder_columns(torch, ParamLayout(*DIMS))
+    params = engine.states.params.cpu()
+    trained = stash["trained"].cpu()
+    own = [int(i) for i in range(n)
+           if not torch.equal(params[i][~enc], trained[i][~enc])]
+    if own:
+        raise AssertionError(f"[cluster] (c) clients {own} do not hold "
+                             "their own post-training decoder")
+    merged = _host_merges(last, trained, a, CLUSTER_K)
+    err = max(scaled_err(params[i][enc], merged[a[i]][enc])
+              for i in np.flatnonzero(accept))
+    if err > 1e-6:
+        raise AssertionError(f"[cluster] (c) an accepting client's encoder "
+                             f"is not its cluster's merge: {err:.3e}")
+    log(f"[cluster] (c) --cluster-personalize: every client holds its own "
+        f"post-training decoder, bit for bit; {int(accept.sum())} accepting "
+        f"clients hold their cluster's encoder (worst scaled error "
+        f"{err:.3e} against the host's f64 merge, limit 1e-6); final mean "
+        f"AUC {np.mean(out['final_metrics']):.6f}")
+    return {"accepting_last_round": int(accept.sum()),
+            "decoder_bit_equal": True, "encoder_max_scaled_err": err,
+            "final_auc_mean": float(np.mean(out["final_metrics"]))}
+
+
+def cluster_elastic(torch, cfg, data, n, init, assignment):
+    """(d) (b) with --elastic-join 0.3 --elastic-leave 0.1 --chaos-dropout
+    0.2 on the serial chunk loop, a round a chunk: after each round the
+    host checks every joiner of that round against the pre-entry params,
+    in f64: its cluster's incumbent mean, or the fleet's when its cluster
+    has no incumbent (<= 1e-6 scale-normalized). The fit from the same
+    init is (b)'s `assignment`."""
+    from fedmse_tpu_torch.chaos import ChaosSpec
+    from fedmse_tpu_torch.cluster import ClusterSpec
+    from fedmse_tpu_torch.federation.elastic import ElasticSpec
+    from fedmse_tpu_torch.federation.fused import FusedRound
+    from fedmse_tpu_torch.main import run_combination
+    stash, checked = {}, []
+    original = FusedRound._join_and_leave
+
+    def join_and_keep(self):
+        stash["pre"] = self.states.params.clone()
+        original(self)
+        stash["post"] = self.states.params.clone()
+        stash["joined"] = self.round_in["joined"].clone()
+        stash["member"] = self.round_in["member"].clone()
+
+    def on_round(result, sec):
+        joined = stash["joined"].cpu().numpy() > 0
+        pre = stash["pre"].cpu().double()
+        post = stash["post"].cpu().double()
+        inc = (stash["member"].cpu().numpy() > 0) & ~joined
+        for j in np.flatnonzero(joined):
+            mine = inc & (assignment == assignment[j])
+            want = pre[torch.from_numpy(mine if mine.any() else inc)].mean(
+                dim=0)
+            err = scaled_err(post[j], want)
+            checked.append({"round": result.round_index + 1, "slot": int(j),
+                            "cluster": int(assignment[j]),
+                            "from": "cluster" if mine.any() else "fleet",
+                            "scaled_err": err})
+            if err > 1e-6:
+                raise AssertionError(f"[cluster] (d) joiner {j} in round "
+                                     f"{result.round_index + 1}: {err:.3e}")
+
+    FusedRound._join_and_leave = join_and_keep
+    try:
+        out = run_combination(
+            cfg.replace(num_rounds=CLUSTER_ELASTIC_ROUNDS,
+                        fused_schedule_chunk=1, fused_pipeline=False),
+            data, n, "autoencoder", "mse_avg", 0, states=init,
+            cluster=ClusterSpec(k=CLUSTER_K),
+            elastic=ElasticSpec(leave_p=0.1, join_p=0.3),
+            chaos=ChaosSpec(dropout_p=0.2), on_round=on_round)
+    finally:
+        FusedRound._join_and_leave = original
+    if not np.array_equal(out["engine"].cluster_assignment, assignment):
+        raise AssertionError("[cluster] (d) the fit from the same init "
+                             "differs from (b)'s")
+    if not checked:
+        raise AssertionError("[cluster] (d) no slot joined: the inheritance "
+                             "check held nothing")
+    log(f"[cluster] (d) elastic + chaos, {CLUSTER_ELASTIC_ROUNDS} rounds: "
+        f"joiners {json.dumps(checked)}; members "
+        f"{[r.members for r in out['rounds']]}, aggregators "
+        f"{[r.aggregator for r in out['rounds']]}")
+    return {"joiners": checked,
+            "aggregators": [r.aggregator for r in out["rounds"]]}
+
+
+def cluster_card_vs_cpu(torch, device, cfg, data, cpu_data, n, init,
+                        assignment):
+    """(e) Round 1 cut to one epoch, K = 4 under (b)'s assignment, on the
+    card and on the CPU from one init: the same aggregator and
+    verification rows, every state leaf within 1e-4 scale-normalized."""
+    from fedmse_tpu_torch.cluster import ClusterSpec
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    c = cfg.replace(epochs=1)
+    runs = []
+    for where, d in ((device, data), (torch.device("cpu"), cpu_data)):
+        eng = RoundEngine(make_model("autoencoder", *DIMS, device=where), c,
+                          d, n_real=n, rngs=ExperimentRngs(run=0),
+                          model_type="autoencoder", update_type="mse_avg",
+                          states=init.to(where), fused=True,
+                          cluster=ClusterSpec(k=CLUSTER_K),
+                          cluster_assignment=assignment)
+        runs.append((eng.run_rounds(0, 1)[0], eng.states))
+    (card_res, card), (cpu_res, cpu) = runs
+    if (card_res.aggregator, card_res.verification_results) != (
+            cpu_res.aggregator, cpu_res.verification_results):
+        raise AssertionError(f"[cluster] (e) card vs CPU: aggregator "
+                             f"{card_res.aggregator} vs {cpu_res.aggregator}")
+    errs = _state_errs(torch, ParamLayout(*DIMS), card, cpu)
+    err = max(errs[k] for k in ("params", "prev_global", "hist_params"))
+    log(f"[cluster] (e) round 1 at one epoch, card vs CPU: aggregator "
+        f"{card_res.aggregator}; worst scaled state error {err:.3e} (limit "
+        f"1e-4)")
+    if err > 1e-4:
+        raise AssertionError(f"[cluster] (e) card vs CPU: {json.dumps(errs)}")
+    return {"max_scaled_err": err, "errs": errs}
+
+
+def cluster_resume(torch, cfg, data, n, init):
+    """(f) --cluster-k 4 --cluster-refit-every 1 a round a chunk with
+    --resume-dir: 2 rounds, then a resumed run to 3 (the recorded
+    assignment and fit round re-pinned), against 3 uninterrupted: bit-equal
+    (limit 1e-6)."""
+    from fedmse_tpu_torch.checkpointing import CheckpointManager
+    from fedmse_tpu_torch.cluster import ClusterSpec
+    from fedmse_tpu_torch.main import run_combination
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    root = os.path.join(ROOT, "build", "chip_smoke_cluster_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    mgr = CheckpointManager(root)
+    spec = ClusterSpec(k=CLUSTER_K, refit_every=1)
+
+    def run(rounds, resume):
+        return run_combination(cfg.replace(num_rounds=rounds,
+                                           fused_schedule_chunk=1),
+                               data, n, "autoencoder", "mse_avg", 0,
+                               states=init, resume=resume, cluster=spec)
+    whole = run(3, None)
+    first = run(2, mgr)
+    rest = run(3, mgr)
+    shutil.rmtree(root, ignore_errors=True)
+    if (first["rounds_run"], rest["rounds_run"]) != (2, 1):
+        raise AssertionError("[cluster] (f) the resumed run did not continue"
+                             " at round 3")
+    for a, b in zip(first["rounds"] + rest["rounds"], whole["rounds"]):
+        if a.aggregator != b.aggregator:
+            raise AssertionError(f"[cluster] (f) round {a.round_index + 1} "
+                                 "differs after the resume")
+    errs = _state_errs(torch, ParamLayout(*DIMS), rest["engine"].states,
+                       whole["engine"].states)
+    errs["final_metrics"] = _nan_scaled_err(torch, rest["final_metrics"],
+                                            whole["final_metrics"])
+    err = max(errs.values())
+    fits = whole["engine"].cluster_fit_seconds
+    log(f"[cluster] (f) 2 rounds, resumed to 3, vs 3 uninterrupted (fits "
+        f"{json.dumps(fits)}): worst scaled error {err:.3e} (limit 1e-6; "
+        f"bit-equal: {err == 0})")
+    if err > 1e-6:
+        raise AssertionError(f"[cluster] (f) {json.dumps(errs)}")
+    return {"max_scaled_err": err, "bit_equal": err == 0, "fits": fits}
+
+
+def cluster_round_times(torch, device, cfg, data, n, init, assignment):
+    """Round 1 of the clustered engine (K = 4, (b)'s assignment pinned, so
+    no fit inside the timed round) and of the clean engine, from one init,
+    in turns a, b, b, a (_first_round_ab): host wall, device time, busy
+    share; the graphs' nodes of both."""
+    from fedmse_tpu_torch.cluster import ClusterSpec
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    engines = {}
+    for name, kw in (("cluster", dict(cluster=ClusterSpec(k=CLUSTER_K),
+                                      cluster_assignment=assignment)),
+                     ("clean", {})):
+        engines[name] = RoundEngine(
+            make_model("autoencoder", *DIMS, device=device), cfg, data,
+            n_real=n, rngs=ExperimentRngs(run=0), model_type="autoencoder",
+            update_type="mse_avg", states=init, fused=True, **kw)
+        engines[name].run_round_fused(0)  # its capture, untimed
+    ab = _first_round_ab(torch, engines)
+    for k, v in ab.items():
+        v["mean_wall_ms"] = float(np.mean(v["wall_ms"]))
+        v["busy_share"] = (None if v["busy_ms"] is None
+                           else v["busy_ms"] / v["mean_wall_ms"])
+        v["nodes"] = {g: s["nodes"] for g, s in
+                      engines[k].fused_round().stats()["graphs"].items()}
+        log(f"[cluster] round 1 in turns, {k}: wall (ms) "
+            f"{[round(w, 3) for w in v['wall_ms']]}, mean "
+            f"{v['mean_wall_ms']:.3f}"
+            + ("" if v["busy_ms"] is None else
+               f"; device {v['busy_ms']:.3f} ms "
+               f"({100 * v['busy_share']:.1f}% busy)")
+            + f"; graph nodes {v['nodes']}")
+    watched("clustered round wall seconds, round 1 in turns",
+            ab["cluster"]["mean_wall_ms"] / 1e3, 0.5, False)
+    return ab
+
+
+def phase_cluster(torch, device, cfg):
+    """Clustered federation on the typed fleet (16 gateways of 4 device
+    types at 115/27/7) with the quick run's schedule, autoencoder /
+    mse_avg. (b) and (g) are the slice's main path: every kernel's launch
+    counter is set to 0 before them and read after, and each must have
+    launched. Then (a), (c), (d), (e), (f) hold the path to its
+    references, and the clustered round is timed beside the clean one."""
+    from fedmse_tpu_torch.federation import init_client_states
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    t0 = time.perf_counter()
+    data, cpu_data = cluster_fleet(cfg, (device, torch.device("cpu")))
+    n = CLUSTER_FLEET["n_clients"]
+    init = init_client_states(make_model("autoencoder", *DIMS,
+                                         device=device), n,
+                              torch.Generator().manual_seed(SEED + 12),
+                              device=device)
+    report = {"fleet": CLUSTER_FLEET,
+              "kernels": cluster_kernel_shapes(torch, device, data, n)}
+    seconds = {"setup": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    report["k4"], engine = cluster_main_run(torch, cfg, data, cpu_data, n,
+                                            init)
+    a = engine.cluster_assignment
+    report["knn_round"] = cluster_knn_round(torch, device, cfg, data, n, a)
+    _sync(torch, device)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    log(f"[cluster] clustered path launches {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"the clustered path never launched {name}")
+    report["launches"] = launches
+    seconds["b_g_cluster_path"] = time.perf_counter() - t1
+    for name, step in (
+            ("null", lambda: cluster_null(torch, cfg, data, n, init)),
+            ("personalized", lambda: cluster_personalized(torch, cfg, data,
+                                                          n, init)),
+            ("elastic", lambda: cluster_elastic(torch, cfg, data, n, init,
+                                                a)),
+            ("card_vs_cpu", lambda: cluster_card_vs_cpu(
+                torch, device, cfg, data, cpu_data, n, init, a)),
+            ("resume", lambda: cluster_resume(torch, cfg, data, n, init)),
+            ("round_times", lambda: cluster_round_times(
+                torch, device, cfg, data, n, init, a))):
+        t1 = time.perf_counter()
+        result = step()
+        seconds[name] = time.perf_counter() - t1
+        if name == "null":
+            result, plain = result
+            k1 = plain["final_metrics"]
+            report["k1_final_auc_mean"] = float(np.mean(k1))
+            report["k1_final_auc_min"] = float(np.min(k1))
+            log(f"[cluster] final AUC, K = {CLUSTER_K} against K = 1 from "
+                f"one init: mean {report['k4']['final_auc_mean']:.6f} vs "
+                f"{report['k1_final_auc_mean']:.6f}, min "
+                f"{report['k4']['final_auc_min']:.6f} vs "
+                f"{report['k1_final_auc_min']:.6f}")
+        report[name] = result
+    report["seconds"] = time.perf_counter() - t0
+    report["phase_seconds"] = seconds
+    log(f"[cluster] done in {report['seconds']:.1f} s "
+        f"({json.dumps({k: round(v, 2) for k, v in seconds.items()})})")
+    return report
+
+
 def report_train(torch, device, launches, worst):
     """The train kernel's and its plain version's times and bounds at the
     main path's step shape (5 clients x 12 rows) and at 512 clients."""
@@ -2480,6 +3088,7 @@ def main() -> int:
             raise AssertionError(f"the main path never launched {name}")
     log(f"[main path] launches {json.dumps(launches)}")
     robust = phase_robust(torch, device, cfg, clients, data)
+    cluster = phase_cluster(torch, device, cfg)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
     training["fused_hold"] = phase_fused_hold(torch, device, cfg, clients)
@@ -2495,7 +3104,9 @@ def main() -> int:
         torch, device, launches["dist_tiles"], worst_dist, eval_rows))
     for kernel in line["kernels"]:
         kernel["fault_path_launches"] = robust["launches"][kernel["name"]]
+        kernel["cluster_path_launches"] = cluster["launches"][kernel["name"]]
     line["robust"] = robust
+    line["cluster"] = cluster
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

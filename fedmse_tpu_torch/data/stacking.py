@@ -4,8 +4,10 @@ fedmse_tpu/data/stacking.py).
 All N clients stack on a leading client axis with row masks: padding rows
 carry mask 0 and count in no loss or metric; padding clients carry
 client_mask 0. Train/valid rows are batch-major [N, NB, B, D], the layout
-of the reference's unshuffled per-epoch minibatch loop. Host-local slices
-of the client axis (`client_range`) wait for the multi-host port.
+of the reference's unshuffled per-epoch minibatch loop.
+`pad_federated_data` grows a stacked federation's client axis afterwards.
+Host-local slices of the client axis (`client_range`) wait for the
+multi-host port.
 """
 
 from __future__ import annotations
@@ -138,3 +140,25 @@ def stack_clients(clients: Sequence[ClientData], dev_x: np.ndarray,
         dev_x=torch.from_numpy(np.asarray(dev_x, np.float32)).to(
             device=dev, dtype=feat_dtype),
         client_mask=torch.from_numpy(client_mask).to(dev))
+
+
+def pad_federated_data(data: FederatedData, n_pad: int) -> FederatedData:
+    """Grow a stacked federation's client axis to `n_pad` by appending zero
+    clients (client_mask 0, every row mask 0): excluded from selection,
+    aggregation and evaluation exactly like stack-time padding. The dev
+    set has no client axis and is kept."""
+    n_old = data.client_mask.shape[0]
+    if n_pad == n_old:
+        return data
+    if n_pad < n_old:
+        raise ValueError(f"cannot shrink the client axis {n_old} -> {n_pad}")
+
+    def grow(t: torch.Tensor) -> torch.Tensor:
+        pad = torch.zeros((n_pad - n_old,) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        return torch.cat([t, pad], dim=0)
+
+    return FederatedData(**{
+        f.name: (getattr(data, f.name) if f.name == "dev_x"
+                 else grow(getattr(data, f.name)))
+        for f in dataclasses.fields(FederatedData)})

@@ -9,6 +9,8 @@ fedmse_tpu/federation/aggregation.py).
 
 The merged model is `weights @ params` [N] x [N, P] in f32 (TF32 must be
 off on the card: the broadcast every client verifies is this product).
+`make_raw_weights_fn` is the unnormalized weighting both the single-global
+merge and the clustered one (cluster/merge.py) share.
 """
 
 from __future__ import annotations
@@ -26,11 +28,39 @@ UPDATE_TYPES = ("avg", "fedprox", "mse_avg")
 
 def weighted_mean(params: torch.Tensor, weights: torch.Tensor
                   ) -> torch.Tensor:
-    """sum_n w_n params_n in f32: [N] x [N, P] -> [P]."""
+    """sum_n w_n params_n in f32: [N] x [N, P] -> [P], or a [K, N] sheet
+    -> [K, P]."""
     if params.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("aggregation on the card needs "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
     return weights.to(torch.float32) @ params.to(torch.float32)
+
+
+def make_raw_weights_fn(model, update_type: str) -> Callable:
+    """fn(params [N, P], sel_mask [N], dev_x [M, D], sel_idx=None) -> raw
+    [N]: sel_mask / dev MSE for mse_avg (one forward launch over the
+    cohort's models; `sel_idx` restricts it to the compact cohort, with
+    the same result), sel_mask otherwise. The single-global merge and the
+    clustered one (cluster/merge.py) normalize it."""
+    layout = ParamLayout.of(model)
+    cdt = model.compute_dtype
+
+    def raw_weights(params: torch.Tensor, sel_mask: torch.Tensor,
+                    dev_x: torch.Tensor,
+                    sel_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if update_type != "mse_avg":
+            return sel_mask
+        sub = params if sel_idx is None else params.index_select(0, sel_idx)
+        s, (m, d) = sub.shape[0], dev_x.shape
+        _, mse, _ = fused_forward_stats(
+            layout.tree(sub, cdt), dev_x.to(cdt).repeat(s, 1),
+            client_index(s, m, params.device), compute_dtype=cdt)
+        mses = mse.view(s, m).mean(dim=1)
+        if sel_idx is not None:
+            mses = torch.ones_like(sel_mask).index_copy(0, sel_idx, mses)
+        return sel_mask / mses
+
+    return raw_weights
 
 
 def make_aggregate_fn(model, update_type: str) -> Callable:
@@ -40,27 +70,14 @@ def make_aggregate_fn(model, update_type: str) -> Callable:
     if update_type not in UPDATE_TYPES:
         raise ValueError(f"unknown update_type {update_type!r}; expected "
                          f"one of {UPDATE_TYPES}")
-    layout = ParamLayout.of(model)
-    cdt = model.compute_dtype
+    raw_weights = make_raw_weights_fn(model, update_type)
 
     @torch.no_grad()
     def aggregate(params: torch.Tensor, sel_mask: torch.Tensor,
                   dev_x: torch.Tensor,
                   sel_idx: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if update_type == "mse_avg":
-            sub = params if sel_idx is None else params.index_select(
-                0, sel_idx)
-            s, (m, d) = sub.shape[0], dev_x.shape
-            _, mse, _ = fused_forward_stats(
-                layout.tree(sub, cdt), dev_x.to(cdt).repeat(s, 1),
-                client_index(s, m, params.device), compute_dtype=cdt)
-            mses = mse.view(s, m).mean(dim=1)
-            if sel_idx is not None:
-                mses = torch.ones_like(sel_mask).index_copy(0, sel_idx, mses)
-            raw = sel_mask / mses
-        else:
-            raw = sel_mask
+        raw = raw_weights(params, sel_mask, dev_x, sel_idx)
         weights = raw / raw.sum()
         return weighted_mean(params, weights), weights
 

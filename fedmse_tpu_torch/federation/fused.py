@@ -55,6 +55,28 @@ selections are:
 The epoch body is the same either way: as in the JAX package the whole
 selection trains and the lost clients are discarded afterwards.
 
+Clustered federation (cluster/; `cluster_k` > 1 or `personalize`) is built
+in the same way. The assignment is a static [N] buffer `cluster_in` that
+`dispatch` writes before the chunk's first `enter` (a refit changes the
+buffer, never the graphs); K, `personalize` and the shared-module mask are
+fixed when the graphs are captured:
+
+  * at `leave`, a voter's candidates are its own cluster's (a voter whose
+    cluster has none passes its turn); one product [K, N] x [N, P] merges
+    every cluster (cluster.make_clustered_aggregate_fn: the mse_avg dev
+    scoring normalized within each cluster, `weights` each client's
+    weight in its own cluster's merge); an attack poisons all K merges;
+    each client verifies its own cluster's merge ([N, P], one routed
+    forward launch), with `personalize` the shared modules' columns only,
+    its own post-training params elsewhere; a cluster with no effective
+    member has no update, and its clients keep their whole state
+    (received ∧ has_update[cluster_in]);
+  * at `enter`, an elastic joiner inherits its own cluster's incumbent
+    mean, or the fleet's when its cluster has no incumbent.
+
+With `cluster_k` = 1 and no personalization nothing is built: the bodies
+are the clean round's op for op.
+
 Clean, the semantics are the per-phase path's exactly, bit for bit with
 the tie-break off; with it on,
 the per-phase path draws each voter's uniforms when the voter votes and
@@ -72,6 +94,9 @@ from typing import (Callable, Dict, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
+from fedmse_tpu_torch.cluster.merge import (clustered_incumbent_means,
+                                            gather_cluster_rows,
+                                            personalized_broadcast)
 from fedmse_tpu_torch.federation.aggregation import weighted_mean
 from fedmse_tpu_torch.federation.attack import PoisonFn
 from fedmse_tpu_torch.federation.local_training import (LocalTrainer,
@@ -165,7 +190,11 @@ class FusedRound:
     (else every client, the unselected masked away, as the per-phase
     path); `tie_break` takes each chunk's [R, S, N] uniforms. `poison`,
     `chaos` and `elastic` build the fault hooks in (their per-round
-    inputs are `dispatch`'s `inputs`, named by `input_names`)."""
+    inputs are `dispatch`'s `inputs`, named by `input_names`).
+    `cluster_k` > 1 or `personalize` builds clustered federation in:
+    `aggregate` is then cluster.make_clustered_aggregate_fn's, `shared`
+    the [P] bool mask of the shared modules (cluster.shared_mask), and
+    each `dispatch` takes the chunk's assignment `cluster_in`."""
 
     def __init__(self, *, trainer: LocalTrainer, base_scores: Callable,
                  aggregate: Callable, verify: Callable,
@@ -175,7 +204,9 @@ class FusedRound:
                  cohort: int, capacity: int, compact: bool,
                  tie_break: bool, metric_shape: Tuple[int, ...],
                  poison: Optional[PoisonFn] = None, chaos: bool = False,
-                 elastic: bool = False):
+                 elastic: bool = False, cluster_k: int = 1,
+                 personalize: bool = False,
+                 shared: Optional[torch.Tensor] = None):
         self.trainer, self.base_scores = trainer, base_scores
         self.aggregate, self.verify = aggregate, verify
         self.evaluate_all, self.layout = evaluate_all, layout
@@ -185,6 +216,11 @@ class FusedRound:
         self.cohort_size, self.capacity = cohort, capacity
         self.compact = compact
         self.poison, self.chaos, self.elastic = poison, chaos, elastic
+        self.cluster_k, self.personalize = cluster_k, personalize
+        self.clustered = cluster_k > 1 or personalize
+        if personalize and shared is None:
+            raise ValueError("personalize needs the shared-module mask")
+        self.shared = shared
         dev = states.params.device
         self.device = dev
         n = states.params.shape[0]
@@ -199,6 +235,8 @@ class FusedRound:
         self.sel_mask = torch.zeros(n, device=dev)
         self.u = (torch.zeros((cohort, n), device=dev) if tie_break
                   else None)
+        self.cluster_in = (torch.zeros(n, dtype=i64, device=dev)
+                           if self.clustered else None)
         self._hook_buffers(n, states.params.shape[1], tie_break)
         idx = (torch.zeros(cohort, dtype=i64, device=dev) if compact
                else torch.arange(n, device=dev))
@@ -225,8 +263,9 @@ class FusedRound:
         shapes = {}
         if self.poison is not None:
             shapes["attack"] = ((), torch.float32)
-            if self.poison.needs_noise:
-                shapes["noise"] = ((p,), torch.float32)
+            if self.poison.needs_noise:  # one row per merged model
+                width = p * self.cluster_k if self.clustered else p
+                shapes["noise"] = ((width,), torch.float32)
         if self.chaos:
             shapes.update(available=((n,), torch.float32),
                           straggler=((n,), torch.float32),
@@ -278,8 +317,12 @@ class FusedRound:
         st, r = self.states, self.round_in
         r["member"].mul_(self.data.client_mask)  # padding never joins
         joined, left = r["joined"] > 0, r["left"] > 0
-        mean = weighted_mean(st.params, client_mean_weights(
-            r["member"] * (1.0 - r["joined"])))
+        incumbents = r["member"] * (1.0 - r["joined"])
+        if self.clustered:  # [N, P]: each slot's own cluster's mean
+            mean = clustered_incumbent_means(st.params, incumbents,
+                                             self.cluster_in, self.cluster_k)
+        else:
+            mean = weighted_mean(st.params, client_mean_weights(incumbents))
         rows = joined[:, None]
         torch.where(rows, mean, st.params, out=st.params)
         torch.where(rows, mean, st.prev_global, out=st.prev_global)
@@ -317,23 +360,47 @@ class FusedRound:
         mask2 = torch.where(self.ids == aggregator, 0.0, eff)
         again, scores2 = elect_on_device(
             base, r.get("reelect_draws"), self.sel, mask2, self.agg_count,
-            self.max_threshold, voters=mask2)
+            self.max_threshold, voters=mask2, cluster_in=self.cluster_in)
         crashed = torch.where(crash_now, aggregator, -1)
         return (torch.where(crash_now, again, aggregator),
                 torch.where(crash_now, scores2, scores), crashed)
 
-    def _received(self, aggregator, crashed) -> torch.Tensor:
+    def _received(self, aggregator, crashed, has_update) -> torch.Tensor:
         """[N] bool: who gets the broadcast. The down, the broadcast-lost,
-        the crashed and retired slots do not; the aggregator holds it."""
-        r = self.round_in
+        the crashed and retired slots do not, nor the clients of a cluster
+        that merged nothing; the aggregator holds it."""
+        r, got = self.round_in, None
         if self.chaos:
             got = ((r["bcast_drop"] <= 0) & (r["available"] > 0)
                    & (self.ids != crashed))
-            if self.elastic:
-                got = got & (r["member"] > 0)
-        else:
-            got = r["member"] > 0
+        if self.elastic:
+            got = r["member"] > 0 if got is None else got & (r["member"] > 0)
+        if has_update is not None:
+            sent = has_update.index_select(0, self.cluster_in)
+            got = sent if got is None else got & sent
         return got | (self.ids == aggregator)
+
+    def _merge(self, st, agg_mask):
+        """(the broadcast: [P], or [N, P] when clustered; weights [N];
+        has_update [K] or None)."""
+        d, r = self.data, self.round_in
+        sel_idx = self.co.idx if self.compact else None
+        if not self.clustered:
+            merged, weights = self.aggregate(st.params, agg_mask, d.dev_x,
+                                             sel_idx=sel_idx)
+            if self.poison is not None:
+                merged = self.poison(merged, r["attack"], r.get("noise"))
+            return merged, weights, None
+        merged, weights, has_update = self.aggregate(
+            st.params, agg_mask, d.dev_x, self.cluster_in, sel_idx=sel_idx)
+        if self.poison is not None:  # every cluster's merge
+            noise = r.get("noise")
+            merged = self.poison(merged, r["attack"], None if noise is None
+                                 else noise.view(self.cluster_k, -1))
+        bcast = gather_cluster_rows(merged, self.cluster_in)
+        if self.personalize:
+            bcast = personalized_broadcast(bcast, st.params, self.shared)
+        return bcast, weights, has_update
 
     def _leave(self) -> None:
         d, st, r = self.data, self.states, self.round_in
@@ -356,24 +423,22 @@ class FusedRound:
                                 d.valid_m.index_select(0, voter0)[0])
         aggregator, scores = elect_on_device(
             base, self.u, self.sel, eff, self.agg_count,
-            self.max_threshold, voters=eff if self.faults else None)
+            self.max_threshold, voters=eff if self.faults else None,
+            cluster_in=self.cluster_in)
         crashed, agg_mask = None, eff
         if self.chaos:
             aggregator, scores, crashed = self._reelect(base, eff,
                                                         aggregator, scores)
             agg_mask = torch.where(self.ids == crashed, 0.0, eff)
         won = aggregator >= 0
-        merged, weights = self.aggregate(
-            st.params, agg_mask, d.dev_x,
-            sel_idx=self.co.idx if self.compact else None)
-        if self.poison is not None:
-            merged = self.poison(merged, r["attack"], r.get("noise"))
+        merged, weights, has_update = self._merge(st, agg_mask)
         is_agg = self.ids == aggregator  # all false for -1
         outcome = self.verify(st, merged, self.ver_x, self.ver_m,
                               is_agg.to(torch.float32), d.client_mask)
         new = outcome.states
-        if self.faults:
-            new = new.select(self._received(aggregator, crashed), st)
+        if self.faults or self.clustered:
+            new = new.select(self._received(aggregator, crashed,
+                                            has_update), st)
         st.where_(won, new)
         self.agg_count += (is_agg & won).to(torch.int32)
         metrics = self.evaluate_all(self.layout.tree(st.params), d.test_x,
@@ -433,14 +498,16 @@ class FusedRound:
     def dispatch(self, schedule: Sequence[Sequence[int]],
                  draws: Optional[torch.Tensor],
                  agg_count: Optional[np.ndarray],
-                 inputs: Optional[Dict[str, np.ndarray]] = None
+                 inputs: Optional[Dict[str, np.ndarray]] = None,
+                 cluster_in: Optional[np.ndarray] = None
                  ) -> Callable[[], list]:
         """Run len(schedule) rounds: upload the selections and draws, the
-        hooks' `inputs` ([k, ...] each, by `input_names`), and the quota
-        (unless None: then the device carries it from the last chunk),
-        replay the bodies round by round and start one copy of the output
-        stack to the host. Returns the harvest: a call that waits for that
-        copy and returns the rounds' FusedRoundOuts."""
+        hooks' `inputs` ([k, ...] each, by `input_names`), the assignment
+        [N] of a clustered round, and the quota (unless None: then the
+        device carries it from the last chunk), replay the bodies round by
+        round and start one copy of the output stack to the host. Returns
+        the harvest: a call that waits for that copy and returns the
+        rounds' FusedRoundOuts."""
         k = len(schedule)
         if k > self.capacity or any(len(s) != self.cohort_size
                                     for s in schedule):
@@ -451,6 +518,9 @@ class FusedRound:
         if set(inputs) != set(self.chunk_in):
             raise ValueError(f"this round's hooks take inputs "
                              f"{sorted(self.chunk_in)}; got {sorted(inputs)}")
+        if self.clustered != (cluster_in is not None):
+            raise ValueError("a clustered round takes the assignment "
+                             "cluster_in, and only a clustered round does")
         cuda = self.device.type == "cuda"
 
         def up(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -462,6 +532,9 @@ class FusedRound:
         for name, value in inputs.items():
             buf = self.chunk_in[name]
             up(buf[:k], torch.as_tensor(np.array(value)).to(buf.dtype))
+        if cluster_in is not None:
+            up(self.cluster_in, torch.as_tensor(
+                np.asarray(cluster_in, dtype=np.int64)))
         if agg_count is not None:
             up(self.agg_count, torch.as_tensor(
                 np.asarray(agg_count, dtype=np.int32)))

@@ -23,6 +23,13 @@ The host snapshot a chunk needs for its rewind (the host counters at its
 entry) is attached lazily, once its predecessor has been absorbed: only
 then are the counters those of its entry.
 
+A clustered engine fits its assignment at a chunk's entry from the states
+every earlier round left. So when a refit is due at chunk k + 1
+(`engine.cluster_refit_due`), and only then, the loop absorbs chunk k
+before it dispatches chunk k + 1: a fit never reads states still in
+flight, and a stop in chunk k ends the run before the refit. A rewind
+replays its chunk's prefix under the assignment the chunk ran with.
+
 On the card a fused chunk's dispatch returns once its last round's final
 epoch is enqueued (the host reads each epoch's early-stop flag an epoch
 behind the card, federation/fused.py), so the overlap is what the card
@@ -62,6 +69,7 @@ class InFlightChunk:
     t_dispatch: float              # host clock when the chunk was enqueued
     snap_states: Any = None        # the chunk-entry device snapshot
     host_snap: Any = None          # the host counters at entry (lazily)
+    cluster_in: Any = None         # the [N] assignment it ran under
 
 
 @dataclasses.dataclass
@@ -126,7 +134,8 @@ def run_pipelined_schedule(engine, start_round: int, num_rounds: int,
             for j in range(done):
                 engine.run_round_fused(
                     chunk.start_round + j, selected=schedule[j],
-                    draws=None if draws is None else draws[j])
+                    draws=None if draws is None else draws[j],
+                    cluster_in=chunk.cluster_in)
         elif successor is not None:
             # a stop at the chunk's last round with the successor in
             # flight: its entry snapshot is the state after the stop
@@ -135,6 +144,11 @@ def run_pipelined_schedule(engine, start_round: int, num_rounds: int,
 
     while round_index < num_rounds:
         k = min(chunk_size, num_rounds - round_index)
+        if prev is not None and engine.cluster_refit_due(round_index):
+            # the refit reads the states chunk `prev` leaves: wait for it
+            if absorb(prev, None) is not None:
+                return stats
+            prev = None
         cur = engine.dispatch_schedule_chunk(
             round_index, k, agg_count=None if prev is None else prev.agg_count,
             snapshot=can_rewind)

@@ -31,7 +31,16 @@ attack bit and noise, the chaos masks and the crash re-election's draws,
 the membership timeline. The membership timeline is a Markov chain, so
 the engine expands it from round 0 for the whole horizon and slices it
 (`_elastic_masks`); the memoryless chaos masks are cached the same way.
-Meshes, clustering and the red-team hooks are not ported.
+
+Clustered federation (`cluster=` a ClusterSpec, cluster/) is fused-only
+too. The gateway -> cluster assignment is fitted on the host at a chunk's
+entry from the current states (cluster.fit_from_states: one probe-encode
+launch, the JS matrix on the device, the medoids in numpy) and holds for
+the whole chunk; `refit_every` refits at the first chunk entry that many
+rounds after the last fit. `cluster_assignment=` pins an assignment
+instead (a resume, or a comparison fed one assignment). A null spec
+(k = 1, no personalization) builds nothing. Meshes and the red-team hooks
+are not ported.
 """
 
 from __future__ import annotations
@@ -49,6 +58,10 @@ from fedmse_tpu_torch.data.stacking import FederatedData
 from fedmse_tpu_torch.evaluation.evaluator import make_evaluate_all
 from fedmse_tpu_torch.chaos.masks import (ChaosMasks, make_chaos_masks,
                                           reelection_draws)
+# a module import: cluster.assign imports this package in turn
+from fedmse_tpu_torch.cluster import assign as cluster_assign
+from fedmse_tpu_torch.cluster.merge import (make_clustered_aggregate_fn,
+                                            shared_mask)
 from fedmse_tpu_torch.federation.aggregation import make_aggregate_fn
 from fedmse_tpu_torch.federation.attack import noise_draws
 from fedmse_tpu_torch.federation.elastic import (MembershipMasks,
@@ -189,14 +202,18 @@ class RoundEngine:
     model on either path; `chaos` (a ChaosSpec) and `elastic` (an
     ElasticSpec) need the fused path. `elastic_masks` (a MembershipMasks
     with [T, N] leaves) replaces the spec's drawn timeline, as in the
-    JAX engine; the spec still builds the hook in."""
+    JAX engine; the spec still builds the hook in. `cluster` (a
+    ClusterSpec) needs the fused path unless it is null;
+    `cluster_assignment` ([n_real] ints) pins the assignment instead of
+    fitting one."""
 
     def __init__(self, model, cfg: ExperimentConfig, data: FederatedData,
                  n_real: int, rngs: ExperimentRngs, model_type: str,
                  update_type: str, states: Optional[ClientStates] = None,
                  profile: bool = False, fused: bool = False,
                  poison_fn=None, chaos=None, elastic=None,
-                 elastic_masks: Optional[MembershipMasks] = None):
+                 elastic_masks: Optional[MembershipMasks] = None,
+                 cluster=None, cluster_assignment=None):
         if fused and cfg.metric == "time":
             raise ValueError(
                 "metric='time' times each client's scoring on the host and "
@@ -207,6 +224,12 @@ class RoundEngine:
                 raise ValueError(
                     f"{name} is compiled into the fused round; construct "
                     "the engine with fused=True (and profile=False)")
+        if cluster is not None and not cluster.is_null \
+                and (not fused or profile):
+            raise ValueError(
+                "clustered federation is compiled into the fused round "
+                "program; construct the engine with fused=True (and "
+                "profile=False)")
         if elastic_masks is not None and elastic is None:
             raise ValueError(
                 "elastic_masks needs an ElasticSpec: the override "
@@ -255,6 +278,24 @@ class RoundEngine:
         self.host = HostState.create(n_real)
         self._ver_x, self._ver_m = verification_tensors(cfg, data, n_real)
         self._fused: Optional[FusedRound] = None
+        self.cluster = cluster
+        self._cluster_assign = None  # the fitted ClusterAssignment
+        self._cluster_vec: Optional[np.ndarray] = None  # [n_real] int32
+        self._cluster_fitted_round = 0
+        self._cluster_override = (None if cluster_assignment is None
+                                  else np.asarray(cluster_assignment,
+                                                  np.int32))
+        self._cluster_stats_fn = None
+        # per fit: its round and seconds (fit_from_states' timings)
+        self.cluster_fit_seconds: List[Dict[str, float]] = []
+        self._shared = None
+        if self.clustered:
+            self.cluster_aggregate = make_clustered_aggregate_fn(
+                model, update_type, cluster.k)
+            if cluster.personalize:
+                self._shared = shared_mask(self.layout,
+                                           cluster.shared_modules,
+                                           device=self.device)
 
     def _fresh_states(self) -> ClientStates:
         if self._init_states is not None:
@@ -270,6 +311,15 @@ class RoundEngine:
                                    run_seed_stride=self.rngs.run_seed_stride)
         self.states = self._fresh_states()
         self.host = HostState.create(self.n_real)
+        if self.cluster is not None and self._cluster_override is None:
+            # a fresh federation fits from its fresh init states
+            self._cluster_assign = self._cluster_vec = None
+            self._cluster_fitted_round = 0
+
+    @property
+    def clustered(self) -> bool:
+        """Whether the fused round has clustered federation built in."""
+        return self.cluster is not None and not self.cluster.is_null
 
     def cohort_size(self) -> int:
         """max(1, int(ratio N)): the clients a round selects."""
@@ -306,13 +356,16 @@ class RoundEngine:
             rows = d.train_xb.shape[1] * d.train_xb.shape[2]
             metric_shape = {"AUC": (), "classification": (3,)}.get(
                 cfg.metric, (d.test_x.shape[1],))
+            spec = self.cluster if self.clustered else None
             f = FusedRound(
                 trainer=self.train_all,
                 base_scores=make_mse_scores_fn(
                     self.model,
                     restandardize=cfg.compat.restandardize_vote_data,
                     tie_break=False),
-                aggregate=self.aggregate, verify=self.verify,
+                aggregate=(self.aggregate if spec is None
+                           else self.cluster_aggregate),
+                verify=self.verify,
                 evaluate_all=self.evaluate_all, layout=self.layout,
                 states=self.states.clone(), data=d, ver_x=self._ver_x,
                 ver_m=self._ver_m,
@@ -323,7 +376,10 @@ class RoundEngine:
                 compact=self.compact, tie_break=cfg.compat.vote_tie_break,
                 metric_shape=metric_shape, poison=self.poison_fn,
                 chaos=self.chaos is not None,
-                elastic=self.elastic is not None)
+                elastic=self.elastic is not None,
+                cluster_k=1 if spec is None else spec.k,
+                personalize=spec is not None and spec.personalize,
+                shared=self._shared)
             self._fused = f
             self.states = f.states
         elif self.states is not f.states:
@@ -412,11 +468,14 @@ class RoundEngine:
                              self.n_real)[0]
 
     def _attack_inputs(self, start_round: int, n_rounds: int) -> dict:
-        """The attack bit [R] and, for a noise attack, the noise [R, P]."""
+        """The attack bit [R] and, for a noise attack, the noise [R, P]
+        ([R, K·P] when clustered: a row per cluster merge)."""
         out = {"attack": self.poison_fn.active(start_round, n_rounds)}
         if self.poison_fn.needs_noise:
+            width = self.layout.size * (self.cluster.k if self.clustered
+                                        else 1)
             out["noise"] = noise_draws(self.rngs.attack_key(), start_round,
-                                       n_rounds, self.layout.size)
+                                       n_rounds, width)
         return out
 
     def _hook_inputs(self, start_round: int, n_rounds: int,
@@ -435,6 +494,97 @@ class RoundEngine:
             out.update(self._elastic_masks(start_round, n_rounds)._asdict())
         return out
 
+    # ---- clustered federation (cluster/) ---- #
+
+    @property
+    def cluster_assignment(self) -> Optional[np.ndarray]:
+        """The current [n_real] gateway -> cluster vector (None until the
+        first clustered dispatch fits it): the checkpoint extra reads it."""
+        return self._cluster_vec
+
+    @property
+    def cluster_fitted_round(self) -> int:
+        """The round the current assignment was fitted at (or pinned with):
+        a refit is due `refit_every` rounds after it."""
+        return int(self._cluster_fitted_round)
+
+    @property
+    def cluster_fit(self) -> Optional[cluster_assign.ClusterAssignment]:
+        """The fitted ClusterAssignment (latent statistics, pooled cluster
+        Gaussians); None when the assignment was pinned."""
+        return self._cluster_assign
+
+    def set_cluster_assignment(self, assignment, fitted_round: int = 0
+                               ) -> None:
+        """Pin the assignment (a resume: the snapshot's states were merged
+        under it; a refit resumes on the recorded cadence clock)."""
+        assignment = np.asarray(assignment, np.int32)
+        if len(assignment) != self.n_real:
+            raise ValueError(f"assignment covers {len(assignment)} "
+                             f"gateways, federation has {self.n_real}")
+        spec = self.cluster
+        if spec is not None and assignment.size \
+                and int(assignment.max()) >= spec.k:
+            raise ValueError(
+                f"assignment references cluster {int(assignment.max())} "
+                f"but the spec has k={spec.k}; a K change re-tenants every "
+                "cluster model — resume with the matching ClusterSpec")
+        self._cluster_vec = assignment
+        self._cluster_assign = None
+        self._cluster_fitted_round = fitted_round
+
+    def cluster_refit_due(self, round_index: int) -> bool:
+        """Whether a dispatch at `round_index` fits the assignment anew (it
+        then reads the states every earlier round left)."""
+        if not self.clustered:
+            return False
+        if self._cluster_override is not None:
+            return False
+        return (self._cluster_vec is None
+                or (self.cluster.refit_every > 0
+                    and round_index - self._cluster_fitted_round
+                    >= self.cluster.refit_every))
+
+    def _ensure_cluster_fit(self, round_index: int) -> None:
+        """Fit (or refit on the cadence) the assignment before a dispatch:
+        the incumbent mean of the current states probes every gateway's
+        normal-train rows, and the JS k-medoids groups their latent
+        statistics (cluster/assign.py)."""
+        spec = self.cluster
+        if self._cluster_override is not None:
+            if self._cluster_vec is None:
+                self.set_cluster_assignment(self._cluster_override)
+            return
+        if not self.cluster_refit_due(round_index):
+            return
+        if self._cluster_stats_fn is None:
+            maker = (cluster_assign.make_latent_rows_fn
+                     if spec.metric == "gmm"
+                     else cluster_assign.make_latent_stats_fn)
+            self._cluster_stats_fn = maker(self.model)
+        timings: Dict[str, float] = {}
+        self._cluster_assign = cluster_assign.fit_from_states(
+            self.model, spec, self.states.params, self.data.train_xb,
+            self.data.train_mb, self.data.client_mask, self.n_real,
+            fitted_round=round_index, stats_fn=self._cluster_stats_fn,
+            prev_assignment=self._cluster_vec, timings=timings)
+        self.cluster_fit_seconds.append({"round": round_index, **timings})
+        self._cluster_vec = self._cluster_assign.assignment
+        self._cluster_fitted_round = round_index
+        logger.info("cluster fit at round %d: k=%d sizes=%s", round_index,
+                    spec.k, np.bincount(self._cluster_vec,
+                                        minlength=spec.k).tolist())
+
+    def _cluster_input(self, round_index: int) -> Optional[np.ndarray]:
+        """The [n_pad] assignment a dispatch at `round_index` uploads (None
+        when clustering is off or null); pad slots carry cluster 0."""
+        if not self.clustered:
+            return None
+        self._ensure_cluster_fit(round_index)
+        vec = np.zeros(self.n_pad, np.int32)
+        vec[: self.n_real] = self._cluster_vec
+        return vec
+
     def _host_agg_count(self) -> np.ndarray:
         return np.pad(self.host.aggregation_count,
                       (0, self.n_pad - self.n_real))
@@ -442,7 +592,8 @@ class RoundEngine:
     def dispatch_schedule_chunk(self, start_round: int, n_rounds: int,
                                 agg_count=None, snapshot: bool = False,
                                 schedule: Optional[List[List[int]]] = None,
-                                draws: Optional[torch.Tensor] = None
+                                draws: Optional[torch.Tensor] = None,
+                                cluster_in: Optional[np.ndarray] = None
                                 ) -> InFlightChunk:
         """Enqueue n_rounds fused rounds and return before their outputs
         are read (federation/pipeline.py). Selections and tie-break draws
@@ -451,7 +602,9 @@ class RoundEngine:
         ones. `agg_count` is a previous chunk's device quota
         (InFlightChunk.agg_count) to carry on; None uploads the host's.
         `snapshot=True` keeps a device copy of the chunk-entry states for
-        an early stop's rewind.
+        an early stop's rewind. A clustered engine fits the assignment
+        when one is due (`cluster_refit_due`) unless `cluster_in` replays a
+        recorded one.
 
         On the card the call returns once the last round's final epoch is
         enqueued: the host reads each epoch's early-stop flag one epoch
@@ -461,17 +614,20 @@ class RoundEngine:
         f = self.fused_round(n_rounds, len(schedule[0]))
         if draws is None and self.cfg.compat.vote_tie_break:
             draws = self.rngs.vote_draws(n_rounds, f.cohort_size, self.n_pad)
+        if cluster_in is None:
+            cluster_in = self._cluster_input(start_round)
         snap = self.states.clone() if snapshot else None
         t0 = time.time()
         inputs = self._hook_inputs(start_round, n_rounds, f.cohort_size)
         harvest = f.dispatch(
             schedule, draws,
             None if agg_count is f.agg_count else self._host_agg_count(),
-            inputs)
+            inputs, cluster_in=cluster_in)
         return InFlightChunk(start_round=start_round, n_rounds=n_rounds,
                              schedule=schedule, draws=draws,
                              agg_count=f.agg_count, harvest=harvest,
-                             t_dispatch=t0, snap_states=snap)
+                             t_dispatch=t0, snap_states=snap,
+                             cluster_in=cluster_in)
 
     def harvest_schedule_chunk(self, chunk: InFlightChunk):
         """Wait for a dispatched chunk's outputs and absorb them into the
@@ -496,14 +652,17 @@ class RoundEngine:
 
     def run_round_fused(self, round_index: int,
                         selected: Optional[List[int]] = None,
-                        draws: Optional[torch.Tensor] = None
+                        draws: Optional[torch.Tensor] = None,
+                        cluster_in: Optional[np.ndarray] = None
                         ) -> RoundResult:
-        """One fused round. `selected` / `draws` ([S, N]) override the host
-        streams: the driver replays a chunk's prefix with them."""
+        """One fused round. `selected` / `draws` ([S, N]) / `cluster_in`
+        override the host streams and the assignment: the driver replays a
+        chunk's prefix with them."""
         chunk = self.dispatch_schedule_chunk(
             round_index, 1,
             schedule=None if selected is None else [list(selected)],
-            draws=None if draws is None else draws[None])
+            draws=None if draws is None else draws[None],
+            cluster_in=cluster_in)
         return self.harvest_schedule_chunk(chunk)[0][0]
 
     # ---- the per-phase path ---- #

@@ -20,8 +20,13 @@ waived movement when one is set).
 The aggregator loads the broadcast unconditionally and keeps its history.
 
 Verification rows are either shared by every client ([V, D], the reference's
-last-client valid split or the dev set) or per client ([N, V, D]). All the
-performances of one call are ONE fused forward launch.
+last-client valid split or the dev set) or per client ([N, V, D]). The
+broadcast is either one model [P] (the single-global merge) or one per
+client [N, P] (clustered federation: each client verifies its own
+cluster's merge; the Frobenius deltas are taken row by row). All the
+performances of one call are ONE fused forward launch: with per-client
+broadcasts the N broadcasts, and under the hardened rule the N own models
+too, are 2N models each row routed to its own.
 """
 
 from __future__ import annotations
@@ -59,8 +64,8 @@ def make_verify_fn(model, verification_threshold: float = 3.0,
                    recovery_threshold: float = 0.1,
                    recovery_delta_cap: Optional[float] = None,
                    recovery_budget: Optional[float] = None) -> Callable:
-    """fn(states, agg [P], ver_x [V, D] or [N, V, D], ver_m [V] or [N, V],
-    agg_onehot [N], client_mask [N]) -> VerifyOutcome."""
+    """fn(states, agg [P] or [N, P], ver_x [V, D] or [N, V, D], ver_m [V]
+    or [N, V], agg_onehot [N], client_mask [N]) -> VerifyOutcome."""
     if recovery_delta_cap is None:
         recovery_delta_cap = 10.0 * verification_threshold
     layout = ParamLayout.of(model)
@@ -90,7 +95,18 @@ def make_verify_fn(model, verification_threshold: float = 3.0,
         is_agg = agg_onehot > 0
         attempted = (client_mask > 0) & ~is_agg
         first = ~states.hist_seen
-        if hardened:
+        if agg.dim() == 2:
+            # model i < n: client i's broadcast; n + i: its own model
+            ids = torch.arange(n, device=dev)
+            xs, ms = x.expand(n, -1, -1), m.expand(n, -1)
+            if hardened:
+                p = perfs(torch.cat([agg, states.params]),
+                          torch.cat([ids, ids + n]),
+                          torch.cat([xs, xs]), torch.cat([ms, ms]))
+                new_perf, own_perf = p[:n], p[n:]
+            else:
+                new_perf = perfs(agg, ids, xs, ms)
+        elif hardened:
             # agg is model n; each client's own model scores its own rows
             k = x.shape[0]
             models = torch.cat([states.params, agg[None]])
@@ -101,6 +117,10 @@ def make_verify_fn(model, verification_threshold: float = 3.0,
                       torch.cat([m, m.expand(n, -1)]))
             new_perf = p[:k].expand(n)
             own_perf = p[k:]
+        else:
+            new_perf = perfs(agg[None], torch.zeros(x.shape[0], device=dev),
+                             x, m).expand(n)
+        if hardened:
             delta = frob_delta(layout, states.params, agg)
             perf_change = new_perf - own_perf
             perf_ok = perf_change >= -performance_threshold
@@ -115,8 +135,6 @@ def make_verify_fn(model, verification_threshold: float = 3.0,
                 accepted & recovers & ~first
                 & (delta > verification_threshold), delta, 0.0)
         else:
-            new_perf = perfs(agg[None], torch.zeros(x.shape[0], device=dev),
-                             x, m).expand(n)
             delta = frob_delta(layout, states.hist_params, agg)
             perf_change = torch.where(first, 0.0, new_perf - states.hist_perf)
             checks = ((delta <= verification_threshold)

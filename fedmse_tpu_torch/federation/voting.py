@@ -81,7 +81,8 @@ def tie_break_jitter(scores: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
                     sel: torch.Tensor, sel_mask: torch.Tensor,
                     agg_count: torch.Tensor, max_threshold: int,
-                    voters: Optional[torch.Tensor] = None
+                    voters: Optional[torch.Tensor] = None,
+                    cluster_in: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """First-voter-wins over the S selected voters, on the device with no
     host read (port of fedmse_tpu/federation/fused.py `_elect_on_device`).
@@ -94,7 +95,10 @@ def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
     the quota; NaN ranks worst, and equal scores go to the earliest
     selected. The first voter with a candidate wins; `voters` [N] (the
     effective cohort under the fault hooks) also gates the voters: one
-    outside it casts no vote and its turn passes. Returns (aggregator
+    outside it casts no vote and its turn passes. `cluster_in` [N] int64
+    (clustered federation) scopes a voter's candidates to its own
+    cluster; a voter whose cluster has no eligible candidate passes its
+    turn. Returns (aggregator
     int64 0-d, -1 when no voter has a candidate; the winning voter's
     scores [N], zeros then)."""
     s, n = sel.shape[0], base.shape[0]
@@ -106,6 +110,9 @@ def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
         0, sel, torch.arange(s, device=base.device))
     cand = ((sel_mask > 0) & (agg_count < max_threshold))[None, :] \
         & (ids[None, :] != sel[:, None])
+    if cluster_in is not None:
+        cand = cand & (cluster_in[None, :]
+                       == cluster_in.index_select(0, sel)[:, None])
     found = cand.any(dim=1)
     if voters is not None:
         found = found & (voters.index_select(0, sel) > 0)

@@ -24,6 +24,11 @@ reference's results artifacts (port of fedmse_tpu/main.py).
     preemptions of client slots; federation/elastic.py) compose in the
     fused round; each tags the experiment name so its artifacts land in a
     tree of their own, and the summary records the specs;
+  * `--cluster-k K [--cluster-personalize] [--cluster-refit-every N]`
+    splits the federation into K cluster-level models (cluster/), fitted
+    from the gateways' latent statistics at a chunk's entry, with each
+    gateway's decoder kept local under personalization; it tags the
+    experiment name and the summary records the spec;
   * `--resume-dir` snapshots the federation after every chunk (or round)
     and resumes a killed run where it stopped (checkpointing/io.py
     CheckpointManager), with the selection and torch streams where they
@@ -37,10 +42,11 @@ CLI (runs on the card unless --device cpu):
         [--data-root DIR] [--device cpu] [--no-save] [--paper-scale]
         [--num-rounds 20] [--epochs 100] [--score-kind knn] [--no-pipeline]
         [--attack-kind scale ...] [--chaos-dropout 0.2 ...]
-        [--elastic-leave 0.1 ...] [--resume-dir DIR]
+        [--elastic-leave 0.1 ...] [--cluster-k 4 [--cluster-personalize]
+        [--cluster-refit-every N]] [--resume-dir DIR]
         [--serve [--serve-rows N] [--serve-warmup] [--serve-continuous]] ...
 Not ported: meshes, batched runs, the tiered state layout, the network and
-flywheel smokes, clustering and the red team.
+flywheel smokes and the red team.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import numpy as np
 import torch
 
 from fedmse_tpu_torch.chaos import ChaosSpec
+from fedmse_tpu_torch.cluster import ClusterSpec, assignment_from_extra
 from fedmse_tpu_torch.checkpointing import (CheckpointManager, ResultsWriter,
                                             save_client_models,
                                             save_latent_data,
@@ -151,13 +158,15 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
                     resume: Optional[CheckpointManager] = None,
                     attack: Optional[AttackSpec] = None,
                     chaos: Optional[ChaosSpec] = None,
-                    elastic: Optional[ElasticSpec] = None) -> Dict:
+                    elastic: Optional[ElasticSpec] = None,
+                    cluster: Optional[ClusterSpec] = None) -> Dict:
     """One (model_type, update_type, run): the reference round loop, the
     final evaluation and the artifacts. Runs where `data` lives. `states`
     replaces the port's own init (a JAX-exported init, say); `profile`
     times each round's phases (RoundResult.phase_seconds) on the
     per-phase path; `on_round(result, seconds)` sees every round.
-    `attack`, `chaos` and `elastic` are the fault specs; `resume`
+    `attack`, `chaos` and `elastic` are the fault specs, `cluster` the
+    clustering; `resume`
     snapshots the run after each chunk (or round) and resumes it from its
     snapshot when there is one."""
     rngs = ExperimentRngs(run=run, data_seed=cfg.data_seed,
@@ -172,34 +181,49 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
                          fused=cfg.fused_rounds,
                          poison_fn=None if attack is None
                          else make_poison_fn(attack),
-                         chaos=chaos, elastic=elastic)
+                         chaos=chaos, elastic=elastic, cluster=cluster)
     round_times: List[float] = []
     all_tracking: List[np.ndarray] = []  # every round's [n_real, E, 3]
     results = []
 
     tag = f"{model_type}_{update_type}_run{run}"
     start_round = 0
-    # a snapshot resumes only under the membership timeline it was written
-    # with (the generations are recomputed from the spec); the port has no
-    # flattened optimizer and no clustering, the JAX package's defaults
+    # a snapshot resumes only under the membership timeline and the
+    # clustering it was written with (the generations are recomputed from
+    # the spec, the states were merged under the assignment); the port has
+    # no flattened optimizer, the JAX package's default
     elastic_sig = None if elastic is None else elastic.signature()
+    cluster_sig = None if cluster is None else cluster.signature()
+    clustered = cluster is not None and not cluster.is_null
     expected = {"flatten_optimizer": False, "elastic": elastic_sig,
-                "cluster": None}
+                "cluster": cluster_sig}
     defaults = {"flatten_optimizer": False, "elastic": None,
                 "cluster": None}
 
     def snapshot(rounds_done: int) -> None:
         gen = engine.generation_at(rounds_done)
+        extra = {**expected,
+                 "elastic_generation": None if gen is None else gen.tolist(),
+                 "rngs": engine.rngs.state_dict()}
+        if clustered and engine.cluster_assignment is not None:
+            # the assignment the states were merged under, the JAX keys
+            extra.update(
+                cluster_k=cluster.k,
+                cluster_assignment=engine.cluster_assignment.tolist(),
+                cluster_fitted_round=engine.cluster_fitted_round)
         resume.save(tag, engine.states, engine.host, rounds_done,
-                    layout=engine.layout,
-                    extra={**expected,
-                           "elastic_generation": None if gen is None
-                           else gen.tolist(),
-                           "rngs": engine.rngs.state_dict()},
+                    layout=engine.layout, extra=extra,
                     tracking=(np.concatenate(all_tracking, axis=1)
                               if all_tracking else None))
 
     if resume is not None and resume.exists(tag):
+        if clustered:
+            # a K change fails by name before the states are read
+            saved = resume.extra(tag)
+            vec = assignment_from_extra(saved, cluster, n_real)
+            if vec is not None:
+                engine.set_cluster_assignment(
+                    vec, saved.get("cluster_fitted_round", 0))
         engine.states, engine.host, start_round, tracking = resume.restore(
             tag, layout=engine.layout, device=device,
             expected_extra=expected, extra_defaults=defaults)
@@ -307,13 +331,15 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                    resume_dir: Optional[str] = None,
                    attack: Optional[AttackSpec] = None,
                    chaos: Optional[ChaosSpec] = None,
-                   elastic: Optional[ElasticSpec] = None) -> Dict:
+                   elastic: Optional[ElasticSpec] = None,
+                   cluster: Optional[ClusterSpec] = None) -> Dict:
     """The full sweep -> training summary dict. `serve=True` appends the
     serving pass on the first combination's checkpoint (its report under
     "serve_smoke"); it needs the checkpoints, so under
     save_checkpoints=False it is skipped with a warning. `resume_dir`
     snapshots every combination there and resumes from it; the fault
-    specs go to every combination and into the summary."""
+    specs and the clustering go to every combination and into the
+    summary."""
     dev = resolve_device(device)
     resume = CheckpointManager(resume_dir) if resume_dir else None
     if resume is not None and cfg.fused_pipeline and cfg.fused_rounds \
@@ -345,7 +371,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                     writer=writer, early_stop=early_stop,
                     device_names=device_names,
                     save_checkpoints=save_checkpoints, resume=resume,
-                    attack=attack, chaos=chaos, elastic=elastic)
+                    attack=attack, chaos=chaos, elastic=elastic,
+                    cluster=cluster)
                 best_metrics[model_type][update_type] = max(
                     best_metrics[model_type][update_type], out["best_final"])
                 all_results[f"{model_type}/{update_type}/run{run}"] = {
@@ -360,7 +387,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
     out = {"best_metrics": best_metrics, "results": all_results,
            "summary_path": summary_path}
     for name, spec in (("attack", attack), ("chaos", chaos),
-                       ("elastic", elastic)):
+                       ("elastic", elastic), ("cluster", cluster)):
         if spec is not None:
             out[name] = dataclasses.asdict(spec)
     if serve:
@@ -461,6 +488,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "never)")
     p.add_argument("--elastic-initial-members", type=float, default=1.0,
                    help="fraction of slots occupied at round 0")
+    p.add_argument("--cluster-k", type=int, default=0,
+                   help="number of cluster-level global models (0/1 = the "
+                        "single-global federation; > 1 builds the masked "
+                        "per-cluster merge into the fused round)")
+    p.add_argument("--cluster-personalize", action="store_true",
+                   help="layer-mask personalization: the encoder is "
+                        "federated (per cluster, or globally at k<=1), "
+                        "each gateway's decoder stays local; the broadcast "
+                        "a client verifies and loads is cluster-encoder + "
+                        "own-decoder")
+    p.add_argument("--cluster-refit-every", type=int, default=0,
+                   help="assignment refit cadence in rounds (0 = fit once "
+                        "at round 0; the fused schedule refits at a "
+                        "chunk's entry)")
     add_cli_overrides(p)
     return p
 
@@ -509,6 +550,18 @@ def fault_specs(args, cfg: ExperimentConfig):
     return cfg.replace(experiment_name=name), attack, chaos, elastic
 
 
+def cluster_spec(args, cfg: ExperimentConfig):
+    """(cfg with the clustering's tag in its experiment name, ClusterSpec
+    or None) from the parsed flags, as the JAX driver makes them."""
+    if args.cluster_k <= 1 and not args.cluster_personalize:
+        return cfg, None
+    cluster = ClusterSpec(k=max(1, args.cluster_k),
+                          personalize=args.cluster_personalize,
+                          refit_every=args.cluster_refit_every)
+    return cfg.replace(experiment_name=(
+        f"{cfg.experiment_name}_cluster-{cluster.signature()}")), cluster
+
+
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = build_parser().parse_args(argv)
     cfg = apply_cli_overrides(ExperimentConfig(), args)
@@ -518,6 +571,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
         cfg = paper_scale(cfg)
     # the specs validate before any file is read
     cfg, attack, chaos, elastic = fault_specs(args, cfg)
+    cfg, cluster = cluster_spec(args, cfg)
     dataset = DatasetConfig.from_json(args.dataset_config, args.data_root)
     return run_experiment(cfg, dataset, save_checkpoints=not args.no_save,
                           device=args.device, serve=args.serve,
@@ -525,7 +579,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                           serve_warmup=args.serve_warmup,
                           serve_continuous=args.serve_continuous,
                           resume_dir=args.resume_dir, attack=attack,
-                          chaos=chaos, elastic=elastic)
+                          chaos=chaos, elastic=elastic, cluster=cluster)
 
 
 if __name__ == "__main__":

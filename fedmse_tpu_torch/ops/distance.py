@@ -6,7 +6,9 @@ fedmse_tpu/ops/distance.py).
   * `row_norms_packed` — sqrt(sum(square)) with keepdims, the formula the
     fused forward uses for the latent norm.
   * `pairwise_sq_dists` — ||q||^2 - 2 q.b^T + ||b||^2 clamped at 0 (float
-    cancellation can drive it a few ulp negative).
+    cancellation can drive it a few ulp negative);
+  * `quadratic_form` — diff^T cov_inv diff, batched over leading axes (the
+    Gaussian-KL term of the clustering metric, cluster/similarity.py).
 """
 
 from __future__ import annotations
@@ -36,3 +38,10 @@ def pairwise_sq_dists(q: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     cross = q.to(ACCUM) @ b.to(ACCUM).T
     d = sq_norms(q)[:, None] - 2.0 * cross + sq_norms(b)[None, :]
     return torch.clamp(d, min=0.0)
+
+
+def quadratic_form(diff: torch.Tensor, cov_inv: torch.Tensor) -> torch.Tensor:
+    """diff^T cov_inv diff in f32 whatever the operand dtype: diff [..., L],
+    cov_inv [..., L, L] (leading axes broadcast) -> [...]."""
+    diff = diff.to(ACCUM)
+    return torch.einsum("...i,...ij,...j->...", diff, cov_inv.to(ACCUM), diff)

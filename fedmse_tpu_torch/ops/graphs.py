@@ -14,6 +14,11 @@ first call (it updates them in place):
     graph without running it; every later call replays the graph. A
     failed capture raises: nothing falls back to eager replays.
 
+The cyclic garbage collector is held off during a capture: a dead
+engine's graphs live in reference cycles, and destroying a graph while a
+stream captures invalidates the capture (torch's graph context no longer
+collects before it captures, so such garbage can be due at any moment).
+
 Launch counts stay launches: a kernel wrapper called under capture counts
 in its `captured` integer, not in `launches` (ops/native.count_launch), and
 the body keeps the wrappers' capture deltas as its kernels per replay.
@@ -24,6 +29,7 @@ every kernel that ran, whether a graph or the host launched it.
 from __future__ import annotations
 
 import ctypes
+import gc
 import time
 from typing import Callable, Dict, Optional
 
@@ -102,8 +108,14 @@ class CapturedBody:
         t0 = time.perf_counter()
         before = {k: w.captured for k, w in WRAPPERS.items()}
         graph, kept = _new_graph()
-        with torch.cuda.device(self.device), torch.cuda.graph(graph):
-            self.fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(self.device), torch.cuda.graph(graph):
+                self.fn()
+        finally:
+            if collecting:
+                gc.enable()
         if kept:
             graph.instantiate()
             self.nodes = graph_nodes(graph)

@@ -15,6 +15,7 @@ import torch
 import fedmse_tpu_torch
 from fedmse_tpu_torch.checkpointing import (CheckpointManager, ResultsWriter,
                                             load_client_models)
+from fedmse_tpu_torch.cluster import fit_assignments, nearest_cluster
 from fedmse_tpu_torch.config import DatasetConfig, ExperimentConfig
 from fedmse_tpu_torch.data import stack_clients, synthetic_clients
 from fedmse_tpu_torch.models import (init_stacked_params, make_model,
@@ -43,7 +44,9 @@ def test_every_port_module_imports_without_jax():
               "federation.verification", "federation.rounds", "main",
               "federation.attack", "federation.elastic", "chaos",
               "chaos.spec", "chaos.masks", "chaos.metrics",
-              "checkpointing.io"):
+              "checkpointing.io", "cluster", "cluster.spec",
+              "cluster.similarity", "cluster.assign", "cluster.merge",
+              "data.synthetic", "data.stacking"):
         assert "fedmse_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
@@ -137,6 +140,11 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
         lambda: run_experiment(ExperimentConfig(dim_features=6),
                                DatasetConfig.for_client_dirs(
                                    str(tmp_path), 2)),
+        lambda: fit_assignments(np.zeros((2, 3)),
+                                np.tile(np.eye(3), (2, 1, 1)), 1),
+        lambda: nearest_cluster(np.zeros((2, 3)),
+                                np.tile(np.eye(3), (2, 1, 1)),
+                                np.zeros((1, 3)), np.eye(3)[None], [2]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
