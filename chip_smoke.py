@@ -91,6 +91,33 @@ all started together, into build/fedmse_tpu_torch/), then:
                 --resume-dir, resumed vs uninterrupted (<= 1e-6); then
                 the clustered round timed in turns with the clean one
                 (wall, busy share, nodes) and each fit's seconds;
+     redteam    (after the main path) the red team's round half on the
+                same typed fleet, autoencoder / mse_avg, clustered at
+                K = 2: first the kernels at its shapes (the clustered
+                path's cases); (d) the mimicry cell on the K = 2 fit over
+                a grid of blends (its assignment pinned below); (b) a
+                merge-stage cluster_poison (a lying voter elects its
+                cluster-mate, sign_flip x2 on the victim cluster): the
+                coalition's own rows -2x the clean round's, the other
+                cluster's merge and clients bit-equal, the victim's merge
+                the host's f64 merge poisoned (<= 1e-6); (g) that round
+                kNN-scored; (a) RedteamSpec() bit-equal to no spec,
+                single-global and clustered, the same graph nodes; (c)
+                sybil under a join blitz, undefended and with min_tenure:
+                every election replayed on the host; (e) round 1 at one
+                epoch with a noise poison, card vs CPU (<= 1e-4);
+     batch      (after the main path) --batch-runs on the quick run,
+                hybrid / mse_avg: the kernels at the batched shapes (the
+                train step at G = 15 and 40 with one run's CTAs per
+                client, each run's rows its own launch's bits; the vote
+                over R·N routed models; the distances over R·N banks);
+                R = 3 batched through run_batched_combination against 3
+                run_combination calls (the same selections, elections and
+                stops, final AUC within 2e-3, the states' error reported;
+                one train launch per step for all runs) and a kNN-scored
+                batched round; round 1 at one epoch batched vs alone
+                (<= 1e-5); the steady round of R = 3 and 8 runs, batched
+                and one after another (wall, launches);
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events, and the
@@ -118,14 +145,19 @@ calls on the same code).
 Phases 3 to 5 are the main path: the kernels' launch counters are set to 0
 just before them and read just after, and each kernel must have launched
 there. The robust phase's (b) and (f) are the fault path, read the same
-way ("fault_path_launches" in the kernels line), and the cluster phase's
-(b) and (g) the clustered path ("cluster_path_launches"). A launch
+way ("fault_path_launches" in the kernels line), the cluster phase's
+(b) and (g) the clustered path ("cluster_path_launches"), the redteam
+phase's (b) and (g) the red path ("redteam_path_launches") and the batch
+phase's batched run and kNN round the batched path
+("batch_path_launches"). A launch
 inside a replayed CUDA graph counts: each graph keeps the kernels it
 captured, and each replay adds them (ops/graphs.py). Prints,
 as its last three lines, the card's name and power limit, one JSON line
 of kernel numbers, and {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero with no result line; so does a machine
-without CUDA.
+without CUDA (exit 2). A failure before the [device] line (an import, the
+config, nvidia-smi: e.g. the script run alone, without the package)
+prints "[error] <stage>: <cause>" and its traceback on stdout first.
 """
 
 from __future__ import annotations
@@ -138,6 +170,7 @@ import shutil
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -2890,6 +2923,733 @@ def phase_cluster(torch, device, cfg):
     return report
 
 
+# ---- the red team (phase "redteam") ---- #
+
+REDTEAM_K = 2
+# (c)'s join blitz on the typed fleet: half the slots open, then from
+# round 2 on the retired ones fill fast and the coalition rides in
+REDTEAM_SYBIL = dict(rounds=5, join_p=0.9, initial_member_frac=0.5,
+                     join_start=2, min_tenure=6)
+
+
+def _red_engine(torch, cfg, data, n, init, assignment=None, spec=None,
+                **kw):
+    """A fused RoundEngine (autoencoder / mse_avg) from `init` on the typed
+    fleet: clustered at K = 2 under the pinned `assignment` (unless None),
+    with the red team `spec`."""
+    from fedmse_tpu_torch.cluster import ClusterSpec
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    dev = data.train_xb.device
+    if assignment is not None:
+        kw.update(cluster=ClusterSpec(k=REDTEAM_K),
+                  cluster_assignment=assignment)
+    return RoundEngine(make_model("autoencoder", *DIMS, device=dev), cfg,
+                       data, n_real=n, rngs=ExperimentRngs(run=0),
+                       model_type="autoencoder", update_type="mse_avg",
+                       states=init.to(dev), fused=True, redteam=spec, **kw)
+
+
+def _accomplices(cfg, n, assignment):
+    """(selection, voter, accomplice): run 0's first selection, its first
+    voter with a candidate (a selected client of its own cluster), and
+    that voter's earliest-selected cluster-mate."""
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    sel = ExperimentRngs(run=0).select_rng.sample(
+        range(n), max(1, int(cfg.num_participants * n)))
+    for voter in sel:
+        mates = [c for c in sel if c != voter
+                 and assignment[c] == assignment[voter]]
+        if mates:
+            return sel, voter, mates[0]
+    raise AssertionError("[redteam] no selected client has a cluster-mate")
+
+
+@contextlib.contextmanager
+def _merge_stash():
+    """Keep, by reference, the params the clustered merge reads (after the
+    update stage) and the [K, P] cluster merges it broadcasts (after every
+    poison). Captured in a CUDA graph, the copies hold what the last
+    replay wrote."""
+    from fedmse_tpu_torch.federation import fused
+    stash = {}
+    merge, gather = fused.FusedRound._merge, fused.gather_cluster_rows
+
+    def keep_merge(self, st, agg_mask, aggregator):
+        stash["params"] = st.params.clone()
+        return merge(self, st, agg_mask, aggregator)
+
+    def keep_rows(cluster_params, cluster_in):
+        stash["merges"] = cluster_params.clone()
+        return gather(cluster_params, cluster_in)
+    fused.FusedRound._merge = keep_merge
+    fused.gather_cluster_rows = keep_rows
+    try:
+        yield stash
+    finally:
+        fused.FusedRound._merge = merge
+        fused.gather_cluster_rows = gather
+
+
+MIMIC_BLENDS = (0.7, 0.75, 0.8, 0.85, 0.9, 0.95, 1.0)
+
+
+def redteam_mimicry(torch, cfg, data, n, init):
+    """(d) redteam_sweep.py's mimicry cell on the typed fleet's K = 2 fit
+    from `init` (on the card): two gateways outside the victim cluster
+    (gateway 0's) forge their latent statistics toward the victim's pooled
+    Gaussian, at each blend of MIMIC_BLENDS; the plain refit and
+    hysteresis 0.5 each move some of them in. The quick cell's criterion
+    (plain capture >= 0.5, hysteresis at most half of it) must hold at
+    some blend, perfect mimicry (1.0) must capture (no statistics-based
+    defense can tell it apart), and hysteresis must never capture more
+    than the plain refit. The quick cell fixes the blend at 0.8: where the
+    window lies depends on the fit, and so on the init, which the port
+    cannot draw as jax.random does (its 0.8 row is reported). Returns
+    (report, the fit's assignment)."""
+    from fedmse_tpu_torch.cluster import (ClusterSpec, fit_from_states,
+                                          refit_with_hysteresis)
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.redteam import (assignment_capture_rate,
+                                          mimic_latent_stats)
+    dev = data.train_xb.device
+    fit = fit_from_states(make_model("autoencoder", *DIMS, device=dev),
+                          ClusterSpec(k=REDTEAM_K), init.params.to(dev),
+                          data.train_xb, data.train_mb, data.client_mask, n)
+    a = fit.assignment
+    victim = int(a[0])
+    adv = tuple(int(i) for i in np.flatnonzero(a != victim)[:2])
+    captures = {}
+    for blend in MIMIC_BLENDS:
+        fm, fc = mimic_latent_stats(fit.means, fit.covs, adv,
+                                    fit.cl_means[victim],
+                                    fit.cl_covs[victim], blend)
+        captures[blend] = [assignment_capture_rate(
+            refit_with_hysteresis(fm, fc, a, REDTEAM_K, h,
+                                  device=dev).assignment, adv, victim)
+            for h in (0.0, 0.5)]
+    window = [b for b, (plain, held) in captures.items()
+              if plain >= 0.5 and held <= 0.5 * plain]
+    log(f"[redteam] (d) mimicry on the K = {REDTEAM_K} fit {a.tolist()}: "
+        f"gateways {list(adv)} into cluster {victim}; capture (plain refit, "
+        f"hysteresis 0.5) by blend {json.dumps(captures)}; the quick "
+        f"cell's criterion holds at blends {window}")
+    if not window or captures[1.0][0] < 0.5 or any(
+            held > plain for plain, held in captures.values()):
+        raise AssertionError(f"[redteam] (d) captures {captures}")
+    return {"assignment": a.tolist(), "victim": victim,
+            "adversaries": list(adv), "capture_by_blend": captures,
+            "defended_blends": window,
+            "blend_0.8": captures[0.8]}, a
+
+
+def redteam_merge_poison(torch, cfg, data, n, init, assignment):
+    """(b) A merge-stage cluster_poison on the clustered round (K = 2):
+    round 1 from `init`, one selection; the first voter and its
+    earliest-selected cluster-mate are the coalition (sign_flip x2, the
+    victim their cluster, lie_votes), so the voter elects the mate and
+    the mate's merge is poisoned. Against the clean round from the same
+    init and selection: the coalition's own updates are -2x theirs and
+    every other row bit-equal; the other cluster's merge, and every
+    state of its clients, bit-equal; the victim's merge the host's
+    sign_flip of the host's f64 merge of the round's (poisoned) params
+    (<= 1e-6 scale-normalized). Each engine runs the round once to
+    capture its graphs, then again as a replay."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.redteam import RedteamSpec
+    sel, voter, mate = _accomplices(cfg, n, assignment)
+    victim = int(assignment[voter])
+    spec = RedteamSpec(kind="cluster_poison", adversaries=(voter, mate),
+                       victim_cluster=victim, poison="sign_flip",
+                       strength=2.0, lie_votes=True)
+    runs = {}
+    for name, s in (("clean", None), ("red", spec)):
+        with _merge_stash() as stash:
+            eng = _red_engine(torch, cfg, data, n, init, assignment, s)
+            eng.run_round_fused(0, selected=sel)  # its capture
+            eng.reset_federation()
+            res = eng.run_round_fused(0, selected=sel)
+            _sync(torch, data.train_xb.device)
+            runs[name] = (res, eng.states.clone(), stash["params"].cpu(),
+                          stash["merges"].cpu())
+    (red, red_st, red_p, red_m), (clean, clean_st, clean_p, clean_m) = \
+        runs["red"], runs["clean"]
+    if red.aggregator != mate:
+        raise AssertionError(f"[redteam] (b) the accomplice {mate} was not "
+                             f"elected: {red.aggregator}")
+    coalition = torch.zeros(n, dtype=torch.bool)
+    coalition[[voter, mate]] = True
+    if not (torch.equal(red_p[:n][coalition], -2.0 * clean_p[:n][coalition])
+            and torch.equal(red_p[:n][~coalition], clean_p[:n][~coalition])):
+        raise AssertionError("[redteam] (b) the update stage touched more "
+                             "than the coalition's rows")
+    others = [c for c in range(REDTEAM_K) if c != victim]
+    rows = torch.from_numpy(np.asarray(assignment) != victim)
+    layout = ParamLayout(*DIMS)
+    other_states = _state_errs(
+        torch, layout, red_st.apply(lambda t: t.cpu()[: n][rows]),
+        clean_st.apply(lambda t: t.cpu()[: n][rows]))
+    if not torch.equal(red_m[others], clean_m[others]) \
+            or max(other_states.values()) != 0:
+        raise AssertionError(f"[redteam] (b) the other clusters' broadcast "
+                             f"moved: {json.dumps(other_states)}")
+    host = _host_merges(red, red_p, np.asarray(assignment), REDTEAM_K)
+    err = scaled_err(red_m[victim], -spec.strength * host[victim])
+    log(f"[redteam] (b) coalition ({voter}, {mate}) in cluster {victim}: "
+        f"the accomplice elected; its cluster's merge the host's sign_flip "
+        f"of the host's f64 merge (worst scaled error {err:.3e}, limit "
+        f"1e-6); cluster(s) {others}' merge and clients bit-equal to the "
+        f"clean round's")
+    if err > 1e-6:
+        raise AssertionError(f"[redteam] (b) victim merge: {err:.3e}")
+    return {"coalition": [voter, mate], "victim": victim,
+            "aggregator": red.aggregator,
+            "clean_aggregator": clean.aggregator,
+            "victim_merge_max_scaled_err": err,
+            "other_clusters_bit_equal": True}, spec, sel
+
+
+def redteam_knn_round(torch, cfg, data, n, init, assignment, spec):
+    """(g) (b)'s red round kNN-scored (the distance launch in the leave
+    graph): every metric finite."""
+    eng = _red_engine(torch, cfg.replace(score_kind="knn", **KNN), data, n,
+                      init, assignment, spec)
+    res = eng.run_round_fused(0)
+    if not np.isfinite(res.client_metrics).all():
+        raise AssertionError(f"[redteam] (g) kNN metrics "
+                             f"{res.client_metrics}")
+    log(f"[redteam] (g) kNN-scored red round: aggregator {res.aggregator}, "
+        f"mean AUC {np.mean(res.client_metrics):.6f}")
+    return {"aggregator": res.aggregator,
+            "mean_auc": float(np.mean(res.client_metrics))}
+
+
+def redteam_null(torch, cfg, data, n, init, assignment):
+    """(a) RedteamSpec() against no spec from one init over the quick run
+    in one chunk, single-global and clustered (K = 2): states and every
+    round's results bit-equal, the same graphs (nodes and kernels per
+    replay). PR 10's records give the single-global graphs of this engine
+    (autoencoder / mse_avg, 16 gateways) as enter 40, epoch 11,401, leave
+    283 nodes."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.redteam import RedteamSpec
+    out = {}
+    for what, a in (("single_global", None), ("clustered", assignment)):
+        engines = [_red_engine(torch, cfg, data, n, init, a, s)
+                   for s in (None, RedteamSpec())]
+        results = [e.run_rounds(0, cfg.num_rounds) for e in engines]
+        _sync(torch, data.train_xb.device)
+        errs = _state_errs(torch, ParamLayout(*DIMS), engines[1].states,
+                           engines[0].states)
+        same = max(errs.values()) == 0 and all(
+            x.aggregator == y.aggregator
+            and x.verification_results == y.verification_results
+            and all(_same_bits(torch, getattr(x, f), getattr(y, f))
+                    for f in ("client_metrics", "min_valid", "tracking"))
+            for x, y in zip(*results))
+        graphs = [e.fused_round().stats()["graphs"] for e in engines]
+        shape = [{g: (s["nodes"], s["kernels_per_replay"])
+                  for g, s in x.items()} for x in graphs]
+        if not same or shape[0] != shape[1] \
+                or engines[1].fused_round().redteam is not None:
+            raise AssertionError(f"[redteam] (a) {what}: the null spec "
+                                 f"differs from no spec: {json.dumps(errs)},"
+                                 f" graphs {shape}")
+        nodes = {g: s["nodes"] for g, s in graphs[0].items()}
+        out[what] = {"bit_equal": True, "nodes": nodes,
+                     "aggregators": [r.aggregator for r in results[0]]}
+        log(f"[redteam] (a) {what}: RedteamSpec() bit-equal to no spec over "
+            f"{cfg.num_rounds} rounds; graph nodes equal {nodes}")
+    return out
+
+
+def _replay_election(res, vote_ok, adv, count, assignment, thr, lie):
+    """The election of `res`'s round on the host (tie-break off, so every
+    voter ranks the winning voter's scores): (aggregator or None, the
+    winning voter, whether it lied). A voter outside the effective cohort
+    or gated casts no vote; a candidate is an effective selected client of
+    the voter's cluster under the quota and ungated; a lying adversarial
+    voter takes its earliest-selected adversarial candidate."""
+    sel, eff = res.selected, set(res.effective)
+    pos = {c: i for i, c in enumerate(sel)}
+    for voter in sel:
+        if voter not in eff or vote_ok[voter] <= 0:
+            continue
+        cand = [c for c in sel if c != voter and c in eff
+                and count[c] < thr and vote_ok[c] > 0
+                and assignment[c] == assignment[voter]]
+        if not cand:
+            continue
+        if lie and adv[voter] > 0:
+            acc = [c for c in cand if adv[c] > 0]
+            if acc:
+                return acc[0], voter, True
+        if res.mse_scores is None:
+            return "a candidate but no scores", voter, False
+        s = res.mse_scores
+
+        def rank(c):
+            return (np.inf if np.isnan(s[c]) else float(s[c]), pos[c])
+        return min(cand, key=rank), voter, False
+    return None, None, False
+
+
+def redteam_sybil(torch, cfg, data, n, init, assignment):
+    """(c) sybil under a join blitz (half the slots open, join_p 0.9 from
+    round 2) on the clustered round (K = 2), tie-break off: the coalition
+    is every slot the blitz recycles, lie_votes on. Undefended, and with
+    min_tenure longer than the run: every round's election is replayed
+    on the host from the round's cohort, the gate and the host's quota,
+    and must equal the device's; undefended, an accomplice must be elected
+    by a lying voter at least once; defended, no gated slot is ever
+    elected or the winning voter, and a gated slot must have been in an
+    effective cohort."""
+    import dataclasses as dc
+    from fedmse_tpu_torch.federation.elastic import (ElasticSpec,
+                                                     make_membership_masks)
+    from fedmse_tpu_torch.redteam import RedteamSpec
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    p = REDTEAM_SYBIL
+    c = cfg.replace(num_rounds=p["rounds"],
+                    compat=dc.replace(cfg.compat, vote_tie_break=False))
+    elastic = ElasticSpec(join_p=p["join_p"],
+                          initial_member_frac=p["initial_member_frac"],
+                          join_window=(p["join_start"], None))
+    timeline = make_membership_masks(elastic, ExperimentRngs(
+        run=0).elastic_key(), p["rounds"], n)
+    adv_ids = tuple(int(i) for i in np.flatnonzero(
+        timeline.generation.max(axis=0) > 0))
+    if not adv_ids:
+        raise AssertionError("[redteam] (c) the blitz recycled no slot")
+    out = {"adversaries": list(adv_ids)}
+    thr = c.max_aggregation_threshold
+    for name, tenure in (("undefended", 0), ("min_tenure", p["min_tenure"])):
+        spec = RedteamSpec(kind="sybil", adversaries=adv_ids, lie_votes=True,
+                           min_tenure=tenure)
+        eng = _red_engine(torch, c, data, n, init, assignment, spec,
+                          elastic=elastic)
+        results = eng.run_rounds(0, p["rounds"])
+        masks = eng._redteam_masks(0, p["rounds"])
+        count = np.zeros(n, np.int64)
+        rows, lies, gated_seen = [], 0, 0
+        for t, res in enumerate(results):
+            want, voter, lied = _replay_election(
+                res, masks.vote_ok[t], masks.adv[t], count, assignment, thr,
+                True)
+            if want != res.aggregator:
+                raise AssertionError(f"[redteam] (c) {name} round {t + 1}: "
+                                     f"the device elected {res.aggregator},"
+                                     f" the host's replay {want}")
+            gated = [i for i in res.effective if masks.vote_ok[t][i] <= 0]
+            gated_seen += len(gated)
+            if tenure and ((want is not None and masks.vote_ok[t][want] <= 0)
+                           or (voter is not None
+                               and masks.vote_ok[t][voter] <= 0)):
+                raise AssertionError(f"[redteam] (c) a gated slot won round "
+                                     f"{t + 1}")
+            lies += lied
+            if res.aggregator is not None:
+                count[res.aggregator] += 1
+            rows.append({"round": t + 1, "aggregator": res.aggregator,
+                         "voter": voter, "lied": lied, "gated": gated,
+                         "members": res.members})
+        out[name] = {"rounds": rows, "lying_elections": lies,
+                     "gated_in_cohort": gated_seen}
+        log(f"[redteam] (c) sybil {name}: coalition {list(adv_ids)}; "
+            f"rounds {json.dumps(rows)}; every election equal to the host's "
+            f"replay")
+    if out["undefended"]["lying_elections"] < 1:
+        raise AssertionError("[redteam] (c) no accomplice was elected by a "
+                             "lying voter: the collusion check held nothing")
+    if out["min_tenure"]["gated_in_cohort"] < 1:
+        raise AssertionError("[redteam] (c) no gated slot was in a cohort: "
+                             "the gate check held nothing")
+    return out
+
+
+def redteam_card_vs_cpu(torch, device, cfg, data, cpu_data, n, init,
+                        assignment, sel, spec):
+    """(e) (b)'s red round as a noise poison (strength 0.05, the noise of
+    the run's red-team stream), cut to one epoch, on the card and on the
+    CPU from one init and selection: the same aggregator and verification
+    rows, every state leaf within 1e-4 scale-normalized."""
+    import dataclasses as dc
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    noisy = dc.replace(spec, poison="noise", strength=0.05)
+    c = cfg.replace(epochs=1)
+    runs = []
+    for where, d in ((device, data), (torch.device("cpu"), cpu_data)):
+        eng = _red_engine(torch, c, d, n, init.to(where), assignment, noisy)
+        runs.append((eng.run_round_fused(0, selected=sel), eng.states))
+    (card_res, card), (cpu_res, cpu) = runs
+    if (card_res.aggregator, card_res.verification_results) != (
+            cpu_res.aggregator, cpu_res.verification_results):
+        raise AssertionError(f"[redteam] (e) card vs CPU: aggregator "
+                             f"{card_res.aggregator} vs {cpu_res.aggregator}")
+    errs = _state_errs(torch, ParamLayout(*DIMS), card, cpu)
+    err = max(errs[k] for k in ("params", "prev_global", "hist_params"))
+    log(f"[redteam] (e) round 1 at one epoch with the noise poison, card vs "
+        f"CPU: aggregator {card_res.aggregator}; worst scaled state error "
+        f"{err:.3e} (limit 1e-4)")
+    if err > 1e-4:
+        raise AssertionError(f"[redteam] (e) card vs CPU: {json.dumps(errs)}")
+    return {"max_scaled_err": err, "errs": errs,
+            "aggregator": card_res.aggregator}
+
+
+def phase_redteam(torch, device, cfg):
+    """The red team's round half on the typed fleet of phase_cluster (16
+    gateways of 4 device types at 115/27/7) with the quick run's schedule,
+    autoencoder / mse_avg, clustered at K = 2. (d) fits the assignment the
+    other parts pin; (b) and (g) are the red path: every kernel's launch
+    counter is set to 0 before them and read after, and each must have
+    launched. The kernels at this fleet's shapes are held to their plain
+    versions first (phase_cluster's cases: the red path launches them at
+    the clustered path's shapes)."""
+    from fedmse_tpu_torch.federation import init_client_states
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    t0 = time.perf_counter()
+    data, cpu_data = cluster_fleet(cfg, (device, torch.device("cpu")))
+    n = CLUSTER_FLEET["n_clients"]
+    init = init_client_states(make_model("autoencoder", *DIMS,
+                                         device=device), n,
+                              torch.Generator().manual_seed(SEED + 13),
+                              device=device)
+    report = {"kernels": cluster_kernel_shapes(torch, device, data, n)}
+    report["mimicry"], a = redteam_mimicry(torch, cfg, data, n, init)
+    t1 = time.perf_counter()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    report["merge_poison"], spec, sel = redteam_merge_poison(
+        torch, cfg, data, n, init, a)
+    report["knn_round"] = redteam_knn_round(torch, cfg, data, n, init, a,
+                                            spec)
+    _sync(torch, device)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    log(f"[redteam] red path launches {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"the red path never launched {name}")
+    report["launches"] = launches
+    report["red_path_seconds"] = time.perf_counter() - t1
+    report["null"] = redteam_null(torch, cfg, data, n, init, a)
+    report["sybil"] = redteam_sybil(torch, cfg, data, n, init, a)
+    report["card_vs_cpu"] = redteam_card_vs_cpu(
+        torch, device, cfg, data, cpu_data, n, init, a, sel, spec)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[redteam] done in {report['seconds']:.1f} s")
+    return report
+
+
+# ---- batched runs (phase "batch") ---- #
+
+BATCH_RUNS = 3
+BATCH_TIMED_RUNS = (3, 8)  # timed only; the record, not a claim
+BATCH_TOL = 1e-5  # round 1 at one epoch, batched vs the runs alone
+
+
+def batch_kernel_shapes(torch, device, data, n, cohort):
+    """The kernels at the batched round's own shapes against their plain
+    versions, f32 on dyadic grids: the train step at G = R·S (R = 3 and
+    8) with one run's CTAs per client, each run's rows also the bits of
+    that run's own G = S launch; the vote's forward over R·N routed models
+    client-major, each run's rows the bits of its own N-model launch; the
+    distances of a kNN evaluation over R·N banks. Returns the worst scaled
+    errors."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
+                                               fused_forward_stats_plain)
+    from fedmse_tpu_torch.ops.fused_train import (cluster_size,
+                                                  fused_train_grads,
+                                                  fused_train_grads_plain)
+    gen = torch.Generator().manual_seed(SEED + 14)
+    layout = ParamLayout(*DIMS)
+    ctas = cluster_size(cohort, DIMS[1])
+    kw = dict(layout=layout, shrink_lambda=10.0)
+    worst = {}
+    for runs in BATCH_TIMED_RUNS:
+        g = runs * cohort
+        flat, xt = grid_inputs(torch, layout, g, 12, gen, device)
+        m = torch.ones((g, 12), device=device)
+        got = fused_train_grads(flat, xt, m, ctas=ctas, **kw)
+        err = max(scaled_err(a, b) for a, b in zip(
+            got, fused_train_grads_plain(flat, xt, m, **kw)))
+        if err > TOL["f32"]:
+            raise AssertionError(f"[batch] train kernel vs plain at G={g}: "
+                                 f"{err:.3e}")
+        for r in range(runs):
+            rows = slice(r * cohort, (r + 1) * cohort)
+            alone = fused_train_grads(flat[rows], xt[rows], m[rows], **kw)
+            if not all(torch.equal(a[rows], b) for a, b in zip(got, alone)):
+                raise AssertionError(f"[batch] run {r}'s rows of the G={g} "
+                                     "train launch differ from its own")
+        worst[f"train step, G = {g}"] = err
+    v = data.valid_x.shape[1]
+    runs = BATCH_RUNS
+    params = grid_params(torch, runs * n, *DIMS, gen, device, torch.float32)
+    x = (torch.randint(-6, 7, (runs * n * v, DIMS[0]), generator=gen) / 4.0
+         ).to(device)
+    idx = forward_index(torch, "client_major", runs * n, runs * n * v, gen,
+                        device)
+    got = fused_forward_stats(params, x, idx)
+    worst["vote, R·N models"] = max(scaled_err(a, b) for a, b in zip(
+        got, fused_forward_stats_plain(params, x, idx)))
+    if worst["vote, R·N models"] > TOL["f32"]:
+        raise AssertionError(f"[batch] forward kernel vs plain: "
+                             f"{worst['vote, R·N models']:.3e}")
+    for r in range(runs):
+        rows = slice(r * n * v, (r + 1) * n * v)
+        mine = {c: {k: {leaf: t[r * n:(r + 1) * n] for leaf, t in
+                        layer.items()} for k, layer in coder.items()}
+                for c, coder in params.items()}
+        alone = fused_forward_stats(mine, x[rows],
+                                    idx[rows] - r * n)
+        if not all(torch.equal(a[rows], b) for a, b in zip(got, alone)):
+            raise AssertionError(f"[batch] run {r}'s routed rows differ "
+                                 "from its own launch's bits")
+    q, banks, gw = dist_inputs(torch, runs * n, runs * n * data.test_x.shape[1],
+                               KNN["knn_bank_size"], DIMS[2], "client_major",
+                               gen, device, torch.float32)
+    _, _, worst["distances, kNN evaluation"] = dist_check(
+        torch, q, banks, gw, f"[batch] kNN evaluation, {runs * n} banks")
+    log(f"[batch] kernels at the batched round's shapes agree with their "
+        f"plain versions, each run's rows its own launch's bits: "
+        f"{json.dumps(worst)}")
+    return worst
+
+
+def _early(cfg):
+    from fedmse_tpu_torch.main import GlobalEarlyStop
+    return GlobalEarlyStop(inverted=cfg.compat.inverted_global_early_stop,
+                           patience=cfg.global_patience)
+
+
+def batch_vs_sequential(torch, cfg, data, n, model_type="hybrid",
+                        update_type="mse_avg"):
+    """run_batched_combination of R = 3 seeds against R run_combination
+    calls (each its own early stop) on the card, from the runs' own
+    inits: per run the same selections, aggregators and stop round, final
+    AUC within 2e-3 per gateway, and each state's worst scaled error
+    (bit-equal when 0). The batched launches are read around the batched
+    run and a kNN-scored batched chunk; the epoch graph must hold one train
+    launch per step for all runs (as one run's graph does)."""
+    from fedmse_tpu_torch.main import (run_batched_combination,
+                                       run_combination)
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    c = cfg.replace(num_runs=BATCH_RUNS)
+    seq = [run_combination(c, data, n, model_type, update_type, r,
+                           early_stop=_early(c)) for r in range(BATCH_RUNS)]
+    _sync(torch, data.train_xb.device)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    bat = run_batched_combination(c, data, n, model_type, update_type)
+    engine = bat[0]["engine"]
+    _sync(torch, data.train_xb.device)
+    knn = run_batched_combination(c.replace(score_kind="knn", num_rounds=1,
+                                            **KNN),
+                                  data, n, model_type, update_type)
+    _sync(torch, data.train_xb.device)
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"the batched path never launched {name}")
+    if not all(np.isfinite(o["final_metrics"]).all() for o in knn):
+        raise AssertionError("[batch] kNN-scored batched metrics not finite")
+    layout = ParamLayout(*DIMS)
+    rows, worst_state, worst_auc = [], 0.0, 0.0
+    for r, (s, b) in enumerate(zip(seq, bat)):
+        same = (s["rounds_run"] == b["rounds_run"] and all(
+            x.aggregator == y.aggregator and x.selected == y.selected
+            for x, y in zip(s["rounds"], b["rounds"])))
+        if not same:
+            raise AssertionError(
+                f"[batch] run {r}: batched aggregators "
+                f"{[x.aggregator for x in b['rounds']]} in "
+                f"{b['rounds_run']} rounds, alone "
+                f"{[x.aggregator for x in s['rounds']]} in "
+                f"{s['rounds_run']}")
+        errs = _state_errs(torch, layout, engine.states.apply(
+            lambda t, r=r: t.chunk(BATCH_RUNS)[r]), s["engine"].states)
+        auc = float(np.abs(np.asarray(b["final_metrics"])
+                           - np.asarray(s["final_metrics"])).max())
+        worst_state = max(worst_state, max(errs.values()))
+        worst_auc = max(worst_auc, auc)
+        rows.append({"run": r, "rounds_run": b["rounds_run"],
+                     "aggregators": [x.aggregator for x in b["rounds"]],
+                     "final_auc_max_abs_diff": auc,
+                     "state_max_scaled_err": max(errs.values()),
+                     "differing": {k: v for k, v in errs.items() if v}})
+    graphs = engine.fused_round().stats()["graphs"]
+    nb = data.train_xb.shape[1]
+    per_step = graphs["epoch"]["kernels_per_replay"].get("fused_ae_train")
+    alone = seq[0]["engine"].fused_round().stats()["graphs"]["epoch"][
+        "kernels_per_replay"].get("fused_ae_train")
+    if data.train_xb.is_cuda and (per_step != nb or alone != nb):
+        raise AssertionError(f"[batch] the epoch graph holds {per_step} "
+                             f"train launches for {nb} steps of 3 runs "
+                             f"({alone} for one run's)")
+    log(f"[batch] R = {BATCH_RUNS} batched vs alone: "
+        f"{json.dumps(rows)}; final AUC within {worst_auc:.3e} (limit "
+        f"2e-3), states within {worst_state:.3e} scale-normalized "
+        f"(bit-equal: {worst_state == 0}); the epoch graph {nb} train "
+        f"launches a replay for all runs; batched path launches "
+        f"{json.dumps(launches)}")
+    if worst_auc > 2e-3:
+        raise AssertionError(f"[batch] final AUC {worst_auc:.3e} > 2e-3")
+    return {"runs": rows, "final_auc_max_abs_diff": worst_auc,
+            "state_max_scaled_err": worst_state,
+            "bit_equal": worst_state == 0, "launches": launches,
+            "train_launches_per_step": per_step,
+            "graphs": graphs}
+
+
+def batch_one_epoch(torch, cfg, data, n):
+    """Round 1 cut to one epoch, batched R = 3 against the runs alone from
+    the same inits and selections: the same aggregators and every state
+    leaf within BATCH_TOL scale-normalized (the summation order of a
+    reduction on the card depends on how many rows it reduces; the train
+    kernel runs one run's CTAs per client, its bits the run's own)."""
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.federation.batched import BatchedRunEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    c = cfg.replace(epochs=1, num_runs=BATCH_RUNS)
+    dev = data.train_xb.device
+    model = make_model("hybrid", *DIMS, device=dev)
+    bat = BatchedRunEngine(model, c, data, n, BATCH_RUNS, "hybrid",
+                           "mse_avg")
+    outs, sched, _ = bat.run_schedule_chunk(0, 1, np.ones(BATCH_RUNS, bool))
+    worst, layout, differing = 0.0, ParamLayout(*DIMS), {}
+    for r in range(BATCH_RUNS):
+        eng = RoundEngine(model, c, data, n, ExperimentRngs(run=r),
+                          "hybrid", "mse_avg", fused=True)
+        res = eng.run_rounds(0, 1)[0]
+        got = bat.process_round(r, 0, sched[0][r], outs, 0)
+        if (got.aggregator, got.selected) != (res.aggregator, res.selected):
+            raise AssertionError(f"[batch] one epoch, run {r}: aggregator "
+                                 f"{got.aggregator} vs {res.aggregator}")
+        errs = _state_errs(torch, layout, bat.states.apply(
+            lambda t, r=r: t.chunk(BATCH_RUNS)[r]), eng.states)
+        worst = max(worst, max(errs.values()))
+        differing.update({f"run{r}/{k}": v for k, v in errs.items() if v})
+    log(f"[batch] round 1 at one epoch, batched vs alone: worst scaled "
+        f"state error {worst:.3e} (limit {BATCH_TOL:g}; bit-equal: "
+        f"{worst == 0}; differing {json.dumps(differing)})")
+    if worst > BATCH_TOL:
+        raise AssertionError(f"[batch] one epoch: {worst:.3e}")
+    return worst
+
+
+def _busy_ms(torch, fn) -> float:
+    """Device milliseconds of fn()'s CUDA kernels and copies
+    (torch.profiler, CUDA activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages()) / 1e3
+
+
+def batch_round_times(torch, cfg, data, n, smi):
+    """The steady round (graphs captured) of R = 3 and 8 runs batched
+    against the same R runs alone, one after another: host wall per
+    round of all R runs (the quick run's rounds in one chunk, no early
+    stop, each engine reset to its init first), each kernel's launches
+    per round, and for R = 3 round 1's device time (torch.profiler). A
+    record, not a claim."""
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.federation.batched import BatchedRunEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    dev = data.train_xb.device
+    model = make_model("hybrid", *DIMS, device=dev)
+    k = cfg.num_rounds
+    out = {"device": smi}
+
+    def timed(fn):
+        fn()  # the capture, untimed
+        for w in WRAPPERS.values():
+            w.launches = 0
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(torch, dev)
+        return ((time.perf_counter() - t0) * 1e3 / k,
+                {name: w.launches / k for name, w in WRAPPERS.items()})
+
+    for runs in BATCH_TIMED_RUNS:
+        c = cfg.replace(num_runs=runs)
+        bat = BatchedRunEngine(model, c, data, n, runs, "hybrid", "mse_avg")
+        alone = [RoundEngine(model, c, data, n, ExperimentRngs(run=r),
+                             "hybrid", "mse_avg", fused=True)
+                 for r in range(runs)]
+
+        def batched():
+            bat.reset_federation()
+            bat.run_schedule_chunk(0, k, np.ones(runs, bool))
+
+        def sequential():
+            for e in alone:
+                e.reset_federation()
+                e.run_rounds(0, k)
+        row = {}
+        for name, fn in (("batched", batched), ("sequential", sequential),
+                         ("batched_again", batched)):
+            wall, launches = timed(fn)
+            row[name] = {"round_wall_ms": wall, "launches_per_round":
+                         launches}
+        if runs == BATCH_RUNS and dev.type == "cuda":
+            # round 1 alone under the profiler (CUDA activity only: a whole
+            # chunk of R runs one after another is ~10^6 kernel records,
+            # and a flood of them cost later profiler windows their events)
+            def one_round(engines):
+                for e in engines:
+                    e.reset_federation()
+                    if e is bat:
+                        e.run_schedule_chunk(0, 1, np.ones(runs, bool))
+                    else:
+                        e.run_rounds(0, 1)
+            for name, engines in (("batched", [bat]), ("sequential", alone)):
+                row[name]["device_ms_round_1"] = _busy_ms(
+                    torch, lambda: one_round(engines))
+        out[f"R={runs}"] = row
+        log(f"[batch] R = {runs}, hybrid/mse_avg quick run, steady round of "
+            f"all {runs} runs ({smi}): batched "
+            f"{row['batched']['round_wall_ms']:.3f} / "
+            f"{row['batched_again']['round_wall_ms']:.3f} ms (round 1 on "
+            f"the device {row['batched'].get('device_ms_round_1')} ms), the "
+            f"runs one after another {row['sequential']['round_wall_ms']:.3f}"
+            f" ms ({row['sequential'].get('device_ms_round_1')} ms); "
+            f"launches per round batched "
+            f"{json.dumps(row['batched']['launches_per_round'])}, one after "
+            f"another {json.dumps(row['sequential']['launches_per_round'])}")
+    return out
+
+
+def phase_batch(torch, device, cfg, clients, data, smi):
+    """Batched runs (--batch-runs) on the quick run's 10 gateways at
+    115/27/7, hybrid / mse_avg: the kernels at the batched shapes, R = 3
+    batched against the runs alone through the drivers (the batched path:
+    launch counters set to 0 before it and read after), round 1 at one
+    epoch to BATCH_TOL, then the steady round of R = 3 and 8 timed."""
+    t0 = time.perf_counter()
+    n = len(clients)
+    cohort = max(1, int(cfg.num_participants * n))
+    report = {"kernels": batch_kernel_shapes(torch, device, data, n, cohort)}
+    report["vs_alone"] = batch_vs_sequential(torch, cfg, data, n)
+    report["one_epoch_max_scaled_err"] = batch_one_epoch(torch, cfg, data, n)
+    report["round_times"] = batch_round_times(torch, cfg, data, n, smi)
+    report["launches"] = report["vs_alone"]["launches"]
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[batch] done in {report['seconds']:.1f} s")
+    return report
+
+
 def report_train(torch, device, launches, worst):
     """The train kernel's and its plain version's times and bounds at the
     main path's step shape (5 clients x 12 rows) and at 512 clients."""
@@ -3019,31 +3779,48 @@ def phase_report(torch, device, launches, worst):
 
 
 def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this test needs an NVIDIA "
-              "card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, ROOT)
-    from fedmse_tpu_torch.config import ExperimentConfig
+    """Everything up to the [device] line under one handler: an exception
+    there (a missing module, nvidia-smi, the config) prints its stage,
+    cause and traceback on stdout and propagates, so the exit is
+    non-zero. A missing CUDA device returns 2."""
+    stage = "imports"
+    try:
+        import torch
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available; this test needs an "
+                  "NVIDIA card", file=sys.stderr)
+            return 2
+        sys.path.insert(0, ROOT)
+        from fedmse_tpu_torch.config import ExperimentConfig
+        stage = "config"
+        t_start = time.perf_counter()
+        cfg = ExperimentConfig()
+        if (cfg.dim_features, cfg.hidden_neus, cfg.latent_dim) != DIMS:
+            raise AssertionError(f"config widths differ from {DIMS}")
+        stage = "nvidia-smi"
+        smi = smi_line()
+        stage = "device"
+        log(f"[device] {smi}; torch {torch.__version__}, CUDA "
+            f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
+            f"{torch.cuda.device_count()} device(s)")
+    except Exception as e:
+        log(f"[error] {stage}: {type(e).__name__}: {e}")
+        log(traceback.format_exc().rstrip())
+        raise
+    return run(torch, cfg, smi, t_start)
+
+
+def run(torch, cfg, smi, t_start) -> int:
+    """The phases, from the kernels' build on."""
     from fedmse_tpu_torch.data import synthetic_clients
     from fedmse_tpu_torch.ops import native
     from fedmse_tpu_torch.knn import dist_tiles
     from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
     from fedmse_tpu_torch.ops.fused_train import fused_train_grads
-
-    t_start = time.perf_counter()
-    cfg = ExperimentConfig()
-    if (cfg.dim_features, cfg.hidden_neus, cfg.latent_dim) != DIMS:
-        raise AssertionError(f"config widths differ from {DIMS}")
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
-    smi = smi_line()
-    log(f"[device] {smi}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
-        f"{torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
     built = native.build(native.KERNEL_SOURCES + native.BASELINE_SOURCES)
     log(f"[device] kernels built in {time.perf_counter() - t0:.2f} s "
@@ -3089,6 +3866,8 @@ def main() -> int:
     log(f"[main path] launches {json.dumps(launches)}")
     robust = phase_robust(torch, device, cfg, clients, data)
     cluster = phase_cluster(torch, device, cfg)
+    redteam = phase_redteam(torch, device, cfg)
+    batch = phase_batch(torch, device, cfg, clients, data, smi)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
     training["fused_hold"] = phase_fused_hold(torch, device, cfg, clients)
@@ -3105,8 +3884,12 @@ def main() -> int:
     for kernel in line["kernels"]:
         kernel["fault_path_launches"] = robust["launches"][kernel["name"]]
         kernel["cluster_path_launches"] = cluster["launches"][kernel["name"]]
+        kernel["redteam_path_launches"] = redteam["launches"][kernel["name"]]
+        kernel["batch_path_launches"] = batch["launches"][kernel["name"]]
     line["robust"] = robust
     line["cluster"] = cluster
+    line["redteam"] = redteam
+    line["batch"] = batch
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

@@ -8,6 +8,7 @@ buffers (port of fedmse_tpu/chaos/).
 """
 
 from fedmse_tpu_torch.chaos.masks import (ChaosMasks, all_clear_masks,
+                                          make_batched_chaos_masks,
                                           make_chaos_masks, reelection_draws)
 from fedmse_tpu_torch.chaos.metrics import (joiner_incumbent_gap,
                                             mean_auc_curve,
@@ -18,6 +19,7 @@ from fedmse_tpu_torch.chaos.metrics import (joiner_incumbent_gap,
 from fedmse_tpu_torch.chaos.spec import ChaosSpec
 
 __all__ = ["ChaosMasks", "ChaosSpec", "all_clear_masks",
-           "joiner_incumbent_gap", "make_chaos_masks", "mean_auc_curve",
+           "joiner_incumbent_gap", "make_batched_chaos_masks",
+           "make_chaos_masks", "mean_auc_curve",
            "membership_metrics", "quota_exhaustion_round",
            "reelection_draws", "resilience_metrics", "rounds_to_recover"]

@@ -15,12 +15,14 @@ not depend on chunking or on padding of the client axis. Outside the
 [start_round, stop_round) window every mask is all-clear, and a zero
 probability never fires (u < 0 is false for u in [0, 1)). The
 re-election's tie-break draws come from the same stream
-(`reelection_draws`).
+(`reelection_draws`). `make_batched_chaos_masks` stacks R runs' masks,
+each from its own run's chaos key, on a [T, R, ...] layout (the batched
+round, federation/batched.py).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 
@@ -81,3 +83,14 @@ def reelection_draws(chaos_key: StreamKey, start_round: int, n_rounds: int,
             out[r, :, i] = stream_rng(chaos_key, _REELECT, start_round + r,
                                       i).random(voters, dtype=np.float32)
     return out
+
+
+def make_batched_chaos_masks(spec: ChaosSpec, chaos_keys: Sequence[StreamKey],
+                             start_round: int, n_rounds: int,
+                             n_clients: int) -> ChaosMasks:
+    """R runs' masks, run r's from its own key (what R sequential runs
+    draw), leaves stacked [T, R, ...]."""
+    per_run = [make_chaos_masks(spec, key, start_round, n_rounds, n_clients)
+               for key in chaos_keys]
+    return ChaosMasks(*(np.stack(leaves, axis=1)
+                        for leaves in zip(*per_run)))

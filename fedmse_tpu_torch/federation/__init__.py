@@ -1,11 +1,13 @@
 """The federated training round: client state, local training, the vote,
 aggregation, verification, the round engine with its per-phase and fused
 paths (fused.py: the round with no host read inside, replayed as CUDA
-graphs on the card) and the pipelined chunk loop (pipeline.py)."""
+graphs on the card), the pipelined chunk loop (pipeline.py) and batched
+runs (batched.py: a combination's seeds as one federation)."""
 
 from fedmse_tpu_torch.federation.fused import FusedRound, FusedRoundOut
 from fedmse_tpu_torch.federation.pipeline import (InFlightChunk,
                                                   PipelineStats,
+                                                  run_pipelined_batched,
                                                   run_pipelined_schedule)
 from fedmse_tpu_torch.federation.rounds import (RoundEngine, RoundResult,
                                                 absorb_fused_out,
@@ -13,9 +15,11 @@ from fedmse_tpu_torch.federation.rounds import (RoundEngine, RoundResult,
 from fedmse_tpu_torch.federation.state import (ClientStates, HostState,
                                                client_states_from_numpy,
                                                init_client_states)
+from fedmse_tpu_torch.federation.batched import BatchedRunEngine
 
 __all__ = ["RoundEngine", "RoundResult", "split_metric_columns",
            "absorb_fused_out", "FusedRound", "FusedRoundOut",
            "InFlightChunk", "PipelineStats", "run_pipelined_schedule",
+           "run_pipelined_batched", "BatchedRunEngine",
            "ClientStates", "HostState", "client_states_from_numpy",
            "init_client_states"]

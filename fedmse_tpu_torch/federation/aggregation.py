@@ -36,12 +36,16 @@ def weighted_mean(params: torch.Tensor, weights: torch.Tensor
     return weights.to(torch.float32) @ params.to(torch.float32)
 
 
-def make_raw_weights_fn(model, update_type: str) -> Callable:
+def make_raw_weights_fn(model, update_type: str, runs: int = 1) -> Callable:
     """fn(params [N, P], sel_mask [N], dev_x [M, D], sel_idx=None) -> raw
     [N]: sel_mask / dev MSE for mse_avg (one forward launch over the
     cohort's models; `sel_idx` restricts it to the compact cohort, with
     the same result), sel_mask otherwise. The single-global merge and the
-    clustered one (cluster/merge.py) normalize it."""
+    clustered one (cluster/merge.py) normalize it. With `runs` > 1 the
+    models are R runs' cohorts in run order, still one launch, and each
+    run's dev MSEs are averaged over its own [S, M] slice: a mean's
+    summation order on the card depends on how many rows it reduces, so
+    a run gets the bits of the run alone."""
     layout = ParamLayout.of(model)
     cdt = model.compute_dtype
 
@@ -55,12 +59,46 @@ def make_raw_weights_fn(model, update_type: str) -> Callable:
         _, mse, _ = fused_forward_stats(
             layout.tree(sub, cdt), dev_x.to(cdt).repeat(s, 1),
             client_index(s, m, params.device), compute_dtype=cdt)
-        mses = mse.view(s, m).mean(dim=1)
+        if runs == 1:
+            mses = mse.view(s, m).mean(dim=1)
+        else:
+            mses = torch.cat([part.mean(dim=1) for part in
+                              mse.view(runs, s // runs, m).unbind(0)])
         if sel_idx is not None:
             mses = torch.ones_like(sel_mask).index_copy(0, sel_idx, mses)
         return sel_mask / mses
 
     return raw_weights
+
+
+def make_runs_aggregate_fn(model, update_type: str, runs: int) -> Callable:
+    """fn(params [R·N, P], sel_mask [R·N], dev_x [M, D], sel_idx=None) ->
+    (merged [R, P], weights [R·N]): `make_aggregate_fn` of R federations
+    stacked run by run (the batched round), the dev scoring one launch
+    over every run's cohort. Each run is normalized and merged on its own
+    rows, by the single-global merge's own ops, so run r's merge is the
+    bits of the run alone. One [R, R·N] product would weigh the other
+    runs' rows by 0, and a diverged run's NaN times 0 is NaN in every
+    run."""
+    if update_type not in UPDATE_TYPES:
+        raise ValueError(f"unknown update_type {update_type!r}; expected "
+                         f"one of {UPDATE_TYPES}")
+    raw_weights = make_raw_weights_fn(model, update_type, runs)
+
+    @torch.no_grad()
+    def aggregate(params: torch.Tensor, sel_mask: torch.Tensor,
+                  dev_x: torch.Tensor,
+                  sel_idx: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        raw = raw_weights(params, sel_mask, dev_x, sel_idx)
+        merged, weights = [], []
+        for p, r in zip(params.chunk(runs), raw.chunk(runs)):
+            w = r / r.sum()
+            merged.append(weighted_mean(p, w))
+            weights.append(w)
+        return torch.stack(merged), torch.cat(weights)
+
+    return aggregate
 
 
 def make_aggregate_fn(model, update_type: str) -> Callable:

@@ -20,14 +20,16 @@ prefix). Slot i's draws at round t come from `stream_rng(elastic_key, 0,
 t, i)` alone (utils/seeding.py), so padding the client axis cannot change
 a real slot's timeline, and a null spec draws the all-member masks.
 
-`apply_membership_transitions` of the JAX module belongs to the tiered
-state layout, which is not ported.
+`make_batched_membership_masks` stacks R runs' timelines, each from its
+own run's elastic key, on a [T, R, N] layout (the batched round,
+federation/batched.py). `apply_membership_transitions` of the JAX module
+belongs to the tiered state layout, which is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -162,6 +164,18 @@ def make_membership_masks(spec: ElasticSpec, elastic_key: StreamKey,
         out["member"][t], out["joined"][t] = member, recycled
         out["left"][t], generation[t] = leave, gen
     return MembershipMasks(generation=generation, **out)
+
+
+def make_batched_membership_masks(spec: ElasticSpec,
+                                  elastic_keys: Sequence[StreamKey],
+                                  n_rounds: int,
+                                  n_clients: int) -> MembershipMasks:
+    """R runs' timelines, run r's from its own key (what R sequential runs
+    draw), leaves stacked [T, R, N]."""
+    per_run = [make_membership_masks(spec, key, n_rounds, n_clients)
+               for key in elastic_keys]
+    return MembershipMasks(*(np.stack(leaves, axis=1)
+                             for leaves in zip(*per_run)))
 
 
 def membership_at(masks: MembershipMasks, round_index: int,

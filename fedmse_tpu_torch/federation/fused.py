@@ -77,6 +77,26 @@ fixed when the graphs are captured:
 With `cluster_k` = 1 and no personalization nothing is built: the bodies
 are the clean round's op for op.
 
+The red team (redteam/; `redteam` a RedteamFns) is built in the same way,
+only when its spec is not null; its per-round inputs are [R, ...] buffers
+like the fault hooks': the coalition `rt_adv` [N], the poison rounds'
+flag `rt_active` (a captured graph replays both stages every round, so
+the schedule is data), the min-tenure gate `rt_vote_ok` [N], and for a
+noise poison `rt_update_noise` [N, P] and `rt_merge_noise` [P] ([K·P]
+when clustered). At `leave`:
+
+  * the update stage poisons the coalition's rows of the trained params
+    (rt_adv x the effective cohort) after the lost clients are reverted
+    and before the election and the merge;
+  * `rt_vote_ok` gates candidacy and votes in the election and in the
+    crash re-election, and with `lie_votes` an adversarial voter picks
+    its accomplice (voting.elect_on_device);
+  * the merge stage poisons the merge (after the attack's poison, in both
+    the single-global and the clustered merge; the victim cluster's row
+    only when the spec names one) where the elected aggregator is
+    adversarial: `rt_adv[aggregator]` is read only where an aggregator
+    was found, and a round without one discards the merge anyway.
+
 Clean, the semantics are the per-phase path's exactly, bit for bit with
 the tie-break off; with it on,
 the per-phase path draws each voter's uniforms when the voter votes and
@@ -105,9 +125,11 @@ from fedmse_tpu_torch.federation.state import (ClientStates,
                                                client_mean_weights,
                                                tree_client_divergence,
                                                tree_select_clients)
-from fedmse_tpu_torch.federation.voting import elect_on_device
+from fedmse_tpu_torch.federation.voting import (elect_on_device,
+                                                elect_on_device_runs)
 from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.ops.graphs import CapturedBody
+from fedmse_tpu_torch.redteam.adversary import RedteamFns
 
 
 class FusedRoundOut(NamedTuple):
@@ -165,6 +187,11 @@ class OutLayout:
         return torch.cat([values[name].to(torch.float32).reshape(-1)
                           for name, _ in self.parts()])
 
+    def pack_runs(self, runs: int, **values: torch.Tensor) -> torch.Tensor:
+        """R runs' rows [R, width], each value with a leading [R] axis."""
+        return torch.cat([values[name].to(torch.float32).reshape(runs, -1)
+                          for name, _ in self.parts()], dim=1)
+
     def unpack(self, row: np.ndarray) -> FusedRoundOut:
         out, at = {}, 0
         for name, shape in self.parts():
@@ -194,7 +221,9 @@ class FusedRound:
     `cluster_k` > 1 or `personalize` builds clustered federation in:
     `aggregate` is then cluster.make_clustered_aggregate_fn's, `shared`
     the [P] bool mask of the shared modules (cluster.shared_mask), and
-    each `dispatch` takes the chunk's assignment `cluster_in`."""
+    each `dispatch` takes the chunk's assignment `cluster_in`. `redteam`
+    (redteam.make_redteam_fns of a non-null spec) builds the red team's
+    hooks in."""
 
     def __init__(self, *, trainer: LocalTrainer, base_scores: Callable,
                  aggregate: Callable, verify: Callable,
@@ -206,7 +235,8 @@ class FusedRound:
                  poison: Optional[PoisonFn] = None, chaos: bool = False,
                  elastic: bool = False, cluster_k: int = 1,
                  personalize: bool = False,
-                 shared: Optional[torch.Tensor] = None):
+                 shared: Optional[torch.Tensor] = None,
+                 redteam: Optional[RedteamFns] = None):
         self.trainer, self.base_scores = trainer, base_scores
         self.aggregate, self.verify = aggregate, verify
         self.evaluate_all, self.layout = evaluate_all, layout
@@ -218,32 +248,14 @@ class FusedRound:
         self.poison, self.chaos, self.elastic = poison, chaos, elastic
         self.cluster_k, self.personalize = cluster_k, personalize
         self.clustered = cluster_k > 1 or personalize
+        self.redteam = redteam
         if personalize and shared is None:
             raise ValueError("personalize needs the shared-module mask")
         self.shared = shared
         dev = states.params.device
         self.device = dev
-        n = states.params.shape[0]
-        i64 = torch.int64
-        self.ids = torch.arange(n, device=dev)
-        self.sel_all = torch.zeros((capacity, cohort), dtype=i64, device=dev)
-        self.u_all = (torch.zeros((capacity, cohort, n), device=dev)
-                      if tie_break else None)
-        self.slot = torch.zeros((), dtype=i64, device=dev)
-        self.agg_count = torch.zeros(n, dtype=torch.int32, device=dev)
-        self.sel = torch.zeros(cohort, dtype=i64, device=dev)
-        self.sel_mask = torch.zeros(n, device=dev)
-        self.u = (torch.zeros((cohort, n), device=dev) if tie_break
-                  else None)
-        self.cluster_in = (torch.zeros(n, dtype=i64, device=dev)
-                           if self.clustered else None)
-        self._hook_buffers(n, states.params.shape[1], tie_break)
-        idx = (torch.zeros(cohort, dtype=i64, device=dev) if compact
-               else torch.arange(n, device=dev))
-        self.co = trainer.cohort(idx, states.params, data.train_xb,
-                                 data.train_mb, data.valid_xb, data.valid_mb)
-        self.out = OutLayout(n, metric_shape, trainer.epochs, chaos, elastic)
-        self.out_stack = torch.zeros((capacity, self.out.width), device=dev)
+        self._buffers(states.params.shape[0], states.params.shape[1],
+                      tie_break, metric_shape)
         cuda = dev.type == "cuda"
         # the early-stop flags come back through pinned memory
         self.go_host = (torch.zeros(trainer.epochs, dtype=torch.bool,
@@ -255,6 +267,38 @@ class FusedRound:
         self.host_reads = 0
         # the epochs each round ran (its speculative no-op epoch not counted)
         self.epochs_run: List[int] = []
+
+    def _buffers(self, n: int, p: int, tie_break: bool,
+                 metric_shape: Tuple[int, ...]) -> None:
+        """The static buffers of N clients' rounds: the chunk's selections
+        and draws and the round's slice of them, the quota, the hooks'
+        inputs, the cohort's training buffers and the output stack."""
+        cap, cohort, dev = self.capacity, self.cohort_size, self.device
+        i64 = torch.int64
+        self.ids = torch.arange(n, device=dev)
+        self.sel_all = torch.zeros((cap, cohort), dtype=i64, device=dev)
+        self.u_all = (torch.zeros((cap, cohort, n), device=dev)
+                      if tie_break else None)
+        self.slot = torch.zeros((), dtype=i64, device=dev)
+        self.agg_count = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.sel = torch.zeros(cohort, dtype=i64, device=dev)
+        self.sel_mask = torch.zeros(n, device=dev)
+        self.u = (torch.zeros((cohort, n), device=dev) if tie_break
+                  else None)
+        self.cluster_in = (torch.zeros(n, dtype=i64, device=dev)
+                           if self.clustered else None)
+        self._hook_buffers(n, p, tie_break)
+        idx = (torch.zeros(cohort, dtype=i64, device=dev) if self.compact
+               else torch.arange(n, device=dev))
+        self._cohort_buffers(idx)
+        self.out = OutLayout(n, metric_shape, self.trainer.epochs,
+                             self.chaos, self.elastic)
+        self.out_stack = torch.zeros((cap, self.out.width), device=dev)
+
+    def _cohort_buffers(self, idx: torch.Tensor) -> None:
+        d = self.data
+        self.co = self.trainer.cohort(idx, self.states.params, d.train_xb,
+                                      d.train_mb, d.valid_xb, d.valid_mb)
 
     def _hook_buffers(self, n: int, p: int, tie_break: bool) -> None:
         """Each built-in hook's [capacity, ...] chunk inputs and the round's
@@ -279,6 +323,17 @@ class FusedRound:
                           joined=((n,), torch.float32),
                           left=((n,), torch.float32),
                           generation=((n,), torch.int32))
+        rt = self.redteam
+        if rt is not None:
+            if rt.spec.attacks:
+                shapes.update(rt_adv=((n,), torch.float32),
+                              rt_active=((), torch.float32))
+            if rt.gate_votes:
+                shapes["rt_vote_ok"] = ((n,), torch.float32)
+            if rt.needs_noise:
+                width = p * self.cluster_k if self.clustered else p
+                shapes.update(rt_update_noise=((n, p), torch.float32),
+                              rt_merge_noise=((width,), torch.float32))
         self.chunk_in = {k: torch.zeros((cap,) + shape, dtype=dt, device=dev)
                          for k, (shape, dt) in shapes.items()}
         self.round_in = {k: torch.zeros(shape, dtype=dt, device=dev)
@@ -317,12 +372,8 @@ class FusedRound:
         st, r = self.states, self.round_in
         r["member"].mul_(self.data.client_mask)  # padding never joins
         joined, left = r["joined"] > 0, r["left"] > 0
-        incumbents = r["member"] * (1.0 - r["joined"])
-        if self.clustered:  # [N, P]: each slot's own cluster's mean
-            mean = clustered_incumbent_means(st.params, incumbents,
-                                             self.cluster_in, self.cluster_k)
-        else:
-            mean = weighted_mean(st.params, client_mean_weights(incumbents))
+        mean = self._incumbent_mean(st.params,
+                                    r["member"] * (1.0 - r["joined"]))
         rows = joined[:, None]
         torch.where(rows, mean, st.params, out=st.params)
         torch.where(rows, mean, st.prev_global, out=st.prev_global)
@@ -332,6 +383,14 @@ class FusedRound:
         st.hist_params.masked_fill_(rows, 0)
         for t in (st.hist_perf, st.hist_seen, st.rejected, st.waived):
             t.masked_fill_(joined, 0)
+
+    def _incumbent_mean(self, params, incumbents) -> torch.Tensor:
+        """A joiner's model: the incumbents' uniform mean [P], or [N, P]
+        when clustered (each slot's own cluster's mean)."""
+        if self.clustered:
+            return clustered_incumbent_means(params, incumbents,
+                                             self.cluster_in, self.cluster_k)
+        return weighted_mean(params, client_mean_weights(incumbents))
 
     def _effective(self, res: LocalTrainResult):
         """The effective cohort and the training result with the lost
@@ -360,10 +419,33 @@ class FusedRound:
         mask2 = torch.where(self.ids == aggregator, 0.0, eff)
         again, scores2 = elect_on_device(
             base, r.get("reelect_draws"), self.sel, mask2, self.agg_count,
-            self.max_threshold, voters=mask2, cluster_in=self.cluster_in)
+            self.max_threshold, voters=mask2, cluster_in=self.cluster_in,
+            **self._election_inputs())
         crashed = torch.where(crash_now, aggregator, -1)
         return (torch.where(crash_now, again, aggregator),
                 torch.where(crash_now, scores2, scores), crashed)
+
+    def _election_inputs(self) -> dict:
+        """The red team's election inputs (none without its hooks)."""
+        rt, r = self.redteam, self.round_in
+        if rt is None:
+            return {}
+        return {"vote_ok": r["rt_vote_ok"] if rt.gate_votes else None,
+                "adv": r["rt_adv"] if rt.lie_votes else None,
+                "lie_votes": rt.lie_votes}
+
+    def _poison_merge(self, merged, aggregator, clustered: bool):
+        """The merge stage: merged poisoned where the round is a poison
+        round and the elected aggregator is adversarial."""
+        r = self.round_in
+        found = aggregator >= 0
+        at = torch.where(found, aggregator, 0).view(1)
+        is_adv = found & (r["rt_adv"].index_select(0, at)[0] > 0)
+        noise = r.get("rt_merge_noise")
+        if noise is not None and clustered:
+            noise = noise.view(self.cluster_k, -1)
+        return self.redteam.merge_fn(merged, is_adv, r["rt_active"], noise,
+                                     clustered=clustered)
 
     def _received(self, aggregator, crashed, has_update) -> torch.Tensor:
         """[N] bool: who gets the broadcast. The down, the broadcast-lost,
@@ -380,16 +462,20 @@ class FusedRound:
             got = sent if got is None else got & sent
         return got | (self.ids == aggregator)
 
-    def _merge(self, st, agg_mask):
+    def _merge(self, st, agg_mask, aggregator):
         """(the broadcast: [P], or [N, P] when clustered; weights [N];
         has_update [K] or None)."""
         d, r = self.data, self.round_in
         sel_idx = self.co.idx if self.compact else None
+        rt_merge = self.redteam is not None \
+            and self.redteam.merge_fn is not None
         if not self.clustered:
             merged, weights = self.aggregate(st.params, agg_mask, d.dev_x,
                                              sel_idx=sel_idx)
             if self.poison is not None:
                 merged = self.poison(merged, r["attack"], r.get("noise"))
+            if rt_merge:
+                merged = self._poison_merge(merged, aggregator, False)
             return merged, weights, None
         merged, weights, has_update = self.aggregate(
             st.params, agg_mask, d.dev_x, self.cluster_in, sel_idx=sel_idx)
@@ -397,6 +483,8 @@ class FusedRound:
             noise = r.get("noise")
             merged = self.poison(merged, r["attack"], None if noise is None
                                  else noise.view(self.cluster_k, -1))
+        if rt_merge:
+            merged = self._poison_merge(merged, aggregator, True)
         bcast = gather_cluster_rows(merged, self.cluster_in)
         if self.personalize:
             bcast = personalized_broadcast(bcast, st.params, self.shared)
@@ -409,6 +497,11 @@ class FusedRound:
         eff = self.sel_mask
         if self.faults:
             eff, res = self._effective(res)
+        if self.redteam is not None and self.redteam.update_fn is not None:
+            # the coalition's own updates, poisoned before the merge
+            res = res._replace(params=self.redteam.update_fn(
+                res.params, r["rt_adv"] * eff, r["rt_active"],
+                r.get("rt_update_noise")))
         st.params.copy_(res.params)
         st.opt_state.copy_(res.opt_state)
         # the vote tensor: the first (effective) selected client's valid split
@@ -424,14 +517,14 @@ class FusedRound:
         aggregator, scores = elect_on_device(
             base, self.u, self.sel, eff, self.agg_count,
             self.max_threshold, voters=eff if self.faults else None,
-            cluster_in=self.cluster_in)
+            cluster_in=self.cluster_in, **self._election_inputs())
         crashed, agg_mask = None, eff
         if self.chaos:
             aggregator, scores, crashed = self._reelect(base, eff,
                                                         aggregator, scores)
             agg_mask = torch.where(self.ids == crashed, 0.0, eff)
         won = aggregator >= 0
-        merged, weights, has_update = self._merge(st, agg_mask)
+        merged, weights, has_update = self._merge(st, agg_mask, aggregator)
         is_agg = self.ids == aggregator  # all false for -1
         outcome = self.verify(st, merged, self.ver_x, self.ver_m,
                               is_agg.to(torch.float32), d.client_mask)
@@ -514,37 +607,54 @@ class FusedRound:
             raise ValueError(f"a chunk of {k} rounds of {self.cohort_size} "
                              f"clients each fits this round's buffers; got "
                              f"{[len(s) for s in schedule]}")
+        if self.clustered != (cluster_in is not None):
+            raise ValueError("a clustered round takes the assignment "
+                             "cluster_in, and only a clustered round does")
+        self._upload(schedule, draws, agg_count, inputs)
+        if cluster_in is not None:
+            self._up(self.cluster_in, torch.as_tensor(
+                np.asarray(cluster_in, dtype=np.int64)))
+        return self._replay(k, lambda rows: [self.out.unpack(row)
+                                             for row in rows])
+
+    def _up(self, dst: torch.Tensor, src: torch.Tensor) -> None:
+        """A host tensor into a device buffer (through pinned memory on the
+        card, without waiting)."""
+        cuda = self.device.type == "cuda"
+        dst.copy_(src.pin_memory() if cuda else src, non_blocking=cuda)
+
+    def _upload(self, schedule, draws, agg_count, inputs) -> None:
+        """A chunk's selections, draws, quota (unless None) and the hooks'
+        inputs into the chunk buffers."""
         inputs = inputs or {}
         if set(inputs) != set(self.chunk_in):
             raise ValueError(f"this round's hooks take inputs "
                              f"{sorted(self.chunk_in)}; got {sorted(inputs)}")
-        if self.clustered != (cluster_in is not None):
-            raise ValueError("a clustered round takes the assignment "
-                             "cluster_in, and only a clustered round does")
-        cuda = self.device.type == "cuda"
-
-        def up(dst: torch.Tensor, src: torch.Tensor) -> None:
-            dst.copy_(src.pin_memory() if cuda else src, non_blocking=cuda)
-
-        up(self.sel_all[:k], torch.tensor(schedule, dtype=torch.int64))
+        k = len(schedule)
+        self._up(self.sel_all[:k], torch.tensor(schedule, dtype=torch.int64))
         if self.u_all is not None:
-            up(self.u_all[:k], draws)
+            self._up(self.u_all[:k], draws)
         for name, value in inputs.items():
-            buf = self.chunk_in[name]
-            up(buf[:k], torch.as_tensor(np.array(value)).to(buf.dtype))
-        if cluster_in is not None:
-            up(self.cluster_in, torch.as_tensor(
-                np.asarray(cluster_in, dtype=np.int64)))
+            buf = self.chunk_in[name][:k]
+            self._up(buf, torch.as_tensor(np.array(value)).to(
+                buf.dtype).reshape(buf.shape))
         if agg_count is not None:
-            up(self.agg_count, torch.as_tensor(
+            self._up(self.agg_count, torch.as_tensor(
                 np.asarray(agg_count, dtype=np.int32)))
+
+    def _replay(self, k: int, unpack: Callable[[np.ndarray], list]
+                ) -> Callable[[], list]:
+        """Replay the bodies round by round for k rounds and start one copy
+        of the output stack to the host; returns the harvest, which waits
+        for that copy and unpacks it."""
         self.slot.zero_()
         for _ in range(k):
             self.enter()
             self._epochs()
             self.leave()
-        if cuda:
-            host = torch.empty((k, self.out.width), pin_memory=True)
+        if self.device.type == "cuda":
+            host = torch.empty(tuple(self.out_stack[:k].shape),
+                               pin_memory=True)
             host.copy_(self.out_stack[:k], non_blocking=True)
             done = torch.cuda.Event()
             done.record()
@@ -554,8 +664,7 @@ class FusedRound:
         def harvest() -> list:
             if done is not None:
                 done.synchronize()
-            rows = host.numpy()
-            return [self.out.unpack(rows[r]) for r in range(k)]
+            return unpack(host.numpy())
 
         return harvest
 
@@ -566,3 +675,267 @@ class FusedRound:
                            (self.enter, self.epoch, self.leave)},
                 "host_reads": self.host_reads,
                 "epochs_run": list(self.epochs_run)}
+
+
+class BatchedFusedRound(FusedRound):
+    """R independent federations' fused rounds in one set of bodies (port of
+    fedmse_tpu/federation/fused.py `make_batched_runs_scan`; the engine is
+    federation/batched.py).
+
+    The R runs stack run by run on the client axis: `states` is [R·N, P]
+    (run r's client i at row r N + i) and `data` the federation tiled R
+    times (batched.tile_federated_data). Every body works on the R·N
+    rows, so each step is one train-kernel launch at G = R·S (with one
+    run's CTAs per client, LocalTrainer.ctas) and each scoring one
+    forward launch over the R·N routed models. What is per run stays per
+    run:
+
+      * the selections [R, S] (each run's own client ids), the tie-break
+        draws [R, S, N] and the quota `agg_count` [R, N];
+      * the vote tensor (each run's first effective selected client's
+        valid split), and the election (voting.elect_on_device_runs over
+        [R, S, N]); a crash bit [R] per run;
+      * the merge (aggregation.make_runs_aggregate_fn: the dev scoring one
+        launch, each run normalized and merged on its own rows), then
+        each client verifies its own run's merge ([R·N, P], one routed
+        forward launch);
+      * an elastic joiner's incumbent mean and the chaos divergence, over
+        its own run's slots;
+      * `active` [R]: a stopped run's lane still launches, but `leave`
+        puts its whole state back from the round's entry copy
+        (ClientStates.where_, a select: NaN stays NaN, nothing is
+        multiplied by 0) and its quota does not move, so its federation
+        is frozen bit for bit.
+
+    The outputs are [R] rows per round: the harvest returns, per round,
+    each run's FusedRoundOut. Clustering and the red team are refused
+    here, as the JAX package's batched runs refuse them."""
+
+    def __init__(self, *, runs: int, **kw):
+        if kw.get("cluster_k", 1) > 1 or kw.get("personalize") \
+                or kw.get("redteam") is not None:
+            raise ValueError("batched runs are neither clustered nor "
+                             "attacked by the red team")
+        self.runs = runs
+        super().__init__(**kw)
+
+    def _buffers(self, rows: int, p: int, tie_break: bool,
+                 metric_shape: Tuple[int, ...]) -> None:
+        """FusedRound._buffers of R runs: the selections, draws, quota and
+        output rows per run, the hooks' inputs per client or per run, the
+        cohort of every run's selection, and the round's entry state."""
+        runs, cap, cohort = self.runs, self.capacity, self.cohort_size
+        dev, i64 = self.device, torch.int64
+        if rows % runs:
+            raise ValueError(f"{rows} state rows are not {runs} runs")
+        n = self.n = rows // runs
+        self.ids = torch.arange(rows, device=dev)
+        self.local_ids = torch.arange(n, device=dev)
+        self.run_of = torch.arange(runs, device=dev).repeat_interleave(n)
+        self.offset = torch.arange(runs, device=dev) * n
+        self.sel_all = torch.zeros((cap, runs, cohort), dtype=i64,
+                                   device=dev)
+        self.u_all = (torch.zeros((cap, runs, cohort, n), device=dev)
+                      if tie_break else None)
+        self.active_all = torch.zeros((cap, runs), dtype=torch.bool,
+                                      device=dev)
+        self.slot = torch.zeros((), dtype=i64, device=dev)
+        self.agg_count = torch.zeros((runs, n), dtype=torch.int32,
+                                     device=dev)
+        self.sel = torch.zeros((runs, cohort), dtype=i64, device=dev)
+        self.sel_rows = torch.zeros(runs * cohort, dtype=i64, device=dev)
+        self.sel_mask = torch.zeros(rows, device=dev)
+        self.u = (torch.zeros((runs, cohort, n), device=dev) if tie_break
+                  else None)
+        self.active = torch.zeros(runs, dtype=torch.bool, device=dev)
+        self._hook_buffers(n, p, tie_break)
+        self._cohort_buffers(
+            torch.zeros(runs * cohort, dtype=i64, device=dev)
+            if self.compact else torch.arange(rows, device=dev))
+        self.entry = self.states.clone()  # the round's entry state
+        self.out = OutLayout(n, metric_shape, self.trainer.epochs,
+                             self.chaos, self.elastic)
+        self.out_stack = torch.zeros((cap, runs, self.out.width),
+                                     device=dev)
+
+    def _hook_buffers(self, n: int, p: int, tie_break: bool) -> None:
+        """The hooks' [capacity, ...] chunk inputs: per client [R·N] (a
+        run's N slots after another's), per run [R] for the crash bit,
+        [R, S, N] for the re-election's draws and [R, P] for the attack
+        noise; the attack bit is one per round."""
+        cap, dev, runs = self.capacity, self.device, self.runs
+        rows = runs * n
+        shapes = {}
+        if self.poison is not None:
+            shapes["attack"] = ((), torch.float32)
+            if self.poison.needs_noise:
+                shapes["noise"] = ((runs, p), torch.float32)
+        if self.chaos:
+            shapes.update(available=((rows,), torch.float32),
+                          straggler=((rows,), torch.float32),
+                          crash=((runs,), torch.bool),
+                          bcast_drop=((rows,), torch.float32))
+            if tie_break:
+                shapes["reelect_draws"] = ((runs, self.cohort_size, n),
+                                           torch.float32)
+        if self.elastic:
+            shapes.update(member=((rows,), torch.float32),
+                          joined=((rows,), torch.float32),
+                          left=((rows,), torch.float32),
+                          generation=((rows,), torch.int32))
+        self.chunk_in = {k: torch.zeros((cap,) + shape, dtype=dt, device=dev)
+                         for k, (shape, dt) in shapes.items()}
+        self.round_in = {k: torch.zeros(shape, dtype=dt, device=dev)
+                         for k, (shape, dt) in shapes.items()}
+
+    def _enter(self) -> None:
+        d, st = self.data, self.states
+        at = self.slot.view(1)
+        self.entry.copy_(st)
+        self.sel.copy_(self.sel_all.index_select(0, at)[0])
+        self.sel_rows.copy_((self.sel + self.offset[:, None]).view(-1))
+        self.sel_mask.zero_()
+        self.sel_mask.index_fill_(0, self.sel_rows, 1.0)
+        if self.compact:
+            self.co.idx.copy_(torch.sort(self.sel_rows).values)
+        if self.u is not None:
+            self.u.copy_(self.u_all.index_select(0, at)[0])
+        self.active.copy_(self.active_all.index_select(0, at)[0])
+        for k, buf in self.round_in.items():
+            buf.copy_(self.chunk_in[k].index_select(0, at)[0])
+        if self.elastic:
+            self._join_and_leave()
+        self.trainer.begin(self.co, st.params, st.opt_state, st.prev_global,
+                           d.train_xb, d.train_mb, d.valid_xb, d.valid_mb)
+
+    def _incumbent_mean(self, params, incumbents) -> torch.Tensor:
+        """[R·N, P]: each slot's own run's incumbent mean."""
+        means = torch.stack([
+            weighted_mean(p, client_mean_weights(w)) for p, w in
+            zip(params.chunk(self.runs), incumbents.chunk(self.runs))])
+        return means.index_select(0, self.run_of)
+
+    def _per_row(self, per_run: torch.Tensor) -> torch.Tensor:
+        """A run's value [R] on each of its rows [R·N]."""
+        return per_run.index_select(0, self.run_of)
+
+    def _leave(self) -> None:
+        d, st, r = self.data, self.states, self.round_in
+        runs, n = self.runs, self.n
+        res = self.trainer.finish(self.co, st.params, st.opt_state,
+                                  self.sel_mask)
+        eff = self.sel_mask
+        if self.faults:
+            eff, res = self._effective(res)
+        st.params.copy_(res.params)
+        st.opt_state.copy_(res.opt_state)
+        eff_r = eff.view(runs, n)
+        # each run's vote tensor: its first (effective) selected client's
+        if self.faults:
+            first = (eff_r.gather(1, self.sel) > 0).to(torch.int32).argmax(
+                dim=1, keepdim=True)
+            voter0 = self.sel.gather(1, first)[:, 0] + self.offset
+        else:
+            voter0 = self.sel[:, 0] + self.offset
+        base = self.base_scores(st.params, d.valid_x.index_select(0, voter0),
+                                d.valid_m.index_select(0, voter0))
+        base = base.view(runs, n)
+        voters = eff_r if self.faults else None
+        aggregator, scores = elect_on_device_runs(
+            base, self.u, self.sel, eff_r, self.agg_count,
+            self.max_threshold, voters=voters)
+        crashed, agg_mask = None, eff_r
+        if self.chaos:
+            crash_now = r["crash"] & (aggregator >= 0)
+            mask2 = torch.where(self.local_ids[None, :] == aggregator[:, None],
+                                0.0, eff_r)
+            again, scores2 = elect_on_device_runs(
+                base, r.get("reelect_draws"), self.sel, mask2,
+                self.agg_count, self.max_threshold, voters=mask2)
+            crashed = torch.where(crash_now, aggregator, -1)
+            aggregator = torch.where(crash_now, again, aggregator)
+            scores = torch.where(crash_now[:, None], scores2, scores)
+            agg_mask = torch.where(
+                self.local_ids[None, :] == crashed[:, None], 0.0, eff_r)
+        won = aggregator >= 0  # [R]
+        merged, weights = self.aggregate(
+            st.params, agg_mask.reshape(-1), d.dev_x,
+            sel_idx=self.co.idx if self.compact else None)
+        if self.poison is not None:
+            merged = self.poison(merged, r["attack"], r.get("noise"))
+        is_agg = self.local_ids[None, :] == aggregator[:, None]  # [R, N]
+        outcome = self.verify(st, merged.index_select(0, self.run_of),
+                              self.ver_x, self.ver_m,
+                              is_agg.reshape(-1).to(torch.float32),
+                              d.client_mask)
+        new = outcome.states
+        if self.faults:
+            new = new.select(self._received_runs(aggregator, crashed), st)
+        live = won & self.active
+        st.where_(self._per_row(live), new)
+        st.where_(self._per_row(~self.active), self.entry)  # frozen runs
+        self.agg_count += (is_agg & live[:, None]).to(torch.int32)
+        metrics = self.evaluate_all(self.layout.tree(st.params), d.test_x,
+                                    d.test_m, d.test_y, d.train_xb,
+                                    d.train_mb, priorities=self.priorities)
+        hooks = {}
+        if self.faults:
+            hooks["eff_mask"] = eff
+        if self.chaos:
+            hooks["crashed"] = crashed
+            hooks["divergence"] = torch.cat([
+                tree_client_divergence(p, m) for p, m in
+                zip(st.params.chunk(runs), d.client_mask.chunk(runs))])
+        if self.elastic:
+            present = r["member"] > 0
+            metrics = torch.where(present.view((-1,) + (1,) * (
+                metrics.dim() - 1)), metrics, float("nan"))
+            hooks.update(member=r["member"], generation=r["generation"])
+        rows = self.out.pack_runs(
+            runs, aggregator=aggregator, metrics=metrics, scores=scores,
+            weights=torch.where(self._per_row(won), weights, 0.0),
+            rejected=st.rejected, min_valid=res.min_valid,
+            tracking=res.tracking, **hooks)
+        self.out_stack.index_copy_(0, self.slot.view(1), rows[None])
+        self.slot += 1
+
+    def _received_runs(self, aggregator, crashed) -> torch.Tensor:
+        """[R·N] bool: who gets its run's broadcast (FusedRound._received,
+        run by run)."""
+        r, got = self.round_in, None
+
+        def rows(local):  # a per-run client id [R] as its row, -1 kept
+            return self._per_row(torch.where(local >= 0, local + self.offset,
+                                             -1))
+        if self.chaos:
+            got = ((r["bcast_drop"] <= 0) & (r["available"] > 0)
+                   & (self.ids != rows(crashed)))
+        if self.elastic:
+            got = r["member"] > 0 if got is None else got & (r["member"] > 0)
+        return got | (self.ids == rows(aggregator))
+
+    def dispatch(self, schedule: Sequence[Sequence[Sequence[int]]],
+                 draws: Optional[torch.Tensor],
+                 agg_count: Optional[np.ndarray],
+                 active: np.ndarray,
+                 inputs: Optional[Dict[str, np.ndarray]] = None
+                 ) -> Callable[[], list]:
+        """Run len(schedule) rounds of every run: schedule [k][R][S] (each
+        run's own client ids), draws [k, R, S, N] or None, the quota [R, N]
+        (None: the device carries it from the last chunk), `active` [k, R]
+        bool (a False freezes run r at round i) and the hooks' inputs ([k,
+        R, ...] each). Returns the harvest: per round, the R runs'
+        FusedRoundOuts."""
+        k = len(schedule)
+        if k > self.capacity or any(
+                len(s) != self.runs or any(len(c) != self.cohort_size
+                                           for c in s) for s in schedule):
+            raise ValueError(f"a chunk of {k} rounds of {self.runs} runs x "
+                             f"{self.cohort_size} clients fits these "
+                             f"buffers")
+        self._upload(schedule, draws, agg_count, inputs)
+        self._up(self.active_all[:k], torch.as_tensor(np.array(active,
+                                                               dtype=bool)))
+        return self._replay(k, lambda rows: [[self.out.unpack(row)
+                                              for row in runs]
+                                             for runs in rows])

@@ -101,6 +101,9 @@ class LocalTrainer:
         self.epochs, self.patience = epochs, patience
         self.fedprox, self.mu, self.lr = fedprox, mu, lr
         self.restore_best = restore_best
+        # the train kernel's CTAs per client (None: its own pick for the
+        # cohort; the batched round fixes one run's, ops/fused_train.py)
+        self.ctas: Optional[int] = None
 
     def cohort(self, idx: torch.Tensor, params: torch.Tensor,
                train_xb: torch.Tensor, train_mb: torch.Tensor,
@@ -175,7 +178,8 @@ class LocalTrainer:
         for b in range(nb_max):
             loss, grads = fused_train_grads(
                 p, co.train_xb[:, b], co.train_mb[:, b], layout=self.layout,
-                shrink_lambda=self.lam, compute_dtype=self.cdt)
+                shrink_lambda=self.lam, compute_dtype=self.cdt,
+                ctas=self.ctas)
             if self.fedprox:
                 loss = loss + mu * prox_term(p, co.prev)
                 grads = grads + mu * (2.0 * (p - co.prev))

@@ -43,8 +43,15 @@ is never speculative, and a rewound chunk has been replayed by then).
 
 `PipelineStats.host_gaps` records at each chunk boundary t_dispatch(k + 1)
 - t_harvest_done(k), negative by construction when pipelined.
-`run_pipelined_batched` and the tiered prefetch of the JAX module wait for
-the batched and tiered engines.
+
+`run_pipelined_batched` drives a BatchedRunEngine (federation/batched.py)
+the same way, with the batched stop protocol: a run that stops in chunk k
+while chunk k + 1 is in flight makes chunk k + 1 wrong (it ran the stopped
+lane live), so chunk k + 1 is discarded and dispatched again with the same
+selections and draws, the corrected lane mask and the host's quota; a stop
+before chunk k's last round first rewinds chunk k to its entry snapshot
+and replays it with the per-round freeze matrix and its entry quota. The
+tiered prefetch of the JAX module waits for the tiered engine.
 """
 
 from __future__ import annotations
@@ -70,6 +77,8 @@ class InFlightChunk:
     snap_states: Any = None        # the chunk-entry device snapshot
     host_snap: Any = None          # the host counters at entry (lazily)
     cluster_in: Any = None         # the [N] assignment it ran under
+    active: Any = None             # batched: [R] runs live at dispatch
+    entry_agg: Any = None          # batched: [R, N] quota at entry (lazily)
 
 
 @dataclasses.dataclass
@@ -78,10 +87,12 @@ class PipelineStats:
 
     chunks: int = 0
     host_gaps: List[float] = dataclasses.field(default_factory=list)
+    redispatches: int = 0  # batched: speculative chunks dispatched again
 
     def summary(self) -> dict:
         gaps = self.host_gaps
         return {"chunks": self.chunks, "host_gap_s": gaps,
+                "redispatches": self.redispatches,
                 "host_gap_mean_s": float(np.mean(gaps)) if gaps else None,
                 # every next dispatch was enqueued before the previous
                 # harvest completed
@@ -166,6 +177,97 @@ def run_pipelined_schedule(engine, start_round: int, num_rounds: int,
                 on_chunk(cur.start_round + (k if done is None else done))
             if done is not None:
                 return stats
+    if prev is not None:
+        absorb(prev, None)
+    return stats
+
+
+def run_pipelined_batched(engine, num_rounds: int, chunk_size: int,
+                          consume: Callable, pipelined: bool = True
+                          ) -> PipelineStats:
+    """Drive a BatchedRunEngine's schedule in chunks, double-buffered unless
+    `pipelined=False` (the serial chunk loop).
+
+    `consume(outs, schedule, start_round, k, sec, active)` absorbs one
+    harvested chunk, calling `engine.process_round` for every (round, run)
+    up to that run's stop, and returns per run the position of its stop
+    inside the chunk, or None. Runs whose `active` flag is False are
+    frozen already and must be skipped. The stop protocol is the module
+    docstring's; a re-dispatch costs one extra chunk, paid only when a run
+    stops with its successor in flight."""
+    runs = engine.runs
+    stopped = np.zeros(runs, dtype=bool)
+    stats = PipelineStats()
+    prev: Optional[InFlightChunk] = None
+    round_index = 0
+
+    def fix_states(chunk: InFlightChunk, stop_pos,
+                   successor: Optional[InFlightChunk]) -> bool:
+        """The serial loop's device state after chunk's stops; True when a
+        run newly stopped (the successor must be dispatched again)."""
+        if not any(p is not None for p in stop_pos):
+            return False
+        if any(p is not None and p < chunk.n_rounds - 1 for p in stop_pos):
+            # a mid-chunk stop: rewind, and replay with the freeze matrix
+            # and the chunk's entry quota
+            engine.states = chunk.snap_states
+            act = np.zeros((chunk.n_rounds, runs), dtype=bool)
+            for i in range(chunk.n_rounds):
+                for r in range(runs):
+                    act[i, r] = chunk.active[r] and (
+                        stop_pos[r] is None or i <= stop_pos[r])
+            engine.run_schedule_chunk(
+                chunk.start_round, chunk.n_rounds, chunk.active,
+                schedule=chunk.schedule, draws=chunk.draws,
+                active_rounds=act, agg_count=chunk.entry_agg)
+        elif successor is not None:
+            # stops at the chunk's last round only: the successor's entry
+            # snapshot is the state after them
+            engine.states = successor.snap_states
+        return True
+
+    def absorb(chunk: InFlightChunk, successor: Optional[InFlightChunk]):
+        outs, schedule, _ = engine.harvest_schedule_chunk(chunk)
+        t_done = time.time()
+        if successor is not None:
+            stats.host_gaps.append(successor.t_dispatch - t_done)
+        sec = (t_done - chunk.t_dispatch) / chunk.n_rounds
+        stop_pos = consume(outs, schedule, chunk.start_round, chunk.n_rounds,
+                           sec, chunk.active)
+        fired = fix_states(chunk, stop_pos, successor)
+        for r in range(runs):
+            if stop_pos[r] is not None:
+                stopped[r] = True
+        return fired
+
+    while round_index < num_rounds and not stopped.all():
+        k = min(chunk_size, num_rounds - round_index)
+        active = ~stopped
+        cur = engine.dispatch_schedule_chunk(
+            round_index, k, active,
+            agg_count=None if prev is None else prev.agg_count,
+            snapshot=True)
+        cur.active = active.copy()
+        stats.chunks += 1
+        if prev is not None and absorb(prev, cur):
+            if stopped.all():
+                return stats  # cur is discarded; the states are fixed
+            # cur ran a stopped lane live (and, after a rewind, from the
+            # states before the replay): dispatch it again with the same
+            # selections and draws and the corrected lane mask
+            active = ~stopped
+            cur = engine.dispatch_schedule_chunk(
+                cur.start_round, cur.n_rounds, active,
+                schedule=cur.schedule, draws=cur.draws, snapshot=True)
+            cur.active = active.copy()
+            stats.redispatches += 1
+        # the host counters are current through cur's predecessor now
+        cur.entry_agg = engine.host_agg_count()
+        prev = cur
+        round_index += k
+        if not pipelined:
+            prev = None
+            absorb(cur, None)
     if prev is not None:
         absorb(prev, None)
     return stats

@@ -39,7 +39,15 @@ launch, the JS matrix on the device, the medoids in numpy) and holds for
 the whole chunk; `refit_every` refits at the first chunk entry that many
 rounds after the last fit. `cluster_assignment=` pins an assignment
 instead (a resume, or a comparison fed one assignment). A null spec
-(k = 1, no personalization) builds nothing. Meshes and the red-team hooks
+(k = 1, no personalization) builds nothing.
+
+The red team (`redteam=` a RedteamSpec, redteam/) is fused-only too, and a
+null spec is no spec. Its per-round inputs are the coalition and the
+min-tenure gate, expanded for the whole horizon like the chaos masks
+(`_redteam_masks`; the gate reads the membership timeline, so
+`min_tenure` > 0 needs an ElasticSpec), the poison rounds' flags and, for
+a noise poison, the update and merge noise of the run's red-team stream.
+`redteam_masks=` replaces the drawn masks, as `elastic_masks=` does. Meshes
 are not ported.
 """
 
@@ -76,6 +84,9 @@ from fedmse_tpu_torch.federation.verification import make_verify_fn
 from fedmse_tpu_torch.federation.voting import (elect_aggregator,
                                                 make_mse_scores_fn)
 from fedmse_tpu_torch.models.flat import ParamLayout
+from fedmse_tpu_torch.redteam.adversary import (make_redteam_fns,
+                                                merge_noise, update_noise)
+from fedmse_tpu_torch.redteam.masks import RedteamMasks, make_redteam_masks
 from fedmse_tpu_torch.utils.seeding import ExperimentRngs
 
 logger = logging.getLogger(__name__)
@@ -205,7 +216,10 @@ class RoundEngine:
     JAX engine; the spec still builds the hook in. `cluster` (a
     ClusterSpec) needs the fused path unless it is null;
     `cluster_assignment` ([n_real] ints) pins the assignment instead of
-    fitting one."""
+    fitting one. `redteam` (a RedteamSpec) needs the fused path unless it
+    is null, and an ElasticSpec when its `min_tenure` > 0;
+    `redteam_masks` (RedteamMasks with [T, N] leaves) replaces its drawn
+    coalition and gate."""
 
     def __init__(self, model, cfg: ExperimentConfig, data: FederatedData,
                  n_real: int, rngs: ExperimentRngs, model_type: str,
@@ -213,7 +227,8 @@ class RoundEngine:
                  profile: bool = False, fused: bool = False,
                  poison_fn=None, chaos=None, elastic=None,
                  elastic_masks: Optional[MembershipMasks] = None,
-                 cluster=None, cluster_assignment=None):
+                 cluster=None, cluster_assignment=None, redteam=None,
+                 redteam_masks: Optional[RedteamMasks] = None):
         if fused and cfg.metric == "time":
             raise ValueError(
                 "metric='time' times each client's scoring on the host and "
@@ -235,6 +250,25 @@ class RoundEngine:
                 "elastic_masks needs an ElasticSpec: the override "
                 "replaces the spec's TIMELINE, not the elastic hook "
                 "itself (pass any non-null spec to build it in)")
+        if redteam is not None and redteam.is_null:
+            redteam = None  # builds nothing: the rounds of no spec
+        if redteam is not None and (not fused or profile):
+            raise ValueError(
+                "redteam adversaries are compiled into the fused round "
+                "program; construct the engine with fused=True (and "
+                "profile=False)")
+        if redteam is not None and redteam.min_tenure > 0 and elastic is None:
+            raise ValueError("min_tenure > 0 needs an ElasticSpec: the "
+                             "gate defers recycled tenants' votes, and a "
+                             "static fleet has none to defer")
+        if redteam_masks is not None and redteam is None:
+            raise ValueError("redteam_masks needs a non-null RedteamSpec: "
+                             "the override replaces the spec's masks, not "
+                             "its hooks")
+        self.redteam = redteam
+        self._redteam_fns = make_redteam_fns(redteam)
+        self._redteam_override = redteam_masks
+        self._redteam_premade = redteam_masks
         self.poison_fn, self.chaos, self.elastic = poison_fn, chaos, elastic
         self._elastic_override = elastic_masks
         self._chaos_premade: Optional[ChaosMasks] = None
@@ -311,6 +345,8 @@ class RoundEngine:
                                    run_seed_stride=self.rngs.run_seed_stride)
         self.states = self._fresh_states()
         self.host = HostState.create(self.n_real)
+        # the red team re-keys from the fresh streams
+        self._redteam_premade = self._redteam_override
         if self.cluster is not None and self._cluster_override is None:
             # a fresh federation fits from its fresh init states
             self._cluster_assign = self._cluster_vec = None
@@ -379,7 +415,7 @@ class RoundEngine:
                 elastic=self.elastic is not None,
                 cluster_k=1 if spec is None else spec.k,
                 personalize=spec is not None and spec.personalize,
-                shared=self._shared)
+                shared=self._shared, redteam=self._redteam_fns)
             self._fused = f
             self.states = f.states
         elif self.states is not f.states:
@@ -398,6 +434,7 @@ class RoundEngine:
             self._premade_seed = self.rngs.run_seed
             self._chaos_premade = self._reelect_premade = None
             self._elastic_premade = self._elastic_override
+            self._redteam_premade = self._redteam_override
 
     @staticmethod
     def _too_short(cached, end: int) -> bool:
@@ -478,6 +515,54 @@ class RoundEngine:
                                        n_rounds, width)
         return out
 
+    def _redteam_masks(self, start_round: int, n_rounds: int
+                       ) -> RedteamMasks:
+        """The chunk's coalition and tenure gate, sliced from the whole
+        horizon's (the gate reads the membership timeline over the same
+        rounds)."""
+        self._check_premade()
+        end = start_round + n_rounds
+        if self._too_short(self._redteam_premade, end):
+            if self._redteam_override is not None:
+                raise ValueError(
+                    f"redteam_masks override covers "
+                    f"{self._redteam_override.adv.shape[0]} rounds but the "
+                    f"schedule needs {end}")
+            horizon = max(end, self.cfg.num_rounds)
+            membership = None
+            if self.redteam.min_tenure > 0:
+                self._elastic_masks(0, horizon)
+                membership = self._elastic_premade
+            self._redteam_premade = make_redteam_masks(
+                self.redteam, self.rngs.redteam_key(), horizon, self.n_pad,
+                membership=membership)
+        return RedteamMasks(*(m[start_round:end]
+                              for m in self._redteam_premade))
+
+    def _redteam_noise(self, start_round: int, n_rounds: int) -> dict:
+        """A noise poison's draws for the chunk: the update stage's [R, N,
+        P] and the merge stage's [R, P] ([R, K·P] when clustered)."""
+        p, key = self.layout.size, self.rngs.redteam_key()
+        width = p * (self.cluster.k if self.clustered else 1)
+        return {"rt_update_noise": update_noise(key, start_round, n_rounds,
+                                                self.n_pad, p),
+                "rt_merge_noise": merge_noise(key, start_round, n_rounds,
+                                              width)}
+
+    def _redteam_inputs(self, start_round: int, n_rounds: int) -> dict:
+        """The red team's inputs for rounds [start_round, +n_rounds), by
+        FusedRound.input_names."""
+        fns, out = self._redteam_fns, {}
+        masks = self._redteam_masks(start_round, n_rounds)
+        if self.redteam.attacks:
+            out["rt_adv"] = masks.adv
+            out["rt_active"] = fns.active(start_round, n_rounds)
+        if fns.gate_votes:
+            out["rt_vote_ok"] = masks.vote_ok
+        if fns.needs_noise:
+            out.update(self._redteam_noise(start_round, n_rounds))
+        return out
+
     def _hook_inputs(self, start_round: int, n_rounds: int,
                      cohort: int) -> dict:
         """Every built-in hook's inputs for rounds [start_round, +n_rounds),
@@ -492,6 +577,8 @@ class RoundEngine:
                     start_round, n_rounds, cohort)
         if self.elastic is not None:
             out.update(self._elastic_masks(start_round, n_rounds)._asdict())
+        if self.redteam is not None:
+            out.update(self._redteam_inputs(start_round, n_rounds))
         return out
 
     # ---- clustered federation (cluster/) ---- #

@@ -17,6 +17,8 @@ history: each update of the round is a few ops on one tensor.
                verifier's recovery waiver
 
 `HostState` keeps the election's counters on the host.
+`init_batched_client_states` stacks R runs' inits run by run, [R·N, ...]
+(the batched round, federation/batched.py).
 `client_states_from_numpy` takes the JAX package's ClientStates (as numpy),
 so both packages can start from one init: jax.random's draws cannot be
 reproduced in torch; `client_states_to_numpy` is its inverse, in the JAX
@@ -28,7 +30,7 @@ The per-client selects and the divergence observable of the fault hooks
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,14 +77,17 @@ class ClientStates:
             getattr(self, f.name).copy_(getattr(other, f.name))
 
     def where_(self, keep: torch.Tensor, new: "ClientStates") -> None:
-        """Take `new`'s values where the device predicate `keep` (a 0-d
-        bool) holds, in place: a branch without a host read."""
+        """Take `new`'s values where the device predicate `keep` holds, in
+        place: a branch without a host read. `keep` is a 0-d bool, or [N]
+        per client (the batched round's per-run selects)."""
         for f in dataclasses.fields(self):
             mine, theirs = getattr(self, f.name), getattr(new, f.name)
             pairs = zip(mine, theirs) if isinstance(mine, AdamState) \
                 else [(mine, theirs)]
             for a, b in pairs:
-                torch.where(keep, b, a, out=a)
+                k = keep if keep.dim() == 0 else keep.view(
+                    (-1,) + (1,) * (a.dim() - 1))
+                torch.where(k, b, a, out=a)
 
     def select(self, keep: torch.Tensor, other: "ClientStates"
                ) -> "ClientStates":
@@ -142,6 +147,28 @@ def init_client_states(model, n_clients: int,
     tree = init_stacked_params(model, n_clients, generator,
                                device=resolve_device(device))
     return fresh_states(ParamLayout.of(model).flatten(tree))
+
+
+def init_batched_client_states(model, generators: Sequence[torch.Generator],
+                               n_clients: int, *,
+                               device: DeviceLike = "cuda") -> ClientStates:
+    """R runs' clients stacked run by run, [R·N, ...] (the batched round's
+    layout, federation/batched.py): rows [r N, (r + 1) N) are
+    `init_client_states` of run r's generator, bit for bit."""
+    per_run = [init_client_states(model, n_clients, g, device=device)
+               for g in generators]
+    return concat_states(per_run)
+
+
+def concat_states(states: Sequence[ClientStates]) -> ClientStates:
+    """States stacked on the client axis, in order (new tensors)."""
+    def each(name):
+        parts = [getattr(s, name) for s in states]
+        if isinstance(parts[0], AdamState):
+            return AdamState(*map(torch.cat, zip(*parts)))
+        return torch.cat(parts)
+    return ClientStates(**{f.name: each(f.name)
+                           for f in dataclasses.fields(ClientStates)})
 
 
 def client_states_from_numpy(states: Any, layout: ParamLayout, *,

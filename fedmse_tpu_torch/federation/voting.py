@@ -13,7 +13,8 @@ fedmse_tpu/federation/voting.py).
     under the quota; each voter call draws fresh scores.
   * `elect_on_device`: the same election as device ops, for the fused
     round (federation/fused.py): one scoring launch, each voter's
-    tie-break drawn ahead of the round.
+    tie-break drawn ahead of the round; `elect_on_device_runs` runs R
+    federations' elections at once (the batched round).
 """
 
 from __future__ import annotations
@@ -36,7 +37,11 @@ def make_mse_scores_fn(model, restandardize: bool = True,
                        tie_break: bool = True) -> Callable:
     """fn(params [N, P], val_x [V, D], val_m [V], generator) -> scores [N]
     f32 on params' device. `generator` (a CPU torch.Generator) draws the
-    tie-breaks; it is not used when tie_break is False."""
+    tie-breaks; it is not used when tie_break is False. Per-run vote
+    tensors val_x [R, V, D], val_m [R, V] (the batched round, tie_break
+    off) score the N = R x n models run by run: model r n + i scores run
+    r's rows, restandardized with run r's own statistics, in the same one
+    launch."""
     layout = ParamLayout.of(model)
     cdt = model.compute_dtype
 
@@ -46,22 +51,38 @@ def make_mse_scores_fn(model, restandardize: bool = True,
                    generator: Optional[torch.Generator] = None
                    ) -> torch.Tensor:
         n = params.shape[0]
-        v, d = val_x.shape
+        v, d = val_x.shape[-2:]
+        per_run = val_x.dim() == 3
         x = val_x.to(torch.float32)
         if restandardize:
             mean, std = masked_mean_std(x, val_m, ddof=1, eps=1e-8)
-            x = (x - mean) / std
+            x = ((x - mean[:, None]) / std[:, None] if per_run
+                 else (x - mean) / std)
+        if per_run:  # model r * per + i scores run r's rows
+            runs, per = x.shape[0], n // x.shape[0]
+            rows = x.to(cdt)[:, None].expand(runs, per, v, d).reshape(-1, d)
+        else:
+            rows = x.to(cdt).repeat(n, 1)
         _, mse, _ = fused_forward_stats(
-            layout.tree(params, cdt), x.to(cdt).repeat(n, 1),
+            layout.tree(params, cdt), rows,
             client_index(n, v, params.device), compute_dtype=cdt)
         nb = -(-v // VOTE_BATCH)
         pad = nb * VOTE_BATCH - v
         mse = torch.nn.functional.pad(mse.view(n, v), (0, pad))
-        mb = torch.nn.functional.pad(val_m, (0, pad)).view(nb, VOTE_BATCH)
-        batch = safe_div((mse.view(n, nb, VOTE_BATCH) * mb).sum(dim=2),
-                         mb.sum(dim=1))
-        has = (mb > 0).any(dim=1)
-        real = torch.clamp(has.sum(), min=1).to(torch.float32)
+        mb = torch.nn.functional.pad(val_m, (0, pad))
+        if per_run:
+            mb = mb.view(runs, 1, nb, VOTE_BATCH).expand(
+                runs, per, nb, VOTE_BATCH).reshape(n, nb, VOTE_BATCH)
+            batch = safe_div((mse.view(n, nb, VOTE_BATCH) * mb).sum(dim=2),
+                             mb.sum(dim=2))
+            has = (mb > 0).any(dim=2)
+            real = torch.clamp(has.sum(dim=1), min=1).to(torch.float32)
+        else:
+            mb = mb.view(nb, VOTE_BATCH)
+            batch = safe_div((mse.view(n, nb, VOTE_BATCH) * mb).sum(dim=2),
+                             mb.sum(dim=1))
+            has = (mb > 0).any(dim=1)
+            real = torch.clamp(has.sum(), min=1).to(torch.float32)
         scores = torch.where(has, batch, 0.0).sum(dim=1) / real
         if tie_break:
             scores = tie_break_jitter(
@@ -82,7 +103,10 @@ def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
                     sel: torch.Tensor, sel_mask: torch.Tensor,
                     agg_count: torch.Tensor, max_threshold: int,
                     voters: Optional[torch.Tensor] = None,
-                    cluster_in: Optional[torch.Tensor] = None
+                    cluster_in: Optional[torch.Tensor] = None,
+                    vote_ok: Optional[torch.Tensor] = None,
+                    adv: Optional[torch.Tensor] = None,
+                    lie_votes: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """First-voter-wins over the S selected voters, on the device with no
     host read (port of fedmse_tpu/federation/fused.py `_elect_on_device`).
@@ -98,9 +122,15 @@ def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
     outside it casts no vote and its turn passes. `cluster_in` [N] int64
     (clustered federation) scopes a voter's candidates to its own
     cluster; a voter whose cluster has no eligible candidate passes its
-    turn. Returns (aggregator
-    int64 0-d, -1 when no voter has a candidate; the winning voter's
-    scores [N], zeros then)."""
+    turn. The red team's inputs (redteam/): `vote_ok` [N] (the min-tenure
+    gate) makes an ineligible slot no candidate and passes an ineligible
+    voter's turn; with `lie_votes`, a voter that is adversarial (`adv`
+    [N] > 0) picks the earliest-selected adversarial candidate in its
+    scope when there is one, and the honest pick otherwise. The gate
+    comes before the collusion pick, so a gated sybil cannot be elected
+    even by an accomplice. Without them the ops are the clean election's.
+    Returns (aggregator int64 0-d, -1 when no voter has a candidate; the
+    winning voter's scores [N], zeros then)."""
     s, n = sel.shape[0], base.shape[0]
     ids = torch.arange(n, device=base.device)
     scores = (base.expand(s, n) if draws is None
@@ -113,19 +143,70 @@ def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
     if cluster_in is not None:
         cand = cand & (cluster_in[None, :]
                        == cluster_in.index_select(0, sel)[:, None])
+    if vote_ok is not None:
+        cand = cand & (vote_ok > 0)[None, :]
     found = cand.any(dim=1)
     if voters is not None:
         found = found & (voters.index_select(0, sel) > 0)
+    if vote_ok is not None:
+        found = found & (vote_ok.index_select(0, sel) > 0)
     masked = torch.where(cand & ~torch.isnan(scores), scores,
                          torch.full_like(scores, float("inf")))
     tie = cand & (masked == masked.min(dim=1, keepdim=True).values)
     pick = torch.where(tie, sel_pos[None, :],
                        torch.full_like(tie, s + 1, dtype=torch.int64)
                        ).argmin(dim=1)
+    if lie_votes and adv is not None:
+        acc = cand & (adv > 0)[None, :]
+        acc_pick = torch.where(acc, sel_pos[None, :],
+                               torch.full_like(acc, s + 1,
+                                               dtype=torch.int64)
+                               ).argmin(dim=1)
+        lie = (adv.index_select(0, sel) > 0) & acc.any(dim=1)
+        pick = torch.where(lie, acc_pick, pick)
     first = found.to(torch.int32).argmax().view(1)  # a device index
     won = found.any()
     aggregator = torch.where(won, pick.index_select(0, first)[0], -1)
     return aggregator, torch.where(won, scores.index_select(0, first)[0],
+                                   torch.zeros_like(base))
+
+
+def elect_on_device_runs(base: torch.Tensor, draws: Optional[torch.Tensor],
+                         sel: torch.Tensor, sel_mask: torch.Tensor,
+                         agg_count: torch.Tensor, max_threshold: int,
+                         voters: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`elect_on_device` of R independent federations at once (the batched
+    round, federation/fused.py BatchedFusedRound): base [R, N], draws
+    [R, S, N] or None, sel [R, S] (each run's own client ids), sel_mask,
+    agg_count and voters [R, N]. Run r's election is `elect_on_device` of
+    its rows, op for op in exact arithmetic. Returns (aggregator [R]
+    int64, -1 where a run found none; scores [R, N])."""
+    runs, s = sel.shape
+    n = base.shape[1]
+    dev = base.device
+    ids = torch.arange(n, device=dev)
+    scores = (base[:, None, :].expand(runs, s, n) if draws is None
+              else tie_break_jitter(base[:, None, :], draws))
+    sel_pos = torch.full((runs, n), s, dtype=torch.int64,
+                         device=dev).scatter(
+        1, sel, torch.arange(s, device=dev).expand(runs, s).contiguous())
+    cand = ((sel_mask > 0) & (agg_count < max_threshold))[:, None, :] \
+        & (ids[None, None, :] != sel[:, :, None])
+    found = cand.any(dim=2)
+    if voters is not None:
+        found = found & (voters.gather(1, sel) > 0)
+    masked = torch.where(cand & ~torch.isnan(scores), scores,
+                         torch.full_like(scores, float("inf")))
+    tie = cand & (masked == masked.min(dim=2, keepdim=True).values)
+    pick = torch.where(tie, sel_pos[:, None, :],
+                       torch.full_like(tie, s + 1, dtype=torch.int64)
+                       ).argmin(dim=2)
+    first = found.to(torch.int32).argmax(dim=1, keepdim=True)  # [R, 1]
+    won = found.any(dim=1)
+    aggregator = torch.where(won, pick.gather(1, first)[:, 0], -1)
+    winner = scores.gather(1, first[:, :, None].expand(runs, 1, n))[:, 0]
+    return aggregator, torch.where(won[:, None], winner,
                                    torch.zeros_like(base))
 
 

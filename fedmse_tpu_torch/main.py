@@ -34,6 +34,13 @@ reference's results artifacts (port of fedmse_tpu/main.py).
     CheckpointManager), with the selection and torch streams where they
     were: a resumed run is the uninterrupted one. It runs the serial chunk
     loop, as in the JAX package (a pipelined boundary is speculative);
+  * `--batch-runs` runs a combination's `num_runs` seeds as one batched
+    federation (`run_batched_combination`, federation/batched.py): R runs
+    x N clients in one set of captured bodies, per-run early stopping as
+    a freeze mask, and per run the artifacts the sequential driver
+    writes. It needs the fused schedule: under --resume-dir,
+    metric='time', --cluster-k, or with fused rounds or the fused
+    schedule off, the driver warns and runs the seeds one after another;
   * `--serve` then runs the serving pass (serving/smoke.py) on the first
     combination's checkpoint.
 
@@ -43,10 +50,11 @@ CLI (runs on the card unless --device cpu):
         [--num-rounds 20] [--epochs 100] [--score-kind knn] [--no-pipeline]
         [--attack-kind scale ...] [--chaos-dropout 0.2 ...]
         [--elastic-leave 0.1 ...] [--cluster-k 4 [--cluster-personalize]
-        [--cluster-refit-every N]] [--resume-dir DIR]
+        [--cluster-refit-every N]] [--resume-dir DIR] [--batch-runs]
         [--serve [--serve-rows N] [--serve-warmup] [--serve-continuous]] ...
-Not ported: meshes, batched runs, the tiered state layout, the network and
-flywheel smokes and the red team.
+Not ported: meshes, the tiered state layout, and the network and flywheel
+smokes. The red team's round half is ported (fedmse_tpu_torch/redteam/,
+RoundEngine(redteam=)); as in the JAX package, no flag drives it.
 """
 
 from __future__ import annotations
@@ -78,7 +86,9 @@ from fedmse_tpu_torch.federation import (ClientStates, RoundEngine,
                                          split_metric_columns)
 from fedmse_tpu_torch.federation.attack import AttackSpec, make_poison_fn
 from fedmse_tpu_torch.federation.elastic import ElasticSpec
-from fedmse_tpu_torch.federation.pipeline import run_pipelined_schedule
+from fedmse_tpu_torch.federation.batched import BatchedRunEngine
+from fedmse_tpu_torch.federation.pipeline import (run_pipelined_batched,
+                                                  run_pipelined_schedule)
 from fedmse_tpu_torch.models import make_model
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.precision import get_policy
@@ -130,14 +140,17 @@ def prepare_federation(cfg: ExperimentConfig, dataset: DatasetConfig, *,
 
 
 @torch.no_grad()
-def _save_hybrid_latents(writer: ResultsWriter, engine: RoundEngine,
-                         run: int, update_type: str) -> None:
-    """The hybrid's test latents and labels of every real client."""
+def _save_hybrid_latents(writer: ResultsWriter, engine, run: int,
+                         update_type: str,
+                         params: Optional[torch.Tensor] = None) -> None:
+    """The hybrid's test latents and labels of every real client (`params`
+    [N, P]: a batched engine's run; the engine's states by default)."""
     d, n = engine.data, engine.n_real
     cdt = engine.model.compute_dtype
     t = d.test_x.shape[1]
+    params = engine.states.params if params is None else params
     latent, _, _ = fused_forward_stats(
-        engine.layout.tree(engine.states.params[:n], cdt),
+        engine.layout.tree(params[:n], cdt),
         d.test_x[:n].reshape(n * t, -1).to(cdt),
         client_index(n, t, d.test_x.device), compute_dtype=cdt)
     mask = d.test_m[:n].reshape(-1).cpu().numpy() > 0
@@ -323,6 +336,132 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
     return out
 
 
+def run_batched_combination(cfg: ExperimentConfig, data, n_real: int,
+                            model_type: str, update_type: str,
+                            writer: Optional[ResultsWriter] = None,
+                            device_names: Optional[List[str]] = None,
+                            save_checkpoints: bool = False,
+                            attack: Optional[AttackSpec] = None,
+                            chaos: Optional[ChaosSpec] = None,
+                            elastic: Optional[ElasticSpec] = None
+                            ) -> List[Dict]:
+    """All `cfg.num_runs` seeds of one (model_type, update_type) as one
+    batched federation (federation/batched.py), with per run the
+    artifacts the sequential driver writes: round JSON lines,
+    verification rows, client models, training_tracking.pkl and the
+    hybrid's latents. Global early stopping runs per run on the host, as
+    the sequential loop checks it, and reaches the round as a freeze mask
+    (pipeline.run_pipelined_batched). Its state is per run: the
+    reference's shared-state quirk cannot couple runs that run at once.
+    Returns one result dict per run, shaped like run_combination's."""
+    runs = cfg.num_runs
+    model = make_model(model_type, cfg.dim_features, cfg.hidden_neus,
+                       cfg.latent_dim, cfg.shrink_lambda,
+                       precision=cfg.precision, device=data.train_xb.device)
+    engine = BatchedRunEngine(
+        model, cfg, data, n_real=n_real, runs=runs, model_type=model_type,
+        update_type=update_type,
+        poison_fn=None if attack is None else make_poison_fn(attack),
+        chaos=chaos, elastic=elastic)
+    early = [GlobalEarlyStop(inverted=cfg.compat.inverted_global_early_stop,
+                             patience=cfg.global_patience)
+             for _ in range(runs)]
+    round_times: List[List[float]] = [[] for _ in range(runs)]
+    all_tracking: List[List[np.ndarray]] = [[] for _ in range(runs)]
+    results: List[list] = [[] for _ in range(runs)]
+
+    def consume(outs, schedule, start_round, k, sec, active):
+        """Each run's rounds up to its stop, in the sequential driver's
+        order; returns each run's stop position in the chunk, or None."""
+        stop_pos: List[Optional[int]] = [None] * runs
+        for i in range(k):
+            for r in range(runs):
+                if not active[r] or stop_pos[r] is not None:
+                    continue  # a stopped run's rounds reach no record
+                result = engine.process_round(r, start_round + i,
+                                              schedule[i][r], outs, i)
+                round_times[r].append(sec)
+                all_tracking[r].append(result.tracking)
+                results[r].append(result)
+                logger.info(
+                    "[%s/%s run %d] round %d: agg=%s mean %s=%.4f (%.2fs)",
+                    model_type, update_type, r, result.round_index + 1,
+                    result.aggregator, cfg.metric,
+                    float(np.nanmean(result.client_metrics)), sec)
+                if writer is not None:
+                    writer.append_round_metrics(r, result.round_index,
+                                                result.client_metrics,
+                                                model_type, update_type)
+                    writer.append_verification(r, result.round_index,
+                                               result.verification_results)
+                if early[r].should_stop(result.client_metrics):
+                    logger.info("Early stopping in global round!")
+                    stop_pos[r] = i
+        return stop_pos
+
+    if cfg.fused_schedule_chunk < 1:
+        raise ValueError(f"fused_schedule_chunk must be >= 1, got "
+                         f"{cfg.fused_schedule_chunk}")
+    pipeline = run_pipelined_batched(
+        engine, cfg.num_rounds, cfg.fused_schedule_chunk, consume,
+        pipelined=cfg.fused_pipeline).summary()
+    finals = engine.evaluate_final()
+    outs: List[Dict] = []
+    for r in range(runs):
+        final_metrics, final_full = split_metric_columns(finals[r])
+        if elastic is not None:
+            member = engine.members_at(len(round_times[r]), r)
+            final_metrics = np.where(member, final_metrics, np.nan)
+            if final_full is not None:
+                final_full = np.where(member[:, None], final_full, np.nan)
+        params = engine.run_params(r)
+        if writer is not None and save_checkpoints and device_names:
+            save_client_models(writer, r, model_type, update_type,
+                               device_names,
+                               engine.layout.tree(params[:n_real]))
+            if all_tracking[r]:
+                save_training_tracking(writer, r, model_type, update_type,
+                                       device_names,
+                                       np.concatenate(all_tracking[r],
+                                                      axis=1))
+            if model_type == "hybrid":
+                _save_hybrid_latents(writer, engine, r, update_type,
+                                     params=params)
+        out = {
+            "final_metrics": final_metrics,
+            "best_final": float(np.nanmax(final_metrics)),
+            "round_times": round_times[r],
+            "rounds_run": len(round_times[r]),
+            "aggregation_count": engine.host[r].aggregation_count.tolist(),
+            "votes_received": engine.host[r].votes_received.tolist(),
+            "aggregation_backend_effective": "einsum",
+            "rounds": results[r],
+            "engine": engine,
+            "pipeline": pipeline,
+        }
+        if final_full is not None:
+            out["final_metrics_full"] = final_full
+        outs.append(out)
+    return outs
+
+
+def batch_runs_refusals(cfg: ExperimentConfig, resume_dir: Optional[str],
+                        cluster: Optional[ClusterSpec]) -> List[str]:
+    """Why --batch-runs cannot batch this sweep (empty: it can), in the
+    JAX driver's words."""
+    reasons = []
+    if resume_dir:
+        reasons.append("--resume-dir (per-chunk resume is per-run)")
+    if cfg.metric == "time":
+        reasons.append("metric='time' (host-side wall clock)")
+    if not (cfg.fused_rounds and cfg.fused_schedule):
+        reasons.append("fused_rounds/fused_schedule disabled")
+    if cluster is not None and not cluster.is_null:
+        reasons.append("--cluster-k (per-run assignment fits are "
+                       "sequential-driver only)")
+    return reasons
+
+
 def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                    save_checkpoints: bool = True, *,
                    device: DeviceLike = "cuda", serve: bool = False,
@@ -332,8 +471,12 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                    attack: Optional[AttackSpec] = None,
                    chaos: Optional[ChaosSpec] = None,
                    elastic: Optional[ElasticSpec] = None,
-                   cluster: Optional[ClusterSpec] = None) -> Dict:
-    """The full sweep -> training summary dict. `serve=True` appends the
+                   cluster: Optional[ClusterSpec] = None,
+                   batch_runs: bool = False) -> Dict:
+    """The full sweep -> training summary dict. `batch_runs` runs each
+    combination's seeds as one batched federation where the sweep allows
+    it (batch_runs_refusals), else sequentially with a warning.
+    `serve=True` appends the
     serving pass on the first combination's checkpoint (its report under
     "serve_smoke"); it needs the checkpoints, so under
     save_checkpoints=False it is skipped with a warning. `resume_dir`
@@ -358,11 +501,41 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
     early_stop = GlobalEarlyStop(
         inverted=cfg.compat.inverted_global_early_stop,
         patience=cfg.global_patience)
+    if batch_runs:
+        reasons = batch_runs_refusals(cfg, resume_dir, cluster)
+        if reasons:
+            logger.warning("--batch-runs disabled (%s); running runs "
+                           "sequentially", "; ".join(reasons))
+            batch_runs = False
+        elif cfg.compat.global_early_stop_state_shared:
+            logger.warning(
+                "--batch-runs: global early-stop state is per run — the "
+                "reference's shared-state quirk "
+                "(compat.global_early_stop_state_shared) cannot couple runs "
+                "that execute simultaneously; sequential mode remains the "
+                "oracle for that quirk")
     best_metrics = {mt: {ut: float("-inf") for ut in cfg.update_types}
                     for mt in cfg.model_types}
     all_results = {}
     for model_type in cfg.model_types:
         for update_type in cfg.update_types:
+            if batch_runs:
+                run_outs = run_batched_combination(
+                    cfg, data, n_real, model_type, update_type,
+                    writer=writer, device_names=device_names,
+                    save_checkpoints=save_checkpoints, attack=attack,
+                    chaos=chaos, elastic=elastic)
+                for run, out in enumerate(run_outs):
+                    best_metrics[model_type][update_type] = max(
+                        best_metrics[model_type][update_type],
+                        out["best_final"])
+                    all_results[f"{model_type}/{update_type}/run{run}"] = {
+                        "final_metrics": out["final_metrics"].tolist(),
+                        "round_times": out["round_times"],
+                        "aggregation_backend_effective":
+                            out["aggregation_backend_effective"],
+                    }
+                continue
             for run in range(cfg.num_runs):
                 if not cfg.compat.global_early_stop_state_shared:
                     early_stop.reset()
@@ -441,6 +614,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "continuous-batching front (double-buffered "
                         "dispatch, adaptive bucket pick) instead of the "
                         "micro-batcher")
+    p.add_argument("--batch-runs", action="store_true",
+                   help="run all num_runs seeds of each combination as one "
+                        "batched federation (federation/batched.py); the "
+                        "per-run artifacts are the sequential driver's")
     p.add_argument("--resume-dir", default=None,
                    help="snapshot every combination here after each chunk "
                         "(or round) and resume from the snapshot when one "
@@ -579,7 +756,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                           serve_warmup=args.serve_warmup,
                           serve_continuous=args.serve_continuous,
                           resume_dir=args.resume_dir, attack=attack,
-                          chaos=chaos, elastic=elastic, cluster=cluster)
+                          chaos=chaos, elastic=elastic, cluster=cluster,
+                          batch_runs=args.batch_runs)
 
 
 if __name__ == "__main__":

@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -187,7 +187,8 @@ def _library() -> ctypes.CDLL:
 def fused_train_grads(params_flat: torch.Tensor, x: torch.Tensor,
                       mask: torch.Tensor, *, layout: ParamLayout,
                       shrink_lambda: float = 0.0,
-                      compute_dtype: torch.dtype = torch.float32
+                      compute_dtype: torch.dtype = torch.float32,
+                      ctas: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss [G], grads [G, P]), both f32, of G clients' batches in one
     fused pass.
@@ -197,8 +198,10 @@ def fused_train_grads(params_flat: torch.Tensor, x: torch.Tensor,
     row mask, rows contiguous. Under bf16 the kernel rounds the weights to
     bf16 as it loads them. CPU tensors run `fused_train_grads_plain`; CUDA
     tensors launch csrc/fused_train.cu once, on their device's current
-    stream, as G clusters of `cluster_size(G, H)` CTAs, and nothing runs
-    after it (it raises ValueError for a model too wide for the kernel's
+    stream, as G clusters of `cluster_size(G, H)` CTAs (`ctas` fixes
+    another count in [1, min(8, H)]: a client's sums run in the same order
+    whatever G, so the batched round passes one run's count and its
+    clients get the bits of the run alone), and nothing runs after it (it raises ValueError for a model too wide for the kernel's
     shared memory). R = 0 or G = 0 launches nothing: every loss and
     gradient is then NaN, as an all-masked client's."""
     _check(params_flat, x, mask, layout, compute_dtype)
@@ -220,6 +223,11 @@ def fused_train_grads(params_flat: torch.Tensor, x: torch.Tensor,
             or not params_flat.is_contiguous():
         raise ValueError("the fused train kernel takes x and mask with "
                          "contiguous rows and contiguous params_flat")
+    if ctas is None:
+        ctas = cluster_size(g, layout.hidden)
+    elif not 1 <= ctas <= min(_MAX_CLUSTER, layout.hidden):
+        raise ValueError(f"ctas must be in [1, "
+                         f"{min(_MAX_CLUSTER, layout.hidden)}], got {ctas}")
     lib = _library()
     # the kernel writes every element of both
     loss = torch.empty((g,), dtype=torch.float32, device=x.device)
@@ -231,8 +239,7 @@ def fused_train_grads(params_flat: torch.Tensor, x: torch.Tensor,
     rc = lib.fused_ae_train(
         x.data_ptr(), x.stride(0), mask.data_ptr(), mask.stride(0),
         params_flat.data_ptr(), loss.data_ptr(), grads.data_ptr(),
-        g, r, d, layout.hidden, layout.latent,
-        cluster_size(g, layout.hidden), lam,
+        g, r, d, layout.hidden, layout.latent, ctas, lam,
         int(compute_dtype == torch.bfloat16), index,
         torch._C._cuda_getCurrentRawStream(index))
     if rc == _ERR_TOO_WIDE:

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import time
 from bisect import bisect_left
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -50,6 +51,8 @@ from fedmse_tpu_torch.models.centroid import CentroidClassifier, fit_centroid
 from fedmse_tpu_torch.ops.fused_ae import encode_rows, fused_forward_stats
 from fedmse_tpu_torch.ops.precision import PrecisionPolicy, get_policy
 
+logger = logging.getLogger(__name__)
+
 
 class UnknownGatewayError(ValueError):
     """A request routed to a gateway slot that is not currently a member of
@@ -64,10 +67,18 @@ class UnknownGatewayError(ValueError):
 class ServingRoster:
     """Which gateway slots are occupied, and by which tenant generation.
     Host-side metadata, installed at build (`roster=`) or swapped between
-    dispatches."""
+    dispatches (`swap_state(roster=)`, `ContinuousBatcher.swap(roster=)`).
+
+    `cluster` (optional [N] int32, cluster/) records which cluster model
+    each slot serves under a clustered federation. The routing itself is
+    already in the stacked params (gateway g's row is its cluster's model,
+    cluster.cluster_models), so the column is provenance the swap carries
+    and checks, not a dispatch path: membership, not clustering, decides
+    UNKNOWN_GATEWAY."""
 
     member: np.ndarray      # [N] bool — slot currently serves a tenant
     generation: np.ndarray  # [N] int64 — tenant generation per slot
+    cluster: Optional[np.ndarray] = None  # [N] int32 — cluster per slot
 
     def __post_init__(self):
         object.__setattr__(self, "member",
@@ -79,10 +90,25 @@ class ServingRoster:
             raise ValueError(
                 f"roster member {self.member.shape} and generation "
                 f"{self.generation.shape} must describe the same slots")
+        if self.cluster is not None:
+            object.__setattr__(
+                self, "cluster",
+                np.ascontiguousarray(self.cluster, dtype=np.int32))
+            if self.cluster.shape != self.member.shape:
+                raise ValueError(
+                    f"roster cluster column {self.cluster.shape} must "
+                    f"describe the same slots as member "
+                    f"{self.member.shape}")
 
     @property
     def num_gateways(self) -> int:
         return len(self.member)
+
+    @staticmethod
+    def full(n: int) -> "ServingRoster":
+        """The static federation's roster: every slot a founding tenant."""
+        return ServingRoster(member=np.ones(n, bool),
+                             generation=np.zeros(n, np.int64))
 
 
 class PendingScores:
@@ -347,13 +373,22 @@ class ServingEngine:
                     f"slots, engine serves {self.num_gateways}")
             old = self.roster
             if old is not None:
+                recycled = np.flatnonzero(roster.generation > old.generation)
                 roster_delta = {
                     "joined": np.flatnonzero(roster.member
                                              & ~old.member).tolist(),
                     "left": np.flatnonzero(old.member
                                            & ~roster.member).tolist(),
-                    "recycled": np.flatnonzero(roster.generation
-                                               > old.generation).tolist()}
+                    "recycled": recycled.tolist()}
+                if len(recycled) and params is None:
+                    # the roster alone re-opens the slot without replacing
+                    # the previous tenant's model it still serves
+                    logger.warning(
+                        "roster swap recycles slot(s) %s (generation "
+                        "advanced) without a params swap in the same call; "
+                        "those slots keep serving the previous tenant's "
+                        "model until new params/banks/calibration arrive",
+                        recycled.tolist()[:8])
             swapped.append("roster")
         if not swapped:
             raise ValueError("swap_state: nothing to swap")

@@ -15,28 +15,33 @@ client selections are the same draws there and here. The third replaces
 the JAX key stream; its numbers differ from jax.random's by design.
 
 The fault streams (chaos masks, the elastic membership timeline, attack
-noise) are domain-separated like the JAX package's `chaos_key` /
+noise, the red team's coalition and poison noise) are domain-separated like the JAX package's `chaos_key` /
 `elastic_key`: each is a pure function of (run seed, stream tag, the ids
 of one draw), drawn through `stream_rng`, and none of them touches
 `generator`, `select_rng` or `data_rng`. So turning a fault on leaves the
 init, selection and tie-break draws bit-identical. A draw keyed on an
 absolute round t and an absolute client i depends on nothing else, so
 padding the client axis or chunking the schedule cannot change it.
+
+`make_run_rngs` gives the R runs of a combination their streams, each
+exactly the sequential driver's run r (federation/batched.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
-# stream tags: the JAX package's spellings of "CHAO" and "ELAS", and "ATTA"
+# stream tags: the JAX package's spellings of "CHAO", "ELAS" and "REDT",
+# and "ATTA"
 CHAOS_STREAM_TAG = 0x4348414F
 ELASTIC_STREAM_TAG = 0x454C4153
 ATTACK_STREAM_TAG = 0x41545441
+REDTEAM_STREAM_TAG = 0x52454454
 
 StreamKey = Tuple[int, int]  # (run seed, stream tag)
 
@@ -89,6 +94,11 @@ class ExperimentRngs:
         calling it consumes nothing."""
         return (self.run_seed, ATTACK_STREAM_TAG)
 
+    def redteam_key(self) -> StreamKey:
+        """The key of this run's red-team stream (redteam/masks.py,
+        redteam/adversary.py); calling it consumes nothing."""
+        return (self.run_seed, REDTEAM_STREAM_TAG)
+
     def state_dict(self) -> dict:
         """The selection and torch streams' positions, JSON-able (a resumed
         run continues them; `data_rng` serves data preparation only)."""
@@ -102,3 +112,12 @@ class ExperimentRngs:
         self.select_rng.setstate((version, tuple(internal), gauss))
         self.generator.set_state(torch.from_numpy(np.frombuffer(
             bytes.fromhex(state["generator"]), dtype=np.uint8).copy()))
+
+
+def make_run_rngs(runs: int, data_seed: int = 1234,
+                  run_seed_stride: int = 10000) -> List[ExperimentRngs]:
+    """One ExperimentRngs per run, as the sequential driver makes run r's
+    (main.run_combination): the streams of a batched federation."""
+    return [ExperimentRngs(run=r, data_seed=data_seed,
+                           run_seed_stride=run_seed_stride)
+            for r in range(runs)]

@@ -1238,3 +1238,127 @@ def test_capture_survives_a_dead_engines_graphs(cuda):
         gc.set_threshold(*thresholds)
     torch.cuda.synchronize()
     assert np.isfinite(res.client_metrics).all()
+
+
+@pytest.mark.parametrize("runs", [3, 8])
+def test_batched_train_launch_gives_each_run_its_bits(cuda, runs):
+    """The batched round's train step: R runs' cohorts of 5 in one launch
+    with one run's CTAs per client (8) are, run by run, the bits of that
+    run's own G = 5 launch, and within tolerance of the plain version."""
+    from fedmse_tpu_torch.ops.fused_train import cluster_size
+    layout = ParamLayout(115, 27, 7)
+    gen = torch.Generator().manual_seed(11)
+    g = 5 * runs
+    flat = (torch.randint(-8, 9, (g, layout.size), generator=gen) / 64.0
+            ).to(cuda)
+    x = (torch.randint(-6, 7, (g, 12, 115), generator=gen) / 4.0).to(cuda)
+    m = torch.ones((g, 12), device=cuda)
+    kw = dict(layout=layout, shrink_lambda=10.0)
+    before = fused_train_grads.launches
+    got = fused_train_grads(flat, x, m, ctas=cluster_size(5, 27), **kw)
+    assert fused_train_grads.launches == before + 1
+    for r in range(runs):
+        rows = slice(5 * r, 5 * r + 5)
+        alone = fused_train_grads(flat[rows], x[rows], m[rows], **kw)
+        assert all(torch.equal(a[rows], b) for a, b in zip(got, alone))
+    for a, b in zip(got, fused_train_grads_plain(flat, x, m, **kw)):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+    with pytest.raises(ValueError, match="ctas"):
+        fused_train_grads(flat, x, m, ctas=9, **kw)
+
+
+def test_batched_runs_on_card_match_the_runs_alone(cuda):
+    """Three runs batched (graphs captured, then replayed in a second
+    chunk) against the same three runs alone on the card at width 16: the
+    same selections and aggregators, states within 1e-5 scale-normalized;
+    and the batched round on the CPU within 1e-4 of the card's."""
+    from fedmse_tpu_torch.config import ExperimentConfig
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.federation.batched import BatchedRunEngine
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    cfg = ExperimentConfig(dim_features=16, hidden_neus=8, latent_dim=3,
+                           network_size=6, epochs=2, num_runs=3)
+    clients = synthetic_clients(n_clients=6, dim=16, n_normal=240,
+                                n_abnormal=120, seed=0)
+    dev_x = np.concatenate([c.dev_raw for c in clients])[:200].astype(
+        np.float32)
+    params = {}
+    for where in (cuda, torch.device("cpu")):
+        data = stack_clients(clients, dev_x, 12, device=where)
+        model = make_model("hybrid", 16, 8, 3, device=where)
+        bat = BatchedRunEngine(model, cfg, data, 6, 3, "hybrid", "mse_avg")
+        outs = [bat.run_schedule_chunk(s, 2, np.ones(3, bool))
+                for s in (0, 2)]
+        params[where.type] = bat.states.params.cpu()
+        if where.type != "cuda":
+            continue
+        layout = ParamLayout(16, 8, 3)
+        for r in range(3):
+            eng = RoundEngine(model, cfg, data, n_real=6,
+                              rngs=ExperimentRngs(run=r),
+                              model_type="hybrid", update_type="mse_avg",
+                              fused=True)
+            alone = eng.run_rounds(0, 2) + eng.run_rounds(2, 2)
+            got = [bat.process_round(r, 2 * c + i, sched[i][r], o, i)
+                   for c, (o, sched, _) in enumerate(outs)
+                   for i in range(2)]
+            assert [x.aggregator for x in got] == \
+                [x.aggregator for x in alone]
+            mine = bat.states.params.chunk(3)[r].cpu()
+            want = eng.states.params.cpu()
+            for sl in layout.slices():
+                err = (mine[:, sl] - want[:, sl]).abs().max() \
+                    / want[:, sl].abs().max()
+                assert float(err) <= 1e-5
+    for sl in ParamLayout(16, 8, 3).slices():
+        err = (params["cuda"][:, sl] - params["cpu"][:, sl]).abs().max() \
+            / params["cpu"][:, sl].abs().max()
+        assert float(err) <= 1e-4
+
+
+def test_null_redteam_is_the_clean_round_on_card(cuda):
+    """RedteamSpec() builds nothing: two rounds (a capture, a replay)
+    bit-equal to an engine without a spec, the same nodes and kernels per
+    replay; a red round (a noise poison with lying votes) on the card
+    within 1e-4 of the CPU's."""
+    from fedmse_tpu_torch.config import ExperimentConfig
+    from fedmse_tpu_torch.federation import RoundEngine, init_client_states
+    from fedmse_tpu_torch.redteam import RedteamSpec
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    cfg = ExperimentConfig(dim_features=16, hidden_neus=8, latent_dim=3,
+                           network_size=6, epochs=2)
+    clients = synthetic_clients(n_clients=6, dim=16, n_normal=240,
+                                n_abnormal=120, seed=0)
+    dev_x = np.concatenate([c.dev_raw for c in clients])[:200].astype(
+        np.float32)
+    init = init_client_states(make_model("hybrid", 16, 8, 3, device="cpu"),
+                              6, torch.Generator().manual_seed(3),
+                              device="cpu")
+
+    def engine(where, spec):
+        return RoundEngine(make_model("hybrid", 16, 8, 3, device=where), cfg,
+                           stack_clients(clients, dev_x, 12, device=where),
+                           n_real=6, rngs=ExperimentRngs(run=0),
+                           model_type="hybrid", update_type="mse_avg",
+                           states=init.to(where), fused=True, redteam=spec)
+    engines = [engine(cuda, s) for s in (None, RedteamSpec())]
+    runs = [e.run_rounds(0, 2) for e in engines]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert a.aggregator == b.aggregator
+    for name in ("params", "prev_global", "hist_params", "rejected"):
+        assert torch.equal(_bits(getattr(engines[0].states, name)),
+                           _bits(getattr(engines[1].states, name)))
+    clean, null = (e.fused_round() for e in engines)
+    for body in ("enter", "epoch", "leave"):
+        a, b = getattr(clean, body), getattr(null, body)
+        assert (a.nodes, a.kernels) == (b.nodes, b.kernels), body
+    spec = RedteamSpec(kind="cluster_poison", adversaries=(1, 4),
+                       poison="noise", strength=0.1, lie_votes=True)
+    red = [engine(w, spec) for w in (cuda, torch.device("cpu"))]
+    res = [e.run_rounds(0, 1)[0] for e in red]
+    assert res[0].aggregator == res[1].aggregator
+    card, cpu = (e.states.params.cpu() for e in red)
+    for sl in ParamLayout(16, 8, 3).slices():
+        err = (card[:, sl] - cpu[:, sl]).abs().max() / cpu[:, sl].abs().max()
+        assert float(err) <= 1e-4

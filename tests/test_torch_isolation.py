@@ -35,6 +35,28 @@ def _port_modules():
         fedmse_tpu_torch.__path__, prefix="fedmse_tpu_torch."))
 
 
+# the red team's round half and the batched runs
+NEW_MODULES = ("redteam", "redteam.spec", "redteam.masks",
+               "redteam.adversary", "redteam.mimicry", "federation.batched")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_new_module_imports_alone_without_jax(module):
+    """Each module imported alone, in a fresh process, loads no jax and no
+    module of the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('fedmse_tpu_torch.{module}')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'pandas')) or "
+        "m == 'fedmse_tpu' or m.startswith('fedmse_tpu.'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+
 def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     for m in ("ops.fused_ae", "ops.fused_train", "serving.engine",
@@ -46,7 +68,7 @@ def test_every_port_module_imports_without_jax():
               "chaos.spec", "chaos.masks", "chaos.metrics",
               "checkpointing.io", "cluster", "cluster.spec",
               "cluster.similarity", "cluster.assign", "cluster.merge",
-              "data.synthetic", "data.stacking"):
+              "data.synthetic", "data.stacking", *NEW_MODULES):
         assert "fedmse_tpu_torch." + m in mods, m
     code = (
         "import importlib, sys\n"
