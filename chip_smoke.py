@@ -118,6 +118,25 @@ all started together, into build/fedmse_tpu_torch/), then:
                 batched round; round 1 at one epoch batched vs alone
                 (<= 1e-5); the steady round of R = 3 and 8 runs, batched
                 and one after another (wall, launches);
+     tiered     (after the main path) the tiered state layout
+                (--state-layout tiered), hybrid / mse_avg: the kernels at
+                its shapes (the train step at G = 512, the forward over
+                512 routed models, each also bit-equal to a second call);
+                (a) the quick run at num_participants 1.0, the tiered
+                engine against the dense fused engine bit for bit
+                (states, results, the final evaluation; graph nodes
+                printed); (b) at 0.5 the prefetched loop against the
+                serial loop bit for bit, round 0's cohort curves the dense
+                engine's, the other clients' metrics NaN; (c) 100,000 and
+                10,000 bulk gateways (bench.py:1267's layout) at C = 512:
+                a warm round and 3 timed ones, the tier's init seconds
+                and host bytes, the prefetch gap and issue seconds, the
+                main thread's steps, one slab's H2D, a round's device
+                time, the host's peak RSS and MemAvailable, and the peak
+                device bytes beside cohort_bytes(), which must agree
+                within 5% across N; (d) the dense fused engine at 100,000
+                gateways and C = 512, sec/round and peak device bytes,
+                recorded;
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events, and the
@@ -149,7 +168,9 @@ way ("fault_path_launches" in the kernels line), the cluster phase's
 (b) and (g) the clustered path ("cluster_path_launches"), the redteam
 phase's (b) and (g) the red path ("redteam_path_launches") and the batch
 phase's batched run and kNN round the batched path
-("batch_path_launches"). A launch
+("batch_path_launches"), and the tiered phase's tiered engines (not the
+dense engines they are held to) the tiered path
+("tiered_path_launches"). A launch
 inside a replayed CUDA graph counts: each graph keeps the kernels it
 captured, and each replay adds them (ops/graphs.py). Prints,
 as its last three lines, the card's name and power limit, one JSON line
@@ -3650,6 +3671,444 @@ def phase_batch(torch, device, cfg, clients, data, smi):
     return report
 
 
+# ---- the tiered state layout (phase "tiered") ---- #
+
+TIERED_FLEETS = (100_000, 10_000)  # N of the full-size runs, (c)
+TIERED_COHORT = 512                # C
+TIERED_TIMED_ROUNDS = 3            # after one warm round (the capture)
+TIERED_PEAK_TOL = 0.05             # (c): peak device bytes, N vs N
+
+
+def bulk_federation(torch, n, dim, batch, seed):
+    """bench.py:1267's host federation as CPU tensors drawn in bulk from a
+    seeded generator: one train batch, 4 validation rows, 8 normal and 8
+    abnormal test rows per client, a 256-row dev set."""
+    from fedmse_tpu_torch.data.stacking import FederatedData
+    g = torch.Generator().manual_seed(seed)
+    v, half = 4, 8
+    valid = torch.randn((n, v, dim), generator=g)
+    valid_xb = torch.zeros((n, 1, batch, dim))
+    valid_xb[:, 0, :v] = valid
+    valid_mb = torch.zeros((n, 1, batch))
+    valid_mb[:, 0, :v] = 1.0
+    test = torch.cat([torch.randn((n, half, dim), generator=g),
+                      torch.randn((n, half, dim), generator=g) * 1.5 + 3.0],
+                     dim=1)
+    return FederatedData(
+        train_xb=torch.randn((n, 1, batch, dim), generator=g),
+        train_mb=torch.ones((n, 1, batch)), valid_xb=valid_xb,
+        valid_mb=valid_mb, valid_x=valid, valid_m=torch.ones((n, v)),
+        test_x=test, test_m=torch.ones((n, 2 * half)),
+        test_y=torch.cat([torch.zeros((n, half)), torch.ones((n, half))],
+                         dim=1),
+        dev_x=torch.randn((256, dim), generator=g),
+        client_mask=torch.ones(n))
+
+
+def _federation_rows(data, n, device=None):
+    """Clients [0, n) of a FederatedData (views), on `device` if given."""
+    import dataclasses
+    from fedmse_tpu_torch.data.stacking import FederatedData
+    return FederatedData(**{
+        f.name: (lambda t: t if device is None else t.to(device))(
+            getattr(data, f.name) if f.name == "dev_x"
+            else getattr(data, f.name)[:n])
+        for f in dataclasses.fields(FederatedData)})
+
+
+TIERED_LAUNCHES = {}  # the tiered engines' kernel launches, by wrapper
+
+
+@contextlib.contextmanager
+def tiered_path():
+    """Count the kernel launches of the tiered engines' work inside: every
+    count set to 0 just before and read just after, into
+    TIERED_LAUNCHES (the dense engines they are held to run outside)."""
+    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    yield
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for k, w in WRAPPERS.items():
+        TIERED_LAUNCHES[k] = TIERED_LAUNCHES.get(k, 0) + w.launches
+
+
+def _tiered(torch, cfg, data, n, device, **kw):
+    from fedmse_tpu_torch.federation.tiered import TieredRoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    return TieredRoundEngine(make_model("hybrid", *DIMS, device=device), cfg,
+                             data, n, ExperimentRngs(run=0), "hybrid",
+                             "mse_avg", device=device, **kw)
+
+
+def _tiered_rounds(engine, k):
+    out, secs = [], []
+    engine.run_rounds(0, k, lambda r, s: out.append(r) or secs.append(s)
+                      or False)
+    return out, secs
+
+
+def _same_results(torch, got, want, what):
+    """Two RoundResult lists equal bit for bit (NaN where NaN)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        for f in ("selected", "aggregator", "verification_results"):
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"[tiered] {what}, round {i}: {f} "
+                                     f"{getattr(a, f)} vs {getattr(b, f)}")
+        for f in ("client_metrics", "mse_scores", "agg_weights",
+                  "tracking", "min_valid"):
+            x, y = getattr(a, f), getattr(b, f)
+            if (x is None) != (y is None) or (
+                    x is not None and not _same_bits(torch, x, y)):
+                raise AssertionError(f"[tiered] {what}, round {i}: {f} "
+                                     "differs")
+
+
+def _same_states(torch, a, b, what):
+    for name, x, y in zip(("params", "count", "mu", "nu", "prev_global",
+                           "hist_params", "hist_perf", "hist_seen",
+                           "rejected", "waived"), a.tensors(), b.tensors()):
+        if not _same_bits(torch, x.cpu(), y.cpu()):
+            raise AssertionError(f"[tiered] {what}: {name} differs")
+
+
+def tiered_kernel_shapes(torch, device, cohort):
+    """The kernels at the tiered round's shapes against their plain
+    versions, f32 on dyadic grids, each also bit-equal to a second call:
+    the train step at G = C (12 rows a client, 1 CTA per client), and the
+    forward over C routed models client-major at the round's evaluation
+    (C x (16 test + 12 train) rows), its vote (C x 4 rows) and its
+    streamed final evaluation's chunk. Returns the worst scaled errors."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
+                                               fused_forward_stats_plain)
+    from fedmse_tpu_torch.ops.fused_train import (cluster_size,
+                                                  fused_train_grads,
+                                                  fused_train_grads_plain)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    layout = ParamLayout(*DIMS)
+    kw = dict(layout=layout, shrink_lambda=10.0)
+    flat, xt = grid_inputs(torch, layout, cohort, 12, gen, device)
+    m = torch.ones((cohort, 12), device=device)
+    got = fused_train_grads(flat, xt, m, **kw)
+    again = fused_train_grads(flat, xt, m, **kw)
+    worst = {f"train step, G = {cohort}": max(scaled_err(a, b) for a, b in zip(
+        got, fused_train_grads_plain(flat, xt, m, **kw)))}
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("[tiered] train launch not bit-equal to a "
+                             "second call")
+    params = grid_params(torch, cohort, *DIMS, gen, device, torch.float32)
+    for what, per in (("evaluation", 28), ("vote", 4)):
+        rows = cohort * per
+        x = (torch.randint(-6, 7, (rows, DIMS[0]), generator=gen) / 4.0
+             ).to(device)
+        idx = forward_index(torch, "client_major", cohort, rows, gen, device)
+        got = fused_forward_stats(params, x, idx)
+        again = fused_forward_stats(params, x, idx)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"[tiered] {what} forward not bit-equal to "
+                                 "a second call")
+        worst[f"{what}, {cohort} routed models"] = max(
+            scaled_err(a, b) for a, b in zip(
+                got, fused_forward_stats_plain(params, x, idx)))
+    bad = {k: v for k, v in worst.items() if v > TOL["f32"]}
+    if bad:
+        raise AssertionError(f"[tiered] kernels vs plain: {bad}")
+    log(f"[tiered] kernels at the tiered round's shapes (cluster size "
+        f"{cluster_size(cohort, DIMS[1])} at G = {cohort}) agree with their "
+        f"plain versions and with a second call: {json.dumps(worst)}")
+    return worst
+
+
+def tiered_vs_dense(torch, device, cfg, data, n):
+    """(a) The quick run at num_participants = 1.0 (C == N), 3 rounds,
+    hybrid / mse_avg: the tiered engine against the dense fused engine,
+    results, states and the final evaluation bit for bit."""
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    c = cfg.replace(num_participants=1.0)
+    dense = RoundEngine(make_model("hybrid", *DIMS, device=device), c, data,
+                        n, ExperimentRngs(run=0), "hybrid", "mse_avg",
+                        fused=True)
+    want = dense.run_rounds(0, c.num_rounds)
+    with tiered_path():
+        tier = _tiered(torch, c, data, n, device)
+        got, _ = _tiered_rounds(tier, c.num_rounds)
+        final = tier.evaluate_final_streamed()
+    _same_results(torch, got, want, "C == N vs dense")
+    _same_states(torch, tier.store.host, dense.states, "C == N vs dense")
+    if not _same_bits(torch, final, dense.evaluate()):
+        raise AssertionError("[tiered] C == N: final evaluation differs")
+    graphs = {"tiered": tier._round.stats()["graphs"],
+              "dense": dense.fused_round().stats()["graphs"]}
+    nodes = {k: {b: g[b]["nodes"] for b in g} for k, g in graphs.items()}
+    log(f"[tiered] (a) C == N = {n}: {c.num_rounds} rounds, states, results "
+        f"and the final evaluation bit-equal to the dense fused engine; "
+        f"aggregators {[r.aggregator for r in got]}; graph nodes "
+        f"{json.dumps(nodes)}")
+    return {"bit_equal": True, "aggregators": [r.aggregator for r in got],
+            "nodes": nodes}
+
+
+def tiered_partial(torch, device, cfg, data, n):
+    """(b) The quick run at 0.5: the prefetched loop against the serial
+    run_round loop bit for bit; round 0's cohort rows' tracking and
+    min_valid the dense engine's; every non-cohort round metric NaN."""
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    k = cfg.num_rounds
+    with tiered_path():
+        serial = _tiered(torch, cfg, data, n, device)
+        want = [serial.run_round(r) for r in range(k)]
+        pre = _tiered(torch, cfg, data, n, device)
+        got, _ = _tiered_rounds(pre, k)
+    _same_results(torch, got, want, "prefetched vs serial")
+    _same_states(torch, pre.store.host, serial.store.host,
+                 "prefetched vs serial")
+    dense = RoundEngine(make_model("hybrid", *DIMS, device=device), cfg,
+                        data, n, ExperimentRngs(run=0), "hybrid", "mse_avg",
+                        fused=True)
+    first = dense.run_round_fused(0)
+    sel = np.asarray(got[0].selected)
+    if first.selected != got[0].selected or not (
+            _same_bits(torch, got[0].tracking[sel], first.tracking[sel])
+            and _same_bits(torch, got[0].min_valid[sel],
+                           first.min_valid[sel])):
+        raise AssertionError("[tiered] (b) round 0's cohort curves differ "
+                             "from the dense engine's")
+    for r in got:
+        off = np.setdiff1d(np.arange(n), r.selected)
+        if not (np.isnan(r.client_metrics[off]).all()
+                and np.isfinite(r.client_metrics[r.selected]).all()):
+            raise AssertionError(f"[tiered] (b) round {r.round_index}: "
+                                 "cohort metrics not finite or others not "
+                                 "NaN")
+    overlaps = sum(len(set(a.selected) & set(b.selected))
+                   for a, b in zip(got, got[1:]))
+    summary = pre.stats.summary()
+    log(f"[tiered] (b) C = {pre.cohort} of {n}: the prefetched loop bit-equal "
+        f"to the serial loop over {k} rounds ({overlaps} rows patched from "
+        f"the previous round's output), round 0's cohort curves the dense "
+        f"engine's bits, non-cohort metrics NaN; prefetch {json.dumps(summary)}")
+    return {"bit_equal": True, "patched_rows": overlaps,
+            "stats": summary}
+
+
+def _host_memory() -> dict:
+    import resource
+    avail = None
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    return {"peak_rss_bytes": resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024, "mem_available_bytes": avail}
+
+
+def _clear_card(torch, device):
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        return torch.cuda.memory_allocated(device)
+    return 0
+
+
+def tiered_full_size(torch, device, cfg, bulk, n, smi):
+    """(c) N bulk gateways at 115/27/7, C = TIERED_COHORT, hybrid /
+    mse_avg: a warm round (the capture), then TIERED_TIMED_ROUNDS timed
+    rounds of the prefetched loop; the tier's init, the host and device
+    bytes, the prefetch telemetry, the round's device time (one more
+    serial round under the profiler), the H2D of one staging slab, and at
+    the smaller N the streamed final evaluation."""
+    c = TIERED_COHORT
+    tc = cfg.replace(num_participants=(c + 0.5) / n,
+                     num_rounds=1 + TIERED_TIMED_ROUNDS)
+    data = _federation_rows(bulk, n)
+    base = _clear_card(torch, device)
+    with tiered_path():
+        t0 = time.perf_counter()
+        eng = _tiered(torch, tc, data, n, device)
+        init_s = time.perf_counter() - t0
+        if eng.cohort != c:
+            raise AssertionError(f"[tiered] cohort {eng.cohort}, expected "
+                                 f"{c}")
+        steps = _host_seconds(eng)
+        res, secs = _tiered_rounds(eng, tc.num_rounds)
+    host = {k: float(np.mean(v[1:])) for k, v in steps.items()}
+    out = {"n": n, "cohort": c, "device": smi, "init_s": init_s,
+           "host_state_bytes": eng.store.host_bytes(),
+           "host_data_bytes": sum(t.numel() * t.element_size()
+                                  for t in eng.host_data.values()),
+           "warm_round_s": secs[0], "timed_round_s": secs[1:],
+           "sec_per_round": float(np.mean(secs[1:])),
+           "prefetch_gap_s": list(eng.stats.prefetch_wait_s),
+           "prefetch_issue_s": list(eng.stats.prefetch_issue_s),
+           "overlapped_issue": list(eng.stats.overlapped_issue),
+           "overlapped": eng.stats.summary()["overlapped"],
+           "main_thread_s": host,
+           "cohort_bytes": eng.cohort_bytes(),
+           "aggregators": [r.aggregator for r in res]}
+    for r in res:
+        off = np.ones(n, bool)
+        off[r.selected] = False
+        if not (np.isfinite(r.client_metrics[r.selected]).all()
+                and np.isnan(r.client_metrics[off]).all()):
+            raise AssertionError(f"[tiered] (c) N = {n}, round "
+                                 f"{r.round_index}: cohort metrics not "
+                                 "finite or others not NaN")
+    if not all(torch.isfinite(t).all() for t in
+               (eng.store.host.params, eng.store.host.opt_state.nu)):
+        raise AssertionError(f"[tiered] (c) N = {n}: the tier is not finite")
+    if device.type == "cuda":
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(device) \
+            - base
+        stage = eng._staging[0]
+        out["h2d_slab_ms"] = cuda_ms(lambda: [
+            d.copy_(s, non_blocking=True) for d, s in
+            zip(eng._dslab.tensors(), stage.tensors())], 5)
+        out["h2d_slab_bytes"] = sum(t.numel() * t.element_size()
+                                    for t in stage.tensors())
+        k = tc.num_rounds
+        with tiered_path():
+            out["round_device_ms"] = _busy_ms(torch,
+                                              lambda: eng.run_round(k))
+    if n == min(TIERED_FLEETS):
+        with tiered_path():
+            t1 = time.perf_counter()
+            final = eng.evaluate_final_streamed()
+            out["final_eval_s"] = time.perf_counter() - t1
+        if final.shape != (n,) or not np.isfinite(final).all():
+            raise AssertionError("[tiered] (c) streamed final evaluation "
+                                 "not finite")
+    out.update(_host_memory())
+    log(f"[tiered] (c) N = {n}, C = {c} ({smi}): tier init "
+        f"{init_s:.3f} s, host {out['host_state_bytes']} B state + "
+        f"{out['host_data_bytes']} B data; warm round {secs[0]:.4f} s, "
+        f"timed {json.dumps(out['timed_round_s'])} s/round; prefetch gap "
+        f"{json.dumps(out['prefetch_gap_s'])} s, issue "
+        f"{json.dumps(out['prefetch_issue_s'])} s, overlapped "
+        f"{out['overlapped']}; the main thread's seconds per timed round "
+        f"{json.dumps(host)}; peak device "
+        f"{out.get('peak_device_bytes')} B beside cohort_bytes "
+        f"{json.dumps(out['cohort_bytes'])}; one slab's H2D "
+        f"{out.get('h2d_slab_ms')} ms ({out.get('h2d_slab_bytes')} B), a "
+        f"round on the device {out.get('round_device_ms')} ms; host peak "
+        f"RSS {out['peak_rss_bytes']} B, MemAvailable "
+        f"{out['mem_available_bytes']} B")
+    del eng
+    return out
+
+
+def _host_seconds(engine) -> dict:
+    """Wrap the engine's main-thread steps to record each call's host
+    seconds, by step: the round's entry copies (`_load`), the dispatch
+    (the epochs' host reads wait on the card), the wait for the output's
+    D2H and its scatter into the tier (`_scatter_out`) and the bookkeeping
+    (`_absorb`)."""
+    seconds = {"load": [], "dispatch": [], "scatter": [], "absorb": []}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            seconds[name].append(time.perf_counter() - t0)
+            return out
+        return call
+    for name, attr in (("load", "_load"), ("dispatch", "_dispatch"),
+                       ("scatter", "_scatter_out"), ("absorb", "_absorb")):
+        setattr(engine, attr, timed(name, getattr(engine, attr)))
+    return seconds
+
+
+def tiered_dense_at_scale(torch, device, cfg, bulk, n, smi):
+    """(d) The dense fused engine at the same N and C, recorded with no
+    limit: a warm round, then TIERED_TIMED_ROUNDS rounds in one chunk
+    (sec/round) and the peak device bytes."""
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    c = TIERED_COHORT
+    tc = cfg.replace(num_participants=(c + 0.5) / n,
+                     num_rounds=1 + TIERED_TIMED_ROUNDS)
+    base = _clear_card(torch, device)
+    data = _federation_rows(bulk, n, device)
+    t0 = time.perf_counter()
+    eng = RoundEngine(make_model("hybrid", *DIMS, device=device), tc, data,
+                      n, ExperimentRngs(run=0), "hybrid", "mse_avg",
+                      fused=True)
+    init_s = time.perf_counter() - t0
+    eng.run_rounds(0, 1)
+    _sync(torch, device)
+    t1 = time.perf_counter()
+    res = eng.run_rounds(1, TIERED_TIMED_ROUNDS)
+    _sync(torch, device)
+    sec = (time.perf_counter() - t1) / TIERED_TIMED_ROUNDS
+    if not all(np.isfinite(r.client_metrics).all() for r in res):
+        raise AssertionError("[tiered] (d) dense metrics not finite")
+    out = {"n": n, "cohort": c, "device": smi, "init_s": init_s,
+           "sec_per_round": sec,
+           "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+                                 - base) if device.type == "cuda" else None}
+    log(f"[tiered] (d) dense fused engine at N = {n}, C = {c} ({smi}): "
+        f"init {init_s:.3f} s, {sec:.4f} s/round over "
+        f"{TIERED_TIMED_ROUNDS} rounds in one chunk, peak device "
+        f"{out['peak_device_bytes']} B")
+    del eng, data
+    _clear_card(torch, device)
+    return out
+
+
+def phase_tiered(torch, device, cfg, clients, data, smi):
+    """The tiered state layout (--state-layout tiered): (e) the kernels at
+    its shapes; then the tiered path, launch counters set to 0 before it
+    and read after it: (a) C == N against the dense engine, (b) C < N,
+    prefetched against serial, (c) the full-size runs at every N of
+    TIERED_FLEETS, whose peak device bytes must agree within
+    TIERED_PEAK_TOL; after it (d) the dense engine at the largest N."""
+    t0 = time.perf_counter()
+    n = len(clients)
+    report = {"kernels": tiered_kernel_shapes(torch, device, TIERED_COHORT)}
+    TIERED_LAUNCHES.clear()
+    report["full_participation"] = tiered_vs_dense(torch, device, cfg, data,
+                                                   n)
+    report["partial"] = tiered_partial(torch, device, cfg, data, n)
+    big = max(TIERED_FLEETS)
+    t1 = time.perf_counter()
+    bulk = bulk_federation(torch, big, DIMS[0], cfg.batch_size, SEED + 20)
+    report["bulk_data_s"] = time.perf_counter() - t1
+    report["full_size"] = [tiered_full_size(torch, device, cfg, bulk, m, smi)
+                           for m in TIERED_FLEETS]
+    report["launches"] = dict(TIERED_LAUNCHES)
+    for name in ("fused_ae_forward", "fused_ae_train"):
+        if report["launches"][name] < 1:
+            raise AssertionError(f"the tiered path never launched {name}")
+    log(f"[tiered] tiered path launches {json.dumps(report['launches'])}")
+    if device.type == "cuda":
+        peaks = [r["peak_device_bytes"] for r in report["full_size"]]
+        spread = (max(peaks) - min(peaks)) / min(peaks)
+        report["peak_device_spread"] = spread
+        log(f"[tiered] peak device bytes at N = {list(TIERED_FLEETS)}: "
+            f"{peaks} (spread {spread:.4f}, limit {TIERED_PEAK_TOL})")
+        if spread > TIERED_PEAK_TOL:
+            raise AssertionError(f"[tiered] the card's footprint moved "
+                                 f"{spread:.4f} with N")
+    report["dense_at_scale"] = tiered_dense_at_scale(torch, device, cfg,
+                                                     bulk, big, smi)
+    del bulk
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[tiered] done in {report['seconds']:.1f} s")
+    return report
+
+
 def report_train(torch, device, launches, worst):
     """The train kernel's and its plain version's times and bounds at the
     main path's step shape (5 clients x 12 rows) and at 512 clients."""
@@ -3868,6 +4327,7 @@ def run(torch, cfg, smi, t_start) -> int:
     cluster = phase_cluster(torch, device, cfg)
     redteam = phase_redteam(torch, device, cfg)
     batch = phase_batch(torch, device, cfg, clients, data, smi)
+    tiered = phase_tiered(torch, device, cfg, clients, data, smi)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
     training["fused_hold"] = phase_fused_hold(torch, device, cfg, clients)
@@ -3886,10 +4346,12 @@ def run(torch, cfg, smi, t_start) -> int:
         kernel["cluster_path_launches"] = cluster["launches"][kernel["name"]]
         kernel["redteam_path_launches"] = redteam["launches"][kernel["name"]]
         kernel["batch_path_launches"] = batch["launches"][kernel["name"]]
+        kernel["tiered_path_launches"] = tiered["launches"][kernel["name"]]
     line["robust"] = robust
     line["cluster"] = cluster
     line["redteam"] = redteam
     line["batch"] = batch
+    line["tiered"] = tiered
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

@@ -15,7 +15,10 @@ not depend on chunking or on padding of the client axis. Outside the
 [start_round, stop_round) window every mask is all-clear, and a zero
 probability never fires (u < 0 is false for u in [0, 1)). The
 re-election's tie-break draws come from the same stream
-(`reelection_draws`). `make_batched_chaos_masks` stacks R runs' masks,
+(`reelection_draws`). `chaos_columns` and `reelection_columns` draw one
+round at given absolute clients only (a tiered cohort's); the whole-fleet
+masks are made of them.
+`make_batched_chaos_masks` stacks R runs' masks,
 each from its own run's chaos key, on a [T, R, ...] layout (the batched
 round, federation/batched.py).
 """
@@ -52,24 +55,17 @@ def all_clear_masks(n_clients: int) -> ChaosMasks:
 def make_chaos_masks(spec: ChaosSpec, chaos_key: StreamKey, start_round: int,
                      n_rounds: int, n_clients: int) -> ChaosMasks:
     """Masks of rounds [start_round, start_round + n_rounds)."""
-    t_all = np.arange(start_round, start_round + n_rounds)
-    in_window = t_all >= spec.start_round
-    if spec.stop_round is not None:
-        in_window &= t_all < spec.stop_round
-    u = np.empty((n_rounds, n_clients, 3))
-    crash_u = np.empty(n_rounds)
-    for r, t in enumerate(t_all):
-        for i in range(n_clients):
-            u[r, i] = stream_rng(chaos_key, _CLIENT, t, i).random(3)
-        crash_u[r] = stream_rng(chaos_key, _CRASH, t, 0).random()
-    win = in_window[:, None]
+    ids = np.arange(n_clients)
     f32 = np.float32
-    return ChaosMasks(
-        available=np.where(win & (u[..., 0] < spec.dropout_p), 0, 1
-                           ).astype(f32),
-        straggler=(win & (u[..., 1] < spec.straggler_p)).astype(f32),
-        crash=in_window & (crash_u < spec.crash_p),
-        bcast_drop=(win & (u[..., 2] < spec.broadcast_loss_p)).astype(f32))
+    out = ChaosMasks(available=np.empty((n_rounds, n_clients), f32),
+                     straggler=np.empty((n_rounds, n_clients), f32),
+                     crash=np.empty(n_rounds, bool),
+                     bcast_drop=np.empty((n_rounds, n_clients), f32))
+    for r in range(n_rounds):
+        for mask, row in zip(out, chaos_columns(spec, chaos_key,
+                                                start_round + r, ids)):
+            mask[r] = row[0]
+    return out
 
 
 def reelection_draws(chaos_key: StreamKey, start_round: int, n_rounds: int,
@@ -79,10 +75,41 @@ def reelection_draws(chaos_key: StreamKey, start_round: int, n_rounds: int,
     column at round t from (t, i) alone."""
     out = np.empty((n_rounds, voters, n_clients), np.float32)
     for r in range(n_rounds):
-        for i in range(n_clients):
-            out[r, :, i] = stream_rng(chaos_key, _REELECT, start_round + r,
-                                      i).random(voters, dtype=np.float32)
+        out[r] = reelection_columns(chaos_key, start_round + r, voters,
+                                    np.arange(n_clients))
     return out
+
+
+def chaos_columns(spec: ChaosSpec, chaos_key: StreamKey, round_index: int,
+                  ids) -> ChaosMasks:
+    """Round `round_index`'s masks at the absolute clients `ids`, [1, C]
+    (the crash bit [1]): client i's draws from (round, i) alone, so these
+    are make_chaos_masks' columns `ids`."""
+    ids = np.asarray(ids, dtype=np.int64)
+    t = round_index
+    win = t >= spec.start_round and (spec.stop_round is None
+                                     or t < spec.stop_round)
+    u = (np.stack([stream_rng(chaos_key, _CLIENT, t, int(i)).random(3)
+                   for i in ids]) if len(ids) else np.empty((0, 3)))
+    crash_u = stream_rng(chaos_key, _CRASH, t, 0).random()
+    f32 = np.float32
+    return ChaosMasks(
+        available=np.where(win & (u[:, 0] < spec.dropout_p), 0, 1
+                           ).astype(f32)[None],
+        straggler=(win & (u[:, 1] < spec.straggler_p)).astype(f32)[None],
+        crash=np.array([win and crash_u < spec.crash_p]),
+        bcast_drop=(win & (u[:, 2] < spec.broadcast_loss_p)
+                    ).astype(f32)[None])
+
+
+def reelection_columns(chaos_key: StreamKey, round_index: int, voters: int,
+                       ids) -> np.ndarray:
+    """[voters, C] re-election draws of round `round_index` at the absolute
+    clients `ids` (reelection_draws' columns `ids`)."""
+    cols = [stream_rng(chaos_key, _REELECT, round_index, int(i)).random(
+        voters, dtype=np.float32) for i in np.asarray(ids)]
+    return (np.stack(cols, axis=1) if cols
+            else np.empty((voters, 0), np.float32))
 
 
 def make_batched_chaos_masks(spec: ChaosSpec, chaos_keys: Sequence[StreamKey],

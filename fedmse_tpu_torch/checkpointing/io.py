@@ -29,6 +29,10 @@ its `jax.tree_util.keystr` name ("['params']['encoder']['Dense_0']
 ['kernel']", "['opt_state'][0].mu[...]"), `{tag}.pod.json` the manifest
 (blocks, host counters, round index, extra) and `{tag}.pod.tracking.npz`
 the curve. A snapshot written by either package resumes in the other.
+The tiered layout writes its host tier padded to the dense width
+(federation/tiered.py `states_for_checkpoint`) and restores with
+device="cpu" (`restore_states`), so a dense snapshot resumes a tiered run
+and a tiered snapshot a dense one.
 """
 
 from __future__ import annotations

@@ -174,6 +174,17 @@ class ExperimentConfig:
     # carried on the device (federation/pipeline.py); --no-pipeline runs
     # the serial chunk loop
     fused_pipeline: bool = True
+    # 'dense': every client's state on the device, [N, ...]; 'tiered': the
+    # fleet's state in host memory and each round's cohort on the device
+    # (federation/tiered.py), non-cohort clients' round metrics NaN
+    state_layout: str = "dense"
+    # a tier of this process's clients only: needs the parallel port
+    # (ROADMAP item 7) and raises until then
+    host_sharded: bool = False
+    # the merge's backend: only the dense weighted mean ('einsum') runs
+    # without a mesh; the tiered engine degrades 'auto', 'shard_map' and
+    # 'quantized' to it with a warning, as the JAX engine does off-mesh
+    aggregation_backend: str = "einsum"
 
     compat: CompatConfig = dataclasses.field(default_factory=CompatConfig)
 

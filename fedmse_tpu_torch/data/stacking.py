@@ -6,8 +6,9 @@ carry mask 0 and count in no loss or metric; padding clients carry
 client_mask 0. Train/valid rows are batch-major [N, NB, B, D], the layout
 of the reference's unshuffled per-epoch minibatch loop.
 `pad_federated_data` grows a stacked federation's client axis afterwards.
-Host-local slices of the client axis (`client_range`) wait for the
-multi-host port.
+`client_range=(start, stop)` stacks only rows [start, stop) of the padded
+client axis, bit for bit those rows of the full stack: the dimensions come
+from the whole client list (or `dims=`), so slices tile one tensor.
 """
 
 from __future__ import annotations
@@ -93,13 +94,21 @@ def stack_dims(clients: Sequence[ClientData], batch_size: int,
 
 def stack_clients(clients: Sequence[ClientData], dev_x: np.ndarray,
                   batch_size: int, pad_clients_to: Optional[int] = None,
-                  dtype: Optional[torch.dtype] = None, *,
+                  dtype: Optional[torch.dtype] = None,
+                  client_range: Optional[Tuple[int, int]] = None,
+                  dims: Optional[StackDims] = None, *,
                   device: DeviceLike = "cuda") -> FederatedData:
     """The stacked FederatedData on `device`. `dtype` (the precision
     policy's compute dtype; None = float32) is the storage dtype of the
-    feature tensors; masks and labels stay float32."""
+    feature tensors; masks and labels stay float32. `client_range=(start,
+    stop)` stacks rows [start, stop) of the padded client axis only, with
+    the dimensions of `dims` (default: the whole client list's)."""
     dev = resolve_device(device)
-    d = stack_dims(clients, batch_size, pad_clients_to)
+    d = dims or stack_dims(clients, batch_size, pad_clients_to)
+    start, stop = client_range or (0, d.n_pad)
+    if not 0 <= start <= stop <= d.n_pad:
+        raise ValueError(f"client_range ({start}, {stop}) outside the "
+                         f"padded client axis [0, {d.n_pad})")
     zeros = lambda *s: np.zeros(s, dtype=np.float32)  # noqa: E731
     pad_client = ClientData(name="<pad>", train_x=zeros(1, d.dim),
                             valid_x=zeros(1, d.dim), test_x=zeros(1, d.dim),
@@ -107,7 +116,7 @@ def stack_clients(clients: Sequence[ClientData], dev_x: np.ndarray,
     cols = {k: [] for k in ("train_xb", "train_mb", "valid_xb", "valid_mb",
                             "valid_x", "valid_m", "test_x", "test_m",
                             "test_y")}
-    for i in range(d.n_pad):
+    for i in range(start, stop):
         is_real = i < d.n_real
         c = clients[i] if is_real else pad_client
         n_train = len(c.train_x) if is_real else 0
@@ -134,7 +143,7 @@ def stack_clients(clients: Sequence[ClientData], dev_x: np.ndarray,
         return t.to(device=dev, dtype=feat_dtype if name in features
                     else torch.float32)
 
-    client_mask = (np.arange(d.n_pad) < d.n_real).astype(np.float32)
+    client_mask = (np.arange(start, stop) < d.n_real).astype(np.float32)
     return FederatedData(
         **{name: place(name, arrays) for name, arrays in cols.items()},
         dev_x=torch.from_numpy(np.asarray(dev_x, np.float32)).to(

@@ -147,13 +147,20 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
         return torch.stack(classification_metrics(test_y, scores, test_m),
                            dim=-1)
 
-    def priorities(n: int, rows: int, device) -> Optional[torch.Tensor]:
+    def priorities(n: int, rows: int, device, ids=None
+                   ) -> Optional[torch.Tensor]:
         """The kNN bank priorities of n clients' `rows` train rows that an
         evaluation draws by default, on `device`; None unless the score is
-        'knn'."""
+        'knn'. `ids` (n absolute client ids; a negative id draws client
+        0's) gives those clients' draws instead of clients 0 .. n - 1's:
+        a tiered cohort's."""
         if kind != "knn":
             return None
-        return bank_priorities(knn_seed, n, rows, device=device)
+        if ids is None:
+            return bank_priorities(knn_seed, n, rows, device=device)
+        return torch.cat([bank_priorities(knn_seed, 1, rows,
+                                          first=max(int(i), 0))
+                          for i in ids]).to(device)
 
     fn = latency_all if metric == "time" else evaluate_all
     fn.bank_priorities = priorities

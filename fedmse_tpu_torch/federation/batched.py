@@ -102,6 +102,9 @@ class BatchedRunEngine:
             raise ValueError(
                 "metric='time' is host-side wall-clock and cannot be traced "
                 "into the batched-runs program; use sequential mode")
+        if cfg.state_layout != "dense":
+            raise ValueError("batched runs are dense-layout only "
+                             f"(state_layout={cfg.state_layout!r})")
         if elastic_masks is not None and elastic is None:
             raise ValueError("elastic_masks needs an ElasticSpec")
         self.model, self.cfg = model, cfg

@@ -22,8 +22,9 @@ a real slot's timeline, and a null spec draws the all-member masks.
 
 `make_batched_membership_masks` stacks R runs' timelines, each from its
 own run's elastic key, on a [T, R, N] layout (the batched round,
-federation/batched.py). `apply_membership_transitions` of the JAX module
-belongs to the tiered state layout, which is not ported.
+federation/batched.py). `apply_membership_transitions` applies one round's
+entry transitions to the host tier's rows instead (the tiered layout,
+federation/tiered.py, whose round sees only its cohort).
 """
 
 from __future__ import annotations
@@ -191,3 +192,60 @@ def membership_at(masks: MembershipMasks, round_index: int,
     if n_real is not None:
         member, gen = member[:n_real], gen[:n_real]
     return member, gen
+
+
+def apply_membership_transitions(store, member: np.ndarray,
+                                 joined: np.ndarray, left: np.ndarray,
+                                 assignment: Optional[np.ndarray] = None,
+                                 k: int = 1, merge_partials=None) -> None:
+    """One round's entry transitions on a host tier's rows, in place (port
+    of fedmse_tpu/federation/elastic.py `apply_membership_transitions`;
+    `store` a federation/state.TieredClientStore). A joining slot takes the
+    incumbent mean (the uniform f32 mean of every member slot that is not
+    itself joining, over the WHOLE fleet, in numpy) as its params and
+    prev_global, zeroed Adam state and a cleared verifier history
+    (hist_params, hist_perf, hist_seen, rejected; `waived` is kept, as in
+    the JAX tier); a leaving slot's Adam state is zeroed. With
+    `assignment` ([N] gateway -> cluster) and k > 1 a joiner takes its
+    own cluster's incumbent mean, the fleet's when its cluster has no
+    incumbent. `merge_partials` (the host-sharded tier's cross-host sum)
+    waits for the parallel port and must be None."""
+    if merge_partials is not None:
+        raise ValueError("merge_partials serves host-sharded tiers, which "
+                         "wait for the parallel port (ROADMAP queue 1, "
+                         "item 7)")
+    member = np.asarray(member) > 0
+    joined_b = np.asarray(joined) > 0
+    left_b = np.asarray(left) > 0
+    host = store.host
+    if joined_b.any():
+        incumbents = (member & ~joined_b).astype(np.float32)
+        fleet_w = incumbents / max(float(incumbents.sum()), 1.0)
+        rows = np.flatnonzero(joined_b)
+        params = host.params.numpy()
+        p32 = params.astype(np.float32, copy=False)
+        if assignment is not None and k > 1:
+            assignment = np.asarray(assignment)
+            sheet = np.zeros((k, len(incumbents)), np.float32)
+            sheet[assignment, np.arange(len(incumbents))] = 1.0
+            sheet *= incumbents[None, :]
+            counts = sheet.sum(axis=1)
+            has = counts > 0
+            sheet /= np.maximum(counts, 1.0)[:, None]
+            w_rows = np.where(has[assignment[rows], None],
+                              sheet[assignment[rows]], fleet_w[None, :])
+            mean = np.einsum("jn,n...->j...", w_rows, p32)
+        else:
+            mean = np.einsum("n,n...->...", fleet_w, p32)
+        mean = mean.astype(params.dtype)
+        params[rows] = mean
+        host.prev_global.numpy()[rows] = mean
+        host.hist_params.numpy()[rows] = 0
+        host.hist_perf.numpy()[rows] = 0.0
+        host.hist_seen.numpy()[rows] = False
+        host.rejected.numpy()[rows] = 0
+    reset = joined_b | left_b
+    if reset.any():
+        rows = np.flatnonzero(reset)
+        for t in host.opt_state:
+            t.numpy()[rows] = 0

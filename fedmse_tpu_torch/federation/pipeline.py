@@ -50,8 +50,11 @@ while chunk k + 1 is in flight makes chunk k + 1 wrong (it ran the stopped
 lane live), so chunk k + 1 is discarded and dispatched again with the same
 selections and draws, the corrected lane mask and the host's quota; a stop
 before chunk k's last round first rewinds chunk k to its entry snapshot
-and replays it with the per-round freeze matrix and its entry quota. The
-tiered prefetch of the JAX module waits for the tiered engine.
+and replays it with the per-round freeze matrix and its entry quota.
+
+`PrefetchedCohort` and `TieredStats` are the tiered layout's prefetch slot
+and its telemetry (federation/tiered.py): round k + 1's cohort is gathered
+on the host and copied to the card on a side stream while round k runs.
 """
 
 from __future__ import annotations
@@ -97,6 +100,56 @@ class PipelineStats:
                 # every next dispatch was enqueued before the previous
                 # harvest completed
                 "overlapped": bool(gaps) and all(g <= 0 for g in gaps)}
+
+
+@dataclasses.dataclass
+class PrefetchedCohort:
+    """One round's cohort, prefetched while the previous round computes
+    (port of fedmse_tpu/federation/pipeline.py `PrefetchedCohort`): the
+    host gather of the cohort's state and data rows into a pinned staging
+    slab, and their copy to the card's prefetch slab on a side stream,
+    issued while round k runs. Rows that round k is changing are stale
+    here; the engine patches them on the card from round k's output
+    before the round reads them. The verification rows need no slab of
+    their own: a client's are its valid rows in the data, or one pair all
+    share, set once."""
+
+    plan: Any                  # CohortPlan (federation/tiered.py)
+    slab: Any                  # ClientStates [C] on the engine's device
+                               # (None: the gather waits for the round's
+                               # entry, as under elastic membership)
+    data: Any                  # the cohort's data rows, by field name
+    ready: Any = None          # the side stream's copy event (the card)
+    t_issue_start: float = 0.0  # host clock: the gather began
+    t_issue_end: float = 0.0    # host clock: every copy enqueued
+
+
+@dataclasses.dataclass
+class TieredStats:
+    """Per-run telemetry of the tiered cohort loop (port of
+    fedmse_tpu/federation/pipeline.py `TieredStats`)."""
+
+    rounds: int = 0
+    prefetch_issue_s: List[float] = dataclasses.field(default_factory=list)
+    prefetch_wait_s: List[float] = dataclasses.field(default_factory=list)
+    overlapped_issue: List[bool] = dataclasses.field(default_factory=list)
+
+    def summary(self) -> dict:
+        waits = self.prefetch_wait_s
+        return {
+            "rounds": self.rounds,
+            "prefetch_issue_s": [round(g, 5) for g in self.prefetch_issue_s],
+            # the prefetch gap: host seconds a round waited for its
+            # prefetched cohort to land (~0 when the copy overlapped the
+            # previous round)
+            "prefetch_gap_s": [round(g, 5) for g in waits],
+            "prefetch_gap_mean_s": (round(float(np.mean(waits)), 5)
+                                    if waits else None),
+            # every prefetch was issued before the previous round's
+            # harvest completed (the loop's order, not the copy's)
+            "overlapped": bool(self.overlapped_issue) and
+            all(self.overlapped_issue),
+        }
 
 
 def run_pipelined_schedule(engine, start_round: int, num_rounds: int,

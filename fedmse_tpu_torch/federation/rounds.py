@@ -143,12 +143,15 @@ def verification_tensors(cfg: ExperimentConfig, data: FederatedData,
 
 
 def verification_rows(rejected: np.ndarray, aggregator: int, n_real: int,
-                      max_rejected_updates: int) -> List[Dict]:
-    """The reference's verification rows of every real client but the
-    aggregator (is_verified is rejected == 0, not this round's accept
-    bit), logging each client at the rejection limit."""
+                      max_rejected_updates: int,
+                      row_ids: Optional[Sequence[int]] = None) -> List[Dict]:
+    """The reference's verification rows of every real client (or of the
+    ascending `row_ids` only) but the aggregator (is_verified is rejected
+    == 0, not this round's accept bit), logging each client at the
+    rejection limit."""
     rows: List[Dict] = []
-    for i in range(n_real):
+    for i in (range(n_real) if row_ids is None else row_ids):
+        i = int(i)
         if i != aggregator:
             rows.append({"client_id": i,
                          "rejected_updates": int(rejected[i]),
@@ -161,11 +164,15 @@ def verification_rows(rejected: np.ndarray, aggregator: int, n_real: int,
 
 def absorb_fused_out(out: FusedRoundOut, round_index: int,
                      selected: Sequence[int], n_real: int, host: HostState,
-                     max_rejected_updates: int) -> RoundResult:
+                     max_rejected_updates: int,
+                     row_ids: Optional[Sequence[int]] = None
+                     ) -> RoundResult:
     """Host bookkeeping and the RoundResult of one fused round's outputs:
     the quota and vote counters, the reference's verification rows and
     the attack flagging (port of fedmse_tpu/federation/rounds.py
-    `absorb_fused_out`)."""
+    `absorb_fused_out`). `row_ids` (ascending) restricts the verification
+    rows to those clients: the tiered layout's cohort, the only clients
+    that verified (range(n_real) when the cohort is the fleet)."""
     aggregator = out.aggregator
     rows: List[Dict] = []
     if aggregator >= 0:
@@ -173,7 +180,7 @@ def absorb_fused_out(out: FusedRoundOut, round_index: int,
         host.votes_received[aggregator] += 1
         host.rounds_aggregated.append((round_index, aggregator))
         rows = verification_rows(out.rejected, aggregator, n_real,
-                                 max_rejected_updates)
+                                 max_rejected_updates, row_ids)
     else:
         logger.warning("No aggregator selected for round %d", round_index)
     metrics, metrics_full = split_metric_columns(out.metrics[:n_real])
@@ -196,6 +203,74 @@ def absorb_fused_out(out: FusedRoundOut, round_index: int,
                  np.flatnonzero(out.member[:n_real] > 0).tolist()),
         generations=(None if out.generation is None
                      else out.generation[:n_real]))
+
+
+def make_round_fns(model, cfg: ExperimentConfig, model_type: str,
+                   update_type: str, cluster=None,
+                   device: Optional[torch.device] = None) -> Dict:
+    """The round's functions, shared by the dense and the tiered engine:
+    local training, the per-phase vote's scores, the merge (and the
+    clustered merge and the shared-module mask when `cluster` is not
+    null), verification and evaluation."""
+    fns = {
+        "train_all": make_local_train_all(
+            model, epochs=cfg.epochs, patience=cfg.patience,
+            fedprox=(update_type == "fedprox"), mu=cfg.fedprox_mu,
+            lr=cfg.lr_rate, restore_best=not cfg.compat.no_best_restore),
+        "scores_fn": make_mse_scores_fn(
+            model, restandardize=cfg.compat.restandardize_vote_data,
+            tie_break=cfg.compat.vote_tie_break),
+        "aggregate": make_aggregate_fn(model, update_type),
+        "verify": make_verify_fn(
+            model, cfg.verification_threshold, cfg.performance_threshold,
+            hardened=cfg.hardened_verification,
+            recovery_budget=cfg.recovery_budget),
+        "evaluate_all": make_evaluate_all(
+            model, model_type, cfg.metric, score_kind=cfg.score_kind,
+            knn_bank_size=cfg.knn_bank_size, knn_k=cfg.knn_k,
+            knn_topk=cfg.knn_topk),
+        "cluster_aggregate": None, "shared": None}
+    if cluster is not None and not cluster.is_null:
+        fns["cluster_aggregate"] = make_clustered_aggregate_fn(
+            model, update_type, cluster.k)
+        if cluster.personalize:
+            fns["shared"] = shared_mask(ParamLayout.of(model),
+                                        cluster.shared_modules,
+                                        device=device)
+    return fns
+
+
+def build_fused_round(model, cfg: ExperimentConfig, fns: Dict, *,
+                      states: ClientStates, data: FederatedData, ver_x,
+                      ver_m, priorities: Optional[torch.Tensor],
+                      cohort: int, capacity: int, compact: bool,
+                      poison_fn=None, chaos=None, elastic=None, cluster=None,
+                      redteam_fns=None) -> FusedRound:
+    """The fused round of `fns` (make_round_fns) on the buffers given: the
+    dense engine's at the federation's width N, the tiered engine's at
+    its cohort's width C. The round reads and updates these very
+    tensors."""
+    metric_shape = {"AUC": (), "classification": (3,)}.get(
+        cfg.metric, (data.test_x.shape[1],))
+    spec = cluster if cluster is not None and not cluster.is_null else None
+    return FusedRound(
+        trainer=fns["train_all"],
+        base_scores=make_mse_scores_fn(
+            model, restandardize=cfg.compat.restandardize_vote_data,
+            tie_break=False),
+        aggregate=(fns["aggregate"] if spec is None
+                   else fns["cluster_aggregate"]),
+        verify=fns["verify"], evaluate_all=fns["evaluate_all"],
+        layout=ParamLayout.of(model), states=states, data=data,
+        ver_x=ver_x, ver_m=ver_m, priorities=priorities,
+        max_threshold=cfg.max_aggregation_threshold, cohort=cohort,
+        capacity=capacity, compact=compact,
+        tie_break=cfg.compat.vote_tie_break, metric_shape=metric_shape,
+        poison=poison_fn, chaos=chaos is not None,
+        elastic=elastic is not None,
+        cluster_k=1 if spec is None else spec.k,
+        personalize=spec is not None and spec.personalize,
+        shared=fns["shared"], redteam=redteam_fns)
 
 
 class RoundEngine:
@@ -229,6 +304,11 @@ class RoundEngine:
                  elastic_masks: Optional[MembershipMasks] = None,
                  cluster=None, cluster_assignment=None, redteam=None,
                  redteam_masks: Optional[RedteamMasks] = None):
+        if cfg.state_layout != "dense":
+            raise ValueError(
+                f"state_layout={cfg.state_layout!r}: RoundEngine keeps the "
+                "dense layout; state_layout='tiered' runs on "
+                "federation/tiered.TieredRoundEngine")
         if fused and cfg.metric == "time":
             raise ValueError(
                 "metric='time' times each client's scoring on the host and "
@@ -291,22 +371,13 @@ class RoundEngine:
         self.device = data.train_xb.device
         self.layout = ParamLayout.of(model)
         self.compact = cfg.compact_cohort is not False
-        self.train_all = make_local_train_all(
-            model, epochs=cfg.epochs, patience=cfg.patience,
-            fedprox=(update_type == "fedprox"), mu=cfg.fedprox_mu,
-            lr=cfg.lr_rate, restore_best=not cfg.compat.no_best_restore)
-        self.scores_fn = make_mse_scores_fn(
-            model, restandardize=cfg.compat.restandardize_vote_data,
-            tie_break=cfg.compat.vote_tie_break)
-        self.aggregate = make_aggregate_fn(model, update_type)
-        self.verify = make_verify_fn(
-            model, cfg.verification_threshold, cfg.performance_threshold,
-            hardened=cfg.hardened_verification,
-            recovery_budget=cfg.recovery_budget)
-        self.evaluate_all = make_evaluate_all(
-            model, model_type, cfg.metric, score_kind=cfg.score_kind,
-            knn_bank_size=cfg.knn_bank_size, knn_k=cfg.knn_k,
-            knn_topk=cfg.knn_topk)
+        self.fns = make_round_fns(model, cfg, model_type, update_type,
+                                  cluster, self.device)
+        self.train_all = self.fns["train_all"]
+        self.scores_fn = self.fns["scores_fn"]
+        self.aggregate = self.fns["aggregate"]
+        self.verify = self.fns["verify"]
+        self.evaluate_all = self.fns["evaluate_all"]
         self._init_states = None if states is None else states.clone()
         self.states = self._fresh_states()
         self.host = HostState.create(n_real)
@@ -322,14 +393,8 @@ class RoundEngine:
         self._cluster_stats_fn = None
         # per fit: its round and seconds (fit_from_states' timings)
         self.cluster_fit_seconds: List[Dict[str, float]] = []
-        self._shared = None
-        if self.clustered:
-            self.cluster_aggregate = make_clustered_aggregate_fn(
-                model, update_type, cluster.k)
-            if cluster.personalize:
-                self._shared = shared_mask(self.layout,
-                                           cluster.shared_modules,
-                                           device=self.device)
+        self.cluster_aggregate = self.fns["cluster_aggregate"]
+        self._shared = self.fns["shared"]
 
     def _fresh_states(self) -> ClientStates:
         if self._init_states is not None:
@@ -388,34 +453,18 @@ class RoundEngine:
         cohort = self.cohort_size() if cohort is None else cohort
         f = self._fused
         if f is None or f.cohort_size != cohort or f.capacity < n_rounds:
-            cfg, d = self.cfg, self.data
-            rows = d.train_xb.shape[1] * d.train_xb.shape[2]
-            metric_shape = {"AUC": (), "classification": (3,)}.get(
-                cfg.metric, (d.test_x.shape[1],))
-            spec = self.cluster if self.clustered else None
-            f = FusedRound(
-                trainer=self.train_all,
-                base_scores=make_mse_scores_fn(
-                    self.model,
-                    restandardize=cfg.compat.restandardize_vote_data,
-                    tie_break=False),
-                aggregate=(self.aggregate if spec is None
-                           else self.cluster_aggregate),
-                verify=self.verify,
-                evaluate_all=self.evaluate_all, layout=self.layout,
-                states=self.states.clone(), data=d, ver_x=self._ver_x,
-                ver_m=self._ver_m,
+            d = self.data
+            f = build_fused_round(
+                self.model, self.cfg, self.fns, states=self.states.clone(),
+                data=d, ver_x=self._ver_x, ver_m=self._ver_m,
                 priorities=self.evaluate_all.bank_priorities(
-                    self.n_pad, rows, self.device),
-                max_threshold=cfg.max_aggregation_threshold, cohort=cohort,
-                capacity=max(n_rounds, cfg.fused_schedule_chunk, 1),
-                compact=self.compact, tie_break=cfg.compat.vote_tie_break,
-                metric_shape=metric_shape, poison=self.poison_fn,
-                chaos=self.chaos is not None,
-                elastic=self.elastic is not None,
-                cluster_k=1 if spec is None else spec.k,
-                personalize=spec is not None and spec.personalize,
-                shared=self._shared, redteam=self._redteam_fns)
+                    self.n_pad, d.train_xb.shape[1] * d.train_xb.shape[2],
+                    self.device),
+                cohort=cohort,
+                capacity=max(n_rounds, self.cfg.fused_schedule_chunk, 1),
+                compact=self.compact, poison_fn=self.poison_fn,
+                chaos=self.chaos, elastic=self.elastic,
+                cluster=self.cluster, redteam_fns=self._redteam_fns)
             self._fused = f
             self.states = f.states
         elif self.states is not f.states:

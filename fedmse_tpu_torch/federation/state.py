@@ -17,6 +17,10 @@ history: each update of the round is a few ops on one tensor.
                verifier's recovery waiver
 
 `HostState` keeps the election's counters on the host.
+`TieredClientStore` keeps the same ClientStates as CPU tensors: the whole
+fleet on the host, of which the tiered engine (federation/tiered.py) moves
+only each round's cohort to the device (`gather` / `scatter`, keyed by
+absolute client id; `gather_rows` gives negative ids zero rows).
 `init_batched_client_states` stacks R runs' inits run by run, [R·N, ...]
 (the batched round, federation/batched.py).
 `client_states_from_numpy` takes the JAX package's ClientStates (as numpy),
@@ -30,7 +34,7 @@ The per-client selects and the divergence observable of the fault hooks
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +44,8 @@ from fedmse_tpu_torch.federation.aggregation import weighted_mean
 from fedmse_tpu_torch.federation.optim import (AdamState, adam_init,
                                                opt_state_from_numpy,
                                                opt_state_to_numpy)
-from fedmse_tpu_torch.models.autoencoder import init_stacked_params
+from fedmse_tpu_torch.models.autoencoder import (init_kernels,
+                                                 init_stacked_params)
 from fedmse_tpu_torch.models.flat import ParamLayout
 
 
@@ -104,6 +109,22 @@ class ClientStates:
     def to(self, device: DeviceLike) -> "ClientStates":
         dev = resolve_device(device)
         return self.apply(lambda t: t.to(dev))
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor in field order, the Adam state's flattened."""
+        out: List[torch.Tensor] = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            out.extend(v if isinstance(v, AdamState) else [v])
+        return out
+
+    def empty_rows(self, rows: int, *, device: Optional[torch.device] = None,
+                   pin: bool = False) -> "ClientStates":
+        """Uninitialized [rows, ...] tensors typed like these (a cohort
+        slab), on `device` (default: these tensors'), pinned if `pin`."""
+        return self.apply(lambda t: torch.empty(
+            (rows,) + tuple(t.shape[1:]), dtype=t.dtype,
+            device=t.device if device is None else device, pin_memory=pin))
 
 
 @dataclasses.dataclass
@@ -196,6 +217,110 @@ def client_states_from_numpy(states: Any, layout: ParamLayout, *,
         hist_seen=vec(states.hist_seen, torch.bool),
         rejected=vec(states.rejected, torch.int32),
         waived=vec(states.waived, torch.float32))
+
+
+def gather_rows(leaf: torch.Tensor, ids, out: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """Rows `ids` (absolute client ids, numpy) of a host tensor [N, ...]
+    into `out` (a pinned staging slab, say; default a new tensor). A
+    negative id gives a zero row: a cohort's pad lane."""
+    ids = np.asarray(ids, dtype=np.int64)
+    rows = torch.from_numpy(np.maximum(ids, 0))
+    if out is None:
+        out = leaf.index_select(0, rows)
+    else:
+        torch.index_select(leaf, 0, rows, out=out)
+    pad = ids < 0
+    if pad.any():
+        out[torch.from_numpy(pad)] = 0
+    return out
+
+
+def _client_bytes(states: ClientStates) -> int:
+    """Bytes of one client's row of every tensor."""
+    return sum(t[0].numel() * t.element_size() for t in states.tensors())
+
+
+class TieredClientStore:
+    """The whole fleet's ClientStates as pageable CPU tensors [N, ...] (port
+    of fedmse_tpu/federation/state.py `TieredClientStore`): a round moves
+    only its cohort's rows to the device (federation/tiered.py). At the
+    paper's width a client is 135 KB, so 100k clients are 13.5 GB of host
+    memory and a 512-client slab 69.3 MB on the card.
+
+    Rows are keyed by ABSOLUTE client id. `create` draws the dense init's
+    stream in the dense init's order, so row i is bit for bit row i of
+    `init_client_states(model, N, generator)` and the generator ends where
+    the dense init leaves it; `init_chunk` bounds only the working set of
+    one draw."""
+
+    def __init__(self, host: ClientStates, n_clients: int):
+        self.host = host  # CPU tensors [N, ...]
+        self.n_clients = n_clients
+
+    @staticmethod
+    def create(model, n_clients: int, generator: torch.Generator,
+               init_chunk: int = 4096) -> "TieredClientStore":
+        """N clients' init straight into host tensors: each layer's kernels
+        in turn, `init_chunk` clients a draw, into the layer's columns of
+        the flat [N, P] params (the dense init draws every client's kernel
+        of a layer before the next layer's; biases start at zero)."""
+        layout = ParamLayout.of(model)
+        params = torch.zeros((n_clients, layout.size))
+        chunk = max(1, min(int(init_chunk), n_clients))
+        for _, off, shape in layout.leaves():
+            if len(shape) != 2:
+                continue
+            fan_in, fan_out = shape
+            cols = slice(off, off + fan_in * fan_out)
+            for start in range(0, n_clients, chunk):
+                stop = min(start + chunk, n_clients)
+                params[start:stop, cols] = init_kernels(
+                    stop - start, fan_in, fan_out, generator).reshape(
+                        stop - start, -1)
+        return TieredClientStore(fresh_states(params), n_clients)
+
+    @staticmethod
+    def from_dense(states: ClientStates) -> "TieredClientStore":
+        """A tier of a dense [N, ...] ClientStates' rows (host copies): a
+        restored snapshot, or an init made elsewhere."""
+        host = states.apply(
+            lambda t: t.detach().to("cpu", copy=True).contiguous())
+        return TieredClientStore(host, int(host.hist_perf.shape[0]))
+
+    def gather(self, ids, out: Optional[ClientStates] = None
+               ) -> ClientStates:
+        """The cohort `ids`' rows [C, ...] on the host, into `out` when
+        given (negative ids: zero rows)."""
+        if out is None:
+            return self.host.apply(lambda t: gather_rows(t, ids))
+        for src, dst in zip(self.host.tensors(), out.tensors()):
+            gather_rows(src, ids, out=dst)
+        return out
+
+    def scatter(self, ids, slab: ClientStates) -> None:
+        """Write a round's output slab (host tensors [C, ...]) back into
+        the tier; pad lanes (negative ids) are dropped."""
+        ids = np.asarray(ids, dtype=np.int64)
+        real = ids >= 0
+        rows = torch.from_numpy(ids[real])
+        lanes = None if real.all() else torch.from_numpy(np.flatnonzero(real))
+        for dst, src in zip(self.host.tensors(), slab.tensors()):
+            dst.index_copy_(0, rows, src if lanes is None
+                            else src.index_select(0, lanes))
+
+    def host_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.host.tensors())
+
+    def slab_bytes(self, cohort: int) -> int:
+        """Bytes of one [C, ...] cohort slab."""
+        return cohort * _client_bytes(self.host)
+
+
+def dense_state_bytes(model, n_clients: int) -> int:
+    """Bytes of a dense ClientStates of N clients (never allocated)."""
+    return n_clients * _client_bytes(fresh_states(
+        torch.zeros((1, ParamLayout.of(model).size))))
 
 
 def tree_select_clients(accept: torch.Tensor, a: torch.Tensor,

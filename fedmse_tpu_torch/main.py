@@ -34,13 +34,18 @@ reference's results artifacts (port of fedmse_tpu/main.py).
     CheckpointManager), with the selection and torch streams where they
     were: a resumed run is the uninterrupted one. It runs the serial chunk
     loop, as in the JAX package (a pipelined boundary is speculative);
+  * `--state-layout tiered` keeps the fleet's client state and data in
+    host memory and moves each round's cohort to the card
+    (`run_tiered_combination`, federation/tiered.py): the same artifacts,
+    with a non-cohort client's round metric NaN below full participation;
   * `--batch-runs` runs a combination's `num_runs` seeds as one batched
     federation (`run_batched_combination`, federation/batched.py): R runs
     x N clients in one set of captured bodies, per-run early stopping as
     a freeze mask, and per run the artifacts the sequential driver
-    writes. It needs the fused schedule: under --resume-dir,
-    metric='time', --cluster-k, or with fused rounds or the fused
-    schedule off, the driver warns and runs the seeds one after another;
+    writes. It needs the fused schedule and the dense layout: under
+    --resume-dir, metric='time', --cluster-k, --state-layout tiered, or
+    with fused rounds or the fused schedule off, the driver warns and runs
+    the seeds one after another;
   * `--serve` then runs the serving pass (serving/smoke.py) on the first
     combination's checkpoint.
 
@@ -51,9 +56,10 @@ CLI (runs on the card unless --device cpu):
         [--attack-kind scale ...] [--chaos-dropout 0.2 ...]
         [--elastic-leave 0.1 ...] [--cluster-k 4 [--cluster-personalize]
         [--cluster-refit-every N]] [--resume-dir DIR] [--batch-runs]
+        [--state-layout tiered]
         [--serve [--serve-rows N] [--serve-warmup] [--serve-continuous]] ...
-Not ported: meshes, the tiered state layout, and the network and flywheel
-smokes. The red team's round half is ported (fedmse_tpu_torch/redteam/,
+Not ported: meshes (and with them --host-sharded, which raises), and the
+network and flywheel smokes. The red team's round half is ported (fedmse_tpu_torch/redteam/,
 RoundEngine(redteam=)); as in the JAX package, no flag drives it.
 """
 
@@ -78,8 +84,8 @@ from fedmse_tpu_torch.checkpointing import (CheckpointManager, ResultsWriter,
 from fedmse_tpu_torch.config import (DatasetConfig, ExperimentConfig,
                                      add_cli_overrides, apply_cli_overrides,
                                      paper_scale)
-from fedmse_tpu_torch.data import (build_dev_dataset, prepare_clients,
-                                   stack_clients)
+from fedmse_tpu_torch.data import (FederatedData, build_dev_dataset,
+                                   prepare_clients, stack_clients)
 from fedmse_tpu_torch.device import DeviceLike, resolve_device
 from fedmse_tpu_torch.evaluation.evaluator import client_index
 from fedmse_tpu_torch.federation import (ClientStates, RoundEngine,
@@ -89,6 +95,8 @@ from fedmse_tpu_torch.federation.elastic import ElasticSpec
 from fedmse_tpu_torch.federation.batched import BatchedRunEngine
 from fedmse_tpu_torch.federation.pipeline import (run_pipelined_batched,
                                                   run_pipelined_schedule)
+from fedmse_tpu_torch.federation.tiered import (PARALLEL,
+                                                run_tiered_combination)
 from fedmse_tpu_torch.models import make_model
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.precision import get_policy
@@ -172,9 +180,12 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
                     attack: Optional[AttackSpec] = None,
                     chaos: Optional[ChaosSpec] = None,
                     elastic: Optional[ElasticSpec] = None,
-                    cluster: Optional[ClusterSpec] = None) -> Dict:
+                    cluster: Optional[ClusterSpec] = None,
+                    device: Optional[DeviceLike] = None) -> Dict:
     """One (model_type, update_type, run): the reference round loop, the
-    final evaluation and the artifacts. Runs where `data` lives. `states`
+    final evaluation and the artifacts. Runs on `device`, by default where
+    `data` lives (state_layout='tiered': run_tiered_combination, whose
+    data may stay on the host while the rounds run on the card). `states`
     replaces the port's own init (a JAX-exported init, say); `profile`
     times each round's phases (RoundResult.phase_seconds) on the
     per-phase path; `on_round(result, seconds)` sees every round.
@@ -182,9 +193,24 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
     clustering; `resume`
     snapshots the run after each chunk (or round) and resumes it from its
     snapshot when there is one."""
+    device = data.train_xb.device if device is None else \
+        resolve_device(device)
+    if cfg.state_layout == "tiered":
+        if profile:
+            raise ValueError("profile=True times the per-phase round; the "
+                             "tiered layout runs the fused cohort round")
+        return run_tiered_combination(
+            cfg, data, n_real, model_type, update_type, run, writer=writer,
+            early_stop=early_stop, device_names=device_names, resume=resume,
+            save_checkpoints=save_checkpoints, attack=attack, chaos=chaos,
+            elastic=elastic, cluster=cluster, states=states,
+            on_round=on_round, device=device)
+    if data.train_xb.device.type != device.type:
+        raise ValueError(f"the dense layout runs where its data lives "
+                         f"({data.train_xb.device}), not on {device}")
+    device = data.train_xb.device
     rngs = ExperimentRngs(run=run, data_seed=cfg.data_seed,
                           run_seed_stride=cfg.run_seed_stride)
-    device = data.train_xb.device
     model = make_model(model_type, cfg.dim_features, cfg.hidden_neus,
                        cfg.latent_dim, cfg.shrink_lambda,
                        precision=cfg.precision, device=device)
@@ -456,10 +482,22 @@ def batch_runs_refusals(cfg: ExperimentConfig, resume_dir: Optional[str],
         reasons.append("metric='time' (host-side wall clock)")
     if not (cfg.fused_rounds and cfg.fused_schedule):
         reasons.append("fused_rounds/fused_schedule disabled")
+    if cfg.state_layout == "tiered":
+        reasons.append("state_layout=tiered (runs-axis batching is "
+                       "dense-layout only)")
     if cluster is not None and not cluster.is_null:
         reasons.append("--cluster-k (per-run assignment fits are "
                        "sequential-driver only)")
     return reasons
+
+
+def check_layout(cfg: ExperimentConfig) -> None:
+    """The state layout's settings, before any file is read."""
+    if cfg.state_layout not in ("dense", "tiered"):
+        raise ValueError(f"unknown state_layout {cfg.state_layout!r} "
+                         "(dense | tiered)")
+    if cfg.host_sharded:
+        raise ValueError(f"--host-sharded waits for {PARALLEL}")
 
 
 def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
@@ -484,16 +522,20 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
     specs and the clustering go to every combination and into the
     summary."""
     dev = resolve_device(device)
+    check_layout(cfg)
+    tiered = cfg.state_layout == "tiered"
     resume = CheckpointManager(resume_dir) if resume_dir else None
     if resume is not None and cfg.fused_pipeline and cfg.fused_rounds \
-            and cfg.fused_schedule:
+            and cfg.fused_schedule and not tiered:
         logger.warning(
             "--resume-dir disables fused_pipeline: per-chunk checkpoints "
             "need a non-speculative state at every chunk boundary, so the "
             "schedule runs the serial chunk loop (pass --no-pipeline to "
             "silence this, or drop --resume-dir to keep the pipelined "
             "executor)")
-    clients, data, n_real = prepare_federation(cfg, dataset, device=dev)
+    # the tiered layout keeps the fleet's data on the host
+    clients, data, n_real = prepare_federation(
+        cfg, dataset, device="cpu" if tiered else dev)
     device_names = [c.name for c in clients]
     writer = ResultsWriter(cfg.checkpoint_dir, cfg.network_size,
                            cfg.experiment_name, cfg.scen_name, cfg.metric,
@@ -545,7 +587,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                     device_names=device_names,
                     save_checkpoints=save_checkpoints, resume=resume,
                     attack=attack, chaos=chaos, elastic=elastic,
-                    cluster=cluster)
+                    cluster=cluster, device=dev)
                 best_metrics[model_type][update_type] = max(
                     best_metrics[model_type][update_type], out["best_final"])
                 all_results[f"{model_type}/{update_type}/run{run}"] = {
@@ -569,6 +611,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                            " (run without --no-save); skipping the serving"
                            " pass")
         else:
+            if data.train_xb.device.type != dev.type:
+                data = FederatedData(**{
+                    f.name: getattr(data, f.name).to(dev)
+                    for f in dataclasses.fields(FederatedData)})
             out["serve_smoke"] = run_serve_smoke(
                 cfg, data, n_real, writer, device_names,
                 model_type=cfg.model_types[0],
@@ -749,6 +795,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     # the specs validate before any file is read
     cfg, attack, chaos, elastic = fault_specs(args, cfg)
     cfg, cluster = cluster_spec(args, cfg)
+    check_layout(cfg)
     dataset = DatasetConfig.from_json(args.dataset_config, args.data_root)
     return run_experiment(cfg, dataset, save_checkpoints=not args.no_save,
                           device=args.device, serve=args.serve,

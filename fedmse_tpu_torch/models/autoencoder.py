@@ -39,15 +39,24 @@ def _layer_dims(input_dim: int, hidden: int, latent: int):
             "decoder": ((latent, hidden), (hidden, input_dim))}
 
 
+def init_kernels(n_models: int, fan_in: int, fan_out: int,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """[n_models, fan_in, fan_out] U(+-1/sqrt(fan_in)) kernels on the CPU.
+    The CPU generator draws element by element, so two calls of n and m
+    models draw what one call of n + m does (the host tier's chunked init,
+    federation/state.TieredClientStore.create)."""
+    bound = 1.0 / fan_in ** 0.5
+    return (torch.rand((n_models, fan_in, fan_out), generator=generator)
+            * 2.0 - 1.0) * bound
+
+
 def _init_tree(dims, n_models: int, generator: Optional[torch.Generator],
                device: torch.device) -> ParamTree:
     tree: ParamTree = {}
     for coder, layers in dims.items():
         tree[coder] = {}
         for i, (fan_in, fan_out) in enumerate(layers):
-            bound = 1.0 / fan_in ** 0.5
-            kernel = (torch.rand((n_models, fan_in, fan_out),
-                                 generator=generator) * 2.0 - 1.0) * bound
+            kernel = init_kernels(n_models, fan_in, fan_out, generator)
             tree[coder][f"Dense_{i}"] = {
                 "kernel": kernel.to(device),
                 "bias": torch.zeros((n_models, fan_out), device=device)}

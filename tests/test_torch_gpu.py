@@ -1362,3 +1362,126 @@ def test_null_redteam_is_the_clean_round_on_card(cuda):
     for sl in ParamLayout(16, 8, 3).slices():
         err = (card[:, sl] - cpu[:, sl]).abs().max() / cpu[:, sl].abs().max()
         assert float(err) <= 1e-4
+
+
+def _same(a, b) -> bool:
+    """Bitwise equality of two tensors (NaN included for floats)."""
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    if a.is_floating_point():
+        return a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+    return torch.equal(a, b)
+
+
+def _tiered_setup(where, n=6, **cfg_kw):
+    from fedmse_tpu_torch.config import ExperimentConfig
+    cfg = ExperimentConfig(dim_features=16, hidden_neus=8, latent_dim=3,
+                           network_size=n, epochs=2, **cfg_kw)
+    clients = synthetic_clients(n_clients=n, dim=16, n_normal=240,
+                                n_abnormal=120, seed=0)
+    dev_x = np.concatenate([c.dev_raw for c in clients])[:200].astype(
+        np.float32)
+    return cfg, stack_clients(clients, dev_x, 12, device=where)
+
+
+def _tiered_engine(cfg, data, where, n=6):
+    from fedmse_tpu_torch.federation.tiered import TieredRoundEngine
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    return TieredRoundEngine(make_model("hybrid", 16, 8, 3, device=where),
+                             cfg, data, n_real=n, rngs=ExperimentRngs(run=0),
+                             model_type="hybrid", update_type="mse_avg",
+                             device=where)
+
+
+def _rounds(engine, k):
+    out = []
+    engine.run_rounds(0, k, lambda r, s: out.append(r) or False)
+    return out
+
+
+def test_tiered_full_participation_is_the_dense_engine_on_card(cuda):
+    """C == N on the card (graphs captured, then replayed): the tiered
+    engine's rounds and states are the dense fused engine's bit for bit,
+    with the tie-break on; the round waits on the prefetch's copy event."""
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    cfg, data = _tiered_setup(cuda, num_participants=1.0, num_rounds=3)
+    dense = RoundEngine(make_model("hybrid", 16, 8, 3, device=cuda), cfg,
+                        data, n_real=6, rngs=ExperimentRngs(run=0),
+                        model_type="hybrid", update_type="mse_avg",
+                        fused=True)
+    want = dense.run_rounds(0, 3)
+    tier = _tiered_engine(cfg, data, cuda)
+    got = _rounds(tier, 3)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert (a.selected, a.aggregator) == (b.selected, b.aggregator)
+        assert a.verification_results == b.verification_results
+        for f in ("client_metrics", "tracking", "min_valid"):
+            assert _same(getattr(a, f), getattr(b, f)), f
+    for x, y in zip(tier.store.host.tensors(), dense.states.tensors()):
+        assert _same(x, y)
+    f = tier._round
+    assert all(b.graph is not None for b in (f.enter, f.epoch, f.leave))
+
+
+def test_tiered_staging_is_pinned_and_the_round_waits_for_the_copy(
+        cuda, monkeypatch):
+    """The staging slabs are pinned; with the side stream held back by a
+    sleep before every prefetch copy, the prefetched loop is still the
+    serial loop bit for bit, and every round's stream waited on its
+    copy's event."""
+    cfg, data = _tiered_setup(cuda, num_participants=0.5, num_rounds=4)
+    serial = _tiered_engine(cfg, data, cuda)
+    want = [serial.run_round(r) for r in range(4)]
+    pre = _tiered_engine(cfg, data, cuda)
+    pre._ensure_round()
+    for slab in pre._staging:
+        assert all(t.is_pinned() for t in slab.tensors())
+    assert pre._out.params.is_pinned()
+    slow_prefetch = pre._prefetch
+
+    def held_back(plan):
+        with torch.cuda.stream(pre._side):
+            torch.cuda._sleep(20_000_000)
+        return slow_prefetch(plan)
+    pre._prefetch = held_back
+    waited = []
+    real_wait = torch.cuda.Stream.wait_event
+    monkeypatch.setattr(torch.cuda.Stream, "wait_event",
+                        lambda s, e: waited.append(e) or real_wait(s, e))
+    real_load = pre._load
+
+    def load(pf, prev):
+        assert any(e is pf.ready for e in waited)
+        return real_load(pf, prev)
+    pre._load = load
+    got = _rounds(pre, 4)
+    for a, b in zip(got, want):
+        assert (a.selected, a.aggregator) == (b.selected, b.aggregator)
+        assert _same(a.client_metrics, b.client_metrics)
+    for x, y in zip(pre.store.host.tensors(), serial.store.host.tensors()):
+        assert _same(x, y)
+
+
+def test_tiered_init_leaves_no_fleet_axis_tensor_on_card(cuda):
+    """A 100k-client tier at small width, then a round at C = 512: no CUDA
+    tensor carries the fleet's axis, and the card holds far less than the
+    dense state would."""
+    import gc
+    from fedmse_tpu_torch.federation.state import (TieredClientStore,
+                                                   dense_state_bytes)
+    n = 100_000
+    model = make_model("hybrid", 6, 4, 2, device=cuda)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tier = TieredClientStore.create(model, n,
+                                    torch.Generator().manual_seed(1))
+    assert torch.cuda.memory_allocated() == before
+    slab = tier.gather(np.arange(512))
+    on_card = slab.apply(lambda t: t.to(cuda))
+    fleet = [o for o in gc.get_objects() if isinstance(o, torch.Tensor)
+             and o.is_cuda and o.dim() and o.shape[0] == n]
+    assert not fleet
+    assert torch.cuda.memory_allocated() - before <= \
+        dense_state_bytes(model, n) / 100
+    del on_card

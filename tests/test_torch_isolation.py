@@ -21,6 +21,9 @@ from fedmse_tpu_torch.data import stack_clients, synthetic_clients
 from fedmse_tpu_torch.models import (init_stacked_params, make_model,
                                      params_from_numpy)
 from fedmse_tpu_torch.federation import init_client_states
+from fedmse_tpu_torch.federation.tiered import (TieredRoundEngine,
+                                                run_tiered_combination)
+from fedmse_tpu_torch.utils.seeding import ExperimentRngs
 from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.main import prepare_federation, run_experiment
 from fedmse_tpu_torch.serving import ServingEngine
@@ -35,9 +38,10 @@ def _port_modules():
         fedmse_tpu_torch.__path__, prefix="fedmse_tpu_torch."))
 
 
-# the red team's round half and the batched runs
+# the red team's round half, the batched runs and the tiered layout
 NEW_MODULES = ("redteam", "redteam.spec", "redteam.masks",
-               "redteam.adversary", "redteam.mimicry", "federation.batched")
+               "redteam.adversary", "redteam.mimicry", "federation.batched",
+               "federation.tiered")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -143,6 +147,10 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
                                 n_abnormal=5)
     model = make_model("autoencoder", 6, 4, 2, device="cpu")
     params = init_stacked_params(model, 2, device="cpu")
+    cpu_data = stack_clients(clients, np.zeros((2, 6), np.float32), 4,
+                             device="cpu")
+    tiny = ExperimentConfig(dim_features=6, hidden_neus=4, latent_dim=2,
+                            state_layout="tiered")
     calls = [
         lambda: make_model("autoencoder", 6, 4, 2),
         lambda: init_stacked_params(model, 2),
@@ -167,6 +175,11 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
         lambda: nearest_cluster(np.zeros((2, 3)),
                                 np.tile(np.eye(3), (2, 1, 1)),
                                 np.zeros((1, 3)), np.eye(3)[None], [2]),
+        lambda: TieredRoundEngine(model, tiny, cpu_data, 2,
+                                  ExperimentRngs(run=0), "autoencoder",
+                                  "avg"),
+        lambda: run_tiered_combination(tiny, cpu_data, 2, "autoencoder",
+                                       "avg", 0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
