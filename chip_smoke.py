@@ -137,6 +137,37 @@ all started together, into build/fedmse_tpu_torch/), then:
                 within 5% across N; (d) the dense fused engine at 100,000
                 gateways and C = 512, sec/round and peak device bytes,
                 recorded;
+     flywheel   (after the main path) the flywheel control loop
+                (--flywheel) on the trained hybrid / mse_avg checkpoint:
+                (a) the kernels at its shapes (the fine-tune's train step
+                at G = 10 over 32 reservoir batches of 12, the routed
+                candidate-scoring forward over 1,280 held-out rows, the
+                bank refresh's encode of [10, 384, 115], a serving
+                bucket's distances to 512-slot banks, each also bit-equal
+                to a second call); (b) run_flywheel_smoke with the kNN and
+                the centroid score (every interleaved test row, the shift
+                1.5 feature-stds per feature): at least one swap, no ticket
+                dropped, the served params the installed bits after every
+                chunk and through every fine-tune; and two drift-recovery
+                cells at the paper's width (drift_recovery_sweep.py's
+                regime: hybrid / centroid and autoencoder / kNN), adapted
+                AUC above the frozen engine's; (c) the first fine-tune cut
+                to one epoch, card vs CPU (<= 1e-4); (d) the kNN pass with
+                the fine-tune in the background (its graphs captured on
+                the worker's thread while the front streams): rows served
+                while it is pending, its params the synchronous
+                fine-tune's bits from the same snapshot; (e) the
+                slow-drift adversary walking gateway 0 against the live
+                loop (its position and its target rows' normal share
+                around each swap, reported);
+     tune       (after the main path) the autotuner into a temporary cache
+                file: tune_serve_ladder(max_bucket=1024, dim=115) and
+                tune_tier_chunk() with every candidate's wall; a
+                bucket_ladder="auto" engine serves the chosen ladder with
+                the pow2 engine's bits over 8,192 rows (centroid and kNN;
+                pow2_mid too), the tiered engine reads the tuned chunk, a
+                tier at that chunk is the dense init's bits, and another
+                device name misses;
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events, and the
@@ -168,9 +199,10 @@ way ("fault_path_launches" in the kernels line), the cluster phase's
 (b) and (g) the clustered path ("cluster_path_launches"), the redteam
 phase's (b) and (g) the red path ("redteam_path_launches") and the batch
 phase's batched run and kNN round the batched path
-("batch_path_launches"), and the tiered phase's tiered engines (not the
+("batch_path_launches"), the tiered phase's tiered engines (not the
 dense engines they are held to) the tiered path
-("tiered_path_launches"). A launch
+("tiered_path_launches"), and the flywheel phase's (b) the flywheel path
+("flywheel_path_launches"). A launch
 inside a replayed CUDA graph counts: each graph keeps the kernels it
 captured, and each replay adds them (ops/graphs.py). Prints,
 as its last three lines, the card's name and power limit, one JSON line
@@ -3724,17 +3756,8 @@ def tiered_path():
     """Count the kernel launches of the tiered engines' work inside: every
     count set to 0 just before and read just after, into
     TIERED_LAUNCHES (the dense engines they are held to run outside)."""
-    from fedmse_tpu_torch.ops.graphs import WRAPPERS
-    import torch
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    for w in WRAPPERS.values():
-        w.launches = 0
-    yield
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    for k, w in WRAPPERS.items():
-        TIERED_LAUNCHES[k] = TIERED_LAUNCHES.get(k, 0) + w.launches
+    with counted_launches(TIERED_LAUNCHES):
+        yield
 
 
 def _tiered(torch, cfg, data, n, device, **kw):
@@ -4109,6 +4132,656 @@ def phase_tiered(torch, device, cfg, clients, data, smi):
     return report
 
 
+# ---- the flywheel control loop (phase "flywheel") ---- #
+
+# interleaved test rows each pass streams, (b): all of them (10 gateways
+# x 3,000), since each gateway's 1,000 normal test rows come before its
+# 2,000 attack rows and a shorter stream would hold no attack to score
+FLYWHEEL_ROWS = 30_000
+# the synthetic fleet's rows are isotropic N(0, 1) per feature, so a shift
+# of s along one unit direction moves each feature by s / sqrt(D) (RMS):
+# the config's 1.5 feature-stds moves the served scores by < 0.1
+# calibration stds there, and no monitor sees it. The pass shifts by 1.5
+# feature-stds per feature instead, 1.5 sqrt(D) along the direction
+FLYWHEEL_SHIFT_PER_FEATURE = 1.5
+# (b) the drift-recovery cells (drift_recovery_sweep.py's regime at the
+# paper's width): normals on a rank-3 manifold plus 0.2 noise in D dims,
+# the regime walking `delta` along a unit direction (`on_frac` of it
+# on the manifold) while attacks replay pre-deployment traffic `behind`
+# the origin; 10 gateways of 240 train, 80 valid, 60 + 60 test rows,
+# 288 rows a gateway per stage
+RECOVERY_CELLS = (
+    dict(model_type="hybrid", score_kind="centroid", delta=1.5, stages=3,
+         on_frac=0.5, behind=1.25, z=0.5),
+    dict(model_type="autoencoder", score_kind="knn", delta=2.8, stages=2,
+         on_frac=1.0, behind=2.5, z=0.35))
+FLYWHEEL_ADV_STEPS = 48  # served batches of the slow-drift walk, (e)
+FLYWHEEL_TOL = 1e-4      # (c): one fine-tune epoch, card vs CPU
+FLYWHEEL_LAUNCHES = {}   # the flywheel path's kernel launches, by wrapper
+
+
+@contextlib.contextmanager
+def counted_launches(store):
+    """Count the kernel launches of the work inside: every count set to 0
+    just before and read just after, added into `store`."""
+    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    yield
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for k, w in WRAPPERS.items():
+        store[k] = store.get(k, 0) + w.launches
+
+
+def flywheel_kernel_shapes(torch, device, n):
+    """(a) The kernels at the flywheel's own shapes against their plain
+    versions, f32 on dyadic grids, each also bit-equal to a second call:
+    the fine-tune's train step at G = n over a full reservoir's 32
+    batches of 12 (the last one part-masked for one client), the routed
+    candidate-scoring forward over every gateway's held-out rows (128
+    each, gateway-major), the bank refresh's encode of [n, 384, D], and
+    the distances of a serving bucket (256 rows) to n 512-slot banks."""
+    from fedmse_tpu_torch.knn.score import dist_tiles
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
+                                               fused_forward_stats_plain)
+    from fedmse_tpu_torch.ops.fused_train import (fused_train_grads,
+                                                  fused_train_grads_plain)
+    gen = torch.Generator().manual_seed(SEED + 30)
+    layout = ParamLayout(*DIMS)
+    kw = dict(layout=layout, shrink_lambda=10.0)
+    worst = {}
+    flat, xt = grid_inputs(torch, layout, n, 32 * 12, gen, device)
+    m = torch.ones((n, 32 * 12), device=device)
+    m[-1, -7:] = 0.0  # a reservoir short of full
+    err = 0.0
+    for b in range(32):
+        x, mb = xt[:, b * 12:(b + 1) * 12], m[:, b * 12:(b + 1) * 12]
+        x, mb = x.contiguous(), mb.contiguous()
+        got = fused_train_grads(flat, x, mb, **kw)
+        again = fused_train_grads(flat, x, mb, **kw)
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"[flywheel] train step, batch {b}: not "
+                                 "bit-equal to a second call")
+        err = max(err, max(scaled_err(a, c) for a, c in zip(
+            got, fused_train_grads_plain(flat, x, mb, **kw))))
+    worst[f"train step, G = {n}, 32 batches of 12"] = err
+    params = grid_params(torch, n, *DIMS, gen, device, torch.float32)
+    for what, per in (("candidate scoring", 128), ("bank refresh", 384)):
+        rows = n * per
+        x = (torch.randint(-6, 7, (rows, DIMS[0]), generator=gen) / 4.0
+             ).to(device)
+        idx = forward_index(torch, "client_major", n, rows, gen, device)
+        got = fused_forward_stats(params, x, idx)
+        again = fused_forward_stats(params, x, idx)
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"[flywheel] {what} forward not bit-equal "
+                                 "to a second call")
+        worst[f"{what}, {rows} rows, {n} routed models"] = max(
+            scaled_err(a, c) for a, c in zip(
+                got, fused_forward_stats_plain(params, x, idx)))
+    q, banks, gw = dist_inputs(torch, n, 256, 512, DIMS[2], "random", gen,
+                               device, torch.float32)
+    got, _, worst[f"distances, 256 rows x {n} banks of 512"] = dist_check(
+        torch, q, banks, gw, "flywheel bucket")
+    if not torch.equal(got, dist_tiles(q, banks, gw)):
+        raise AssertionError("[flywheel] distances not bit-equal to a "
+                             "second call")
+    bad = {k: v for k, v in worst.items()
+           if v > (DIST_TOL if k.startswith("dist") else TOL["f32"])}
+    if bad:
+        raise AssertionError(f"[flywheel] kernels vs plain: {bad}")
+    log(f"[flywheel] (a) kernels at the flywheel's shapes agree with their "
+        f"plain versions and with a second call: {json.dumps(worst)}")
+    return worst
+
+
+class FlywheelWatch:
+    """The observer of one flywheel pass (run_flywheel_smoke's on_chunk):
+    after every streamed chunk the served params must be the bits they
+    were at the last install, and every fine-tune (wrapped at the first
+    chunk) must start from the served params and leave them as they were.
+    Counts the rows served while a fine-tune is pending and keeps each
+    fine-tune's inputs and output."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.ctl = None
+        self.snap = None
+        self.swaps = 0
+        self.runs = []
+        self.pending_rows = 0
+        self.pending_chunks = 0
+        self.served = 0
+        self.was_pending = False
+
+    def _flat(self):
+        engine = self.ctl.batcher.engine
+        return self.ctl.runner.layout.flatten(engine.params)
+
+    def _wrap(self):
+        torch, runner, orig = self.torch, self.ctl.runner, \
+            self.ctl.runner.run
+
+        def run(finetune, warm, rngs, rounds, assignment=None):
+            served = self._flat()
+            if not torch.equal(served, warm):
+                raise AssertionError("[flywheel] the fine-tune's warm start "
+                                     "is not the served params")
+            warm0 = warm.clone()
+            t0 = time.perf_counter()
+            out = orig(finetune, warm, rngs, rounds, assignment)
+            torch.cuda.synchronize()
+            if not torch.equal(self._flat(), served):
+                raise AssertionError("[flywheel] the fine-tune changed the "
+                                     "served params before the install")
+            self.runs.append({"finetune": finetune, "warm": warm0,
+                              "run": rngs.run, "rounds": rounds,
+                              "cfg": runner.cfg,
+                              "params": runner.layout.flatten(out[0]),
+                              "reused": out[2],
+                              "seconds": time.perf_counter() - t0})
+            return out
+
+        runner.run = run
+
+    def __call__(self, stage, k, controller):
+        torch = self.torch
+        if self.ctl is None:
+            self.ctl = controller
+            self._wrap()
+            self.snap, self.swaps = self._flat(), 0
+        engine, batcher = controller.batcher.engine, controller.batcher
+        if engine.swap_count != self.swaps:
+            self.snap, self.swaps = self._flat(), engine.swap_count
+        elif not torch.equal(self._flat(), self.snap):
+            raise AssertionError(f"[flywheel] served params changed at "
+                                 f"stage {stage} chunk {k} without an "
+                                 "install")
+        if self.was_pending:
+            self.pending_rows += batcher.rows_served - self.served
+            self.pending_chunks += 1
+        self.served = batcher.rows_served
+        self.was_pending = controller.finetune_pending
+
+
+def flywheel_pass(torch, cfg, data, writer, names, score_kind,
+                  background=False):
+    """(b) / (d) One closed-loop pass (flywheel.run_flywheel_smoke, the
+    CLI's --flywheel) on the trained hybrid / mse_avg checkpoint with
+    `score_kind`, the fine-tune synchronous or in the background, the
+    shift FLYWHEEL_SHIFT_PER_FEATURE feature-stds per feature: at least
+    one swap, no ticket dropped, rows served == submitted, finite AUCs,
+    the served params the installed bits throughout. The AUCs are
+    reported: on this fleet the attacks sit ~4 stds out in every feature,
+    so the stale detector barely degrades and a fine-tune on 384 rows a
+    gateway can only lose (the recovery cells hold adapted > stale).
+    Returns (report row, watch)."""
+    from fedmse_tpu_torch.flywheel import run_flywheel_smoke
+    c = cfg.replace(score_kind=score_kind, flywheel_async=background, **KNN)
+    watch = FlywheelWatch(torch)
+    t0 = time.perf_counter()
+    shift = FLYWHEEL_SHIFT_PER_FEATURE * DIMS[0] ** 0.5
+    rep = run_flywheel_smoke(c, data, len(names), writer, names, "hybrid",
+                             "mse_avg", run=0, max_rows=FLYWHEEL_ROWS,
+                             shift_sigma=shift, on_chunk=watch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    events = rep["events"]
+    st = rep["batcher"]
+    row = {
+        "score_kind": rep["score_kind"], "background": background,
+        "shift": shift, "seconds": secs,
+        "auc_pre_shift": rep["auc_pre_shift"],
+        "auc_post_shift_stale": rep["auc_post_shift_stale"],
+        "auc_post_shift_adapted": rep["auc_post_shift_adapted"],
+        "swap_events": len(events),
+        "trigger_gateways": [e["flywheel"]["trigger_gateways"]
+                             for e in events],
+        "eligible_gateways": [e["flywheel"]["eligible_gateways"]
+                              for e in events],
+        "finetune_seconds": [e["flywheel"]["finetune_seconds"]
+                             for e in events],
+        "finetune_run_seconds": [r["seconds"] for r in watch.runs],
+        "finetune_engine_reused": [r["reused"] for r in watch.runs],
+        "install_seconds": [e["flywheel"]["install_seconds"]
+                            for e in events],
+        "tickets": rep["tickets"],
+        "rows_served": st["rows_served"],
+        "rows_submitted": st["rows_submitted"],
+        "rows_served_while_pending": watch.pending_rows,
+        "chunks_while_pending": watch.pending_chunks,
+        "buffer_fill": rep["buffer"]["fill_fraction"],
+        "latency_p99_ms": st["latency_p99_ms"]}
+    tag = f"{score_kind}{', background' if background else ''}"
+    log(f"[flywheel] {'(d)' if background else '(b)'} {tag}: "
+        f"{json.dumps(row)}")
+    aucs = [row[k] for k in ("auc_pre_shift", "auc_post_shift_stale",
+                             "auc_post_shift_adapted")]
+    if not (row["swap_events"] >= 1 and rep["tickets"]["zero_dropped"]
+            and st["rows_served"] == st["rows_submitted"]
+            == rep["tickets"]["rows_submitted"]
+            and np.isfinite(aucs).all()
+            and len(watch.runs) == row["swap_events"]):
+        raise AssertionError(f"[flywheel] {tag} pass: {json.dumps(row)}")
+    if background and watch.pending_rows < 1:
+        raise AssertionError("[flywheel] (d) no row was served while the "
+                             "background fine-tune was pending")
+    return row, watch
+
+
+def flywheel_recovery_cell(torch, cfg, device, model_type, score_kind,
+                           delta, stages, on_frac, behind, z, n=10,
+                           rank=3, noise=0.2, rows=288, hold=2, seed=0):
+    """(b) One drift-recovery cell at the paper's width (RECOVERY_CELLS):
+    train the federation on the calibrated regime (the fused round, the
+    quick run's 3 rounds of 5 epochs), serve it through the continuous
+    front with the flywheel (drift_recovery_sweep.py's knobs: 384-row
+    reservoirs, 5 fine-tune rounds, quorum 2, monitor cooldown 3),
+    stream the calibrated regime, the walk in `stages` and `hold` stages
+    at its end; then the detection AUC of the walked regime's normals
+    against the replayed attacks, live and on a frozen engine. Asserts
+    at least one swap, no ticket dropped, the served params the
+    installed bits throughout, and adapted AUC above the stale one."""
+    from fedmse_tpu_torch.data import build_dev_dataset, stack_clients
+    from fedmse_tpu_torch.data.loader import ClientData
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.flywheel import (FlywheelBuffer,
+                                           FlywheelController, host_auc,
+                                           stream_with_polling,
+                                           ticket_integrity)
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.serving import (ContinuousBatcher, DriftMonitor,
+                                          ServingEngine, fit_calibration)
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    dim = DIMS[0]
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(rank, dim))
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    q, _ = np.linalg.qr(w.T)
+    u = rng.normal(size=dim)
+    u -= q @ (q.T @ u)
+    u /= np.linalg.norm(u)
+    u = np.sqrt(1.0 - on_frac) * u + np.sqrt(on_frac) * w[0]
+
+    def normals(r, k, shift=0.0):
+        x = r.normal(size=(k, rank)) @ w + noise * r.normal(size=(k, dim))
+        return (x + shift * u).astype(np.float32)
+
+    c = cfg.replace(network_size=n, score_kind=score_kind, knn_bank_size=128,
+                    flywheel_buffer_size=384, flywheel_rounds=5,
+                    flywheel_quorum=2, flywheel_cooldown=3,
+                    flywheel_min_rows=160, flywheel_z=z,
+                    flywheel_percentile=99.0)
+    rngs = ExperimentRngs(run=0)
+    r = np.random.default_rng(1000 + seed)
+    clients = [ClientData(
+        name=f"recovery-{i + 1}", train_x=normals(r, 240),
+        valid_x=normals(r, 80),
+        test_x=np.concatenate([normals(r, 60), normals(r, 60, -behind)]),
+        test_y=np.concatenate([np.zeros(60), np.ones(60)]).astype(
+            np.float32), dev_raw=normals(r, 120), scaler=None)
+        for i in range(n)]
+    data = stack_clients(clients, build_dev_dataset(clients, rngs.data_rng),
+                         c.batch_size, device=device)
+    model = make_model(model_type, *DIMS, c.shrink_lambda, device=device)
+    trainer = RoundEngine(model, c, data, n_real=n, rngs=rngs,
+                          model_type=model_type, update_type="mse_avg",
+                          fused=True)
+    trainer.run_rounds(0, c.num_rounds)
+    params = trainer.model_params()
+
+    def build():
+        return ServingEngine.from_federation(
+            model, model_type, params, train_x=data.train_xb,
+            train_m=data.train_mb, score_kind=score_kind,
+            knn_bank_size=c.knn_bank_size, knn_k=c.knn_k, max_bucket=256,
+            device=device)
+
+    engine, frozen = build(), build()
+    calib = fit_calibration(engine, data.valid_x.cpu().numpy(),
+                            data.valid_m.cpu().numpy(), percentile=99.0)
+    monitor = DriftMonitor(calib, z_threshold=z, min_batches=2,
+                           cooldown_updates=c.flywheel_cooldown)
+    buf = FlywheelBuffer(n, dim, capacity=c.flywheel_buffer_size, seed=seed)
+    front = ContinuousBatcher(engine, max_batch=64, latency_budget_ms=1e9,
+                              calibration=calib, drift=monitor,
+                              intake=buf.tap())
+    ctl = FlywheelController(front, monitor, buf, model, model_type,
+                             "mse_avg", c, dev_x=data.dev_x.cpu().numpy(),
+                             rounds=c.flywheel_rounds, quorum=2,
+                             cooldown_polls=4,
+                             min_rows=c.flywheel_min_rows)
+    watch = FlywheelWatch(torch)
+
+    def auc(score, shift):
+        e = np.random.default_rng(200 + seed)
+        xs = np.concatenate([normals(e, 384, shift),
+                             normals(e, 384, -behind)])
+        ys = np.concatenate([np.zeros(384), np.ones(384)])
+        g = np.tile(np.arange(n, dtype=np.int32),
+                    -(-len(xs) // n))[:len(xs)]
+        return host_auc(ys, score(xs, g))
+
+    stream = np.random.default_rng(100 + seed)
+    gws = np.tile(np.arange(n, dtype=np.int32), rows)
+    pre = auc(engine.score, 0.0)
+    blocks = []
+    for stage in range(stages + hold + 1):
+        shift = delta * min(stage, stages) / stages
+        b, _ = stream_with_polling(
+            front, ctl, normals(stream, rows * n, shift), gws,
+            on_chunk=lambda k, ctl_, st=stage: watch(st, k, ctl_))
+        blocks += b
+    st = front.stats()
+    out = {"model_type": model_type, "score_kind": score_kind,
+           "delta": delta, "stages": stages, "on_frac": on_frac,
+           "behind": behind, "z": z, "auc_pre_shift": pre,
+           "auc_adapted": auc(engine.score, delta),
+           "auc_stale": auc(frozen.score, delta),
+           "swaps": len(ctl.events),
+           "trigger_gateways": [e["flywheel"]["trigger_gateways"]
+                                for e in ctl.events],
+           "finetune_seconds": [e["flywheel"]["finetune_seconds"]
+                                for e in ctl.events],
+           "finetune_engine_reused": [x["reused"] for x in watch.runs],
+           "install_seconds": [e["flywheel"]["install_seconds"]
+                               for e in ctl.events],
+           "tickets": ticket_integrity(blocks),
+           "rows_served": st["rows_served"],
+           "rows_submitted": st["rows_submitted"]}
+    log(f"[flywheel] (b) recovery cell {model_type}/{score_kind}: "
+        f"{json.dumps(out)}")
+    if not (out["swaps"] >= 1 and out["tickets"]["zero_dropped"]
+            and st["rows_served"] == st["rows_submitted"]
+            and out["auc_adapted"] > out["auc_stale"]):
+        raise AssertionError(f"[flywheel] recovery cell: {json.dumps(out)}")
+    return out
+
+
+def _finetune_on(torch, device, run, epochs=None):
+    """The fine-tune of `run` (a FlywheelWatch entry) again on `device`:
+    a fresh runner, the same config (`epochs` of them if given), data,
+    warm params and streams; returns the flat params."""
+    from fedmse_tpu_torch.flywheel import FinetuneRunner
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    cfg = run["cfg"] if epochs is None else run["cfg"].replace(
+        epochs=epochs)
+    n = len(run["finetune"].eligible)
+    runner = FinetuneRunner(
+        make_model("hybrid", *DIMS, cfg.shrink_lambda,
+                   precision=cfg.precision, device=device), cfg, "hybrid",
+        "mse_avg", n, torch.device(device))
+    tree, _, _ = runner.run(run["finetune"], run["warm"].clone(),
+                            ExperimentRngs(run=run["run"]),
+                            1 if epochs is not None else run["rounds"])
+    return runner.layout.flatten(tree)
+
+
+def flywheel_adversary(torch, cfg, data, writer, names):
+    """(e) The slow-drift adversary (redteam.SlowDriftAdversary) walks
+    captive gateway 0 from its normal mean toward its attack mean against
+    the live flywheel (kNN score, synchronous fine-tune): each step serves
+    one honest interleaved chunk and the adversary's batch, ticks the
+    controller and feeds the adversary its rows' verdicts. Reports the
+    position reached and the share of its target rows verdicted normal
+    before and after each swap (finite, not asserted further)."""
+    from fedmse_tpu_torch.flywheel import (FlywheelBuffer,
+                                           FlywheelController)
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.redteam import SlowDriftAdversary, normal_fraction
+    from fedmse_tpu_torch.serving import (ContinuousBatcher, DriftMonitor,
+                                          ServingEngine, fit_calibration,
+                                          interleave_test_rows)
+    from fedmse_tpu_torch.serving.smoke import _host
+    c = cfg.replace(score_kind="knn", **KNN)
+    n, dev = len(names), data.train_xb.device
+    model = make_model("hybrid", *DIMS, device=dev)
+    engine = ServingEngine.from_checkpoint(
+        writer, model, "hybrid", "mse_avg", names, train_x=data.train_xb,
+        train_m=data.train_mb, max_bucket=c.serve_max_batch,
+        score_kind="knn", knn_bank_size=c.knn_bank_size, knn_k=c.knn_k,
+        knn_topk=c.knn_topk, device=dev)
+    calib = fit_calibration(engine, _host(data.valid_x), _host(data.valid_m),
+                            percentile=c.flywheel_percentile)
+    monitor = DriftMonitor(calib, z_threshold=c.flywheel_z, min_batches=2,
+                           cooldown_updates=c.flywheel_cooldown)
+    buf = FlywheelBuffer(n, DIMS[0], capacity=c.flywheel_buffer_size,
+                         seed=SEED)
+    front = ContinuousBatcher(engine, max_batch=c.serve_max_batch,
+                              latency_budget_ms=c.serve_latency_budget_ms,
+                              calibration=calib, drift=monitor,
+                              intake=buf.tap())
+    ctl = FlywheelController(front, monitor, buf, model, "hybrid", "mse_avg",
+                             c, dev_x=_host(data.dev_x),
+                             rounds=c.flywheel_rounds,
+                             quorum=c.flywheel_quorum,
+                             min_rows=c.flywheel_min_rows)
+    test_x, test_m, test_y = (_host(data.test_x), _host(data.test_m),
+                              _host(data.test_y))
+    rows, gws, labels = interleave_test_rows(test_x, test_m, test_y,
+                                             FLYWHEEL_ROWS)
+    honest, hg = rows[labels <= 0], gws[labels <= 0]
+    train0 = _host(data.train_xb)[0].reshape(-1, DIMS[0])
+    keep = _host(data.train_mb)[0].reshape(-1) > 0
+    attack0 = test_x[0][(test_m[0] > 0) & (test_y[0] > 0)]
+    adv = SlowDriftAdversary(train0[keep].mean(axis=0), attack0.mean(axis=0),
+                             seed=SEED, step=0.05)
+    probe = adv.target_rows(256, seed=SEED + 1)
+
+    def target_normal():
+        g0 = np.zeros(len(probe), np.int32)
+        return normal_fraction(front.calibration.verdicts(
+            engine.score(probe, g0), g0))
+
+    shares = [{"after_swaps": 0, "target_normal": target_normal()}]
+    positions, chunk = [], 64
+    for t in range(FLYWHEEL_ADV_STEPS):
+        s = (t * chunk) % max(1, len(honest) - chunk)
+        blk = front.submit_many(honest[s:s + chunk], hg[s:s + chunk])
+        ab = front.submit_many(adv.next_batch(32), np.zeros(32, np.int32))
+        front.drain()
+        event = ctl.poll()
+        adv.observe(normal_fraction(ab.verdicts))
+        positions.append(adv.position)
+        if event is not None:
+            shares.append({"after_swaps": len(ctl.events), "step": t,
+                           "position": adv.position,
+                           "target_normal": target_normal()})
+        if not blk.done:
+            raise AssertionError("[flywheel] (e) an honest chunk unresolved")
+    st = front.stats()
+    out = {"steps": FLYWHEEL_ADV_STEPS, "final_position": adv.position,
+           "max_position": max(positions), "swaps": len(ctl.events),
+           "trigger_gateways": [e["flywheel"]["trigger_gateways"]
+                                for e in ctl.events],
+           "target_normal_share": shares,
+           "admitted_gateway0": int(buf.seen[0]),
+           "rows_served": st["rows_served"],
+           "rows_submitted": st["rows_submitted"]}
+    finite = [out["final_position"]] + [x["target_normal"] for x in shares]
+    if not np.isfinite(finite).all() or \
+            st["rows_served"] != st["rows_submitted"]:
+        raise AssertionError(f"[flywheel] (e) {json.dumps(out)}")
+    log(f"[flywheel] (e) slow-drift adversary on gateway 0: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase_flywheel(torch, device, cfg, data, writer, names, smi):
+    """The flywheel control loop (--flywheel) on the trained hybrid /
+    mse_avg checkpoint of the main path, 10 gateways at 115/27/7: (a) the
+    kernels at its shapes; the flywheel path, launch counters set to 0
+    before it and read after it: (b) the closed loop with the kNN score
+    and with the centroid score, and the drift-recovery cells; then (c)
+    the first fine-tune, cut to one
+    epoch, on the card and the CPU; (d) the loop with the fine-tune in
+    the background, its first fine-tune the synchronous bits from the
+    same snapshot; (e) the slow-drift adversary against the live loop."""
+    t0 = time.perf_counter()
+    n = len(names)
+    report = {"kernels": flywheel_kernel_shapes(torch, device, n)}
+    FLYWHEEL_LAUNCHES.clear()
+    with counted_launches(FLYWHEEL_LAUNCHES):
+        knn, watch = flywheel_pass(torch, cfg, data, writer, names, "knn")
+        centroid, _ = flywheel_pass(torch, cfg, data, writer, names,
+                                    "centroid")
+        report["recovery"] = [flywheel_recovery_cell(torch, cfg, device,
+                                                     **cell)
+                              for cell in RECOVERY_CELLS]
+    report["launches"] = dict(FLYWHEEL_LAUNCHES)
+    for name, k in report["launches"].items():
+        if k < 1:
+            raise AssertionError(f"the flywheel path never launched {name}")
+    log(f"[flywheel] flywheel path launches "
+        f"{json.dumps(report['launches'])}")
+    report["passes"] = [knn, centroid]
+    first = watch.runs[0]
+    card = _finetune_on(torch, device, first, epochs=1)
+    cpu = _finetune_on(torch, "cpu", first, epochs=1)
+    err = scaled_err(card.cpu(), cpu)
+    report["card_vs_cpu_scaled_err"] = err
+    log(f"[flywheel] (c) first fine-tune (gateways "
+        f"{np.flatnonzero(first['finetune'].eligible).tolist()}) cut to "
+        f"one epoch, card vs CPU: max scaled error {err:.3e} (limit "
+        f"{FLYWHEEL_TOL:.0e})")
+    if not err <= FLYWHEEL_TOL:
+        raise AssertionError(f"[flywheel] (c) card vs CPU {err:.3e}")
+    background, awatch = flywheel_pass(torch, cfg, data, writer, names,
+                                       "knn", background=True)
+    run = awatch.runs[0]
+    again = _finetune_on(torch, device, run)
+    same = torch.equal(again, run["params"])
+    background["first_finetune_equals_synchronous_bits"] = same
+    log(f"[flywheel] (d) the background fine-tune's params "
+        f"{'equal' if same else 'DIFFER from'} the synchronous fine-tune's "
+        f"bits from the same snapshot")
+    if not same:
+        raise AssertionError("[flywheel] (d) background fine-tune bits "
+                             "differ from the synchronous ones")
+    report["background"] = background
+    report["adversary"] = flywheel_adversary(torch, cfg, data, writer, names)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[flywheel] done in {report['seconds']:.1f} s ({smi})")
+    return report
+
+
+# ---- the measured autotuner (phase "tune") ---- #
+
+def phase_tune(torch, device, cfg, data, writer, names, smi):
+    """The autotuner (tune/) on the card, into a temporary cache file:
+    tune_serve_ladder(max_bucket=1024, dim=115) and tune_tier_chunk()
+    with every candidate's wall; an engine with bucket_ladder="auto" on
+    that cache serves the chosen ladder, and its f32 scores over 8,192
+    interleaved rows (centroid and kNN) equal the pow2 engine's bits per
+    row, as do pow2_mid's; a tier built from the tuned chunk, and the
+    tiered engine's init_chunk=None, equal the dense init's bits; another
+    device name misses."""
+    import tempfile
+    from fedmse_tpu_torch.federation import TieredClientStore
+    from fedmse_tpu_torch.federation.state import init_client_states
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.serving import ServingEngine, interleave_order
+    from fedmse_tpu_torch.tune import TuningCache, sites
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tune-")
+    path = os.path.join(tmp, "TUNE_CACHE_TORCH.json")
+    cache = TuningCache(path, writable=True)
+    ladder = sites.tune_serve_ladder(max_bucket=1024, dim=DIMS[0],
+                                     cache=cache, device=device)
+    chunk = sites.tune_tier_chunk(cache=cache, device=device)
+    log(f"[tune] serve ladder ({smi}): rung walls "
+        f"{json.dumps(ladder['rung_walls'])} s; expected wall per "
+        f"request {json.dumps(ladder['expected_wall_s'])} s; chosen "
+        f"{ladder['ladder_name']}")
+    log(f"[tune] tier init chunk at {chunk['signature']['probe_clients']} "
+        f"clients: {json.dumps(chunk['candidates'])}; chosen "
+        f"{chunk['choice']}")
+    report = {"ladder": {k: ladder[k] for k in (
+        "choice", "ladder_name", "expected_wall_s", "rung_walls")},
+        "tier_chunk": {k: chunk[k] for k in ("choice", "candidates")}}
+    if not (json.load(open(path))["sites"].keys()
+            >= {"serve_bucket_ladder", "tier_init_chunk"}):
+        raise AssertionError("[tune] the cache file lacks an entry")
+    other = {**ladder["signature"], "device": "another card"}
+    if cache.lookup("serve_bucket_ladder", other) is not None or (
+            device.type == "cuda" and sites.lookup_serve_ladder(
+                1024, DIMS[0], cache=cache, device="cpu") is not None):
+        raise AssertionError("[tune] another device's signature matched")
+    old_env = os.environ.get("FEDMSE_TUNE_CACHE")
+    os.environ["FEDMSE_TUNE_CACHE"] = path
+    try:
+        model = make_model("hybrid", *DIMS, device=device)
+        gws, ridx = interleave_order(data.test_m.cpu().numpy(), 8192)
+        rows = data.test_x.cpu().numpy()[gws, ridx]
+        sizes = sites.probe_sizes(1024)
+        report["scores_equal"] = {}
+        for kind in ("centroid", "knn"):
+            def engine(ladder_arg):
+                return ServingEngine.from_checkpoint(
+                    writer, model, "hybrid", "mse_avg", names,
+                    train_x=data.train_xb, train_m=data.train_mb,
+                    max_bucket=1024, bucket_ladder=ladder_arg,
+                    score_kind=kind, device=device, **KNN)
+
+            def served(eng):
+                out, s, i = [], 0, 0
+                while s < len(rows):
+                    take = sizes[i % len(sizes)]
+                    out.append(eng.score(rows[s:s + take], gws[s:s + take]))
+                    s, i = s + take, i + 1
+                return np.concatenate(out)
+
+            auto, pow2 = engine("auto"), engine("pow2")
+            if auto.buckets != ladder["choice"]:
+                raise AssertionError(f"[tune] the auto engine serves "
+                                     f"{auto.buckets}, not the tuned ladder")
+            mid = engine(sites.ladder_candidates(1024)["pow2_mid"])
+            want = served(pow2)
+            for name, eng in (("auto", auto), ("pow2_mid", mid)):
+                got = served(eng)
+                if not np.isfinite(got).all() or \
+                        not np.array_equal(got.view(np.int32),
+                                           want.view(np.int32)):
+                    raise AssertionError(f"[tune] {kind} scores of the "
+                                         f"{name} ladder differ from pow2")
+            report["scores_equal"][kind] = len(rows)
+        tiered = _tiered(torch, cfg.replace(state_layout="tiered"), data,
+                         len(names), device)
+        if tiered.init_chunk != chunk["choice"]:
+            raise AssertionError("[tune] the tiered engine did not read the "
+                                 "tuned chunk")
+    finally:
+        if old_env is None:
+            os.environ.pop("FEDMSE_TUNE_CACHE", None)
+        else:
+            os.environ["FEDMSE_TUNE_CACHE"] = old_env
+    hybrid = make_model("hybrid", *DIMS, device="cpu")
+    big = 4096 + 1000
+    tier = TieredClientStore.create(hybrid, big,
+                                    ExperimentRngs(run=0).generator,
+                                    init_chunk=chunk["choice"])
+    dense = init_client_states(hybrid, big, ExperimentRngs(run=0).generator,
+                               device="cpu")
+    if not torch.equal(tier.host.params, dense.params):
+        raise AssertionError("[tune] the tuned chunk's tier is not the "
+                             "dense init's bits")
+    shutil.rmtree(tmp, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[tune] auto ladder {ladder['choice']} served 8192 rows, centroid "
+        f"and kNN, the pow2 engine's bits (pow2_mid too); the tier of "
+        f"{big} clients at chunk {chunk['choice']} and the tiered engine's "
+        f"init_chunk=None read it: the dense init's bits; done in "
+        f"{report['seconds']:.1f} s")
+    return report
+
+
 def report_train(torch, device, launches, worst):
     """The train kernel's and its plain version's times and bounds at the
     main path's step shape (5 clients x 12 rows) and at 512 clients."""
@@ -4328,6 +5001,8 @@ def run(torch, cfg, smi, t_start) -> int:
     redteam = phase_redteam(torch, device, cfg)
     batch = phase_batch(torch, device, cfg, clients, data, smi)
     tiered = phase_tiered(torch, device, cfg, clients, data, smi)
+    flywheel = phase_flywheel(torch, device, cfg, data, writer, names, smi)
+    tune = phase_tune(torch, device, cfg, data, writer, names, smi)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
     training["fused_hold"] = phase_fused_hold(torch, device, cfg, clients)
@@ -4347,11 +5022,15 @@ def run(torch, cfg, smi, t_start) -> int:
         kernel["redteam_path_launches"] = redteam["launches"][kernel["name"]]
         kernel["batch_path_launches"] = batch["launches"][kernel["name"]]
         kernel["tiered_path_launches"] = tiered["launches"][kernel["name"]]
+        kernel["flywheel_path_launches"] = \
+            flywheel["launches"][kernel["name"]]
     line["robust"] = robust
     line["cluster"] = cluster
     line["redteam"] = redteam
     line["batch"] = batch
     line["tiered"] = tiered
+    line["flywheel"] = flywheel
+    line["tune"] = tune
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

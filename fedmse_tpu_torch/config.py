@@ -158,6 +158,27 @@ class ExperimentConfig:
     # serving front: largest dispatch bucket and the micro-batcher's wait
     serve_max_batch: int = 256
     serve_latency_budget_ms: float = 2.0
+    # the flywheel control loop (flywheel/, --flywheel): the per-gateway
+    # reservoir of served-normal rows, the fine-tune's rounds, the polls a
+    # swap recommendation must survive, the drift monitor's post-swap
+    # cooldown in updates, the rows a gateway needs to join a fine-tune,
+    # the drift threshold in calibration stds, the verdict percentile (high
+    # and z low, so drifting but plausible rows keep feeding the reservoir
+    # while the monitor flags the shift), the --flywheel pass's injected
+    # shift in feature stds; `flywheel_async` runs the fine-tune on a
+    # background thread while serving goes on; `flywheel_decay` in (0, 1)
+    # weights each reservoir toward recent rows instead of clearing it at
+    # a swap (0.0: off)
+    flywheel_buffer_size: int = 512
+    flywheel_rounds: int = 3
+    flywheel_quorum: int = 2
+    flywheel_cooldown: int = 16
+    flywheel_min_rows: int = 64
+    flywheel_z: float = 1.5
+    flywheel_percentile: float = 99.0
+    flywheel_shift: float = 1.5
+    flywheel_async: bool = False
+    flywheel_decay: float = 0.0
     # the fused round (federation/fused.py): vote, aggregation,
     # verification and evaluation with no host read, local training in
     # epoch bodies; on the card each is a replayed CUDA graph. The same

@@ -167,7 +167,12 @@ class TieredRoundEngine:
         self.model_type, self.update_type = model_type, update_type
         self.poison_fn, self.chaos, self.elastic = poison_fn, chaos, elastic
         self._warned_backend_off = False
-        self.init_chunk = int(init_chunk or 4096)
+        if init_chunk is None:
+            # the measured chunk of this device (tune/sites.py), else 4096;
+            # the tier's rows are the dense init's bits either way
+            from fedmse_tpu_torch.tune import sites
+            init_chunk = sites.lookup_tier_chunk(device=self.device) or 4096
+        self.init_chunk = int(init_chunk)
         self.layout = ParamLayout.of(model)
         self.compact = cfg.compact_cohort is not False
         self.fns = make_round_fns(model, cfg, model_type, update_type,

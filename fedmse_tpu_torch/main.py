@@ -47,7 +47,11 @@ reference's results artifacts (port of fedmse_tpu/main.py).
     with fused rounds or the fused schedule off, the driver warns and runs
     the seeds one after another;
   * `--serve` then runs the serving pass (serving/smoke.py) on the first
-    combination's checkpoint.
+    combination's checkpoint, and `--flywheel` the closed-loop pass
+    (flywheel/harness.py): the checkpoint served through the continuous
+    front with the reservoir tap and the controller, a covariate shift
+    ramped into the stream, the drift-triggered fine-tune and the hot swap
+    (the `--flywheel-*` knobs are ExperimentConfig fields).
 
 CLI (runs on the card unless --device cpu):
     python -m fedmse_tpu_torch.main --dataset-config <reference json>
@@ -57,10 +61,12 @@ CLI (runs on the card unless --device cpu):
         [--elastic-leave 0.1 ...] [--cluster-k 4 [--cluster-personalize]
         [--cluster-refit-every N]] [--resume-dir DIR] [--batch-runs]
         [--state-layout tiered]
-        [--serve [--serve-rows N] [--serve-warmup] [--serve-continuous]] ...
+        [--serve [--serve-rows N] [--serve-warmup] [--serve-continuous]]
+        [--flywheel [--flywheel-rounds 3 --flywheel-async true ...]] ...
 Not ported: meshes (and with them --host-sharded, which raises), and the
-network and flywheel smokes. The red team's round half is ported (fedmse_tpu_torch/redteam/,
-RoundEngine(redteam=)); as in the JAX package, no flag drives it.
+network smoke. The red team's round half is ported
+(fedmse_tpu_torch/redteam/, RoundEngine(redteam=)); as in the JAX package,
+no flag drives it.
 """
 
 from __future__ import annotations
@@ -97,6 +103,7 @@ from fedmse_tpu_torch.federation.pipeline import (run_pipelined_batched,
                                                   run_pipelined_schedule)
 from fedmse_tpu_torch.federation.tiered import (PARALLEL,
                                                 run_tiered_combination)
+from fedmse_tpu_torch.flywheel import run_flywheel_smoke
 from fedmse_tpu_torch.models import make_model
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.precision import get_policy
@@ -510,14 +517,17 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                    chaos: Optional[ChaosSpec] = None,
                    elastic: Optional[ElasticSpec] = None,
                    cluster: Optional[ClusterSpec] = None,
-                   batch_runs: bool = False) -> Dict:
+                   batch_runs: bool = False, flywheel: bool = False) -> Dict:
     """The full sweep -> training summary dict. `batch_runs` runs each
     combination's seeds as one batched federation where the sweep allows
     it (batch_runs_refusals), else sequentially with a warning.
     `serve=True` appends the
     serving pass on the first combination's checkpoint (its report under
     "serve_smoke"); it needs the checkpoints, so under
-    save_checkpoints=False it is skipped with a warning. `resume_dir`
+    save_checkpoints=False it is skipped with a warning. `flywheel=True`
+    appends the closed-loop pass (flywheel/harness.py) on the same
+    checkpoint, its report under "flywheel_smoke" (skipped the same way
+    without checkpoints). `resume_dir`
     snapshots every combination there and resumes from it; the fault
     specs and the clustering go to every combination and into the
     summary."""
@@ -605,16 +615,15 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                        ("elastic", elastic), ("cluster", cluster)):
         if spec is not None:
             out[name] = dataclasses.asdict(spec)
+    if (serve or flywheel) and data.train_xb.device.type != dev.type:
+        data = FederatedData(**{f.name: getattr(data, f.name).to(dev)
+                                for f in dataclasses.fields(FederatedData)})
     if serve:
         if not save_checkpoints:
             logger.warning("--serve needs the checkpointed ClientModel tree"
                            " (run without --no-save); skipping the serving"
                            " pass")
         else:
-            if data.train_xb.device.type != dev.type:
-                data = FederatedData(**{
-                    f.name: getattr(data, f.name).to(dev)
-                    for f in dataclasses.fields(FederatedData)})
             out["serve_smoke"] = run_serve_smoke(
                 cfg, data, n_real, writer, device_names,
                 model_type=cfg.model_types[0],
@@ -622,6 +631,17 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                 max_rows=serve_rows, max_batch=cfg.serve_max_batch,
                 max_wait_ms=cfg.serve_latency_budget_ms,
                 warmup=serve_warmup, continuous=serve_continuous)
+    if flywheel:
+        if not save_checkpoints:
+            logger.warning("--flywheel needs the checkpointed ClientModel "
+                           "tree (run without --no-save); skipping the "
+                           "closed-loop pass")
+        else:
+            out["flywheel_smoke"] = run_flywheel_smoke(
+                cfg, data, n_real, writer, device_names,
+                model_type=cfg.model_types[0],
+                update_type=cfg.update_types[0], run=0,
+                max_rows=serve_rows)
     return out
 
 
@@ -660,6 +680,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "continuous-batching front (double-buffered "
                         "dispatch, adaptive bucket pick) instead of the "
                         "micro-batcher")
+    p.add_argument("--flywheel", action="store_true",
+                   help="after the sweep, run the closed-loop flywheel "
+                        "pass on the first combination's checkpoint: the "
+                        "continuous front with the fresh-data reservoir "
+                        "tap and the controller, a gradually drifting "
+                        "stream, the drift-triggered federated fine-tune "
+                        "and the zero-downtime hot swap (stale vs adapted "
+                        "AUC, ticket integrity, swap events)")
     p.add_argument("--batch-runs", action="store_true",
                    help="run all num_runs seeds of each combination as one "
                         "batched federation (federation/batched.py); the "
@@ -804,7 +832,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                           serve_continuous=args.serve_continuous,
                           resume_dir=args.resume_dir, attack=attack,
                           chaos=chaos, elastic=elastic, cluster=cluster,
-                          batch_runs=args.batch_runs)
+                          batch_runs=args.batch_runs,
+                          flywheel=args.flywheel)
 
 
 if __name__ == "__main__":

@@ -11,8 +11,16 @@ first call (it updates them in place):
   * on a CUDA device the first call runs `fn()` on a side stream (the
     warm-up, which is also that call's real work: libraries load, the
     kernels' attributes and plans are cached), then captures `fn` into a
-    graph without running it; every later call replays the graph. A
-    failed capture raises: nothing falls back to eager replays.
+    graph on that same stream without running it; every later call
+    replays the graph. A failed capture raises: nothing falls back to
+    eager replays.
+
+A capture runs in "thread_local" mode: only the capturing thread is barred
+from calls that are unsafe during a capture (a synchronize, an allocation
+of pinned memory). So a body may be captured on a worker thread while
+another thread goes on launching, copying and synchronizing on its own
+streams: the flywheel's fine-tune (flywheel/controller.py) captures its
+round on a background thread while the serving front harvests.
 
 The cyclic garbage collector is held off during a capture: a dead
 engine's graphs live in reference cycles, and destroying a graph while a
@@ -111,7 +119,8 @@ class CapturedBody:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.device(self.device), torch.cuda.graph(graph):
+            with torch.cuda.device(self.device), torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
                 self.fn()
         finally:
             if collecting:

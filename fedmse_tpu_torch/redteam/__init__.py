@@ -5,14 +5,14 @@ against them, in the fused round (port of fedmse_tpu/redteam/).
   * masks.py     the [T, N] adversary and vote-eligibility inputs
   * adversary.py the update and merge poison hooks and the election flags
   * mimicry.py   latent-statistics forgery against the cluster fit
+  * traffic.py   the slow-drift adversary against the flywheel (flywheel/)
 
     from fedmse_tpu_torch.redteam import RedteamSpec
     engine = RoundEngine(..., fused=True, redteam=RedteamSpec(
         kind="sybil", adversaries=(3, 5), lie_votes=True))
 
-The JAX package's `traffic.py` (the flywheel self-poisoner) and
-`ingest.py` (gateway-plane attacks) wait for the ports of `flywheel/` and
-`net/`.
+The JAX package's `ingest.py` (gateway-plane attacks) waits for the port
+of `net/`.
 """
 
 from fedmse_tpu_torch.redteam.adversary import (MERGE_POISON_FOLD,
@@ -28,6 +28,8 @@ from fedmse_tpu_torch.redteam.mimicry import (assignment_capture_rate,
                                               mimic_latent_stats)
 from fedmse_tpu_torch.redteam.spec import (POISON_KINDS, REDTEAM_KINDS,
                                            RedteamSpec)
+from fedmse_tpu_torch.redteam.traffic import (SlowDriftAdversary,
+                                              normal_fraction)
 
 __all__ = [
     "RedteamSpec", "REDTEAM_KINDS", "POISON_KINDS",
@@ -37,4 +39,5 @@ __all__ = [
     "update_noise", "merge_noise",
     "UPDATE_POISON_FOLD", "MERGE_POISON_FOLD",
     "mimic_latent_stats", "assignment_capture_rate",
+    "SlowDriftAdversary", "normal_fraction",
 ]

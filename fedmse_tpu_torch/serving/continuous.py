@@ -32,7 +32,8 @@ Single-threaded by design, like the MicroBatcher: `submit()` checks the
 flush condition inline, time-based flushes happen on the next
 `submit()`/`poll()`, and `poll()` also harvests a ready in-flight batch.
 The clock is injectable, so behavior is deterministic and testable. The
-flywheel's `intake=` tap waits for the port of fedmse_tpu/flywheel/.
+flywheel's `intake=` tap (flywheel/buffer.py `FlywheelBuffer.tap`) sees each
+harvested batch's rows, gateways, scores and verdicts in one call.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ class BatchRecord:
     """One batch's shared result arrays (filled at harvest time)."""
 
     __slots__ = ("pend", "enq", "gws", "calibration", "drift", "n", "done",
-                 "scores", "verdicts", "lat")
+                 "scores", "verdicts", "lat", "rows", "intake")
 
     def __init__(self):
         self.pend = None          # PendingScores once dispatched
@@ -63,6 +64,8 @@ class BatchRecord:
         self.scores = None        # [n] f32, at harvest
         self.verdicts = None      # [n] bool or None
         self.lat = None           # [n] seconds, at harvest
+        self.rows = None          # [n, D] f32, kept only for an intake
+        self.intake = None        # intake snapshot at dispatch
 
 
 class StreamTicket(tuple):
@@ -218,9 +221,14 @@ class ContinuousBatcher:
     window (percentiles and the windowed wall throughput describe the most
     recent ~stats_window rows; totals are exact lifetime counters).
 
-    `intake`, the flywheel's admission tap, waits for the port of
-    fedmse_tpu/flywheel/ (ROADMAP.md queue 1): passing one raises
-    NotImplementedError.
+    `intake` is the flywheel's admission tap (flywheel/): a callable
+    `(rows, gateway_ids, scores, verdicts)` called ONCE per harvested batch
+    with that batch's arrays, after its verdicts and drift update: O(1)
+    Python work per batch, downstream of the dispatch. With an intake
+    installed a batch keeps its rows from dispatch to harvest (then drops
+    them), and the intake is snapshotted at dispatch like the calibration;
+    with None nothing is kept and the front is byte for byte the
+    intake-free one.
     """
 
     def __init__(self, engine, max_batch: int = 1024,
@@ -232,11 +240,8 @@ class ContinuousBatcher:
         if max_batch > engine.max_bucket:
             raise ValueError(f"max_batch {max_batch} exceeds the engine's "
                              f"max_bucket {engine.max_bucket}")
-        if intake is not None:
-            raise NotImplementedError(
-                "the flywheel intake tap waits for the port of "
-                "fedmse_tpu/flywheel/ (ROADMAP.md queue 1)")
         self.engine = engine
+        self.intake = intake
         self.max_batch = max_batch
         self.budget_s = latency_budget_ms / 1000.0
         self.calibration = calibration
@@ -438,6 +443,11 @@ class ContinuousBatcher:
         rec.n = rows.shape[0]
         rec.calibration = self.calibration  # verdict snapshot at dispatch
         rec.drift = self.drift              # drift sink for THIS regime
+        if self.intake is not None:
+            # the tap needs the batch's rows at harvest: keep them only
+            # while an intake is installed, snapshotted with it
+            rec.rows = rows
+            rec.intake = self.intake
         hot[0], hot[2], hot[4], hot[5] = [], None, 0, False
         t0 = self.clock()
         rec.pend = self.engine.dispatch(rows, rec.gws)
@@ -499,6 +509,10 @@ class ContinuousBatcher:
             # (swap()), so scores produced under the old regime never
             # seed the new baseline's moments
             rec.drift.update(scores, rec.gws)
+        if rec.intake is not None:
+            # one vectorized call per batch, then the rows are released
+            rec.intake(rec.rows, rec.gws, scores, rec.verdicts)
+            rec.rows = rec.intake = None
         rec.lat = t1 - rec.enq
         rec.done = True
         self.rows_served += rec.n

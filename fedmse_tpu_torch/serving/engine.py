@@ -191,8 +191,9 @@ class ServingEngine:
     knn_k, knn_topk: the kNN score's k and top-k mode ('exact' | 'approx').
     max_bucket: largest row bucket (rounded up to a power of two); larger
         requests are chunked.
-    bucket_ladder: 'auto' (the pow2 ladder until the autotuner is ported),
-        'pow2', or an explicit ascending sequence ending at max_bucket.
+    bucket_ladder: 'auto' (the tuned ladder of the tuning cache, tune/,
+        else pow2), 'pow2', or an explicit ascending sequence ending at
+        max_bucket.
     precision: 'f32' (the pinned mode) or 'bf16': the resident kernels and
         the staged rows are bf16, biases and centroid statistics f32, every
         score f32.
@@ -434,11 +435,23 @@ class ServingEngine:
     # ----------------------------- buckets ------------------------------- #
 
     def _resolve_ladder(self, bucket_ladder) -> List[int]:
+        """'pow2', an explicit ladder, or 'auto': the tuned ladder of this
+        device, max_bucket and input width from the tuning cache
+        (tune/sites.py lookup_serve_ladder), pow2 on a miss, an absent or
+        a corrupt cache file."""
         if isinstance(bucket_ladder, str):
             if bucket_ladder not in ("auto", "pow2"):
                 raise ValueError(f"unknown bucket_ladder {bucket_ladder!r} "
                                  "('auto' | 'pow2' | explicit sequence)")
-            return [1 << i for i in range(self.max_bucket.bit_length())]
+            tuned = None
+            if bucket_ladder == "auto":
+                from fedmse_tpu_torch.tune import sites
+                tuned = sites.lookup_serve_ladder(
+                    self.max_bucket, int(self.model.input_dim),
+                    device=self.device)
+            if tuned is None:
+                return [1 << i for i in range(self.max_bucket.bit_length())]
+            bucket_ladder = tuned
         ladder = sorted({int(b) for b in bucket_ladder})
         if not ladder or ladder[0] < 1 or ladder[-1] != self.max_bucket:
             raise ValueError(

@@ -1485,3 +1485,121 @@ def test_tiered_init_leaves_no_fleet_axis_tensor_on_card(cuda):
     assert torch.cuda.memory_allocated() - before <= \
         dense_state_bytes(model, n) / 100
     del on_card
+
+
+def _flywheel_setup(cuda, background):
+    """A 6-gateway federation at width 16 served through the continuous
+    front with a flywheel: every gateway's reservoir over min_rows."""
+    from fedmse_tpu_torch.config import ExperimentConfig
+    from fedmse_tpu_torch.flywheel import FlywheelBuffer, FlywheelController
+    from fedmse_tpu_torch.serving import (ContinuousBatcher, DriftMonitor,
+                                          fit_calibration)
+    n, dim = 6, 16
+    clients = synthetic_clients(n_clients=n, dim=dim, n_normal=400,
+                                n_abnormal=60, seed=3)
+    data = stack_clients(clients, np.zeros((40, dim), np.float32), 12,
+                         device=cuda)
+    model = make_model("hybrid", dim, 8, 3, device=cuda)
+    params = init_stacked_params(model, n, torch.Generator().manual_seed(1),
+                                 device=cuda)
+    eng = ServingEngine.from_federation(model, "hybrid", params,
+                                        data.train_xb, data.train_mb,
+                                        score_kind="knn", knn_bank_size=64,
+                                        max_bucket=64, device=cuda)
+    cal = fit_calibration(eng, data.valid_x.cpu().numpy(),
+                          data.valid_m.cpu().numpy(), percentile=99.0)
+    buf = FlywheelBuffer(n, dim, capacity=96, seed=0)
+    front = ContinuousBatcher(eng, max_batch=32, latency_budget_ms=1e9,
+                              calibration=cal, drift=DriftMonitor(cal),
+                              intake=buf.tap())
+    cfg = ExperimentConfig(network_size=n, dim_features=dim, hidden_neus=8,
+                           latent_dim=3, epochs=3, batch_size=12)
+    ctl = FlywheelController(front, front.drift, buf, model, "hybrid",
+                             "mse_avg", cfg, dev_x=np.zeros((40, dim)),
+                             rounds=2, min_rows=32, background=background)
+    rows = data.train_xb.reshape(n, -1, dim)[:, :80].cpu().numpy()
+    for g in range(n):
+        buf.admit(rows[g], np.full(80, g, np.int32))
+    stream = data.test_x.cpu().numpy()[:, :40].reshape(-1, dim)
+    gws = np.repeat(np.arange(n, dtype=np.int32), 40)
+    return eng, front, ctl, buf, stream, gws
+
+
+def _flat(ctl):
+    return ctl.runner.layout.flatten(ctl.batcher.engine.params)
+
+
+def test_background_finetune_capture_overlaps_a_streaming_front(cuda):
+    """The fine-tune's round graphs are captured on the executor's thread
+    while the serving thread streams, copies and waits on the card: no
+    capture error, no ticket dropped, the served params unchanged until
+    the install, and the fine-tuned params the synchronous fine-tune's
+    bits from the same snapshot (a fresh engine on the main thread)."""
+    from fedmse_tpu_torch.flywheel import FinetuneRunner
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    eng, front, ctl, buf, stream, gws = _flywheel_setup(cuda, True)
+    seen = {}
+    real = ctl.runner.run
+
+    def spy(finetune, warm, rngs, rounds, assignment=None):
+        seen.update(finetune=finetune, warm=warm.clone(), run=rngs.run)
+        out = real(finetune, warm, rngs, rounds, assignment)
+        seen["params"] = ctl.runner.layout.flatten(out[0])
+        return out
+
+    ctl.runner.run = spy
+    before = _flat(ctl)
+    blocks = []
+    assert ctl.trigger(np.asarray([0])) is None and ctl.finetune_pending
+    chunks = 0
+    while ctl.finetune_pending:
+        blocks.append(front.submit_many(stream, gws))
+        front.drain()
+        assert torch.equal(_flat(ctl), before) or eng.swap_count == 1
+        chunks += 1
+        ctl.poll()
+    torch.cuda.synchronize()
+    assert eng.swap_count == 1 and len(ctl.events) == 1
+    assert chunks >= 1 and all(b.done for b in blocks)
+    st = front.stats()
+    assert st["rows_served"] == st["rows_submitted"]
+    assert not torch.equal(_flat(ctl), before)
+    sync = FinetuneRunner(ctl.model, ctl.runner.cfg, "hybrid", "mse_avg",
+                          ctl.runner.n_real, cuda)
+    tree, _, _ = sync.run(seen["finetune"], seen["warm"],
+                          ExperimentRngs(run=seen["run"]), ctl.rounds)
+    assert torch.equal(sync.layout.flatten(tree), seen["params"])
+    fused = next(iter(ctl.runner._engines.values()))._fused
+    assert all(b.graph is not None for b in (fused.enter, fused.epoch,
+                                             fused.leave))
+
+
+def test_served_params_unchanged_until_the_install(cuda):
+    """A synchronous fine-tune on the card trains clones: the served params
+    are their bits before and after the fine-tune, and change only at the
+    install; a second fine-tune of the same shapes reuses the captured
+    engine."""
+    eng, front, ctl, buf, stream, gws = _flywheel_setup(cuda, False)
+    real = ctl.runner.run
+    checks = []
+
+    def checked(finetune, warm, rngs, rounds, assignment=None):
+        served = _flat(ctl)
+        assert torch.equal(served, warm)
+        out = real(finetune, warm, rngs, rounds, assignment)
+        torch.cuda.synchronize()
+        checks.append(torch.equal(_flat(ctl), served))
+        return out
+
+    ctl.runner.run = checked
+    before = _flat(ctl)
+    event = ctl.trigger(np.asarray([0]))
+    assert event is not None and checks == [True]
+    assert not torch.equal(_flat(ctl), before)
+    rows = stream.reshape(6, 40, -1)
+    for g in range(6):
+        for _ in range(2):
+            buf.admit(rows[g], np.full(40, g, np.int32))
+    ctl._cooldown = 0
+    assert ctl.trigger(np.asarray([1])) is not None
+    assert checks == [True, True] and ctl.runner.engines_built == 1

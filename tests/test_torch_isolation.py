@@ -27,6 +27,7 @@ from fedmse_tpu_torch.utils.seeding import ExperimentRngs
 from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.main import prepare_federation, run_experiment
 from fedmse_tpu_torch.serving import ServingEngine
+from fedmse_tpu_torch.tune import sites as tune_sites
 
 torch.set_num_threads(1)
 
@@ -38,10 +39,14 @@ def _port_modules():
         fedmse_tpu_torch.__path__, prefix="fedmse_tpu_torch."))
 
 
-# the red team's round half, the batched runs and the tiered layout
+# the red team's round half, the batched runs, the tiered layout, the
+# flywheel with its slow-drift adversary, and the autotuner
 NEW_MODULES = ("redteam", "redteam.spec", "redteam.masks",
                "redteam.adversary", "redteam.mimicry", "federation.batched",
-               "federation.tiered")
+               "federation.tiered", "flywheel", "flywheel.buffer",
+               "flywheel.swap", "flywheel.controller", "flywheel.harness",
+               "redteam.traffic", "tune", "tune.cache", "tune.measure",
+               "tune.sites")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -180,6 +185,9 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
                                   "avg"),
         lambda: run_tiered_combination(tiny, cpu_data, 2, "autoencoder",
                                        "avg", 0),
+        lambda: tune_sites.tune_serve_ladder(max_bucket=4),
+        lambda: tune_sites.tune_tier_chunk(probe_clients=4),
+        lambda: tune_sites.lookup_serve_ladder(4),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

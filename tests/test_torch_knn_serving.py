@@ -171,7 +171,8 @@ def test_continuous_front_mid_stream_bank_swap(fed):
     """A refreshed bank (build_banks(existing=...)) swaps in between
     dispatches: the in-flight batch keeps the old bank, later batches use
     the new one, no ticket is dropped or scored twice, and every score is
-    the micro-batcher's under the same bank."""
+    the micro-batcher's under the same bank. An intake tap sees every
+    harvested batch once."""
     data, params = fed
     eng = _engine("hybrid", fed)
     model = _model("hybrid")
@@ -214,8 +215,20 @@ def test_continuous_front_mid_stream_bank_swap(fed):
     assert drift.updates == st["dispatches"]
     verdicts = calib.verdicts(np.array([t.score for t in pre]), gws[:16])
     assert [t.verdict for t in pre] == verdicts.tolist()
-    with pytest.raises(NotImplementedError, match="flywheel"):
-        ContinuousBatcher(eng, max_batch=8, intake=lambda *a: None)
+    # an intake tap sees each harvested batch once: its rows, gateways,
+    # scores and verdicts, in submission order
+    seen = []
+    tapped = ContinuousBatcher(eng, max_batch=8, latency_budget_ms=1e9,
+                               calibration=calib,
+                               intake=lambda *a: seen.append(a))
+    tks = [tapped.submit(rows[i], gws[i]) for i in range(16)]
+    tapped.drain()
+    got = [np.concatenate([a[i] for a in seen]) for i in range(4)]
+    np.testing.assert_array_equal(got[0], rows[:16])
+    np.testing.assert_array_equal(got[1], gws[:16])
+    np.testing.assert_array_equal(got[2], [t.score for t in tks])
+    assert got[3].tolist() == [t.verdict for t in tks]
+    assert len(seen) == tapped.stats()["dispatches"] == 2
 
 
 @pytest.mark.parametrize("max_rows", [7, 1 << 30])
