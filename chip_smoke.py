@@ -168,6 +168,49 @@ all started together, into build/fedmse_tpu_torch/), then:
                 pow2_mid too), the tiered engine reads the tuned chunk, a
                 tier at that chunk is the dense init's bits, and another
                 device name misses;
+     net        (after the main path) the network serving plane
+                (--serve-net, net/): first the forward and distance
+                kernels at the plane's shapes against their plain
+                versions (10 routed models, buckets of 1 to 1,024 rows;
+                the kNN buckets against 10 banks of 512); (a) the
+                --serve-net path: the
+                quick-run hybrid / mse_avg combination trained and
+                checkpointed by run_combination, then run_net_smoke with
+                the kNN score (512-slot banks, k = 8), 2 replicas (each on
+                a CUDA stream of its own) and 8,192 interleaved rows in
+                64-row bursts over localhost TCP with the mid-stream
+                calibration swap (zero dropped, the statuses summing to
+                the rows), then the same plane by hand through a
+                NetClient: each scored row's score the bits of the port's
+                own engine.score (that reference's launches not counted);
+                (b) a worker process (`python -m
+                fedmse_tpu_torch.net.server --replicas 1 --no-admission
+                --seed 0`, spawned after the kernels were built) behind a
+                RemoteReplica beside a LocalReplica of the same seed: the
+                local replica's bits, a params swap reaching it as numpy,
+                exit 0 on SIGTERM, the card's used memory with and without
+                it; (c) calibrate_capacity at 1, 2 and 4 replicas (10
+                gateways, max_batch 1024), then a 2-replica NetFront:
+                one client's tier-0 stream at saturation, and open-loop
+                streams at 0.5x and 2x the smaller of that and the probe
+                over 3 tiers (nothing shed at 0.5x; at 2x rows shed, tier
+                0 never, tier 2 most);
+     gateway    (after the main path) the gateway ingest plane
+                (gateway/): first the forward at the plane's shapes
+                against its plain version (1,024 routed models, random
+                and 64-row-session buckets to 1,024 rows, the engines'
+                fit over 512 rows a gateway); (a)
+                build_synthetic_frontend(n_gateways=1024, dim=115,
+                replicas=2): an unknown gateway, a bad MAC and a bad
+                token each rejected with rows_parsed 0, then 1,024
+                sessions over 16 connections, one 64-row burst each, sent
+                all at once and again paced at half that rate, the
+                verdicts and scores the bits of a direct Router over
+                build_synthetic_replicas of the same seed; (b) a stripe
+                member dying mid-flight loses no admitted ticket; (c)
+                handshakes/s, the flood's rows/s (with the frontend and
+                client threads' CPU shares) and the paced stream's p99 as
+                [watch] lines;
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events, and the
@@ -201,8 +244,10 @@ phase's (b) and (g) the red path ("redteam_path_launches") and the batch
 phase's batched run and kNN round the batched path
 ("batch_path_launches"), the tiered phase's tiered engines (not the
 dense engines they are held to) the tiered path
-("tiered_path_launches"), and the flywheel phase's (b) the flywheel path
-("flywheel_path_launches"). A launch
+("tiered_path_launches"), the flywheel phase's (b) the flywheel path
+("flywheel_path_launches"), the net phase's (a) the --serve-net path
+("net_path_launches") and the gateway phase's (a) the gateway path
+("gateway_path_launches"). A launch
 inside a replayed CUDA graph counts: each graph keeps the kernels it
 captured, and each replay adds them (ops/graphs.py). Prints,
 as its last three lines, the card's name and power limit, one JSON line
@@ -4177,6 +4222,54 @@ def counted_launches(store):
         store[k] = store.get(k, 0) + w.launches
 
 
+def routed_kernel_shapes(torch, device, tag, g, buckets, dist_rows=()):
+    """The forward kernel at a path's own shapes against its plain
+    version, f32 on dyadic grids, each case also bit-equal to a second
+    call: `g` routed models, each (rows, layout) of `buckets`
+    routed at random, packed in 64-row sessions of one gateway each (a
+    gateway frontend's bursts) or client-major (an engine's fit over its
+    train rows); then the distance kernel, `g` 512-slot banks against
+    each of `dist_rows` randomly routed query rows (a kNN bucket)."""
+    from fedmse_tpu_torch.knn.score import dist_tiles
+    from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
+                                               fused_forward_stats_plain)
+    gen = torch.Generator().manual_seed(SEED + 44)
+    params = grid_params(torch, g, *DIMS, gen, device, torch.float32)
+    worst = {}
+    for rows, kind in buckets:
+        x = (torch.randint(-6, 7, (rows, DIMS[0]), generator=gen) / 4.0
+             ).to(device)
+        if kind == "sessions":
+            idx = torch.randint(0, g, (-(-rows // 64),), generator=gen,
+                                dtype=torch.int32).repeat_interleave(64)
+            idx = idx[:rows].to(device)
+        else:
+            idx = forward_index(torch, kind, g, rows, gen, device)
+        got = fused_forward_stats(params, x, idx)
+        if not all(torch.equal(a, c) for a, c in zip(
+                got, fused_forward_stats(params, x, idx))):
+            raise AssertionError(f"[{tag}] forward at {rows} rows {kind}: "
+                                 "not bit-equal to a second call")
+        worst[f"forward, {rows} rows {kind}, {g} models"] = max(
+            scaled_err(a, c) for a, c in zip(
+                got, fused_forward_stats_plain(params, x, idx)))
+    for rows in dist_rows:
+        q, banks, gw = dist_inputs(torch, g, rows, KNN["knn_bank_size"],
+                                   DIMS[2], "random", gen, device,
+                                   torch.float32)
+        what = (f"distances, {rows} rows x {g} banks of "
+                f"{KNN['knn_bank_size']}")
+        got, _, worst[what] = dist_check(torch, q, banks, gw, what)
+        if not torch.equal(got, dist_tiles(q, banks, gw)):
+            raise AssertionError(f"[{tag}] {what}: not bit-equal to a "
+                                 "second call")
+    bad = {k: v for k, v in worst.items()
+           if v > (DIST_TOL if k.startswith("dist") else TOL["f32"])}
+    if bad:
+        raise AssertionError(f"[{tag}] kernels vs plain: {bad}")
+    return worst
+
+
 def flywheel_kernel_shapes(torch, device, n):
     """(a) The kernels at the flywheel's own shapes against their plain
     versions, f32 on dyadic grids, each also bit-equal to a second call:
@@ -4185,10 +4278,7 @@ def flywheel_kernel_shapes(torch, device, n):
     candidate-scoring forward over every gateway's held-out rows (128
     each, gateway-major), the bank refresh's encode of [n, 384, D], and
     the distances of a serving bucket (256 rows) to n 512-slot banks."""
-    from fedmse_tpu_torch.knn.score import dist_tiles
     from fedmse_tpu_torch.models.flat import ParamLayout
-    from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
-                                               fused_forward_stats_plain)
     from fedmse_tpu_torch.ops.fused_train import (fused_train_grads,
                                                   fused_train_grads_plain)
     gen = torch.Generator().manual_seed(SEED + 30)
@@ -4210,31 +4300,12 @@ def flywheel_kernel_shapes(torch, device, n):
         err = max(err, max(scaled_err(a, c) for a, c in zip(
             got, fused_train_grads_plain(flat, x, mb, **kw))))
     worst[f"train step, G = {n}, 32 batches of 12"] = err
-    params = grid_params(torch, n, *DIMS, gen, device, torch.float32)
-    for what, per in (("candidate scoring", 128), ("bank refresh", 384)):
-        rows = n * per
-        x = (torch.randint(-6, 7, (rows, DIMS[0]), generator=gen) / 4.0
-             ).to(device)
-        idx = forward_index(torch, "client_major", n, rows, gen, device)
-        got = fused_forward_stats(params, x, idx)
-        again = fused_forward_stats(params, x, idx)
-        if not all(torch.equal(a, c) for a, c in zip(got, again)):
-            raise AssertionError(f"[flywheel] {what} forward not bit-equal "
-                                 "to a second call")
-        worst[f"{what}, {rows} rows, {n} routed models"] = max(
-            scaled_err(a, c) for a, c in zip(
-                got, fused_forward_stats_plain(params, x, idx)))
-    q, banks, gw = dist_inputs(torch, n, 256, 512, DIMS[2], "random", gen,
-                               device, torch.float32)
-    got, _, worst[f"distances, 256 rows x {n} banks of 512"] = dist_check(
-        torch, q, banks, gw, "flywheel bucket")
-    if not torch.equal(got, dist_tiles(q, banks, gw)):
-        raise AssertionError("[flywheel] distances not bit-equal to a "
-                             "second call")
-    bad = {k: v for k, v in worst.items()
-           if v > (DIST_TOL if k.startswith("dist") else TOL["f32"])}
-    if bad:
-        raise AssertionError(f"[flywheel] kernels vs plain: {bad}")
+    if err > TOL["f32"]:
+        raise AssertionError(f"[flywheel] train step vs plain: {err:.3e}")
+    worst.update(routed_kernel_shapes(
+        torch, device, "flywheel", n,
+        [(n * 128, "client_major"), (n * 384, "client_major")],
+        dist_rows=(256,)))
     log(f"[flywheel] (a) kernels at the flywheel's shapes agree with their "
         f"plain versions and with a second call: {json.dumps(worst)}")
     return worst
@@ -4782,6 +4853,625 @@ def phase_tune(torch, device, cfg, data, writer, names, smi):
     return report
 
 
+# ---- the network serving plane (phase "net") ---- #
+
+NET_ROWS = 8192          # (a): interleaved test rows streamed
+NET_BURST = 64           # (a): rows per SUBMIT frame
+NET_CAP_REPLICAS = (1, 2, 4)  # (c): calibrate_capacity at these fleets
+NET_CELL_S = 2.0         # (c): seconds of each open-loop cell
+NET_LAUNCHES = {}        # the --serve-net path's kernel launches, by wrapper
+
+
+def card_memory_mib() -> int:
+    """The card's used memory (MiB) as nvidia-smi reads it: every
+    process's contexts and allocations, this one's included."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return int(out.stdout.strip().splitlines()[0])
+
+
+def _bits_equal(got, want) -> bool:
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return got.shape == want.shape and np.array_equal(got.view(np.int32),
+                                                      want.view(np.int32))
+
+
+def net_by_hand(torch, device, cfg, data, writer, names, store):
+    """(a) The --serve-net plane built by hand on the trained checkpoint (2
+    kNN replicas, admission at the measured capacity), 8,192 interleaved
+    rows in 64-row bursts over localhost TCP through a NetClient, the
+    calibration swapped mid-stream: every row once, and each scored row's
+    score the bits of the port's own ServingEngine.score for that row.
+    The served plane's launches are counted into `store`; the reference
+    engine's, which checks it, are not."""
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.net import (AdmissionController, FrontHandle,
+                                      NetClient, NetFront, Router,
+                                      make_local_replicas, wire)
+    from fedmse_tpu_torch.serving import (ServingEngine, fit_calibration,
+                                          interleave_test_rows)
+    from fedmse_tpu_torch.serving.smoke import _host
+    model = make_model("hybrid", *DIMS, device=device)
+
+    def engine():
+        return ServingEngine.from_checkpoint(
+            writer, model, "hybrid", "mse_avg", names, train_x=data.train_xb,
+            train_m=data.train_mb, max_bucket=cfg.serve_max_batch,
+            score_kind="knn", device=device, **KNN)
+
+    rows, gws, _ = interleave_test_rows(
+        _host(data.test_x), _host(data.test_m), _host(data.test_y), NET_ROWS)
+    with counted_launches(store):
+        engines = [engine() for _ in range(cfg.net_replicas)]
+        calib = fit_calibration(engines[0], _host(data.valid_x),
+                                _host(data.valid_m))
+        router = Router(make_local_replicas(
+            lambda i: engines[i], len(engines),
+            max_batch=cfg.serve_max_batch,
+            latency_budget_ms=cfg.serve_latency_budget_ms,
+            calibration=calib),
+            admission=AdmissionController(tiers=cfg.net_tiers,
+                                          headroom=cfg.net_shed_headroom))
+        capacity = router.calibrate_capacity(rows, gws)
+        handle = FrontHandle(NetFront(router))
+        client = None
+        try:
+            client = NetClient("127.0.0.1", handle.port, timeout_s=60.0)
+            rids, event = [], None
+            for s in range(0, len(rows), NET_BURST):
+                rids.append(client.submit(rows[s:s + NET_BURST],
+                                          gws[s:s + NET_BURST]))
+                client.poll()
+                if event is None and s >= len(rows) // 2:
+                    event = client.swap({"calibration": calib})
+            client.wait_all(timeout_s=60.0)
+            stats = client.stats()
+        finally:
+            if client is not None:
+                client.close()
+            handle.stop()
+    statuses = np.concatenate([client.results[r][0] for r in rids])
+    scores = np.concatenate([client.results[r][1] for r in rids])
+    want = engine().score(rows, gws)
+    verdicts = np.where(calib.verdicts(want, gws), wire.STATUS_ANOMALY,
+                        wire.STATUS_NORMAL)
+    lat = client.latencies_s() * 1e3
+    out = {"rows": len(rows), "requests": len(rids),
+           "capacity_rows_per_sec": capacity,
+           "swap_kinds": event["kinds"], "swap_replicas": event["replicas"],
+           "statuses": client.status_counts(),
+           "rows_served": stats["router"]["rows_served"],
+           "scores_engine_bits": _bits_equal(scores, want),
+           "statuses_equal_verdicts": bool(np.array_equal(statuses,
+                                                          verdicts)),
+           "request_p50_ms": float(np.percentile(lat, 50)),
+           "request_p99_ms": float(np.percentile(lat, 99))}
+    if not (out["scores_engine_bits"] and out["statuses_equal_verdicts"]
+            and out["rows_served"] == len(rows)
+            and sum(out["statuses"].values()) == len(rows)
+            and event["replicas"] == len(engines)
+            and np.isfinite(scores).all()):
+        raise AssertionError(f"[net] (a) by hand: {json.dumps(out)}")
+    return out
+
+
+def net_serve_pass(torch, device, cfg, data, names, store):
+    """(a) The --serve-net path: the quick-run sweep's hybrid / mse_avg
+    combination (the driver's run_combination, checkpoints saved), then
+    its network pass (net.run_net_smoke) with the kNN score, 2 replicas
+    and 8,192 rows in 64-row bursts; then the same plane by hand. Their
+    launches are counted into `store`, the by-hand check's reference
+    scoring's not."""
+    from fedmse_tpu_torch.checkpointing import ResultsWriter
+    from fedmse_tpu_torch.main import run_combination
+    from fedmse_tpu_torch.net import run_net_smoke
+    c = cfg.replace(score_kind="knn", net_replicas=2, **KNN)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_net_checkpoint")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    writer = ResultsWriter(ckpt, c.network_size, "chip-smoke-net",
+                           c.scen_name, c.metric, c.num_participants)
+    with counted_launches(store):
+        t0 = time.perf_counter()
+        trained = run_combination(c, data, len(names), "hybrid", "mse_avg",
+                                  0, writer=writer, device_names=names,
+                                  save_checkpoints=True)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep = run_net_smoke(c, data, len(names), writer, names, "hybrid",
+                            "mse_avg", run=0, max_rows=NET_ROWS,
+                            burst=NET_BURST)
+        smoke_s = time.perf_counter() - t0
+    counts = rep["statuses"]
+    if not (rep["zero_dropped"] and rep["swap_broadcast"]
+            and rep["rows_streamed"] == min(NET_ROWS,
+                                            int(data.test_m.sum()))
+            and sum(counts.values()) == rep["rows_streamed"]
+            and counts["shed"] == 0 and counts["unknown_gateway"] == 0
+            and rep["router"]["rows_served"] == rep["rows_streamed"]
+            and rep["score_kind"] == "knn" and rep["replicas"] == 2):
+        raise AssertionError(f"[net] (a) run_net_smoke: {json.dumps(rep)}")
+    by_hand = net_by_hand(torch, device, c, data, writer, names, store)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"train_seconds": train_s,
+            "final_mean_auc": float(np.mean(trained["final_metrics"])),
+            "smoke_seconds": smoke_s,
+            "smoke": {k: rep[k] for k in (
+                "rows_streamed", "statuses", "zero_dropped",
+                "swap_broadcast", "capacity_rows_per_sec", "request_p50_ms",
+                "request_p99_ms")},
+            "by_hand": by_hand}
+
+
+def net_worker(torch, device, smi):
+    """(b) A replica worker process on the same card (`python -m
+    fedmse_tpu_torch.net.server --replicas 1 --no-admission --seed 0`,
+    spawned, never forked, after this process built the kernels) behind
+    a RemoteReplica, striped with a LocalReplica of
+    build_synthetic_replicas(seed=0): the worker's scores are the local
+    replica's bits; a params swap reaches it (swap_count 1); it exits 0
+    on SIGTERM. The card's used memory before, with and after it."""
+    import select
+    import signal
+    from fedmse_tpu_torch.net import RemoteReplica, Router
+    from fedmse_tpu_torch.net.server import build_synthetic_replicas
+    torch.cuda.synchronize()
+    mem = {"before_mib": card_memory_mib()}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fedmse_tpu_torch.net.server", "--replicas",
+         "1", "--no-admission", "--seed", "0", "--dim", str(DIMS[0]),
+         "--device", device.type], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    remote = None
+    try:
+        t0 = time.perf_counter()
+        ready, _, _ = select.select([proc.stdout], [], [], 300.0)
+        if not ready:
+            raise AssertionError("[net] (b) the worker printed no listening "
+                                 "line in 300 s")
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"[net] (b) the worker exited "
+                                 f"{proc.wait(30)}: {proc.stderr.read()}")
+        info = json.loads(line)
+        start_s = time.perf_counter() - t0
+        mem["with_worker_mib"] = card_memory_mib()
+        local = build_synthetic_replicas(dim=DIMS[0], seed=0, replicas=1,
+                                         device=device)[0]
+        remote = RemoteReplica("127.0.0.1", info["port"], num_gateways=10,
+                               max_batch=1024, timeout_s=60.0)
+        rng = np.random.default_rng(SEED + 40)
+        rows = rng.normal(size=(8192, DIMS[0])).astype(np.float32)
+        gws = rng.integers(0, 10, len(rows)).astype(np.int32)
+        want = local.engine.score(rows, gws)
+        blocks = [remote.submit_many(rows[s:s + 1024], gws[s:s + 1024])
+                  for s in range(0, len(rows), 1024)]
+        remote.drain()
+        worker_bits = _bits_equal(np.concatenate([b.scores for b in blocks]),
+                                  want)
+        router = Router([local, remote])
+        res = router.submit_many(rows, gws)
+        router.drain()
+        res.finalize()
+        striped_bits = _bits_equal(res.scores, want)
+        router.swap(params=local.engine.params)
+        swap_count = remote.stats()["router"]["per_replica"][0]["swap_count"]
+        res = router.submit_many(rows[:2048], gws[:2048])
+        router.drain()
+        res.finalize()
+        after_swap_bits = _bits_equal(res.scores, want[:2048])
+        remote.close()
+        remote = None
+        proc.send_signal(signal.SIGTERM)
+        _, err = proc.communicate(timeout=60)
+        torch.cuda.synchronize()
+        mem["after_exit_mib"] = card_memory_mib()
+    finally:
+        if remote is not None:
+            remote.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=60)
+    out = {"worker_start_seconds": start_s, "card_memory": mem,
+           "worker_scores_local_bits": worker_bits,
+           "striped_scores_local_bits": striped_bits,
+           "worker_swap_count": swap_count,
+           "after_swap_bits": after_swap_bits,
+           "worker_exit_code": proc.returncode}
+    log(f"[net] (b) worker process on the same card ({smi}): "
+        f"{json.dumps(out)}")
+    if not (worker_bits and striped_bits and after_swap_bits
+            and swap_count == 1 and proc.returncode == 0):
+        raise AssertionError(f"[net] (b) worker: {json.dumps(out)}; "
+                             f"stderr {err[-2000:]}")
+    return out
+
+
+def _open_loop(port, rate, seconds, rows, gws, tiers, burst=1024):
+    """One open-loop NetClient stream: a `burst`-row SUBMIT every
+    burst/rate seconds (as fast as it can send when behind, never waiting
+    for results), for `seconds`; then every result. Returns the
+    client-side accounting: rows by status and by tier, rows/s served,
+    request p50/p99."""
+    from fedmse_tpu_torch.net import NetClient, wire
+    client = NetClient("127.0.0.1", port, timeout_s=120.0)
+    try:
+        t0 = time.perf_counter()
+        k = 0
+        while True:
+            now = time.perf_counter()
+            if now - t0 >= seconds:
+                break
+            if rate is not None and now < t0 + k * burst / rate:
+                client.poll()
+                time.sleep(min(t0 + k * burst / rate - now, 2e-4))
+                continue
+            s = (k * burst) % (len(rows) - burst + 1)
+            client.submit(rows[s:s + burst], gws[s:s + burst],
+                          tiers[:burst])
+            client.poll()
+            k += 1
+        sent_s = time.perf_counter() - t0
+        client.wait_all(timeout_s=120.0)
+        wall = time.perf_counter() - t0
+    finally:
+        client.close()
+    shed_by_tier = np.zeros(3, np.int64)
+    for st, _, _ in client.results.values():
+        np.add.at(shed_by_tier, tiers[:burst][st == wire.STATUS_SHED], 1)
+    counts = client.status_counts()
+    lat = client.latencies_s() * 1e3
+    return {"offered_rows_per_sec": client.rows_submitted / sent_s,
+            "rows_submitted": client.rows_submitted, "statuses": counts,
+            "shed_by_tier": shed_by_tier.tolist(),
+            "served_rows_per_sec": (counts["normal"] + counts["anomaly"])
+            / wall,
+            "request_p50_ms": float(np.percentile(lat, 50)),
+            "request_p99_ms": float(np.percentile(lat, 99)),
+            "exactly_once": sum(counts.values()) == client.rows_submitted}
+
+
+def net_capacity(torch, device, smi):
+    """(c) calibrate_capacity at 1, 2 and 4 local replicas (10 gateways,
+    max_batch 1024, each replica on its own stream); then a 2-replica
+    plane behind a NetFront (3 tiers, headroom 0.9, the 25 ms staleness
+    gate): a tier-0 stream as fast as one client sends measures what the
+    socket path sustains, the admission capacity is set to the smaller of
+    that and the probe, and open-loop streams of 1024-row bursts (tiers
+    0, 1, 2 in turn) run at 0.5x and 2x it: nothing shed at 0.5x; at 2x
+    rows shed, tier 0 never, the lowest tier most."""
+    from fedmse_tpu_torch.net import (AdmissionController, FrontHandle,
+                                      NetFront, Router)
+    from fedmse_tpu_torch.net.server import build_synthetic_replicas
+    reps = build_synthetic_replicas(n_gateways=10, dim=DIMS[0], replicas=4,
+                                    max_batch=1024, seed=SEED, device=device)
+    rng = np.random.default_rng(SEED + 41)
+    probe = rng.normal(size=(1024, DIMS[0])).astype(np.float32)
+    probe_g = rng.integers(0, 10, 1024).astype(np.int32)
+    caps = {n: Router(reps[:n]).calibrate_capacity(probe, probe_g)
+            for n in NET_CAP_REPLICAS}
+    log(f"[net] (c) calibrate_capacity ({smi}): "
+        + ", ".join(f"{n} replica(s) {caps[n]:.1f} rows/s"
+                    for n in NET_CAP_REPLICAS))
+    rows = rng.normal(size=(32 * 1024, DIMS[0])).astype(np.float32)
+    gws = rng.integers(0, 10, len(rows)).astype(np.int32)
+    tiers = (np.arange(1024) % 3).astype(np.uint8)
+    admission = AdmissionController(tiers=3, headroom=0.9,
+                                    stale_after_s=0.025)
+    router = Router(reps[:2], admission=admission)
+    handle = FrontHandle(NetFront(router))
+    cells = {}
+    gc.collect()
+    gc.freeze()
+    try:
+        cells["saturation"] = _open_loop(handle.port, None, 1.0, rows, gws,
+                                         np.zeros(1024, np.uint8))
+        sustained = cells["saturation"]["served_rows_per_sec"]
+        capacity = min(caps[2], sustained)
+        for name, x in (("half", 0.5), ("double", 2.0)):
+            admission.set_capacity(capacity)
+            cells[name] = _open_loop(handle.port, x * capacity, NET_CELL_S,
+                                     rows, gws, tiers)
+    finally:
+        gc.unfreeze()
+        handle.stop()
+    out = {"capacity_rows_per_sec": {str(n): caps[n]
+                                     for n in NET_CAP_REPLICAS},
+           "sustained_rows_per_sec": sustained,
+           "admission_capacity_rows_per_sec": capacity, "cells": cells}
+    for name, cell in cells.items():
+        log(f"[net] (c) {name}: {json.dumps(cell)}")
+    watched("rows/s served over TCP, 2 replicas, one client at saturation",
+            sustained, 100_000.0, True)
+    watched("request p99 ms over TCP at 0.5x capacity",
+            cells["half"]["request_p99_ms"], 25.0, False)
+    half, double = cells["half"], cells["double"]
+    shed = double["shed_by_tier"]
+    if not (all(c["exactly_once"] for c in cells.values())
+            and cells["saturation"]["statuses"]["shed"] == 0
+            and half["statuses"]["shed"] == 0
+            and double["statuses"]["shed"] > 0 and shed[0] == 0
+            and shed[2] >= shed[1]):
+        raise AssertionError(f"[net] (c) shedding: {json.dumps(out)}")
+    return out
+
+
+def phase_net(torch, device, cfg, data, names, smi):
+    """The network serving plane (--serve-net, net/) on the card: first
+    the kernels at the plane's shapes against their plain versions (10
+    routed models, every bucket rung to --serve-net's 256 rows and the
+    capacity fleet's 1,024; the kNN buckets' distances to 10 banks); (a)
+    the --serve-net path, launch counters set to 0 before and read after
+    each of its parts (the quick-run sweep that trains the checkpoint and
+    run_net_smoke; the served plane by hand, not its reference); (b) a
+    replica worker process on the same card; (c) capacity at 1, 2 and 4
+    replicas, and shedding at 0.5x and 2x."""
+    t0 = time.perf_counter()
+    report = {"kernels_vs_plain": routed_kernel_shapes(
+        torch, device, "net", 10,
+        [(r, "random") for r in (1, 2, 3, 4, 8, 16, 32, 48, 64, 128, 200,
+                                 256, 512, 1024)],
+        dist_rows=(1, 7, 64, 256, 1024))}
+    log(f"[net] kernels at the plane's shapes agree with their plain "
+        f"versions and with a second call: "
+        f"{json.dumps(report['kernels_vs_plain'])}")
+    NET_LAUNCHES.clear()
+    report["a"] = net_serve_pass(torch, device, cfg, data, names,
+                                 NET_LAUNCHES)
+    report["launches"] = dict(NET_LAUNCHES)
+    for name, k in report["launches"].items():
+        if k < 1:
+            raise AssertionError(f"the --serve-net path never launched "
+                                 f"{name}")
+    a = report["a"]
+    log(f"[net] (a) --serve-net path launches "
+        f"{json.dumps(report['launches'])}; run_net_smoke "
+        f"{json.dumps(a['smoke'])}; by hand {json.dumps(a['by_hand'])}")
+    watched("request p99 ms, run_net_smoke (kNN, 2 replicas, bursts of 64)",
+            a["smoke"]["request_p99_ms"], 25.0, False)
+    report["b"] = net_worker(torch, device, smi)
+    report["c"] = net_capacity(torch, device, smi)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[net] done in {report['seconds']:.1f} s ({smi})")
+    return report
+
+
+# ---- the gateway ingest plane (phase "gateway") ---- #
+
+GATEWAY_FLEET = dict(n_gateways=1024, dim=DIMS[0], replicas=2)
+GATEWAY_CONNS = 16
+GATEWAY_BURST = 64
+GATEWAY_LAUNCHES = {}    # the gateway path's kernel launches, by wrapper
+
+
+def _wait_reject(client, code, seconds=30.0):
+    deadline = time.perf_counter() + seconds
+    while not any(c == code for _, c, _ in client.rejects):
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"[gateway] no reject {code} in {seconds} s")
+        client.poll()
+        time.sleep(0.002)
+
+
+def gateway_sessions(torch, device, smi, bursts, want):
+    """(a), (c) build_synthetic_frontend at 1,024 gateways (115/27/7,
+    hybrid, 2 replicas, admission + isolation) behind a FrontendHandle;
+    first an unknown gateway, a bad MAC and a bad token, each rejected
+    with rows_parsed 0; then 1,024 sessions over 16 connections, one
+    64-row burst each, all sent at once (the flood), and again paced
+    open-loop at half the flood's rows/s: every verdict and score the
+    direct router's bits. Handshakes/s, the flood's rows/s and its
+    frontend and client threads' CPU seconds over its wall, and the paced
+    stream's request p99."""
+    from fedmse_tpu_torch.gateway import (FrontendHandle, GatewayClient,
+                                          auth, build_synthetic_frontend,
+                                          mux)
+    t0 = time.perf_counter()
+    front = build_synthetic_frontend(seed=SEED, device=device,
+                                     **GATEWAY_FLEET)
+    build_s = time.perf_counter() - t0
+    n = GATEWAY_FLEET["n_gateways"]
+    master = auth.master_key(seed=SEED)
+    handle = FrontendHandle(front)
+    clients = []
+    try:
+        probe = GatewayClient("127.0.0.1", handle.port, master=master,
+                              timeout_s=60.0)
+        clients.append(probe)
+        bad_key = GatewayClient("127.0.0.1", handle.port, timeout_s=60.0,
+                                key_fn=lambda g, gen: b"\x00" * 32)
+        clients.append(bad_key)
+        rejected = [not probe.authenticate(n + 5),
+                    not bad_key.authenticate(7)]
+        if not probe.authenticate(0):
+            raise AssertionError("[gateway] gateway 0 not welcomed")
+        probe._send(mux.pack_submit(0, 1, b"\x00" * mux.TOKEN_LEN,
+                                    bursts[0]))
+        _wait_reject(probe, mux.REJ_BAD_TOKEN)
+        rejects = dict(front.rejects)
+        parsed_after_rejects = front.rows_parsed
+        per = n // GATEWAY_CONNS
+        conns = [GatewayClient("127.0.0.1", handle.port, master=master,
+                               timeout_s=60.0) for _ in range(GATEWAY_CONNS)]
+        clients += conns
+        t0 = time.perf_counter()
+        welcomed = sum(c.authenticate_many(range(j * per, (j + 1) * per))
+                       for j, c in enumerate(conns))
+        hs_s = time.perf_counter() - t0
+        front_clock = time.pthread_getcpuclockid(handle._thread.ident)
+        cpu0 = (time.clock_gettime(front_clock), time.thread_time())
+        t0 = time.perf_counter()
+        seqs = {}
+        for j, c in enumerate(conns):
+            for g in range(j * per, (j + 1) * per):
+                seqs[g] = c.submit(g, bursts[g])
+        for c in conns:
+            c.wait_all(timeout_s=120.0)
+        rows_s = time.perf_counter() - t0
+        cpu_s = (time.clock_gettime(front_clock) - cpu0[0],
+                 time.thread_time() - cpu0[1])
+        # the same bursts paced: one every 64 / rate seconds, round robin
+        # over the sessions, never waiting for a result
+        rate = 0.5 * n * GATEWAY_BURST / rows_s
+        paced = {}
+        t0 = time.perf_counter()
+        for g in range(n):
+            while time.perf_counter() < t0 + g * GATEWAY_BURST / rate:
+                for c in conns:
+                    c.poll()
+            paced[g] = conns[g // per].submit(g, bursts[g])
+        for c in conns:
+            c.wait_all(timeout_s=120.0)
+        stats = front.stats()
+    finally:
+        for c in clients:
+            c.close()
+        handle.stop()
+    got_st = np.concatenate([conns[g // per].results[(g, seqs[g])][0]
+                             for g in range(n)])
+    got_sc = np.concatenate([conns[g // per].results[(g, seqs[g])][1]
+                             for g in range(n)])
+    lat = np.asarray([conns[g // per].results[(g, seqs[g])][2]
+                      for g in range(n)]) * 1e3
+    paced_res = [conns[g // per].results[(g, paced[g])] for g in range(n)]
+    paced_lat = np.asarray([r[2] for r in paced_res]) * 1e3
+    out = {"build_seconds": build_s, "sessions": welcomed,
+           "connections": GATEWAY_CONNS,
+           "rejects": rejects, "rows_parsed_after_rejects":
+           parsed_after_rejects, "rejected": rejected,
+           "handshakes_per_sec": welcomed / hs_s,
+           "rows": int(got_st.size), "rows_per_sec": got_st.size / rows_s,
+           "frontend_thread_cpu_share": cpu_s[0] / rows_s,
+           "client_thread_cpu_share": cpu_s[1] / rows_s,
+           "request_p50_ms": float(np.percentile(lat, 50)),
+           "request_p99_ms": float(np.percentile(lat, 99)),
+           "paced_rows_per_sec": rate,
+           "paced_request_p50_ms": float(np.percentile(paced_lat, 50)),
+           "paced_request_p99_ms": float(np.percentile(paced_lat, 99)),
+           "statuses_equal_direct": bool(np.array_equal(got_st, want[0])),
+           "scores_direct_bits": _bits_equal(got_sc, want[1]),
+           "paced_statuses_equal_direct": bool(np.array_equal(
+               np.concatenate([r[0] for r in paced_res]), want[0])),
+           "paced_scores_direct_bits": _bits_equal(
+               np.concatenate([r[1] for r in paced_res]), want[1]),
+           "rows_parsed": stats["rows_parsed"],
+           "sessions_table": stats["sessions"]}
+    log(f"[gateway] (a) {json.dumps(out)}")
+    if not (all(rejected) and rejects.get("unknown_gateway") == 1
+            and rejects.get("bad_mac") == 1 and rejects.get("bad_token") == 1
+            and parsed_after_rejects == 0 and welcomed == n
+            and out["statuses_equal_direct"] and out["scores_direct_bits"]
+            and out["paced_statuses_equal_direct"]
+            and out["paced_scores_direct_bits"]
+            and stats["rows_parsed"] == 2 * n * GATEWAY_BURST):
+        raise AssertionError(f"[gateway] (a) {json.dumps(out)}")
+    watched("gateway handshakes/s (1,024 sessions over 16 connections)",
+            out["handshakes_per_sec"], 3000.0, True)
+    watched("rows/s through the gateway frontend (64-row bursts)",
+            out["rows_per_sec"], 100_000.0, True)
+    watched("gateway request p99 ms (64-row bursts paced at half the "
+            "flood's rows/s; 2x the 25 ms batching budget)",
+            out["paced_request_p99_ms"], 50.0, False)
+    return out
+
+
+def gateway_failover(torch, device):
+    """(b) A FailoverStripe over two replicas of the 1,024-gateway fleet:
+    the first dies with pieces in flight, and every admitted row still
+    gets its score, the survivor's bits (tests/test_gateway.py's hold at
+    the paper's width)."""
+    from fedmse_tpu_torch.gateway import FailoverStripe
+    from fedmse_tpu_torch.net.server import build_synthetic_replicas
+    reps = build_synthetic_replicas(seed=SEED + 1, max_batch=256,
+                                    device=device, **GATEWAY_FLEET)
+
+    class Dying:
+        def __init__(self, inner):
+            self.inner = inner
+            self.dead = False
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+        def poll(self):
+            if self.dead:
+                raise RuntimeError("replica killed mid-flight")
+            return self.inner.poll()
+
+    dying = Dying(reps[0])
+    stripe = FailoverStripe([dying, reps[1]])
+    rng = np.random.default_rng(SEED + 42)
+    rows = rng.normal(size=(4096, DIMS[0])).astype(np.float32)
+    gws = rng.integers(0, GATEWAY_FLEET["n_gateways"], len(rows)).astype(
+        np.int32)
+    blk = stripe.submit_many(rows, gws)
+    dying.dead = True
+    deadline = time.perf_counter() + 60
+    while not blk.done:
+        stripe.poll()
+        if time.perf_counter() > deadline:
+            raise AssertionError("[gateway] (b) the stripe stalled")
+    st = stripe.stats()
+    out = {"failover_events": len(st["failover_events"]),
+           "alive": st["alive"], "rows_resubmitted": st["rows_resubmitted"],
+           "rows": len(blk.scores),
+           "survivor_bits": _bits_equal(blk.scores,
+                                        reps[1].engine.score(rows, gws))}
+    log(f"[gateway] (b) failover: {json.dumps(out)}")
+    if not (out["failover_events"] >= 1 and out["alive"] == 1
+            and out["rows_resubmitted"] > 0 and out["survivor_bits"]):
+        raise AssertionError(f"[gateway] (b) {json.dumps(out)}")
+    return out
+
+
+def phase_gateway(torch, device, smi):
+    """The gateway ingest plane (gateway/) on the card: first the forward
+    at the plane's shapes against its plain version (1,024 routed models:
+    random and 64-row-session buckets up to 1,024 rows, and the engines'
+    fit over 512 train rows a gateway); (a) and (c) through
+    build_synthetic_frontend at 1,024 gateways, launch counters set to 0
+    before and read after (the gateway path); (b) failover."""
+    from fedmse_tpu_torch.net import Router
+    from fedmse_tpu_torch.net.server import build_synthetic_replicas
+    t0 = time.perf_counter()
+    n = GATEWAY_FLEET["n_gateways"]
+    rng = np.random.default_rng(SEED + 43)
+    bursts = rng.normal(size=(n, GATEWAY_BURST, DIMS[0])).astype(np.float32)
+    # the direct router over the same seeded fleet: the verdicts to match
+    direct = Router(build_synthetic_replicas(seed=SEED, device=device,
+                                             **GATEWAY_FLEET))
+    results = [direct.submit_many(bursts[g], np.int32(g)) for g in range(n)]
+    direct.drain()
+    if not all(r.finalize() for r in results):
+        raise AssertionError("[gateway] the direct router left rows open")
+    want = (np.concatenate([r.statuses for r in results]),
+            np.concatenate([r.scores for r in results]))
+    del direct
+    report = {"kernels_vs_plain": routed_kernel_shapes(
+        torch, device, "gateway", n,
+        [(1, "random"), (64, "random"), (64, "sessions"), (256, "random"),
+         (1024, "random"), (1024, "sessions"), (n * 512, "client_major")])}
+    log(f"[gateway] the forward at the plane's shapes agrees with its plain "
+        f"version and with a second call: "
+        f"{json.dumps(report['kernels_vs_plain'])}")
+    GATEWAY_LAUNCHES.clear()
+    with counted_launches(GATEWAY_LAUNCHES):
+        report["a"] = gateway_sessions(torch, device, smi, bursts, want)
+    report["launches"] = dict(GATEWAY_LAUNCHES)
+    if report["launches"]["fused_ae_forward"] < 1:
+        raise AssertionError("the gateway path never launched the forward")
+    log(f"[gateway] gateway path launches "
+        f"{json.dumps(report['launches'])}")
+    report["b"] = gateway_failover(torch, device)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[gateway] done in {report['seconds']:.1f} s ({smi})")
+    return report
+
+
 def report_train(torch, device, launches, worst):
     """The train kernel's and its plain version's times and bounds at the
     main path's step shape (5 clients x 12 rows) and at 512 clients."""
@@ -5003,6 +5693,8 @@ def run(torch, cfg, smi, t_start) -> int:
     tiered = phase_tiered(torch, device, cfg, clients, data, smi)
     flywheel = phase_flywheel(torch, device, cfg, data, writer, names, smi)
     tune = phase_tune(torch, device, cfg, data, writer, names, smi)
+    net = phase_net(torch, device, cfg, data, names, smi)
+    gateway = phase_gateway(torch, device, smi)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
     training["fused_hold"] = phase_fused_hold(torch, device, cfg, clients)
@@ -5024,6 +5716,9 @@ def run(torch, cfg, smi, t_start) -> int:
         kernel["tiered_path_launches"] = tiered["launches"][kernel["name"]]
         kernel["flywheel_path_launches"] = \
             flywheel["launches"][kernel["name"]]
+        kernel["net_path_launches"] = net["launches"][kernel["name"]]
+        kernel["gateway_path_launches"] = \
+            gateway["launches"][kernel["name"]]
     line["robust"] = robust
     line["cluster"] = cluster
     line["redteam"] = redteam
@@ -5031,6 +5726,8 @@ def run(torch, cfg, smi, t_start) -> int:
     line["tiered"] = tiered
     line["flywheel"] = flywheel
     line["tune"] = tune
+    line["net"] = net
+    line["gateway"] = gateway
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

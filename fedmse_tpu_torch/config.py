@@ -9,7 +9,8 @@ fedmse_tpu/config.py that the training, scoring and serving paths read.
   * `ExperimentConfig` defaults are the reference's quick-run values;
     `paper_scale` gives the paper's schedule.
   * `add_cli_overrides` / `apply_cli_overrides` turn every scalar field
-    into a --flag and every compat switch into --compat-<name>.
+    (but the gateway plane's, which main.py's training run never reads) into
+    a --flag and every compat switch into --compat-<name>.
 """
 
 from __future__ import annotations
@@ -179,6 +180,29 @@ class ExperimentConfig:
     flywheel_shift: float = 1.5
     flywheel_async: bool = False
     flywheel_decay: float = 0.0
+    # the network serving plane (net/, --serve-net): the listening port (0
+    # binds an ephemeral one), the engine replicas behind the roster-aware
+    # router, the admission priority tiers (tier 0 highest) and the
+    # fraction of the MEASURED capacity the token bucket refills at
+    net_port: int = 0
+    net_replicas: int = 2
+    net_tiers: int = 3
+    net_shed_headroom: float = 0.9
+    # the gateway ingest plane (gateway/): its port, the frontend count
+    # (autoscale.plan_split sizes it), TLS on the mux wire, the fleet's
+    # enrollment secret ("" = the seed-derived DEV key, tests only), the
+    # per-session isolation cap as a fraction of fleet capacity, the idle
+    # seconds before a session parks, and one connection's session budget.
+    # A training run (main.py) starts no gateway, so these are no flags of
+    # its (GATEWAY_FIELDS); the frontend's entry (gateway/frontend.py main)
+    # takes its defaults from them
+    gateway_port: int = 0
+    gateway_frontends: int = 1
+    gateway_tls: bool = False
+    gateway_master_key_hex: str = ""
+    gateway_session_share: float = 0.25
+    gateway_park_s: float = 1.0
+    gateway_sessions_per_conn: int = 64
     # the fused round (federation/fused.py): vote, aggregation,
     # verification and evaluation with no host read, local training in
     # epoch bodies; on the card each is a replayed CUDA graph. The same
@@ -247,12 +271,17 @@ def _is_bool_field(f: dataclasses.Field) -> bool:
                                            and "bool" in str(f.type))
 
 
+GATEWAY_FIELDS = frozenset(f.name for f in dataclasses.fields(
+    ExperimentConfig) if f.name.startswith("gateway_"))
+
+
 def add_cli_overrides(parser) -> None:
-    """Register every scalar ExperimentConfig field as --<field-name> and
-    every CompatConfig switch as --compat-<name>."""
+    """Register every scalar ExperimentConfig field but the gateway
+    plane's (GATEWAY_FIELDS) as --<field-name> and every CompatConfig
+    switch as --compat-<name>."""
     for f in dataclasses.fields(ExperimentConfig):
         name = "--" + f.name.replace("_", "-")
-        if f.name == "compat":
+        if f.name == "compat" or f.name in GATEWAY_FIELDS:
             continue
         if _is_bool_field(f):
             parser.add_argument(name, type=_parse_bool, default=None)

@@ -51,7 +51,12 @@ reference's results artifacts (port of fedmse_tpu/main.py).
     (flywheel/harness.py): the checkpoint served through the continuous
     front with the reservoir tap and the controller, a covariate shift
     ramped into the stream, the drift-triggered fine-tune and the hot swap
-    (the `--flywheel-*` knobs are ExperimentConfig fields).
+    (the `--flywheel-*` knobs are ExperimentConfig fields);
+  * `--serve-net` runs the network plane's pass (net/smoke.py) on the same
+    checkpoint: `--net-replicas` engine replicas, each on a CUDA stream of
+    its own, behind the roster-aware router and tiered admission, served
+    over a localhost TCP socket (`--net-port`, 0 = ephemeral) in NIC-poll
+    bursts with a mid-stream calibration swap broadcast to every replica.
 
 CLI (runs on the card unless --device cpu):
     python -m fedmse_tpu_torch.main --dataset-config <reference json>
@@ -62,11 +67,15 @@ CLI (runs on the card unless --device cpu):
         [--cluster-refit-every N]] [--resume-dir DIR] [--batch-runs]
         [--state-layout tiered]
         [--serve [--serve-rows N] [--serve-warmup] [--serve-continuous]]
-        [--flywheel [--flywheel-rounds 3 --flywheel-async true ...]] ...
-Not ported: meshes (and with them --host-sharded, which raises), and the
-network smoke. The red team's round half is ported
-(fedmse_tpu_torch/redteam/, RoundEngine(redteam=)); as in the JAX package,
-no flag drives it.
+        [--flywheel [--flywheel-rounds 3 --flywheel-async true ...]]
+        [--serve-net [--net-replicas N --net-port P]] ...
+Not ported: meshes (--use-mesh, and with them --host-sharded, which
+raises). The red team is ported (fedmse_tpu_torch/redteam/: its round half
+through RoundEngine(redteam=), its ingest half in redteam/ingest.py); as in
+the JAX package, no flag drives it. The network plane's worker and the
+gateway frontend are entries of their own: `python -m
+fedmse_tpu_torch.net.server` and `python -m
+fedmse_tpu_torch.gateway.frontend` (both take --device).
 """
 
 from __future__ import annotations
@@ -105,6 +114,7 @@ from fedmse_tpu_torch.federation.tiered import (PARALLEL,
                                                 run_tiered_combination)
 from fedmse_tpu_torch.flywheel import run_flywheel_smoke
 from fedmse_tpu_torch.models import make_model
+from fedmse_tpu_torch.net.smoke import run_net_smoke
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.precision import get_policy
 from fedmse_tpu_torch.serving.smoke import run_serve_smoke
@@ -517,7 +527,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                    chaos: Optional[ChaosSpec] = None,
                    elastic: Optional[ElasticSpec] = None,
                    cluster: Optional[ClusterSpec] = None,
-                   batch_runs: bool = False, flywheel: bool = False) -> Dict:
+                   batch_runs: bool = False, flywheel: bool = False,
+                   serve_net: bool = False) -> Dict:
     """The full sweep -> training summary dict. `batch_runs` runs each
     combination's seeds as one batched federation where the sweep allows
     it (batch_runs_refusals), else sequentially with a warning.
@@ -527,7 +538,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
     save_checkpoints=False it is skipped with a warning. `flywheel=True`
     appends the closed-loop pass (flywheel/harness.py) on the same
     checkpoint, its report under "flywheel_smoke" (skipped the same way
-    without checkpoints). `resume_dir`
+    without checkpoints), and `serve_net=True` the network plane's pass
+    (net/smoke.py), its report under "net_smoke". `resume_dir`
     snapshots every combination there and resumes from it; the fault
     specs and the clustering go to every combination and into the
     summary."""
@@ -615,7 +627,8 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                        ("elastic", elastic), ("cluster", cluster)):
         if spec is not None:
             out[name] = dataclasses.asdict(spec)
-    if (serve or flywheel) and data.train_xb.device.type != dev.type:
+    if (serve or flywheel or serve_net) \
+            and data.train_xb.device.type != dev.type:
         data = FederatedData(**{f.name: getattr(data, f.name).to(dev)
                                 for f in dataclasses.fields(FederatedData)})
     if serve:
@@ -638,6 +651,17 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                            "closed-loop pass")
         else:
             out["flywheel_smoke"] = run_flywheel_smoke(
+                cfg, data, n_real, writer, device_names,
+                model_type=cfg.model_types[0],
+                update_type=cfg.update_types[0], run=0,
+                max_rows=serve_rows)
+    if serve_net:
+        if not save_checkpoints:
+            logger.warning("--serve-net needs the checkpointed ClientModel "
+                           "tree (run without --no-save); skipping the "
+                           "network-plane pass")
+        else:
+            out["net_smoke"] = run_net_smoke(
                 cfg, data, n_real, writer, device_names,
                 model_type=cfg.model_types[0],
                 update_type=cfg.update_types[0], run=0,
@@ -671,7 +695,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "traffic through the bucketed scorer, report "
                         "latency, verdicts and drift")
     p.add_argument("--serve-rows", type=int, default=2048,
-                   help="max test rows streamed by the --serve pass")
+                   help="max test rows streamed by the --serve (and the "
+                        "--serve-net) pass")
+    p.add_argument("--serve-net", action="store_true",
+                   help="after the sweep, run the network plane's pass "
+                        "(net/): --net-replicas engine replicas behind the "
+                        "roster-aware router and tiered admission, served "
+                        "over a localhost TCP socket (--net-port; 0 = "
+                        "ephemeral) in NIC-poll bursts, with a mid-stream "
+                        "hot swap broadcast to every replica")
     p.add_argument("--serve-warmup", action="store_true",
                    help="score one bucket of every rung before the served "
                         "stream; the seconds land in the report")
@@ -833,7 +865,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                           resume_dir=args.resume_dir, attack=attack,
                           chaos=chaos, elastic=elastic, cluster=cluster,
                           batch_runs=args.batch_runs,
-                          flywheel=args.flywheel)
+                          flywheel=args.flywheel,
+                          serve_net=args.serve_net)
 
 
 if __name__ == "__main__":

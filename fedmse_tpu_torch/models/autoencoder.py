@@ -200,12 +200,16 @@ def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = "cuda",
     """The JAX package's params (a nested dict of numpy arrays, one
     client's [in, out] or stacked [G, in, out]; tensors are taken as well)
     as the port's stacked tree on `device`: kernels in `dtype`, biases in
-    f32 (ops/precision.cast_params)."""
+    f32 (ops/precision.cast_params). A tensor already on `device` in its
+    target dtype is taken as it is (no copy): a tree placed once installs
+    as the same tensors (a hot swap's executor-side placement)."""
     dev = resolve_device(device)
 
     def convert(t):
         if not isinstance(t, torch.Tensor):
             t = torch.from_numpy(np.array(t, dtype=np.float32))
+        if t.dtype in (torch.float32, dtype):
+            return t.detach().to(device=dev)
         return t.detach().to(device=dev, dtype=torch.float32)
 
     out: ParamTree = {}

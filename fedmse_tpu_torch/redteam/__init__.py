@@ -6,13 +6,12 @@ against them, in the fused round (port of fedmse_tpu/redteam/).
   * adversary.py the update and merge poison hooks and the election flags
   * mimicry.py   latent-statistics forgery against the cluster fit
   * traffic.py   the slow-drift adversary against the flywheel (flywheel/)
+  * ingest.py    the gateway plane's half: shed-storm forcing against
+                 admission and cost gaming against the autoscaler (net/)
 
     from fedmse_tpu_torch.redteam import RedteamSpec
     engine = RoundEngine(..., fused=True, redteam=RedteamSpec(
         kind="sybil", adversaries=(3, 5), lie_votes=True))
-
-The JAX package's `ingest.py` (gateway-plane attacks) waits for the port
-of `net/`.
 """
 
 from fedmse_tpu_torch.redteam.adversary import (MERGE_POISON_FOLD,
@@ -20,6 +19,11 @@ from fedmse_tpu_torch.redteam.adversary import (MERGE_POISON_FOLD,
                                                 RedteamFns,
                                                 make_redteam_fns,
                                                 merge_noise, update_noise)
+from fedmse_tpu_torch.redteam.ingest import (CostGamingAdversary,
+                                             InstantReplica,
+                                             ShedStormAdversary,
+                                             cost_gaming_cell,
+                                             shed_storm_cell)
 from fedmse_tpu_torch.redteam.masks import (RedteamMasks, coalition_mask,
                                             make_redteam_masks,
                                             null_redteam_masks,
@@ -40,4 +44,6 @@ __all__ = [
     "UPDATE_POISON_FOLD", "MERGE_POISON_FOLD",
     "mimic_latent_stats", "assignment_capture_rate",
     "SlowDriftAdversary", "normal_fraction",
+    "InstantReplica", "ShedStormAdversary", "shed_storm_cell",
+    "CostGamingAdversary", "cost_gaming_cell",
 ]

@@ -1603,3 +1603,116 @@ def test_served_params_unchanged_until_the_install(cuda):
     ctl._cooldown = 0
     assert ctl.trigger(np.asarray([1])) is not None
     assert checks == [True, True] and ctl.runner.engines_built == 1
+
+
+def _net_replicas(cuda, n, score_kind="knn", precision="f32"):
+    """n LocalReplicas over one 8-gateway federation at 115/27/7 on the
+    card, each engine its own (the same params), each on its own stream."""
+    from fedmse_tpu_torch.net.router import make_local_replicas
+    gen = torch.Generator().manual_seed(3)
+    model = make_model("hybrid", 115, 27, 7, device=cuda)
+    params = init_stacked_params(model, 8, gen, device=cuda)
+    train_x = np.random.default_rng(3).normal(
+        size=(8, 256, 115)).astype(np.float32)
+    engines = [ServingEngine.from_federation(
+        model, "hybrid", params, train_x=train_x, max_bucket=256,
+        score_kind=score_kind, knn_bank_size=128, knn_k=4, device=cuda,
+        precision=precision)
+        for _ in range(n)]
+    return make_local_replicas(lambda i: engines[i], n, max_batch=256,
+                               latency_budget_ms=1e9)
+
+
+def test_replica_streams_give_the_default_streams_bits(cuda):
+    """Each LocalReplica issues its buckets on its own CUDA stream; a row's
+    score is the same bits whichever replica (stream) scored it, and the
+    bits of the engine's own blocking score on the default stream."""
+    from fedmse_tpu_torch.net.router import Router
+    reps = _net_replicas(cuda, 3)
+    assert len({id(r.stream) for r in reps}) == 3
+    assert all(r.stream != torch.cuda.current_stream(cuda) for r in reps)
+    rng = np.random.default_rng(5)
+    rows = rng.normal(size=(3 * 256, 115)).astype(np.float32)
+    gws = rng.integers(0, 8, 3 * 256).astype(np.int32)
+    want = reps[0].engine.score(rows, gws)
+    for shift in range(3):  # every slice through every replica
+        router = Router(reps)
+        router._rr = shift
+        res = router.submit_many(rows, gws)
+        router.drain()
+        assert res.finalize()
+        np.testing.assert_array_equal(res.scores.view(np.int32),
+                                      want.view(np.int32))
+
+
+def test_swap_placed_on_an_executor_thread_is_read_whole(cuda):
+    """A wire swap's payload placed on an executor thread (server.
+    _prepare_swap_payload) and installed by the router: every replica
+    stream's next bucket scores under the whole new state (the bits of
+    an engine built on it), and the install copied nothing."""
+    import concurrent.futures
+    import pickle
+    from fedmse_tpu_torch.net.client import host_payload
+    from fedmse_tpu_torch.net.router import Router
+    from fedmse_tpu_torch.net.server import _prepare_swap_payload
+    reps = _net_replicas(cuda, 2)
+    router = Router(reps)
+    fresh = _net_replicas(cuda, 1)[0].engine
+    gen = torch.Generator().manual_seed(11)
+    params2 = init_stacked_params(fresh.model, 8, gen, device=cuda)
+    fresh.swap_state(params=params2)
+    body = pickle.dumps(host_payload({"params": fresh.params,
+                                      "banks": fresh.banks}), 4)
+    rng = np.random.default_rng(6)
+    rows = rng.normal(size=(512, 115)).astype(np.float32)
+    gws = rng.integers(0, 8, 512).astype(np.int32)
+    # keep both replica streams busy while the payload lands
+    for _ in range(4):
+        router.submit_many(rows, gws)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        placed = pool.submit(_prepare_swap_payload, body, (
+            cuda, reps[0].engine.policy.compute_dtype)).result()
+    router.swap(**placed)
+    res = router.submit_many(rows, gws)
+    router.drain()
+    assert res.finalize()
+    want = fresh.score(rows, gws)
+    np.testing.assert_array_equal(res.scores.view(np.int32),
+                                  want.view(np.int32))
+    for rep in reps:
+        assert rep.engine.params["encoder"]["Dense_0"]["kernel"].data_ptr() \
+            == placed["params"]["encoder"]["Dense_0"]["kernel"].data_ptr()
+        assert rep.engine.banks.latents.data_ptr() == \
+            placed["banks"].latents.data_ptr()
+
+
+def test_in_process_bf16_swap_reads_the_payload_whole(cuda):
+    """An in-process Router.swap of f32 params into bf16 replicas, the
+    payload written on the default stream just before (behind a long
+    sleep kernel) and dropped just after: each replica's stream casts it
+    only once written, so every replica then scores the bits of an
+    engine built on the new params."""
+    from fedmse_tpu_torch.net.router import Router
+    reps = _net_replicas(cuda, 2, precision="bf16")
+    router = Router(reps)
+    fresh = _net_replicas(cuda, 1, precision="bf16")[0].engine
+    gen = torch.Generator().manual_seed(12)
+    params2 = init_stacked_params(fresh.model, 8, gen, device=cuda)
+    rng = np.random.default_rng(7)
+    rows = rng.normal(size=(512, 115)).astype(np.float32)
+    gws = rng.integers(0, 8, 512).astype(np.int32)
+    for _ in range(4):  # keep both replica streams busy
+        router.submit_many(rows, gws)
+    torch.cuda._sleep(200_000_000)  # the payload lands late on this stream
+    payload = {c: {n: {k: v.clone() for k, v in layer.items()}
+                   for n, layer in coder.items()}
+               for c, coder in params2.items()}
+    router.swap(params=payload)
+    del payload
+    res = router.submit_many(rows, gws)
+    router.drain()
+    assert res.finalize()
+    fresh.swap_state(params=params2)
+    want = fresh.score(rows, gws)
+    np.testing.assert_array_equal(res.scores.view(np.int32),
+                                  want.view(np.int32))

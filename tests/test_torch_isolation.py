@@ -25,7 +25,10 @@ from fedmse_tpu_torch.federation.tiered import (TieredRoundEngine,
                                                 run_tiered_combination)
 from fedmse_tpu_torch.utils.seeding import ExperimentRngs
 from fedmse_tpu_torch.models.flat import ParamLayout
+from fedmse_tpu_torch.gateway.frontend import build_synthetic_frontend
 from fedmse_tpu_torch.main import prepare_federation, run_experiment
+from fedmse_tpu_torch.net.server import build_synthetic_replicas
+from fedmse_tpu_torch.net.server import main as net_server_main
 from fedmse_tpu_torch.serving import ServingEngine
 from fedmse_tpu_torch.tune import sites as tune_sites
 
@@ -40,13 +43,18 @@ def _port_modules():
 
 
 # the red team's round half, the batched runs, the tiered layout, the
-# flywheel with its slow-drift adversary, and the autotuner
+# flywheel with its slow-drift adversary, the autotuner, the network
+# serving plane, the gateway ingest plane and the red team's ingest half
 NEW_MODULES = ("redteam", "redteam.spec", "redteam.masks",
                "redteam.adversary", "redteam.mimicry", "federation.batched",
                "federation.tiered", "flywheel", "flywheel.buffer",
                "flywheel.swap", "flywheel.controller", "flywheel.harness",
                "redteam.traffic", "tune", "tune.cache", "tune.measure",
-               "tune.sites")
+               "tune.sites", "net", "net.wire", "net.admission",
+               "net.autoscale", "net.router", "net.client", "net.server",
+               "net.smoke", "gateway", "gateway.mux", "gateway.auth",
+               "gateway.session", "gateway.stripe", "gateway.tls",
+               "gateway.frontend", "gateway.client", "redteam.ingest")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -113,6 +121,30 @@ def test_training_driver_runs_as_a_module_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "--dataset-config" in out.stdout and "--device" in out.stdout
+
+
+@pytest.mark.parametrize("entry", ["fedmse_tpu_torch.net.server",
+                                   "fedmse_tpu_torch.gateway.frontend"])
+def test_worker_entries_run_as_modules_without_jax(entry):
+    """`python -m` of the network plane's worker and of the gateway
+    frontend parses its CLI (with --device) and pulls in no jax, flax,
+    optax, pandas or JAX package."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{entry!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_module({entry!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'pandas', "
+        "'sklearn')) or m == 'fedmse_tpu' or m.startswith('fedmse_tpu.'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "--device" in out.stdout and "--seed" in out.stdout
 
 
 def _imported_roots(path):
@@ -188,6 +220,11 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
         lambda: tune_sites.tune_serve_ladder(max_bucket=4),
         lambda: tune_sites.tune_tier_chunk(probe_clients=4),
         lambda: tune_sites.lookup_serve_ladder(4),
+        lambda: build_synthetic_replicas(n_gateways=2, dim=6, replicas=1,
+                                         max_batch=4),
+        lambda: build_synthetic_frontend(n_gateways=2, dim=6, max_batch=4),
+        lambda: net_server_main(["--gateways", "2", "--dim", "6",
+                                 "--max-batch", "4"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
