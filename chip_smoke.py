@@ -211,6 +211,31 @@ all started together, into build/fedmse_tpu_torch/), then:
                 handshakes/s, the flood's rows/s (with the frontend and
                 client threads' CPU shares) and the paced stream's p99 as
                 [watch] lines;
+     parallel   (after the main path) the client mesh (parallel/): (a) a
+                one-rank NCCL group (multihost.initialize with a
+                FileStore): the quick run (10 gateways, hybrid / mse_avg,
+                the tie-break off) over the world-1 mesh the plain run's
+                bits (elections, every round's metrics, params, the final
+                evaluation) and graphs (nodes, one stretch each), the exact collective merge the dense merge's
+                bits on CUDA tensors and the one-group quantized merge the
+                exact one's, plan_merge's walls; (b)-(d) two rank processes
+                on the one card over gloo (parallel/launch.py spawning
+                chip_smoke.parallel_rank, after the kernels were built):
+                (b) the quick run's 10 gateways, 5 a rank, under shard_map
+                and quantized (2 groups): both ranks the same bits, the
+                dense card run's elections, round-1 params within 1e-6
+                scaled and the final AUC within 2e-3, the quantized merge
+                within its codec bound of the exact one on the trained
+                states, forward and train launched on each rank, the
+                card's used memory with both ranks up, plan_merge's walls
+                on the 2 ranks; (c) the host-sharded tier at 10,000 bulk
+                gateways, C = 512, 2 rounds: the ranks equal, each tiering
+                its 5,000 rows (half the host bytes), the AUC within 2e-3
+                of one process replaying the same cohorts; (d) the 10
+                gateways' kNN engine gateway-sharded over the 2 ranks: the
+                unsharded engine's bits over 8,192 rows; then, on each
+                rank, the train step, the forward and the distances at
+                that rank's shapes against their plain versions;
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events, and the
@@ -246,8 +271,10 @@ phase's batched run and kNN round the batched path
 dense engines they are held to) the tiered path
 ("tiered_path_launches"), the flywheel phase's (b) the flywheel path
 ("flywheel_path_launches"), the net phase's (a) the --serve-net path
-("net_path_launches") and the gateway phase's (a) the gateway path
-("gateway_path_launches"). A launch
+("net_path_launches"), the gateway phase's (a) the gateway path
+("gateway_path_launches") and the parallel phase's meshed runs in (a)
+to (d) (not the plain runs they are held to), summed over this process
+and the two ranks, the parallel path ("parallel_path_launches"). A launch
 inside a replayed CUDA graph counts: each graph keeps the kernels it
 captured, and each replay adds them (ops/graphs.py). Prints,
 as its last three lines, the card's name and power limit, one JSON line
@@ -5472,6 +5499,449 @@ def phase_gateway(torch, device, smi):
     return report
 
 
+# ---- the client mesh (phase "parallel") ---- #
+
+PARALLEL_WORLD = 2             # (b)-(d): gloo ranks on the one card
+PARALLEL_TIER_N = 10_000       # (c): bulk gateways
+PARALLEL_TIER_COHORT = 512     # (c): C
+PARALLEL_BLOCK = 256           # the quantized merge's block (the default)
+PARALLEL_LAUNCHES = {}         # the parallel path's launches, by wrapper
+PARALLEL_JOB = "chip_smoke:parallel_rank"  # (b)-(d)'s rank job
+
+
+def parallel_quick(torch, cfg):
+    """The quick run's config with the tie-break off and its 10 gateways
+    stacked on the host (the main path's clients, drawn again)."""
+    import dataclasses
+    from fedmse_tpu_torch.data import (build_dev_dataset, stack_clients,
+                                       synthetic_clients)
+    qc = cfg.replace(compat=dataclasses.replace(cfg.compat,
+                                                vote_tie_break=False))
+    clients = synthetic_clients(n_clients=10, dim=DIMS[0], n_normal=10_000,
+                                n_abnormal=2_000, seed=SEED)
+    dev_x = build_dev_dataset(clients, np.random.default_rng(qc.data_seed))
+    return qc, stack_clients(clients, dev_x, qc.batch_size, device="cpu")
+
+
+def mesh_quick_run(torch, cfg, data, mesh, device):
+    """hybrid / mse_avg through the fused engine over `mesh` (None or one
+    rank: the plain engine, its data on `device`): round 1 alone, then
+    the others in one chunk. Returns (report, engine)."""
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    n = int(data.client_mask.sum())
+    if mesh is None or not mesh.sharded:
+        data = _federation_rows(data, data.client_mask.shape[0], device)
+    eng = RoundEngine(make_model("hybrid", *DIMS, cfg.shrink_lambda,
+                                 device=device), cfg, data, n,
+                      ExperimentRngs(run=0), "hybrid", "mse_avg", fused=True,
+                      mesh=mesh)
+    t0 = time.perf_counter()
+    res = eng.run_rounds(0, 1)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    p1 = eng.gathered_states().params.numpy()
+    t1 = time.perf_counter()
+    res += eng.run_rounds(1, cfg.num_rounds - 1)
+    torch.cuda.synchronize()
+    walls = time.perf_counter() - t1
+    final = eng.evaluate()
+    return {"selected": [r.selected for r in res],
+            "aggregators": [r.aggregator for r in res],
+            "metrics": [r.client_metrics for r in res],
+            "backend": [r.backend for r in res],
+            "params1": p1, "params": eng.gathered_states().params.numpy(),
+            "final": final, "auc": float(np.nanmean(final)),
+            "round1_s": wall1,
+            "steady_round_s": walls / max(cfg.num_rounds - 1, 1),
+            "graphs": eng._fused.stats()["graphs"]}, eng
+
+
+def quantized_vs_exact(torch, eng, mesh, block):
+    """The quantized merge (one group a rank) against the exact one on an
+    engine's states, every client weighted: (max |error|, the codec bound
+    summed over the ranks' partials)."""
+    from fedmse_tpu_torch.parallel import collectives as coll
+    from fedmse_tpu_torch.parallel.quantize import quantization_error_bound
+    model, d = eng.model, eng.data
+    p, sel = eng.states.params, d.client_mask
+    exact, w = coll.make_shardmap_aggregate(model, "mse_avg", mesh)(
+        p, sel, d.dev_x)
+    q, _ = coll.make_hierarchical_aggregate(
+        model, "mse_avg", mesh, num_groups=mesh.world_size,
+        block_size=block)(p, sel, d.dev_x)
+    parts = mesh.gather_host((w @ p).cpu().numpy())
+    bound = sum(quantization_error_bound(part, block) for part in parts)
+    return float((q - exact).abs().max()), float(bound)
+
+
+def mesh_tier(torch, cfg, mesh, device, n, cohort, host_sharded,
+              selections=None):
+    """(c) n bulk gateways, 2 rounds at cohort C: through
+    run_tiered_combination, or with `selections` one process's tier
+    replaying a run's selections round by round (the host-sharded draw is
+    stratified by rank block, so a one-process run draws other
+    cohorts)."""
+    from fedmse_tpu_torch.federation.tiered import (TieredRoundEngine,
+                                                    run_tiered_combination)
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    bulk = bulk_federation(torch, n, DIMS[0], cfg.batch_size, SEED + 50)
+    tc = cfg.replace(num_participants=(cohort + 0.5) / n, num_rounds=2,
+                     state_layout="tiered", host_sharded=host_sharded)
+    t0 = time.perf_counter()
+    if selections is None:
+        out = run_tiered_combination(tc, bulk, n, "hybrid", "mse_avg", 0,
+                                     mesh=mesh, device=device)
+        eng, rounds, final = (out["engine"], out["rounds"],
+                              out["final_metrics"])
+    else:
+        eng = TieredRoundEngine(make_model("hybrid", *DIMS, device=device),
+                                tc, bulk, n, ExperimentRngs(run=0),
+                                "hybrid", "mse_avg", device=device)
+        rounds = [eng.run_round(r, selected=sel)
+                  for r, sel in enumerate(selections)]
+        final = eng.evaluate_final_streamed()
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0,
+            "aggregators": [r.aggregator for r in rounds],
+            "selected": [list(r.selected) for r in rounds],
+            "final": np.asarray(final),
+            "auc": float(np.nanmean(final)),
+            "rows": (eng.shard_start, eng.shard_stop),
+            "cohort": eng.cohort, "host_state_bytes": eng.store.host_bytes(),
+            "host_data_bytes": sum(t.numel() * t.element_size()
+                                   for t in eng.host_data.values())}
+
+
+def mesh_serving(torch, cfg, params, data, mesh, device, launches):
+    """(d) the 10 gateways' kNN-scored engine, gateway-sharded over the
+    mesh, against the unsharded engine on the same card: 8,192
+    interleaved test rows, bits. Only the meshed engine's build and
+    scoring count in `launches`."""
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.serving import ServingEngine
+    model = make_model("hybrid", *DIMS, cfg.shrink_lambda, device=device)
+    tree = ParamLayout(*DIMS).tree(torch.from_numpy(params[:10]))
+    xb, mb = data.train_xb[:10].to(device), data.train_mb[:10].to(device)
+    kw = dict(score_kind="knn", knn_bank_size=KNN["knn_bank_size"],
+              knn_k=KNN["knn_k"], device=device)
+    t = data.test_x.shape[1]
+    rows = data.test_x[:10].transpose(0, 1).reshape(-1, DIMS[0])[:8192]
+    gws = np.tile(np.arange(10, dtype=np.int32), t)[:8192]
+    with counted_launches(launches):
+        meshed = ServingEngine.from_federation(model, "hybrid", tree, xb, mb,
+                                               mesh=mesh, **kw)
+        got = meshed.score(rows.numpy(), gws)
+    plain = ServingEngine.from_federation(model, "hybrid", tree, xb, mb,
+                                          **kw)
+    want = plain.score(rows.numpy(), gws)
+    return {"rows": len(gws), "gateway_sharded": meshed.gateway_sharded,
+            "bucket": meshed.max_bucket, "bits": _bits_equal(got, want)}
+
+
+def mesh_kernel_shapes(torch, device, cfg, eng, bucket):
+    """Each kernel at one rank's own shapes on the 2-rank path against its
+    plain version, f32 on dyadic grids, each also bit-equal to a second
+    call: the train step over the rank's block of G clients (batches of
+    the run's size, one client masked whole as an unselected one is, one
+    batch short of full), the forward client-major over the block's
+    validation (and vote) rows, dev rows (the mse_avg weights), test rows
+    and train rows (the meshed engine's bank fit), and routed over one
+    meshed serving bucket of `bucket` rows; the distances of that bucket
+    to the block's G banks."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.fused_train import (fused_train_grads,
+                                                  fused_train_grads_plain)
+    d = eng.data
+    g, b = d.train_xb.shape[0], d.train_xb.shape[2]
+    layout = ParamLayout(*DIMS)
+    kw = dict(layout=layout, shrink_lambda=cfg.shrink_lambda)
+    gen = torch.Generator().manual_seed(SEED + 60)
+    flat, xt = grid_inputs(torch, layout, g, 4 * b, gen, device)
+    m = torch.ones((g, 4 * b), device=device)
+    m[0] = 0.0  # an unselected client
+    m[-1, -5:] = 0.0
+
+    def err_nan(a, c):  # the masked client's loss and grads are NaN
+        if not torch.equal(a.isnan(), c.isnan()):
+            return float("inf")
+        return scaled_err(a[~a.isnan()], c[~c.isnan()])
+
+    err = 0.0
+    for k in range(4):
+        x = xt[:, k * b:(k + 1) * b].contiguous()
+        mb = m[:, k * b:(k + 1) * b].contiguous()
+        got = fused_train_grads(flat, x, mb, **kw)
+        again = fused_train_grads(flat, x, mb, **kw)
+        if not all(torch.equal(a.nan_to_num(), c.nan_to_num())
+                   for a, c in zip(got, again)):
+            raise AssertionError(f"[parallel] train step, batch {k}: not "
+                                 "bit-equal to a second call")
+        err = max(err, max(err_nan(a, c) for a, c in zip(
+            got, fused_train_grads_plain(flat, x, mb, **kw))))
+    worst = {f"train step, G = {g}, 4 batches of {b}": err}
+    if not err <= TOL["f32"]:
+        raise AssertionError(f"[parallel] train step vs plain: {err:.3e}")
+    per = lambda t: int(np.prod(t.shape[1:-1]))  # rows a client
+    worst.update(routed_kernel_shapes(
+        torch, device, "parallel", g,
+        [(g * per(d.valid_xb), "client_major"),
+         (g * d.dev_x.shape[0], "client_major"),
+         (g * per(d.test_x), "client_major"),
+         (g * per(d.train_xb), "client_major"), (bucket, "random")],
+        dist_rows=(bucket,)))
+    return worst
+
+
+def parallel_rank(mesh, tier_n, cohort, block):
+    """(b)-(d) on one rank of the 2-rank gloo launch on the one card (the
+    rank entry: fedmse_tpu_torch/parallel/launch.py). Each rank counts
+    its own launches per part (the meshed runs only), then holds each
+    kernel to its plain version at the rank's own shapes."""
+    import torch
+    from fedmse_tpu_torch.config import ExperimentConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = mesh.device
+    cfg, data = parallel_quick(torch, ExperimentConfig())
+    out, launches = {"rank": mesh.rank, "device": str(device)}, {}
+    for part in ("b", "c", "d"):
+        launches[part] = {}
+    with counted_launches(launches["b"]):
+        for name, kw in (("shard_map", {}),
+                         ("quantized", {"quant_hosts": mesh.world_size,
+                                        "quant_block_size": block})):
+            out[name], eng = mesh_quick_run(
+                torch, cfg.replace(aggregation_backend=name, **kw), data,
+                mesh, device)
+    out["merge_err"], out["merge_bound"] = quantized_vs_exact(
+        torch, eng, mesh, block)
+    mesh.barrier()
+    out["card_mib_both_ranks"] = card_memory_mib()
+    mesh.barrier()
+    from fedmse_tpu_torch.parallel.costmodel import plan_merge
+    out["plan"] = plan_merge(mesh, [eng.layout.size], repeats=5)
+    with counted_launches(launches["c"]):
+        out["tier"] = mesh_tier(torch, cfg, mesh, device, tier_n, cohort,
+                                host_sharded=True)
+    out["serve"] = mesh_serving(torch, cfg, out["shard_map"]["params"],
+                                data, mesh, device, launches["d"])
+    out["kernels_vs_plain"] = mesh_kernel_shapes(
+        torch, device, cfg, eng, out["serve"]["bucket"])
+    out["launches"] = launches
+    return out
+
+
+def phase_parallel(torch, device, cfg, smi):
+    """The client mesh (parallel/) on the card: (a) a one-rank NCCL group:
+    --use-mesh's world-1 quick run equal to the plain run, the collectives
+    on CUDA tensors, plan_merge's table; (b)-(d) two gloo ranks on the one
+    card (parallel_rank), held to the dense card run and to each other.
+    Launch counters set to 0 before and read after each meshed run (the
+    world-1 mesh run, each rank's sharded runs, tier and meshed engine;
+    not the plain runs they are held to), summed over the parent and the
+    ranks (the parallel path)."""
+    import torch.distributed as dist
+    from fedmse_tpu_torch.parallel import collectives as coll
+    from fedmse_tpu_torch.parallel import launch, multihost
+    from fedmse_tpu_torch.parallel.costmodel import plan_merge
+    from fedmse_tpu_torch.parallel.mesh import client_mesh
+    t0 = time.perf_counter()
+    qc, data = parallel_quick(torch, cfg)
+    report = {}
+    PARALLEL_LAUNCHES.clear()
+    store_path = os.path.join(ROOT, "build", f"parallel_store_{os.getpid()}")
+    if os.path.exists(store_path):
+        os.remove(store_path)
+    cuda = device.type == "cuda"
+    multihost.initialize(store=dist.FileStore(store_path, 1), world_size=1,
+                         rank=0, backend="nccl" if cuda else "gloo",
+                         device=device.type)
+    try:
+        mesh1 = client_mesh(device=device)
+        dense, _ = mesh_quick_run(torch, qc, data, None, device)
+        with counted_launches(PARALLEL_LAUNCHES):
+            one, eng1 = mesh_quick_run(torch, qc, data, mesh1, device)
+        same = (one["aggregators"] == dense["aggregators"]
+                and all(_bits_equal(a, b) for a, b in zip(one["metrics"],
+                                                          dense["metrics"]))
+                and _bits_equal(one["params"], dense["params"])
+                and _bits_equal(one["final"], dense["final"]))
+        report["a_world1_equals_plain"] = same
+        if not same:
+            raise AssertionError("[parallel] (a) the world-1 mesh run is "
+                                 "not the plain run's bits")
+        # a mesh of one is no mesh: the same graphs, one stretch each
+        shape = [{g: (st["nodes"], st["segments"], st["kernels_per_replay"])
+                  for g, st in r["graphs"].items()} for r in (one, dense)]
+        report["a_graphs"] = {g: st["nodes"]
+                              for g, st in dense["graphs"].items()}
+        if shape[0] != shape[1] or any(
+                st["segments"] > 1 for st in dense["graphs"].values()):
+            raise AssertionError(f"[parallel] (a) graphs differ: {shape}")
+        p, sel, dev_x = eng1.states.params, eng1.data.client_mask, \
+            eng1.data.dev_x
+        plain_m, plain_w = eng1.aggregate(p, sel, dev_x)
+        sm_m, sm_w = coll.make_shardmap_aggregate(
+            eng1.model, "mse_avg", mesh1)(p, sel, dev_x)
+        q1_m, _ = coll.make_hierarchical_aggregate(
+            eng1.model, "mse_avg", mesh1, num_groups=1)(p, sel, dev_x)
+        torch.cuda.synchronize()
+        report["a_collectives"] = {
+            "backend": mesh1.backend,
+            "shard_map_equals_einsum": _bits_equal(sm_m.cpu(), plain_m.cpu())
+            and _bits_equal(sm_w.cpu(), plain_w.cpu()),
+            "quantized_one_group_equals_shard_map": _bits_equal(
+                q1_m.cpu(), sm_m.cpu())}
+        log(f"[parallel] (a) world 1 on {mesh1.backend}: the --use-mesh "
+            f"quick run is the plain run's bits ({dense['aggregators']}, "
+            f"AUC {dense['auc']:.6f}) and graphs (one stretch each, nodes "
+            f"{json.dumps(report['a_graphs'])}); collectives on CUDA tensors "
+            f"{json.dumps(report['a_collectives'])}")
+        if not all(v for k, v in report["a_collectives"].items()
+                   if k != "backend"):
+            raise AssertionError(f"[parallel] (a) {report['a_collectives']}")
+        plan = plan_merge(mesh1, [eng1.layout.size], repeats=5)
+        report["a_plan"] = plan
+        for c in plan["candidates"]:
+            log(f"[watch] plan_merge world 1 ({mesh1.backend}) "
+                f"{c['backend']} groups={c['num_groups']} "
+                f"block={c['block_size']}: wall {c['wall_s'] * 1e3:.5f} ms "
+                f"({smi})")
+    finally:
+        multihost.shutdown()
+        if os.path.exists(store_path):
+            os.remove(store_path)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    workdir = os.path.join(ROOT, "build", "parallel_ranks")
+    shutil.rmtree(workdir, ignore_errors=True)
+    outs = launch.spawn(PARALLEL_WORLD, PARALLEL_JOB,
+                        {"tier_n": PARALLEL_TIER_N,
+                         "cohort": PARALLEL_TIER_COHORT,
+                         "block": PARALLEL_BLOCK},
+                        backend="gloo", device=device.type, workdir=workdir,
+                        timeout_s=600)
+    shutil.rmtree(workdir, ignore_errors=True)  # kept after a failure
+    report["ranks_s"] = time.perf_counter() - t1
+    r0 = outs[0]
+    for r in outs[1:]:  # every rank's results: the same bits
+        for key in ("shard_map", "quantized", "tier"):
+            same = r[key]["aggregators"] == r0[key]["aggregators"] and all(
+                _bits_equal(r[key][f], r0[key][f])
+                for f in ("final", "params") if f in r[key])
+            if not same:
+                raise AssertionError(f"[parallel] rank {r['rank']}'s {key} "
+                                     "results differ from rank 0's")
+    sm = r0["shard_map"]
+    scale = max(1.0, float(np.abs(dense["params1"]).max()))
+    p1_err = float(np.abs(sm["params1"] - dense["params1"]).max()) / scale
+    report["b"] = {
+        "elections": sm["aggregators"], "dense_elections":
+        dense["aggregators"], "round1_param_err_scaled": p1_err,
+        "auc": sm["auc"], "dense_auc": dense["auc"],
+        "quantized_auc": r0["quantized"]["auc"],
+        "quantized_elections": r0["quantized"]["aggregators"],
+        "merge_err": r0["merge_err"], "merge_bound": r0["merge_bound"],
+        "card_mib_both_ranks": [r["card_mib_both_ranks"] for r in outs],
+        "sharded_round1_s": sm["round1_s"],
+        "sharded_steady_round_s": sm["steady_round_s"],
+        "dense_round1_s": dense["round1_s"],
+        "dense_steady_round_s": dense["steady_round_s"],
+        "leave_segments": sm["graphs"]["leave"]["segments"],
+        "launches": [r["launches"] for r in outs]}
+    log(f"[parallel] (b) 2 gloo ranks on one card, shard_map: elections "
+        f"{sm['aggregators']} (dense {dense['aggregators']}), round-1 "
+        f"params {p1_err:.3e} scaled, AUC {sm['auc']:.6f} (dense "
+        f"{dense['auc']:.6f}); quantized AUC {r0['quantized']['auc']:.6f}, "
+        f"merge error {r0['merge_err']:.3e} <= bound "
+        f"{r0['merge_bound']:.3e}; card memory with both ranks up "
+        f"{report['b']['card_mib_both_ranks']} MiB ({smi})")
+    report["b_plan"] = r0["plan"]
+    for c in r0["plan"]["candidates"]:
+        log(f"[watch] plan_merge 2 gloo ranks, one card: {c['backend']} "
+            f"groups={c['num_groups']} block={c['block_size']}: wall "
+            f"{c['wall_s'] * 1e3:.5f} ms, score {c['score_s'] * 1e3:.5f} ms "
+            f"({smi})")
+    log(f"[parallel] (b) plan_merge chose {json.dumps(r0['plan']['chosen'])}"
+        f" on every rank: "
+        f"{all(r['plan']['chosen'] == r0['plan']['chosen'] for r in outs)}")
+    if any(r["plan"]["chosen"] != r0["plan"]["chosen"] for r in outs):
+        raise AssertionError("[parallel] the ranks chose different plans")
+    log(f"[watch] sharded quick round (2 gloo ranks, one card): round 1 "
+        f"{sm['round1_s']:.4f} s, steady {sm['steady_round_s']:.4f} s; "
+        f"dense {dense['round1_s']:.4f} s / {dense['steady_round_s']:.4f} s "
+        f"({smi})")
+    if sm["aggregators"] != dense["aggregators"] or \
+            sm["selected"] != dense["selected"]:
+        raise AssertionError("[parallel] (b) elections differ from the "
+                             "dense card run")
+    if p1_err > 1e-6 or abs(sm["auc"] - dense["auc"]) > 2e-3:
+        raise AssertionError(f"[parallel] (b) {json.dumps(report['b'])}")
+    if not r0["merge_err"] <= r0["merge_bound"] + 1e-7:
+        raise AssertionError("[parallel] (b) the quantized merge is outside "
+                             "its codec bound")
+    for r in outs:
+        got = r["launches"]["b"]
+        if got.get("fused_ae_forward", 0) < 1 or \
+                got.get("fused_ae_train", 0) < 1:
+            raise AssertionError(f"[parallel] rank {r['rank']} never "
+                                 f"launched forward and train: {got}")
+    tier = [r["tier"] for r in outs]
+    one_tier = mesh_tier(torch, qc, None, device, PARALLEL_TIER_N,
+                         PARALLEL_TIER_COHORT, host_sharded=False,
+                         selections=tier[0]["selected"])
+    report["c"] = {
+        "auc": tier[0]["auc"], "one_process_auc": one_tier["auc"],
+        "aggregators": tier[0]["aggregators"],
+        "one_process_aggregators": one_tier["aggregators"],
+        "rows": [t["rows"] for t in tier], "cohort": tier[0]["cohort"],
+        "host_state_bytes": [t["host_state_bytes"] for t in tier],
+        "one_process_host_state_bytes": one_tier["host_state_bytes"],
+        "host_data_bytes": [t["host_data_bytes"] for t in tier],
+        "one_process_host_data_bytes": one_tier["host_data_bytes"],
+        "seconds": [t["seconds"] for t in tier],
+        "one_process_seconds": one_tier["seconds"]}
+    log(f"[parallel] (c) host-sharded tier, {PARALLEL_TIER_N} gateways on 2 "
+        f"ranks, C = {tier[0]['cohort']}: AUC {tier[0]['auc']:.6f} (one "
+        f"process {one_tier['auc']:.6f}), rows {report['c']['rows']}, host "
+        f"state bytes {report['c']['host_state_bytes']} (one process "
+        f"{one_tier['host_state_bytes']})")
+    blocks = [(0, PARALLEL_TIER_N // 2),
+              (PARALLEL_TIER_N // 2, PARALLEL_TIER_N)]
+    if [tuple(t["rows"]) for t in tier] != blocks or \
+            abs(tier[0]["auc"] - one_tier["auc"]) > 2e-3 or \
+            2 * tier[0]["host_state_bytes"] != one_tier["host_state_bytes"]:
+        raise AssertionError(f"[parallel] (c) {json.dumps(report['c'])}")
+    report["d"] = [r["serve"] for r in outs]
+    log(f"[parallel] (d) meshed kNN engine on 2 ranks: "
+        f"{json.dumps(report['d'])}")
+    if not all(s["bits"] and s["gateway_sharded"] for s in report["d"]):
+        raise AssertionError("[parallel] (d) the meshed engine's scores are "
+                             "not the unsharded engine's bits")
+    for r in outs:
+        if r["launches"]["d"].get("dist_tiles", 0) < 1:
+            raise AssertionError(f"[parallel] rank {r['rank']}'s meshed kNN "
+                                 "engine never launched the distances")
+        for part in r["launches"].values():
+            for k, v in part.items():
+                PARALLEL_LAUNCHES[k] = PARALLEL_LAUNCHES.get(k, 0) + v
+    report["kernels_vs_plain"] = [r["kernels_vs_plain"] for r in outs]
+    log(f"[parallel] kernels at each rank's shapes agree with their plain "
+        f"versions and with a second call: "
+        f"{json.dumps(report['kernels_vs_plain'])}")
+    report["launches"] = dict(PARALLEL_LAUNCHES)
+    log(f"[parallel] parallel path launches {json.dumps(report['launches'])}")
+    for name in ("fused_ae_forward", "fused_ae_train", "dist_tiles"):
+        if report["launches"].get(name, 0) < 1:
+            raise AssertionError(f"the parallel path never launched {name}")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[parallel] done in {report['seconds']:.1f} s ({smi})")
+    return report
+
+
 def report_train(torch, device, launches, worst):
     """The train kernel's and its plain version's times and bounds at the
     main path's step shape (5 clients x 12 rows) and at 512 clients."""
@@ -5695,6 +6165,7 @@ def run(torch, cfg, smi, t_start) -> int:
     tune = phase_tune(torch, device, cfg, data, writer, names, smi)
     net = phase_net(torch, device, cfg, data, names, smi)
     gateway = phase_gateway(torch, device, smi)
+    parallel = phase_parallel(torch, device, cfg, smi)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
     training["fused_hold"] = phase_fused_hold(torch, device, cfg, clients)
@@ -5719,6 +6190,8 @@ def run(torch, cfg, smi, t_start) -> int:
         kernel["net_path_launches"] = net["launches"][kernel["name"]]
         kernel["gateway_path_launches"] = \
             gateway["launches"][kernel["name"]]
+        kernel["parallel_path_launches"] = \
+            parallel["launches"].get(kernel["name"], 0)
     line["robust"] = robust
     line["cluster"] = cluster
     line["redteam"] = redteam
@@ -5728,6 +6201,7 @@ def run(torch, cfg, smi, t_start) -> int:
     line["tune"] = tune
     line["net"] = net
     line["gateway"] = gateway
+    line["parallel"] = parallel
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

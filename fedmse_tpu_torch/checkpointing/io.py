@@ -32,7 +32,11 @@ the curve. A snapshot written by either package resumes in the other.
 The tiered layout writes its host tier padded to the dense width
 (federation/tiered.py `states_for_checkpoint`) and restores with
 device="cpu" (`restore_states`), so a dense snapshot resumes a tiered run
-and a tiered snapshot a dense one.
+and a tiered snapshot a dense one. A host-sharded tier over W ranks
+writes the pod format at H = W (`save_shard`: each rank its rows in
+`{tag}.podshard{j}of{H}.npz`, rank 0 the manifest, then a barrier), and
+`restore(rows=)` reassembles any rows from whichever shards hold them: a
+snapshot saved at W ranks resumes at 1, and the other way round.
 """
 
 from __future__ import annotations
@@ -258,22 +262,12 @@ class CheckpointManager:
     def _path(self, tag: str) -> str:
         return os.path.join(self.directory, tag)
 
-    def _shard_path(self, tag: str) -> str:
-        return self._path(tag) + ".podshard0of1.npz"
+    def _shard_path(self, tag: str, j: int = 0, h: int = 1) -> str:
+        return self._path(tag) + f".podshard{j}of{h}.npz"
 
-    def save(self, tag: str, states: ClientStates, host: HostState,
-             round_index: int, *, layout: ParamLayout,
-             extra: Optional[Dict] = None,
-             tracking: Optional[np.ndarray] = None) -> None:
-        """Write the snapshot of `round_index` rounds done; each file is
-        written to a temporary name and moved into place."""
-        arrays = dict(_keyed_leaves(
-            client_states_to_numpy(states, layout)._asdict()))
-        n = states.params.shape[0]
-        path = self._shard_path(tag)
-        np.savez(path + ".tmp.npz", **arrays)
-        os.replace(path + ".tmp.npz", path)
-        meta = {"n_real": n, "blocks": [[0, n]],
+    def _write_meta(self, tag: str, n: int, blocks, host: HostState,
+                    round_index: int, extra, tracking) -> None:
+        meta = {"n_real": n, "blocks": [list(b) for b in blocks],
                 "aggregation_count": host.aggregation_count.tolist(),
                 "votes_received": host.votes_received.tolist(),
                 "rounds_aggregated": [list(map(int, x))
@@ -289,6 +283,51 @@ class CheckpointManager:
             os.replace(tpath + ".tmp.npz", tpath)
         elif os.path.exists(tpath):
             os.remove(tpath)  # an older curve must not outlive its round
+
+    def save(self, tag: str, states: ClientStates, host: HostState,
+             round_index: int, *, layout: ParamLayout,
+             extra: Optional[Dict] = None,
+             tracking: Optional[np.ndarray] = None) -> None:
+        """Write the snapshot of `round_index` rounds done; each file is
+        written to a temporary name and moved into place."""
+        arrays = dict(_keyed_leaves(
+            client_states_to_numpy(states, layout)._asdict()))
+        n = states.params.shape[0]
+        path = self._shard_path(tag)
+        np.savez(path + ".tmp.npz", **arrays)
+        os.replace(path + ".tmp.npz", path)
+        self._write_meta(tag, n, [(0, n)], host, round_index, extra,
+                         tracking)
+
+    def save_shard(self, tag: str, states: ClientStates, host: HostState,
+                   round_index: int, start: int, stop: int, blocks, *,
+                   layout: ParamLayout, extra: Optional[Dict] = None,
+                   tracking: Optional[np.ndarray] = None,
+                   mesh=None) -> None:
+        """This rank's rows [start, stop) (one of `blocks`, the ranks'
+        tier blocks in rank order) as shard j of H, and on rank 0 the
+        manifest and the curve. Collective on `mesh`: every rank calls it,
+        and a barrier ends it (a snapshot is whole only once every shard
+        landed)."""
+        blocks = [tuple(b) for b in blocks]
+        if (start, stop) not in blocks:
+            raise ValueError(f"({start}, {stop}) is not one of the tier "
+                             f"blocks {blocks}")
+        if states.params.shape[0] != stop - start:
+            raise ValueError(f"shard states hold {states.params.shape[0]} "
+                             f"rows; block ({start}, {stop}) holds "
+                             f"{stop - start}")
+        j, h = blocks.index((start, stop)), len(blocks)
+        arrays = dict(_keyed_leaves(
+            client_states_to_numpy(states, layout)._asdict()))
+        path = self._shard_path(tag, j, h)
+        np.savez(path + ".tmp.npz", **arrays)
+        os.replace(path + ".tmp.npz", path)
+        if mesh is None or mesh.rank == 0:
+            self._write_meta(tag, blocks[-1][1], blocks, host, round_index,
+                             extra, tracking)
+        if mesh is not None:
+            mesh.barrier()
 
     @staticmethod
     def _validate_extra(tag: str, saved: Dict,
@@ -313,31 +352,43 @@ class CheckpointManager:
     def restore(self, tag: str, *, layout: ParamLayout,
                 device: DeviceLike = "cuda",
                 expected_extra: Optional[Dict] = None,
-                extra_defaults: Optional[Dict] = None):
+                extra_defaults: Optional[Dict] = None,
+                rows: Optional[Tuple[int, int]] = None):
         """(states on `device`, host, round_index, tracking or None) of a
-        one-shard snapshot, after `expected_extra` is checked against the
-        recorded extra."""
+        snapshot, after `expected_extra` is checked against the recorded
+        extra: rows [start, stop) = `rows` (default: all of them),
+        reassembled from whichever of its H shards hold them."""
         device = resolve_device(device)  # before any file is read
         with open(self._path(tag) + ".pod.json") as f:
             meta = json.load(f)
         self._validate_extra(tag, meta.get("extra", {}), expected_extra,
                              extra_defaults)
-        if len(meta["blocks"]) != 1:
-            raise ValueError(f"checkpoint {tag!r} has {len(meta['blocks'])}"
-                             " shards; this manager restores one")
-        n = meta["n_real"]
+        blocks = [tuple(b) for b in meta["blocks"]]
+        start, stop = rows if rows is not None else (0, meta["n_real"])
+        if not 0 <= start < stop <= meta["n_real"]:
+            raise ValueError(f"rows ({start}, {stop}) outside checkpoint "
+                             f"{tag!r}'s {meta['n_real']}")
+        n = stop - start
         like = client_states_to_numpy(
             fresh_states(torch.zeros((n, layout.size))), layout)._asdict()
-        path = self._shard_path(tag)
-        with np.load(path) as z:
-            shapes = {k: np.shape(v) for k, v in _keyed_leaves(like)}
-            missing = [k for k in shapes if k not in z.files]
-            if missing:
-                raise ValueError(
-                    f"{path} lacks state leaves {missing[:3]}"
-                    f"{'...' if len(missing) > 3 else ''}; was it saved "
-                    f"for another model or state layout?")
-            arrays = {k: z[k] for k in shapes}
+        shapes = {k: np.shape(v) for k, v in _keyed_leaves(like)}
+        parts: Dict[str, List[np.ndarray]] = {k: [] for k in shapes}
+        for j, (lo, hi) in enumerate(blocks):
+            a, b = max(lo, start), min(hi, stop)
+            if a >= b:
+                continue
+            path = self._shard_path(tag, j, len(blocks))
+            with np.load(path) as z:
+                missing = [k for k in shapes if k not in z.files]
+                if missing:
+                    raise ValueError(
+                        f"{path} lacks state leaves {missing[:3]}"
+                        f"{'...' if len(missing) > 3 else ''}; was it saved "
+                        f"for another model or state layout?")
+                for k in shapes:
+                    parts[k].append(z[k][a - lo:b - lo])
+        arrays = {k: np.concatenate(v, axis=0) for k, v in parts.items()}
+        path = self._shard_path(tag, 0, len(blocks))
         for k, shape in shapes.items():
             if arrays[k].shape != shape:
                 raise ValueError(f"{path} holds {k} of shape "
@@ -356,9 +407,14 @@ class CheckpointManager:
         return states, host, int(meta["round_index"]), tracking
 
     def exists(self, tag: str) -> bool:
-        """True iff the manifest and the shard are on disk."""
-        return (os.path.exists(self._path(tag) + ".pod.json")
-                and os.path.exists(self._shard_path(tag)))
+        """True iff the manifest and every shard it names are on disk."""
+        mpath = self._path(tag) + ".pod.json"
+        if not os.path.exists(mpath):
+            return False
+        with open(mpath) as f:
+            h = len(json.load(f)["blocks"])
+        return all(os.path.exists(self._shard_path(tag, j, h))
+                   for j in range(h))
 
     def extra(self, tag: str) -> Dict:
         """The snapshot's recorded extra."""

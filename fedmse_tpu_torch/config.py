@@ -223,13 +223,31 @@ class ExperimentConfig:
     # fleet's state in host memory and each round's cohort on the device
     # (federation/tiered.py), non-cohort clients' round metrics NaN
     state_layout: str = "dense"
-    # a tier of this process's clients only: needs the parallel port
-    # (ROADMAP item 7) and raises until then
+    # the tiered layout over a client mesh (parallel/, --host-sharded):
+    # each rank tiers only its block of the real clients
+    # (TieredShardStore), and the cohort is drawn so that each rank's
+    # lanes hold its own clients
     host_sharded: bool = False
-    # the merge's backend: only the dense weighted mean ('einsum') runs
-    # without a mesh; the tiered engine degrades 'auto', 'shard_map' and
-    # 'quantized' to it with a warning, as the JAX engine does off-mesh
+    # the merge's backend when the client axis is sharded over a mesh
+    # (parallel/collectives.py): 'einsum' and 'shard_map' are the exact
+    # merge (each rank's f32 partial, gathered and summed in rank order),
+    # 'quantized' the two-level int8 merge (exact within a host group,
+    # blockwise int8 across groups, dequantized and summed in f32), 'auto'
+    # the measured plan (parallel/costmodel.plan_merge). Off a mesh every
+    # backend is the dense weighted mean, with one warning
     aggregation_backend: str = "einsum"
+    # the mesh's axis name (the JAX package's; a label here)
+    client_axis_name: str = "clients"
+    # the cross-host rate the 'auto' plan's wire term assumes, GB/s: a
+    # planning constant of the JAX package's pod, not a measured rate of
+    # any link here
+    merge_dcn_gbps: float = 25.0
+    # elements per f32 scale of the quantized merge's int8 blocks
+    quant_block_size: int = 256
+    # host groups of the quantized merge: 0 = the real hosts (one group
+    # per host: on one host it is the exact merge), N > 0 = N contiguous
+    # groups of ranks play hosts
+    quant_hosts: int = 0
 
     compat: CompatConfig = dataclasses.field(default_factory=CompatConfig)
 

@@ -10,7 +10,9 @@ fedmse_tpu/federation/aggregation.py).
 The merged model is `weights @ params` [N] x [N, P] in f32 (TF32 must be
 off on the card: the broadcast every client verifies is this product).
 `make_raw_weights_fn` is the unnormalized weighting both the single-global
-merge and the clustered one (cluster/merge.py) share.
+merge and the clustered one (cluster/merge.py) share. `make_aggregate_for`
+selects the merge of a backend: on a sharded client mesh the collective
+merges of parallel/collectives.py.
 """
 
 from __future__ import annotations
@@ -120,3 +122,44 @@ def make_aggregate_fn(model, update_type: str) -> Callable:
         return weighted_mean(params, weights), weights
 
     return aggregate
+
+
+BACKENDS = ("auto", "einsum", "shard_map", "quantized")
+
+
+def make_aggregate_for(model, update_type: str, backend: str, mesh=None,
+                       quant_hosts: int = 0, quant_block_size: int = 256,
+                       cluster_k: int = 0) -> Callable:
+    """The merge of an EFFECTIVE backend (the engine resolves 'auto' and
+    degrades off a mesh first). Off a sharded mesh 'einsum' is the dense
+    merge; on one, 'einsum' and 'shard_map' are the exact collective merge
+    (parallel/collectives.py) and 'quantized' the two-level int8 merge.
+    `cluster_k` > 1 selects the K-cluster twin: fn(params, sel_mask, dev_x,
+    cluster_in, sel_idx=None) -> (cluster_params [K, P], weights,
+    has_update [K])."""
+    sharded = mesh is not None and mesh.sharded
+    if backend not in ("einsum", "shard_map", "quantized"):
+        raise ValueError(f"unknown aggregation_backend {backend!r} "
+                         "(einsum | shard_map | quantized)")
+    if backend != "einsum" and not sharded:
+        raise ValueError(f"aggregation_backend={backend!r} needs a mesh "
+                         "(the client axis must be sharded)")
+    from fedmse_tpu_torch.parallel import collectives as coll
+    if cluster_k > 1:
+        if not sharded:
+            from fedmse_tpu_torch.cluster.merge import \
+                make_clustered_aggregate_fn
+            return make_clustered_aggregate_fn(model, update_type, cluster_k)
+        if backend == "quantized":
+            return coll.make_clustered_hierarchical_aggregate(
+                model, update_type, mesh, cluster_k, num_groups=quant_hosts,
+                block_size=quant_block_size)
+        return coll.make_clustered_shardmap_aggregate(model, update_type,
+                                                      mesh, cluster_k)
+    if not sharded:
+        return make_aggregate_fn(model, update_type)
+    if backend == "quantized":
+        return coll.make_hierarchical_aggregate(
+            model, update_type, mesh, num_groups=quant_hosts,
+            block_size=quant_block_size)
+    return coll.make_shardmap_aggregate(model, update_type, mesh)

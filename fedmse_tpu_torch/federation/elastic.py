@@ -208,15 +208,21 @@ def apply_membership_transitions(store, member: np.ndarray,
     the JAX tier); a leaving slot's Adam state is zeroed. With
     `assignment` ([N] gateway -> cluster) and k > 1 a joiner takes its
     own cluster's incumbent mean, the fleet's when its cluster has no
-    incumbent. `merge_partials` (the host-sharded tier's cross-host sum)
-    waits for the parallel port and must be None."""
-    if merge_partials is not None:
-        raise ValueError("merge_partials serves host-sharded tiers, which "
-                         "wait for the parallel port (ROADMAP queue 1, "
-                         "item 7)")
+    incumbent.
+
+    A host-sharded tier (state.TieredShardStore) holds only rows [start,
+    stop): the masks stay fleet-wide, the mean's sums run over the local
+    columns, and `merge_partials` (parallel.multihost.allgather_tree_sum)
+    adds the ranks' partials in rank order; every rank must call it
+    whenever the fleet has joiners. Writes touch local rows only. A store
+    of the whole fleet with no `merge_partials` is the plain sum, bit for
+    bit."""
     member = np.asarray(member) > 0
     joined_b = np.asarray(joined) > 0
     left_b = np.asarray(left) > 0
+    n = len(member)
+    start = getattr(store, "start", 0)
+    stop = getattr(store, "stop", n)
     host = store.host
     if joined_b.any():
         incumbents = (member & ~joined_b).astype(np.float32)
@@ -234,17 +240,23 @@ def apply_membership_transitions(store, member: np.ndarray,
             sheet /= np.maximum(counts, 1.0)[:, None]
             w_rows = np.where(has[assignment[rows], None],
                               sheet[assignment[rows]], fleet_w[None, :])
-            mean = np.einsum("jn,n...->j...", w_rows, p32)
+            mean = np.einsum("jn,n...->j...", w_rows[:, start:stop], p32)
         else:
-            mean = np.einsum("n,n...->...", fleet_w, p32)
+            mean = np.einsum("n,n...->...", fleet_w[start:stop], p32)
+        if merge_partials is not None:
+            mean = merge_partials([mean])[0]
         mean = mean.astype(params.dtype)
-        params[rows] = mean
-        host.prev_global.numpy()[rows] = mean
-        host.hist_params.numpy()[rows] = 0
-        host.hist_perf.numpy()[rows] = 0.0
-        host.hist_seen.numpy()[rows] = False
-        host.rejected.numpy()[rows] = 0
-    reset = joined_b | left_b
+        mine = (rows >= start) & (rows < stop)
+        local = rows[mine] - start
+        if mean.ndim == 2:
+            mean = mean[mine]
+        params[local] = mean
+        host.prev_global.numpy()[local] = mean
+        host.hist_params.numpy()[local] = 0
+        host.hist_perf.numpy()[local] = 0.0
+        host.hist_seen.numpy()[local] = False
+        host.rejected.numpy()[local] = 0
+    reset = (joined_b | left_b)[start:stop]
     if reset.any():
         rows = np.flatnonzero(reset)
         for t in host.opt_state:

@@ -939,3 +939,294 @@ class BatchedFusedRound(FusedRound):
         return self._replay(k, lambda rows: [[self.out.unpack(row)
                                               for row in runs]
                                              for runs in rows])
+
+
+# the hooks' inputs with a leading client axis [N, ...]; the others are
+# per round (scalars, the merge's noise, the re-election's [S, N] draws)
+CLIENT_INPUTS = ("available", "straggler", "bcast_drop", "member", "joined",
+                 "left", "generation", "rt_adv", "rt_vote_ok",
+                 "rt_update_noise")
+
+
+class ShardedFusedRound(FusedRound):
+    """The fused round of one rank of a client mesh (parallel/; the port of
+    the JAX round sharded P('clients') over a mesh). The rank holds the
+    block [lo, hi) of the padded client axis N: `states` and `data` are
+    its rows (the dev set whole), and training, verification and
+    evaluation run on them alone, every client of the block trained and
+    the unselected masked away (`compact` is off on a sharded axis, as in
+    the JAX engine). What crosses ranks is an all-gather
+    (ClientMesh.all_gather) at each point where the round needs the fleet:
+
+      * the vote: the first (effective) selected client's valid split,
+        from its owner; each rank's [n] base scores, gathered to [N];
+      * the election, then, on every rank alike on the same bits
+        (voting.elect_on_device with the chunk's selections, draws, quota
+        and masks, all fleet-wide): no broadcast;
+      * the merge (`aggregate`, from parallel/collectives.py), the chaos
+        axis's mean model (`divergence`) and an elastic joiner's
+        incumbent mean, as gathered partials summed in rank order;
+      * the chunk's outputs, gathered once at the chunk's end (each rank
+        packs its rows; the harvest assembles the fleet's, the same on
+        every rank).
+
+    On the card each body is a CapturedBody (ops/graphs.py): the
+    graphs between the collectives are captured, and the collectives are
+    eager calls between replays, on NCCL or gloo alike. The hooks'
+    per-client inputs stay fleet-wide [N] buffers (the election reads
+    them whole); the round reads its block through views."""
+
+    def __init__(self, *, mesh, divergence: Optional[Callable] = None,
+                 n_global: int, **kw):
+        self.mesh = mesh
+        self.n_global = n_global
+        self.lo, self.hi = mesh.block(n_global)
+        self.divergence = divergence
+        if kw.get("compact"):
+            raise ValueError("a sharded client axis trains its block "
+                             "masked: compact=False")
+        super().__init__(**kw)
+
+    def _buffers(self, n: int, p: int, tie_break: bool,
+                 metric_shape: Tuple[int, ...]) -> None:
+        cap, cohort, dev = self.capacity, self.cohort_size, self.device
+        big, i64 = self.n_global, torch.int64
+        if n != self.hi - self.lo:
+            raise ValueError(f"a rank's states hold {n} rows; its block of "
+                             f"{big} is [{self.lo}, {self.hi})")
+        self.ids = torch.arange(big, device=dev)
+        self.local_ids = torch.arange(self.lo, self.hi, device=dev)
+        self.sel_all = torch.zeros((cap, cohort), dtype=i64, device=dev)
+        self.u_all = (torch.zeros((cap, cohort, big), device=dev)
+                      if tie_break else None)
+        self.slot = torch.zeros((), dtype=i64, device=dev)
+        self.agg_count = torch.zeros(big, dtype=torch.int32, device=dev)
+        self.sel = torch.zeros(cohort, dtype=i64, device=dev)
+        self.sel_mask_all = torch.zeros(big, device=dev)
+        self.sel_mask = self.sel_mask_all[self.lo:self.hi]
+        self.u = (torch.zeros((cohort, big), device=dev) if tie_break
+                  else None)
+        self.cluster_in = (torch.zeros(big, dtype=i64, device=dev)
+                           if self.clustered else None)
+        self.cluster_local = (self.cluster_in[self.lo:self.hi]
+                              if self.clustered else None)
+        self._hook_buffers(big, p, tie_break)
+        self.local_in = {k: v[self.lo:self.hi]
+                         for k, v in self.round_in.items()
+                         if k in CLIENT_INPUTS}
+        self._cohort_buffers(torch.arange(n, device=dev))
+        self.out = OutLayout(n, metric_shape, self.trainer.epochs,
+                             self.chaos, self.elastic)
+        self.out_all = OutLayout(big, metric_shape, self.trainer.epochs,
+                                 self.chaos, self.elastic)
+        self.out_stack = torch.zeros((cap, self.out.width), device=dev)
+
+    # ---- the bodies ---- #
+
+    def _enter(self) -> None:
+        d, st = self.data, self.states
+        at = self.slot.view(1)
+        self.sel.copy_(self.sel_all.index_select(0, at)[0])
+        self.sel_mask_all.zero_()
+        self.sel_mask_all.index_fill_(0, self.sel, 1.0)
+        if self.u is not None:
+            self.u.copy_(self.u_all.index_select(0, at)[0])
+        for k, buf in self.round_in.items():
+            buf.copy_(self.chunk_in[k].index_select(0, at)[0])
+        if self.elastic:
+            self._join_and_leave()
+        self.trainer.begin(self.co, st.params, st.opt_state, st.prev_global,
+                           d.train_xb, d.train_mb, d.valid_xb, d.valid_mb)
+
+    def _join_and_leave(self) -> None:
+        st, r, loc = self.states, self.round_in, self.local_in
+        # padding never joins (the mask is a buffer: a tier rewrites it)
+        r["member"].mul_(self.mesh.all_gather(
+            self.data.client_mask).reshape(-1))
+        joined, left = loc["joined"] > 0, loc["left"] > 0
+        incumbents = r["member"] * (1.0 - r["joined"])
+        mean = self._incumbent_mean(st.params, incumbents)
+        rows = joined[:, None]
+        torch.where(rows, mean, st.params, out=st.params)
+        torch.where(rows, mean, st.prev_global, out=st.prev_global)
+        reset = joined | left
+        for t in st.opt_state:
+            t.masked_fill_(reset.view((-1,) + (1,) * (t.dim() - 1)), 0)
+        st.hist_params.masked_fill_(rows, 0)
+        for t in (st.hist_perf, st.hist_seen, st.rejected, st.waived):
+            t.masked_fill_(joined, 0)
+
+    def _incumbent_mean(self, params, incumbents) -> torch.Tensor:
+        """The joiners' model from the fleet's incumbents [N]: [P], or this
+        rank's rows [n, P] when clustered."""
+        from fedmse_tpu_torch.parallel.collectives import (
+            sharded_clustered_incumbent_means, sharded_weighted_mean)
+        if self.clustered:
+            return sharded_clustered_incumbent_means(
+                self.mesh, params, incumbents, self.cluster_in,
+                self.cluster_k)
+        w = client_mean_weights(incumbents)[self.lo:self.hi]
+        return sharded_weighted_mean(self.mesh, params, w)
+
+    def _effective_all(self) -> torch.Tensor:
+        """The fleet's effective cohort [N]."""
+        r = self.round_in
+        eff = self.sel_mask_all
+        if self.chaos:
+            eff = eff * r["available"] * (1.0 - r["straggler"])
+        if self.elastic:
+            eff = eff * r["member"]
+        return eff
+
+    def _vote_rows(self, voter0: torch.Tensor):
+        """The valid split of client voter0 ([1] global id) from the rank
+        that owns it: every rank offers its row at voter0's local index
+        (clamped), and the owner's is taken."""
+        d, n = self.data, self.hi - self.lo
+        owner = torch.div(voter0, n, rounding_mode="floor")
+        local = torch.clamp(voter0 - self.lo, 0, n - 1)
+        x = self.mesh.all_gather(d.valid_x.index_select(0, local)[0])
+        m = self.mesh.all_gather(d.valid_m.index_select(0, local)[0])
+        return x.index_select(0, owner)[0], m.index_select(0, owner)[0]
+
+    def _received_local(self, aggregator, crashed, has_update):
+        r, got = self.local_in, None
+        if self.chaos:
+            got = ((r["bcast_drop"] <= 0) & (r["available"] > 0)
+                   & (self.local_ids != crashed))
+        if self.elastic:
+            got = r["member"] > 0 if got is None else got & (r["member"] > 0)
+        if has_update is not None:
+            sent = has_update.index_select(0, self.cluster_local)
+            got = sent if got is None else got & sent
+        return got | (self.local_ids == aggregator)
+
+    def _merge_local(self, st, agg_mask, aggregator):
+        d, r = self.data, self.round_in
+        rt_merge = self.redteam is not None \
+            and self.redteam.merge_fn is not None
+        if not self.clustered:
+            merged, weights = self.aggregate(st.params, agg_mask, d.dev_x)
+            if self.poison is not None:
+                merged = self.poison(merged, r["attack"], r.get("noise"))
+            if rt_merge:
+                merged = self._poison_merge(merged, aggregator, False)
+            return merged, weights, None
+        merged, weights, has_update = self.aggregate(
+            st.params, agg_mask, d.dev_x, self.cluster_local)
+        if self.poison is not None:
+            noise = r.get("noise")
+            merged = self.poison(merged, r["attack"], None if noise is None
+                                 else noise.view(self.cluster_k, -1))
+        if rt_merge:
+            merged = self._poison_merge(merged, aggregator, True)
+        bcast = gather_cluster_rows(merged, self.cluster_local)
+        if self.personalize:
+            bcast = personalized_broadcast(bcast, st.params, self.shared)
+        return bcast, weights, has_update
+
+    def _leave(self) -> None:
+        d, st, r, loc = self.data, self.states, self.round_in, self.local_in
+        lo, hi = self.lo, self.hi
+        res = self.trainer.finish(self.co, st.params, st.opt_state,
+                                  self.sel_mask)
+        eff_all = self.sel_mask_all
+        if self.faults:
+            eff_all = self._effective_all()
+        eff = eff_all[lo:hi]
+        if self.faults:
+            lost = (self.sel_mask > 0) & (eff <= 0)
+            nan = float("nan")
+            res = LocalTrainResult(
+                params=tree_select_clients(lost, st.params, res.params),
+                opt_state=res.opt_state.where(~lost, st.opt_state),
+                best_params=res.best_params,
+                min_valid=torch.where(lost, nan, res.min_valid),
+                tracking=torch.where(lost[:, None, None], nan, res.tracking))
+        if self.redteam is not None and self.redteam.update_fn is not None:
+            res = res._replace(params=self.redteam.update_fn(
+                res.params, loc["rt_adv"] * eff, r["rt_active"],
+                loc.get("rt_update_noise")))
+        st.params.copy_(res.params)
+        st.opt_state.copy_(res.opt_state)
+        if self.faults:
+            first = (eff_all.index_select(0, self.sel) > 0).to(
+                torch.int32).argmax().view(1)
+            voter0 = self.sel.index_select(0, first)
+        else:
+            voter0 = self.sel[:1]
+        vote_x, vote_m = self._vote_rows(voter0)
+        base = self.mesh.all_gather(
+            self.base_scores(st.params, vote_x, vote_m)).reshape(-1)
+        aggregator, scores = elect_on_device(
+            base, self.u, self.sel, eff_all, self.agg_count,
+            self.max_threshold, voters=eff_all if self.faults else None,
+            cluster_in=self.cluster_in, **self._election_inputs())
+        crashed, agg_mask = None, eff
+        if self.chaos:
+            aggregator, scores, crashed = self._reelect(base, eff_all,
+                                                        aggregator, scores)
+            agg_mask = torch.where(self.local_ids == crashed, 0.0, eff)
+        won = aggregator >= 0
+        merged, weights, has_update = self._merge_local(st, agg_mask,
+                                                        aggregator)
+        is_agg = self.local_ids == aggregator
+        outcome = self.verify(st, merged, self.ver_x, self.ver_m,
+                              is_agg.to(torch.float32), d.client_mask)
+        new = outcome.states
+        if self.faults or self.clustered:
+            new = new.select(self._received_local(aggregator, crashed,
+                                                  has_update), st)
+        st.where_(won, new)
+        self.agg_count += ((self.ids == aggregator) & won).to(torch.int32)
+        metrics = self.evaluate_all(self.layout.tree(st.params), d.test_x,
+                                    d.test_m, d.test_y, d.train_xb,
+                                    d.train_mb, priorities=self.priorities)
+        hooks = {}
+        if self.faults:
+            hooks["eff_mask"] = eff
+        if self.chaos:
+            hooks["crashed"] = crashed
+            hooks["divergence"] = self.divergence(st.params, d.client_mask)
+        if self.elastic:
+            present = loc["member"] > 0
+            metrics = torch.where(present.view((-1,) + (1,) * (
+                metrics.dim() - 1)), metrics, float("nan"))
+            hooks.update(member=loc["member"], generation=loc["generation"])
+        row = self.out.pack(
+            aggregator=aggregator, metrics=metrics, scores=scores[lo:hi],
+            weights=torch.where(won, weights, 0.0), rejected=st.rejected,
+            min_valid=res.min_valid, tracking=res.tracking, **hooks)
+        self.out_stack.index_copy_(0, self.slot.view(1), row[None])
+        self.slot += 1
+
+    # ---- the host side ---- #
+
+    def _assemble(self, rows: np.ndarray) -> FusedRoundOut:
+        """One round's FusedRoundOut of the fleet from the ranks' packed
+        rows [W, width]: per-client parts concatenated in rank order, the
+        scalars rank 0's (every rank's are the same)."""
+        parts, at = {}, 0
+        for name, shape in self.out.parts():
+            size = int(np.prod(shape))
+            block = rows[:, at:at + size].reshape((rows.shape[0],) + shape)
+            parts[name] = block[0] if shape == () else np.concatenate(
+                list(block), axis=0)
+            at += size
+        flat = np.concatenate([parts[name].reshape(-1)
+                               for name, _ in self.out_all.parts()])
+        return self.out_all.unpack(flat)
+
+    def _replay(self, k: int, unpack: Callable[[np.ndarray], list]
+                ) -> Callable[[], list]:
+        """The bodies for k rounds, then the ranks' output rows gathered
+        (one collective, every rank together): at world > 1 the harvest is
+        synchronous, as the JAX package's multi-process seam is."""
+        self.slot.zero_()
+        for _ in range(k):
+            self.enter()
+            self._epochs()
+            self.leave()
+        rows = self.mesh.all_gather(self.out_stack[:k]).cpu().numpy()
+        outs = [self._assemble(rows[:, i]) for i in range(k)]
+        return lambda: outs

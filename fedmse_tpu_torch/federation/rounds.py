@@ -47,8 +47,17 @@ min-tenure gate, expanded for the whole horizon like the chaos masks
 (`_redteam_masks`; the gate reads the membership timeline, so
 `min_tenure` > 0 needs an ElasticSpec), the poison rounds' flags and, for
 a noise poison, the update and merge noise of the run's red-team stream.
-`redteam_masks=` replaces the drawn masks, as `elastic_masks=` does. Meshes
-are not ported.
+`redteam_masks=` replaces the drawn masks, as `elastic_masks=` does.
+
+A client mesh (`mesh=` a parallel.ClientMesh of more than one rank) shards
+the client axis: the engine keeps its rank's block of the states and data
+and runs `fused.ShardedFusedRound` (the fused path only, compact off), with
+the merge of `cfg.aggregation_backend` resolved at use (`agg_backend`:
+'auto' through the measured plan, parallel/costmodel.plan_merge). A mesh of
+one rank leaves the axis unsharded: the engine is the plain one, and every
+backend degrades to 'einsum' with one warning, as the JAX engine's does
+off a sharded mesh. Every rank must drive its engine through the same
+calls: each round, fit and evaluation is collective.
 """
 
 from __future__ import annotations
@@ -70,16 +79,20 @@ from fedmse_tpu_torch.chaos.masks import (ChaosMasks, make_chaos_masks,
 from fedmse_tpu_torch.cluster import assign as cluster_assign
 from fedmse_tpu_torch.cluster.merge import (make_clustered_aggregate_fn,
                                             shared_mask)
-from fedmse_tpu_torch.federation.aggregation import make_aggregate_fn
+from fedmse_tpu_torch.federation.aggregation import (BACKENDS,
+                                                     make_aggregate_fn,
+                                                     make_aggregate_for)
 from fedmse_tpu_torch.federation.attack import noise_draws
 from fedmse_tpu_torch.federation.elastic import (MembershipMasks,
                                                  make_membership_masks,
                                                  membership_at)
-from fedmse_tpu_torch.federation.fused import FusedRound, FusedRoundOut
+from fedmse_tpu_torch.federation.fused import (FusedRound, FusedRoundOut,
+                                              ShardedFusedRound)
 from fedmse_tpu_torch.federation.local_training import make_local_train_all
 from fedmse_tpu_torch.federation.pipeline import InFlightChunk
 from fedmse_tpu_torch.federation.state import (ClientStates, HostState,
-                                               init_client_states)
+                                               init_client_states,
+                                               shard_client_states)
 from fedmse_tpu_torch.federation.verification import make_verify_fn
 from fedmse_tpu_torch.federation.voting import (elect_aggregator,
                                                 make_mse_scores_fn)
@@ -106,6 +119,8 @@ class RoundResult:
     tracking: np.ndarray                 # [n_real, E, 3] loss curves
     min_valid: np.ndarray                # [n_real] best local valid loss
     metrics_full: Optional[np.ndarray] = None  # [n_real, 3] f1/prec/recall
+    # the merge's effective backend (fused path): 'einsum' off a mesh
+    backend: Optional[str] = None
     # host seconds of each phase, with the device synchronized at each
     # phase's end (RoundEngine(profile=True) only)
     phase_seconds: Optional[Dict[str, float]] = None
@@ -245,15 +260,24 @@ def build_fused_round(model, cfg: ExperimentConfig, fns: Dict, *,
                       ver_m, priorities: Optional[torch.Tensor],
                       cohort: int, capacity: int, compact: bool,
                       poison_fn=None, chaos=None, elastic=None, cluster=None,
-                      redteam_fns=None) -> FusedRound:
+                      redteam_fns=None, mesh=None, n_global: int = 0
+                      ) -> FusedRound:
     """The fused round of `fns` (make_round_fns) on the buffers given: the
     dense engine's at the federation's width N, the tiered engine's at
     its cohort's width C. The round reads and updates these very
-    tensors."""
+    tensors. A sharded `mesh` builds the rank's ShardedFusedRound over
+    the block of an axis of `n_global` (its merge `fns["aggregate"]` /
+    `fns["cluster_aggregate"]` the mesh's, `fns["divergence"]` the chaos
+    mean's)."""
     metric_shape = {"AUC": (), "classification": (3,)}.get(
         cfg.metric, (data.test_x.shape[1],))
     spec = cluster if cluster is not None and not cluster.is_null else None
-    return FusedRound(
+    cls, extra = FusedRound, {}
+    if mesh is not None and mesh.sharded:
+        cls = ShardedFusedRound
+        extra = {"mesh": mesh, "n_global": n_global,
+                 "divergence": fns.get("divergence")}
+    return cls(**extra,
         trainer=fns["train_all"],
         base_scores=make_mse_scores_fn(
             model, restandardize=cfg.compat.restandardize_vote_data,
@@ -273,7 +297,79 @@ def build_fused_round(model, cfg: ExperimentConfig, fns: Dict, *,
         shared=fns["shared"], redteam=redteam_fns)
 
 
-class RoundEngine:
+class MeshBackends:
+    """The merge's backend of an engine over a client mesh, shared by the
+    dense and the tiered engine. The engine sets `cfg`, `mesh`, `sharded`,
+    `model`, `update_type`, `layout`, `fns`, `clustered` / `cluster`,
+    `_merge_plan` (None) and `_warned_backend_off` (False)."""
+
+    @property
+    def agg_backend(self) -> str:
+        """The effective backend, resolved at use: off a sharded mesh every
+        backend is 'einsum' (one warning); 'auto' resolves once through
+        the measured plan."""
+        backend = self.cfg.aggregation_backend
+        if backend == "einsum":
+            return "einsum"
+        if not self.sharded:
+            if not self._warned_backend_off:
+                self._warned_backend_off = True
+                logger.warning(
+                    "aggregation_backend=%s inert: the client axis is not "
+                    "sharded across ranks; using the dense einsum "
+                    "reduction", backend)
+            return "einsum"
+        if backend == "auto":
+            return self._plan_backend()
+        return backend
+
+    def _plan_backend(self) -> str:
+        if self._merge_plan is None:
+            from fedmse_tpu_torch.parallel.costmodel import plan_merge
+            k = self.cluster.k if self.clustered else 1
+            hosts = self.cfg.quant_hosts
+            self._merge_plan = plan_merge(
+                self.mesh, [self.layout.size], k=k, n_hosts=hosts or None,
+                group_counts=(hosts,) if hosts > 0 else None,
+                dcn_gbps=self.cfg.merge_dcn_gbps)
+            logger.info("merge plan (auto): %s", self._merge_plan["chosen"])
+        return self._merge_plan["chosen"]["backend"]
+
+    def _quant_knobs(self, backend: str):
+        """(num_groups, block_size) of the quantized merge: the plan's when
+        'auto' chose it, else the config's."""
+        plan = self._merge_plan
+        if plan is not None and plan["chosen"]["backend"] == backend:
+            return (plan["chosen"]["num_groups"],
+                    plan["chosen"]["block_size"] or self.cfg.quant_block_size)
+        return self.cfg.quant_hosts, self.cfg.quant_block_size
+
+    def _mesh_fns(self) -> Dict:
+        """make_round_fns' functions with the merge (and the chaos mean) of
+        the effective backend on the mesh."""
+        backend = self.agg_backend
+        hosts, block = self._quant_knobs(backend)
+        fns = dict(self.fns)
+        k = self.cluster.k if self.clustered else 0
+        fns["aggregate"] = make_aggregate_for(
+            self.model, self.update_type, backend, self.mesh,
+            quant_hosts=hosts, quant_block_size=block)
+        if k:
+            fns["cluster_aggregate"] = make_aggregate_for(
+                self.model, self.update_type, backend, self.mesh,
+                quant_hosts=hosts, quant_block_size=block, cluster_k=k)
+        from fedmse_tpu_torch.parallel.collectives import \
+            make_shardmap_divergence
+        fns["divergence"] = make_shardmap_divergence(self.mesh)
+        return fns
+
+    def model_params(self):
+        """The clients' params as the stacked flax-layout tree."""
+        return self.layout.tree(self.states.params)
+
+
+
+class RoundEngine(MeshBackends):
     """One (model_type, update_type) federation over stacked client state.
 
     `states` (e.g. client_states_from_numpy of the JAX package's init)
@@ -294,7 +390,10 @@ class RoundEngine:
     fitting one. `redteam` (a RedteamSpec) needs the fused path unless it
     is null, and an ElasticSpec when its `min_tenure` > 0;
     `redteam_masks` (RedteamMasks with [T, N] leaves) replaces its drawn
-    coalition and gate."""
+    coalition and gate. `mesh` (a parallel.ClientMesh) shards the client
+    axis when it has more than one rank (module docstring): `data` and
+    `states` are then the whole federation's, padded to a multiple of the
+    ranks, and the engine keeps its rank's block."""
 
     def __init__(self, model, cfg: ExperimentConfig, data: FederatedData,
                  n_real: int, rngs: ExperimentRngs, model_type: str,
@@ -303,7 +402,7 @@ class RoundEngine:
                  poison_fn=None, chaos=None, elastic=None,
                  elastic_masks: Optional[MembershipMasks] = None,
                  cluster=None, cluster_assignment=None, redteam=None,
-                 redteam_masks: Optional[RedteamMasks] = None):
+                 redteam_masks: Optional[RedteamMasks] = None, mesh=None):
         if cfg.state_layout != "dense":
             raise ValueError(
                 f"state_layout={cfg.state_layout!r}: RoundEngine keeps the "
@@ -345,6 +444,23 @@ class RoundEngine:
             raise ValueError("redteam_masks needs a non-null RedteamSpec: "
                              "the override replaces the spec's masks, not "
                              "its hooks")
+        if cfg.aggregation_backend not in BACKENDS:
+            raise ValueError(f"unknown aggregation_backend "
+                             f"{cfg.aggregation_backend!r} (auto | einsum | "
+                             f"shard_map | quantized)")
+        self.mesh = mesh
+        self.sharded = mesh is not None and mesh.sharded
+        self._warned_backend_off = False
+        self._merge_plan = None
+        self._full_data = data
+        if self.sharded:
+            if not fused or profile:
+                raise ValueError(
+                    "a client axis sharded over a mesh runs the fused round; "
+                    "construct the engine with fused=True (and "
+                    "profile=False)")
+            from fedmse_tpu_torch.parallel.mesh import shard_federation
+            data = shard_federation(data, None, mesh)[0]
         self.redteam = redteam
         self._redteam_fns = make_redteam_fns(redteam)
         self._redteam_override = redteam_masks
@@ -359,7 +475,7 @@ class RoundEngine:
         self.cfg = cfg
         self.data = data
         self.n_real = n_real
-        self.n_pad = data.client_mask.shape[0]
+        self.n_pad = self._full_data.client_mask.shape[0]
         self.rngs = rngs
         self.model_type = model_type
         self.update_type = update_type
@@ -370,7 +486,8 @@ class RoundEngine:
                            "a fused round is not phase-attributable")
         self.device = data.train_xb.device
         self.layout = ParamLayout.of(model)
-        self.compact = cfg.compact_cohort is not False
+        # compact gathers would cross ranks on a sharded axis: off there
+        self.compact = cfg.compact_cohort is not False and not self.sharded
         self.fns = make_round_fns(model, cfg, model_type, update_type,
                                   cluster, self.device)
         self.train_all = self.fns["train_all"]
@@ -378,10 +495,16 @@ class RoundEngine:
         self.aggregate = self.fns["aggregate"]
         self.verify = self.fns["verify"]
         self.evaluate_all = self.fns["evaluate_all"]
+        if states is not None and self.sharded:
+            states = shard_client_states(states, mesh)
         self._init_states = None if states is None else states.clone()
         self.states = self._fresh_states()
         self.host = HostState.create(n_real)
-        self._ver_x, self._ver_m = verification_tensors(cfg, data, n_real)
+        shared_ver = (cfg.verification_method == "dev"
+                      or cfg.compat.shared_last_client_val)
+        self._ver_x, self._ver_m = (
+            t.to(self.device) for t in verification_tensors(
+                cfg, self._full_data if shared_ver else data, n_real))
         self._fused: Optional[FusedRound] = None
         self.cluster = cluster
         self._cluster_assign = None  # the fitted ClusterAssignment
@@ -400,7 +523,8 @@ class RoundEngine:
         if self._init_states is not None:
             return self._init_states.clone()
         return init_client_states(self.model, self.n_pad,
-                                  self.rngs.generator, device=self.device)
+                                  self.rngs.generator, device=self.device,
+                                  mesh=self.mesh)
 
     def reset_federation(self) -> None:
         """Restart from construction state: fresh random streams, the
@@ -432,15 +556,34 @@ class RoundEngine:
                                            self.cohort_size())
 
     def evaluate(self) -> np.ndarray:
-        """The evaluator's output for every real client, as numpy."""
+        """The evaluator's output for every real client, as numpy (on a
+        sharded mesh each rank evaluates its block, and the blocks are
+        gathered: a collective)."""
         d = self.data
+        if not self.sharded:
+            out = self.evaluate_all(self.model_params(), d.test_x, d.test_m,
+                                    d.test_y, d.train_xb, d.train_mb)
+            return out.cpu().numpy()[: self.n_real]
+        from fedmse_tpu_torch.parallel.mesh import host_fetch
+        lo, hi = self.mesh.block(self.n_pad)
+        pri = self.evaluate_all.bank_priorities(
+            self.n_pad, d.train_xb.shape[1] * d.train_xb.shape[2],
+            self.device)
+        pri = None if pri is None else pri[lo:hi]
         out = self.evaluate_all(self.model_params(), d.test_x, d.test_m,
-                                d.test_y, d.train_xb, d.train_mb)
-        return out.cpu().numpy()[: self.n_real]
+                                d.test_y, d.train_xb, d.train_mb,
+                                priorities=pri)
+        return host_fetch(out, self.mesh)[: self.n_real]
 
-    def model_params(self):
-        """The clients' params as the stacked flax-layout tree."""
-        return self.layout.tree(self.states.params)
+    def gathered_states(self) -> ClientStates:
+        """The fleet's states [N, ...] on the host (CPU tensors), the same
+        on every rank: a collective on a sharded mesh, a copy otherwise."""
+        if not self.sharded:
+            return self.states.apply(lambda t: t.detach().to("cpu",
+                                                             copy=True))
+        from fedmse_tpu_torch.parallel.mesh import host_fetch
+        return self.states.apply(
+            lambda t: torch.from_numpy(host_fetch(t, self.mesh)))
 
     # ---- the fused path (federation/fused.py) ---- #
 
@@ -454,17 +597,24 @@ class RoundEngine:
         f = self._fused
         if f is None or f.cohort_size != cohort or f.capacity < n_rounds:
             d = self.data
+            priorities = self.evaluate_all.bank_priorities(
+                self.n_pad, d.train_xb.shape[1] * d.train_xb.shape[2],
+                self.device)
+            if self.sharded and priorities is not None:
+                lo, hi = self.mesh.block(self.n_pad)
+                priorities = priorities[lo:hi]
             f = build_fused_round(
-                self.model, self.cfg, self.fns, states=self.states.clone(),
+                self.model, self.cfg,
+                self._mesh_fns() if self.sharded else self.fns,
+                states=self.states.clone(),
                 data=d, ver_x=self._ver_x, ver_m=self._ver_m,
-                priorities=self.evaluate_all.bank_priorities(
-                    self.n_pad, d.train_xb.shape[1] * d.train_xb.shape[2],
-                    self.device),
+                priorities=priorities,
                 cohort=cohort,
                 capacity=max(n_rounds, self.cfg.fused_schedule_chunk, 1),
                 compact=self.compact, poison_fn=self.poison_fn,
                 chaos=self.chaos, elastic=self.elastic,
-                cluster=self.cluster, redteam_fns=self._redteam_fns)
+                cluster=self.cluster, redteam_fns=self._redteam_fns,
+                mesh=self.mesh, n_global=self.n_pad)
             self._fused = f
             self.states = f.states
         elif self.states is not f.states:
@@ -699,9 +849,16 @@ class RoundEngine:
                      else cluster_assign.make_latent_stats_fn)
             self._cluster_stats_fn = maker(self.model)
         timings: Dict[str, float] = {}
+        params, d = self.states.params, self.data
+        xb, mb, cm = d.train_xb, d.train_mb, d.client_mask
+        if self.sharded:
+            # every rank fits from the whole fleet, on the same bits
+            full = self._full_data
+            params = self.gathered_states().params.to(self.device)
+            xb, mb, cm = (t.to(self.device) for t in (
+                full.train_xb, full.train_mb, full.client_mask))
         self._cluster_assign = cluster_assign.fit_from_states(
-            self.model, spec, self.states.params, self.data.train_xb,
-            self.data.train_mb, self.data.client_mask, self.n_real,
+            self.model, spec, params, xb, mb, cm, self.n_real,
             fitted_round=round_index, stats_fn=self._cluster_stats_fn,
             prev_assignment=self._cluster_vec, timings=timings)
         self.cluster_fit_seconds.append({"round": round_index, **timings})
@@ -773,6 +930,9 @@ class RoundEngine:
                                     self.host,
                                     self.cfg.max_rejected_updates)
                    for r, out in enumerate(chunk.harvest())]
+        backend = self.agg_backend
+        for result in results:
+            result.backend = backend
         return results, chunk.schedule, chunk.draws
 
     def run_schedule_chunk(self, start_round: int, n_rounds: int):

@@ -21,6 +21,8 @@ history: each update of the round is a few ops on one tensor.
 fleet on the host, of which the tiered engine (federation/tiered.py) moves
 only each round's cohort to the device (`gather` / `scatter`, keyed by
 absolute client id; `gather_rows` gives negative ids zero rows).
+`TieredShardStore` is one rank's block of that tier (a host-sharded tier
+over a client mesh, parallel/).
 `init_batched_client_states` stacks R runs' inits run by run, [R·N, ...]
 (the batched round, federation/batched.py).
 `client_states_from_numpy` takes the JAX package's ClientStates (as numpy),
@@ -42,6 +44,7 @@ import torch
 from fedmse_tpu_torch.device import DeviceLike, resolve_device
 from fedmse_tpu_torch.federation.aggregation import weighted_mean
 from fedmse_tpu_torch.federation.optim import (AdamState, adam_init,
+                                               adam_step,
                                                opt_state_from_numpy,
                                                opt_state_to_numpy)
 from fedmse_tpu_torch.models.autoencoder import (init_kernels,
@@ -162,9 +165,17 @@ def fresh_states(params: torch.Tensor) -> ClientStates:
 
 def init_client_states(model, n_clients: int,
                        generator: torch.Generator, *,
-                       device: DeviceLike = "cuda") -> ClientStates:
+                       device: DeviceLike = "cuda", mesh=None
+                       ) -> ClientStates:
     """N independent clients from the port's own init
-    (models/autoencoder.init_stacked_params, drawn from `generator`)."""
+    (models/autoencoder.init_stacked_params, drawn from `generator`). With
+    a sharded `mesh` (parallel.ClientMesh) the whole fleet is drawn on the
+    CPU and the rank keeps its block on its device: the dense init's bits,
+    the generator advanced alike on every rank."""
+    if mesh is not None and mesh.sharded:
+        return shard_client_states(
+            init_client_states(model, n_clients, generator, device="cpu"),
+            mesh)
     tree = init_stacked_params(model, n_clients, generator,
                                device=resolve_device(device))
     return fresh_states(ParamLayout.of(model).flatten(tree))
@@ -315,6 +326,97 @@ class TieredClientStore:
     def slab_bytes(self, cohort: int) -> int:
         """Bytes of one [C, ...] cohort slab."""
         return cohort * _client_bytes(self.host)
+
+
+class TieredShardStore(TieredClientStore):
+    """A host-sharded tier (port of fedmse_tpu/federation/state.py
+    `TieredShardStore`): this rank holds rows [start, stop) of the fleet
+    only (parallel.mesh.process_tier_blocks). The API stays keyed by
+    ABSOLUTE client id: `gather` gives an id outside the shard a zero row
+    (another rank's lane) and `scatter` drops it. A shard of the whole
+    fleet is the plain tier, bit for bit."""
+
+    def __init__(self, host: ClientStates, n_clients: int, start: int,
+                 stop: int):
+        if not 0 <= start < stop <= n_clients:
+            raise ValueError(f"shard [{start}, {stop}) outside the "
+                             f"[0, {n_clients}) client axis")
+        super().__init__(host, n_clients)
+        self.start, self.stop = start, stop
+
+    @staticmethod
+    def create_shard(model, n_clients: int, generator: torch.Generator,
+                     start: int, stop: int, init_chunk: int = 4096
+                     ) -> "TieredShardStore":
+        """Rows [start, stop) of `TieredClientStore.create`'s init: the
+        whole fleet's stream is drawn in the same order, chunk by chunk,
+        and only this shard's rows are kept, so row i is bit for bit row i
+        of the dense init and the generator ends where the dense init
+        leaves it."""
+        layout = ParamLayout.of(model)
+        params = torch.zeros((stop - start, layout.size))
+        chunk = max(1, min(int(init_chunk), n_clients))
+        for _, off, shape in layout.leaves():
+            if len(shape) != 2:
+                continue
+            fan_in, fan_out = shape
+            cols = slice(off, off + fan_in * fan_out)
+            for lo in range(0, n_clients, chunk):
+                hi = min(lo + chunk, n_clients)
+                draw = init_kernels(hi - lo, fan_in, fan_out,
+                                    generator).reshape(hi - lo, -1)
+                a, b = max(lo, start), min(hi, stop)
+                if a < b:
+                    params[a - start:b - start, cols] = draw[a - lo:b - lo]
+        return TieredShardStore(fresh_states(params), n_clients, start, stop)
+
+    @staticmethod
+    def from_dense_slice(states: ClientStates, n_clients: int, start: int,
+                         stop: int) -> "TieredShardStore":
+        """Rows [start, stop) of a dense-width snapshot (host copies): a
+        restore into any shard layout."""
+        host = states.apply(lambda t: t[start:stop].detach().to(
+            "cpu", copy=True).contiguous())
+        return TieredShardStore(host, n_clients, start, stop)
+
+    def _localize(self, ids) -> np.ndarray:
+        """Absolute ids -> local rows; ids outside the shard (and pad
+        lanes) -> -1."""
+        ids = np.asarray(ids, dtype=np.int64)
+        local = ids - self.start
+        local[(ids < self.start) | (ids >= self.stop)] = -1
+        return local
+
+    def gather(self, ids, out: Optional[ClientStates] = None
+               ) -> ClientStates:
+        return super().gather(self._localize(ids), out)
+
+    def scatter(self, ids, slab: ClientStates) -> None:
+        super().scatter(self._localize(ids), slab)
+
+
+def shard_client_states(states: ClientStates, mesh) -> ClientStates:
+    """This rank's block of a whole fleet's states on its device (the
+    canonical layout of every per-client tensor over a client mesh: the
+    Adam moments live only on the rank that trains the client)."""
+    from fedmse_tpu_torch.parallel.mesh import shard_clients
+    return shard_clients(states, mesh)
+
+
+def make_sharded_client_update(lr: float, mesh=None):
+    """fn(grads [n, P], opt_state, params [n, P]) -> (params, opt_state):
+    one Adam step of the clients a rank holds (every client of the fleet
+    without a mesh). The step is per client, so a rank's block is bit for
+    bit those rows of the whole fleet's step, and no rank holds another's
+    moments."""
+    del mesh  # the block is the rank's own tensors: nothing crosses ranks
+
+    def update(grads, opt_state: AdamState, params):
+        step = torch.ones(params.shape[0], dtype=torch.bool,
+                          device=params.device)
+        return adam_step(params, opt_state, grads, step, lr)
+
+    return update
 
 
 def dense_state_bytes(model, n_clients: int) -> int:

@@ -47,9 +47,25 @@ whole fleet's incumbent mean), so the round's own joined / left are zero
 and the state gather waits for the round's entry. Clustering fits over
 the tier in chunks of C.
 
-Not here, as in ROADMAP queue 1 item 7 (the parallel port): a mesh, a
-host-sharded tier and the merge's mesh backends. The red team runs on the
-dense engine; a null spec is accepted and builds nothing.
+Over a client mesh (`mesh=` a parallel.ClientMesh of W > 1 ranks) the
+cohort pads to a multiple of W and each rank runs its block of C / W
+lanes in `fused.ShardedFusedRound` (parallel/; every rank plans the same
+cohort from the same host streams). Each rank gathers its lanes' rows at
+round entry (no state prefetch: a lane's client may have been another
+rank's lane last round), and after the round every rank scatters the
+gathered cohort into its own whole tier, so the W tiers stay equal.
+`host_sharded=True` keeps only rank j's block of the real clients
+(parallel.mesh.process_tier_blocks) in its tier (state.TieredShardStore):
+the selection is stratified by block from the one shared stream, the
+cohort is W lane blocks (block j holds rank j's selected clients), each
+rank gathers and scatters its own lanes only, the elastic incumbent mean
+and the cluster fit's probe sum partials across ranks
+(multihost.allgather_tree_sum), the fit's statistics and the final
+evaluation are gathered block by block (multihost.allgather_blocks), and
+a snapshot is one shard per rank (checkpointing/io.py `save_shard`). A
+mesh of one rank with host_sharded is the plain tier, bit for bit. The
+red team runs on the dense engine; a null spec is accepted and builds
+nothing.
 """
 
 from __future__ import annotations
@@ -76,13 +92,14 @@ from fedmse_tpu_torch.federation.elastic import (MembershipMasks,
 from fedmse_tpu_torch.federation.fused import FusedRound, FusedRoundOut
 from fedmse_tpu_torch.federation.pipeline import (PrefetchedCohort,
                                                   TieredStats)
-from fedmse_tpu_torch.federation.rounds import (RoundResult,
+from fedmse_tpu_torch.federation.rounds import (MeshBackends, RoundResult,
                                                 absorb_fused_out,
                                                 build_fused_round,
                                                 make_round_fns,
                                                 split_metric_columns)
 from fedmse_tpu_torch.federation.state import (ClientStates, HostState,
                                                TieredClientStore,
+                                               TieredShardStore,
                                                gather_rows)
 from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.ops.fused_ae import client_index, fused_forward_stats
@@ -94,7 +111,6 @@ logger = logging.getLogger(__name__)
 # the plan's)
 COHORT_DATA_FIELDS = ("train_xb", "train_mb", "valid_xb", "valid_mb",
                       "valid_x", "valid_m", "test_x", "test_m", "test_y")
-PARALLEL = "ROADMAP queue 1, item 7 (the parallel port)"
 
 
 @dataclasses.dataclass
@@ -125,7 +141,7 @@ class _Slab:
         return own + list(self.data.values())
 
 
-class TieredRoundEngine:
+class TieredRoundEngine(MeshBackends):
     """One (model_type, update_type) federation over the host tier (port of
     fedmse_tpu/federation/tiered.py `TieredRoundEngine`; module docstring).
 
@@ -134,7 +150,10 @@ class TieredRoundEngine:
     package's init) replaces the port's own init, as RoundEngine's does;
     `elastic_masks` replaces the spec's drawn membership timeline ([T, N]
     leaves). The round runs on `device` ("cuda" unless the caller asks for
-    the CPU); the tier and the data stay on the host."""
+    the CPU); the tier and the data stay on the host. `mesh` and
+    `host_sharded` spread the round and the tier over ranks (module
+    docstring); every rank must then drive its engine through the same
+    calls."""
 
     def __init__(self, model, cfg: ExperimentConfig, data: FederatedData,
                  n_real: int, rngs: ExperimentRngs, model_type: str,
@@ -151,10 +170,12 @@ class TieredRoundEngine:
             raise ValueError("redteam adversaries run on the dense fused "
                              "engine (state_layout='dense'); the tiered "
                              "layout accepts only a null RedteamSpec")
-        if mesh is not None:
-            raise ValueError(f"a client mesh waits for {PARALLEL}")
-        if host_sharded:
-            raise ValueError(f"host-sharded tiers wait for {PARALLEL}")
+        if host_sharded and mesh is None:
+            raise ValueError("host_sharded tiers need a client mesh (the "
+                             "shard layout is derived from it)")
+        if mesh is not None and not hasattr(mesh, "world_size"):
+            raise ValueError(f"mesh must be a parallel.ClientMesh, got "
+                             f"{type(mesh).__name__}")
         if elastic_masks is not None and elastic is None:
             raise ValueError("elastic_masks needs an ElasticSpec")
         if cfg.aggregation_backend not in ("einsum", "auto", "shard_map",
@@ -162,7 +183,10 @@ class TieredRoundEngine:
             raise ValueError(f"unknown aggregation_backend "
                              f"{cfg.aggregation_backend!r} (auto | einsum | "
                              "shard_map | quantized)")
-        self.device = resolve_device(device)
+        self.sharded = mesh is not None and mesh.sharded
+        self.mesh = mesh if self.sharded else None
+        self._merge_plan = None
+        self.device = mesh.device if self.sharded else resolve_device(device)
         self.model, self.cfg, self.n_real, self.rngs = model, cfg, n_real, rngs
         self.model_type, self.update_type = model_type, update_type
         self.poison_fn, self.chaos, self.elastic = poison_fn, chaos, elastic
@@ -174,22 +198,63 @@ class TieredRoundEngine:
             init_chunk = sites.lookup_tier_chunk(device=self.device) or 4096
         self.init_chunk = int(init_chunk)
         self.layout = ParamLayout.of(model)
-        self.compact = cfg.compact_cohort is not False
+        self.compact = cfg.compact_cohort is not False and not self.sharded
         self.fns = make_round_fns(model, cfg, model_type, update_type,
                                   cluster, self.device)
         self.evaluate_all = self.fns["evaluate_all"]
 
+        # ---- the tier's layout over the ranks: one block per rank when
+        # host-sharded, else the whole fleet on every rank
+        world = mesh.world_size if mesh is not None else 1
+        self.host_sharded = bool(host_sharded)
+        if host_sharded:
+            from fedmse_tpu_torch.parallel.mesh import process_tier_blocks
+            self._blocks = process_tier_blocks(n_real, world)
+            self._block_idx = mesh.rank
+        else:
+            self._blocks, self._block_idx = [(0, n_real)], 0
+        self.shard_start, self.shard_stop = self._blocks[self._block_idx]
+        self._fleet_local = (self.shard_start, self.shard_stop) == (0, n_real)
+        lo, hi = self.shard_start, self.shard_stop
+
         # ---- the host tier: data and state rows by absolute client id
-        self.host_data = {name: _host_rows(getattr(data, name), n_real)
-                          for name in COHORT_DATA_FIELDS}
+        # (a host-sharded tier keeps its block's rows only)
+        self.host_data = {name: getattr(data, name)[lo:hi].to(
+            "cpu").contiguous() for name in COHORT_DATA_FIELDS}
         self._dev_x = data.dev_x.to(self.device)
-        self.store = (TieredClientStore.from_dense(
-            states.apply(lambda t: t[:n_real])) if states is not None
-            else TieredClientStore.create(model, n_real, rngs.generator,
-                                          init_chunk=self.init_chunk))
+        if self._fleet_local:
+            self.store = (TieredClientStore.from_dense(
+                states.apply(lambda t: t[:n_real])) if states is not None
+                else TieredClientStore.create(model, n_real, rngs.generator,
+                                              init_chunk=self.init_chunk))
+        else:
+            self.store = (TieredShardStore.from_dense_slice(
+                states, n_real, lo, hi) if states is not None
+                else TieredShardStore.create_shard(
+                    model, n_real, rngs.generator, lo, hi,
+                    init_chunk=self.init_chunk))
         self.host = HostState.create(n_real)
-        self.n_sel = max(1, int(cfg.num_participants * n_real))
-        self.cohort = self.n_sel  # no mesh: no pad lanes to a multiple
+        # the fleet's rejected counters, from the gathered cohort outputs
+        # (a host-sharded tier holds only its rows)
+        self._rejected_full = (None if self._fleet_local
+                               else np.zeros(n_real, np.int32))
+        if len(self._blocks) > 1:
+            # W lane blocks, block j rank j's own selected clients
+            self._sel_counts = [max(1, int(cfg.num_participants * (b - a)))
+                                for a, b in self._blocks]
+            self._lane_width = max(self._sel_counts)
+            self.n_sel = sum(self._sel_counts)
+            self.cohort = self._lane_width * len(self._blocks)
+        else:
+            from fedmse_tpu_torch.parallel.mesh import pad_to_multiple
+            self._sel_counts = None
+            self.n_sel = max(1, int(cfg.num_participants * n_real))
+            self.cohort = pad_to_multiple(self.n_sel, world) \
+                if self.sharded else self.n_sel
+            self._lane_width = self.cohort
+        # this rank's lanes of the cohort
+        self._lanes = (mesh.block(self.cohort) if self.sharded
+                       else (0, self.cohort))
 
         # ---- the membership timeline (a Markov chain over the fleet) ----
         self._elastic_np = None
@@ -197,9 +262,10 @@ class TieredRoundEngine:
             self._elastic_np = elastic_masks if elastic_masks is not None \
                 else make_membership_masks(elastic, rngs.elastic_key(),
                                            cfg.num_rounds, n_real)
-        # transitions change host rows at round entry: the state gather
-        # waits for it (the data prefetch does not)
-        self._sync_gather = elastic is not None
+        # transitions change host rows at round entry, and on a mesh a
+        # lane's client may have been another rank's lane last round: the
+        # state gather waits for the entry (the data prefetch does not)
+        self._sync_gather = elastic is not None or self.sharded
 
         self.cluster = cluster
         self._cluster_vec: Optional[np.ndarray] = None
@@ -216,20 +282,6 @@ class TieredRoundEngine:
         return self.cluster is not None and not self.cluster.is_null
 
     @property
-    def agg_backend(self) -> str:
-        """The merge's effective backend: the dense weighted mean. With no
-        mesh every other backend degrades to it, with one warning (the
-        JAX engine's rule off a mesh)."""
-        backend = self.cfg.aggregation_backend
-        if backend != "einsum" and not self._warned_backend_off:
-            self._warned_backend_off = True
-            logger.warning("aggregation_backend=%s inert: the client axis is "
-                           "not sharded across devices (meshes wait for %s); "
-                           "using the dense einsum reduction", backend,
-                           PARALLEL)
-        return "einsum"
-
-    @property
     def _cuda(self) -> bool:
         return self.device.type == "cuda"
 
@@ -240,7 +292,8 @@ class TieredRoundEngine:
         prefetch slab and the side stream (built at the first round)."""
         if self._round is not None:
             return self._round
-        c, dev, hd = self.cohort, self.device, self.host_data
+        dev, hd = self.device, self.host_data
+        c = self._lanes[1] - self._lanes[0]  # this rank's lanes
         zeros = {name: torch.zeros((c,) + tuple(t.shape[1:]), dtype=t.dtype,
                                    device=dev) for name, t in hd.items()}
         data = FederatedData(**zeros, dev_x=self._dev_x,
@@ -254,11 +307,12 @@ class TieredRoundEngine:
         ver_x, ver_m = ver if ver is not None else (data.valid_x,
                                                     data.valid_m)
         self._round = build_fused_round(
-            self.model, self.cfg, self.fns, states=states, data=data,
-            ver_x=ver_x, ver_m=ver_m, priorities=priorities,
+            self.model, self.cfg,
+            self._mesh_fns() if self.sharded else self.fns, states=states,
+            data=data, ver_x=ver_x, ver_m=ver_m, priorities=priorities,
             cohort=self.n_sel, capacity=1, compact=self.compact,
             poison_fn=self.poison_fn, chaos=self.chaos, elastic=self.elastic,
-            cluster=self.cluster)
+            cluster=self.cluster, mesh=self.mesh, n_global=self.cohort)
         pin = self._cuda
 
         def slab(device, pinned):
@@ -296,22 +350,42 @@ class TieredRoundEngine:
             return self._dev_x, torch.ones(self._dev_x.shape[0], device=dev)
         if cfg.compat.shared_last_client_val:
             last = self.n_real - 1
-            return (self.host_data["valid_x"][last].to(dev),
-                    self.host_data["valid_m"][last].to(dev))
+            if self._fleet_local:
+                return (self.host_data["valid_x"][last].to(dev),
+                        self.host_data["valid_m"][last].to(dev))
+            # the last client's rows, from the rank that tiers it
+            mine = self.shard_start <= last < self.shard_stop
+            out = []
+            for name in ("valid_x", "valid_m"):
+                t = self.host_data[name]
+                row = t[last - self.shard_start] if mine else \
+                    torch.zeros(t.shape[1:], dtype=t.dtype)
+                rows = self.mesh.gather_host(row.numpy())
+                out.append(torch.from_numpy(rows[-1]).to(dev))
+            return tuple(out)
         return None
 
     def _captured(self) -> bool:
         """Whether the round's bodies are captured (always, on the CPU):
         only then may a prefetch run beside a round."""
         f = self._round
-        return not self._cuda or all(b.graph is not None for b in
+        return not self._cuda or all(b.captured for b in
                                      (f.enter, f.epoch, f.leave))
 
     # ---- the plan ---- #
 
     def select_clients(self) -> List[int]:
-        """The dense engine's draw: the same host stream, the same order."""
-        return self.rngs.select_rng.sample(range(self.n_real), self.n_sel)
+        """The dense engine's draw: the same host stream, the same order.
+        A host-sharded tier over W > 1 ranks stratifies it by block: each
+        block's sample from the one shared stream, in block order, so
+        every rank draws the same selection."""
+        if self._sel_counts is None:
+            return self.rngs.select_rng.sample(range(self.n_real),
+                                               self.n_sel)
+        out: List[int] = []
+        for (lo, hi), n_sel in zip(self._blocks, self._sel_counts):
+            out.extend(self.rngs.select_rng.sample(range(lo, hi), n_sel))
+        return out
 
     def _plan(self, round_index: int,
               selected: Optional[List[int]] = None) -> CohortPlan:
@@ -320,14 +394,42 @@ class TieredRoundEngine:
             selected = self.select_clients()
         sel = np.asarray(selected, dtype=np.int64)
         ids = np.full(self.cohort, -1, dtype=np.int64)
-        srt = np.sort(sel)
-        ids[:len(srt)] = srt
+        if self._sel_counts is None:
+            srt = np.sort(sel)
+            ids[:len(srt)] = srt
+            sel_pos = np.searchsorted(srt, sel)
+        else:  # lane block j: block j's sorted selected ids, a pad tail
+            sel_pos = np.empty(len(sel), np.int64)
+            w = self._lane_width
+            for j, (lo, hi) in enumerate(self._blocks):
+                in_blk = (sel >= lo) & (sel < hi)
+                blk = sel[in_blk]
+                if blk.size > w:
+                    raise ValueError(f"block {j} selected {blk.size} "
+                                     f"clients for {w} lanes")
+                srt = np.sort(blk)
+                ids[j * w:j * w + srt.size] = srt
+                sel_pos[in_blk] = j * w + np.searchsorted(srt, blk)
         draws = (self.rngs.vote_draws(1, len(sel), self.cohort)[0]
                  if self.cfg.compat.vote_tie_break else None)
         return CohortPlan(round_index=round_index, selected=list(selected),
-                          ids=ids, sel_pos=np.searchsorted(srt, sel),
+                          ids=ids, sel_pos=sel_pos,
                           mask=(ids >= 0).astype(np.float32), draws=draws,
                           rng_state=rng_state)
+
+    def _lane_ids(self, plan: CohortPlan) -> np.ndarray:
+        """The absolute ids of this rank's lanes (-1: a pad lane)."""
+        lo, hi = self._lanes
+        return plan.ids[lo:hi]
+
+    def _local_rows(self, ids: np.ndarray) -> np.ndarray:
+        """Absolute ids -> rows of this rank's host data (-1 outside its
+        block, and pad lanes)."""
+        if self._fleet_local:
+            return ids
+        local = np.asarray(ids) - self.shard_start
+        local[(ids < self.shard_start) | (ids >= self.shard_stop)] = -1
+        return local
 
     def rng_state_after_round(self) -> dict:
         """The streams' state after the last round consumed: a snapshot's
@@ -342,13 +444,15 @@ class TieredRoundEngine:
                      out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The cohort's data rows into `out`, with its client mask and, for
         a kNN score, its gateways' bank priorities."""
+        ids = self._lane_ids(plan)
+        rows = self._local_rows(ids)
         for name in COHORT_DATA_FIELDS:
-            gather_rows(self.host_data[name], plan.ids, out=out[name])
-        out["client_mask"].copy_(torch.from_numpy(plan.mask))
+            gather_rows(self.host_data[name], rows, out=out[name])
+        lo, hi = self._lanes
+        out["client_mask"].copy_(torch.from_numpy(plan.mask[lo:hi]))
         if "priorities" in out:
             out["priorities"].copy_(self.evaluate_all.bank_priorities(
-                self.cohort, out["priorities"].shape[1], "cpu",
-                ids=plan.ids))
+                len(ids), out["priorities"].shape[1], "cpu", ids=ids))
         return out
 
     def _prefetch(self, plan: CohortPlan) -> PrefetchedCohort:
@@ -359,7 +463,8 @@ class TieredRoundEngine:
         stage = self._staging[self._flip]
         self._flip ^= 1
         states = (None if self._sync_gather
-                  else self.store.gather(plan.ids, out=stage.states))
+                  else self.store.gather(self._lane_ids(plan),
+                                         out=stage.states))
         data = self._gather_data(plan, stage.data)
         ready = None
         if self._cuda:
@@ -414,7 +519,8 @@ class TieredRoundEngine:
         round's transitions."""
         f = self._round
         if pf.slab is None:
-            rows = self.store.gather(pf.plan.ids, out=pf.stage.states)
+            rows = self.store.gather(self._lane_ids(pf.plan),
+                                     out=pf.stage.states)
             for d, s in zip(f.states.tensors(), rows.tensors()):
                 d.copy_(s, non_blocking=self._cuda)
         else:
@@ -490,6 +596,14 @@ class TieredRoundEngine:
         """The round's output state on its way to the host: into the
         pinned out slab behind an event on the card (the round buffers
         themselves on the CPU)."""
+        if self.sharded:
+            from fedmse_tpu_torch.parallel.mesh import host_fetch
+            st = self._round.states
+            if self.host_sharded:  # this rank's own lanes
+                return st.apply(lambda t: t.detach().to("cpu", copy=True))
+            # the whole cohort, gathered: every rank's tier takes it
+            return st.apply(lambda t: torch.from_numpy(
+                host_fetch(t, self.mesh)))
         if not self._cuda:
             return self._round.states
         for d, s in zip(self._out.tensors(), self._round.states.tensors()):
@@ -499,6 +613,10 @@ class TieredRoundEngine:
         return self._out
 
     def _scatter_out(self, plan: CohortPlan, slab: ClientStates) -> None:
+        if self.sharded:
+            self.store.scatter(self._lane_ids(plan) if self.host_sharded
+                               else plan.ids, slab)
+            return
         if self._cuda:
             self._out_ready.synchronize()
         self.store.scatter(plan.ids, slab)
@@ -507,12 +625,19 @@ class TieredRoundEngine:
         if self._elastic_np is None:
             return
         e = self._elastic_np
+        merge = None
+        if not self._fleet_local:
+            from fedmse_tpu_torch.parallel.multihost import \
+                allgather_tree_sum
+            merge = lambda parts: allgather_tree_sum(  # noqa: E731
+                parts, self.mesh)
         apply_membership_transitions(
             self.store, e.member[round_index][:self.n_real],
             e.joined[round_index][:self.n_real],
             e.left[round_index][:self.n_real],
             assignment=self._cluster_vec,
-            k=1 if self.cluster is None else self.cluster.k)
+            k=1 if self.cluster is None else self.cluster.k,
+            merge_partials=merge)
 
     def _absorb(self, out: FusedRoundOut, plan: CohortPlan) -> RoundResult:
         """The cohort's outputs at fleet width, then the dense engine's
@@ -531,6 +656,12 @@ class TieredRoundEngine:
         def absolute(pos):
             return None if pos is None else (int(ids[pos]) if pos >= 0
                                               else -1)
+        if self._fleet_local:
+            rejected = self.store.host.rejected.numpy()
+        else:  # the fleet's mirror, from the gathered cohort outputs
+            self._rejected_full[rows] = np.asarray(
+                out.rejected)[real].astype(np.int32)
+            rejected = self._rejected_full
         member = generation = None
         if self._elastic_np is not None:
             member = self._elastic_np.member[plan.round_index][:n]
@@ -541,7 +672,7 @@ class TieredRoundEngine:
             metrics=scatter(out.metrics, np.nan),
             scores=scatter(out.scores, np.nan),
             weights=scatter(out.weights, 0.0),
-            rejected=self.store.host.rejected.numpy(),
+            rejected=rejected,
             min_valid=scatter(out.min_valid, np.nan),
             tracking=scatter(out.tracking, np.nan),
             eff_mask=(None if out.eff_mask is None
@@ -681,8 +812,16 @@ class TieredRoundEngine:
         dev, c, n = self.device, self.cohort, self.n_real
         stats_fn = cluster_assign.make_latent_stats_fn(self.model)
         params = self.store.host.params
-        probe = cluster_assign.incumbent_mean_params(
-            params, torch.ones(n)).to(dev)
+        if self._fleet_local:
+            probe = cluster_assign.incumbent_mean_params(
+                params, torch.ones(n)).to(dev)
+        else:  # the fleet's mean from the ranks' partial sums
+            from fedmse_tpu_torch.parallel.multihost import \
+                allgather_tree_sum
+            total = allgather_tree_sum(
+                [params.to(torch.float32).sum(dim=0).numpy()], self.mesh)[0]
+            probe = torch.from_numpy((total / n).astype(np.float32)).to(dev)
+            c, n = self._lane_width, self.shard_stop - self.shard_start
         means, covs = [], []
         for start in range(0, n, c):
             stop = min(start + c, n)
@@ -691,8 +830,14 @@ class TieredRoundEngine:
                             self.host_data["train_mb"][start:stop].to(dev))
             means.append(m.cpu().numpy())
             covs.append(v.cpu().numpy())
+        means, covs = np.concatenate(means), np.concatenate(covs)
+        if not self._fleet_local:  # every rank fits the same fleet
+            from fedmse_tpu_torch.parallel.multihost import allgather_blocks
+            order = list(range(len(self._blocks)))
+            means = allgather_blocks(means, self._blocks, order, self.mesh)
+            covs = allgather_blocks(covs, self._blocks, order, self.mesh)
         fit = cluster_assign.fit_assignments(
-            np.concatenate(means), np.concatenate(covs), self.cluster.k,
+            means, covs, self.cluster.k,
             fitted_round=round_index, sample=self.cluster.fit_sample,
             device=dev)
         self.cluster_fit = fit
@@ -705,29 +850,39 @@ class TieredRoundEngine:
     # ---- evaluation, accounting, checkpoints ---- #
 
     def _chunks(self):
-        """(start, stop) cohort-wide chunks of the fleet."""
-        c, n = self.cohort, self.n_real
+        """(start, stop) cohort-wide chunks of this rank's tier rows (the
+        fleet's, unless host-sharded)."""
+        c = self.cohort if self._fleet_local else self._lane_width
+        n = self.shard_stop - self.shard_start
         return [(s, min(s + c, n)) for s in range(0, n, c)]
 
     @torch.no_grad()
     def evaluate_final_streamed(self) -> np.ndarray:
         """Every client's evaluation in chunks of C on the device, never a
-        fleet-wide device tensor: the dense engine's `evaluate`."""
+        fleet-wide device tensor: the dense engine's `evaluate`. A
+        host-sharded rank evaluates its rows, and the blocks are gathered
+        (the same array on every rank)."""
         dev, hd = self.device, self.host_data
         outs = []
         for start, stop in self._chunks():
             rows = slice(start, stop)
+            first = self.shard_start + start
             pri = self.evaluate_all.bank_priorities(
                 stop - start,
                 hd["train_xb"].shape[1] * hd["train_xb"].shape[2], dev,
-                ids=range(start, stop))
+                ids=range(first, first + stop - start))
             out = self.evaluate_all(
                 self.layout.tree(self.store.host.params[rows].to(dev)),
                 hd["test_x"][rows].to(dev), hd["test_m"][rows].to(dev),
                 hd["test_y"][rows].to(dev), hd["train_xb"][rows].to(dev),
                 hd["train_mb"][rows].to(dev), priorities=pri)
             outs.append(out.cpu().numpy())
-        return np.concatenate(outs, axis=0)
+        local = np.concatenate(outs, axis=0)
+        if self._fleet_local:
+            return local
+        from fedmse_tpu_torch.parallel.multihost import allgather_blocks
+        return allgather_blocks(local, self._blocks,
+                                list(range(len(self._blocks))), self.mesh)
 
     def cohort_bytes(self) -> Dict[str, int]:
         """The device bytes of the steady loop, by slab. The state slab
@@ -769,31 +924,43 @@ class TieredRoundEngine:
             (n_pad - self.n_real,) + tuple(t.shape[1:]), dtype=t.dtype)]))
 
     def restore_states(self, states: ClientStates) -> None:
-        """Adopt a restored (dense-width) snapshot into the tier."""
-        self.store = TieredClientStore.from_dense(
-            states.apply(lambda t: t[:self.n_real]))
-
-
-def _host_rows(t: torch.Tensor, n: int) -> torch.Tensor:
-    """Rows [0, n) of a stacked tensor as contiguous CPU memory."""
-    return t[:n].to("cpu").contiguous()
+        """Adopt a restored snapshot into the tier: a dense-width one, or
+        this rank's rows of a host-sharded one."""
+        if self._fleet_local:
+            self.store = TieredClientStore.from_dense(
+                states.apply(lambda t: t[:self.n_real]))
+        else:
+            self.store = TieredShardStore(
+                states.apply(lambda t: t.detach().to(
+                    "cpu", copy=True).contiguous()), self.n_real,
+                self.shard_start, self.shard_stop)
 
 
 @torch.no_grad()
 def _save_hybrid_latents_streamed(writer, engine: TieredRoundEngine,
-                                  run: int, update_type: str) -> None:
+                                  run: int, update_type: str,
+                                  params: Optional[torch.Tensor] = None,
+                                  data=None) -> None:
     """The hybrid's test latents and labels of every client, computed in
     chunks of C (main._save_hybrid_latents without a fleet-wide device
-    tensor)."""
+    tensor). A host-sharded tier passes the fleet's gathered `params` and
+    its whole `data`."""
     from fedmse_tpu_torch.checkpointing import save_latent_data
     dev, hd = engine.device, engine.host_data
+    chunks = engine._chunks()
+    if params is None:
+        params = engine.store.host.params
+    else:
+        hd = {name: getattr(data, name) for name in ("test_x", "test_m",
+                                                     "test_y")}
+        c, n = engine.cohort, engine.n_real
+        chunks = [(s, min(s + c, n)) for s in range(0, n, c)]
     cdt = engine.model.compute_dtype
     lat_parts, lab_parts = [], []
-    for start, stop in engine._chunks():
+    for start, stop in chunks:
         n, t = stop - start, hd["test_x"].shape[1]
         latent, _, _ = fused_forward_stats(
-            engine.layout.tree(engine.store.host.params[start:stop].to(dev),
-                               cdt),
+            engine.layout.tree(params[start:stop].to(dev), cdt),
             hd["test_x"][start:stop].to(dev).reshape(n * t, -1).to(cdt),
             client_index(n, t, dev), compute_dtype=cdt)
         mask = hd["test_m"][start:stop].reshape(-1).numpy() > 0
@@ -822,9 +989,12 @@ def run_tiered_combination(cfg: ExperimentConfig, data, n_real: int,
                                                 save_training_tracking)
     from fedmse_tpu_torch.federation.attack import make_poison_fn
     from fedmse_tpu_torch.models import make_model
-    if cfg.host_sharded:
-        raise ValueError(f"host-sharded tiers wait for {PARALLEL}")
+    from fedmse_tpu_torch.parallel.mesh import ClientMesh
+    from fedmse_tpu_torch.parallel.multihost import (allgather_blocks,
+                                                     uniform_decision)
     dev = resolve_device(device)
+    if cfg.host_sharded and mesh is None:
+        mesh = ClientMesh(device=dev)  # one rank: the plain tier's bits
     rngs = ExperimentRngs(run=run, data_seed=cfg.data_seed,
                           run_seed_stride=cfg.run_seed_stride)
     model = make_model(model_type, cfg.dim_features, cfg.hidden_neus,
@@ -835,7 +1005,8 @@ def run_tiered_combination(cfg: ExperimentConfig, data, n_real: int,
         update_type=update_type,
         poison_fn=None if attack is None else make_poison_fn(attack),
         chaos=chaos, elastic=elastic, mesh=mesh, cluster=cluster,
-        states=states, device=dev)
+        host_sharded=cfg.host_sharded, states=states, device=dev)
+    pod = not engine._fleet_local  # one snapshot shard per rank
     n_pad = data.client_mask.shape[0]
     round_times: List[float] = []
     all_tracking: List[np.ndarray] = []
@@ -858,10 +1029,22 @@ def run_tiered_combination(cfg: ExperimentConfig, data, n_real: int,
             extra.update(cluster_k=cluster.k,
                          cluster_assignment=engine.cluster_assignment.tolist(),
                          cluster_fitted_round=engine.cluster_fitted_round)
-        resume.save(tag, engine.states_for_checkpoint(n_pad), engine.host,
-                    rounds_done, layout=engine.layout, extra=extra,
-                    tracking=(np.concatenate(all_tracking, axis=1)
-                              if all_tracking else None))
+        tracking = (np.concatenate(all_tracking, axis=1) if all_tracking
+                    else None)
+        if pod:
+            resume.save_shard(tag, engine.store.host, engine.host,
+                              rounds_done, engine.shard_start,
+                              engine.shard_stop, engine._blocks,
+                              layout=engine.layout, extra=extra,
+                              tracking=tracking, mesh=engine.mesh)
+            return
+        # every rank of a mesh holds the same tier: rank 0 writes it
+        if engine.mesh is None or engine.mesh.rank == 0:
+            resume.save(tag, engine.states_for_checkpoint(n_pad),
+                        engine.host, rounds_done, layout=engine.layout,
+                        extra=extra, tracking=tracking)
+        if engine.mesh is not None:
+            engine.mesh.barrier()
 
     if resume is not None and resume.exists(tag):
         if engine.clustered:
@@ -873,7 +1056,8 @@ def run_tiered_combination(cfg: ExperimentConfig, data, n_real: int,
                     vec, saved.get("cluster_fitted_round", 0))
         restored, engine.host, start_round, tracking = resume.restore(
             tag, layout=engine.layout, device="cpu",
-            expected_extra=expected, extra_defaults=defaults)
+            expected_extra=expected, extra_defaults=defaults,
+            rows=(engine.shard_start, engine.shard_stop) if pod else None)
         engine.restore_states(restored)
         saved_rngs = resume.extra(tag).get("rngs")
         if saved_rngs is not None:
@@ -900,11 +1084,13 @@ def run_tiered_combination(cfg: ExperimentConfig, data, n_real: int,
                                        result.verification_results)
         if resume is not None:
             snapshot(result.round_index + 1)
-        if early_stop is not None and early_stop.should_stop(
-                result.client_metrics):
+        stop = early_stop is not None and early_stop.should_stop(
+            result.client_metrics)
+        if engine.mesh is not None:  # rank 0's decision
+            stop = uniform_decision(stop, engine.mesh)
+        if stop:
             logger.info("Early stopping in global round!")
-            return True
-        return False
+        return stop
 
     stats = engine.run_rounds(start_round, cfg.num_rounds - start_round,
                               bookkeep)
@@ -916,16 +1102,25 @@ def run_tiered_combination(cfg: ExperimentConfig, data, n_real: int,
         final_metrics = np.where(member, final_metrics, np.nan)
         if final_full is not None:
             final_full = np.where(member[:, None], final_full, np.nan)
+    params = full = None
+    if pod and save_checkpoints and device_names:
+        # the fleet's params from the ranks' blocks (a collective)
+        params = torch.from_numpy(allgather_blocks(
+            engine.store.host.params.numpy(), engine._blocks,
+            list(range(len(engine._blocks))), engine.mesh))
+        full = data
     if writer is not None and save_checkpoints and device_names:
         save_client_models(writer, run, model_type, update_type,
                            device_names,
-                           engine.layout.tree(engine.store.host.params))
+                           engine.layout.tree(engine.store.host.params
+                                              if params is None else params))
         if all_tracking:
             save_training_tracking(writer, run, model_type, update_type,
                                    device_names,
                                    np.concatenate(all_tracking, axis=1))
         if model_type == "hybrid":
-            _save_hybrid_latents_streamed(writer, engine, run, update_type)
+            _save_hybrid_latents_streamed(writer, engine, run, update_type,
+                                          params=params, data=full)
     out = {
         "final_metrics": final_metrics,
         "best_final": float(np.nanmax(final_metrics)),

@@ -65,14 +65,27 @@ CLI (runs on the card unless --device cpu):
         [--attack-kind scale ...] [--chaos-dropout 0.2 ...]
         [--elastic-leave 0.1 ...] [--cluster-k 4 [--cluster-personalize]
         [--cluster-refit-every N]] [--resume-dir DIR] [--batch-runs]
-        [--state-layout tiered]
+        [--state-layout tiered [--host-sharded true]] [--use-mesh
+        [--aggregation-backend einsum|shard_map|quantized|auto]
+        [--quant-hosts G] [--quant-block-size B]]
         [--serve [--serve-rows N] [--serve-warmup] [--serve-continuous]]
         [--flywheel [--flywheel-rounds 3 --flywheel-async true ...]]
         [--serve-net [--net-replicas N --net-port P]] ...
-Not ported: meshes (--use-mesh, and with them --host-sharded, which
-raises). The red team is ported (fedmse_tpu_torch/redteam/: its round half
-through RoundEngine(redteam=), its ingest half in redteam/ingest.py); as in
-the JAX package, no flag drives it. The network plane's worker and the
+Many ranks: `--use-mesh` shards the client axis over the ranks of a
+torch.distributed launch (parallel/; `torchrun --nproc-per-node W -m
+fedmse_tpu_torch.main --use-mesh ...` on a host with W cards, or the
+launcher's environment on many hosts). `main` joins the launch before any
+CUDA use (parallel/multihost.initialize): NCCL between cards, gloo under
+--device cpu. A mesh is built only when the world size is above 1 (at
+world 1 the run is the plain run, bit for bit); the client axis is padded
+to a multiple of the ranks, every rank trains its block, and only rank 0
+writes results, checkpoints and snapshots, from the gathered states.
+`--state-layout tiered --use-mesh` shards each round's cohort over the
+ranks, and `--host-sharded true` keeps each rank's block of the fleet's
+tier on its own host (federation/tiered.py). The red team is ported
+(fedmse_tpu_torch/redteam/: its round half through RoundEngine(redteam=),
+its ingest half in redteam/ingest.py); as in the JAX package, no flag
+drives it. The network plane's worker and the
 gateway frontend are entries of their own: `python -m
 fedmse_tpu_torch.net.server` and `python -m
 fedmse_tpu_torch.gateway.frontend` (both take --device).
@@ -100,7 +113,8 @@ from fedmse_tpu_torch.config import (DatasetConfig, ExperimentConfig,
                                      add_cli_overrides, apply_cli_overrides,
                                      paper_scale)
 from fedmse_tpu_torch.data import (FederatedData, build_dev_dataset,
-                                   prepare_clients, stack_clients)
+                                   pad_federated_data, prepare_clients,
+                                   stack_clients)
 from fedmse_tpu_torch.device import DeviceLike, resolve_device
 from fedmse_tpu_torch.evaluation.evaluator import client_index
 from fedmse_tpu_torch.federation import (ClientStates, RoundEngine,
@@ -110,13 +124,17 @@ from fedmse_tpu_torch.federation.elastic import ElasticSpec
 from fedmse_tpu_torch.federation.batched import BatchedRunEngine
 from fedmse_tpu_torch.federation.pipeline import (run_pipelined_batched,
                                                   run_pipelined_schedule)
-from fedmse_tpu_torch.federation.tiered import (PARALLEL,
-                                                run_tiered_combination)
+from fedmse_tpu_torch.federation.tiered import run_tiered_combination
 from fedmse_tpu_torch.flywheel import run_flywheel_smoke
 from fedmse_tpu_torch.models import make_model
 from fedmse_tpu_torch.net.smoke import run_net_smoke
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.precision import get_policy
+from fedmse_tpu_torch.parallel.mesh import (ClientMesh, client_mesh,
+                                            pad_to_multiple)
+from fedmse_tpu_torch.parallel.multihost import initialize as \
+    initialize_multihost
+from fedmse_tpu_torch.parallel.multihost import uniform_decision
 from fedmse_tpu_torch.serving.smoke import run_serve_smoke
 from fedmse_tpu_torch.utils.seeding import ExperimentRngs
 
@@ -167,13 +185,18 @@ def prepare_federation(cfg: ExperimentConfig, dataset: DatasetConfig, *,
 @torch.no_grad()
 def _save_hybrid_latents(writer: ResultsWriter, engine, run: int,
                          update_type: str,
-                         params: Optional[torch.Tensor] = None) -> None:
+                         params: Optional[torch.Tensor] = None,
+                         data: Optional[FederatedData] = None) -> None:
     """The hybrid's test latents and labels of every real client (`params`
-    [N, P]: a batched engine's run; the engine's states by default)."""
-    d, n = engine.data, engine.n_real
+    [N, P]: a batched engine's run, or a meshed engine's gathered states
+    with its whole `data`; the engine's states by default)."""
+    d, n = engine.data if data is None else data, engine.n_real
     cdt = engine.model.compute_dtype
     t = d.test_x.shape[1]
     params = engine.states.params if params is None else params
+    if d.test_x.device != params.device:
+        d = FederatedData(**{f.name: getattr(d, f.name).to(params.device)
+                             for f in dataclasses.fields(FederatedData)})
     latent, _, _ = fused_forward_stats(
         engine.layout.tree(params[:n], cdt),
         d.test_x[:n].reshape(n * t, -1).to(cdt),
@@ -198,7 +221,8 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
                     chaos: Optional[ChaosSpec] = None,
                     elastic: Optional[ElasticSpec] = None,
                     cluster: Optional[ClusterSpec] = None,
-                    device: Optional[DeviceLike] = None) -> Dict:
+                    device: Optional[DeviceLike] = None,
+                    mesh: Optional[ClientMesh] = None) -> Dict:
     """One (model_type, update_type, run): the reference round loop, the
     final evaluation and the artifacts. Runs on `device`, by default where
     `data` lives (state_layout='tiered': run_tiered_combination, whose
@@ -209,7 +233,11 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
     `attack`, `chaos` and `elastic` are the fault specs, `cluster` the
     clustering; `resume`
     snapshots the run after each chunk (or round) and resumes it from its
-    snapshot when there is one."""
+    snapshot when there is one. `mesh` (more than one rank) shards the
+    client axis: `data` is then the whole federation (on the host), every
+    rank calls this together, and only the rank with a `writer` writes
+    (rank 0 in the driver)."""
+    sharded = mesh is not None and mesh.sharded
     device = data.train_xb.device if device is None else \
         resolve_device(device)
     if cfg.state_layout == "tiered":
@@ -221,11 +249,14 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
             early_stop=early_stop, device_names=device_names, resume=resume,
             save_checkpoints=save_checkpoints, attack=attack, chaos=chaos,
             elastic=elastic, cluster=cluster, states=states,
-            on_round=on_round, device=device)
-    if data.train_xb.device.type != device.type:
+            on_round=on_round, device=device, mesh=mesh)
+    if sharded:
+        device = mesh.device
+    elif data.train_xb.device.type != device.type:
         raise ValueError(f"the dense layout runs where its data lives "
                          f"({data.train_xb.device}), not on {device}")
-    device = data.train_xb.device
+    if not sharded:
+        device = data.train_xb.device
     rngs = ExperimentRngs(run=run, data_seed=cfg.data_seed,
                           run_seed_stride=cfg.run_seed_stride)
     model = make_model(model_type, cfg.dim_features, cfg.hidden_neus,
@@ -237,7 +268,8 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
                          fused=cfg.fused_rounds,
                          poison_fn=None if attack is None
                          else make_poison_fn(attack),
-                         chaos=chaos, elastic=elastic, cluster=cluster)
+                         chaos=chaos, elastic=elastic, cluster=cluster,
+                         mesh=mesh)
     round_times: List[float] = []
     all_tracking: List[np.ndarray] = []  # every round's [n_real, E, 3]
     results = []
@@ -267,10 +299,15 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
                 cluster_k=cluster.k,
                 cluster_assignment=engine.cluster_assignment.tolist(),
                 cluster_fitted_round=engine.cluster_fitted_round)
-        resume.save(tag, engine.states, engine.host, rounds_done,
-                    layout=engine.layout, extra=extra,
-                    tracking=(np.concatenate(all_tracking, axis=1)
-                              if all_tracking else None))
+        # a meshed run's snapshot is the gathered dense one, rank 0's
+        states = engine.gathered_states() if sharded else engine.states
+        if not sharded or mesh.rank == 0:
+            resume.save(tag, states, engine.host, rounds_done,
+                        layout=engine.layout, extra=extra,
+                        tracking=(np.concatenate(all_tracking, axis=1)
+                                  if all_tracking else None))
+        if sharded:
+            mesh.barrier()
 
     if resume is not None and resume.exists(tag):
         if clustered:
@@ -281,8 +318,12 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
                 engine.set_cluster_assignment(
                     vec, saved.get("cluster_fitted_round", 0))
         engine.states, engine.host, start_round, tracking = resume.restore(
-            tag, layout=engine.layout, device=device,
+            tag, layout=engine.layout, device="cpu" if sharded else device,
             expected_extra=expected, extra_defaults=defaults)
+        if sharded:
+            from fedmse_tpu_torch.federation.state import \
+                shard_client_states
+            engine.states = shard_client_states(engine.states, mesh)
         saved_rngs = resume.extra(tag).get("rngs")
         if saved_rngs is not None:  # a snapshot the JAX package wrote has none
             engine.rngs.load_state_dict(saved_rngs)
@@ -307,11 +348,13 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
                                         update_type)
             writer.append_verification(run, result.round_index,
                                        result.verification_results)
-        if early_stop is not None and early_stop.should_stop(
-                result.client_metrics):
+        stop = early_stop is not None and early_stop.should_stop(
+            result.client_metrics)
+        if sharded:  # rank 0's decision: a rank that differs deadlocks
+            stop = uniform_decision(stop, mesh)
+        if stop:
             logger.info("Early stopping in global round!")
-            return True
-        return False
+        return stop
 
     use_schedule = (cfg.fused_schedule and engine.fused
                     and not engine.profile)
@@ -349,17 +392,23 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
         final_metrics = np.where(member, final_metrics, np.nan)
         if final_full is not None:
             final_full = np.where(member[:, None], final_full, np.nan)
+    params = engine.states.params
+    if sharded and save_checkpoints and device_names:
+        # every rank gathers (a collective); the rank with a writer writes
+        params = engine.gathered_states().params.to(device)
     if writer is not None and save_checkpoints and device_names:
         n = n_real
         save_client_models(writer, run, model_type, update_type,
                            device_names,
-                           engine.layout.tree(engine.states.params[:n]))
+                           engine.layout.tree(params[:n]))
         if all_tracking:
             save_training_tracking(writer, run, model_type, update_type,
                                    device_names,
                                    np.concatenate(all_tracking, axis=1))
         if model_type == "hybrid":
-            _save_hybrid_latents(writer, engine, run, update_type)
+            _save_hybrid_latents(writer, engine, run, update_type,
+                                 params=params if sharded else None,
+                                 data=data if sharded else None)
     out = {
         "final_metrics": final_metrics,
         "best_final": float(np.nanmax(final_metrics)),
@@ -367,8 +416,7 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
         "rounds_run": len(round_times),
         "aggregation_count": engine.host.aggregation_count.tolist(),
         "votes_received": engine.host.votes_received.tolist(),
-        # the merge is the dense weighted mean, the JAX package's 'einsum'
-        "aggregation_backend_effective": "einsum",
+        "aggregation_backend_effective": engine.agg_backend,
         "rounds": results,
         "engine": engine,
         # the chunk loop's telemetry (None off the fused schedule)
@@ -489,10 +537,13 @@ def run_batched_combination(cfg: ExperimentConfig, data, n_real: int,
 
 
 def batch_runs_refusals(cfg: ExperimentConfig, resume_dir: Optional[str],
-                        cluster: Optional[ClusterSpec]) -> List[str]:
+                        cluster: Optional[ClusterSpec],
+                        mesh: Optional[ClientMesh] = None) -> List[str]:
     """Why --batch-runs cannot batch this sweep (empty: it can), in the
     JAX driver's words."""
     reasons = []
+    if mesh is not None:
+        reasons.append("--use-mesh (client axis is device-sharded)")
     if resume_dir:
         reasons.append("--resume-dir (per-chunk resume is per-run)")
     if cfg.metric == "time":
@@ -513,8 +564,9 @@ def check_layout(cfg: ExperimentConfig) -> None:
     if cfg.state_layout not in ("dense", "tiered"):
         raise ValueError(f"unknown state_layout {cfg.state_layout!r} "
                          "(dense | tiered)")
-    if cfg.host_sharded:
-        raise ValueError(f"--host-sharded waits for {PARALLEL}")
+    if cfg.host_sharded and cfg.state_layout != "tiered":
+        raise ValueError("--host-sharded shards the tier: it needs "
+                         "--state-layout tiered")
 
 
 def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
@@ -528,7 +580,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                    elastic: Optional[ElasticSpec] = None,
                    cluster: Optional[ClusterSpec] = None,
                    batch_runs: bool = False, flywheel: bool = False,
-                   serve_net: bool = False) -> Dict:
+                   serve_net: bool = False, use_mesh: bool = False) -> Dict:
     """The full sweep -> training summary dict. `batch_runs` runs each
     combination's seeds as one batched federation where the sweep allows
     it (batch_runs_refusals), else sequentially with a warning.
@@ -542,9 +594,19 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
     (net/smoke.py), its report under "net_smoke". `resume_dir`
     snapshots every combination there and resumes from it; the fault
     specs and the clustering go to every combination and into the
-    summary."""
+    summary. `use_mesh` shards the client axis over the ranks of the
+    process group when there is more than one (parallel/; the serving
+    passes then run on rank 0 only)."""
     dev = resolve_device(device)
     check_layout(cfg)
+    mesh = None
+    if use_mesh:
+        mesh = client_mesh(device=dev if dev.type == "cpu" else None)
+        if not mesh.sharded:
+            mesh = None  # world 1: the plain run
+        else:
+            dev = mesh.device
+    lead = mesh is None or mesh.rank == 0
     tiered = cfg.state_layout == "tiered"
     resume = CheckpointManager(resume_dir) if resume_dir else None
     if resume is not None and cfg.fused_pipeline and cfg.fused_rounds \
@@ -557,16 +619,24 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
             "executor)")
     # the tiered layout keeps the fleet's data on the host
     clients, data, n_real = prepare_federation(
-        cfg, dataset, device="cpu" if tiered else dev)
+        cfg, dataset, device="cpu" if tiered or mesh is not None else dev)
+    if mesh is not None and not tiered:
+        n_old = data.client_mask.shape[0]
+        n_new = pad_to_multiple(n_old, mesh.world_size)
+        if n_new != n_old:
+            logger.info("padding client axis %d -> %d (+%d zero-weight pad "
+                        "clients) to tile the %d-rank mesh", n_old, n_new,
+                        n_new - n_old, mesh.world_size)
+            data = pad_federated_data(data, n_new)
     device_names = [c.name for c in clients]
     writer = ResultsWriter(cfg.checkpoint_dir, cfg.network_size,
                            cfg.experiment_name, cfg.scen_name, cfg.metric,
-                           cfg.num_participants)
+                           cfg.num_participants) if lead else None
     early_stop = GlobalEarlyStop(
         inverted=cfg.compat.inverted_global_early_stop,
         patience=cfg.global_patience)
     if batch_runs:
-        reasons = batch_runs_refusals(cfg, resume_dir, cluster)
+        reasons = batch_runs_refusals(cfg, resume_dir, cluster, mesh)
         if reasons:
             logger.warning("--batch-runs disabled (%s); running runs "
                            "sequentially", "; ".join(reasons))
@@ -609,7 +679,7 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                     device_names=device_names,
                     save_checkpoints=save_checkpoints, resume=resume,
                     attack=attack, chaos=chaos, elastic=elastic,
-                    cluster=cluster, device=dev)
+                    cluster=cluster, device=dev, mesh=mesh)
                 best_metrics[model_type][update_type] = max(
                     best_metrics[model_type][update_type], out["best_final"])
                 all_results[f"{model_type}/{update_type}/run{run}"] = {
@@ -618,15 +688,20 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
                     "aggregation_backend_effective":
                         out["aggregation_backend_effective"],
                 }
-    summary_path = writer.write_summary(best_metrics, cfg.num_runs,
-                                        results=all_results)
-    logger.info("Saved training summary to %s", summary_path)
+    summary_path = None
+    if writer is not None:
+        summary_path = writer.write_summary(best_metrics, cfg.num_runs,
+                                            results=all_results)
+        logger.info("Saved training summary to %s", summary_path)
     out = {"best_metrics": best_metrics, "results": all_results,
            "summary_path": summary_path}
     for name, spec in (("attack", attack), ("chaos", chaos),
                        ("elastic", elastic), ("cluster", cluster)):
         if spec is not None:
             out[name] = dataclasses.asdict(spec)
+    if not lead and (serve or flywheel or serve_net):
+        logger.info("the serving passes run on rank 0")
+        serve = flywheel = serve_net = False
     if (serve or flywheel or serve_net) \
             and data.train_xb.device.type != dev.type:
         data = FederatedData(**{f.name: getattr(data, f.name).to(dev)
@@ -679,6 +754,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; the CUDA kernels) or cpu (their "
                         "plain PyTorch versions)")
+    p.add_argument("--use-mesh", action="store_true",
+                   help="shard the client axis over the ranks of the "
+                        "launch (torchrun; one card each) when there is "
+                        "more than one")
     p.add_argument("--no-save", action="store_true",
                    help="skip the per-client model and tracking artifacts")
     p.add_argument("--no-pipeline", action="store_true",
@@ -847,6 +926,9 @@ def cluster_spec(args, cfg: ExperimentConfig):
 
 def main(argv: Optional[List[str]] = None) -> Dict:
     args = build_parser().parse_args(argv)
+    # join a launch of many ranks before any other CUDA use (no launch
+    # configured: the process stays alone)
+    initialize_multihost(device=args.device)
     cfg = apply_cli_overrides(ExperimentConfig(), args)
     if args.no_pipeline:
         cfg = cfg.replace(fused_pipeline=False)
@@ -866,7 +948,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                           chaos=chaos, elastic=elastic, cluster=cluster,
                           batch_runs=args.batch_runs,
                           flywheel=args.flywheel,
-                          serve_net=args.serve_net)
+                          serve_net=args.serve_net,
+                          use_mesh=args.use_mesh)
 
 
 if __name__ == "__main__":

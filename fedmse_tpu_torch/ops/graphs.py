@@ -27,6 +27,18 @@ engine's graphs live in reference cycles, and destroying a graph while a
 stream captures invalidates the capture (torch's graph context no longer
 collects before it captures, so such garbage can be due at any moment).
 
+A body may run collectives across ranks (a round sharded over a client
+mesh, parallel/): every collective in it goes through `collective(...)`,
+which cuts the capture there. The first call runs the whole body eagerly,
+collectives included; the capture then records one graph per stretch
+between two collectives (sharing one memory pool) and, at each cut, the
+collective's source tensor; a replay runs graph 0, collective 0, graph 1,
+... with each collective an eager call writing into the output buffer its
+first call allocated, which the next graph reads. A body that runs no
+collective (every body off a mesh) is one stretch: one graph, the same
+nodes as a capture of the whole body. Outside a body being captured (the
+CPU, or no body at all) `collective` simply runs.
+
 Launch counts stay launches: a kernel wrapper called under capture counts
 in its `captured` integer, not in `launches` (ops/native.count_launch), and
 the body keeps the wrappers' capture deltas as its kernels per replay.
@@ -38,8 +50,9 @@ from __future__ import annotations
 
 import ctypes
 import gc
+import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -74,69 +87,157 @@ def graph_nodes(graph) -> int:
     return int(count.value)
 
 
+_ACTIVE = threading.local()
+
+
+def collective(src: torch.Tensor,
+               alloc: Callable[[torch.Tensor], torch.Tensor],
+               run: Callable[[torch.Tensor, torch.Tensor], None]
+               ) -> torch.Tensor:
+    """A collective on `src` into a buffer `alloc(src)` made once, by
+    `run(src, dst)`: run now, or, inside a body being captured, cut
+    the capture here and run at each replay (module docstring)."""
+    body = getattr(_ACTIVE, "body", None)
+    if body is None:
+        dst = alloc(src)
+        run(src, dst)
+        return dst
+    return body._collective(src, alloc, run)
+
+
+class _Slot:
+    """One collective of a body: its capture-time source, its
+    output buffer and the call that fills it."""
+
+    def __init__(self, dst: torch.Tensor, run: Callable) -> None:
+        self.src: Optional[torch.Tensor] = None
+        self.dst = dst
+        self.run = run
+
+
 class CapturedBody:
-    """fn() on `device`: eager on the CPU, a replayed CUDA graph on a card
+    """fn() on `device`: eager on the CPU, replayed CUDA graphs on a card
     (see the module docstring). `replays`, `replay_seconds` (the host's
-    time in them), `capture_seconds`, `nodes` and `kernels` (kernel
-    launches per replay, by wrapper name) describe the graph once
-    captured."""
+    time in them), `capture_seconds`, `nodes` (over every graph) and
+    `kernels` (kernel launches per replay, by wrapper name) describe the
+    graphs once captured."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device,
                  name: str):
         self.fn = fn
         self.device = device
         self.name = name
-        self.graph = None
+        self.graphs: List = []  # the stretches' graphs, in replay order
+        self._slots: List[_Slot] = []  # the collectives between them
+        self._mode = ""
+        self._at = 0
+        self._pool = None
         self.kernels: Dict[str, int] = {}
         self.replays = 0
         self.replay_seconds = 0.0  # the host's time in replay() calls
         self.capture_seconds = 0.0
         self.nodes: Optional[int] = None
 
+    @property
+    def captured(self) -> bool:
+        return bool(self.graphs)
+
     def __call__(self) -> None:
         if self.device.type != "cuda":
             self.fn()
             return
-        if self.graph is None:
+        if not self.graphs:
             self._warm_up_and_capture()
             return
         t0 = time.perf_counter()
-        self.graph.replay()
+        for i, graph in enumerate(self.graphs):
+            graph.replay()
+            if i < len(self._slots):
+                slot = self._slots[i]
+                slot.run(slot.src, slot.dst)
         self.replay_seconds += time.perf_counter() - t0
         self.replays += 1
         for name, n in self.kernels.items():
             WRAPPERS[name].launches += n
 
+    def _collective(self, src, alloc, run) -> torch.Tensor:
+        if self._mode == "warm":  # the eager first call: run it
+            dst = alloc(src)
+            run(src, dst)
+            self._slots.append(_Slot(dst, run))
+            return dst
+        slot = self._slots[self._at]  # capturing: cut the graph here
+        self._at += 1
+        slot.src = src
+        self._end_graph()
+        self._begin_graph()
+        return slot.dst
+
+    def _begin_graph(self) -> None:
+        if self._pool is None:  # one memory pool for every stretch
+            self._pool = torch.cuda.graph_pool_handle()
+        graph, kept = _new_graph()
+        graph.capture_begin(pool=self._pool,
+                            capture_error_mode="thread_local")
+        self._capturing.append((graph, kept))
+
+    def _end_graph(self) -> None:
+        self._capturing[-1][0].capture_end()
+
     def _warm_up_and_capture(self) -> None:
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self.fn()
-        torch.cuda.current_stream(self.device).wait_stream(side)
+        dev = self.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        self._slots = []
+        self._mode, _ACTIVE.body = "warm", self
+        try:
+            with torch.cuda.stream(side):
+                self.fn()
+        finally:
+            _ACTIVE.body = None
+        torch.cuda.current_stream(dev).wait_stream(side)
         t0 = time.perf_counter()
         before = {k: w.captured for k, w in WRAPPERS.items()}
-        graph, kept = _new_graph()
         collecting = gc.isenabled()
         gc.disable()
+        self._mode, self._at, self._capturing = "capture", 0, []
         try:
-            with torch.cuda.device(self.device), torch.cuda.graph(
-                    graph, stream=side, capture_error_mode="thread_local"):
-                self.fn()
+            with torch.cuda.device(dev):
+                # as torch.cuda.graph does: free what the graph may use
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+                with torch.cuda.stream(side):
+                    self._begin_graph()
+                    _ACTIVE.body = self
+                    try:
+                        self.fn()
+                    finally:
+                        _ACTIVE.body = None
+                        self._end_graph()
         finally:
             if collecting:
                 gc.enable()
-        if kept:
-            graph.instantiate()
-            self.nodes = graph_nodes(graph)
-        torch.cuda.synchronize(self.device)
+        if self._at != len(self._slots):
+            raise RuntimeError(
+                f"body {self.name!r} ran {len(self._slots)} collectives "
+                f"eagerly but {self._at} under capture")
+        nodes = 0
+        for graph, kept in self._capturing:
+            if kept:
+                graph.instantiate()
+                nodes += graph_nodes(graph)
+        self.nodes = nodes if all(k for _, k in self._capturing) else None
+        torch.cuda.synchronize(dev)
         self.capture_seconds = time.perf_counter() - t0
         self.kernels = {k: w.captured - before[k]
                         for k, w in WRAPPERS.items()
                         if w.captured != before[k]}
-        self.graph = graph
+        self.graphs = [g for g, _ in self._capturing]
+        del self._capturing
 
     def stats(self) -> dict:
         return {"replays": self.replays, "nodes": self.nodes,
+                "segments": len(self.graphs),
                 "replay_seconds": self.replay_seconds,
                 "capture_seconds": self.capture_seconds,
                 "kernels_per_replay": dict(self.kernels)}

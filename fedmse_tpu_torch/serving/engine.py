@@ -27,7 +27,19 @@
     `PendingScores.is_ready` is the event's query and `harvest` waits on
     it.
 
-Mesh placement waits for a later slice and raises NotImplementedError.
+  * **Mesh** (`mesh=` a parallel.ClientMesh of W > 1 ranks): when W
+    divides the gateway count each rank holds the block of params,
+    centroids and banks of the gateways it owns
+    (parallel.mesh.process_client_rows), else every rank holds the whole
+    state. A `score` / `dispatch` on a gateway-sharded engine is
+    collective: every rank is handed the same rows and scores the whole
+    bucket against its block (a row of another rank's gateway is routed
+    to a local model and dropped), the ranks' scores are gathered, and
+    each row takes its owner's. The kernels are per-row, so in f32 a row
+    is the unsharded engine's bits. Every rank must dispatch the same
+    buckets in the same order: the continuous front's timer flushes
+    differ across ranks, so over a sharded engine it runs with a latency
+    budget no flush reaches (a flush on size only).
 """
 
 from __future__ import annotations
@@ -219,10 +231,9 @@ class ServingEngine:
         if model_type not in ("autoencoder", "hybrid"):
             raise ValueError(f"unknown model_type {model_type!r}")
         score_kind = resolve_score_kind(model_type, score_kind)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= serving waits for the port of fedmse_tpu/parallel/ "
-                "(ROADMAP.md queue 1)")
+        if mesh is not None and not hasattr(mesh, "world_size"):
+            raise ValueError(f"mesh must be a parallel.ClientMesh, got "
+                             f"{type(mesh).__name__}")
         if score_kind == "centroid" and centroids is None:
             raise ValueError("centroid serving needs fitted centroids "
                              "(fit_gateway_centroids)")
@@ -237,7 +248,10 @@ class ServingEngine:
         if routing not in ("auto", "gather", "dense"):
             raise ValueError(f"unknown routing {routing!r} "
                              "(auto | gather | dense)")
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.sharded else None
+        self._block: Optional[Tuple[int, int]] = None
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self.policy = get_policy(precision)
         self.model = model
         self.model_type = model_type
@@ -245,12 +259,17 @@ class ServingEngine:
         self.score_kind = score_kind
         self.knn_k = knn_k
         self.knn_topk = knn_topk
+        placed = params_from_numpy(params, self.device,
+                                   self.policy.compute_dtype)
+        n = placed["encoder"]["Dense_0"]["kernel"].shape[0]
+        if self.mesh is not None and multi_tenant \
+                and n % self.mesh.world_size == 0:
+            self._block = self.mesh.block(n)  # gateway-sharded
         self._state: Dict[str, Any] = {
-            "params": self._place_params(params),
+            "params": self._place_params(placed),
             "centroids": self._place_centroids(centroids),
-            "banks": None if banks is None else banks.to(self.device),
+            "banks": self._place_banks(banks),
         }
-        n = self._state["params"]["encoder"]["Dense_0"]["kernel"].shape[0]
         if not multi_tenant and n != 1:
             raise ValueError(f"a single-global engine serves one model; "
                              f"params stack {n}")
@@ -278,6 +297,11 @@ class ServingEngine:
         self.swap_count = 0
 
     @property
+    def gateway_sharded(self) -> bool:
+        """Whether each rank holds its block of the gateways' state."""
+        return self._block is not None
+
+    @property
     def params(self):
         return self._state["params"]
 
@@ -293,12 +317,34 @@ class ServingEngine:
 
     def _place_params(self, params):
         """The resident compute copy: kernels in the policy's compute
-        dtype, biases f32, stacked, on the engine's device."""
-        return params_from_numpy(params, self.device,
-                                 self.policy.compute_dtype)
+        dtype, biases f32, stacked, on the engine's device (this rank's
+        gateways only, when gateway-sharded)."""
+        placed = params_from_numpy(params, self.device,
+                                   self.policy.compute_dtype)
+        if self._block is None:
+            return placed
+        lo, hi = self._block
+        return {c: {d: {k: v[lo:hi] for k, v in layer.items()}
+                    for d, layer in coder.items()}
+                for c, coder in placed.items()}
 
     def _place_centroids(self, centroids):
-        return None if centroids is None else centroids.to(self.device)
+        if centroids is None:
+            return None
+        cen = centroids.to(self.device)
+        if self._block is None:
+            return cen
+        return cen.take(torch.arange(*self._block, device=self.device))
+
+    def _place_banks(self, banks):
+        if banks is None:
+            return None
+        banks = banks.to(self.device)
+        if self._block is None:
+            return banks
+        lo, hi = self._block
+        return ReferenceBank(latents=banks.latents[lo:hi].contiguous(),
+                             count=banks.count[lo:hi])
 
     # ----------------------------- hot swap ------------------------------ #
 
@@ -353,7 +399,7 @@ class ServingEngine:
                 raise ValueError(
                     f"swap banks latent_dim {banks.latent_dim} != "
                     f"resident {old.latent_dim}")
-            new["banks"] = banks.to(self.device)  # B may change
+            new["banks"] = self._place_banks(banks)  # B may change
             swapped.append("banks")
         return new, swapped
 
@@ -563,6 +609,19 @@ class ServingEngine:
 
     def _score_rows(self, state: Dict[str, Any], x: torch.Tensor,
                     gw: torch.Tensor) -> torch.Tensor:
+        if self._block is None:
+            return self._score_local(state, x, gw)
+        # every rank scores the bucket against its block; each row takes
+        # its owning rank's score (module docstring)
+        lo, hi = self._block
+        local = torch.clamp(gw.to(torch.int64) - lo, 0, hi - lo - 1)
+        stack = self.mesh.all_gather(
+            self._score_local(state, x, local.to(torch.int32)))
+        owner = torch.div(gw.to(torch.int64), hi - lo, rounding_mode="floor")
+        return stack.gather(0, owner[None])[0]
+
+    def _score_local(self, state: Dict[str, Any], x: torch.Tensor,
+                     gw: torch.Tensor) -> torch.Tensor:
         cdt = self.policy.compute_dtype
         latent, mse, _ = fused_forward_stats(
             state["params"], x, gw if self.multi_tenant else None,

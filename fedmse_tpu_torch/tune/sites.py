@@ -19,10 +19,16 @@ measured on another card, another backend or another grid is invisible:
     at 4,096 probe clients. The tier's rows are the dense init's bits
     whatever the chunk, so the chunk moves only the init's wall.
 
+  * `merge_plan` — parallel/costmodel.plan_merge (aggregation_backend
+    "auto" on a client mesh). Races the exact merge against the quantized
+    one per group count and block size (QUANT_BLOCK_CANDIDATES: the pow2
+    trio and the 192 / 384 midpoints) on the real process group, keyed on
+    the device name, the world size, the mesh's backend and the call's
+    arguments.
+
 The JAX package's `pallas_block_rows` site has no counterpart: the port's
 forward kernel plans its tiles from the row count alone
-(`ops.fused_ae.tile_plan`), so there is no block size to race. Its int8
-`merge_plan` site waits for the port of fedmse_tpu/parallel/.
+(`ops.fused_ae.tile_plan`), so there is no block size to race.
 
 On the CPU the backend is 'cpu' and the device 'torch-cpu' (the JAX
 package names its CPU device 'cpu'), so no entry of one package matches a
@@ -42,6 +48,7 @@ from fedmse_tpu_torch.tune.cache import TuningCache, default_cache
 from fedmse_tpu_torch.tune.measure import measure_candidates
 
 TIER_CHUNK_CANDIDATES = (512, 1024, 2048, 3072, 4096, 6144, 8192)
+QUANT_BLOCK_CANDIDATES = (128, 192, 256, 384, 512)
 
 # probe shapes: the reference AE topology
 _PROBE_DIM, _PROBE_HIDDEN, _PROBE_LATENT = 115, 27, 7

@@ -1421,7 +1421,7 @@ def test_tiered_full_participation_is_the_dense_engine_on_card(cuda):
     for x, y in zip(tier.store.host.tensors(), dense.states.tensors()):
         assert _same(x, y)
     f = tier._round
-    assert all(b.graph is not None for b in (f.enter, f.epoch, f.leave))
+    assert all(b.captured for b in (f.enter, f.epoch, f.leave))
 
 
 def test_tiered_staging_is_pinned_and_the_round_waits_for_the_copy(
@@ -1570,7 +1570,7 @@ def test_background_finetune_capture_overlaps_a_streaming_front(cuda):
                           ExperimentRngs(run=seen["run"]), ctl.rounds)
     assert torch.equal(sync.layout.flatten(tree), seen["params"])
     fused = next(iter(ctl.runner._engines.values()))._fused
-    assert all(b.graph is not None for b in (fused.enter, fused.epoch,
+    assert all(b.captured for b in (fused.enter, fused.epoch,
                                              fused.leave))
 
 
@@ -1716,3 +1716,55 @@ def test_in_process_bf16_swap_reads_the_payload_whole(cuda):
     want = fresh.score(rows, gws)
     np.testing.assert_array_equal(res.scores.view(np.int32),
                                   want.view(np.int32))
+
+
+# ---- the client mesh (parallel/) on the card ---- #
+
+def test_codec_on_card_is_the_cpu_codes_and_scales(cuda):
+    from fedmse_tpu_torch.parallel.quantize import (quantize_blockwise,
+                                                    quantize_blockwise_k)
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((3, 6764), generator=gen) * torch.tensor(
+        [[1e-3], [1.0], [40.0]])
+    x[1, :512] = 0.0  # zero blocks: scale 1, codes 0
+    for block in (64, 256):
+        qc, sc = quantize_blockwise_k(x, block)
+        qg, sg = quantize_blockwise_k(x.to(cuda), block)
+        assert torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+        q1, s1 = quantize_blockwise(x[2].to(cuda), block)
+        assert torch.equal(q1.cpu(), qc[2]) and torch.equal(s1.cpu(), sc[2])
+
+
+def test_world_one_nccl_shardmap_merge_is_einsum_bits(cuda, tmp_path):
+    """A one-rank NCCL group: the exact collective merge's gather goes
+    through NCCL and gives the dense merge's bits; one-group quantized is
+    shard_map's bits."""
+    import torch.distributed as dist
+
+    from fedmse_tpu_torch.federation.aggregation import make_aggregate_fn
+    from fedmse_tpu_torch.parallel import collectives as coll
+    from fedmse_tpu_torch.parallel import multihost
+    from fedmse_tpu_torch.parallel.mesh import client_mesh
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    multihost.initialize(store=dist.FileStore(str(tmp_path / "store"), 1),
+                         world_size=1, rank=0, backend="nccl", device="cuda")
+    try:
+        mesh = client_mesh(device=cuda)
+        assert mesh.backend == "nccl" and mesh.group.pg is not None
+        model = make_model("hybrid", 115, 27, 7, device=cuda)
+        gen = torch.Generator().manual_seed(3)
+        p = (torch.randn((10, ParamLayout(115, 27, 7).size), generator=gen)
+             * 0.2).to(cuda)
+        sel = torch.tensor([1, 0, 1, 1, 0, 1, 1, 0, 1, 1.0], device=cuda)
+        dev_x = torch.randn((256, 115), generator=gen).to(cuda)
+        for ut in ("avg", "mse_avg"):
+            m, w = make_aggregate_fn(model, ut)(p, sel, dev_x)
+            ms, ws = coll.make_shardmap_aggregate(model, ut, mesh)(p, sel,
+                                                                   dev_x)
+            mq, _ = coll.make_hierarchical_aggregate(
+                model, ut, mesh, num_groups=1)(p, sel, dev_x)
+            assert torch.equal(ms, m) and torch.equal(ws, w)
+            assert torch.equal(mq, ms)
+    finally:
+        multihost.shutdown()

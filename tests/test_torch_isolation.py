@@ -29,6 +29,9 @@ from fedmse_tpu_torch.gateway.frontend import build_synthetic_frontend
 from fedmse_tpu_torch.main import prepare_federation, run_experiment
 from fedmse_tpu_torch.net.server import build_synthetic_replicas
 from fedmse_tpu_torch.net.server import main as net_server_main
+from fedmse_tpu_torch.parallel import launch as parallel_launch
+from fedmse_tpu_torch.parallel.mesh import client_mesh
+from fedmse_tpu_torch.parallel.multihost import initialize
 from fedmse_tpu_torch.serving import ServingEngine
 from fedmse_tpu_torch.tune import sites as tune_sites
 
@@ -44,7 +47,8 @@ def _port_modules():
 
 # the red team's round half, the batched runs, the tiered layout, the
 # flywheel with its slow-drift adversary, the autotuner, the network
-# serving plane, the gateway ingest plane and the red team's ingest half
+# serving plane, the gateway ingest plane, the red team's ingest half, and
+# the client mesh with its rank entry
 NEW_MODULES = ("redteam", "redteam.spec", "redteam.masks",
                "redteam.adversary", "redteam.mimicry", "federation.batched",
                "federation.tiered", "flywheel", "flywheel.buffer",
@@ -54,7 +58,10 @@ NEW_MODULES = ("redteam", "redteam.spec", "redteam.masks",
                "net.autoscale", "net.router", "net.client", "net.server",
                "net.smoke", "gateway", "gateway.mux", "gateway.auth",
                "gateway.session", "gateway.stripe", "gateway.tls",
-               "gateway.frontend", "gateway.client", "redteam.ingest")
+               "gateway.frontend", "gateway.client", "redteam.ingest",
+               "parallel", "parallel.quantize", "parallel.mesh",
+               "parallel.multihost", "parallel.costmodel",
+               "parallel.collectives", "parallel.launch")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -225,7 +232,18 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
         lambda: build_synthetic_frontend(n_gateways=2, dim=6, max_batch=4),
         lambda: net_server_main(["--gateways", "2", "--dim", "6",
                                  "--max-batch", "4"]),
+        lambda: client_mesh(),
+        lambda: initialize(store=object(), world_size=1, rank=0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_rank_entry_runs_on_the_card_unless_asked(tmp_path):
+    """`spawn` and `python -m fedmse_tpu_torch.parallel.launch` default to
+    the card: a rank that sees none raises, naming device='cpu'."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    with pytest.raises(parallel_launch.RankJobError, match="device='cpu'"):
+        parallel_launch.spawn(1, "json:dumps", workdir=str(tmp_path),
+                              timeout_s=120, env=env)

@@ -262,8 +262,8 @@ def test_roster_swap_and_candidate_state(fed):
 
 
 def test_engine_refuses_what_waits_for_later_slices(fed):
-    """Mesh serving still waits for a later slice; kNN serving is ported
-    and refuses only a missing bank."""
+    """A mesh must be a parallel.ClientMesh; kNN serving refuses only a
+    missing bank."""
     _, model = _models("autoencoder")
     with pytest.raises(ValueError, match="banks"):
         ServingEngine(model, "autoencoder", fed[2]["autoencoder"],
@@ -272,7 +272,7 @@ def test_engine_refuses_what_waits_for_later_slices(fed):
         ServingEngine.from_federation(model, "autoencoder",
                                       fed[2]["autoencoder"],
                                       score_kind="knn", device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(ValueError, match="ClientMesh"):
         _port_engine("autoencoder", fed, mesh=object())
     with pytest.raises(ValueError, match="unknown metric"):
         make_evaluate_all(model, "autoencoder", metric="latency")

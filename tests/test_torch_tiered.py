@@ -67,6 +67,7 @@ from fedmse_tpu_torch.federation.elastic import (
     ElasticSpec, MembershipMasks, apply_membership_transitions)
 from fedmse_tpu_torch.federation.pipeline import TieredStats
 from fedmse_tpu_torch.federation.state import (TieredClientStore,
+                                               TieredShardStore,
                                                client_states_to_numpy,
                                                dense_state_bytes)
 from fedmse_tpu_torch.federation.tiered import TieredRoundEngine
@@ -404,9 +405,27 @@ def test_membership_transitions_match_jax(clustered):
     assert (tier.host.opt_state.mu[0] == 1).all()
     assert not tier.host.hist_seen[3] and tier.host.rejected[3] == 0
     assert tier.host.waived[3] == 0.5  # kept, as in the JAX tier
-    with pytest.raises(ValueError, match="item 7"):
-        apply_membership_transitions(tier, member, joined, left,
-                                     merge_partials=sum)
+    # merge_partials, the host-sharded tier's cross-rank sum: two shards of
+    # the same fleet, their partials summed, take the whole tier's rows
+    base = TieredClientStore.create(_model(), 7,
+                                    torch.Generator().manual_seed(3))
+    shards = [TieredShardStore.from_dense_slice(base.host, 7, lo, hi)
+              for lo, hi in ((0, 3), (3, 7))]
+    parts = []
+    for sh in shards:  # collect each shard's partial (on copies)
+        scratch = TieredShardStore(sh.host.clone(), 7, sh.start, sh.stop)
+        apply_membership_transitions(
+            scratch, member, joined, left, **kw,
+            merge_partials=lambda p: parts.append(p[0]) or p)
+    for sh in shards:
+        apply_membership_transitions(
+            sh, member, joined, left, **kw,
+            merge_partials=lambda p: [parts[0] + parts[1]])
+    for sh in shards:
+        np.testing.assert_allclose(
+            sh.host.params.numpy(),
+            tier.host.params.numpy()[sh.start:sh.stop], rtol=1e-6,
+            atol=1e-7)
 
 
 # ---------------------------------------------- faults, roster, layout ----
@@ -499,9 +518,9 @@ def test_redteam_null_builds_nothing_and_an_active_spec_raises():
 
 def test_guards_name_what_waits():
     cfg = _cfg()
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(ValueError, match="ClientMesh"):
         _tiered(cfg, mesh=object())
-    with pytest.raises(ValueError, match="item 7"):
+    with pytest.raises(ValueError, match="need a client mesh"):
         _tiered(cfg, host_sharded=True)
     with pytest.raises(ValueError, match="time"):
         _tiered(cfg.replace(metric="time"))
@@ -526,7 +545,7 @@ def test_mesh_backends_degrade_to_einsum_with_one_warning(caplog):
     _run(eng, 1)
     msgs = [r.getMessage() for r in caplog.records if "inert" in
             r.getMessage()]
-    assert len(msgs) == 1 and "item 7" in msgs[0]
+    assert len(msgs) == 1 and "not sharded" in msgs[0]
     assert TieredStats().summary()["overlapped"] is False
 
 
@@ -580,9 +599,13 @@ def test_cli_tiered_writes_the_dense_artifacts(dataset_json, tmp_path):
                    "tiered", "--no-save")
     assert len(partial["results"]["hybrid/mse_avg/run0"][
         "final_metrics"]) == 4
-    with pytest.raises(ValueError, match="item 7"):
-        _cli(dataset_json, tmp_path / "x", "--state-layout", "tiered",
-             "--host-sharded", "true")
+    # a host-sharded tier of one rank is the plain tier, bit for bit
+    sharded = _cli(dataset_json, tmp_path / "x", "--state-layout", "tiered",
+                   "--no-save", "--host-sharded", "true")
+    assert sharded["results"]["hybrid/mse_avg/run0"]["final_metrics"] == \
+        partial["results"]["hybrid/mse_avg/run0"]["final_metrics"]
+    with pytest.raises(ValueError, match="state-layout tiered"):
+        _cli(dataset_json, tmp_path / "z", "--host-sharded", "true")
     with pytest.raises(ValueError, match="state_layout"):
         _cli(dataset_json, tmp_path / "y", "--state-layout", "sparse")
 
