@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card. It
-builds the CUDA kernels from fedmse_tpu_torch/csrc (one nvcc per source,
-all started together, into build/fedmse_tpu_torch/), then:
+builds the CUDA kernels and the host CSV reader from fedmse_tpu_torch/csrc
+(one nvcc or g++ per source, all started together, into
+build/fedmse_tpu_torch/), then:
 
   1. device     prints the card (nvidia-smi name and power limit), torch and
                 CUDA versions and the kernels' build time;
@@ -116,8 +117,8 @@ all started together, into build/fedmse_tpu_torch/), then:
                 stops, final AUC within 2e-3, the states' error reported;
                 one train launch per step for all runs) and a kNN-scored
                 batched round; round 1 at one epoch batched vs alone
-                (<= 1e-5); the steady round of R = 3 and 8 runs, batched
-                and one after another (wall, launches);
+                (<= 1e-5); the steady round of R = 3 runs, batched and
+                one after another (wall, launches);
      tiered     (after the main path) the tiered state layout
                 (--state-layout tiered), hybrid / mse_avg: the kernels at
                 its shapes (the train step at G = 512, the forward over
@@ -236,6 +237,26 @@ all started together, into build/fedmse_tpu_torch/), then:
                 unsharded engine's bits over 8,192 rows; then, on each
                 rank, the train step, the forward and the distances at
                 that rank's shapes against their plain versions;
+     realdata   (after the main path, before parallel) the real-data
+                pipeline: a raw tree in N-BaIoT's layout (9 devices, 115
+                features, a header line on every file; 27,900 benign and
+                32,040 attack rows, the published split's pool when every
+                row is sampled) written from the port's generator;
+                `python -m fedmse_tpu_torch.data.prep` from it (--raw,
+                non-IID alpha 0.5 over 10 clients, every row) and from
+                those shards (--source --target-matrix --cluster-labels
+                9, its k-means on the card), each with its wall and JS
+                distances; every shard of both trees parsed by the host
+                reader (csrc/fedmse_io.cpp, built with the kernels) and by
+                np.loadtxt, the same float64 bits, each route's MB/s;
+                `main --dataset-config` on the published-split shards (the
+                quick run, hybrid / mse_avg) and a kNN-scored evaluation
+                of its checkpoint: the final mean AUC above 0.9; the round
+                results loaded and plotted (an ImportError naming
+                matplotlib where it is absent) and the provenance logged;
+                then the kernels at the path's shapes (the forward over
+                10 models at the evaluation's rows, the train step at the
+                round's G and R, the distances at its test rows);
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events, and the
@@ -272,9 +293,11 @@ dense engines they are held to) the tiered path
 ("tiered_path_launches"), the flywheel phase's (b) the flywheel path
 ("flywheel_path_launches"), the net phase's (a) the --serve-net path
 ("net_path_launches"), the gateway phase's (a) the gateway path
-("gateway_path_launches") and the parallel phase's meshed runs in (a)
+("gateway_path_launches"), the parallel phase's meshed runs in (a)
 to (d) (not the plain runs they are held to), summed over this process
-and the two ranks, the parallel path ("parallel_path_launches"). A launch
+and the two ranks, the parallel path ("parallel_path_launches"), and
+the realdata phase's training run and kNN evaluation the real-data path
+("realdata_path_launches"). A launch
 inside a replayed CUDA graph counts: each graph keeps the kernels it
 captured, and each replay adds them (ops/graphs.py). Prints,
 as its last three lines, the card's name and power limit, one JSON line
@@ -3471,7 +3494,8 @@ def phase_redteam(torch, device, cfg):
 # ---- batched runs (phase "batch") ---- #
 
 BATCH_RUNS = 3
-BATCH_TIMED_RUNS = (3, 8)  # timed only; the record, not a claim
+BATCH_KERNEL_RUNS = (3, 8)  # the kernels at G = R·S of these R
+BATCH_TIMED_RUNS = (3,)  # timed only; the record, not a claim
 BATCH_TOL = 1e-5  # round 1 at one epoch, batched vs the runs alone
 
 
@@ -3494,7 +3518,7 @@ def batch_kernel_shapes(torch, device, data, n, cohort):
     ctas = cluster_size(cohort, DIMS[1])
     kw = dict(layout=layout, shrink_lambda=10.0)
     worst = {}
-    for runs in BATCH_TIMED_RUNS:
+    for runs in BATCH_KERNEL_RUNS:
         g = runs * cohort
         flat, xt = grid_inputs(torch, layout, g, 12, gen, device)
         m = torch.ones((g, 12), device=device)
@@ -3680,8 +3704,8 @@ def _busy_ms(torch, fn) -> float:
 
 
 def batch_round_times(torch, cfg, data, n, smi):
-    """The steady round (graphs captured) of R = 3 and 8 runs batched
-    against the same R runs alone, one after another: host wall per
+    """The steady round (graphs captured) of R = 3 runs batched against
+    the same R runs alone, one after another: host wall per
     round of all R runs (the quick run's rounds in one chunk, no early
     stop, each engine reset to its init first), each kernel's launches
     per round, and for R = 3 round 1's device time (torch.profiler). A
@@ -3761,7 +3785,7 @@ def phase_batch(torch, device, cfg, clients, data, smi):
     115/27/7, hybrid / mse_avg: the kernels at the batched shapes, R = 3
     batched against the runs alone through the drivers (the batched path:
     launch counters set to 0 before it and read after), round 1 at one
-    epoch to BATCH_TOL, then the steady round of R = 3 and 8 timed."""
+    epoch to BATCH_TOL, then the steady round of R = 3 timed."""
     t0 = time.perf_counter()
     n = len(clients)
     cohort = max(1, int(cfg.num_participants * n))
@@ -5942,6 +5966,290 @@ def phase_parallel(torch, device, cfg, smi):
     return report
 
 
+# ---- the real-data pipeline (phase "realdata") ---- #
+
+REALDATA_DEVICES = 9        # N-BaIoT's devices
+REALDATA_BENIGN = 3_100     # rows a device's benign file: 27,900 normal rows
+REALDATA_ATTACK = 1_780     # rows a mirai / gafgyt file: 32,040 attack rows
+REALDATA_CLIENTS = 10
+REALDATA_LAUNCHES = {}      # the real-data path's kernel launches
+
+
+def write_raw_tree(root):
+    """A raw tree in N-BaIoT's layout, <device>/normal/benign_traffic.csv and
+    <device>/abnormal/{mirai_udp,gafgyt_tcp}.csv, each file with a header
+    line and 7 significant digits a value, from the port's seeded
+    shifted-Gaussian generator (synthetic_clients(noniid=True): one mode a
+    device, its attacks shifted off it). Returns (files, bytes)."""
+    from fedmse_tpu_torch.data import synthetic_clients
+    clients = synthetic_clients(n_clients=REALDATA_DEVICES, dim=DIMS[0],
+                                n_normal=REALDATA_BENIGN,
+                                n_abnormal=2 * REALDATA_ATTACK,
+                                seed=SEED + 60, noniid=True)
+    header = ",".join(f"f{j}" for j in range(DIMS[0]))
+    files = nbytes = 0
+    for i, c in enumerate(clients):
+        s = c.scaler
+
+        def raw(x, s=s):  # the generator's rows before its scaler
+            return x.astype(np.float64) * s.scale_ + s.mean_
+
+        normal = np.concatenate([raw(c.train_x), raw(c.valid_x), c.dev_raw,
+                                 raw(c.test_x[c.test_y == 0])])
+        attack = raw(c.test_x[c.test_y == 1])
+        for sub, name, rows in (
+                ("normal", "benign_traffic.csv", normal),
+                ("abnormal", "mirai_udp.csv", attack[:REALDATA_ATTACK]),
+                ("abnormal", "gafgyt_tcp.csv", attack[REALDATA_ATTACK:])):
+            d = os.path.join(root, f"Device_{i}", sub)
+            os.makedirs(d, exist_ok=True)
+            path = os.path.join(d, name)
+            np.savetxt(path, rows, fmt="%.7g", delimiter=",", header=header,
+                       comments="")
+            files += 1
+            nbytes += os.path.getsize(path)
+    return files, nbytes
+
+
+def run_prep(args, what):
+    """`python -m fedmse_tpu_torch.data.prep <args>` as a user runs it: its
+    wall seconds and the JS distances of its last line."""
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "fedmse_tpu_torch.data.prep",
+                          *args], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"[realdata] prep {what} failed "
+                             f"(exit {out.returncode}):\n"
+                             f"{out.stderr[-4000:]}")
+    js = json.loads(out.stdout.strip().splitlines()[-1])["js_distance"]
+    log(f"[realdata] prep {what}: {seconds:.2f} s, JS distance "
+        f"{json.dumps(js)}")
+    return {"seconds": seconds, "js_distance": js}
+
+
+def parse_shards(trees):
+    """Every shard of `trees` through the host reader (read_dir_f64, as
+    load_data reads a split) and through np.loadtxt: the same float64
+    bits, and each route's MB/s."""
+    from fedmse_tpu_torch.data.fast_csv import read_dir_f64
+    dirs = sorted(os.path.join(d, c, s) for d in trees
+                  for c in os.listdir(d) for s in os.listdir(os.path.join(d, c)))
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d in dirs
+                 for f in os.listdir(d))
+    t0 = time.perf_counter()
+    native = [read_dir_f64(d, allow_header=False) for d in dirs]
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = [np.concatenate([np.loadtxt(os.path.join(d, f), delimiter=",",
+                                        dtype=np.float64, ndmin=2)
+                             for f in sorted(os.listdir(d))]) for d in dirs]
+    t_plain = time.perf_counter() - t0
+    for d, a, b in zip(dirs, native, plain):
+        if a.shape != b.shape or not np.array_equal(a.view(np.int64),
+                                                    b.view(np.int64)):
+            raise AssertionError(f"[realdata] {d}: the host reader's float64 "
+                                 "bits differ from np.loadtxt's")
+    out = {"shards": len(dirs), "bytes": nbytes,
+           "rows": int(sum(len(a) for a in native)),
+           "native_s": t_native, "loadtxt_s": t_plain,
+           "native_mb_s": nbytes / 1e6 / t_native,
+           "loadtxt_mb_s": nbytes / 1e6 / t_plain}
+    log(f"[realdata] parsed {out['shards']} shards ({nbytes / 1e6:.1f} MB, "
+        f"{out['rows']} rows): the host reader {out['native_mb_s']:.1f} MB/s"
+        f", np.loadtxt {out['loadtxt_mb_s']:.1f} MB/s, the same float64 bits")
+    return out
+
+
+def realdata_kernel_shapes(torch, device, data, cfg):
+    """The kernels at the real-data path's shapes against their plain
+    versions, f32 on dyadic grids, each also bit-equal to a second call:
+    the forward over the 10 models client-major at the evaluation's rows
+    (test plus train rows a client), the train step at the round's cohort
+    (G = the selected clients, R = the batch), the distances at the
+    evaluation's test rows against 10 banks of 512."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.fused_train import (fused_train_grads,
+                                                  fused_train_grads_plain)
+    n, t = data.test_x.shape[:2]
+    s = data.train_xb.shape[1] * data.train_xb.shape[2]
+    g = max(1, int(cfg.num_participants * n))
+    worst = routed_kernel_shapes(torch, device, "realdata", n,
+                                 [(n * (t + s), "client_major")],
+                                 dist_rows=(n * t,))
+    gen = torch.Generator().manual_seed(SEED + 61)
+    layout = ParamLayout(*DIMS)
+    kw = dict(layout=layout, shrink_lambda=cfg.shrink_lambda)
+    flat, xt = grid_inputs(torch, layout, g, cfg.batch_size, gen, device)
+    m = torch.ones((g, cfg.batch_size), device=device)
+    got = fused_train_grads(flat, xt, m, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(
+            got, fused_train_grads(flat, xt, m, **kw))):
+        raise AssertionError("[realdata] train launch not bit-equal to a "
+                             "second call")
+    what = f"train step, G = {g}, R = {cfg.batch_size}"
+    worst[what] = max(scaled_err(a, b) for a, b in zip(
+        got, fused_train_grads_plain(flat, xt, m, **kw)))
+    if worst[what] > TOL["f32"]:
+        raise AssertionError(f"[realdata] {what}: {worst[what]}")
+    log(f"[realdata] kernels at the path's shapes agree with their plain "
+        f"versions and with a second call: {json.dumps(worst)}")
+    return worst
+
+
+def realdata_train(torch, device, cfg, shards, ckpt):
+    """`python -m fedmse_tpu_torch.main --dataset-config` on the shards
+    (in-process through main(), so its launches count): the quick run,
+    hybrid / mse_avg, then one kNN-scored evaluation of the checkpoint it
+    wrote over the same federation."""
+    from fedmse_tpu_torch.checkpointing import (ResultsWriter,
+                                                load_client_models)
+    from fedmse_tpu_torch.config import DatasetConfig
+    from fedmse_tpu_torch.evaluation import make_evaluate_all
+    from fedmse_tpu_torch.main import main as driver_main
+    from fedmse_tpu_torch.main import prepare_federation
+    from fedmse_tpu_torch.models import make_model
+    ds_path = os.path.join(ckpt, "dataset.json")
+    os.makedirs(ckpt, exist_ok=True)
+    with open(ds_path, "w") as f:
+        json.dump(DatasetConfig.for_client_dirs(
+            shards, REALDATA_CLIENTS).to_json(), f)
+    exp = "chip-smoke-realdata"
+    t0 = time.perf_counter()
+    out = driver_main(["--dataset-config", ds_path, "--model-types",
+                       "hybrid", "--update-types", "mse_avg",
+                       "--network-size", str(REALDATA_CLIENTS),
+                       "--checkpoint-dir", ckpt, "--experiment-name", exp,
+                       "--device", device.type])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    final = np.asarray(out["results"]["hybrid/mse_avg/run0"]["final_metrics"])
+    if final.shape != (REALDATA_CLIENTS,) or not np.isfinite(final).all():
+        raise AssertionError(f"[realdata] final AUC: {final}")
+    run_cfg = cfg.replace(network_size=REALDATA_CLIENTS,
+                          checkpoint_dir=ckpt, experiment_name=exp)
+    clients, data, n = prepare_federation(
+        run_cfg, DatasetConfig.from_json(ds_path), device=device)
+    writer = ResultsWriter(ckpt, run_cfg.network_size, exp,
+                           run_cfg.scen_name, run_cfg.metric,
+                           run_cfg.num_participants)
+    model = make_model("hybrid", *DIMS, shrink_lambda=cfg.shrink_lambda,
+                       device=device)
+    params = load_client_models(writer, 0, "hybrid", "mse_avg",
+                                [c.name for c in clients], device=device)
+    t0 = time.perf_counter()
+    knn_auc = make_evaluate_all(model, "hybrid", score_kind="knn", **KNN)(
+        params, data.test_x, data.test_m, data.test_y, data.train_xb,
+        data.train_mb).cpu().numpy()
+    knn_s = time.perf_counter() - t0
+    if not np.isfinite(knn_auc).all():
+        raise AssertionError(f"[realdata] kNN AUC: {knn_auc}")
+    log(f"[realdata] main --dataset-config: {train_s:.2f} s, final mean AUC "
+        f"{final.mean():.6f} (per client {np.round(final, 6).tolist()}); "
+        f"kNN-scored evaluation of its checkpoint {knn_s * 1e3:.2f} ms, mean "
+        f"AUC {knn_auc.mean():.6f}")
+    return {"train_s": train_s, "final_mean_auc": float(final.mean()),
+            "final_auc": final.tolist(), "knn_s": knn_s,
+            "knn_mean_auc": float(knn_auc.mean()),
+            "test_rows": int(data.test_m.sum())}, data, writer
+
+
+def realdata_plots(writer, out_dir):
+    """load_round_results on the run's results (non-empty), and plot_results:
+    PNGs where matplotlib is installed, else an ImportError naming it."""
+    from fedmse_tpu_torch.utils.platform import capture_provenance
+    from fedmse_tpu_torch.visualization import (load_round_results,
+                                                plot_results)
+    combos = load_round_results(writer.results_dir)
+    if not combos or not all(combos.values()):
+        raise AssertionError(f"[realdata] no round results under "
+                             f"{writer.results_dir}")
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    try:
+        pngs = plot_results(writer.results_dir, out_dir)
+    except ImportError as e:
+        if has_mpl or "matplotlib" not in str(e):
+            raise
+        pngs = f"ImportError: {e}"
+    else:
+        if not has_mpl or len(pngs) != 2 or not all(
+                os.path.getsize(p) > 0 for p in pngs):
+            raise AssertionError(f"[realdata] plot_results wrote {pngs}")
+    prov = capture_provenance()
+    log(f"[realdata] round results of {sorted(combos)} "
+        f"({sum(len(r) for r in combos.values())} rounds); plot_results: "
+        f"{pngs}; provenance {json.dumps(prov)}")
+    return {"combos": sorted(combos), "plots": pngs, "provenance": prov}
+
+
+def phase_realdata(torch, device, cfg, smi):
+    """The real-data pipeline: a raw N-BaIoT-shaped tree (9 devices, 115
+    features, header lines) written from the port's generator; `python -m
+    fedmse_tpu_torch.data.prep` from it (--raw, non-IID alpha 0.5 over 10
+    clients, every row) and from those shards (--source --target-matrix
+    --cluster-labels 9, the published split); every shard parsed by the
+    host reader and by np.loadtxt, the same bits; the driver trained on
+    the published-split shards (--dataset-config, the quick run) and a
+    kNN-scored evaluation of its checkpoint, launch counters set to 0
+    before and read after (the real-data path); the round results loaded
+    and plotted; then the kernels at the path's shapes."""
+    import tempfile
+    t0 = time.perf_counter()
+    report = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        raw = os.path.join(tmp, "raw")
+        files, nbytes = write_raw_tree(raw)
+        report["raw"] = {"files": files, "bytes": nbytes,
+                         "seconds": time.perf_counter() - t0}
+        log(f"[realdata] raw tree: {REALDATA_DEVICES} devices, {files} files "
+            f"with header lines, {nbytes / 1e6:.1f} MB "
+            f"({REALDATA_DEVICES * REALDATA_BENIGN} benign and "
+            f"{2 * REALDATA_DEVICES * REALDATA_ATTACK} attack rows: the "
+            f"published split's pool at every row sampled, not N-BaIoT's ~7M "
+            f"raw rows)")
+        noniid, matrix = os.path.join(tmp, "noniid"), os.path.join(tmp,
+                                                                   "matrix")
+        dev_arg = ["--device", device.type]
+        report["prep_raw"] = run_prep(
+            ["--raw", raw, "--out", noniid, "--n-clients",
+             str(REALDATA_CLIENTS), "--mode", "noniid", "--alpha", "0.5",
+             "--benign-frac", "1.0", "--abnormal-frac", "1.0", *dev_arg],
+            "--raw (noniid, alpha 0.5)")
+        report["prep_matrix"] = run_prep(
+            ["--source", noniid, "--out", matrix, "--n-clients",
+             str(REALDATA_CLIENTS), "--target-matrix", "--cluster-labels",
+             "9", *dev_arg], "--source --target-matrix --cluster-labels 9")
+        report["parse"] = parse_shards([noniid, matrix])
+        REALDATA_LAUNCHES.clear()
+        with counted_launches(REALDATA_LAUNCHES):
+            report["train"], data, writer = realdata_train(
+                torch, device, cfg, matrix, os.path.join(tmp, "ckpt"))
+        report["launches"] = dict(REALDATA_LAUNCHES)
+        log(f"[realdata] real-data path launches "
+            f"{json.dumps(report['launches'])}")
+        for name in ("fused_ae_forward", "fused_ae_train", "dist_tiles"):
+            if report["launches"].get(name, 0) < 1:
+                raise AssertionError(f"the real-data path never launched "
+                                     f"{name}")
+        if report["train"]["final_mean_auc"] <= 0.9:
+            raise AssertionError(f"[realdata] final mean AUC "
+                                 f"{report['train']['final_mean_auc']} "
+                                 "<= 0.9")
+        report["plots"] = realdata_plots(writer, os.path.join(tmp, "plots"))
+        report["kernels_vs_plain"] = realdata_kernel_shapes(torch, device,
+                                                            data, cfg)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[realdata] done in {report['seconds']:.1f} s ({smi})")
+    return report
+
+
 def report_train(torch, device, launches, worst):
     """The train kernel's and its plain version's times and bounds at the
     main path's step shape (5 clients x 12 rows) and at 512 clients."""
@@ -6114,9 +6422,10 @@ def run(torch, cfg, smi, t_start) -> int:
     torch.backends.cudnn.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
     t0 = time.perf_counter()
-    built = native.build(native.KERNEL_SOURCES + native.BASELINE_SOURCES)
-    log(f"[device] kernels built in {time.perf_counter() - t0:.2f} s "
-        f"({json.dumps(built)})")
+    built = native.build(native.KERNEL_SOURCES + native.BASELINE_SOURCES
+                         + native.HOST_SOURCES)
+    log(f"[device] kernels and the host CSV reader built in "
+        f"{time.perf_counter() - t0:.2f} s ({json.dumps(built)})")
     for name in native.KERNEL_SOURCES:
         for line in native.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -6165,6 +6474,7 @@ def run(torch, cfg, smi, t_start) -> int:
     tune = phase_tune(torch, device, cfg, data, writer, names, smi)
     net = phase_net(torch, device, cfg, data, names, smi)
     gateway = phase_gateway(torch, device, smi)
+    realdata = phase_realdata(torch, device, cfg, smi)
     parallel = phase_parallel(torch, device, cfg, smi)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
@@ -6192,6 +6502,8 @@ def run(torch, cfg, smi, t_start) -> int:
             gateway["launches"][kernel["name"]]
         kernel["parallel_path_launches"] = \
             parallel["launches"].get(kernel["name"], 0)
+        kernel["realdata_path_launches"] = \
+            realdata["launches"][kernel["name"]]
     line["robust"] = robust
     line["cluster"] = cluster
     line["redteam"] = redteam
@@ -6202,6 +6514,7 @@ def run(torch, cfg, smi, t_start) -> int:
     line["net"] = net
     line["gateway"] = gateway
     line["parallel"] = parallel
+    line["realdata"] = realdata
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

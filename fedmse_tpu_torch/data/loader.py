@@ -2,9 +2,10 @@
 fedmse_tpu/data/loader.py, numpy only: the card's machine has no pandas).
 
   * `load_data`         concatenates every *.csv of a directory, headerless,
-                        parsed to float64 and cast to float32 (the values
+                        parsed to float64 by the port's host reader
+                        (data/fast_csv.py, correctly rounded: the values
                         pandas' round-trip parser and the JAX package's
-                        native reader give);
+                        native reader give) and cast to float32;
   * `IoTDataProcessor`  a numpy StandardScaler/MinMaxScaler with sklearn's
                         semantics (biased std, zero variance -> scale 1.0;
                         minmax to (0, 1)) that keeps the input dtype while
@@ -30,28 +31,18 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from fedmse_tpu_torch.config import DatasetConfig, ExperimentConfig
+from fedmse_tpu_torch.data.fast_csv import csv_files, read_dir_f64
 
 logger = logging.getLogger(__name__)
-
-
-def _csv_files(path: str) -> List[str]:
-    """Every file of `path` whose name contains '.csv', sorted."""
-    if not os.path.isdir(path):
-        return []
-    return [os.path.join(path, f) for f in sorted(os.listdir(path))
-            if ".csv" in f]
 
 
 def load_data(path: str, dtype: Optional[np.dtype] = np.float32
               ) -> np.ndarray:
     """Concatenate every headerless CSV file in `path` into one [rows, F]
-    array: parsed as float64 (correctly rounded, like pandas' round-trip
-    parser), then cast to `dtype` (None keeps float64)."""
-    frames = [np.loadtxt(f, delimiter=",", dtype=np.float64, ndmin=2)
-              for f in _csv_files(path)]
-    if not frames:
-        raise FileNotFoundError(f"no CSV files in {path}")
-    out = np.concatenate(frames, axis=0)
+    array: parsed as float64 by the host reader (a header line, a
+    malformed field or a ragged row raises RuntimeError), then cast to
+    `dtype` (None keeps float64)."""
+    out = read_dir_f64(path, allow_header=False)
     return out if dtype is None else out.astype(dtype)
 
 
@@ -156,14 +147,14 @@ def prepare_clients(dataset: DatasetConfig, cfg: ExperimentConfig,
     clients: List[ClientData] = []
     for device in devices:
         # a gateway with no normal traffic cannot train a normal profile
-        if not _csv_files(shard(device.normal_data_path)):
+        if not csv_files(shard(device.normal_data_path)):
             logger.warning("%s: no normal shard under %s; skipping device",
                            device.name, device.normal_data_path)
             continue
         normal = load_data(shard(device.normal_data_path))
         normal = normal[data_rng.permutation(len(normal))]
         # a label-skewed shard may have no abnormal traffic at all: 0 rows
-        if _csv_files(shard(device.abnormal_data_path)):
+        if csv_files(shard(device.abnormal_data_path)):
             abnormal = load_data(shard(device.abnormal_data_path))
             abnormal = abnormal[data_rng.permutation(len(abnormal))]
         else:
@@ -184,7 +175,7 @@ def prepare_clients(dataset: DatasetConfig, cfg: ExperimentConfig,
         test_x, test_y = proc.transform(test)
         abnormal_x, abnormal_y = proc.transform(abnormal, type="abnormal")
         if cfg.new_device:
-            if _csv_files(shard(device.test_normal_data_path)):
+            if csv_files(shard(device.test_normal_data_path)):
                 new_x, new_y = proc.transform(
                     load_data(shard(device.test_normal_data_path)))
                 test_x = np.concatenate([test_x, new_x], axis=0)

@@ -100,6 +100,7 @@ from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.redteam.adversary import (make_redteam_fns,
                                                 merge_noise, update_noise)
 from fedmse_tpu_torch.redteam.masks import RedteamMasks, make_redteam_masks
+from fedmse_tpu_torch.utils.profiling import PhaseTimer
 from fedmse_tpu_torch.utils.seeding import ExperimentRngs
 
 logger = logging.getLogger(__name__)
@@ -481,6 +482,9 @@ class RoundEngine(MeshBackends):
         self.update_type = update_type
         self.profile = profile
         self.fused = fused
+        # the per-phase round's phase seconds, summed over its rounds
+        self.timer = PhaseTimer(enabled=profile,
+                                device=data.train_xb.device)
         if fused and profile:
             logger.warning("profile=True forces the per-phase round path; "
                            "a fused round is not phase-attributable")
@@ -971,31 +975,21 @@ class RoundEngine(MeshBackends):
             raise ValueError("chaos and elastic membership run in the fused "
                              "round only (profile=True forces the per-phase "
                              "path)")
-        cfg, data, dev = self.cfg, self.data, self.device
+        cfg, data, dev, timer = self.cfg, self.data, self.device, self.timer
         if selected is None:
             selected = self.select_clients()
-        seconds: Dict[str, float] = {}
-        clock = [time.perf_counter()]
-
-        def lap(phase: str) -> None:
-            if self.profile:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                now = time.perf_counter()
-                seconds[phase] = seconds.get(phase, 0.0) + now - clock[0]
-                clock[0] = now
-
+        before = timer.timings()
         sel_mask = torch.zeros(self.n_pad, device=dev)
         sel_mask[selected] = 1.0
         sel_idx = (torch.tensor(sorted(selected), dtype=torch.long,
                                 device=dev) if self.compact else None)
-        res = self.train_all(self.states.params, self.states.opt_state,
-                             self.states.prev_global, sel_mask, data.train_xb,
-                             data.train_mb, data.valid_xb, data.valid_mb,
-                             sel_idx=sel_idx)
-        self.states = self.states.replace(params=res.params,
-                                          opt_state=res.opt_state)
-        lap("train")
+        with timer.phase("train"):
+            res = self.train_all(self.states.params, self.states.opt_state,
+                                 self.states.prev_global, sel_mask,
+                                 data.train_xb, data.train_mb, data.valid_xb,
+                                 data.valid_mb, sel_idx=sel_idx)
+            self.states = self.states.replace(params=res.params,
+                                              opt_state=res.opt_state)
 
         # the first selected client's valid split is the vote tensor
         vote_x, vote_m = data.valid_x[selected[0]], data.valid_m[selected[0]]
@@ -1004,41 +998,45 @@ class RoundEngine(MeshBackends):
             return self.scores_fn(self.states.params, vote_x, vote_m,
                                   self.rngs.generator).cpu().numpy()
 
-        aggregator, scores = elect_aggregator(
-            selected, fresh_scores, self.host.aggregation_count,
-            self.host.votes_received, cfg.max_aggregation_threshold)
-        lap("vote")
+        with timer.phase("vote"):
+            aggregator, scores = elect_aggregator(
+                selected, fresh_scores, self.host.aggregation_count,
+                self.host.votes_received, cfg.max_aggregation_threshold)
 
         rows: List[Dict] = []
         agg_weights = None
         if aggregator is not None and self.host.aggregation_count[
                 aggregator] < cfg.max_aggregation_threshold:
-            merged, weights = self.aggregate(self.states.params, sel_mask,
-                                             data.dev_x, sel_idx=sel_idx)
-            if self.poison_fn is not None:  # the malicious aggregator
-                attack = {k: torch.as_tensor(v[0]).to(dev) for k, v in
-                          self._attack_inputs(round_index, 1).items()}
-                merged = self.poison_fn(merged, attack["attack"],
-                                        attack.get("noise"))
-            agg_weights = weights.cpu().numpy()
-            self.host.aggregation_count[aggregator] += 1
-            self.host.rounds_aggregated.append((round_index, aggregator))
-            lap("aggregate")
-            onehot = torch.zeros(self.n_pad, device=dev)
-            onehot[aggregator] = 1.0
-            outcome = self.verify(self.states, merged, self._ver_x,
-                                  self._ver_m, onehot, data.client_mask)
-            self.states = outcome.states
-            rejected = self.states.rejected.cpu().numpy()
-            lap("verify")
+            with timer.phase("aggregate"):
+                merged, weights = self.aggregate(self.states.params,
+                                                 sel_mask, data.dev_x,
+                                                 sel_idx=sel_idx)
+                if self.poison_fn is not None:  # the malicious aggregator
+                    attack = {k: torch.as_tensor(v[0]).to(dev) for k, v in
+                              self._attack_inputs(round_index, 1).items()}
+                    merged = self.poison_fn(merged, attack["attack"],
+                                            attack.get("noise"))
+                agg_weights = weights.cpu().numpy()
+                self.host.aggregation_count[aggregator] += 1
+                self.host.rounds_aggregated.append((round_index, aggregator))
+            with timer.phase("verify"):
+                onehot = torch.zeros(self.n_pad, device=dev)
+                onehot[aggregator] = 1.0
+                outcome = self.verify(self.states, merged, self._ver_x,
+                                      self._ver_m, onehot, data.client_mask)
+                self.states = outcome.states
+                rejected = self.states.rejected.cpu().numpy()
             rows = verification_rows(rejected, aggregator, self.n_real,
                                      cfg.max_rejected_updates)
         else:
             logger.warning("No aggregator selected for round %d",
                            round_index)
 
-        metrics, metrics_full = split_metric_columns(self.evaluate())
-        lap("evaluate")
+        with timer.phase("evaluate"):
+            metrics, metrics_full = split_metric_columns(self.evaluate())
+        # this round's share of the timer's running sums
+        seconds = {k: v - before.get(k, 0.0)
+                   for k, v in timer.timings().items() if v != before.get(k)}
         return RoundResult(
             round_index=round_index, selected=list(selected),
             aggregator=aggregator, client_metrics=metrics,

@@ -63,9 +63,13 @@ and the cluster fit's probe sum partials across ranks
 (multihost.allgather_tree_sum), the fit's statistics and the final
 evaluation are gathered block by block (multihost.allgather_blocks), and
 a snapshot is one shard per rank (checkpointing/io.py `save_shard`). A
-mesh of one rank with host_sharded is the plain tier, bit for bit. The
-red team runs on the dense engine; a null spec is accepted and builds
-nothing.
+mesh whose ranks sit on more than one host (`ClientMesh.hosts`) is always
+host-sharded, as the JAX tier is across processes: a plain tier would
+keep the whole fleet on every host. `local_data=True` says `data` holds
+only this rank's block of client rows (each host stacks its own), so host
+memory stays flat as the fleet grows. A mesh of one rank with
+host_sharded is the plain tier, bit for bit. The red team runs on the
+dense engine; a null spec is accepted and builds nothing.
 """
 
 from __future__ import annotations
@@ -150,16 +154,17 @@ class TieredRoundEngine(MeshBackends):
     package's init) replaces the port's own init, as RoundEngine's does;
     `elastic_masks` replaces the spec's drawn membership timeline ([T, N]
     leaves). The round runs on `device` ("cuda" unless the caller asks for
-    the CPU); the tier and the data stay on the host. `mesh` and
-    `host_sharded` spread the round and the tier over ranks (module
-    docstring); every rank must then drive its engine through the same
-    calls."""
+    the CPU); the tier and the data stay on the host. `mesh`,
+    `host_sharded` and `local_data` spread the round and the tier over
+    ranks (module docstring); every rank must then drive its engine
+    through the same calls."""
 
     def __init__(self, model, cfg: ExperimentConfig, data: FederatedData,
                  n_real: int, rngs: ExperimentRngs, model_type: str,
                  update_type: str, poison_fn=None, chaos=None, elastic=None,
                  mesh=None, init_chunk: Optional[int] = None, cluster=None,
                  host_sharded: bool = False, redteam=None, *,
+                 local_data: bool = False,
                  states: Optional[ClientStates] = None,
                  elastic_masks: Optional[MembershipMasks] = None,
                  device: DeviceLike = "cuda"):
@@ -170,12 +175,14 @@ class TieredRoundEngine(MeshBackends):
             raise ValueError("redteam adversaries run on the dense fused "
                              "engine (state_layout='dense'); the tiered "
                              "layout accepts only a null RedteamSpec")
-        if host_sharded and mesh is None:
-            raise ValueError("host_sharded tiers need a client mesh (the "
-                             "shard layout is derived from it)")
         if mesh is not None and not hasattr(mesh, "world_size"):
             raise ValueError(f"mesh must be a parallel.ClientMesh, got "
                              f"{type(mesh).__name__}")
+        if mesh is not None and len(set(mesh.hosts)) > 1:
+            host_sharded = True  # a plain tier cannot span hosts
+        if host_sharded and mesh is None:
+            raise ValueError("host_sharded tiers need a client mesh (the "
+                             "shard layout is derived from it)")
         if elastic_masks is not None and elastic is None:
             raise ValueError("elastic_masks needs an ElasticSpec")
         if cfg.aggregation_backend not in ("einsum", "auto", "shard_map",
@@ -218,8 +225,14 @@ class TieredRoundEngine(MeshBackends):
         lo, hi = self.shard_start, self.shard_stop
 
         # ---- the host tier: data and state rows by absolute client id
-        # (a host-sharded tier keeps its block's rows only)
-        self.host_data = {name: getattr(data, name)[lo:hi].to(
+        # (a host-sharded tier keeps its block's rows only; local data
+        # holds just those rows, from 0)
+        if local_data and data.train_xb.shape[0] != hi - lo:
+            raise ValueError(
+                f"host-local data carries {data.train_xb.shape[0]} client "
+                f"rows; this rank's block needs {hi - lo}")
+        off = 0 if local_data else lo
+        self.host_data = {name: getattr(data, name)[off:off + hi - lo].to(
             "cpu").contiguous() for name in COHORT_DATA_FIELDS}
         self._dev_x = data.dev_x.to(self.device)
         if self._fleet_local:
@@ -978,13 +991,15 @@ def run_tiered_combination(cfg: ExperimentConfig, data, n_real: int,
                            save_checkpoints: bool = False, attack=None,
                            chaos=None, elastic=None, cluster=None, *,
                            states: Optional[ClientStates] = None,
-                           on_round=None,
+                           on_round=None, local_data: bool = False,
                            device: DeviceLike = "cuda") -> Dict:
     """main.run_combination for state_layout='tiered' (port of
     fedmse_tpu/federation/tiered.py `run_tiered_combination`): the same
     artifacts, bookkeeping, early stop and resume, with the prefetched
     cohort loop in place of the dense schedule. Returns run_combination's
-    dict plus the loop's telemetry under 'tiered_stats'."""
+    dict plus the loop's telemetry under 'tiered_stats'. `local_data=True`
+    marks `data` as this rank's block of client rows only (the engine's
+    `local_data`)."""
     from fedmse_tpu_torch.checkpointing import (save_client_models,
                                                 save_training_tracking)
     from fedmse_tpu_torch.federation.attack import make_poison_fn
@@ -1005,7 +1020,8 @@ def run_tiered_combination(cfg: ExperimentConfig, data, n_real: int,
         update_type=update_type,
         poison_fn=None if attack is None else make_poison_fn(attack),
         chaos=chaos, elastic=elastic, mesh=mesh, cluster=cluster,
-        host_sharded=cfg.host_sharded, states=states, device=dev)
+        host_sharded=cfg.host_sharded, local_data=local_data,
+        states=states, device=dev)
     pod = not engine._fleet_local  # one snapshot shard per rank
     n_pad = data.client_mask.shape[0]
     round_times: List[float] = []
@@ -1103,6 +1119,13 @@ def run_tiered_combination(cfg: ExperimentConfig, data, n_real: int,
         if final_full is not None:
             final_full = np.where(member[:, None], final_full, np.nan)
     params = full = None
+    if pod and local_data and save_checkpoints and device_names:
+        # no rank holds the fleet's test rows, as in the JAX pod: the
+        # sharded snapshot is the durable artifact
+        logger.warning("host-local data: skipping the per-client model "
+                       "export (restore the sharded snapshot in one "
+                       "process to write ClientModel/)")
+        save_checkpoints = False
     if pod and save_checkpoints and device_names:
         # the fleet's params from the ranks' blocks (a collective)
         params = torch.from_numpy(allgather_blocks(

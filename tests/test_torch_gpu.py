@@ -1768,3 +1768,83 @@ def test_world_one_nccl_shardmap_merge_is_einsum_bits(cuda, tmp_path):
             assert torch.equal(mq, ms)
     finally:
         multihost.shutdown()
+
+
+# ---- the real-data pipeline ---- #
+
+def test_host_reader_builds_beside_the_kernels(cuda, tmp_path):
+    """The CSV reader builds with the host compiler into the kernels'
+    build directory, on a machine with the card, and parses to
+    np.loadtxt's float64 bits."""
+    from fedmse_tpu_torch.data.fast_csv import read_dir_f64
+    from fedmse_tpu_torch.ops import native
+    native.build(native.KERNEL_SOURCES + native.HOST_SOURCES)
+    libs = [native.library_path(n) for n in
+            native.KERNEL_SOURCES + native.HOST_SOURCES]
+    assert all(p.exists() and p.parent == native.BUILD_DIR for p in libs)
+    rows = np.random.default_rng(0).normal(size=(257, 115)) * 1e3
+    np.savetxt(tmp_path / "data.csv", rows, delimiter=",", fmt="%.17g")
+    got = read_dir_f64(str(tmp_path), allow_header=False)
+    want = np.loadtxt(tmp_path / "data.csv", delimiter=",", ndmin=2)
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
+
+
+def _small_raw_tree(root, devices=3, dim=16, n=240):
+    rng = np.random.default_rng(4)
+    header = ",".join(f"f{j}" for j in range(dim))
+    for i in range(devices):
+        shift = rng.normal(0, 2.0, size=dim)
+        for sub, name, rows in (
+                ("normal", "benign_traffic.csv",
+                 rng.normal(0, 1, (n, dim)) + shift),
+                ("abnormal", "mirai_udp.csv",
+                 rng.normal(4, 2, (n // 2, dim)) + shift)):
+            d = root / f"Device_{i}" / sub
+            d.mkdir(parents=True, exist_ok=True)
+            np.savetxt(d / name, rows, delimiter=",", fmt="%.7g",
+                       header=header, comments="")
+
+
+def test_realdata_driver_run_on_card(cuda, tmp_path):
+    """[realdata]'s path at width 16: shards from a raw tree (the k-means
+    of --cluster-labels on the card: the same labels on a second run, the
+    CPU's partition up to a permutation), then `main --dataset-config` on the card, which
+    launches the train and forward kernels and reaches the CPU run's AUC
+    within 2e-3."""
+    import json
+    from fedmse_tpu_torch.config import DatasetConfig
+    from fedmse_tpu_torch.data import prep
+    from fedmse_tpu_torch.main import main
+    _small_raw_tree(tmp_path / "raw")
+    pooled = prep.pool_raw_devices(str(tmp_path / "raw"), benign_frac=1.0,
+                                   abnormal_frac=1.0)
+    on_card = prep.relabel_by_clusters(pooled, 3, seed=0, device=cuda)
+    again = prep.relabel_by_clusters(pooled, 3, seed=0, device=cuda)
+    on_cpu = prep.relabel_by_clusters(pooled, 3, seed=0, device="cpu")
+    for split in prep.SPLITS:
+        # one seed, one labelling: the center update has no atomics
+        assert np.array_equal(on_card[split][1], again[split][1])
+        pairs = set(zip(on_card[split][1].tolist(), on_cpu[split][1].tolist()))
+        assert len(pairs) == 3, split
+    prep.main(["--raw", str(tmp_path / "raw"), "--out",
+               str(tmp_path / "shards"), "--n-clients", "4", "--mode",
+               "noniid", "--alpha", "1.0", "--benign-frac", "1.0",
+               "--abnormal-frac", "1.0", "--cluster-labels", "3"])
+    ds = tmp_path / "ds.json"
+    ds.write_text(json.dumps(DatasetConfig.for_client_dirs(
+        str(tmp_path / "shards"), 4).to_json()))
+    finals = {}
+    for device in ("cuda", "cpu"):
+        before = fused_train_grads.launches, fused_forward_stats.launches
+        out = main(["--dataset-config", str(ds), "--network-size", "4",
+                    "--model-types", "hybrid", "--update-types", "mse_avg",
+                    "--dim-features", "16", "--hidden-neus", "8",
+                    "--latent-dim", "3", "--no-save", "--checkpoint-dir",
+                    str(tmp_path / device), "--device", device])
+        finals[device] = np.asarray(
+            out["results"]["hybrid/mse_avg/run0"]["final_metrics"])
+        if device == "cuda":
+            assert fused_train_grads.launches > before[0]
+            assert fused_forward_stats.launches > before[1]
+    assert np.isfinite(finals["cuda"]).all()
+    assert abs(finals["cuda"].mean() - finals["cpu"].mean()) <= 2e-3

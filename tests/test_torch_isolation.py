@@ -47,8 +47,9 @@ def _port_modules():
 
 # the red team's round half, the batched runs, the tiered layout, the
 # flywheel with its slow-drift adversary, the autotuner, the network
-# serving plane, the gateway ingest plane, the red team's ingest half, and
-# the client mesh with its rank entry
+# serving plane, the gateway ingest plane, the red team's ingest half, the
+# client mesh with its rank entry, and the real-data pipeline (the host
+# CSV reader, the shard builder, the host utilities and the plots)
 NEW_MODULES = ("redteam", "redteam.spec", "redteam.masks",
                "redteam.adversary", "redteam.mimicry", "federation.batched",
                "federation.tiered", "flywheel", "flywheel.buffer",
@@ -61,7 +62,11 @@ NEW_MODULES = ("redteam", "redteam.spec", "redteam.masks",
                "gateway.frontend", "gateway.client", "redteam.ingest",
                "parallel", "parallel.quantize", "parallel.mesh",
                "parallel.multihost", "parallel.costmodel",
-               "parallel.collectives", "parallel.launch")
+               "parallel.collectives", "parallel.launch",
+               "data.fast_csv", "data.prep", "utils.similarity",
+               "utils.profiling", "utils.platform", "visualization")
+EXAMPLES = ("minimal_federation_torch", "real_data_federation_torch",
+            "serving_demo_torch", "flywheel_demo_torch")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -72,7 +77,8 @@ def test_new_module_imports_alone_without_jax(module):
         "import importlib, sys\n"
         f"importlib.import_module('fedmse_tpu_torch.{module}')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'pandas')) or "
+        "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'pandas', "
+        "'sklearn', 'matplotlib')) or "
         "m == 'fedmse_tpu' or m.startswith('fedmse_tpu.'))\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -173,6 +179,7 @@ def _forbidden(name):
 def test_chip_smoke_and_port_sources_import_neither_jax_nor_reference():
     paths = [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                               "profile_dist.py")]
+    paths += [os.path.join(REPO, "examples", f"{e}.py") for e in EXAMPLES]
     pkg = os.path.join(REPO, "fedmse_tpu_torch")
     for root, _, files in os.walk(pkg):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -247,3 +254,53 @@ def test_rank_entry_runs_on_the_card_unless_asked(tmp_path):
     with pytest.raises(parallel_launch.RankJobError, match="device='cpu'"):
         parallel_launch.spawn(1, "json:dumps", workdir=str(tmp_path),
                               timeout_s=120, env=env)
+
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_examples_and_shard_builder_refuse_cpu_fallback(no_cuda, tmp_path):
+    """The examples and `python -m fedmse_tpu_torch.data.prep` run on the
+    card unless told --device cpu: without one they raise, naming it."""
+    from fedmse_tpu_torch.data import prep
+    calls = [lambda e=e: _example(e).main(
+        [str(tmp_path / "ds.json")] if e.startswith("real_data") else [])
+        for e in EXAMPLES]
+    calls.append(lambda: prep.main(["--source", str(tmp_path), "--out",
+                                    str(tmp_path / "out"), "--n-clients",
+                                    "2"]))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "out").exists()
+
+
+def test_examples_import_only_the_port():
+    """Each example, run as a script in a fresh process up to its argument
+    parsing, loads no jax, JAX package, pandas, sklearn or matplotlib."""
+    for e in EXAMPLES:
+        code = (
+            "import runpy, sys\n"
+            f"sys.argv = [{e!r}, '--help']\n"
+            "try:\n"
+            f"    runpy.run_path('examples/{e}.py', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'pandas', "
+            "'sklearn', 'matplotlib')) or m == 'fedmse_tpu' or "
+            "m.startswith('fedmse_tpu.'))\n"
+            "assert not bad, bad\n")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = REPO
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode == 0, (e, out.stderr[-2000:])
+        assert "--device" in out.stdout, e

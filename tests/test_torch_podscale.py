@@ -15,7 +15,12 @@ rounds, rank j tiering rows [6 j, 6 j + 6) when host-sharded. Held:
   * the 2-rank pod snapshot (one shard per rank) reassembles at any rows
     and resumes a single-process run, plain or host-sharded;
   * the cohort shards over the mesh without host sharding (every rank
-    keeps the whole tier) with the single-process tier's selections.
+    keeps the whole tier) with the single-process tier's selections;
+  * the same 2 ranks named as two hosts run host-sharded whatever
+    `host_sharded` says (the JAX tier's rule across processes), with
+    per-host selection counts; named as one host, the plain tier;
+  * `local_data=True` (each rank stacks only its block) is the full-stack
+    host-sharded run bit for bit.
 """
 
 import numpy as np
@@ -132,3 +137,73 @@ def test_cohort_slab_shards_over_client_mesh(session2):
         assert x["aggregator"] == y["aggregator"]
         np.testing.assert_allclose(x["client_metrics"], y["client_metrics"],
                                    atol=2e-3)
+
+
+def test_two_host_mesh_forces_host_sharded_tier(session2):
+    """A mesh whose ranks name two hosts runs the host-sharded tier with
+    host_sharded=False: each rank's host data is its block only, and the
+    run is the bits of host_sharded=True on the real mesh."""
+    for r in session2:
+        two, pod = r["tier_two_hosts"], r["tier_pod"]
+        assert two["host_sharded"]
+        assert two["rows"] == pod["rows"]
+        assert two["host_data_bytes"] == two["block_data_bytes"]
+        assert two["host_bytes"] == pod["host_bytes"]
+        _same_results(two, pod)
+        np.testing.assert_array_equal(two["final"], pod["final"])
+        np.testing.assert_array_equal(two["params"], pod["params"])
+
+
+def test_two_host_mesh_draws_per_host_cohorts(session2):
+    """At half participation each host's block contributes
+    max(1, int(ratio * block)) clients a round, the JAX tier's per-host
+    count (fedmse_tpu/federation/tiered.py, `_sel_counts`), and both
+    ranks draw the same cohorts."""
+    a, b = (r["tier_two_hosts_half"] for r in session2)
+    _same_results(a, b)
+    assert a["host_sharded"] and a["blocks"] == [(0, 6), (6, 12)]
+    want = [max(1, int(0.5 * (hi - lo))) for lo, hi in a["blocks"]]
+    for res in a["results"]:
+        sel = np.asarray(res["selected"])
+        got = [int(((sel >= lo) & (sel < hi)).sum())
+               for lo, hi in a["blocks"]]
+        assert got == want
+
+
+def test_one_host_multi_rank_mesh_keeps_plain_tier(session2):
+    for r in session2:
+        one, plain = r["tier_one_host"], r["tier_plain"]
+        assert not one["host_sharded"] and one["rows"] == (0, 12)
+        _same_results(one, plain)
+        np.testing.assert_array_equal(one["final"], plain["final"])
+
+
+def test_local_data_tier_is_full_stack_tier(session2):
+    """Each rank stacks only its block (local_data=True): rounds, states
+    and the final AUC are the full-stack host-sharded run's bits, and the
+    rank's host data is its block's bytes."""
+    for r in session2:
+        loc, pod = r["tier_local"], r["tier_pod"]
+        assert loc["host_data_bytes"] == loc["block_data_bytes"]
+        assert loc["host_data_bytes"] == pod["host_data_bytes"]
+        _same_results(loc, pod)
+        np.testing.assert_array_equal(loc["final"], pod["final"])
+        np.testing.assert_array_equal(loc["params"], pod["params"])
+
+
+def test_local_data_row_count_must_be_the_block():
+    """local_data whose row count is not the rank's block is refused by
+    name (here one rank's block is the fleet of 12)."""
+    from fedmse_tpu_torch.federation.tiered import TieredRoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    with pytest.raises(ValueError, match="carries 6 client rows; this "
+                       "rank's block needs 12"):
+        data = jobs.federation(12)
+        half = type(data)(**{k: v[:6] if k != "dev_x" else v
+                             for k, v in vars(data).items()})
+        TieredRoundEngine(make_model("hybrid", *jobs.DIMS, 3.0,
+                                     device="cpu"), jobs.tier_config(),
+                          half, 12, ExperimentRngs(run=0), "hybrid",
+                          "mse_avg", mesh=ClientMesh(), host_sharded=True,
+                          local_data=True, device="cpu")

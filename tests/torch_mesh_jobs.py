@@ -198,26 +198,53 @@ def tier_config(**kw):
                      "state_layout": "tiered", **kw})
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def run_tier(mesh, host_sharded: bool = False, ratio: float = 1.0,
              resume_dir=None, cluster_refit: int = 0, n: int = 12,
-             rounds: int = 3) -> Dict:
+             rounds: int = 3, hosts=None, local_data: bool = False) -> Dict:
+    """The tier over `mesh`; `hosts` names the ranks' hosts in place of
+    the mesh's own (the same process group), and `local_data` hands each
+    rank only its block of client rows."""
+    import dataclasses
     from fedmse_tpu_torch.checkpointing import CheckpointManager
     from fedmse_tpu_torch.cluster import ClusterSpec
-    from fedmse_tpu_torch.federation.tiered import run_tiered_combination
+    from fedmse_tpu_torch.federation.tiered import (COHORT_DATA_FIELDS,
+                                                    run_tiered_combination)
+    from fedmse_tpu_torch.parallel import ClientMesh
+    from fedmse_tpu_torch.parallel.mesh import my_tier_block
+    if hosts is not None:
+        mesh = ClientMesh(mesh.world_size, mesh.rank, mesh.device,
+                          mesh.backend, pg=mesh.group.pg, hosts=hosts)
     cfg = tier_config(num_participants=ratio, host_sharded=host_sharded,
                       num_rounds=rounds)
     cluster = (ClusterSpec(k=2, refit_every=cluster_refit)
                if cluster_refit else None)
+    data = federation(n)
+    lo, hi = my_tier_block(n, mesh.world_size, mesh.rank) \
+        if mesh is not None else (0, n)
+    block_bytes = _nbytes(getattr(data, f)[lo:hi]
+                          for f in COHORT_DATA_FIELDS)
+    if local_data:
+        data = dataclasses.replace(data, **{
+            f: getattr(data, f)[lo:hi].clone() for f in
+            (*COHORT_DATA_FIELDS, "client_mask")})
     fits: List[int] = []
     out = run_tiered_combination(
-        cfg, federation(n), n, "hybrid", "mse_avg", 0, mesh=mesh,
-        device="cpu", cluster=cluster,
+        cfg, data, n, "hybrid", "mse_avg", 0, mesh=mesh,
+        device="cpu", cluster=cluster, local_data=local_data,
         resume=None if resume_dir is None else CheckpointManager(resume_dir),
         on_round=lambda r, s: fits.append(r.round_index))
     eng = out["engine"]
     return {"results": [_result(r) for r in out["rounds"]],
             "final": np.asarray(out["final_metrics"]),
             "rows": (eng.shard_start, eng.shard_stop),
+            "host_sharded": eng.host_sharded,
+            "host_data_bytes": _nbytes(eng.host_data.values()),
+            "block_data_bytes": block_bytes,
+            "blocks": list(eng._blocks),
             "host_bytes": eng.store.host_bytes(),
             "params": eng.store.host.params.numpy().copy(),
             "cluster_fitted_round": eng.cluster_fitted_round,
@@ -332,6 +359,13 @@ def session(mesh, init_path: str = "", ckpt_dir: str = "",
                                resume_dir=ckpt_dir or None)
     out["tier_refit"] = run_tier(mesh, host_sharded=True, cluster_refit=2,
                                  rounds=4)
+    # the same ranks named as two hosts: host-sharded whatever the flag
+    # says; named as one host: the plain tier
+    out["tier_two_hosts"] = run_tier(mesh, hosts=["h0", "h1"])
+    out["tier_two_hosts_half"] = run_tier(mesh, ratio=0.5,
+                                          hosts=["h0", "h1"])
+    out["tier_one_host"] = run_tier(mesh, ratio=0.5, hosts=["h0", "h0"])
+    out["tier_local"] = run_tier(mesh, host_sharded=True, local_data=True)
     out["serving"] = serving(mesh)
     out["plan"] = plan(mesh, cache_path)
     return out
