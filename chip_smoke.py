@@ -15,7 +15,8 @@ build/fedmse_tpu_torch/), then:
                 forward under client-major, routed and single-model
                 layouts; the forward and the train step also against a
                 second call, bit for bit, and as exactly one CUDA kernel
-                per call, their f32 cases on dyadic grids; the distance
+                per call, counted as the nodes of the call captured into a
+                CUDA graph, their f32 cases on dyadic grids; the distance
                 tiles' cases include the evaluation's shape, whose rows
                 phase 3 then checks: each also bit-equal to a second
                 call, one CUDA kernel per call in f32 and bf16, routed
@@ -234,9 +235,17 @@ build/fedmse_tpu_torch/), then:
                 its 5,000 rows (half the host bytes), the AUC within 2e-3
                 of one process replaying the same cohorts; (d) the 10
                 gateways' kNN engine gateway-sharded over the 2 ranks: the
-                unsharded engine's bits over 8,192 rows; then, on each
+                unsharded engine's bits over 8,192 rows; (e) the quick
+                run through the per-phase engine with profile=True and
+                the kNN score (shard_map) on the same 2 ranks: both ranks
+                the same bits, the dense per-phase card run's and (b)'s
+                elections, round-1 params (b)'s bits and within 1e-6
+                scaled of the dense per-phase run's, the final AUC within
+                2e-3 of it, every round's five phase seconds per rank,
+                all three kernels launched on each rank; then, on each
                 rank, the train step, the forward and the distances at
-                that rank's shapes against their plain versions;
+                that rank's shapes (those of (b) and (e): one block)
+                against their plain versions;
      realdata   (after the main path, before parallel) the real-data
                 pipeline: a raw tree in N-BaIoT's layout (9 devices, 115
                 features, a header line on every file; 27,900 benign and
@@ -294,7 +303,7 @@ dense engines they are held to) the tiered path
 ("flywheel_path_launches"), the net phase's (a) the --serve-net path
 ("net_path_launches"), the gateway phase's (a) the gateway path
 ("gateway_path_launches"), the parallel phase's meshed runs in (a)
-to (d) (not the plain runs they are held to), summed over this process
+to (e) (not the plain runs they are held to), summed over this process
 and the two ranks, the parallel path ("parallel_path_launches"), and
 the realdata phase's training run and kNN evaluation the real-data path
 ("realdata_path_launches"). A launch
@@ -604,11 +613,12 @@ def phase_kernels(torch, device):
         params = random_params(torch, g, *DIMS, gen, device, cdt)
         x = torch.randn((rows, DIMS[0]), generator=gen).to(device, cdt)
         idx = forward_index(torch, kind, g, rows, gen, device)
-        names = cuda_kernels(torch, lambda: fused_forward_stats(
-            params, x, idx, compute_dtype=cdt))
-        if len(names) != 1 or "fused_ae_forward_kernel" not in names[0]:
-            raise AssertionError(f"one forward at G={g} R={rows} ran "
-                                 f"{names}, not one fused_ae_forward_kernel")
+        nodes, ran = kernels_of_one_call(torch, lambda: fused_forward_stats(
+            params, x, idx, compute_dtype=cdt), device)
+        if nodes != 1 or ran != {"fused_ae_forward": 1}:
+            raise AssertionError(f"one forward at G={g} R={rows} ran {nodes} "
+                                 f"graph nodes, kernels {ran}, not one "
+                                 "fused_ae_forward_kernel")
     log(f"[kernels] {checked} kernel-vs-plain cases agree, each bitwise "
         f"equal to a second call; one CUDA kernel per call at the "
         f"evaluation and both serving buckets; worst {json.dumps(worst)}")
@@ -650,26 +660,21 @@ def random_flat(torch, layout, g, gen, device):
     return flat.to(device)
 
 
-def cuda_kernels(torch, fn) -> list:
-    """Names of the CUDA kernels (and copies) that one call of fn() runs on
-    the card, by torch.profiler, after a warm-up call. A window with no
-    device event at all is taken again, up to three tries: the profiler
-    has dropped a whole window's device events on an H100, and a call
-    that launches nothing is still an empty list after the third."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        if names:
-            break
-    return names
+def kernels_of_one_call(torch, fn, device) -> tuple:
+    """(nodes, {wrapper name: kernels}) of one call of fn() captured into
+    a CUDA graph by ops/graphs.CapturedBody, after its eager warm-up call:
+    every kernel, copy and memset the call issues on its stream is a node
+    of the graph (read through the driver, cuGraphGetNodes), and each
+    wrapper counts the kernels of its own that the capture recorded. Not
+    torch.profiler: an H100 has dropped a whole window's device events
+    three times in a row, and the graph's nodes do not depend on it."""
+    from fedmse_tpu_torch.ops.graphs import CapturedBody
+    body = CapturedBody(fn, device, "one call")
+    body()
+    if body.nodes is None:
+        raise AssertionError("this torch keeps no captured graph, so the "
+                             "nodes of one call cannot be counted")
+    return body.nodes, dict(body.kernels)
 
 
 def grid_inputs(torch, layout, g, rows, gen, device):
@@ -769,11 +774,12 @@ def phase_train_kernels(torch, device):
         flat = random_flat(torch, layout, g, gen, device)
         x = torch.randn((g, rows, DIMS[0]), generator=gen).to(device)
         m = torch.ones((g, rows), device=device)
-        names = cuda_kernels(torch, lambda: fused_train_grads(
-            flat, x, m, layout=layout, shrink_lambda=10.0))
-        if len(names) != 1 or "fused_ae_train_kernel" not in names[0]:
+        nodes, ran = kernels_of_one_call(torch, lambda: fused_train_grads(
+            flat, x, m, layout=layout, shrink_lambda=10.0), device)
+        if nodes != 1 or ran != {"fused_ae_train": 1}:
             raise AssertionError(f"one train step at G={g} R={rows} ran "
-                                 f"{names}, not one fused_ae_train_kernel")
+                                 f"{nodes} graph nodes, kernels {ran}, not "
+                                 "one fused_ae_train_kernel")
     log(f"[kernels] {checked} train-kernel-vs-plain cases agree, each "
         f"bitwise equal to a second call; one CUDA kernel per call at "
         f"R = 12 and 1008; worst {json.dumps(worst)}")
@@ -882,10 +888,11 @@ def phase_dist_kernels(torch, device, eval_rows):
         for cdt in (torch.float32, torch.bfloat16):
             q, banks, gw = dist_inputs(torch, n, rows, KNN["knn_bank_size"],
                                        DIMS[2], gw_kind, gen, device, cdt)
-            ran = cuda_kernels(torch, lambda: dist_tiles(q, banks, gw))
-            if len(ran) != 1 or "dist_tiles" not in ran[0]:
+            nodes, ran = kernels_of_one_call(
+                torch, lambda: dist_tiles(q, banks, gw), device)
+            if nodes != 1 or ran != {"dist_tiles": 1}:
                 raise AssertionError(f"dist {what} {cdt}: one call ran "
-                                     f"{ran}")
+                                     f"{nodes} graph nodes, kernels {ran}")
             if gw_kind != "client_major":
                 continue
             perm = torch.randperm(rows, generator=gen).to(device)
@@ -4280,7 +4287,8 @@ def routed_kernel_shapes(torch, device, tag, g, buckets, dist_rows=()):
     routed at random, packed in 64-row sessions of one gateway each (a
     gateway frontend's bursts) or client-major (an engine's fit over its
     train rows); then the distance kernel, `g` 512-slot banks against
-    each of `dist_rows` randomly routed query rows (a kNN bucket)."""
+    each of `dist_rows` query rows, routed at random (a kNN bucket), or
+    as given by a (rows, layout) entry."""
     from fedmse_tpu_torch.knn.score import dist_tiles
     from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
                                                fused_forward_stats_plain)
@@ -4305,8 +4313,9 @@ def routed_kernel_shapes(torch, device, tag, g, buckets, dist_rows=()):
             scaled_err(a, c) for a, c in zip(
                 got, fused_forward_stats_plain(params, x, idx)))
     for rows in dist_rows:
+        rows, kind = (rows, "random") if isinstance(rows, int) else rows
         q, banks, gw = dist_inputs(torch, g, rows, KNN["knn_bank_size"],
-                                   DIMS[2], "random", gen, device,
+                                   DIMS[2], kind, gen, device,
                                    torch.float32)
         what = (f"distances, {rows} rows x {g} banks of "
                 f"{KNN['knn_bank_size']}")
@@ -5530,7 +5539,7 @@ PARALLEL_TIER_N = 10_000       # (c): bulk gateways
 PARALLEL_TIER_COHORT = 512     # (c): C
 PARALLEL_BLOCK = 256           # the quantized merge's block (the default)
 PARALLEL_LAUNCHES = {}         # the parallel path's launches, by wrapper
-PARALLEL_JOB = "chip_smoke:parallel_rank"  # (b)-(d)'s rank job
+PARALLEL_JOB = "chip_smoke:parallel_rank"  # (b)-(e)'s rank job
 
 
 def parallel_quick(torch, cfg):
@@ -5580,6 +5589,47 @@ def mesh_quick_run(torch, cfg, data, mesh, device):
             "round1_s": wall1,
             "steady_round_s": walls / max(cfg.num_rounds - 1, 1),
             "graphs": eng._fused.stats()["graphs"]}, eng
+
+
+def phase_quick_config(cfg):
+    """(e)'s config: the quick run's, merged by shard_map and scored by
+    kNN (so that the per-phase round's evaluation launches the distance
+    kernel)."""
+    return cfg.replace(aggregation_backend="shard_map", score_kind="knn",
+                       **KNN)
+
+
+def mesh_phase_run(torch, cfg, data, mesh, device):
+    """(e) hybrid / mse_avg through the per-phase engine with profile=True
+    over `mesh` (None: the dense engine, its data on `device`), round by
+    round. Returns (report, engine): each round's wall (the card
+    synchronized) and phase seconds."""
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    n = int(data.client_mask.sum())
+    if mesh is None:
+        data = _federation_rows(data, data.client_mask.shape[0], device)
+    eng = RoundEngine(make_model("hybrid", *DIMS, cfg.shrink_lambda,
+                                 device=device), cfg, data, n,
+                      ExperimentRngs(run=0), "hybrid", "mse_avg",
+                      fused=False, profile=True, mesh=mesh)
+    res, walls, p1 = [], [], None
+    for r in range(cfg.num_rounds):
+        t0 = time.perf_counter()
+        res.append(eng.run_round(r))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if r == 0:
+            p1 = eng.gathered_states().params.numpy()
+    final = eng.evaluate()
+    return {"selected": [r.selected for r in res],
+            "aggregators": [r.aggregator for r in res],
+            "backend": [r.backend for r in res],
+            "phase_seconds": [r.phase_seconds for r in res],
+            "round_s": walls, "params1": p1,
+            "params": eng.gathered_states().params.numpy(),
+            "final": final, "auc": float(np.nanmean(final))}, eng
 
 
 def quantized_vs_exact(torch, eng, mesh, block):
@@ -5673,9 +5723,10 @@ def mesh_kernel_shapes(torch, device, cfg, eng, bucket):
     the run's size, one client masked whole as an unselected one is, one
     batch short of full), the forward client-major over the block's
     validation (and vote) rows, dev rows (the mse_avg weights), test rows
-    and train rows (the meshed engine's bank fit), and routed over one
-    meshed serving bucket of `bucket` rows; the distances of that bucket
-    to the block's G banks."""
+    and train rows (the kNN evaluation's and the meshed engine's bank
+    fit), and routed over one meshed serving bucket of `bucket` rows; the
+    distances of that bucket to the block's G banks, and of the block's
+    test rows client-major (the per-phase round's kNN evaluation)."""
     from fedmse_tpu_torch.models.flat import ParamLayout
     from fedmse_tpu_torch.ops.fused_train import (fused_train_grads,
                                                   fused_train_grads_plain)
@@ -5716,12 +5767,12 @@ def mesh_kernel_shapes(torch, device, cfg, eng, bucket):
          (g * d.dev_x.shape[0], "client_major"),
          (g * per(d.test_x), "client_major"),
          (g * per(d.train_xb), "client_major"), (bucket, "random")],
-        dist_rows=(bucket,)))
+        dist_rows=(bucket, (g * per(d.test_x), "client_major"))))
     return worst
 
 
 def parallel_rank(mesh, tier_n, cohort, block):
-    """(b)-(d) on one rank of the 2-rank gloo launch on the one card (the
+    """(b)-(e) on one rank of the 2-rank gloo launch on the one card (the
     rank entry: fedmse_tpu_torch/parallel/launch.py). Each rank counts
     its own launches per part (the meshed runs only), then holds each
     kernel to its plain version at the rank's own shapes."""
@@ -5731,7 +5782,7 @@ def parallel_rank(mesh, tier_n, cohort, block):
     device = mesh.device
     cfg, data = parallel_quick(torch, ExperimentConfig())
     out, launches = {"rank": mesh.rank, "device": str(device)}, {}
-    for part in ("b", "c", "d"):
+    for part in ("b", "c", "d", "e"):
         launches[part] = {}
     with counted_launches(launches["b"]):
         for name, kw in (("shard_map", {}),
@@ -5752,17 +5803,82 @@ def parallel_rank(mesh, tier_n, cohort, block):
                                 host_sharded=True)
     out["serve"] = mesh_serving(torch, cfg, out["shard_map"]["params"],
                                 data, mesh, device, launches["d"])
+    with counted_launches(launches["e"]):
+        out["phase"], eng = mesh_phase_run(torch, phase_quick_config(cfg),
+                                           data, mesh, device)
     out["kernels_vs_plain"] = mesh_kernel_shapes(
         torch, device, cfg, eng, out["serve"]["bucket"])
     out["launches"] = launches
     return out
 
 
+def phase_parallel_e(dense, fused, outs, smi):
+    """(e) the ranks' per-phase runs against the dense per-phase card run
+    and (b)'s sharded fused run (shard_map): the report; raises on a
+    failed hold."""
+    ph = outs[0]["phase"]
+    scale = max(1.0, float(np.abs(dense["params1"]).max()))
+    p1_err = float(np.abs(ph["params1"] - dense["params1"]).max()) / scale
+    rep = {"elections": ph["aggregators"],
+           "dense_elections": dense["aggregators"],
+           "fused_elections": fused["aggregators"],
+           "round1_params_fused_bits": _bits_equal(ph["params1"],
+                                                   fused["params1"]),
+           "round1_param_err_scaled": p1_err, "auc": ph["auc"],
+           "dense_auc": dense["auc"], "backend": ph["backend"],
+           "phase_seconds": [r["phase"]["phase_seconds"] for r in outs],
+           "round_s": [r["phase"]["round_s"] for r in outs],
+           "dense_phase_seconds": dense["phase_seconds"],
+           "dense_round_s": dense["round_s"],
+           "launches": [r["launches"]["e"] for r in outs]}
+    for r in outs:
+        for k, secs in enumerate(r["phase"]["phase_seconds"]):
+            log(f"[parallel] (e) rank {r['rank']} round {k + 1}: wall "
+                f"{r['phase']['round_s'][k]:.4f} s, phases "
+                f"{json.dumps(secs)} ({smi})")
+    for k, secs in enumerate(dense["phase_seconds"]):
+        log(f"[parallel] (e) dense per-phase round {k + 1}: wall "
+            f"{dense['round_s'][k]:.4f} s, phases {json.dumps(secs)} "
+            f"({smi})")
+    steady = lambda walls: float(np.mean(walls[1:]))  # noqa: E731
+    log(f"[watch] sharded per-phase quick round (2 gloo ranks, one card, "
+        f"profile=True, kNN): steady {steady(ph['round_s']):.4f} s; dense "
+        f"per-phase {steady(dense['round_s']):.4f} s; sharded fused "
+        f"{fused['steady_round_s']:.4f} s ({smi})")
+    log(f"[parallel] (e) per-phase on 2 ranks: elections "
+        f"{ph['aggregators']} (dense per-phase {dense['aggregators']}, "
+        f"(b) fused {fused['aggregators']}), round-1 params (b)'s bits: "
+        f"{rep['round1_params_fused_bits']}, {p1_err:.3e} scaled from the "
+        f"dense per-phase run, AUC {ph['auc']:.6f} (dense "
+        f"{dense['auc']:.6f}), launches {json.dumps(rep['launches'])}")
+    if not (ph["selected"] == dense["selected"] == fused["selected"]
+            and ph["aggregators"] == dense["aggregators"]
+            == fused["aggregators"]):
+        raise AssertionError("[parallel] (e) elections differ from the "
+                             "dense per-phase run or (b)'s")
+    if not rep["round1_params_fused_bits"] or p1_err > 1e-6 or \
+            abs(ph["auc"] - dense["auc"]) > 2e-3:
+        raise AssertionError(f"[parallel] (e) {json.dumps(rep)}")
+    phases = {"train", "vote", "aggregate", "verify", "evaluate"}
+    for r in outs:
+        for secs in r["phase"]["phase_seconds"]:
+            if set(secs) != phases or not all(
+                    np.isfinite(v) and v > 0 for v in secs.values()):
+                raise AssertionError(f"[parallel] (e) rank {r['rank']}'s "
+                                     f"phase seconds {secs}")
+        got = r["launches"]["e"]
+        for name in ("fused_ae_forward", "fused_ae_train", "dist_tiles"):
+            if got.get(name, 0) < 1:
+                raise AssertionError(f"[parallel] (e) rank {r['rank']} "
+                                     f"never launched {name}: {got}")
+    return rep
+
+
 def phase_parallel(torch, device, cfg, smi):
     """The client mesh (parallel/) on the card: (a) a one-rank NCCL group:
     --use-mesh's world-1 quick run equal to the plain run, the collectives
-    on CUDA tensors, plan_merge's table; (b)-(d) two gloo ranks on the one
-    card (parallel_rank), held to the dense card run and to each other.
+    on CUDA tensors, plan_merge's table; (b)-(e) two gloo ranks on the one
+    card (parallel_rank), held to the dense card runs and to each other.
     Launch counters set to 0 before and read after each meshed run (the
     world-1 mesh run, each rank's sharded runs, tier and meshed engine;
     not the plain runs they are held to), summed over the parent and the
@@ -5838,6 +5954,9 @@ def phase_parallel(torch, device, cfg, smi):
         multihost.shutdown()
         if os.path.exists(store_path):
             os.remove(store_path)
+    # (e)'s reference: the dense per-phase run on the card (not counted)
+    dense_phase, _ = mesh_phase_run(torch, phase_quick_config(qc), data,
+                                    None, device)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     workdir = os.path.join(ROOT, "build", "parallel_ranks")
@@ -5852,7 +5971,7 @@ def phase_parallel(torch, device, cfg, smi):
     report["ranks_s"] = time.perf_counter() - t1
     r0 = outs[0]
     for r in outs[1:]:  # every rank's results: the same bits
-        for key in ("shard_map", "quantized", "tier"):
+        for key in ("shard_map", "quantized", "tier", "phase"):
             same = r[key]["aggregators"] == r0[key]["aggregators"] and all(
                 _bits_equal(r[key][f], r0[key][f])
                 for f in ("final", "params") if f in r[key])
@@ -5939,6 +6058,7 @@ def phase_parallel(torch, device, cfg, smi):
             abs(tier[0]["auc"] - one_tier["auc"]) > 2e-3 or \
             2 * tier[0]["host_state_bytes"] != one_tier["host_state_bytes"]:
         raise AssertionError(f"[parallel] (c) {json.dumps(report['c'])}")
+    report["e"] = phase_parallel_e(dense_phase, sm, outs, smi)
     report["d"] = [r["serve"] for r in outs]
     log(f"[parallel] (d) meshed kNN engine on 2 ranks: "
         f"{json.dumps(report['d'])}")

@@ -58,7 +58,7 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
                       knn_topk: str = "exact",
                       knn_seed: int = 0) -> Callable:
     """fn(stacked_params, test_x [N, T, D], test_m [N, T], test_y [N, T],
-    train_xb [N, NB, B, D], train_mb [N, NB, B], priorities=None) ->
+    train_xb [N, NB, B, D], train_mb [N, NB, B], priorities=None, first=0) ->
     per-client AUC [N], (f1, precision, recall) [N, 3] for
     'classification', the nan_to_num'd scores [N, T] for 'scores' (the
     serving engine's oracle), or the steady-state seconds of one client's
@@ -69,7 +69,10 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
     seeds it. The draw is made on the CPU; a caller that evaluates again
     and again (the fused round, whose CUDA graph cannot copy from the
     host) draws it once with the returned function's
-    `bank_priorities(N, NB * B, device)` and passes it as `priorities`."""
+    `bank_priorities(N, NB * B, device)` and passes it as `priorities`.
+    `first` is the absolute id of client 0 of these tensors (a rank's
+    block of a client mesh): without `priorities`, client i's bank is
+    drawn as client first + i's."""
     kind = resolve_score_kind(model_type, score_kind)
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}; expected one of "
@@ -112,7 +115,7 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
 
     @torch.no_grad()
     def latency_all(stacked_params, test_x, test_m, test_y, train_xb,
-                    train_mb):
+                    train_mb, priorities=None, first=0):
         params = cast_params(stacked_params, cdt)
 
         def one(i):
@@ -121,7 +124,9 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
                 {c: {k: {leaf: take(v) for leaf, v in layer.items()}
                      for k, layer in coder.items()}
                  for c, coder in params.items()},
-                take(test_x), take(train_xb), take(train_mb), first=i)
+                take(test_x), take(train_xb), take(train_mb),
+                first=first + i,
+                priorities=None if priorities is None else take(priorities))
 
         sync(one(0))  # warm-up, out of the clock
         lat = torch.zeros(test_x.shape[0], dtype=torch.float64)
@@ -135,10 +140,10 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
 
     @torch.no_grad()
     def evaluate_all(stacked_params, test_x, test_m, test_y, train_xb,
-                     train_mb, priorities=None):
+                     train_mb, priorities=None, first=0):
         params = cast_params(stacked_params, cdt)
         scores = torch.nan_to_num(anomaly_scores(params, test_x, train_xb,
-                                                 train_mb,
+                                                 train_mb, first=first,
                                                  priorities=priorities))
         if metric == "scores":
             return scores

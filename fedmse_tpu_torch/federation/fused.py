@@ -948,6 +948,20 @@ CLIENT_INPUTS = ("available", "straggler", "bcast_drop", "member", "joined",
                  "rt_update_noise")
 
 
+def gather_vote_rows(mesh, data, lo: int, voter0: torch.Tensor):
+    """The valid split of client voter0 ([1] global id, on the device)
+    from the rank of `mesh` that owns it, on every rank: each rank offers
+    its block's row (the block starts at `lo`) at voter0's local index
+    (clamped), and the owner's is taken. No host read: it runs inside a
+    captured body too."""
+    n = data.valid_x.shape[0]
+    owner = torch.div(voter0, n, rounding_mode="floor")
+    local = torch.clamp(voter0 - lo, 0, n - 1)
+    x = mesh.all_gather(data.valid_x.index_select(0, local)[0])
+    m = mesh.all_gather(data.valid_m.index_select(0, local)[0])
+    return x.index_select(0, owner)[0], m.index_select(0, owner)[0]
+
+
 class ShardedFusedRound(FusedRound):
     """The fused round of one rank of a client mesh (parallel/; the port of
     the JAX round sharded P('clients') over a mesh). The rank holds the
@@ -1078,17 +1092,6 @@ class ShardedFusedRound(FusedRound):
             eff = eff * r["member"]
         return eff
 
-    def _vote_rows(self, voter0: torch.Tensor):
-        """The valid split of client voter0 ([1] global id) from the rank
-        that owns it: every rank offers its row at voter0's local index
-        (clamped), and the owner's is taken."""
-        d, n = self.data, self.hi - self.lo
-        owner = torch.div(voter0, n, rounding_mode="floor")
-        local = torch.clamp(voter0 - self.lo, 0, n - 1)
-        x = self.mesh.all_gather(d.valid_x.index_select(0, local)[0])
-        m = self.mesh.all_gather(d.valid_m.index_select(0, local)[0])
-        return x.index_select(0, owner)[0], m.index_select(0, owner)[0]
-
     def _received_local(self, aggregator, crashed, has_update):
         r, got = self.local_in, None
         if self.chaos:
@@ -1155,7 +1158,8 @@ class ShardedFusedRound(FusedRound):
             voter0 = self.sel.index_select(0, first)
         else:
             voter0 = self.sel[:1]
-        vote_x, vote_m = self._vote_rows(voter0)
+        vote_x, vote_m = gather_vote_rows(self.mesh, self.data, self.lo,
+                                          voter0)
         base = self.mesh.all_gather(
             self.base_scores(st.params, vote_x, vote_m)).reshape(-1)
         aggregator, scores = elect_on_device(

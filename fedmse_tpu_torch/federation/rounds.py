@@ -51,9 +51,11 @@ a noise poison, the update and merge noise of the run's red-team stream.
 
 A client mesh (`mesh=` a parallel.ClientMesh of more than one rank) shards
 the client axis: the engine keeps its rank's block of the states and data
-and runs `fused.ShardedFusedRound` (the fused path only, compact off), with
-the merge of `cfg.aggregation_backend` resolved at use (`agg_backend`:
-'auto' through the measured plan, parallel/costmodel.plan_merge). A mesh of
+and runs `fused.ShardedFusedRound`, or the per-phase round on its block
+with the fleet's scores, merge partials and results gathered (compact off
+on either path), with the merge of `cfg.aggregation_backend` resolved at
+use on both paths (`agg_backend`: 'auto' through the measured plan,
+parallel/costmodel.plan_merge). A mesh of
 one rank leaves the axis unsharded: the engine is the plain one, and every
 backend degrades to 'einsum' with one warning, as the JAX engine's does
 off a sharded mesh. Every rank must drive its engine through the same
@@ -65,7 +67,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -87,7 +89,8 @@ from fedmse_tpu_torch.federation.elastic import (MembershipMasks,
                                                  make_membership_masks,
                                                  membership_at)
 from fedmse_tpu_torch.federation.fused import (FusedRound, FusedRoundOut,
-                                              ShardedFusedRound)
+                                              ShardedFusedRound,
+                                              gather_vote_rows)
 from fedmse_tpu_torch.federation.local_training import make_local_train_all
 from fedmse_tpu_torch.federation.pipeline import InFlightChunk
 from fedmse_tpu_torch.federation.state import (ClientStates, HostState,
@@ -120,7 +123,7 @@ class RoundResult:
     tracking: np.ndarray                 # [n_real, E, 3] loss curves
     min_valid: np.ndarray                # [n_real] best local valid loss
     metrics_full: Optional[np.ndarray] = None  # [n_real, 3] f1/prec/recall
-    # the merge's effective backend (fused path): 'einsum' off a mesh
+    # the merge's effective backend: 'einsum' off a sharded mesh
     backend: Optional[str] = None
     # host seconds of each phase, with the device synchronized at each
     # phase's end (RoundEngine(profile=True) only)
@@ -455,11 +458,6 @@ class RoundEngine(MeshBackends):
         self._merge_plan = None
         self._full_data = data
         if self.sharded:
-            if not fused or profile:
-                raise ValueError(
-                    "a client axis sharded over a mesh runs the fused round; "
-                    "construct the engine with fused=True (and "
-                    "profile=False)")
             from fedmse_tpu_torch.parallel.mesh import shard_federation
             data = shard_federation(data, None, mesh)[0]
         self.redteam = redteam
@@ -477,6 +475,9 @@ class RoundEngine(MeshBackends):
         self.data = data
         self.n_real = n_real
         self.n_pad = self._full_data.client_mask.shape[0]
+        # this rank's rows [lo, hi) of the padded client axis
+        self.block = (mesh.block(self.n_pad) if self.sharded
+                      else (0, self.n_pad))
         self.rngs = rngs
         self.model_type = model_type
         self.update_type = update_type
@@ -510,6 +511,7 @@ class RoundEngine(MeshBackends):
             t.to(self.device) for t in verification_tensors(
                 cfg, self._full_data if shared_ver else data, n_real))
         self._fused: Optional[FusedRound] = None
+        self._phase_merges: Dict[str, Callable] = {}  # by effective backend
         self.cluster = cluster
         self._cluster_assign = None  # the fitted ClusterAssignment
         self._cluster_vec: Optional[np.ndarray] = None  # [n_real] int32
@@ -559,25 +561,24 @@ class RoundEngine(MeshBackends):
         return self.rngs.select_rng.sample(range(self.n_real),
                                            self.cohort_size())
 
+    def _fleet(self, t: torch.Tensor) -> np.ndarray:
+        """A per-client tensor of the engine's rows as the fleet's [N, ...]
+        numpy: on a sharded mesh the ranks' blocks gathered in rank order
+        (a collective), otherwise a copy to the host."""
+        if not self.sharded:
+            return t.cpu().numpy()
+        from fedmse_tpu_torch.parallel.mesh import host_fetch
+        return host_fetch(t, self.mesh)
+
     def evaluate(self) -> np.ndarray:
         """The evaluator's output for every real client, as numpy (on a
-        sharded mesh each rank evaluates its block, and the blocks are
-        gathered: a collective)."""
+        sharded mesh each rank evaluates its block, each client with its
+        own kNN bank draw, and the blocks are gathered: a collective)."""
         d = self.data
-        if not self.sharded:
-            out = self.evaluate_all(self.model_params(), d.test_x, d.test_m,
-                                    d.test_y, d.train_xb, d.train_mb)
-            return out.cpu().numpy()[: self.n_real]
-        from fedmse_tpu_torch.parallel.mesh import host_fetch
-        lo, hi = self.mesh.block(self.n_pad)
-        pri = self.evaluate_all.bank_priorities(
-            self.n_pad, d.train_xb.shape[1] * d.train_xb.shape[2],
-            self.device)
-        pri = None if pri is None else pri[lo:hi]
         out = self.evaluate_all(self.model_params(), d.test_x, d.test_m,
                                 d.test_y, d.train_xb, d.train_mb,
-                                priorities=pri)
-        return host_fetch(out, self.mesh)[: self.n_real]
+                                first=self.block[0])
+        return self._fleet(out)[: self.n_real]
 
     def gathered_states(self) -> ClientStates:
         """The fleet's states [N, ...] on the host (CPU tensors), the same
@@ -967,8 +968,35 @@ class RoundEngine(MeshBackends):
 
     # ---- the per-phase path ---- #
 
+    def _phase_merge(self):
+        """The per-phase round's merge of the effective backend: the dense
+        merge off a sharded mesh, else the mesh's (built once a
+        backend)."""
+        backend = self.agg_backend
+        if not self.sharded:
+            return self.aggregate
+        if backend not in self._phase_merges:
+            self._phase_merges[backend] = self._mesh_fns()["aggregate"]
+        return self._phase_merges[backend]
+
+    def _vote_rows(self, voter: int):
+        """The valid split of client `voter` (a global id): this rank's row
+        off a mesh, else gathered from the rank that owns it."""
+        d = self.data
+        if not self.sharded:
+            return d.valid_x[voter], d.valid_m[voter]
+        return gather_vote_rows(self.mesh, d, self.block[0],
+                                torch.tensor([voter], device=self.device))
+
     def run_round(self, round_index: int,
                   selected: Optional[List[int]] = None) -> RoundResult:
+        """One round: the fused round unless the engine is per-phase
+        (`fused=False` or `profile=True`). The per-phase round runs the
+        phases with the host between them; on a sharded mesh each rank
+        runs them on its block, and the fleet's scores, merge partials,
+        rejection counts and results are gathered (every rank makes the
+        same collectives: the election runs on the gathered bits, so
+        every rank makes the same voter calls)."""
         if self.fused and not self.profile:
             return self.run_round_fused(round_index, selected)
         if self.chaos is not None or self.elastic is not None:
@@ -976,11 +1004,13 @@ class RoundEngine(MeshBackends):
                              "round only (profile=True forces the per-phase "
                              "path)")
         cfg, data, dev, timer = self.cfg, self.data, self.device, self.timer
+        lo, hi = self.block
         if selected is None:
             selected = self.select_clients()
         before = timer.timings()
-        sel_mask = torch.zeros(self.n_pad, device=dev)
-        sel_mask[selected] = 1.0
+        sel_all = torch.zeros(self.n_pad, device=dev)
+        sel_all[selected] = 1.0
+        sel_mask = sel_all[lo:hi]
         sel_idx = (torch.tensor(sorted(selected), dtype=torch.long,
                                 device=dev) if self.compact else None)
         with timer.phase("train"):
@@ -991,14 +1021,15 @@ class RoundEngine(MeshBackends):
             self.states = self.states.replace(params=res.params,
                                               opt_state=res.opt_state)
 
-        # the first selected client's valid split is the vote tensor
-        vote_x, vote_m = data.valid_x[selected[0]], data.valid_m[selected[0]]
-
-        def fresh_scores() -> np.ndarray:
-            return self.scores_fn(self.states.params, vote_x, vote_m,
-                                  self.rngs.generator).cpu().numpy()
-
         with timer.phase("vote"):
+            # the first selected client's valid split is the vote tensor
+            vote_x, vote_m = self._vote_rows(selected[0])
+
+            def fresh_scores() -> np.ndarray:
+                return self._fleet(self.scores_fn(
+                    self.states.params, vote_x, vote_m, self.rngs.generator,
+                    fleet=(lo, self.n_pad)))
+
             aggregator, scores = elect_aggregator(
                 selected, fresh_scores, self.host.aggregation_count,
                 self.host.votes_received, cfg.max_aggregation_threshold)
@@ -1008,24 +1039,24 @@ class RoundEngine(MeshBackends):
         if aggregator is not None and self.host.aggregation_count[
                 aggregator] < cfg.max_aggregation_threshold:
             with timer.phase("aggregate"):
-                merged, weights = self.aggregate(self.states.params,
-                                                 sel_mask, data.dev_x,
-                                                 sel_idx=sel_idx)
+                merged, weights = self._phase_merge()(
+                    self.states.params, sel_mask, data.dev_x,
+                    sel_idx=sel_idx)
                 if self.poison_fn is not None:  # the malicious aggregator
                     attack = {k: torch.as_tensor(v[0]).to(dev) for k, v in
                               self._attack_inputs(round_index, 1).items()}
                     merged = self.poison_fn(merged, attack["attack"],
                                             attack.get("noise"))
-                agg_weights = weights.cpu().numpy()
+                agg_weights = self._fleet(weights)
                 self.host.aggregation_count[aggregator] += 1
                 self.host.rounds_aggregated.append((round_index, aggregator))
             with timer.phase("verify"):
-                onehot = torch.zeros(self.n_pad, device=dev)
-                onehot[aggregator] = 1.0
+                onehot = (torch.arange(lo, hi, device=dev)
+                          == aggregator).to(torch.float32)
                 outcome = self.verify(self.states, merged, self._ver_x,
                                       self._ver_m, onehot, data.client_mask)
                 self.states = outcome.states
-                rejected = self.states.rejected.cpu().numpy()
+                rejected = self._fleet(self.states.rejected)
             rows = verification_rows(rejected, aggregator, self.n_real,
                                      cfg.max_rejected_updates)
         else:
@@ -1045,6 +1076,7 @@ class RoundEngine(MeshBackends):
             mse_scores=(None if scores is None
                         else np.asarray(scores)[: self.n_real]),
             agg_weights=agg_weights,
-            tracking=res.tracking.cpu().numpy()[: self.n_real],
-            min_valid=res.min_valid.cpu().numpy()[: self.n_real],
+            tracking=self._fleet(res.tracking)[: self.n_real],
+            min_valid=self._fleet(res.min_valid)[: self.n_real],
+            backend=self.agg_backend,
             phase_seconds=seconds if self.profile else None)

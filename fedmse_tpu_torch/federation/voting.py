@@ -35,9 +35,12 @@ VOTE_BATCH = 128
 
 def make_mse_scores_fn(model, restandardize: bool = True,
                        tie_break: bool = True) -> Callable:
-    """fn(params [N, P], val_x [V, D], val_m [V], generator) -> scores [N]
-    f32 on params' device. `generator` (a CPU torch.Generator) draws the
-    tie-breaks; it is not used when tie_break is False. Per-run vote
+    """fn(params [N, P], val_x [V, D], val_m [V], generator, fleet=None) ->
+    scores [N] f32 on params' device. `generator` (a CPU torch.Generator)
+    draws the tie-breaks; it is not used when tie_break is False. On one
+    rank's block of a client mesh, `fleet` (lo, N_global) makes the draw
+    the whole fleet's [N_global] uniforms, as the dense engine draws them,
+    and jitters the block with its rows [lo, lo + N). Per-run vote
     tensors val_x [R, V, D], val_m [R, V] (the batched round, tie_break
     off) score the N = R x n models run by run: model r n + i scores run
     r's rows, restandardized with run r's own statistics, in the same one
@@ -48,7 +51,8 @@ def make_mse_scores_fn(model, restandardize: bool = True,
     @torch.no_grad()
     def scores_all(params: torch.Tensor, val_x: torch.Tensor,
                    val_m: torch.Tensor,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   fleet: Optional[Tuple[int, int]] = None
                    ) -> torch.Tensor:
         n = params.shape[0]
         v, d = val_x.shape[-2:]
@@ -85,8 +89,9 @@ def make_mse_scores_fn(model, restandardize: bool = True,
             real = torch.clamp(has.sum(), min=1).to(torch.float32)
         scores = torch.where(has, batch, 0.0).sum(dim=1) / real
         if tie_break:
-            scores = tie_break_jitter(
-                scores, torch.rand(n, generator=generator).to(params.device))
+            lo, total = (0, n) if fleet is None else fleet
+            u = torch.rand(total, generator=generator)[lo:lo + n]
+            scores = tie_break_jitter(scores, u.to(params.device))
         return scores
 
     return scores_all

@@ -363,3 +363,38 @@ def test_knn_latency_metric_scores_each_client(fed):
         tparams, data.test_x, data.test_m, data.test_y, data.train_xb,
         data.train_mb)
     assert lat.shape == (N,) and (lat > 0).all()
+
+
+def test_knn_latency_block_draws_its_clients_banks(fed, monkeypatch):
+    """On a block of clients [lo, hi) (a rank's), the latency metric scores
+    client i on the bank drawn for client lo + i, whether the block's
+    first id or the fleet's priorities' rows are given."""
+    from fedmse_tpu_torch.evaluation import evaluator
+    from fedmse_tpu_torch.knn.bank import bank_priorities
+    data, _ = fed
+    _, _, model, tparams = _model_and_params()
+    lo, hi = 1, N
+    rows = data.train_xb.shape[1] * data.train_xb.shape[2]
+    want = bank_priorities(0, N, rows)
+    seen = []
+    draw = evaluator.downsample_stacked
+
+    def record(latent, valid, priority, bank_size):
+        seen.append(priority)
+        return draw(latent, valid, priority, bank_size)
+
+    monkeypatch.setattr(evaluator, "downsample_stacked", record)
+    lat = make_evaluate_all(model, "hybrid", metric="time", score_kind="knn",
+                            knn_bank_size=16, latency_reps=1)
+    block = {c: {k: {leaf: v[lo:hi] for leaf, v in layer.items()}
+                 for k, layer in coder.items()}
+             for c, coder in tparams.items()}
+    args = (data.test_x[lo:hi], data.test_m[lo:hi], data.test_y[lo:hi],
+            data.train_xb[lo:hi], data.train_mb[lo:hi])
+    for kw in ({"first": lo}, {"priorities": want[lo:hi]}):
+        seen.clear()
+        out = lat(block, *args, **kw)
+        assert out.shape == (hi - lo,) and (out > 0).all()
+        # the warm-up (client lo), then one call per client
+        for got, i in zip(seen, [lo] + list(range(lo, hi)), strict=True):
+            assert torch.equal(got[0], want[i]), (kw, i)

@@ -20,11 +20,16 @@ Held:
     one-rank mesh is the plain engine, and `initialize()` with no
     configuration stays alone (a configured launch that cannot join
     raises);
+  * the per-phase round on the mesh (`fused=False`, `profile=True`,
+    metric='time'): against the port's dense per-phase round, the
+    sharded fused round (bit for bit) and the JAX per-phase engine on
+    client_mesh(W); the tie-break's fleet-wide draws, a second voter call
+    under the quota, each rank's phase seconds and kNN banks, and the
+    driver's `--use-mesh --fused-rounds false --resume-dir`;
   * the driver under a 2-rank launch (only rank 0 writes), the meshed
     serving engine and its continuous front, `plan_merge`'s cache.
 """
 
-import json
 import logging
 import os
 
@@ -38,13 +43,12 @@ import jax.numpy as jnp
 
 import torch_mesh_jobs as jobs
 from torch_mesh_common import (TESTS, assert_tree_equal, close,
-                               rank_session)
+                               rank_session, write_dataset)
 from fedmse_tpu.federation.aggregation import make_aggregate_fn as jax_agg
 from fedmse_tpu.models import make_model as jax_make_model
 from fedmse_tpu.parallel import client_mesh as jax_client_mesh
 from fedmse_tpu.parallel import pad_to_multiple as jax_pad
 from fedmse_tpu.parallel import shard_clients as jax_shard_clients
-from fedmse_tpu_torch.config import DatasetConfig
 from fedmse_tpu_torch.federation import RoundEngine
 from fedmse_tpu_torch.federation.fused import FusedRound, ShardedFusedRound
 from fedmse_tpu_torch.models import make_model
@@ -131,7 +135,8 @@ def test_sharded_round_matches_single_device(sessions, world):
 def test_full_round_on_global_mesh(sessions, world):
     """The port's sharded round from the JAX init against the JAX engine
     sharded on client_mesh(W)."""
-    ranks, (jax_results, jax_p1) = sessions[world]
+    ranks, jax_runs = sessions[world]
+    jax_results, jax_p1 = jax_runs["fused"]
     got = ranks[0]["jax_init"]
     for a, b in zip(got["results"], jax_results):
         assert a["selected"] == list(b["selected"])
@@ -225,6 +230,196 @@ def test_two_process_clustered_quantized_merge(sessions):
         <= 2e-3
 
 
+# ---- the per-phase round over the mesh ---- #
+
+PHASE_KEYS = {"train", "vote", "aggregate", "verify", "evaluate"}
+RESULT_FIELDS = ("selected", "aggregator", "client_metrics",
+                 "verification_results", "mse_scores", "agg_weights",
+                 "tracking", "min_valid", "backend")
+
+
+def _pad(world):
+    return -(-jobs.N_CLIENTS // world) * world
+
+
+def _fields(results):
+    return [{k: r[k] for k in RESULT_FIELDS} for r in results]
+
+
+def _elections(run):
+    return [(r["selected"], r["aggregator"]) for r in run["results"]]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("backend", ["einsum", "shard_map"])
+def test_sharded_per_phase_matches_dense_per_phase(sessions, world,
+                                                   backend):
+    """The sharded per-phase round against the port's dense one: the
+    same selections and elections and the final evaluation's bits;
+    round-1 params within 1e-6 scaled (the exact merge sums the ranks'
+    partials in rank order, the dense merge is one product: the
+    summation order differs in the last bits)."""
+    got = _ranks(sessions, world)[0]["phase"][backend]
+    dense = jobs.run_engine(None, jobs.config(), pad_to=_pad(world),
+                            fused=False)
+    assert _elections(got) == _elections(dense)
+    close(got["params1"], dense["params1"], 1e-6)
+    np.testing.assert_array_equal(got["final"], dense["final"])
+    assert {r["backend"] for r in got["results"]} == {backend}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_per_phase_quantized_within_codec(sessions, world):
+    """The quantized per-phase round, as the fused tests hold it: round
+    1's aggregator the exact round's, its metrics within 2e-3."""
+    phase = _ranks(sessions, world)[0]["phase"]
+    q, exact = phase["quantized"]["results"], phase["einsum"]["results"]
+    assert q[0]["aggregator"] == exact[0]["aggregator"]
+    np.testing.assert_allclose(q[0]["client_metrics"],
+                               exact[0]["client_metrics"], atol=2e-3)
+    assert {r["backend"] for r in q} == {"quantized"}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("backend", ["einsum", "shard_map", "quantized",
+                                     "auto"])
+def test_sharded_per_phase_is_sharded_fused_bits(sessions, world, backend):
+    """The sharded per-phase round is the sharded fused round bit for
+    bit (the same kernels on the same blocks, the same gathers): results,
+    round-1 and final params, the final evaluation."""
+    r = _ranks(sessions, world)[0]
+    phase, fused = r["phase"][backend], r["rounds"][backend]
+    assert_tree_equal(_fields(phase["results"]), _fields(fused["results"]))
+    for key in ("params1", "params", "final"):
+        np.testing.assert_array_equal(phase[key], fused[key], err_msg=key)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_per_phase_matches_jax_per_phase(sessions, world):
+    """From the JAX init, against the JAX per-phase engine sharded on
+    client_mesh(W): the same selections, elections and backend, round-1
+    params within 1e-5 scaled, the final AUC within 2e-3."""
+    ranks, jax_runs = sessions[world]
+    jax_results, jax_p1 = jax_runs["phase"]
+    got = ranks[0]["phase_jax_init"]
+    for a, b in zip(got["results"], jax_results, strict=True):
+        assert a["selected"] == list(b["selected"])
+        assert a["aggregator"] == b["aggregator"]
+        assert a["backend"] == b["backend"] == "einsum"
+    close(got["params1"], jax_p1, 1e-5)
+    assert abs(np.nanmean(got["results"][-1]["client_metrics"])
+               - np.nanmean(jax_results[-1]["client_metrics"])) <= 2e-3
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_per_phase_ranks_agree(sessions, world):
+    """Every rank's per-phase results, states and evaluations: the same
+    bits (the phase seconds aside: each rank's own clock)."""
+    ranks = _ranks(sessions, world)
+    for r in ranks[1:]:
+        for key in ("phase", "phase_jax_init", "phase_tie", "quota"):
+            assert_tree_equal(r[key], ranks[0][key], key)
+        assert_tree_equal(r["profiled"]["results"],
+                          ranks[0]["profiled"]["results"])
+        for key in ("round", "final"):  # latencies gathered from the ranks
+            np.testing.assert_array_equal(r["latency"][key],
+                                          ranks[0]["latency"][key])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_per_phase_tie_break_draws_fleet_wide(sessions, world):
+    """The tie-break on: each rank jitters its block with its rows of the
+    fleet's draw, so round 1's winning scores are the dense run's bits
+    (a rank that drew its own n uniforms would jitter every block
+    alike), and every election is the dense run's."""
+    from fedmse_tpu_torch.config import CompatConfig
+    got = _ranks(sessions, world)[0]["phase_tie"]
+    dense = jobs.run_engine(
+        None, jobs.config(compat=CompatConfig(vote_tie_break=True)),
+        pad_to=_pad(world), fused=False)
+    assert _elections(got) == _elections(dense)
+    np.testing.assert_array_equal(got["results"][0]["mse_scores"],
+                                  dense["results"][0]["mse_scores"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_quota_needs_second_voter_call(sessions, world):
+    """The first voter's candidates all at the quota: every rank makes a
+    second voter call (and its gather) and elects the first voter, as the
+    dense round does with the same scores."""
+    dense = jobs.quota_run(None, _pad(world))
+    assert dense["voter_calls"] == 2
+    assert dense["aggregator"] == dense["selected"][0]
+    for r in _ranks(sessions, world):
+        q = r["quota"]
+        assert q["selected"] == dense["selected"]
+        assert (q["aggregator"], q["voter_calls"]) == (
+            dense["aggregator"], dense["voter_calls"])
+        np.testing.assert_array_equal(q["scores"], dense["scores"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_profile_over_ranks_times_every_phase(sessions, world):
+    """run_combination(profile=True) over the mesh: every round on every
+    rank has the JAX phase keys, each finite and > 0; the rounds are the
+    dense profiled run's elections."""
+    dense = jobs.profiled_run(None, _pad(world))
+    assert set(dense["phase_seconds"][0]) == PHASE_KEYS
+    for r in _ranks(sessions, world):
+        prof = r["profiled"]
+        assert len(prof["phase_seconds"]) == jobs.config().num_rounds
+        for secs in prof["phase_seconds"]:
+            assert set(secs) == PHASE_KEYS
+            assert all(np.isfinite(v) and v > 0 for v in secs.values())
+        assert _elections(prof) == _elections(dense)
+        np.testing.assert_array_equal(prof["final"], dense["final"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_time_metric_over_ranks_draws_own_banks(sessions, world):
+    """metric='time' (kNN score) on a sharded per-phase engine: [n_real]
+    finite positive latencies, each rank's client i scored on the bank
+    drawn for its global id lo + i (the warm-up call, then every
+    repetition)."""
+    from fedmse_tpu_torch.knn.bank import bank_priorities
+    for r in _ranks(sessions, world):
+        lat = r["latency"]
+        for out in (lat["round"], lat["final"]):
+            assert out.shape == (jobs.N_CLIENTS,)
+            assert np.all(np.isfinite(out)) and np.all(out > 0)
+        lo, hi = lat["block"]
+        want = bank_priorities(0, _pad(world), lat["rows"]).numpy()
+        seen = lat["priorities"]
+        reps, left = divmod(len(seen) - 1, hi - lo)
+        assert left == 0 and reps >= 1
+        np.testing.assert_array_equal(seen[0][0], want[lo])
+        for i in range(hi - lo):
+            for k in range(reps):
+                np.testing.assert_array_equal(seen[1 + i * reps + k][0],
+                                              want[lo + i])
+
+
+def test_driver_use_mesh_per_phase_resumes(sessions, tmp_path):
+    """`main --use-mesh --fused-rounds false --resume-dir` on 2 ranks: one
+    round, then a resumed second; rank 0 alone writes, both ranks report
+    the same results, and the resumed run's final evaluation is the
+    dense per-phase driver's two rounds."""
+    from fedmse_tpu_torch.main import main
+    ranks = _ranks(sessions, 2)
+    dataset = os.path.join(ranks[0]["root"], "driver", "shards",
+                           "config.json")
+    outs = [r["phase_driver"] for r in ranks]
+    for run in ("first", "resumed"):
+        assert outs[0][run]["summary_path"] is not None
+        assert outs[1][run]["summary_path"] is None
+        assert outs[0][run]["final"] == outs[1][run]["final"]
+        assert outs[0][run]["backend"] == ["einsum"]
+    dense = main(jobs.driver_argv(dataset, str(tmp_path / "dense"))
+                 + ["--fused-rounds", "false"])
+    want = list(dense["results"].values())[0]["final_metrics"]
+    np.testing.assert_array_equal(outs[0]["resumed"]["final"][0], want)
+
+
 # ---- world 1 ---- #
 
 def test_placement_helpers_world_one(mesh8):
@@ -304,29 +499,12 @@ def test_collective_outside_a_body_runs_now():
     assert out.tolist() == [[0, 1, 2], [0, 2, 4]]
 
 
-def _dataset(tmp_path, n=5):
-    from tests.test_data import _write_client_csvs
-    root = str(tmp_path / "shards")
-    _write_client_csvs(root, n, dim=6, n_normal=60, n_abnormal=24)
-    path = os.path.join(root, "config.json")
-    with open(path, "w") as f:
-        json.dump(DatasetConfig.for_client_dirs(root, n).to_json(), f)
-    return path
-
-
-def _argv(cfg_path, ckpt, n=5):
-    return ["--device", "cpu", "--dataset-config", cfg_path,
-            "--model-types", "hybrid", "--update-types", "mse_avg",
-            "--network-size", str(n), "--dim-features", "6", "--epochs", "1",
-            "--num-rounds", "2", "--batch-size", "8",
-            "--checkpoint-dir", ckpt, "--compat-vote-tie-break", "false"]
-
-
 def test_use_mesh_world_one_is_plain_run(tmp_path):
     from fedmse_tpu_torch.main import main
-    cfg_path = _dataset(tmp_path)
-    a = main(_argv(cfg_path, str(tmp_path / "a")) + ["--use-mesh"])
-    b = main(_argv(cfg_path, str(tmp_path / "b")))
+    cfg_path = write_dataset(str(tmp_path / "shards"))
+    a = main(jobs.driver_argv(cfg_path, str(tmp_path / "a"))
+             + ["--use-mesh"])
+    b = main(jobs.driver_argv(cfg_path, str(tmp_path / "b")))
     for run in (a, b):
         for v in run["results"].values():
             v.pop("round_times")  # wall clocks
@@ -339,11 +517,12 @@ def test_driver_use_mesh_two_ranks(tmp_path):
     ranks: 5 clients padded to 6; rank 0 alone writes; both ranks report
     the same results; the run lands within 2e-3 of the plain one."""
     from fedmse_tpu_torch.main import main
-    cfg_path = _dataset(tmp_path)
+    cfg_path = write_dataset(str(tmp_path / "shards"))
     ckpt = str(tmp_path / "mesh")
     outs = spawn(2, "torch_mesh_jobs:driver",
                  {"root": str(tmp_path),
-                  "argv": _argv(cfg_path, ckpt) + ["--use-mesh"]},
+                  "argv": jobs.driver_argv(cfg_path, ckpt)
+                  + ["--use-mesh"]},
                  device="cpu", workdir=str(tmp_path / "ranks"),
                  timeout_s=300, pythonpath=[TESTS])
     assert outs[0]["summary_path"] is not None
@@ -351,7 +530,7 @@ def test_driver_use_mesh_two_ranks(tmp_path):
     assert os.path.exists(outs[0]["summary_path"])
     assert outs[0]["final"] == outs[1]["final"]
     assert outs[0]["backend"] == ["einsum"]
-    plain = main(_argv(cfg_path, str(tmp_path / "plain")))
+    plain = main(jobs.driver_argv(cfg_path, str(tmp_path / "plain")))
     got = np.asarray(outs[0]["final"][0])
     want = np.asarray(list(plain["results"].values())[0]["final_metrics"])
     assert abs(np.nanmean(got) - np.nanmean(want)) <= 2e-3

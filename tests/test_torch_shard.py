@@ -532,12 +532,57 @@ def test_off_mesh_degrade_warns_and_records(caplog):
     assert len(_pkg_warnings(caplog)) == 1
 
 
+def test_per_phase_result_records_backend():
+    """A dense per-phase round records the merge's effective backend,
+    'einsum', as the JAX per-phase engine's RoundResult does."""
+    from fedmse_tpu.config import CompatConfig as JaxCompat
+    from fedmse_tpu.config import ExperimentConfig as JaxConfig
+    from fedmse_tpu.data import stack_clients as jax_stack
+    from fedmse_tpu.data.synthetic import synthetic_clients as jax_synth
+    from fedmse_tpu.federation import RoundEngine as JaxEngine
+    from fedmse_tpu.utils.seeding import ExperimentRngs as JaxRngs
+    kw, _, dev_x = jobs.federation_clients()
+    cfg = JaxConfig(dim_features=DIMS[0], hidden_neus=DIMS[1],
+                    latent_dim=DIMS[2], network_size=jobs.N_CLIENTS,
+                    epochs=1, compat=JaxCompat(vote_tie_break=False))
+    jax_eng = JaxEngine(_jax_model(), cfg, jax_stack(jax_synth(**kw), dev_x,
+                                                     12),
+                        n_real=jobs.N_CLIENTS, rngs=JaxRngs(run=0),
+                        model_type="hybrid", update_type="mse_avg",
+                        fused=False)
+    want = jax_eng.run_round(0).backend
+    got = jobs.run_engine(None, jobs.config(epochs=1), rounds=1,
+                          fused=False)
+    assert want == "einsum"
+    assert [r["backend"] for r in got["results"]] == [want]
+
+
+def test_per_phase_off_mesh_degrade_warns_and_records(caplog):
+    """'shard_map' on a dense per-phase engine: one warning, the merge and
+    the recorded backend 'einsum', the plain per-phase run's bits."""
+    caplog.set_level(logging.WARNING)
+    out = jobs.run_engine(None, jobs.config(aggregation_backend="shard_map"),
+                          rounds=2, fused=False)
+    assert {r["backend"] for r in out["results"]} == {"einsum"}
+    assert len(_pkg_warnings(caplog)) == 1
+    plain = jobs.run_engine(None, jobs.config(), rounds=2, fused=False)
+    assert_tree_equal(out, plain)
+
+
 def test_unknown_backend_raises():
     with pytest.raises(ValueError, match="aggregation_backend"):
         RoundEngine(_model(), ExperimentConfig(aggregation_backend="psum"),
                     jobs.federation(), 10, ExperimentRngs(run=0), "hybrid",
                     "mse_avg", fused=True)
+    # a sharded mesh takes the per-phase round; chaos still needs the
+    # fused round there, as off a mesh
+    eng = RoundEngine(_model(), jobs.config(), jobs.federation(10, 12), 10,
+                      ExperimentRngs(run=0), "hybrid", "mse_avg",
+                      fused=False, mesh=_fake_mesh(4, 0))
+    assert eng.sharded and eng.block == (0, 3) and not eng.compact
+    from fedmse_tpu_torch.chaos import ChaosSpec
     with pytest.raises(ValueError, match="fused round"):
         RoundEngine(_model(), jobs.config(), jobs.federation(10, 12), 10,
                     ExperimentRngs(run=0), "hybrid", "mse_avg",
-                    fused=False, mesh=_fake_mesh(4, 0))
+                    fused=False, mesh=_fake_mesh(4, 0),
+                    chaos=ChaosSpec(dropout_p=0.2))

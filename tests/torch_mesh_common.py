@@ -34,10 +34,11 @@ def shared_dir(tmp_path_factory):
     return base
 
 
-def jax_sharded_run(world: int, init_path: str):
-    """The JAX fused engine over client_mesh(world) (hybrid / mse_avg, the
-    tie-break off): its init written for the ranks, then 3 rounds (round 1
-    alone); (results, round-1 params [N, P])."""
+def jax_sharded_run(world: int, init_path: str = "", fused: bool = True):
+    """The JAX engine over client_mesh(world), fused or per-phase (hybrid /
+    mse_avg, the tie-break off): its init written for the ranks when
+    `init_path` is given, then 3 rounds (round 1 alone); (results, round-1
+    params [N, P])."""
     import jax
     from fedmse_tpu.config import CompatConfig as JaxCompat
     from fedmse_tpu.config import ExperimentConfig as JaxConfig
@@ -59,13 +60,14 @@ def jax_sharded_run(world: int, init_path: str):
     mesh = client_mesh(world)
     eng = JaxEngine(jax_make_model("hybrid", *jobs.DIMS, cfg.shrink_lambda),
                     cfg, data, n_real=n, rngs=JaxRngs(run=0),
-                    model_type="hybrid", update_type="mse_avg", fused=True,
+                    model_type="hybrid", update_type="mse_avg", fused=fused,
                     mesh=mesh)
     eng.data, eng.states = shard_federation(data, eng.states, mesh)
     eng._ver_x, eng._ver_m = eng._verification_tensors()
-    torch.save(client_states_from_numpy(jax.tree.map(np.array, eng.states),
-                                        jobs.LAYOUT, device="cpu"),
-               init_path)
+    if init_path:
+        torch.save(client_states_from_numpy(
+            jax.tree.map(np.array, eng.states), jobs.LAYOUT, device="cpu"),
+            init_path)
     res = [eng.run_round(0)]
     p1 = flat(eng.states.params)
     res += [eng.run_round(r) for r in (1, 2)]
@@ -80,8 +82,24 @@ def flat(tree) -> np.ndarray:
         lambda t: torch.from_numpy(np.array(t, np.float32)), tree)).numpy()
 
 
+def write_dataset(root: str, n: int = 5) -> str:
+    """A CSV federation of n clients (6 features) under `root` for the
+    driver; the path of its dataset config."""
+    import json
+    from fedmse_tpu_torch.config import DatasetConfig
+    from tests.test_data import _write_client_csvs
+    _write_client_csvs(root, n, dim=6, n_normal=60, n_abnormal=24)
+    path = os.path.join(root, "config.json")
+    with open(path, "w") as f:
+        json.dump(DatasetConfig.for_client_dirs(root, n).to_json(), f)
+    return path
+
+
 def rank_session(tmp_path_factory, world: int):
-    """(per-rank results, the JAX run) of the world-`world` session."""
+    """(per-rank results, the JAX runs) of the world-`world` session: the
+    JAX runs are {"fused": ..., "phase": ...}, each (results, round-1
+    params). The world-2 session also runs the driver on a CSV
+    federation (`write_dataset`)."""
     from fedmse_tpu_torch.parallel.launch import spawn
     base = shared_dir(tmp_path_factory)
     root = base / f"torch_mesh_w{world}"
@@ -92,11 +110,15 @@ def rank_session(tmp_path_factory, world: int):
             if not done.exists():
                 root.mkdir(exist_ok=True)
                 init = str(root / "jax_init.pt")
-                jax_run = jax_sharded_run(world, init)
+                jax_run = {"fused": jax_sharded_run(world, init),
+                           "phase": jax_sharded_run(world, fused=False)}
+                dataset = (write_dataset(str(root / "driver" / "shards"))
+                           if world == 2 else "")
                 outs = spawn(world, "torch_mesh_jobs:session",
                              {"init_path": init,
                               "ckpt_dir": str(root / "ckpt"),
-                              "cache_path": str(root / "tune.json")},
+                              "cache_path": str(root / "tune.json"),
+                              "dataset": dataset},
                              device="cpu", workdir=str(root / "ranks"),
                              timeout_s=600,
                              pythonpath=[TESTS],

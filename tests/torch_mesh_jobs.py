@@ -113,24 +113,41 @@ def merges(mesh, n: int) -> Dict:
 
 # ---- the sharded round ---- #
 
-def run_engine(mesh, cfg, n_real=N_CLIENTS, pad_to=0, init=None,
-               model_type="hybrid", update_type="mse_avg", rounds=3,
-               **kw) -> Dict:
-    """A fused RoundEngine over `mesh` (None: the dense engine): round 1
-    alone, then the rest in one chunk; the results, round 1's gathered
-    params and the final evaluation."""
+def engine(mesh, cfg, n_real=N_CLIENTS, pad_to=0, init=None,
+           model_type="hybrid", update_type="mse_avg", fused=True, **kw):
+    """A RoundEngine over `mesh` (None: the dense engine) on the
+    federation of `n_real` clients padded to `pad_to`."""
     from fedmse_tpu_torch.federation import RoundEngine
     from fedmse_tpu_torch.utils.seeding import ExperimentRngs
     data = federation(n_real, pad_to)
     model = make_model(model_type, *DIMS, cfg.shrink_lambda, device="cpu")
-    eng = RoundEngine(model, cfg, data, n_real=n_real,
-                      rngs=ExperimentRngs(run=0), model_type=model_type,
-                      update_type=update_type, fused=True, mesh=mesh,
-                      states=init, **kw)
-    res = eng.run_rounds(0, 1)
+    return RoundEngine(model, cfg, data, n_real=n_real,
+                       rngs=ExperimentRngs(run=0), model_type=model_type,
+                       update_type=update_type, fused=fused, mesh=mesh,
+                       states=init, **kw)
+
+
+def _rounds(eng, start: int, n: int) -> List:
+    """n rounds from `start`: one chunk on a fused engine, round by round
+    on a per-phase one."""
+    if eng.fused and not eng.profile:
+        return eng.run_rounds(start, n)
+    return [eng.run_round(r) for r in range(start, start + n)]
+
+
+def run_engine(mesh, cfg, n_real=N_CLIENTS, pad_to=0, init=None,
+               model_type="hybrid", update_type="mse_avg", rounds=3,
+               fused=True, **kw) -> Dict:
+    """A RoundEngine over `mesh` (None: the dense engine), fused or
+    per-phase: round 1 alone, then the rest (a fused engine's in one
+    chunk); the results, round 1's gathered params and the final
+    evaluation."""
+    eng = engine(mesh, cfg, n_real, pad_to, init, model_type, update_type,
+                 fused, **kw)
+    res = _rounds(eng, 0, 1)
     p1 = eng.gathered_states().params.numpy()
     if rounds > 1:
-        res += eng.run_rounds(1, rounds - 1)
+        res += _rounds(eng, 1, rounds - 1)
     return {"results": [_result(r) for r in res], "params1": p1,
             "params": eng.gathered_states().params.numpy(),
             "final": eng.evaluate(), "compact": eng.compact,
@@ -139,6 +156,68 @@ def run_engine(mesh, cfg, n_real=N_CLIENTS, pad_to=0, init=None,
             else eng._merge_plan["chosen"],
             "plan_cached": None if eng._merge_plan is None
             else eng._merge_plan["cached"]}
+
+
+def quota_run(mesh, pad_to: int = 0) -> Dict:
+    """One per-phase round (the tie-break on) whose first voter finds
+    every candidate at the quota, so a second voter call elects: the
+    selection, the aggregator, the voter calls and the winning scores."""
+    cfg = config(compat=CompatConfig(vote_tie_break=True))
+    eng = engine(mesh, cfg, pad_to=pad_to, fused=False)
+    sel = eng.select_clients()
+    eng.host.aggregation_count[sel[1:]] = cfg.max_aggregation_threshold
+    calls = []
+    scores_fn = eng.scores_fn
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return scores_fn(*args, **kw)
+
+    eng.scores_fn = counted
+    res = eng.run_round(0, selected=sel)
+    return {"selected": sel, "aggregator": res.aggregator,
+            "voter_calls": len(calls), "scores": res.mse_scores,
+            "params": eng.gathered_states().params.numpy()}
+
+
+def profiled_run(mesh, pad_to: int = 0) -> Dict:
+    """`run_combination(profile=True)` over `mesh` (None: the dense run):
+    each round's phase seconds, its results and the final evaluation."""
+    from fedmse_tpu_torch.main import run_combination
+    out = run_combination(config(), federation(N_CLIENTS, pad_to),
+                          N_CLIENTS, "hybrid", "mse_avg", 0, profile=True,
+                          mesh=mesh)
+    return {"phase_seconds": [r.phase_seconds for r in out["rounds"]],
+            "results": [_result(r) for r in out["rounds"]],
+            "final": out["final_metrics"],
+            "rank": None if mesh is None else mesh.rank}
+
+
+def latency_run(mesh, pad_to: int = 0) -> Dict:
+    """metric='time' with the kNN score on a per-phase engine: one round,
+    then the final evaluation with the bank priorities each scoring call
+    fed to the bank draw recorded."""
+    from fedmse_tpu_torch.evaluation import evaluator
+    cfg = config(metric="time", score_kind="knn", knn_bank_size=16,
+                 knn_k=3)
+    eng = engine(mesh, cfg, pad_to=pad_to, fused=False)
+    res = eng.run_round(0)
+    seen = []
+    draw = evaluator.downsample_stacked
+
+    def record(latent, valid, priority, bank_size):
+        seen.append(priority.numpy().copy())
+        return draw(latent, valid, priority, bank_size)
+
+    evaluator.downsample_stacked = record
+    try:
+        final = eng.evaluate()
+    finally:
+        evaluator.downsample_stacked = draw
+    d = eng.data
+    return {"round": res.client_metrics, "final": final,
+            "block": eng.block, "priorities": seen,
+            "rows": d.train_xb.shape[1] * d.train_xb.shape[2]}
 
 
 def early_stop_run(mesh, stop_at: int = 3, chunk: int = 2,
@@ -310,10 +389,33 @@ def driver(mesh, root: str, argv: List[str]) -> Dict:
             "rank": mesh.rank}
 
 
+def driver_argv(dataset: str, ckpt: str, rounds: int = 2) -> List[str]:
+    """The driver on the session's CSV federation (5 clients, 6 features):
+    hybrid / mse_avg, the tie-break off."""
+    return ["--device", "cpu", "--dataset-config", dataset,
+            "--model-types", "hybrid", "--update-types", "mse_avg",
+            "--network-size", "5", "--dim-features", "6", "--epochs", "1",
+            "--num-rounds", str(rounds), "--batch-size", "8",
+            "--checkpoint-dir", ckpt, "--compat-vote-tie-break", "false"]
+
+
+def phase_driver(mesh, dataset: str, root: str) -> Dict:
+    """`main --use-mesh --fused-rounds false` with `--resume-dir`: one
+    round, then a second command that resumes it for a second round (a
+    snapshot a round, through the gathered states), checkpoints saved."""
+    tail = ["--use-mesh", "--fused-rounds", "false",
+            "--resume-dir", os.path.join(root, "resume")]
+    ckpt = os.path.join(root, "ckpt")
+    first = driver(mesh, root, driver_argv(dataset, ckpt, 1) + tail)
+    return {"first": first,
+            "resumed": driver(mesh, root, driver_argv(dataset, ckpt, 2)
+                              + tail)}
+
+
 # ---- the sessions: every check of a world size, once ---- #
 
 def session(mesh, init_path: str = "", ckpt_dir: str = "",
-            cache_path: str = "") -> Dict:
+            cache_path: str = "", dataset: str = "") -> Dict:
     w = mesh.world_size
     pad = -(-N_CLIENTS // w) * w
     out: Dict = {"world": w, "rank": mesh.rank,
@@ -335,6 +437,18 @@ def session(mesh, init_path: str = "", ckpt_dir: str = "",
         mesh, config(aggregation_backend="auto", **backends["auto"]),
         pad_to=pad, update_type="avg", rounds=1)
     out["jax_init"] = run_engine(mesh, config(), pad_to=pad, init=init)
+    # the per-phase round over the mesh, per backend and from the JAX init
+    out["phase"] = {name: run_engine(
+        mesh, config(aggregation_backend=name, **kw), pad_to=pad,
+        fused=False) for name, kw in backends.items()}
+    out["phase_jax_init"] = run_engine(mesh, config(), pad_to=pad,
+                                       init=init, fused=False)
+    out["phase_tie"] = run_engine(
+        mesh, config(compat=CompatConfig(vote_tie_break=True)), pad_to=pad,
+        fused=False)
+    out["quota"] = quota_run(mesh, pad)
+    out["profiled"] = profiled_run(mesh, pad)
+    out["latency"] = latency_run(mesh, pad)
     if w == 4:
         out["fifty"] = run_engine(mesh, config(network_size=50, epochs=1,
                                                num_participants=0.2),
@@ -368,4 +482,8 @@ def session(mesh, init_path: str = "", ckpt_dir: str = "",
     out["tier_local"] = run_tier(mesh, host_sharded=True, local_data=True)
     out["serving"] = serving(mesh)
     out["plan"] = plan(mesh, cache_path)
+    if dataset:
+        out["phase_driver"] = phase_driver(
+            mesh, dataset,
+            os.path.join(os.path.dirname(os.path.dirname(dataset)), "mesh"))
     return out
