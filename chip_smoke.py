@@ -266,6 +266,20 @@ build/fedmse_tpu_torch/), then:
                 then the kernels at the path's shapes (the forward over
                 10 models at the evaluation's rows, the train step at the
                 round's G and R, the distances at its test rows);
+     sweeps     (after the main path, after parallel) the threat-model
+                sweep drivers (attack_sweep_torch.py, chaos_sweep_torch.py,
+                churn_sweep_torch.py, redteam_sweep_torch.py) at reduced
+                grids: first the train step and the forward at the
+                sweeps' cohort widths (G = 100, 200) against their plain
+                versions; (a) the attack sweep's baseline and scale-10
+                cells in both verifier modes, 4 rounds (the baseline
+                accepts every broadcast, every client with a history
+                rejects scale 10); (b) the chaos sweep's (0, 0) cell, the
+                clean engine's bits, and both burst rows (rounds_to_recover
+                finite); (c) the churn sweep's capture-once pin cut from
+                10,000 clients and C = 200 to 64 and 8 (each CUDA graph
+                body captured once across churning chunks, null churn the
+                static round's bits); (d) the red team's quick cell;
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events, and the
@@ -306,7 +320,9 @@ dense engines they are held to) the tiered path
 to (e) (not the plain runs they are held to), summed over this process
 and the two ranks, the parallel path ("parallel_path_launches"), and
 the realdata phase's training run and kNN evaluation the real-data path
-("realdata_path_launches"). A launch
+("realdata_path_launches"), and the sweeps phase's driver calls (a) to
+(d) the sweep path ("sweep_path_launches"; no sweep scores by kNN, so
+the distance kernel's count there is 0). A launch
 inside a replayed CUDA graph counts: each graph keeps the kernels it
 captured, and each replay adds them (ops/graphs.py). Prints,
 as its last three lines, the card's name and power limit, one JSON line
@@ -6370,6 +6386,195 @@ def phase_realdata(torch, device, cfg, smi):
     return report
 
 
+# ---- the threat-model sweep drivers (phase "sweeps") ---- #
+
+SWEEP_G = (100, 200)      # the churn grid's and the 10k pin's cohorts
+SWEEP_ROUNDS = 4          # the attack and chaos cells' rounds, (a), (b)
+SWEEP_BURST = (1, 3)      # the burst rows' window, over 2 x SWEEP_ROUNDS
+SWEEP_PIN = (64, 8)       # the capture-once pin cut from (10,000, 200)
+SWEEP_LAUNCHES = {}       # the sweep path's kernel launches, by wrapper
+
+
+def sweep_kernel_shapes(torch, device):
+    """The train step and the forward at the sweeps' cohort widths against
+    their plain versions, f32 on dyadic grids, each also bit-equal to a
+    second call: the train step at G = 100 and 200 (12 rows a client),
+    the forward over G routed models client-major (28 rows a model: the
+    thin shards' test and train rows). Returns the worst scaled errors."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
+                                               fused_forward_stats_plain)
+    from fedmse_tpu_torch.ops.fused_train import (fused_train_grads,
+                                                  fused_train_grads_plain)
+    gen = torch.Generator().manual_seed(SEED + 31)
+    layout = ParamLayout(*DIMS)
+    kw = dict(layout=layout, shrink_lambda=10.0)
+    worst = {}
+    for g in SWEEP_G:
+        flat, xt = grid_inputs(torch, layout, g, 12, gen, device)
+        m = torch.ones((g, 12), device=device)
+        got = fused_train_grads(flat, xt, m, **kw)
+        again = fused_train_grads(flat, xt, m, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"[sweeps] train launch at G = {g} not "
+                                 "bit-equal to a second call")
+        worst[f"train step, G = {g}"] = max(scaled_err(a, b) for a, b in zip(
+            got, fused_train_grads_plain(flat, xt, m, **kw)))
+        params = grid_params(torch, g, *DIMS, gen, device, torch.float32)
+        rows = g * 28
+        x = (torch.randint(-6, 7, (rows, DIMS[0]), generator=gen) / 4.0
+             ).to(device)
+        idx = forward_index(torch, "client_major", g, rows, gen, device)
+        got = fused_forward_stats(params, x, idx)
+        again = fused_forward_stats(params, x, idx)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"[sweeps] forward over {g} models not "
+                                 "bit-equal to a second call")
+        worst[f"forward, {g} routed models"] = max(
+            scaled_err(a, b) for a, b in zip(
+                got, fused_forward_stats_plain(params, x, idx)))
+    bad = {k: v for k, v in worst.items() if v > TOL["f32"]}
+    if bad:
+        raise AssertionError(f"[sweeps] kernels vs plain: {bad}")
+    log(f"[sweeps] kernels at the sweeps' cohort widths agree with their "
+        f"plain versions and with a second call: {json.dumps(worst)}")
+    return worst
+
+
+def sweep_attack(torch, device, cfg, data, n):
+    """(a) attack_sweep_torch's baseline and scale-10 cells in both modes
+    (SWEEP_ROUNDS rounds, attacked from round 1): the baseline accepts
+    every broadcast, and under scale 10 every verifying client with a
+    verification history rejects (a first contact has none to hold the
+    broadcast to)."""
+    import attack_sweep_torch as attack
+    out = {}
+    for mode, hardened in (("reference", False), ("hardened", True)):
+        c = cfg.replace(hardened_verification=hardened)
+        with counted_launches(SWEEP_LAUNCHES):
+            base = attack.run_cell(c, data, n, None, 0.0, rounds=SWEEP_ROUNDS)
+            scaled = attack.run_cell(c, data, n, "scale", 10.0,
+                                     rounds=SWEEP_ROUNDS)
+        out[mode] = {"baseline": base, "scale10": scaled}
+        log(f"[sweeps] (a) {mode}: baseline accept_rate "
+            f"{base['accept_rate']} final AUC {base['final_auc']}; scale-10 "
+            f"accept_rate {scaled['accept_rate']}, accepts after first "
+            f"contact {scaled['accepts_after_first_contact']}, rejected "
+            f"curve {scaled['mean_rejected_curve']}")
+        if base["accept_rate"] != 1.0:
+            raise AssertionError(f"[sweeps] (a) {mode}: the clean baseline "
+                                 f"accepted {base['accept_rate']}")
+        if scaled["accepts_after_first_contact"] != 0 \
+                or scaled["accept_rate"] is None:
+            raise AssertionError(f"[sweeps] (a) {mode}: a verifying client "
+                                 f"accepted the scale-10 broadcast: {scaled}")
+    return out
+
+
+def sweep_chaos(torch, device, cfg, data, n):
+    """(b) chaos_sweep_torch's (0, 0) cell against the clean engine (the
+    same init and schedule, no hook): the same per-client metrics, bit for
+    bit, and the same AUC curve; then the attack and churn bursts over
+    [1, 3) in 2 x SWEEP_ROUNDS rounds: rounds_to_recover finite."""
+    import chaos_sweep_torch as chaos
+    from fedmse_tpu_torch.chaos import ChaosSpec
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.federation.attack import AttackSpec
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    with counted_launches(SWEEP_LAUNCHES):
+        cell = chaos.run_cell(cfg, data, n, None, rounds=SWEEP_ROUNDS,
+                              label="baseline")
+    clean = RoundEngine(make_model("hybrid", cfg.dim_features,
+                                   shrink_lambda=cfg.shrink_lambda,
+                                   device=device), cfg, data, n,
+                        ExperimentRngs(run=0, data_seed=cfg.data_seed),
+                        "hybrid", "mse_avg", fused=True)
+    results = clean.run_rounds(0, SWEEP_ROUNDS)
+    curve = [round(float(np.nanmean(r.client_metrics)), 5) for r in results]
+    if cell["auc_curve"] != curve or not np.array_equal(
+            np.asarray(cell["final_client_metrics"]),
+            results[-1].client_metrics, equal_nan=True):
+        raise AssertionError(f"[sweeps] (b) the (0, 0) cell "
+                             f"{cell['auc_curve']} is not the clean "
+                             f"engine's {curve}")
+    b0, b1 = SWEEP_BURST
+    with counted_launches(SWEEP_LAUNCHES):
+        bursts = [chaos.run_cell(
+            cfg, data, n, None, attack_spec=AttackSpec(
+                kind="zero", start_round=b0, stop_round=b1),
+            rounds=2 * SWEEP_ROUNDS, burst=SWEEP_BURST, label="attack-burst"),
+            chaos.run_cell(
+                cfg, data, n, ChaosSpec(dropout_p=0.8, crash_p=0.5,
+                                        start_round=b0, stop_round=b1),
+                rounds=2 * SWEEP_ROUNDS, burst=SWEEP_BURST,
+                label="churn-burst")]
+    recover = {r["label"]: r["burst"]["rounds_to_recover"] for r in bursts}
+    log(f"[sweeps] (b) the (0, 0) cell is the clean engine's bits (AUC "
+        f"curve {curve}); rounds_to_recover {json.dumps(recover)}")
+    if any(v is None for v in recover.values()):
+        raise AssertionError(f"[sweeps] (b) a burst never recovered: "
+                             f"{recover}")
+    return {"baseline": cell, "bursts": bursts}
+
+
+def sweep_churn(torch, device, cfg):
+    """(c) churn_sweep_torch's capture-once pin cut to SWEEP_PIN (64
+    clients, cohort 8, from 10,000 and 200): each CUDA graph body captured
+    once across the churning chunks, and null churn static bit for bit."""
+    import churn_sweep_torch as churn
+    with counted_launches(SWEEP_LAUNCHES):
+        pin = churn.capture_once_pin(cfg, device, *SWEEP_PIN)
+    log(f"[sweeps] (c) capture-once pin at {SWEEP_PIN[0]} clients, cohort "
+        f"{pin['cohort']}: captured once {pin['captured_once']}, bodies "
+        f"{json.dumps(pin['bodies_after_churn_chunks'])}, null churn "
+        f"bit-equal {pin['null_churn_bitwise_identical']}")
+    if device.type == "cuda" and not pin["captured_once"]:
+        raise AssertionError(f"[sweeps] (c) a body was captured again: {pin}")
+    if not pin["null_churn_bitwise_identical"]:
+        raise AssertionError("[sweeps] (c) null churn is not the static "
+                             "round's bits")
+    return pin
+
+
+def sweep_redteam(torch, device):
+    """(d) redteam_sweep_torch.quick_cell: the defenses-off pin, the
+    mimicry capture at the cluster bar's blend, the margin floor."""
+    import redteam_sweep_torch as redteam
+    with counted_launches(SWEEP_LAUNCHES):
+        quick = redteam.quick_cell(device)
+    log(f"[sweeps] (d) red-team quick cell {json.dumps(quick)}")
+    if not quick["acceptance_met"]:
+        raise AssertionError(f"[sweeps] (d) quick cell {quick}")
+    return quick
+
+
+def phase_sweeps(torch, device, cfg):
+    """The threat-model sweep drivers at reduced grids (attack, chaos,
+    churn, red team; sweep_data_torch.py's data), each gate one the JAX
+    sweeps state: the kernels at the sweeps' cohort widths first, then
+    (a)-(d), whose driver calls are the sweep path (every launch counter
+    set to 0 before each and read after)."""
+    import sweep_data_torch as sweep
+    t0 = time.perf_counter()
+    report = {"kernels": sweep_kernel_shapes(torch, device)}
+    SWEEP_LAUNCHES.clear()
+    data, n, _ = sweep.build_data(cfg, 10, device=device)
+    report["attack"] = sweep_attack(torch, device, cfg, data, n)
+    report["chaos"] = sweep_chaos(torch, device, cfg, data, n)
+    del data
+    report["churn"] = sweep_churn(torch, device, cfg)
+    report["redteam"] = sweep_redteam(torch, device)
+    report["launches"] = dict(SWEEP_LAUNCHES)
+    log(f"[sweeps] sweep path launches {json.dumps(report['launches'])}")
+    for name in ("fused_ae_forward", "fused_ae_train"):
+        if report["launches"].get(name, 0) < 1:
+            raise AssertionError(f"the sweep path never launched {name}")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[sweeps] done in {report['seconds']:.1f} s")
+    return report
+
+
 def report_train(torch, device, launches, worst):
     """The train kernel's and its plain version's times and bounds at the
     main path's step shape (5 clients x 12 rows) and at 512 clients."""
@@ -6596,6 +6801,7 @@ def run(torch, cfg, smi, t_start) -> int:
     gateway = phase_gateway(torch, device, smi)
     realdata = phase_realdata(torch, device, cfg, smi)
     parallel = phase_parallel(torch, device, cfg, smi)
+    sweeps = phase_sweeps(torch, device, cfg)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
     training["fused_hold"] = phase_fused_hold(torch, device, cfg, clients)
@@ -6624,6 +6830,8 @@ def run(torch, cfg, smi, t_start) -> int:
             parallel["launches"].get(kernel["name"], 0)
         kernel["realdata_path_launches"] = \
             realdata["launches"][kernel["name"]]
+        kernel["sweep_path_launches"] = \
+            sweeps["launches"].get(kernel["name"], 0)
     line["robust"] = robust
     line["cluster"] = cluster
     line["redteam"] = redteam
@@ -6635,6 +6843,7 @@ def run(torch, cfg, smi, t_start) -> int:
     line["gateway"] = gateway
     line["parallel"] = parallel
     line["realdata"] = realdata
+    line["sweeps"] = sweeps
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

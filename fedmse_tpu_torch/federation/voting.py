@@ -137,43 +137,52 @@ def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
     Returns (aggregator int64 0-d, -1 when no voter has a candidate; the
     winning voter's scores [N], zeros then)."""
     s, n = sel.shape[0], base.shape[0]
-    ids = torch.arange(n, device=base.device)
-    scores = (base.expand(s, n) if draws is None
-              else tie_break_jitter(base, draws))
-    sel_pos = torch.full((n,), s, dtype=torch.int64,
-                         device=base.device).index_copy(
-        0, sel, torch.arange(s, device=base.device))
-    cand = ((sel_mask > 0) & (agg_count < max_threshold))[None, :] \
-        & (ids[None, :] != sel[:, None])
-    if cluster_in is not None:
-        cand = cand & (cluster_in[None, :]
-                       == cluster_in.index_select(0, sel)[:, None])
+    dev = base.device
+    ids = torch.arange(n, device=dev)
+    sel_pos = torch.full((n,), s, dtype=torch.int64, device=dev).index_copy(
+        0, sel, torch.arange(s, device=dev))
+    # eligible candidates [N]; voter i's are those other than itself (and
+    # in its cluster). Only the first voter with a candidate picks, so
+    # the [S, N] candidate sheet is never formed: a voter has a candidate
+    # iff its scope holds more eligible ids than its own, and only the
+    # winning voter's row of scores is ranked. O(S + N) memory.
+    elig = (sel_mask > 0) & (agg_count < max_threshold)
     if vote_ok is not None:
-        cand = cand & (vote_ok > 0)[None, :]
-    found = cand.any(dim=1)
+        elig = elig & (vote_ok > 0)
+    own = elig.index_select(0, sel).to(torch.int64)
+    if cluster_in is None:
+        found = elig.sum() > own
+    else:
+        # eligible ids per cluster by binary search over their sorted
+        # cluster labels (non-eligible ids sort first, as -1)
+        keys = torch.where(elig, cluster_in, -1).sort().values
+        c = cluster_in.index_select(0, sel)
+        found = (torch.searchsorted(keys, c, right=True)
+                 - torch.searchsorted(keys, c)) > own
     if voters is not None:
         found = found & (voters.index_select(0, sel) > 0)
     if vote_ok is not None:
         found = found & (vote_ok.index_select(0, sel) > 0)
-    masked = torch.where(cand & ~torch.isnan(scores), scores,
-                         torch.full_like(scores, float("inf")))
-    tie = cand & (masked == masked.min(dim=1, keepdim=True).values)
-    pick = torch.where(tie, sel_pos[None, :],
-                       torch.full_like(tie, s + 1, dtype=torch.int64)
-                       ).argmin(dim=1)
-    if lie_votes and adv is not None:
-        acc = cand & (adv > 0)[None, :]
-        acc_pick = torch.where(acc, sel_pos[None, :],
-                               torch.full_like(acc, s + 1,
-                                               dtype=torch.int64)
-                               ).argmin(dim=1)
-        lie = (adv.index_select(0, sel) > 0) & acc.any(dim=1)
-        pick = torch.where(lie, acc_pick, pick)
     first = found.to(torch.int32).argmax().view(1)  # a device index
     won = found.any()
-    aggregator = torch.where(won, pick.index_select(0, first)[0], -1)
-    return aggregator, torch.where(won, scores.index_select(0, first)[0],
-                                   torch.zeros_like(base))
+    voter = sel.index_select(0, first)               # [1]
+    scores = (base if draws is None
+              else tie_break_jitter(base, draws.index_select(0, first)[0]))
+    cand = elig & (ids != voter)
+    if cluster_in is not None:
+        cand = cand & (cluster_in == cluster_in.index_select(0, voter))
+    masked = torch.where(cand & ~torch.isnan(scores), scores,
+                         torch.full_like(scores, float("inf")))
+    tie = cand & (masked == masked.min())
+    never = torch.full_like(sel_pos, s + 1)
+    pick = torch.where(tie, sel_pos, never).argmin()
+    if lie_votes and adv is not None:
+        acc = cand & (adv > 0)
+        acc_pick = torch.where(acc, sel_pos, never).argmin()
+        lie = (adv.index_select(0, voter)[0] > 0) & acc.any()
+        pick = torch.where(lie, acc_pick, pick)
+    aggregator = torch.where(won, pick, -1)
+    return aggregator, torch.where(won, scores, torch.zeros_like(base))
 
 
 def elect_on_device_runs(base: torch.Tensor, draws: Optional[torch.Tensor],

@@ -258,6 +258,116 @@ def test_elect_on_device_is_the_host_election(case):
             np.testing.assert_array_equal(got_scores.numpy(), want_scores)
 
 
+
+def _elect_on_sheet(base, draws, sel, sel_mask, agg_count, max_threshold,
+                    voters=None, cluster_in=None, vote_ok=None, adv=None,
+                    lie_votes=False):
+    """The election over the full [S, N] candidate sheet, every voter's
+    pick formed (the formulation elect_on_device replaced): the
+    reference its O(S + N) form is held to."""
+    s, n = sel.shape[0], base.shape[0]
+    ids = torch.arange(n)
+    scores = (base.expand(s, n) if draws is None
+              else tie_break_jitter(base, draws))
+    sel_pos = torch.full((n,), s, dtype=torch.int64).index_copy(
+        0, sel, torch.arange(s))
+    cand = ((sel_mask > 0) & (agg_count < max_threshold))[None, :] \
+        & (ids[None, :] != sel[:, None])
+    if cluster_in is not None:
+        cand = cand & (cluster_in[None, :]
+                       == cluster_in.index_select(0, sel)[:, None])
+    if vote_ok is not None:
+        cand = cand & (vote_ok > 0)[None, :]
+    found = cand.any(dim=1)
+    if voters is not None:
+        found = found & (voters.index_select(0, sel) > 0)
+    if vote_ok is not None:
+        found = found & (vote_ok.index_select(0, sel) > 0)
+    masked = torch.where(cand & ~torch.isnan(scores), scores,
+                         torch.full_like(scores, float("inf")))
+    tie = cand & (masked == masked.min(dim=1, keepdim=True).values)
+    pick = torch.where(tie, sel_pos[None, :], s + 1).argmin(dim=1)
+    if lie_votes and adv is not None:
+        acc = cand & (adv > 0)[None, :]
+        acc_pick = torch.where(acc, sel_pos[None, :], s + 1).argmin(dim=1)
+        lie = (adv.index_select(0, sel) > 0) & acc.any(dim=1)
+        pick = torch.where(lie, acc_pick, pick)
+    first = found.to(torch.int32).argmax().view(1)
+    won = found.any()
+    return (torch.where(won, pick.index_select(0, first)[0], -1),
+            torch.where(won, scores.index_select(0, first)[0],
+                        torch.zeros_like(base)))
+
+
+def _election_case(rng, n, s, hooks):
+    sel = torch.from_numpy(rng.permutation(n)[:s])
+    base = torch.from_numpy(rng.choice(np.float32([0.5, 1.0, np.nan]), n))
+    mask = torch.zeros(n)
+    mask[sel] = 1.0
+    kw = dict(base=base, sel=sel, sel_mask=mask,
+              agg_count=torch.from_numpy(rng.integers(0, 4, n).astype(
+                  np.int32)), max_threshold=3,
+              draws=(torch.from_numpy(rng.choice(
+                  np.float32([0.25, 0.5]), (s, n))) if "draws" in hooks
+                  else None))
+    if "voters" in hooks:
+        kw["voters"] = torch.from_numpy((rng.random(n) < 0.7).astype(
+            np.float32))
+    if "cluster" in hooks:
+        kw["cluster_in"] = torch.from_numpy(rng.integers(0, 3, n))
+    if "red" in hooks:
+        kw["vote_ok"] = torch.from_numpy((rng.random(n) < 0.8).astype(
+            np.float32))
+        kw["adv"] = torch.from_numpy((rng.random(n) < 0.4).astype(
+            np.float32))
+        kw["lie_votes"] = True
+    return kw
+
+
+@pytest.mark.parametrize("hooks", [(), ("draws",), ("draws", "voters"),
+                                   ("cluster",), ("draws", "cluster", "red"),
+                                   ("voters", "cluster", "red")],
+                         ids=lambda h: "+".join(h) or "plain")
+def test_elect_on_device_is_the_sheet_election(hooks):
+    """The election without its [S, N] candidate sheet is the sheet's
+    election, bit for bit: the same aggregator (-1 included) and the
+    winning voter's scores, under the quota, NaN scores, ties, the fault
+    hooks' voters, clusters and the red team's gate and lying votes."""
+    rng = np.random.default_rng(len(hooks))
+    for _ in range(300):
+        n = int(rng.integers(2, 12))
+        kw = _election_case(rng, n, int(rng.integers(1, n + 1)), hooks)
+        want = _elect_on_sheet(**kw)
+        got = elect_on_device(**kw)
+        assert int(got[0]) == int(want[0]), kw
+        np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+
+
+def test_elect_on_device_forms_no_cohort_by_fleet_tensor():
+    """At full participation (S = N) the election's largest tensor is O(N):
+    a [S, N] sheet would be 40 GB at 100k gateways. Every op's output is
+    counted under a dispatch mode; only the tie-break draws [S, N], an
+    input, are that large."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Largest(TorchDispatchMode):
+        numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    Largest.numel = max(Largest.numel, t.numel())
+            return out
+
+    n = 3000
+    for hooks in ((), ("voters", "cluster", "red")):
+        kw = _election_case(np.random.default_rng(0), n, n, hooks)
+        with Largest():
+            agg, _ = elect_on_device(**kw)
+        assert Largest.numel <= 4 * n, (hooks, Largest.numel)
+        assert int(agg) == int(_elect_on_sheet(**kw)[0])
+
 def test_cohort_of_one_has_no_aggregator():
     """One selected client: no voter has a candidate, so no aggregator
     (-1 on the device -> None); the states pass through aggregation and

@@ -304,3 +304,60 @@ def test_examples_import_only_the_port():
                              timeout=120)
         assert out.returncode == 0, (e, out.stderr[-2000:])
         assert "--device" in out.stdout, e
+
+
+SWEEPS = ("attack_sweep_torch", "chaos_sweep_torch", "churn_sweep_torch",
+          "redteam_sweep_torch")
+
+
+@pytest.mark.parametrize("script", SWEEPS + ("sweep_data_torch",))
+def test_sweep_scripts_import_only_the_port(script):
+    """Each threat-model sweep driver, run as a script in a fresh process
+    up to its argument parsing (the shared sweep_data_torch.py imported),
+    loads no jax, JAX package, bench harness, pandas or sklearn; nor does
+    its source name one."""
+    bad = sorted(n for n in _imported_roots(os.path.join(REPO,
+                                                         f"{script}.py"))
+                 if _forbidden(n) or n == "bench" or n.startswith("bench."))
+    assert not bad, f"{script}.py imports {bad}"
+    run = (f"runpy.run_path('{script}.py', run_name='__main__')"
+           if script != "sweep_data_torch" else "import sweep_data_torch")
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{script!r}, '--help']\n"
+        "try:\n"
+        f"    {run}\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'bench') or "
+        "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'pandas', "
+        "'sklearn')) or m == 'fedmse_tpu' or m.startswith('fedmse_tpu.'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    if script != "sweep_data_torch":
+        assert "--device" in out.stdout and "--out" in out.stdout
+
+
+def _sweep(name):
+    import importlib
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    return importlib.import_module(name)
+
+
+@pytest.mark.parametrize("argv", [
+    ("attack_sweep_torch", []), ("chaos_sweep_torch", []),
+    ("churn_sweep_torch", []), ("churn_sweep_torch", ["--podscale"]),
+    ("redteam_sweep_torch", [])], ids=lambda a: " ".join([a[0], *a[1]]))
+def test_sweep_drivers_refuse_cpu_fallback(no_cuda, tmp_path, argv):
+    """Without a card each driver raises before it builds anything or
+    writes its artifact, naming device='cpu'."""
+    script, args = argv
+    out = tmp_path / "out.json"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _sweep(script).main([*args, "--out", str(out)])
+    assert not out.exists()
