@@ -6167,6 +6167,35 @@ def run_prep(args, what):
     return {"seconds": seconds, "js_distance": js}
 
 
+def prep_args(raw, noniid, matrix, device_type):
+    """The two prep commands' arguments: the raw tree to non-IID shards
+    (alpha 0.5 over REALDATA_CLIENTS clients, every row), and those shards
+    to the published split (--target-matrix --cluster-labels 9)."""
+    dev = ["--device", device_type]
+    return (["--raw", raw, "--out", noniid, "--n-clients",
+             str(REALDATA_CLIENTS), "--mode", "noniid", "--alpha", "0.5",
+             "--benign-frac", "1.0", "--abnormal-frac", "1.0", *dev],
+            ["--source", noniid, "--out", matrix, "--n-clients",
+             str(REALDATA_CLIENTS), "--target-matrix", "--cluster-labels",
+             "9", *dev])
+
+
+def study_tree(root, device_type="cuda"):
+    """The [realdata] phase's published-split Client-* tree, built under
+    `root` (the raw tree, then both prep commands): the input of the paper
+    check and parity probe runs. Returns the tree's path. From the repo
+    root: `python3 -c "import chip_smoke; chip_smoke.study_tree('build/
+    study-tree')"`."""
+    raw, noniid, matrix = (os.path.join(root, d)
+                           for d in ("raw", "noniid", "matrix"))
+    write_raw_tree(raw)
+    for args, what in zip(prep_args(raw, noniid, matrix, device_type),
+                          ("--raw", "--source --target-matrix")):
+        run_prep(args, what)
+    shutil.rmtree(raw)
+    return matrix
+
+
 def parse_shards(trees):
     """Every shard of `trees` through the host reader (read_dir_f64, as
     load_data reads a split) and through np.loadtxt: the same float64
@@ -6325,7 +6354,7 @@ def realdata_plots(writer, out_dir):
     return {"combos": sorted(combos), "plots": pngs, "provenance": prov}
 
 
-def phase_realdata(torch, device, cfg, smi):
+def phase_realdata(torch, device, cfg, smi, keep=None):
     """The real-data pipeline: a raw N-BaIoT-shaped tree (9 devices, 115
     features, header lines) written from the port's generator; `python -m
     fedmse_tpu_torch.data.prep` from it (--raw, non-IID alpha 0.5 over 10
@@ -6335,7 +6364,8 @@ def phase_realdata(torch, device, cfg, smi):
     the published-split shards (--dataset-config, the quick run) and a
     kNN-scored evaluation of its checkpoint, launch counters set to 0
     before and read after (the real-data path); the round results loaded
-    and plotted; then the kernels at the path's shapes."""
+    and plotted; then the kernels at the path's shapes. `keep` (a path)
+    keeps the published-split shards there for a later phase."""
     import tempfile
     t0 = time.perf_counter()
     report = {}
@@ -6352,16 +6382,10 @@ def phase_realdata(torch, device, cfg, smi):
             f"raw rows)")
         noniid, matrix = os.path.join(tmp, "noniid"), os.path.join(tmp,
                                                                    "matrix")
-        dev_arg = ["--device", device.type]
-        report["prep_raw"] = run_prep(
-            ["--raw", raw, "--out", noniid, "--n-clients",
-             str(REALDATA_CLIENTS), "--mode", "noniid", "--alpha", "0.5",
-             "--benign-frac", "1.0", "--abnormal-frac", "1.0", *dev_arg],
-            "--raw (noniid, alpha 0.5)")
+        args_raw, args_matrix = prep_args(raw, noniid, matrix, device.type)
+        report["prep_raw"] = run_prep(args_raw, "--raw (noniid, alpha 0.5)")
         report["prep_matrix"] = run_prep(
-            ["--source", noniid, "--out", matrix, "--n-clients",
-             str(REALDATA_CLIENTS), "--target-matrix", "--cluster-labels",
-             "9", *dev_arg], "--source --target-matrix --cluster-labels 9")
+            args_matrix, "--source --target-matrix --cluster-labels 9")
         report["parse"] = parse_shards([noniid, matrix])
         REALDATA_LAUNCHES.clear()
         with counted_launches(REALDATA_LAUNCHES):
@@ -6381,6 +6405,8 @@ def phase_realdata(torch, device, cfg, smi):
         report["plots"] = realdata_plots(writer, os.path.join(tmp, "plots"))
         report["kernels_vs_plain"] = realdata_kernel_shapes(torch, device,
                                                             data, cfg)
+        if keep is not None:
+            shutil.move(matrix, keep)
     report["seconds"] = time.perf_counter() - t0
     log(f"[realdata] done in {report['seconds']:.1f} s ({smi})")
     return report
@@ -6572,6 +6598,239 @@ def phase_sweeps(torch, device, cfg):
             raise AssertionError(f"the sweep path never launched {name}")
     report["seconds"] = time.perf_counter() - t0
     log(f"[sweeps] done in {report['seconds']:.1f} s")
+    return report
+
+
+# ---- the study drivers (phase "studies") ---- #
+
+# (f): (what, widths, train step G x rows, forward models x rows a model,
+# distance banks x slots x query rows or None) of the study drivers'
+# launches: the cluster grids (16/12/5 on 24 gateways, cohort 12, batches
+# of 16, the kNN cells at L = 5 against 64-slot banks), --podscale's tier
+# cohort (8/6/3, 100,000 gateways, 16 test rows each) and the drift grid
+# (16/27/7 on 6 gateways, cohort 3 of 12-row batches, 258 client-major
+# rows for a 256-row serving bucket, the kNN cell's 128-slot banks)
+STUDY_SHAPES = (
+    ("cluster grids", (16, 12, 5), (12, 16), (24, 120), (24, 64, 2880)),
+    ("podscale cohort", (8, 6, 3), (100_000, 16), (100_000, 16), None),
+    ("drift grid", (16, 27, 7), (3, 12), (6, 43), (6, 128, 256)),
+)
+STUDY_PLAIN_MODELS = 1024  # (f): forward models held to the plain loop
+STUDY_LAUNCHES = {}        # the study path's kernel launches, by wrapper
+
+
+def _one_kernel(torch, fn, device, name, what):
+    nodes, ran = kernels_of_one_call(torch, fn, device)
+    if nodes != 1 or ran != {name: 1}:
+        raise AssertionError(f"[studies] {what}: one call ran {nodes} graph "
+                             f"nodes, kernels {ran}, not one {name}")
+
+
+def study_kernel_shapes(torch, device):
+    """(f) The three kernels at the study drivers' widths (STUDY_SHAPES)
+    against their plain versions, f32 on dyadic grids, each call bit-equal
+    to a second call and one CUDA kernel per call (a captured graph's
+    nodes). The forward over more than STUDY_PLAIN_MODELS models is held
+    to the plain version on the rows of a random sample of that many
+    models (the plain version loops over models; the kernel's rows are
+    independent of each other). Returns the worst scaled errors."""
+    from fedmse_tpu_torch.knn.score import dist_tiles
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.fused_ae import (fused_forward_stats,
+                                               fused_forward_stats_plain)
+    from fedmse_tpu_torch.ops.fused_train import (fused_train_grads,
+                                                  fused_train_grads_plain)
+    gen = torch.Generator().manual_seed(SEED + 53)
+    worst = {}
+    for what, dims, (g, rows), (models, per), dist in STUDY_SHAPES:
+        layout = ParamLayout(*dims)
+        kw = dict(layout=layout, shrink_lambda=10.0)
+        flat, xt = grid_inputs(torch, layout, g, rows, gen, device)
+        m = torch.ones((g, rows), device=device)
+        got = fused_train_grads(flat, xt, m, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, fused_train_grads(flat, xt, m, **kw))):
+            raise AssertionError(f"[studies] train step, {what}: not "
+                                 "bit-equal to a second call")
+        worst[f"train step, {what}, G = {g}"] = max(
+            scaled_err(a, b) for a, b in zip(
+                got, fused_train_grads_plain(flat, xt, m, **kw)))
+        _one_kernel(torch, lambda: fused_train_grads(flat, xt, m, **kw),
+                    device, "fused_ae_train", f"train step, {what}")
+        del flat, xt, m, got
+
+        params = grid_params(torch, models, *dims, gen, device,
+                             torch.float32)
+        n_rows = models * per
+        x = (torch.randint(-6, 7, (n_rows, dims[0]), generator=gen) / 4.0
+             ).to(device)
+        idx = forward_index(torch, "client_major", models, n_rows, gen,
+                            device)
+        got = fused_forward_stats(params, x, idx)
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, fused_forward_stats(params, x, idx))):
+            raise AssertionError(f"[studies] forward, {what}: not bit-equal "
+                                 "to a second call")
+        _one_kernel(torch, lambda: fused_forward_stats(params, x, idx),
+                    device, "fused_ae_forward", f"forward, {what}")
+        sample = torch.arange(models)
+        if models > STUDY_PLAIN_MODELS:
+            sample = torch.randperm(models, generator=gen)[
+                :STUDY_PLAIN_MODELS].sort().values
+        sample = sample.to(device)
+        remap = torch.full((models,), -1, dtype=torch.int32, device=device)
+        remap[sample] = torch.arange(len(sample), dtype=torch.int32,
+                                     device=device)
+        sub_idx = remap[idx.long()]
+        keep = sub_idx >= 0
+        sub = {c: {n: {k: v[sample] for k, v in layer.items()}
+                   for n, layer in coder.items()}
+               for c, coder in params.items()}
+        want = fused_forward_stats_plain(sub, x[keep], sub_idx[keep])
+        worst[f"forward, {what}, {models} models ({len(sample)} held)"] = \
+            max(scaled_err(a[keep], b) for a, b in zip(got, want))
+        del params, x, idx, got, want
+        if dist is not None:
+            n, bank, t = dist
+            q, banks, gw = dist_inputs(torch, n, t, bank, dims[2],
+                                       "client_major", gen, device,
+                                       torch.float32)
+            label = f"distances, {what}, {t} rows x {n} banks of {bank}"
+            got, _, worst[label] = dist_check(torch, q, banks, gw, label)
+            if not torch.equal(got, dist_tiles(q, banks, gw)):
+                raise AssertionError(f"[studies] {label}: not bit-equal to "
+                                     "a second call")
+            _one_kernel(torch, lambda: dist_tiles(q, banks, gw), device,
+                        "dist_tiles", label)
+    torch.cuda.synchronize()
+    bad = {k: v for k, v in worst.items()
+           if v > (DIST_TOL if k.startswith("dist") else TOL["f32"])}
+    if bad:
+        raise AssertionError(f"[studies] kernels vs plain: {bad}")
+    log(f"[studies] (f) kernels at the study drivers' widths agree with "
+        f"their plain versions and a second call, one CUDA kernel a call: "
+        f"{json.dumps(worst)}")
+    return worst
+
+
+def study_cluster(torch, device):
+    """(a) cluster_sweep_torch.quick_cell: K = 1 bit-equal to no spec,
+    clustered K = 2 at least 0.1 AUC above the single global (the JAX
+    package's CPU run: 0.4953), and the serving swap on the K = 2
+    federation: no kernel library loaded across it, one forward launch a
+    dispatched bucket, each row served by its cluster's model, and the
+    swap score-identical where every member holds its cluster's merge."""
+    import cluster_sweep_torch as cluster
+    with counted_launches(STUDY_LAUNCHES):
+        quick = cluster.quick_cell(device)
+    serve = quick["serving"]
+    log(f"[studies] (a) cluster quick cell {json.dumps(quick)}")
+    if not (quick["k1_bit_identical"] and quick["acceptance_met"]):
+        raise AssertionError(f"[studies] (a) quick cell {quick}")
+    if not (serve["zero_retrace"] and serve["routed_to_cluster_model"]
+            and serve["forward_launches_across_swap"]
+            == serve["buckets_dispatched"]
+            and (serve["routing_parity"]
+                 or not serve["members_hold_cluster_merge"])):
+        raise AssertionError(f"[studies] (a) serving swap {serve}")
+    return quick
+
+
+def study_drift(torch, device):
+    """(b) drift_recovery_sweep_torch's --quick cell (1.5 sigma, mse, 3
+    stages): recovered within eps, no ticket dropped, and the frozen
+    engine more than 0.1 below the pre-shift AUC (FLYWHEEL_r12: pre
+    0.8782, adapted 0.9931, frozen 0.3089)."""
+    import drift_recovery_sweep_torch as drift
+    with counted_launches(STUDY_LAUNCHES):
+        cell = drift.run_cell(1.5, "mse", 3, device=device)
+    summary = {k: cell[k] for k in (
+        "auc_pre_shift", "auc_final_adapted", "auc_final_frozen",
+        "swap_count", "recovered_within_eps", "zero_downtime", "tickets")}
+    log(f"[studies] (b) drift quick cell {json.dumps(summary)}")
+    if not (cell["recovered_within_eps"] and cell["zero_downtime"]
+            and cell["tickets"]["zero_dropped"]
+            and cell["auc_final_frozen"] < cell["auc_pre_shift"] - 0.1):
+        raise AssertionError(f"[studies] (b) drift cell {summary}")
+    return summary
+
+
+def study_paper(torch, device, shards):
+    """(c) paper_check_torch.measure, the quick protocol, one run, on the
+    [realdata] phase's published-split Client-* tree: 3 rounds and a best
+    round mean above 0.9."""
+    import paper_check_torch as paper
+    with counted_launches(STUDY_LAUNCHES):
+        out = paper.measure(shards, runs=1, quick=True, device=device)
+    run = out["runs"][0]
+    log(f"[studies] (c) paper check --quick {json.dumps(run)}")
+    if run["rounds_run"] != 3 or not run["best_round_mean"] > 0.9:
+        raise AssertionError(f"[studies] (c) paper check {run}")
+    return out
+
+
+def study_ablation(torch, device, cfg):
+    """(d) quirk_ablation_torch's seven variants at one run each on the
+    quick-run config (the synthetic 10-client federation): every final AUC
+    finite and at least one round run."""
+    import quirk_ablation_torch as ablation
+    import sweep_data_torch as sweep
+    data, n, _ = sweep.build_data(cfg, 10, device=device)
+    runs, ablation.NUM_RUNS = ablation.NUM_RUNS, 1
+    try:
+        with counted_launches(STUDY_LAUNCHES):
+            rows = ablation.ablate(cfg, data, n)
+    finally:
+        ablation.NUM_RUNS = runs
+    summary = [{k: r[k] for k in ("variant", "auc_runs", "rounds_run")}
+               for r in rows]
+    log(f"[studies] (d) quirk ablation {json.dumps(summary)}")
+    if len(rows) != 7 or not all(
+            np.isfinite(r["auc_runs"]).all() and min(r["rounds_run"]) >= 1
+            for r in rows):
+        raise AssertionError(f"[studies] (d) ablation {summary}")
+    return summary
+
+
+def study_parity(torch, device, shards):
+    """(e) parity_probe_torch on client 5 of the [realdata] tree: the same
+    stop epoch, loss curves within 1e-3 and AUCs within 5e-3 (the JAX
+    probe's verdict rule)."""
+    import parity_probe_torch as parity
+    with counted_launches(STUDY_LAUNCHES):
+        out = parity.probe(shards, client=5, device=device)
+    log(f"[studies] (e) parity probe: same stop {out['same_stop_epoch']}, "
+        f"max |dloss| {out['max_abs_loss_delta']}, |dAUC| "
+        f"{out['auc_delta']}, verdict {out['verdict']}")
+    if out["verdict"] != "equivalent":
+        raise AssertionError(f"[studies] (e) parity probe {out}")
+    return out
+
+
+def phase_studies(torch, device, cfg, shards):
+    """The study drivers at reduced grids, each gate one the JAX drivers
+    state: the kernels at the drivers' widths first, then (a)-(e), whose
+    driver calls are the study path (every launch counter set to 0 before
+    each and read after). `shards` is the [realdata] phase's
+    published-split tree, removed at the end."""
+    t0 = time.perf_counter()
+    report = {"kernels": study_kernel_shapes(torch, device)}
+    STUDY_LAUNCHES.clear()
+    try:
+        report["cluster"] = study_cluster(torch, device)
+        report["drift"] = study_drift(torch, device)
+        report["paper_check"] = study_paper(torch, device, shards)
+        report["ablation"] = study_ablation(torch, device, cfg)
+        report["parity"] = study_parity(torch, device, shards)
+    finally:
+        shutil.rmtree(shards, ignore_errors=True)
+    report["launches"] = dict(STUDY_LAUNCHES)
+    log(f"[studies] study path launches {json.dumps(report['launches'])}")
+    for name in ("fused_ae_forward", "fused_ae_train"):
+        if report["launches"].get(name, 0) < 1:
+            raise AssertionError(f"the study path never launched {name}")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[studies] done in {report['seconds']:.1f} s")
     return report
 
 
@@ -6799,9 +7058,12 @@ def run(torch, cfg, smi, t_start) -> int:
     tune = phase_tune(torch, device, cfg, data, writer, names, smi)
     net = phase_net(torch, device, cfg, data, names, smi)
     gateway = phase_gateway(torch, device, smi)
-    realdata = phase_realdata(torch, device, cfg, smi)
+    study_shards = os.path.join(ROOT, "build", "studies-shards")
+    shutil.rmtree(study_shards, ignore_errors=True)
+    realdata = phase_realdata(torch, device, cfg, smi, keep=study_shards)
     parallel = phase_parallel(torch, device, cfg, smi)
     sweeps = phase_sweeps(torch, device, cfg)
+    studies = phase_studies(torch, device, cfg, study_shards)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
     training["fused_hold"] = phase_fused_hold(torch, device, cfg, clients)
@@ -6832,6 +7094,8 @@ def run(torch, cfg, smi, t_start) -> int:
             realdata["launches"][kernel["name"]]
         kernel["sweep_path_launches"] = \
             sweeps["launches"].get(kernel["name"], 0)
+        kernel["study_path_launches"] = \
+            studies["launches"].get(kernel["name"], 0)
     line["robust"] = robust
     line["cluster"] = cluster
     line["redteam"] = redteam
@@ -6844,6 +7108,7 @@ def run(torch, cfg, smi, t_start) -> int:
     line["parallel"] = parallel
     line["realdata"] = realdata
     line["sweeps"] = sweeps
+    line["studies"] = studies
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

@@ -51,7 +51,6 @@ if REPO_ROOT not in sys.path:
     sys.path.insert(0, REPO_ROOT)
 
 import numpy as np  # noqa: E402
-import torch  # noqa: E402
 
 import sweep_data_torch as sweep  # noqa: E402
 
@@ -239,11 +238,7 @@ def capture_once_pin(cfg, device, n_clients=PIN_CLIENTS, cohort=PIN_COHORT):
         e.run_schedule_chunk(0, 2)
         return e.states.clone()
 
-    static, null = two_rounds(None), two_rounds(ElasticSpec())
-    bit = all(torch.equal(getattr(static, k), getattr(null, k))
-              for k in ("params", "prev_global", "hist_params", "hist_perf",
-                        "hist_seen", "rejected", "waived")) and all(
-        torch.equal(a, b) for a, b in zip(static.opt_state, null.opt_state))
+    bit = sweep.states_equal(two_rounds(None), two_rounds(ElasticSpec()))
     return {
         "n_clients": n_clients, "cohort": eng.cohort_size(), "world": 1,
         "churn": "leave_p=0.3 join_p=0.3 (30%/round)",
@@ -342,16 +337,11 @@ def podscale_main(args, device, prov):
     emit(base_row)
     null_row, null_final, _, _, null_eng = run(ElasticSpec(),
                                                "null-elastic-100k")
-    a, b = base_eng.store.host, null_eng.store.host
     null_row["bit_identical_to_static"] = bool(
         np.array_equal(base_final, null_final, equal_nan=True)
-        and all(torch.equal(getattr(a, k), getattr(b, k))
-                for k in ("params", "prev_global", "hist_params",
-                          "hist_perf", "hist_seen", "rejected", "waived"))
-        and all(torch.equal(x, y) for x, y in zip(a.opt_state,
-                                                  b.opt_state)))
+        and sweep.states_equal(base_eng.store.host, null_eng.store.host))
     emit(null_row)
-    del base_eng, null_eng, a, b
+    del base_eng, null_eng
 
     row, _, _, _, _ = run(ElasticSpec(leave_p=0.1, join_p=0.3,
                                       start_round=1),

@@ -1,7 +1,10 @@
-"""Shared pieces of the port's threat-model sweep drivers
+"""Shared pieces of the port's sweep and study drivers
 (attack_sweep_torch.py, chaos_sweep_torch.py, churn_sweep_torch.py,
-redteam_sweep_torch.py): the federations they run on, the command line
-they share, and the provenance their artifacts record.
+redteam_sweep_torch.py, cluster_sweep_torch.py,
+drift_recovery_sweep_torch.py, paper_check_torch.py,
+quirk_ablation_torch.py, parity_probe_torch.py): the federations they run
+on, the command line they share, and the provenance their artifacts
+record.
 
 The federations come from numpy-only copies of the JAX harness's
 (`bench.py` `build_data`, `_light_clients`, `_bulk_host_federation`), so
@@ -17,6 +20,7 @@ CUDA device it raises. No driver falls back to the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -180,6 +184,24 @@ def provenance(device: torch.device, commit: Optional[str] = None) -> dict:
         "torch": torch.__version__, "cuda": torch.version.cuda,
         **prov,
     }
+
+
+def sync(device) -> None:
+    """Wait for the card's queued work where `device` is a card."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def states_equal(a, b) -> bool:
+    """Whether two ClientStates hold the same bits in every tensor (the
+    params, the Adam state, prev_global and the verifier history)."""
+    def tensors(s):
+        out = []
+        for f in dataclasses.fields(s):
+            v = getattr(s, f.name)
+            out.extend(v if isinstance(v, tuple) else [v])
+        return out
+    return all(torch.equal(x, y) for x, y in zip(tensors(a), tensors(b)))
 
 
 def timed(fn, *args, **kw):

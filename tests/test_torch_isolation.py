@@ -307,12 +307,14 @@ def test_examples_import_only_the_port():
 
 
 SWEEPS = ("attack_sweep_torch", "chaos_sweep_torch", "churn_sweep_torch",
-          "redteam_sweep_torch")
+          "redteam_sweep_torch", "cluster_sweep_torch",
+          "drift_recovery_sweep_torch", "paper_check_torch",
+          "quirk_ablation_torch", "parity_probe_torch")
 
 
 @pytest.mark.parametrize("script", SWEEPS + ("sweep_data_torch",))
 def test_sweep_scripts_import_only_the_port(script):
-    """Each threat-model sweep driver, run as a script in a fresh process
+    """Each sweep and study driver, run as a script in a fresh process
     up to its argument parsing (the shared sweep_data_torch.py imported),
     loads no jax, JAX package, bench harness, pandas or sklearn; nor does
     its source name one."""
@@ -352,7 +354,14 @@ def _sweep(name):
 @pytest.mark.parametrize("argv", [
     ("attack_sweep_torch", []), ("chaos_sweep_torch", []),
     ("churn_sweep_torch", []), ("churn_sweep_torch", ["--podscale"]),
-    ("redteam_sweep_torch", [])], ids=lambda a: " ".join([a[0], *a[1]]))
+    ("redteam_sweep_torch", []), ("cluster_sweep_torch", []),
+    ("cluster_sweep_torch", ["--podscale"]),
+    ("drift_recovery_sweep_torch", []),
+    ("drift_recovery_sweep_torch", ["--quick"]),
+    ("paper_check_torch", ["no-such-tree"]),
+    ("quirk_ablation_torch", []), ("quirk_ablation_torch", ["--paper-scale"]),
+    ("parity_probe_torch", []), ("parity_probe_torch", ["--solo", "2"])],
+    ids=lambda a: " ".join([a[0], *a[1]]))
 def test_sweep_drivers_refuse_cpu_fallback(no_cuda, tmp_path, argv):
     """Without a card each driver raises before it builds anything or
     writes its artifact, naming device='cpu'."""

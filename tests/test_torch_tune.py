@@ -11,7 +11,6 @@ lookups.
 """
 
 import json
-import time
 
 import numpy as np
 import pytest
@@ -124,9 +123,23 @@ def test_corrupt_cache_reads_as_empty(tmp_path, monkeypatch, content):
     assert _engine(bucket_ladder="auto").buckets == [1, 2, 4, 8, 16]
 
 
-def test_measure_candidates_argmin_and_table():
+class FakeClock:
+    """A perf_counter that moves only when a candidate advances it."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self):
+        return self.now
+
+
+def test_measure_candidates_argmin_and_table(monkeypatch):
+    from fedmse_tpu_torch.tune import measure
+    clock = FakeClock()
+    monkeypatch.setattr(measure, "time", clock)
+
     def run(delay):
-        time.sleep(delay)
+        clock.now += delay
         return delay
 
     out = measure_candidates([0.004, 0.0, 0.002], run, repeats=1)
