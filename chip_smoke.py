@@ -280,6 +280,21 @@ build/fedmse_tpu_torch/), then:
                 10,000 clients and C = 200 to 64 and 8 (each CUDA graph
                 body captured once across churning chunks, null churn the
                 static round's bits); (d) the red team's quick cell;
+     padding    (after the main path, after the studies) padding the
+                client axis trains the unpadded federation: (a) the 10
+                gateways' fused quick run through run_combination,
+                unpadded and padded to 12, tie-break on, scored by kNN:
+                the same selections, elections, verification rows and
+                stop, the real params bit for bit or within 1e-6 per leaf
+                scale-normalized, the same final AUC; (b) the same on the
+                per-phase round; (c) 9 gateways (N-BaIoT's devices) on 2
+                gloo ranks of the one card, padded to 10
+                (chip_smoke.padding_rank), against the dense 9-gateway
+                per-phase run, tie-break off as in [parallel]: the same
+                elections, round-1 params within 1e-6, the final AUC
+                within 2e-3; (d) the three kernels at
+                the padded shapes (G = 12, each rank's block) against
+                their plain versions;
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events, and the
@@ -322,7 +337,9 @@ and the two ranks, the parallel path ("parallel_path_launches"), and
 the realdata phase's training run and kNN evaluation the real-data path
 ("realdata_path_launches"), and the sweeps phase's driver calls (a) to
 (d) the sweep path ("sweep_path_launches"; no sweep scores by kNN, so
-the distance kernel's count there is 0). A launch
+the distance kernel's count there is 0), and the padding phase's padded
+runs in (a) to (c), summed over this process and the two ranks, the
+padded path ("padding_path_launches"). A launch
 inside a replayed CUDA graph counts: each graph keeps the kernels it
 captured, and each replay adds them (ops/graphs.py). Prints,
 as its last three lines, the card's name and power limit, one JSON line
@@ -5558,15 +5575,16 @@ PARALLEL_LAUNCHES = {}         # the parallel path's launches, by wrapper
 PARALLEL_JOB = "chip_smoke:parallel_rank"  # (b)-(e)'s rank job
 
 
-def parallel_quick(torch, cfg):
-    """The quick run's config with the tie-break off and its 10 gateways
-    stacked on the host (the main path's clients, drawn again)."""
+def parallel_quick(torch, cfg, n=10, tie_break=False):
+    """The quick run's config at `n` gateways with the vote's tie-break off
+    (or on), and the `n` gateways stacked on the host (the main path's
+    sizes, drawn again; at n = 10 its clients)."""
     import dataclasses
     from fedmse_tpu_torch.data import (build_dev_dataset, stack_clients,
                                        synthetic_clients)
-    qc = cfg.replace(compat=dataclasses.replace(cfg.compat,
-                                                vote_tie_break=False))
-    clients = synthetic_clients(n_clients=10, dim=DIMS[0], n_normal=10_000,
+    qc = cfg.replace(network_size=n, compat=dataclasses.replace(
+        cfg.compat, vote_tie_break=tie_break))
+    clients = synthetic_clients(n_clients=n, dim=DIMS[0], n_normal=10_000,
                                 n_abnormal=2_000, seed=SEED)
     dev_x = build_dev_dataset(clients, np.random.default_rng(qc.data_seed))
     return qc, stack_clients(clients, dev_x, qc.batch_size, device="cpu")
@@ -5732,7 +5750,7 @@ def mesh_serving(torch, cfg, params, data, mesh, device, launches):
             "bucket": meshed.max_bucket, "bits": _bits_equal(got, want)}
 
 
-def mesh_kernel_shapes(torch, device, cfg, eng, bucket):
+def mesh_kernel_shapes(torch, device, cfg, eng, bucket, tag="parallel"):
     """Each kernel at one rank's own shapes on the 2-rank path against its
     plain version, f32 on dyadic grids, each also bit-equal to a second
     call: the train step over the rank's block of G clients (batches of
@@ -5742,7 +5760,8 @@ def mesh_kernel_shapes(torch, device, cfg, eng, bucket):
     and train rows (the kNN evaluation's and the meshed engine's bank
     fit), and routed over one meshed serving bucket of `bucket` rows; the
     distances of that bucket to the block's G banks, and of the block's
-    test rows client-major (the per-phase round's kNN evaluation)."""
+    test rows client-major (the per-phase round's kNN evaluation).
+    `tag` names the phase in a failure."""
     from fedmse_tpu_torch.models.flat import ParamLayout
     from fedmse_tpu_torch.ops.fused_train import (fused_train_grads,
                                                   fused_train_grads_plain)
@@ -5769,16 +5788,16 @@ def mesh_kernel_shapes(torch, device, cfg, eng, bucket):
         again = fused_train_grads(flat, x, mb, **kw)
         if not all(torch.equal(a.nan_to_num(), c.nan_to_num())
                    for a, c in zip(got, again)):
-            raise AssertionError(f"[parallel] train step, batch {k}: not "
+            raise AssertionError(f"[{tag}] train step, batch {k}: not "
                                  "bit-equal to a second call")
         err = max(err, max(err_nan(a, c) for a, c in zip(
             got, fused_train_grads_plain(flat, x, mb, **kw))))
     worst = {f"train step, G = {g}, 4 batches of {b}": err}
     if not err <= TOL["f32"]:
-        raise AssertionError(f"[parallel] train step vs plain: {err:.3e}")
+        raise AssertionError(f"[{tag}] train step vs plain: {err:.3e}")
     per = lambda t: int(np.prod(t.shape[1:-1]))  # rows a client
     worst.update(routed_kernel_shapes(
-        torch, device, "parallel", g,
+        torch, device, tag, g,
         [(g * per(d.valid_xb), "client_major"),
          (g * d.dev_x.shape[0], "client_major"),
          (g * per(d.test_x), "client_major"),
@@ -6834,6 +6853,182 @@ def phase_studies(torch, device, cfg, shards):
     return report
 
 
+# ---- padding the client axis (phase "padding") ---- #
+
+PADDING_TO = 12            # (a), (b): the 10 gateways padded to 12
+PADDING_MESH_N = 9         # (c): N-BaIoT's devices ...
+PADDING_MESH_PAD = 10      # ... padded to a multiple of PARALLEL_WORLD
+PADDING_TOL = 1e-6         # real params, scale-normalized per leaf
+PADDING_MESH_TIE_BREAK = False  # (c): [parallel]'s standard
+PADDING_LAUNCHES = {}      # the padded path's launches, by wrapper
+PADDING_JOB = "chip_smoke:padding_rank"  # (c)'s rank job
+
+
+def _leaf_errs(torch, got, want) -> dict:
+    """Per leaf of the flat params, the scale-normalized error of the real
+    rows `got[:n]` against `want` [n, P]."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    got, want = got[:want.shape[0]].cpu(), want.cpu()
+    return {"/".join(path): scaled_err(got[:, off:off + int(np.prod(shp))],
+                                       want[:, off:off + int(np.prod(shp))])
+            for path, off, shp in ParamLayout(*DIMS).leaves()}
+
+
+def padding_pair(torch, device, cfg, data, n, what):
+    """(a) or (b): run_combination on the `n` gateways unpadded and padded
+    to PADDING_TO (the padded run's launches counted), held to each
+    other: the same selections, aggregators, verification rows and stop,
+    the real params bit for bit or within PADDING_TOL per leaf, the same
+    final AUC. Returns (report, padded engine)."""
+    from fedmse_tpu_torch.data.stacking import pad_federated_data
+    from fedmse_tpu_torch.main import run_combination
+    outs = {}
+    for pad in (n, PADDING_TO):
+        d = _federation_rows(pad_federated_data(data, pad), pad, device)
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if pad != n:
+                stack.enter_context(counted_launches(PADDING_LAUNCHES))
+            out = run_combination(cfg, d, n, "hybrid", "mse_avg", 0)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        outs[pad] = out
+    want, got = outs[n], outs[PADDING_TO]
+    rows = lambda o: [(r.selected, r.aggregator, r.verification_results)
+                      for r in o["rounds"]]  # noqa: E731
+    errs = _leaf_errs(torch, got["engine"].states.params,
+                      want["engine"].states.params)
+    auc = [float(np.nanmean(o["final_metrics"])) for o in (want, got)]
+    rep = {"elections": [r.aggregator for r in want["rounds"]],
+           "same_rounds": rows(got) == rows(want),
+           "rounds_run": [want["rounds_run"], got["rounds_run"]],
+           "params_bits": _bits_equal(
+               got["engine"].states.params[:n].cpu().numpy(),
+               want["engine"].states.params.cpu().numpy()),
+           "worst_leaf": max(errs, key=errs.get),
+           "param_err_scaled": max(errs.values()), "auc": auc,
+           "pad_rows_finite": bool(torch.isfinite(
+               got["engine"].states.params[n:]).all()),
+           "seconds": [want["seconds"], got["seconds"]]}
+    log(f"[padding] {what}: {n} gateways padded to {PADDING_TO}: the same "
+        f"selections, elections {rep['elections']}, verification rows and "
+        f"stop ({rep['rounds_run']} rounds): {rep['same_rounds']}; real "
+        f"params bit-equal: {rep['params_bits']} (worst leaf "
+        f"{rep['worst_leaf']}, {rep['param_err_scaled']:.3e} scaled); final "
+        f"AUC {auc[0]:.9f} unpadded, {auc[1]:.9f} padded")
+    if not (rep["same_rounds"] and rep["rounds_run"][0]
+            == rep["rounds_run"][1] and rep["pad_rows_finite"]
+            and rep["param_err_scaled"] <= PADDING_TOL
+            and auc[0] == auc[1]):
+        raise AssertionError(f"[padding] {what}: {json.dumps(rep)}")
+    return rep, got["engine"]
+
+
+def padding_rank(mesh, tie_break=False):
+    """(c) on one rank of the 2-rank gloo launch on the one card: the 9
+    gateways padded to PADDING_MESH_PAD through the per-phase engine over
+    the mesh (mesh_phase_run), its launches counted, then each kernel at
+    the rank's block of the padded axis against its plain version."""
+    import torch
+    from fedmse_tpu_torch.config import ExperimentConfig
+    from fedmse_tpu_torch.data.stacking import pad_federated_data
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qc, data = parallel_quick(torch, ExperimentConfig(), PADDING_MESH_N,
+                              tie_break)
+    launches = {}
+    with counted_launches(launches):
+        out, eng = mesh_phase_run(
+            torch, phase_quick_config(qc),
+            pad_federated_data(data, PADDING_MESH_PAD), mesh, mesh.device)
+    return {"rank": mesh.rank, "run": out, "launches": launches,
+            "block": eng.block,
+            "kernels_vs_plain": mesh_kernel_shapes(
+                torch, mesh.device, qc, eng, 64, tag="padding")}
+
+
+def phase_padding(torch, device, cfg, smi):
+    """Padding the client axis trains the unpadded federation (utils/
+    seeding.py: the init and the tie-breaks drawn at the real width, the
+    pad clients' init keyed by client id): (a) the 10 gateways' fused
+    quick run and (b) the per-phase one, each unpadded and padded to 12,
+    tie-break on, kNN-scored (padding_pair); (c) 9 gateways on 2 gloo
+    ranks of the one card, padded to 10 (padding_rank), against the dense
+    9-gateway per-phase run, at [parallel]'s standard, the tie-break off
+    (`PADDING_MESH_TIE_BREAK`: the ranks' exact merge sums in rank order,
+    Adam amplifies its last bits, and with the tie-break on the third
+    round's election flipped; PERF.md §6); (d) each
+    kernel at the padded shapes (G = 12 here, a rank's block there)
+    against its plain version. The padded runs are the padded path (their
+    launches, summed over this process and the ranks)."""
+    from fedmse_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    PADDING_LAUNCHES.clear()
+    report = {}
+    qc, data = parallel_quick(torch, cfg, tie_break=True)
+    qc = qc.replace(score_kind="knn", **KNN)
+    report["a"], eng = padding_pair(torch, device, qc, data, 10,
+                                    "(a) fused")
+    report["b"], _ = padding_pair(torch, device,
+                                  qc.replace(fused_rounds=False), data, 10,
+                                  "(b) per-phase")
+    report["d"] = mesh_kernel_shapes(torch, device, qc, eng, 64,
+                                     tag="padding")
+    mc, mdata = parallel_quick(torch, cfg, PADDING_MESH_N,
+                               PADDING_MESH_TIE_BREAK)
+    dense, _ = mesh_phase_run(torch, phase_quick_config(mc), mdata, None,
+                              device)
+    torch.cuda.synchronize()
+    workdir = os.path.join(ROOT, "build", "padding_ranks")
+    shutil.rmtree(workdir, ignore_errors=True)
+    outs = launch.spawn(PARALLEL_WORLD, PADDING_JOB,
+                        {"tie_break": PADDING_MESH_TIE_BREAK},
+                        backend="gloo", device=device.type, workdir=workdir,
+                        timeout_s=600)
+    shutil.rmtree(workdir, ignore_errors=True)  # kept after a failure
+    ph = outs[0]["run"]
+    p1_err = max(_leaf_errs(torch, torch.from_numpy(ph["params1"]),
+                            torch.from_numpy(dense["params1"])).values())
+    report["c"] = {
+        "elections": ph["aggregators"], "dense_elections":
+        dense["aggregators"], "blocks": [r["block"] for r in outs],
+        "round1_param_err_scaled": p1_err, "auc": ph["auc"],
+        "dense_auc": dense["auc"],
+        "ranks_agree": all(r["run"]["aggregators"] == ph["aggregators"]
+                           and _bits_equal(r["run"]["params"], ph["params"])
+                           for r in outs),
+        "launches": [r["launches"] for r in outs]}
+    log(f"[padding] (c) {PADDING_MESH_N} gateways on {PARALLEL_WORLD} gloo "
+        f"ranks of one card, padded to {PADDING_MESH_PAD} (blocks "
+        f"{report['c']['blocks']}), per-phase, tie-break "
+        f"{'on' if PADDING_MESH_TIE_BREAK else 'off'}: elections "
+        f"{ph['aggregators']} (dense unpadded {dense['aggregators']}), "
+        f"round-1 params {p1_err:.3e} scaled, AUC {ph['auc']:.6f} (dense "
+        f"{dense['auc']:.6f}), launches "
+        f"{json.dumps(report['c']['launches'])} ({smi})")
+    if not (report["c"]["ranks_agree"]
+            and ph["selected"] == dense["selected"]
+            and ph["aggregators"] == dense["aggregators"]
+            and p1_err <= PADDING_TOL
+            and abs(ph["auc"] - dense["auc"]) <= 2e-3):
+        raise AssertionError(f"[padding] (c) {json.dumps(report['c'])}")
+    report["d_ranks"] = [r["kernels_vs_plain"] for r in outs]
+    log(f"[padding] (d) kernels at the padded shapes (G = {PADDING_TO}; "
+        f"each rank's block of {PADDING_MESH_PAD}) agree with their plain "
+        f"versions and with a second call: {json.dumps(report['d'])} "
+        f"{json.dumps(report['d_ranks'])}")
+    for r in outs:
+        for k, v in r["launches"].items():
+            PADDING_LAUNCHES[k] = PADDING_LAUNCHES.get(k, 0) + v
+    report["launches"] = dict(PADDING_LAUNCHES)
+    log(f"[padding] padded path launches {json.dumps(report['launches'])}")
+    for name in ("fused_ae_forward", "fused_ae_train", "dist_tiles"):
+        if report["launches"].get(name, 0) < 1:
+            raise AssertionError(f"the padded path never launched {name}")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[padding] done in {report['seconds']:.1f} s ({smi})")
+    return report
+
+
 def report_train(torch, device, launches, worst):
     """The train kernel's and its plain version's times and bounds at the
     main path's step shape (5 clients x 12 rows) and at 512 clients."""
@@ -7064,6 +7259,7 @@ def run(torch, cfg, smi, t_start) -> int:
     parallel = phase_parallel(torch, device, cfg, smi)
     sweeps = phase_sweeps(torch, device, cfg)
     studies = phase_studies(torch, device, cfg, study_shards)
+    padding = phase_padding(torch, device, cfg, smi)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
     training["fused_hold"] = phase_fused_hold(torch, device, cfg, clients)
@@ -7096,6 +7292,8 @@ def run(torch, cfg, smi, t_start) -> int:
             sweeps["launches"].get(kernel["name"], 0)
         kernel["study_path_launches"] = \
             studies["launches"].get(kernel["name"], 0)
+        kernel["padding_path_launches"] = \
+            padding["launches"].get(kernel["name"], 0)
     line["robust"] = robust
     line["cluster"] = cluster
     line["redteam"] = redteam
@@ -7109,6 +7307,7 @@ def run(torch, cfg, smi, t_start) -> int:
     line["realdata"] = realdata
     line["sweeps"] = sweeps
     line["studies"] = studies
+    line["padding"] = padding
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

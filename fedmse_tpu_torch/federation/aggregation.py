@@ -10,7 +10,9 @@ fedmse_tpu/federation/aggregation.py).
 The merged model is `weights @ params` [N] x [N, P] in f32 (TF32 must be
 off on the card: the broadcast every client verifies is this product).
 `make_raw_weights_fn` is the unnormalized weighting both the single-global
-merge and the clustered one (cluster/merge.py) share. `make_aggregate_for`
+merge and the clustered one (cluster/merge.py) share. On a padded client
+axis the dense engines merge the real rows only (`real_rows_merge`), so a
+padded merge is the unpadded one's bits. `make_aggregate_for`
 selects the merge of a backend: on a sharded client mesh the collective
 merges of parallel/collectives.py.
 """
@@ -73,7 +75,8 @@ def make_raw_weights_fn(model, update_type: str, runs: int = 1) -> Callable:
     return raw_weights
 
 
-def make_runs_aggregate_fn(model, update_type: str, runs: int) -> Callable:
+def make_runs_aggregate_fn(model, update_type: str, runs: int,
+                           n_real: Optional[int] = None) -> Callable:
     """fn(params [R·N, P], sel_mask [R·N], dev_x [M, D], sel_idx=None) ->
     (merged [R, P], weights [R·N]): `make_aggregate_fn` of R federations
     stacked run by run (the batched round), the dev scoring one launch
@@ -81,7 +84,8 @@ def make_runs_aggregate_fn(model, update_type: str, runs: int) -> Callable:
     rows, by the single-global merge's own ops, so run r's merge is the
     bits of the run alone. One [R, R·N] product would weigh the other
     runs' rows by 0, and a diverged run's NaN times 0 is NaN in every
-    run."""
+    run. `n_real` < N merges each run's first n_real rows only, as
+    `real_rows_merge` does."""
     if update_type not in UPDATE_TYPES:
         raise ValueError(f"unknown update_type {update_type!r}; expected "
                          f"one of {UPDATE_TYPES}")
@@ -95,9 +99,10 @@ def make_runs_aggregate_fn(model, update_type: str, runs: int) -> Callable:
         raw = raw_weights(params, sel_mask, dev_x, sel_idx)
         merged, weights = [], []
         for p, r in zip(params.chunk(runs), raw.chunk(runs)):
-            w = r / r.sum()
-            merged.append(weighted_mean(p, w))
-            weights.append(w)
+            n = p.shape[0] if n_real is None else n_real
+            w = r[:n] / r[:n].sum()
+            merged.append(weighted_mean(p[:n], w))
+            weights.append(torch.nn.functional.pad(w, (0, p.shape[0] - n)))
         return torch.stack(merged), torch.cat(weights)
 
     return aggregate
@@ -122,6 +127,25 @@ def make_aggregate_fn(model, update_type: str) -> Callable:
         return weighted_mean(params, weights), weights
 
     return aggregate
+
+
+def real_rows_merge(merge: Callable, n_real: int) -> Callable:
+    """`merge` (make_aggregate_fn's, or the clustered twin's) over the
+    first n_real rows of a padded client axis, its weights [N] padded back
+    with zeros. A pad client weighs 0, so the value is the merge's, and
+    the bits are the unpadded merge's: a matrix-vector product sums its
+    rows in an order that depends on how many there are, on the CPU and
+    on the card alike."""
+    def merge_real(params: torch.Tensor, sel_mask: torch.Tensor,
+                   dev_x: torch.Tensor, *cluster_in: torch.Tensor,
+                   sel_idx: Optional[torch.Tensor] = None):
+        out = merge(params[:n_real], sel_mask[:n_real], dev_x,
+                    *(c[:n_real] for c in cluster_in), sel_idx=sel_idx)
+        weights = torch.nn.functional.pad(out[1],
+                                          (0, params.shape[0] - n_real))
+        return (out[0], weights, *out[2:])
+
+    return merge_real
 
 
 BACKENDS = ("auto", "einsum", "shard_map", "quantized")

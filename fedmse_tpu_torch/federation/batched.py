@@ -151,7 +151,9 @@ class BatchedRunEngine:
                        if self._init_states is not None else
                        init_batched_client_states(
                            self.model, [r.generator for r in self.rngs],
-                           self.n_pad, device=self.device))
+                           self.n_real, n_pad=self.n_pad,
+                           pad_keys=[r.init_pad_key() for r in self.rngs],
+                           device=self.device))
         self.host = [HostState.create(self.n_real)
                      for _ in range(self.runs)]
         self._chaos_premade: Optional[ChaosMasks] = None
@@ -265,7 +267,8 @@ class BatchedRunEngine:
                     restandardize=cfg.compat.restandardize_vote_data,
                     tie_break=False),
                 aggregate=make_runs_aggregate_fn(self.model,
-                                                 self.update_type, self.runs),
+                                                 self.update_type, self.runs,
+                                                 n_real=self.n_real),
                 verify=make_verify_fn(
                     self.model, cfg.verification_threshold,
                     cfg.performance_threshold,
@@ -309,7 +312,8 @@ class BatchedRunEngine:
                         for _ in range(k)]
             if self.cfg.compat.vote_tie_break:
                 draws = torch.stack([
-                    r.vote_draws(k, self.cohort_size(), self.n_pad)
+                    r.vote_draws(k, self.cohort_size(), self.n_real,
+                                 width=self.n_pad)
                     for r in self.rngs], dim=1)
         f = self.fused_round(k)
         if active_rounds is None:

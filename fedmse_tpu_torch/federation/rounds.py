@@ -83,7 +83,8 @@ from fedmse_tpu_torch.cluster.merge import (make_clustered_aggregate_fn,
                                             shared_mask)
 from fedmse_tpu_torch.federation.aggregation import (BACKENDS,
                                                      make_aggregate_fn,
-                                                     make_aggregate_for)
+                                                     make_aggregate_for,
+                                                     real_rows_merge)
 from fedmse_tpu_torch.federation.attack import noise_draws
 from fedmse_tpu_torch.federation.elastic import (MembershipMasks,
                                                  make_membership_masks,
@@ -495,6 +496,12 @@ class RoundEngine(MeshBackends):
         self.compact = cfg.compact_cohort is not False and not self.sharded
         self.fns = make_round_fns(model, cfg, model_type, update_type,
                                   cluster, self.device)
+        if not self.sharded and self.n_pad > n_real:
+            # the pad clients weigh 0: merge the real rows, the unpadded
+            # merge's bits
+            for key in ("aggregate", "cluster_aggregate"):
+                if self.fns[key] is not None:
+                    self.fns[key] = real_rows_merge(self.fns[key], n_real)
         self.train_all = self.fns["train_all"]
         self.scores_fn = self.fns["scores_fn"]
         self.aggregate = self.fns["aggregate"]
@@ -528,9 +535,10 @@ class RoundEngine(MeshBackends):
     def _fresh_states(self) -> ClientStates:
         if self._init_states is not None:
             return self._init_states.clone()
-        return init_client_states(self.model, self.n_pad,
-                                  self.rngs.generator, device=self.device,
-                                  mesh=self.mesh)
+        return init_client_states(self.model, self.n_real,
+                                  self.rngs.generator, n_pad=self.n_pad,
+                                  pad_key=self.rngs.init_pad_key(),
+                                  device=self.device, mesh=self.mesh)
 
     def reset_federation(self) -> None:
         """Restart from construction state: fresh random streams, the
@@ -911,7 +919,8 @@ class RoundEngine(MeshBackends):
             schedule = [self.select_clients() for _ in range(n_rounds)]
         f = self.fused_round(n_rounds, len(schedule[0]))
         if draws is None and self.cfg.compat.vote_tie_break:
-            draws = self.rngs.vote_draws(n_rounds, f.cohort_size, self.n_pad)
+            draws = self.rngs.vote_draws(n_rounds, f.cohort_size,
+                                         self.n_real, width=self.n_pad)
         if cluster_in is None:
             cluster_in = self._cluster_input(start_round)
         snap = self.states.clone() if snapshot else None
@@ -1028,7 +1037,7 @@ class RoundEngine(MeshBackends):
             def fresh_scores() -> np.ndarray:
                 return self._fleet(self.scores_fn(
                     self.states.params, vote_x, vote_m, self.rngs.generator,
-                    fleet=(lo, self.n_pad)))
+                    fleet=(lo, self.n_real)))
 
             aggregator, scores = elect_aggregator(
                 selected, fresh_scores, self.host.aggregation_count,

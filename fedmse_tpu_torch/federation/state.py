@@ -23,6 +23,9 @@ only each round's cohort to the device (`gather` / `scatter`, keyed by
 absolute client id; `gather_rows` gives negative ids zero rows).
 `TieredShardStore` is one rank's block of that tier (a host-sharded tier
 over a client mesh, parallel/).
+`init_client_states` draws the real clients from the run's generator and
+the pad clients of a padded axis from a keyed stream of their own, so
+padding leaves the real clients' init as it is;
 `init_batched_client_states` stacks R runs' inits run by run, [R·N, ...]
 (the batched round, federation/batched.py).
 `client_states_from_numpy` takes the JAX package's ClientStates (as numpy),
@@ -48,6 +51,7 @@ from fedmse_tpu_torch.federation.optim import (AdamState, adam_init,
                                                opt_state_from_numpy,
                                                opt_state_to_numpy)
 from fedmse_tpu_torch.models.autoencoder import (init_kernels,
+                                                 init_pad_params,
                                                  init_stacked_params)
 from fedmse_tpu_torch.models.flat import ParamLayout
 
@@ -165,30 +169,51 @@ def fresh_states(params: torch.Tensor) -> ClientStates:
 
 def init_client_states(model, n_clients: int,
                        generator: torch.Generator, *,
+                       n_pad: Optional[int] = None,
+                       pad_key: Optional[Tuple[int, int]] = None,
                        device: DeviceLike = "cuda", mesh=None
                        ) -> ClientStates:
     """N independent clients from the port's own init
-    (models/autoencoder.init_stacked_params, drawn from `generator`). With
-    a sharded `mesh` (parallel.ClientMesh) the whole fleet is drawn on the
-    CPU and the rank keeps its block on its device: the dense init's bits,
-    the generator advanced alike on every rank."""
+    (models/autoencoder.init_stacked_params, drawn from `generator`),
+    then, when `n_pad` > N, the pad clients [N, n_pad) from the keyed
+    stream `pad_key` (ExperimentRngs.init_pad_key; models/autoencoder.
+    init_pad_params). The generator draws N clients whatever the padding,
+    so the real rows are the unpadded init's bits and the generator ends
+    where the unpadded init leaves it. With a sharded `mesh`
+    (parallel.ClientMesh) the padded fleet is made on the CPU and the rank
+    keeps its block on its device: the dense init's bits, the generator
+    advanced alike on every rank."""
+    n_pad = n_clients if n_pad is None else n_pad
     if mesh is not None and mesh.sharded:
         return shard_client_states(
-            init_client_states(model, n_clients, generator, device="cpu"),
-            mesh)
-    tree = init_stacked_params(model, n_clients, generator,
-                               device=resolve_device(device))
-    return fresh_states(ParamLayout.of(model).flatten(tree))
+            init_client_states(model, n_clients, generator, n_pad=n_pad,
+                               pad_key=pad_key, device="cpu"), mesh)
+    dev = resolve_device(device)
+    layout = ParamLayout.of(model)
+    params = layout.flatten(init_stacked_params(model, n_clients, generator,
+                                                device=dev))
+    if n_pad > n_clients:
+        if pad_key is None:
+            raise ValueError(f"{n_pad - n_clients} pad clients need a "
+                             "pad_key (ExperimentRngs.init_pad_key)")
+        params = torch.cat([params, layout.flatten(init_pad_params(
+            model, range(n_clients, n_pad), pad_key, device=dev))])
+    return fresh_states(params)
 
 
 def init_batched_client_states(model, generators: Sequence[torch.Generator],
                                n_clients: int, *,
+                               n_pad: Optional[int] = None,
+                               pad_keys: Optional[Sequence] = None,
                                device: DeviceLike = "cuda") -> ClientStates:
-    """R runs' clients stacked run by run, [R·N, ...] (the batched round's
-    layout, federation/batched.py): rows [r N, (r + 1) N) are
-    `init_client_states` of run r's generator, bit for bit."""
-    per_run = [init_client_states(model, n_clients, g, device=device)
-               for g in generators]
+    """R runs' clients stacked run by run, [R·n_pad, ...] (the batched
+    round's layout, federation/batched.py): rows [r n_pad, (r + 1) n_pad)
+    are `init_client_states` of run r's generator (and `pad_keys[r]`),
+    bit for bit."""
+    keys = pad_keys if pad_keys is not None else [None] * len(generators)
+    per_run = [init_client_states(model, n_clients, g, n_pad=n_pad,
+                                  pad_key=k, device=device)
+               for g, k in zip(generators, keys)]
     return concat_states(per_run)
 
 

@@ -30,11 +30,14 @@ than the card holds. Here the whole fleet lives in pageable CPU tensors
 
 The round's selections are cohort positions (`CohortPlan.sel_pos`, in the
 selection's order: first voter wins); `agg_count` is written every round
-from the cohort's host counters; the tie-break draws are [S, C], drawn per
-round from the run's generator, so at C == N they are the dense engine's
-draws. The chaos, elastic and cluster columns are gathered at the
-cohort's absolute ids (the fault streams are keyed by absolute client, so
-a gathered column is the dense engine's); pad lanes are inert.
+from the cohort's host counters; the tie-break draws are [S, S], drawn per
+round from the run's generator at the selection's width and placed in the
+selected clients' lanes (0.5, a factor of 1, in a pad lane), so at C == N
+they are the dense engine's draws and a cohort padded to a multiple of
+the ranks draws what the unpadded one does. The chaos, elastic and
+cluster columns are gathered at the cohort's absolute ids (the fault
+streams are keyed by absolute client, so a gathered column is the dense
+engine's); pad lanes are inert.
 
 Semantics against the dense layout, as in the JAX package: training,
 vote, merge and verification are cohort-only in both; the dense round
@@ -423,8 +426,13 @@ class TieredRoundEngine(MeshBackends):
                 srt = np.sort(blk)
                 ids[j * w:j * w + srt.size] = srt
                 sel_pos[in_blk] = j * w + np.searchsorted(srt, blk)
-        draws = (self.rngs.vote_draws(1, len(sel), self.cohort)[0]
-                 if self.cfg.compat.vote_tie_break else None)
+        draws = None
+        if self.cfg.compat.vote_tie_break:
+            # the selected clients' columns from the run's generator, in
+            # cohort order; 0.5 (a factor of 1) on the pad lanes
+            draws = torch.full((len(sel), self.cohort), 0.5)
+            draws[:, torch.from_numpy(ids >= 0)] = self.rngs.vote_draws(
+                1, len(sel), len(sel))[0]
         return CohortPlan(round_index=round_index, selected=list(selected),
                           ids=ids, sel_pos=sel_pos,
                           mask=(ids >= 0).astype(np.float32), draws=draws,

@@ -29,6 +29,7 @@ from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.losses import safe_div
 from fedmse_tpu_torch.ops.stats import masked_mean_std
+from fedmse_tpu_torch.utils.seeding import pad_draws
 
 VOTE_BATCH = 128
 
@@ -37,14 +38,15 @@ def make_mse_scores_fn(model, restandardize: bool = True,
                        tie_break: bool = True) -> Callable:
     """fn(params [N, P], val_x [V, D], val_m [V], generator, fleet=None) ->
     scores [N] f32 on params' device. `generator` (a CPU torch.Generator)
-    draws the tie-breaks; it is not used when tie_break is False. On one
-    rank's block of a client mesh, `fleet` (lo, N_global) makes the draw
-    the whole fleet's [N_global] uniforms, as the dense engine draws them,
-    and jitters the block with its rows [lo, lo + N). Per-run vote
-    tensors val_x [R, V, D], val_m [R, V] (the batched round, tie_break
-    off) score the N = R x n models run by run: model r n + i scores run
-    r's rows, restandardized with run r's own statistics, in the same one
-    launch."""
+    draws the tie-breaks; it is not used when tie_break is False. `fleet`
+    (lo, n_real) makes the draw the REAL fleet's [n_real] uniforms, padded
+    with 0.5 (a factor of 1) over the pad clients, and jitters `params`'
+    rows as rows [lo, lo + N) of that: a padded axis, or one rank's block
+    of a client mesh, draws what the unpadded dense engine draws. Per-run
+    vote tensors val_x [R, V, D], val_m [R, V] (the batched round,
+    tie_break off) score the N = R x n models run by run: model r n + i
+    scores run r's rows, restandardized with run r's own statistics, in
+    the same one launch."""
     layout = ParamLayout.of(model)
     cdt = model.compute_dtype
 
@@ -89,8 +91,9 @@ def make_mse_scores_fn(model, restandardize: bool = True,
             real = torch.clamp(has.sum(), min=1).to(torch.float32)
         scores = torch.where(has, batch, 0.0).sum(dim=1) / real
         if tie_break:
-            lo, total = (0, n) if fleet is None else fleet
-            u = torch.rand(total, generator=generator)[lo:lo + n]
+            lo, n_real = (0, n) if fleet is None else fleet
+            u = pad_draws(torch.rand(n_real, generator=generator),
+                          lo + n)[lo:lo + n]
             scores = tie_break_jitter(scores, u.to(params.device))
         return scores
 

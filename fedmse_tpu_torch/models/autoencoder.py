@@ -30,6 +30,7 @@ from fedmse_tpu_torch.ops.fused_ae import forward_rows, model_groups, unpack_par
 from fedmse_tpu_torch.ops.losses import mse_loss, shrink_loss
 from fedmse_tpu_torch.ops.precision import (PrecisionPolicy, cast_params,
                                             get_policy)
+from fedmse_tpu_torch.utils.seeding import stream_rng
 
 ParamTree = Dict[str, Dict[str, Dict[str, torch.Tensor]]]
 
@@ -44,7 +45,11 @@ def init_kernels(n_models: int, fan_in: int, fan_out: int,
     """[n_models, fan_in, fan_out] U(+-1/sqrt(fan_in)) kernels on the CPU.
     The CPU generator draws element by element, so two calls of n and m
     models draw what one call of n + m does (the host tier's chunked init,
-    federation/state.TieredClientStore.create)."""
+    federation/state.TieredClientStore.create). A whole tree is drawn
+    layer by layer (`init_stacked_params`), so only its first layer has
+    that prefix property: every later layer of model i moves with the
+    model count, and the engines draw at the real client count only
+    (federation/state.init_client_states)."""
     bound = 1.0 / fan_in ** 0.5
     return (torch.rand((n_models, fan_in, fan_out), generator=generator)
             * 2.0 - 1.0) * bound
@@ -193,6 +198,33 @@ def init_stacked_params(model: Autoencoder, n_clients: int,
     return _init_tree(_layer_dims(model.input_dim, model.hidden_neus,
                                   model.latent_dim),
                       n_clients, generator, resolve_device(device))
+
+
+def init_pad_params(model: Autoencoder, ids, key, *,
+                    device: DeviceLike = "cuda") -> ParamTree:
+    """The init of pad clients `ids` (absolute client ids) stacked
+    [len(ids), ...]: U(+-1/sqrt(fan_in)) kernels, zero biases, like a real
+    client's, but pad client i draws from the stream `key`
+    (ExperimentRngs.init_pad_key) at id i only (utils/seeding.stream_rng),
+    never from the run's generator: padding the client axis draws nothing
+    that a real client's init or tie-break would draw. The rows are finite
+    and not degenerate, as the verifier's deltas and every row-wide
+    reduction read them."""
+    dev = resolve_device(device)
+    dims = _layer_dims(model.input_dim, model.hidden_neus, model.latent_dim)
+    rngs = [stream_rng(key, i) for i in ids]
+    tree: ParamTree = {}
+    for coder, layers in dims.items():
+        tree[coder] = {}
+        for i, (fan_in, fan_out) in enumerate(layers):
+            bound = np.float32(1.0 / fan_in ** 0.5)
+            kernel = np.stack(
+                [(r.random((fan_in, fan_out), dtype=np.float32) * 2 - 1)
+                 * bound for r in rngs])
+            tree[coder][f"Dense_{i}"] = {
+                "kernel": torch.from_numpy(kernel).to(dev),
+                "bias": torch.zeros((len(rngs), fan_out), device=dev)}
+    return tree
 
 
 def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = "cuda",

@@ -503,6 +503,40 @@ def test_auto_pad_in_run_combination(sessions):
         assert not np.asarray(r["agg_weights"])[10:].any()
 
 
+@pytest.mark.parametrize("run", ["rounds", "phase", "rounds_tie",
+                                 "phase_tie"])
+def test_padded_mesh_trains_the_unpadded_federation(sessions, run):
+    """From the port's own init, 10 clients at W = 4 (padded to 12) and
+    W = 2 (unpadded) train the dense unpadded federation, fused and
+    per-phase, the tie-break off and on: the same selections, elections
+    and verification rows in every round, round-1 and final params[:10]
+    within 1e-6 scale-normalized (the merges sum the ranks' partials in
+    rank order), the final AUC within 2e-3."""
+    from fedmse_tpu_torch.config import CompatConfig
+    tie = run.endswith("_tie")
+    fused = run.startswith("rounds")
+
+    def pick(world):
+        got = _ranks(sessions, world)[0][run]
+        return got if tie else got["einsum"]
+
+    cfg = jobs.config(compat=CompatConfig(vote_tie_break=tie))
+    dense = jobs.run_engine(None, cfg, fused=fused)
+    assert dense["params"].shape[0] == 10
+    for world in WORLDS:
+        got = pick(world)
+        assert got["params"].shape[0] == -(-10 // world) * world
+        for a, b in zip(got["results"], dense["results"], strict=True):
+            assert a["selected"] == b["selected"], world
+            assert a["aggregator"] == b["aggregator"], world
+            assert a["verification_results"] == b["verification_results"]
+        for key in ("params1", "params"):
+            close(got[key][:10], dense[key], 1e-6)
+        assert abs(np.nanmean(got["final"]) - np.nanmean(dense["final"])) \
+            <= 2e-3
+    close(pick(4)["params"][:10], pick(2)["params"], 1e-6)
+
+
 def _pkg_warnings(caplog):
     return [r.getMessage() for r in caplog.records
             if "inert" in r.getMessage()]

@@ -283,10 +283,12 @@ def _nbytes(tensors) -> int:
 
 def run_tier(mesh, host_sharded: bool = False, ratio: float = 1.0,
              resume_dir=None, cluster_refit: int = 0, n: int = 12,
-             rounds: int = 3, hosts=None, local_data: bool = False) -> Dict:
+             rounds: int = 3, hosts=None, local_data: bool = False,
+             tie_break: bool = False) -> Dict:
     """The tier over `mesh`; `hosts` names the ranks' hosts in place of
-    the mesh's own (the same process group), and `local_data` hands each
-    rank only its block of client rows."""
+    the mesh's own (the same process group), `local_data` hands each
+    rank only its block of client rows, and `tie_break` turns the vote's
+    tie-break on."""
     import dataclasses
     from fedmse_tpu_torch.checkpointing import CheckpointManager
     from fedmse_tpu_torch.cluster import ClusterSpec
@@ -298,7 +300,8 @@ def run_tier(mesh, host_sharded: bool = False, ratio: float = 1.0,
         mesh = ClientMesh(mesh.world_size, mesh.rank, mesh.device,
                           mesh.backend, pg=mesh.group.pg, hosts=hosts)
     cfg = tier_config(num_participants=ratio, host_sharded=host_sharded,
-                      num_rounds=rounds)
+                      num_rounds=rounds,
+                      compat=CompatConfig(vote_tie_break=tie_break))
     cluster = (ClusterSpec(k=2, refit_every=cluster_refit)
                if cluster_refit else None)
     data = federation(n)
@@ -446,6 +449,9 @@ def session(mesh, init_path: str = "", ckpt_dir: str = "",
     out["phase_tie"] = run_engine(
         mesh, config(compat=CompatConfig(vote_tie_break=True)), pad_to=pad,
         fused=False)
+    # the fused round with the tie-break on (W = 4 pads 10 clients to 12)
+    out["rounds_tie"] = run_engine(
+        mesh, config(compat=CompatConfig(vote_tie_break=True)), pad_to=pad)
     out["quota"] = quota_run(mesh, pad)
     out["profiled"] = profiled_run(mesh, pad)
     out["latency"] = latency_run(mesh, pad)
@@ -480,6 +486,8 @@ def session(mesh, init_path: str = "", ckpt_dir: str = "",
                                           hosts=["h0", "h1"])
     out["tier_one_host"] = run_tier(mesh, ratio=0.5, hosts=["h0", "h0"])
     out["tier_local"] = run_tier(mesh, host_sharded=True, local_data=True)
+    # a cohort of 3 pads to 4 lanes on 2 ranks (tests/test_torch_padding)
+    out["tier_odd"] = run_tier(mesh, ratio=0.25, tie_break=True)
     out["serving"] = serving(mesh)
     out["plan"] = plan(mesh, cache_path)
     if dataset:
