@@ -138,7 +138,13 @@ build/fedmse_tpu_torch/), then:
                 device bytes beside cohort_bytes(), which must agree
                 within 5% across N; (d) the dense fused engine at 100,000
                 gateways and C = 512, sec/round and peak device bytes,
-                recorded;
+                recorded; (f) the --podscale drivers' federation (8/6/3,
+                100,000 bulk gateways, full participation, 2 rounds)
+                with the vote tie-break on, above the tier's size rule:
+                no [S, C] tie-break tensor on the host or the card, the
+                peak device bytes within 5% of the same run with the
+                tie-break off, the keyed row on the card the CPU's bits,
+                and the keyed hash's device time at N;
      flywheel   (after the main path) the flywheel control loop
                 (--flywheel) on the trained hybrid / mse_avg checkpoint:
                 (a) the kernels at its shapes (the fine-tune's train step
@@ -297,7 +303,10 @@ build/fedmse_tpu_torch/), then:
                 their plain versions;
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
-  7. report     kernel time (per wrapper call by CUDA events, and the
+  7. report     kernel time (per wrapper call by CUDA events; per replay
+                of the call's one-call CUDA graph by CUDA events around
+                back-to-back replays, a reading below the kernel's bound
+                flagged and not taken; and, as a cross-check only, the
                 kernel's own device time by torch.profiler), plain-version
                 time, library time where one PyTorch call computes the
                 same function, and bound at the main path's shapes (the
@@ -434,6 +443,62 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# calls in the graph whose replays time a kernel with a replay's launch
+# gap spread over them (a one-call graph's replay of a one-element fill
+# reads ~0.012 ms on an H100, above the train kernel's time)
+GRAPH_CALLS = 16
+
+
+def graph_ms(torch, fn, device, reps: int, calls: int = 1) -> float:
+    """Mean device milliseconds per call of fn() over `reps` replays, back
+    to back, of a CUDA graph of `calls` calls (ops/graphs.CapturedBody;
+    calls = 1 is the graph kernels_of_one_call counts), by CUDA events
+    around the replays: the call's kernels and copies with a replay's
+    launch gap over `calls`, and no profiler."""
+    from fedmse_tpu_torch.ops.graphs import CapturedBody
+
+    def body_fn():
+        for _ in range(calls):
+            fn()
+    body = CapturedBody(body_fn, device, "timed calls")
+    for _ in range(3):  # the eager warm-up and capture, then replays
+        body()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(reps):
+        body()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def graph_time(torch, fn, device, reps: int, bound_ms: float) -> dict:
+    """A kernel's times from graph replays (graph_ms): "graph_ms" per
+    replay of its one-call graph, "graph_ms_calls" per call in a graph
+    of GRAPH_CALLS calls (the time of record). A reading below the
+    kernel's bound (no valid time can be) is flagged under
+    "<key>_below_bound" and its key is None."""
+    out = {}
+    for key, calls in (("graph_ms", 1), ("graph_ms_calls", GRAPH_CALLS)):
+        ms = graph_ms(torch, fn, device, reps, calls)
+        if ms < bound_ms:
+            out[key], out[f"{key}_below_bound"] = None, ms
+        else:
+            out[key] = ms
+    return out
+
+
+def _graph_text(g: dict) -> str:
+    def one(key):
+        if g[key] is not None:
+            return f"{g[key]:.5f} ms"
+        return (f"{g[key + '_below_bound']:.5f} ms, BELOW its bound: not "
+                f"taken")
+    return (f"{one('graph_ms')}, per call in a graph of {GRAPH_CALLS} "
+            f"{one('graph_ms_calls')}")
 
 
 def device_ms(fn, kernel: str, reps: int) -> float:
@@ -1757,8 +1822,15 @@ def report_dist(torch, device, launches, worst, eval_rows):
     parent = baseline_dist(torch)
     one = torch.zeros(1, device=device)
     fill_ms = all_device_ms(torch, lambda: one.fill_(1.0), 50)
-    log(f"[report] one-element fill on the device {fill_ms:.5f} ms (the "
-        f"floor of any launch)")
+    floor_ms = {key: graph_ms(torch, lambda: one.fill_(1.0), device, 200,
+                              calls)
+                for key, calls in (("graph_ms", 1),
+                                   ("graph_ms_calls", GRAPH_CALLS))}
+    log(f"[report] one-element fill on the device {fill_ms:.5f} ms "
+        f"(torch.profiler), its one-call graph replay "
+        f"{floor_ms['graph_ms']:.5f} ms, per call in a graph of "
+        f"{GRAPH_CALLS} {floor_ms['graph_ms_calls']:.5f} ms (the floor of "
+        f"any launch)")
     rows_out = []
     for what, n, rows, gw_kind in main_dist_shapes(eval_rows):
         q, banks, gw = dist_inputs(torch, n, rows, bank, DIMS[2], gw_kind,
@@ -1770,6 +1842,9 @@ def report_dist(torch, device, launches, worst, eval_rows):
                                  "from its predecessor's")
         call = lambda: dist_tiles(q, banks, gw)  # noqa: E731
         k_ms = cuda_ms(call, 200)
+        used = n if gw is None else int(torch.unique(gw).numel())
+        b_ms, b_by = dist_bound(rows, bank, used)
+        g_ms = graph_time(torch, call, device, 200, b_ms)
         d_ms = device_ms(call, "dist_tiles", 50)
         parent_ms = device_ms(lambda: parent(q, banks, gw), "dist_tiles", 50)
         d2_ms = device_ms(call, "dist_tiles", 50)
@@ -1791,11 +1866,10 @@ def report_dist(torch, device, launches, worst, eval_rows):
                                            q, g, ref, KNN["knn_k"],
                                            topk=topk), 20)
                    for topk in ("exact", "approx")}
-        used = n if gw is None else int(torch.unique(gw).numel())
-        b_ms, b_by = dist_bound(rows, bank, used)
         rows_out.append({
             "what": what, "rows": rows, "banks": n, "bank_size": bank,
-            "ms": k_ms, "device_ms": d_ms, "device_ms_again": d2_ms,
+            "ms": k_ms, **g_ms, "graph_floor_ms": floor_ms,
+            "device_ms": d_ms, "device_ms_again": d2_ms,
             "parent_device_ms": parent_ms, "plain_ms": p_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
             "knn_path_device_ms": path_ms,
@@ -1804,7 +1878,9 @@ def report_dist(torch, device, launches, worst, eval_rows):
             "fill_device_ms": fill_ms,
             "scaled_err_vs_plain": err})
         log(f"[report] dist {what} T={rows} B={bank} N={n}: wrapper call "
-            f"{k_ms:.5f} ms, kernel on the device {d_ms:.5f} / {d2_ms:.5f} "
+            f"{k_ms:.5f} ms, one-call graph replay {_graph_text(g_ms)} "
+            f"(a fill's {json.dumps(floor_ms)}), kernel on the device "
+            f"(torch.profiler, a cross-check) {d_ms:.5f} / {d2_ms:.5f} "
             f"ms against its predecessor's {parent_ms:.5f} (same bits), "
             f"plain {p_ms:.5f} ms, torch.cdist {lib_ms} ms, bound "
             f"{b_ms:.6f} ms ({b_by}); kNN score on the device "
@@ -1820,7 +1896,12 @@ def report_dist(torch, device, launches, worst, eval_rows):
         "replaces": "fedmse_tpu/knn/score.py:51 (_dist_kernel)",
         "launches": launches,
         "max_abs_err": worst["f32"]["abs"],
-        "ms": main["ms"], "device_ms": main["device_ms"],
+        "ms": main["ms"], "graph_ms": main["graph_ms"],
+        "graph_ms_below_bound": main.get("graph_ms_below_bound"),
+        "graph_ms_calls": main["graph_ms_calls"],
+        "graph_ms_calls_below_bound": main.get(
+            "graph_ms_calls_below_bound"), "graph_calls": GRAPH_CALLS,
+        "graph_floor_ms": floor_ms, "device_ms": main["device_ms"],
         "parent_device_ms": main["parent_device_ms"],
         "parent_source": "fedmse_tpu_torch/csrc/dist_tiles_baseline.cu",
         "knn_path_ms": main["knn_path_device_ms"]["exact"],
@@ -3845,6 +3926,10 @@ TIERED_FLEETS = (100_000, 10_000)  # N of the full-size runs, (c)
 TIERED_COHORT = 512                # C
 TIERED_TIMED_ROUNDS = 3            # after one warm round (the capture)
 TIERED_PEAK_TOL = 0.05             # (c): peak device bytes, N vs N
+# (f): the --podscale drivers' widths and epochs (cluster_sweep_torch
+# podscale_config), 2 rounds at full participation
+TIERED_KEYED_DIMS = (8, 6, 3)
+TIERED_KEYED_ROUNDS = 2
 
 
 def bulk_federation(torch, n, dim, batch, seed):
@@ -4226,13 +4311,150 @@ def tiered_dense_at_scale(torch, device, cfg, bulk, n, smi):
     return out
 
 
+def _keyed_run(torch, device, tc, bulk, n, before):
+    """One (f) run (module docstring of tiered_keyed_tie_break): its
+    record, and with the tie-break on its checks. Everything it builds
+    dies at its return, so the next run's peak bytes start clean."""
+    from fedmse_tpu_torch.federation.tiered import TieredRoundEngine
+    from fedmse_tpu_torch.federation.voting import KeyedDraws
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import (ExperimentRngs,
+                                                keyed_uniform_row_np)
+
+    class Spied(TieredRoundEngine):
+        """Records whether each plan drew a tie-break sheet."""
+
+        def _plan(self, *a, **k):
+            plan = super()._plan(*a, **k)
+            self.plan_sheets.append(plan.draws is not None)
+            return plan
+
+    tie = tc.compat.vote_tie_break
+    dim, hid, lat = TIERED_KEYED_DIMS
+    base = _clear_card(torch, device)
+    with tiered_path():
+        eng = Spied(make_model("hybrid", dim, hid, lat, tc.shrink_lambda,
+                               device=device), tc, bulk, n,
+                    ExperimentRngs(run=0), "hybrid", "mse_avg",
+                    device=device)
+        eng.plan_sheets = []
+        init_gen = eng.rngs.generator.get_state()
+        res, secs = _tiered_rounds(eng, tc.num_rounds)
+    run = {"keyed": eng.keyed_tie_break,
+           "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+                                 - base) if device.type == "cuda" else None,
+           "round_s": secs, "aggregators": [r.aggregator for r in res]}
+    for r in res:
+        if not np.isfinite(r.client_metrics).all():
+            raise AssertionError(f"[tiered] (f) tie-break {tie}: round "
+                                 f"{r.round_index} metrics not finite")
+    if not tie:
+        return run
+    run["launches"] = {k: v - before.get(k, 0)
+                       for k, v in TIERED_LAUNCHES.items()}
+    for name in ("fused_ae_forward", "fused_ae_train"):
+        if run["launches"].get(name, 0) < 1:
+            raise AssertionError(f"[tiered] (f) the keyed run never "
+                                 f"launched {name}")
+    f = eng._round
+    sheet = [name for name, t in list(vars(f).items())
+             + list(f.round_in.items()) + list(f.chunk_in.items())
+             if isinstance(t, torch.Tensor) and t.dim() >= 2
+             and tuple(t.shape[-2:]) == (n, n)]
+    if not (eng.keyed_tie_break and f.u is None and f.u_all is None
+            and not sheet and not any(eng.plan_sheets)
+            and torch.equal(eng.rngs.generator.get_state(), init_gen)):
+        raise AssertionError(f"[tiered] (f) the keyed path was not taken: "
+                             f"sheets {sheet}, plan sheets "
+                             f"{eng.plan_sheets}")
+    src = KeyedDraws(f.tie_key["vote"], f.round_t, f.lane_ids)
+    voters = torch.tensor([0, 1, 2, n // 2, n - 1], device=device)
+    card = src.rows(voters)
+    cpu = KeyedDraws(src.key.cpu(), src.round.cpu(),
+                     src.ids.cpu()).rows(voters.cpu())
+    twin = keyed_uniform_row_np(eng.rngs.vote_key(), int(src.round),
+                                voters.cpu().numpy()[:, None],
+                                src.ids.cpu().numpy())
+    run["row_bits_equal"] = bool(
+        torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32))
+        and np.array_equal(cpu.numpy().view(np.int32), twin.view(np.int32)))
+    if not run["row_bits_equal"]:
+        raise AssertionError("[tiered] (f) the keyed row on the card "
+                             "differs from the CPU's")
+    if device.type == "cuda":
+        first = voters[:1]
+        run["hash_ms"] = cuda_ms(lambda: src.rows(first), 50)
+        # as a node stretch of the captured `leave` graph runs it
+        run["hash_graph_ms"] = graph_ms(torch, lambda: src.rows(first),
+                                        device, 50)
+    return run
+
+
+def tiered_keyed_tie_break(torch, device, cfg, n, smi):
+    """(f) The --podscale drivers' federation at N = n (8/6/3, batch 16,
+    2 epochs, full participation: S = C = n), TIERED_KEYED_ROUNDS rounds
+    with the vote tie-break on (above the tier's size rule: keyed rows)
+    and then off: the keyed path taken (no plan drew a sheet, no [S, C]
+    buffer in the round, the generator untouched by tie-breaks), the
+    peak device bytes of the two runs within TIERED_PEAK_TOL, the keyed
+    row of the round's own buffers on the card bit-equal to the CPU's
+    and the numpy twin's for the same (key, round, voter, ids), and the
+    one [N] hash an election computes, timed on the card."""
+    from fedmse_tpu_torch.config import CompatConfig
+    from fedmse_tpu_torch.federation.tiered import keyed_tie_break
+    dim, hid, lat = TIERED_KEYED_DIMS
+    kc = cfg.replace(dim_features=dim, hidden_neus=hid, latent_dim=lat,
+                     network_size=n, epochs=2, batch_size=16,
+                     num_rounds=TIERED_KEYED_ROUNDS, num_participants=1.0,
+                     state_layout="tiered",
+                     compat=CompatConfig(shared_last_client_val=False))
+    if not keyed_tie_break(kc, n):
+        raise AssertionError(f"[tiered] (f) N = {n} is under the size rule")
+    bulk = bulk_federation(torch, n, dim, kc.batch_size, SEED + 22)
+    out = {"n": n, "cohort": n, "dims": list(TIERED_KEYED_DIMS),
+           "rounds": TIERED_KEYED_ROUNDS, "device": smi}
+    before = dict(TIERED_LAUNCHES)
+    for tie in (True, False):
+        tc = kc.replace(compat=CompatConfig(shared_last_client_val=False,
+                                            vote_tie_break=tie))
+        held = _clear_card(torch, device)
+        run = _keyed_run(torch, device, tc, bulk, n, before)
+        # bytes the run left allocated once it was freed (0 expected)
+        run["residue_bytes"] = _clear_card(torch, device) - held
+        out["on" if tie else "off"] = run
+    if device.type == "cuda":
+        on, off = (out[k]["peak_device_bytes"] for k in ("on", "off"))
+        out["peak_spread"] = abs(on - off) / off
+        if out["peak_spread"] > TIERED_PEAK_TOL:
+            raise AssertionError(f"[tiered] (f) peak device bytes {on} with "
+                                 f"the tie-break on against {off} off")
+    log(f"[tiered] (f) N = C = {n} at {dim}/{hid}/{lat}, "
+        f"{TIERED_KEYED_ROUNDS} rounds ({smi}): tie-break on through keyed "
+        f"rows (no [S, C] tensor, the generator untouched), the card's row "
+        f"the CPU's bits; peak device {out['on']['peak_device_bytes']} B "
+        f"on against {out['off']['peak_device_bytes']} B off (spread "
+        f"{out.get('peak_spread')}, limit {TIERED_PEAK_TOL}; residue "
+        f"{out['on']['residue_bytes']} / {out['off']['residue_bytes']} B); "
+        f"seconds a "
+        f"round {json.dumps(out['on']['round_s'])} on, "
+        f"{json.dumps(out['off']['round_s'])} off; one [N] hash "
+        f"{out['on'].get('hash_ms')} ms eager, "
+        f"{out['on'].get('hash_graph_ms')} ms as a graph replay; aggregators "
+        f"{out['on']['aggregators']} on, {out['off']['aggregators']} off; "
+        f"the keyed run's launches {json.dumps(out['on']['launches'])}")
+    del bulk
+    return out
+
+
 def phase_tiered(torch, device, cfg, clients, data, smi):
     """The tiered state layout (--state-layout tiered): (e) the kernels at
     its shapes; then the tiered path, launch counters set to 0 before it
     and read after it: (a) C == N against the dense engine, (b) C < N,
     prefetched against serial, (c) the full-size runs at every N of
     TIERED_FLEETS, whose peak device bytes must agree within
-    TIERED_PEAK_TOL; after it (d) the dense engine at the largest N."""
+    TIERED_PEAK_TOL, and (f) the largest N at full participation with the
+    tie-break on, through keyed rows; after it (d) the dense engine at
+    the largest N."""
     t0 = time.perf_counter()
     n = len(clients)
     report = {"kernels": tiered_kernel_shapes(torch, device, TIERED_COHORT)}
@@ -4246,6 +4468,7 @@ def phase_tiered(torch, device, cfg, clients, data, smi):
     report["bulk_data_s"] = time.perf_counter() - t1
     report["full_size"] = [tiered_full_size(torch, device, cfg, bulk, m, smi)
                            for m in TIERED_FLEETS]
+    report["keyed"] = tiered_keyed_tie_break(torch, device, cfg, big, smi)
     report["launches"] = dict(TIERED_LAUNCHES)
     for name in ("fused_ae_forward", "fused_ae_train"):
         if report["launches"][name] < 1:
@@ -7050,18 +7273,20 @@ def report_train(torch, device, launches, worst):
         kw = dict(layout=layout, shrink_lambda=10.0, compute_dtype=cdt)
         call = lambda: fused_train_grads(flat, x, m, **kw)  # noqa: E731
         k_ms = cuda_ms(call, 500)
+        b_ms, b_by = train_bound(rows, g, precision)
+        g_ms = graph_time(torch, call, device, 500, b_ms)
         d_ms = device_ms(call, "fused_ae_train_kernel", 100)
         p_ms = cuda_ms(lambda: fused_train_grads_plain(flat, x, m, **kw), 50)
-        b_ms, b_by = train_bound(rows, g, precision)
         c = cluster_size(g, DIMS[1])
         rows_out.append({"what": what, "rows": rows, "clients": g,
                          "precision": precision, "cluster_size": c,
-                         "ctas": g * c, "ms": k_ms,
+                         "ctas": g * c, "ms": k_ms, **g_ms,
                          "device_ms": d_ms, "plain_ms": p_ms,
                          "bound_ms": b_ms, "bound_by": b_by})
         log(f"[report] {what} {precision} G={g} R={rows} ({c} CTAs per "
-            f"client, {g * c} CTAs): wrapper call {k_ms:.5f} ms (kernel on "
-            f"the device {d_ms:.5f} ms), plain {p_ms:.5f} ms, bound "
+            f"client, {g * c} CTAs): wrapper call {k_ms:.5f} ms, one-call "
+            f"graph replay {_graph_text(g_ms)} (kernel on the device, "
+            f"torch.profiler, {d_ms:.5f} ms), plain {p_ms:.5f} ms, bound "
             f"{b_ms:.6f} ms ({b_by})")
     main = rows_out[0]
     return {
@@ -7071,7 +7296,12 @@ def report_train(torch, device, launches, worst):
         "replaces": "fedmse_tpu/ops/pallas_ae.py:309 (_train_kernel)",
         "launches": launches,
         "max_abs_err": worst["f32"]["abs"],
-        "ms": main["ms"], "device_ms": main["device_ms"],
+        "ms": main["ms"], "graph_ms": main["graph_ms"],
+        "graph_ms_below_bound": main.get("graph_ms_below_bound"),
+        "graph_ms_calls": main["graph_ms_calls"],
+        "graph_ms_calls_below_bound": main.get(
+            "graph_ms_calls_below_bound"), "graph_calls": GRAPH_CALLS,
+        "device_ms": main["device_ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
@@ -7086,7 +7316,9 @@ def report_train(torch, device, launches, worst):
 
 def phase_report(torch, device, launches, worst):
     """The forward kernel's wrapper-call time (CUDA events, back to back),
-    its own device time (torch.profiler), its plain version's time, its
+    its one-call graph's replay time (graph_time: CUDA events, a reading
+    under the bound flagged), its own device time (torch.profiler, a
+    cross-check), its plain version's time, its
     bound and device time over bound at the main path's shapes: the
     evaluation and the two serving buckets, then the training path's own
     launches."""
@@ -7121,20 +7353,23 @@ def phase_report(torch, device, launches, worst):
         call = lambda: fused_forward_stats(  # noqa: E731
             params, x, idx, compute_dtype=cdt)
         k_ms = cuda_ms(call, 200)
+        b_ms, b_by = bound(rows, g, precision)
+        g_ms = graph_time(torch, call, device, 200, b_ms)
         d_ms = device_ms(call, "fused_ae_forward_kernel", 50)
         p_ms = cuda_ms(lambda: fused_forward_stats_plain(
             params, x, idx, compute_dtype=cdt), 5)
-        b_ms, b_by = bound(rows, g, precision)
         tile, ctas = tile_plan(rows, torch.cuda.get_device_properties(
             device).multi_processor_count)
         rows_out.append({"what": what, "rows": rows, "models": g,
                          "precision": precision, "tile": tile, "ctas": ctas,
-                         "ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms,
-                         "bound_ms": b_ms, "bound_by": b_by,
+                         "ms": k_ms, **g_ms, "device_ms": d_ms,
+                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                          "x_bound": d_ms / b_ms})
         log(f"[report] {what} {precision} R={rows} G={g} ({tile}-row tiles, "
-            f"{ctas} CTAs): wrapper call {k_ms:.5f} ms (kernel on the device "
-            f"{d_ms:.5f} ms, {d_ms / b_ms:.2f}x its bound), plain "
+            f"{ctas} CTAs): wrapper call {k_ms:.5f} ms, one-call graph "
+            f"replay {_graph_text(g_ms)} (kernel on the device, "
+            f"torch.profiler, {d_ms:.5f} ms, {d_ms / b_ms:.2f}x its bound), "
+            f"plain "
             f"{p_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by})")
     main = rows_out[0]
     return {"kernels": [{
@@ -7144,7 +7379,12 @@ def phase_report(torch, device, launches, worst):
         "replaces": "fedmse_tpu/ops/pallas_ae.py:130 (_kernel)",
         "launches": launches,
         "max_abs_err": worst["f32"]["abs"],
-        "ms": main["ms"], "device_ms": main["device_ms"],
+        "ms": main["ms"], "graph_ms": main["graph_ms"],
+        "graph_ms_below_bound": main.get("graph_ms_below_bound"),
+        "graph_ms_calls": main["graph_ms_calls"],
+        "graph_ms_calls_below_bound": main.get(
+            "graph_ms_calls_below_bound"), "graph_calls": GRAPH_CALLS,
+        "device_ms": main["device_ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,

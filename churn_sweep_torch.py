@@ -30,9 +30,10 @@ Protocol:
 
 `--podscale` runs the churn semantics at 100k gateways on the tiered
 engine with `host_sharded=True` (one card: world 1, so the tier's one
-block is the fleet), full participation, the vote tie-break off: static,
-null elastic (bit-equal), steady churn, and the leave burst with both
-joiner bars, with an `acceptance` block.
+block is the fleet), full participation, the vote tie-break on as in the
+JAX driver (keyed rows above the tier's size rule, federation/tiered.py):
+static, null elastic (bit-equal), steady churn, and the leave burst with
+both joiner bars, with an `acceptance` block.
 
 Writes CHURN_torch.json / CHURN_PODSCALE_torch.json (--out) and prints
 one line per row. On the card: `python3 churn_sweep_torch.py --out
@@ -275,14 +276,11 @@ def podscale_main(args, device, prov):
     rounds, burst = 10, (3, 5)
     cohort = n
     dim, hid, lat = 8, 6, 3
-    # the vote's tie-break draws are one [cohort, cohort] uniform sheet a
-    # round (40 GB at 100k): the run takes the tie-break off
     cfg = ExperimentConfig(
         dim_features=dim, hidden_neus=hid, latent_dim=lat, network_size=n,
         epochs=5, batch_size=16, num_rounds=rounds,
         num_participants=1.0, state_layout="tiered", host_sharded=True,
-        compat=CompatConfig(shared_last_client_val=False,
-                            vote_tie_break=False))
+        compat=CompatConfig(shared_last_client_val=False))
     mesh = client_mesh(device)
     data = sweep.bulk_host_federation(n, dim, cfg.batch_size)
     model = make_model("hybrid", dim, hid, lat, cfg.shrink_lambda,
@@ -398,7 +396,8 @@ def podscale_main(args, device, prov):
                     f"(state_layout=tiered host_sharded=True, world "
                     f"{mesh.world_size}: one block, the fleet; cohort "
                     f"{cohort}), hybrid+mse_avg {dim}/{hid}/{lat}, "
-                    f"{rounds} rounds of 5 epochs, vote tie-break off; "
+                    f"{rounds} rounds of 5 epochs, "
+                    f"{sweep.tie_break_phrase(cfg, cohort)}; "
                     f"burst window [{b0}, "
                     f"{b1}) at leave_p=0.3, rejoin from {b1}; the bars pin "
                     f"that the elastic semantics hold on the tier at fleet "

@@ -27,10 +27,10 @@ cluster/).
 
 `--podscale` runs the clustered semantics at 100k gateways on the tiered
 engine with `host_sharded=True` (one card: world 1, so the tier's one
-block is the fleet), full participation, the vote tie-break off (its
-draws are one [C, C] sheet a round, 40 GB at C = 100k): the K = 1 pin on
-the host tier's states, the typed fleet's assignment purity, and K = 4
-against the single global.
+block is the fleet), full participation, the vote tie-break on as in the
+JAX driver (keyed rows above the tier's size rule, federation/tiered.py):
+the K = 1 pin on the host tier's states, the typed fleet's assignment
+purity, and K = 4 against the single global.
 
 Writes CLUSTER_torch.json / CLUSTER_PODSCALE_torch.json (--out) and prints
 one line per row. On the card: `python3 cluster_sweep_torch.py --out
@@ -391,15 +391,14 @@ POD_TYPES, POD_ROUNDS, POD_DIMS = 4, 6, (8, 6, 3)
 
 def podscale_config(n):
     """The --podscale federation's config: 8/6/3, full participation on
-    the host-sharded tier, 2 epochs a round, the vote tie-break off."""
+    the host-sharded tier, 2 epochs a round, the vote tie-break on."""
     from fedmse_tpu_torch.config import CompatConfig, ExperimentConfig
     dim, hid, lat = POD_DIMS
     return ExperimentConfig(
         dim_features=dim, hidden_neus=hid, latent_dim=lat, network_size=n,
         epochs=2, batch_size=16, num_rounds=POD_ROUNDS,
         num_participants=1.0, state_layout="tiered", host_sharded=True,
-        compat=CompatConfig(shared_last_client_val=False,
-                            vote_tie_break=False))
+        compat=CompatConfig(shared_last_client_val=False))
 
 
 def podscale_run(cfg, data, spec, rounds, mesh, device, states=None):
@@ -437,7 +436,7 @@ def purity(assignment, t_of, types):
 def podscale_main(args, device, prov, states=None):
     """`--podscale`: the clustered semantics at 100k gateways on the tiered
     engine with host_sharded=True, full participation (every slot holds a
-    converged merge at evaluation), the vote tie-break off. Rows: the
+    converged merge at evaluation), the vote tie-break on. Rows: the
     K = 1 pin on the host tier's states, and K = 4 against the single
     global with the assignment's purity against the generating types.
     `states` replaces every run's init."""
@@ -515,8 +514,9 @@ def podscale_main(args, device, prov, states=None):
                     f"far-apart manifolds), tiered engine (state_layout="
                     f"tiered host_sharded=True, world {mesh.world_size}: one "
                     f"block, the fleet; cohort {cohort}), hybrid+mse_avg "
-                    f"{dim}/{hid}/{lat}, {rounds} rounds x 2 epochs, vote "
-                    f"tie-break off; the bars pin that the clustered "
+                    f"{dim}/{hid}/{lat}, {rounds} rounds x 2 epochs, "
+                    f"{sweep.tie_break_phrase(cfg, cohort)}; the bars pin "
+                    f"that the clustered "
                     f"semantics hold on the tier at fleet scale",
         "rows": rows, "acceptance": acceptance,
         "total_seconds": time.perf_counter() - t_start,

@@ -103,6 +103,13 @@ the per-phase path draws each voter's uniforms when the voter votes and
 the fused one draws every voter's per round ahead of it
 (ExperimentRngs.vote_draws), as the JAX package's fused and per-phase
 paths differ only in their key bookkeeping.
+
+A round built with `tie_keys` (the tier above its size rule,
+federation/tiered.py) holds no [S, N] draws: its tie-break and its
+crash re-election read a keyed stream (voting.KeyedDraws), each round's
+absolute index and the lanes' absolute client ids uploaded per chunk
+into device buffers like the selections, the keys written into device
+buffers once. The election computes the one row it reads.
 """
 
 from __future__ import annotations
@@ -125,11 +132,13 @@ from fedmse_tpu_torch.federation.state import (ClientStates,
                                                client_mean_weights,
                                                tree_client_divergence,
                                                tree_select_clients)
-from fedmse_tpu_torch.federation.voting import (elect_on_device,
+from fedmse_tpu_torch.federation.voting import (KeyedDraws, TieBreak,
+                                                elect_on_device,
                                                 elect_on_device_runs)
 from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.ops.graphs import CapturedBody
 from fedmse_tpu_torch.redteam.adversary import RedteamFns
+from fedmse_tpu_torch.utils.seeding import key_words
 
 
 class FusedRoundOut(NamedTuple):
@@ -215,7 +224,11 @@ class FusedRound:
     in place. `cohort` is S, the selection's size; `capacity` the most
     rounds a chunk holds; `compact` trains the selected clients only
     (else every client, the unselected masked away, as the per-phase
-    path); `tie_break` takes each chunk's [R, S, N] uniforms. `poison`,
+    path); `tie_break` takes each chunk's [R, S, N] uniforms, or with
+    `tie_keys` ({"vote": key, "reelect": key}, stream keys of
+    utils/seeding.keyed_uniform_row) each round's absolute index and the
+    lanes' absolute ids in their place (`dispatch`'s `rounds` and
+    `lane_ids`; module docstring). `poison`,
     `chaos` and `elastic` build the fault hooks in (their per-round
     inputs are `dispatch`'s `inputs`, named by `input_names`).
     `cluster_k` > 1 or `personalize` builds clustered federation in:
@@ -236,7 +249,8 @@ class FusedRound:
                  elastic: bool = False, cluster_k: int = 1,
                  personalize: bool = False,
                  shared: Optional[torch.Tensor] = None,
-                 redteam: Optional[RedteamFns] = None):
+                 redteam: Optional[RedteamFns] = None,
+                 tie_keys: Optional[Dict[str, Sequence[int]]] = None):
         self.trainer, self.base_scores = trainer, base_scores
         self.aggregate, self.verify = aggregate, verify
         self.evaluate_all, self.layout = evaluate_all, layout
@@ -252,6 +266,7 @@ class FusedRound:
         if personalize and shared is None:
             raise ValueError("personalize needs the shared-module mask")
         self.shared = shared
+        self.tie_keys = tie_keys if tie_break else None
         dev = states.params.device
         self.device = dev
         self._buffers(states.params.shape[0], states.params.shape[1],
@@ -277,14 +292,11 @@ class FusedRound:
         i64 = torch.int64
         self.ids = torch.arange(n, device=dev)
         self.sel_all = torch.zeros((cap, cohort), dtype=i64, device=dev)
-        self.u_all = (torch.zeros((cap, cohort, n), device=dev)
-                      if tie_break else None)
         self.slot = torch.zeros((), dtype=i64, device=dev)
         self.agg_count = torch.zeros(n, dtype=torch.int32, device=dev)
         self.sel = torch.zeros(cohort, dtype=i64, device=dev)
         self.sel_mask = torch.zeros(n, device=dev)
-        self.u = (torch.zeros((cohort, n), device=dev) if tie_break
-                  else None)
+        self._tie_buffers(n, tie_break)
         self.cluster_in = (torch.zeros(n, dtype=i64, device=dev)
                            if self.clustered else None)
         self._hook_buffers(n, p, tie_break)
@@ -294,6 +306,44 @@ class FusedRound:
         self.out = OutLayout(n, metric_shape, self.trainer.epochs,
                              self.chaos, self.elastic)
         self.out_stack = torch.zeros((cap, self.out.width), device=dev)
+
+    def _tie_buffers(self, width: int, tie_break: bool) -> None:
+        """The tie-break's buffers over `width` lanes: the chunk's [cap, S,
+        width] draws and the round's [S, width] (u_all, u); or, keyed,
+        the stream keys, the chunk's absolute rounds, the round's, and
+        the lanes' absolute ids, nothing of size S x width."""
+        cap, cohort, dev = self.capacity, self.cohort_size, self.device
+        keyed, i64 = self.tie_keys is not None, torch.int64
+        dense = tie_break and not keyed
+        self.u_all = (torch.zeros((cap, cohort, width), device=dev)
+                      if dense else None)
+        self.u = torch.zeros((cohort, width), device=dev) if dense else None
+        self.round_all = (torch.zeros(cap, dtype=i64, device=dev) if keyed
+                          else None)
+        self.round_t = (torch.zeros((), dtype=i64, device=dev) if keyed
+                        else None)
+        self.lane_ids = (torch.full((width,), -1, dtype=i64, device=dev)
+                         if keyed else None)
+        self.tie_key = {name: torch.tensor(key_words(key), dtype=i64,
+                                           device=dev)
+                        for name, key in (self.tie_keys or {}).items()}
+
+    def _draws(self, name: str) -> TieBreak:
+        """The tie-break source of the election `name` ("vote" or
+        "reelect"): the round's draws, or the keyed stream's."""
+        if self.tie_keys is not None:
+            return KeyedDraws(self.tie_key[name], self.round_t,
+                              self.lane_ids)
+        return self.u if name == "vote" else self.round_in.get(
+            "reelect_draws")
+
+    def _take_draws(self, at: torch.Tensor) -> None:
+        """Round slot `at`'s draws, or its absolute round, into the
+        round's buffers."""
+        if self.u is not None:
+            self.u.copy_(self.u_all.index_select(0, at)[0])
+        if self.round_t is not None:
+            self.round_t.copy_(self.round_all.index_select(0, at)[0])
 
     def _cohort_buffers(self, idx: torch.Tensor) -> None:
         d = self.data
@@ -315,7 +365,7 @@ class FusedRound:
                           straggler=((n,), torch.float32),
                           crash=((), torch.bool),
                           bcast_drop=((n,), torch.float32))
-            if tie_break:
+            if tie_break and self.tie_keys is None:
                 shapes["reelect_draws"] = ((self.cohort_size, n),
                                            torch.float32)
         if self.elastic:
@@ -357,8 +407,7 @@ class FusedRound:
         self.sel_mask.index_fill_(0, self.sel, 1.0)
         if self.compact:
             self.co.idx.copy_(torch.sort(self.sel).values)
-        if self.u is not None:
-            self.u.copy_(self.u_all.index_select(0, at)[0])
+        self._take_draws(at)
         for k, buf in self.round_in.items():
             buf.copy_(self.chunk_in[k].index_select(0, at)[0])
         if self.elastic:
@@ -418,7 +467,7 @@ class FusedRound:
         crash_now = r["crash"] & (aggregator >= 0)
         mask2 = torch.where(self.ids == aggregator, 0.0, eff)
         again, scores2 = elect_on_device(
-            base, r.get("reelect_draws"), self.sel, mask2, self.agg_count,
+            base, self._draws("reelect"), self.sel, mask2, self.agg_count,
             self.max_threshold, voters=mask2, cluster_in=self.cluster_in,
             **self._election_inputs())
         crashed = torch.where(crash_now, aggregator, -1)
@@ -515,7 +564,7 @@ class FusedRound:
                                 d.valid_x.index_select(0, voter0)[0],
                                 d.valid_m.index_select(0, voter0)[0])
         aggregator, scores = elect_on_device(
-            base, self.u, self.sel, eff, self.agg_count,
+            base, self._draws("vote"), self.sel, eff, self.agg_count,
             self.max_threshold, voters=eff if self.faults else None,
             cluster_in=self.cluster_in, **self._election_inputs())
         crashed, agg_mask = None, eff
@@ -592,15 +641,19 @@ class FusedRound:
                  draws: Optional[torch.Tensor],
                  agg_count: Optional[np.ndarray],
                  inputs: Optional[Dict[str, np.ndarray]] = None,
-                 cluster_in: Optional[np.ndarray] = None
+                 cluster_in: Optional[np.ndarray] = None,
+                 rounds: Optional[Sequence[int]] = None,
+                 lane_ids: Optional[np.ndarray] = None
                  ) -> Callable[[], list]:
         """Run len(schedule) rounds: upload the selections and draws, the
         hooks' `inputs` ([k, ...] each, by `input_names`), the assignment
         [N] of a clustered round, and the quota (unless None: then the
         device carries it from the last chunk), replay the bodies round by
-        round and start one copy of the output stack to the host. Returns
-        the harvest: a call that waits for that copy and returns the
-        rounds' FusedRoundOuts."""
+        round and start one copy of the output stack to the host. A keyed
+        round (`tie_keys`) takes the rounds' absolute indices `rounds`
+        and the lanes' absolute ids `lane_ids` [N] (-1: a pad lane) in
+        place of `draws`. Returns the harvest: a call that waits for that
+        copy and returns the rounds' FusedRoundOuts."""
         k = len(schedule)
         if k > self.capacity or any(len(s) != self.cohort_size
                                     for s in schedule):
@@ -610,7 +663,16 @@ class FusedRound:
         if self.clustered != (cluster_in is not None):
             raise ValueError("a clustered round takes the assignment "
                              "cluster_in, and only a clustered round does")
+        if (self.tie_keys is not None) != (rounds is not None
+                                           and lane_ids is not None):
+            raise ValueError("a keyed tie-break takes the rounds and the "
+                             "lane ids, and only a keyed one does")
         self._upload(schedule, draws, agg_count, inputs)
+        if rounds is not None:
+            self._up(self.round_all[:k], torch.as_tensor(
+                np.asarray(rounds, dtype=np.int64)))
+            self._up(self.lane_ids, torch.as_tensor(
+                np.asarray(lane_ids, dtype=np.int64)))
         if cluster_in is not None:
             self._up(self.cluster_in, torch.as_tensor(
                 np.asarray(cluster_in, dtype=np.int64)))
@@ -1011,15 +1073,12 @@ class ShardedFusedRound(FusedRound):
         self.ids = torch.arange(big, device=dev)
         self.local_ids = torch.arange(self.lo, self.hi, device=dev)
         self.sel_all = torch.zeros((cap, cohort), dtype=i64, device=dev)
-        self.u_all = (torch.zeros((cap, cohort, big), device=dev)
-                      if tie_break else None)
         self.slot = torch.zeros((), dtype=i64, device=dev)
         self.agg_count = torch.zeros(big, dtype=torch.int32, device=dev)
         self.sel = torch.zeros(cohort, dtype=i64, device=dev)
         self.sel_mask_all = torch.zeros(big, device=dev)
         self.sel_mask = self.sel_mask_all[self.lo:self.hi]
-        self.u = (torch.zeros((cohort, big), device=dev) if tie_break
-                  else None)
+        self._tie_buffers(big, tie_break)
         self.cluster_in = (torch.zeros(big, dtype=i64, device=dev)
                            if self.clustered else None)
         self.cluster_local = (self.cluster_in[self.lo:self.hi]
@@ -1043,8 +1102,7 @@ class ShardedFusedRound(FusedRound):
         self.sel.copy_(self.sel_all.index_select(0, at)[0])
         self.sel_mask_all.zero_()
         self.sel_mask_all.index_fill_(0, self.sel, 1.0)
-        if self.u is not None:
-            self.u.copy_(self.u_all.index_select(0, at)[0])
+        self._take_draws(at)
         for k, buf in self.round_in.items():
             buf.copy_(self.chunk_in[k].index_select(0, at)[0])
         if self.elastic:
@@ -1163,7 +1221,7 @@ class ShardedFusedRound(FusedRound):
         base = self.mesh.all_gather(
             self.base_scores(st.params, vote_x, vote_m)).reshape(-1)
         aggregator, scores = elect_on_device(
-            base, self.u, self.sel, eff_all, self.agg_count,
+            base, self._draws("vote"), self.sel, eff_all, self.agg_count,
             self.max_threshold, voters=eff_all if self.faults else None,
             cluster_in=self.cluster_in, **self._election_inputs())
         crashed, agg_mask = None, eff

@@ -265,15 +265,16 @@ def build_fused_round(model, cfg: ExperimentConfig, fns: Dict, *,
                       ver_m, priorities: Optional[torch.Tensor],
                       cohort: int, capacity: int, compact: bool,
                       poison_fn=None, chaos=None, elastic=None, cluster=None,
-                      redteam_fns=None, mesh=None, n_global: int = 0
-                      ) -> FusedRound:
+                      redteam_fns=None, mesh=None, n_global: int = 0,
+                      tie_keys=None) -> FusedRound:
     """The fused round of `fns` (make_round_fns) on the buffers given: the
     dense engine's at the federation's width N, the tiered engine's at
     its cohort's width C. The round reads and updates these very
     tensors. A sharded `mesh` builds the rank's ShardedFusedRound over
     the block of an axis of `n_global` (its merge `fns["aggregate"]` /
     `fns["cluster_aggregate"]` the mesh's, `fns["divergence"]` the chaos
-    mean's)."""
+    mean's). `tie_keys` keys the tie-break (FusedRound: no [S, N]
+    draws)."""
     metric_shape = {"AUC": (), "classification": (3,)}.get(
         cfg.metric, (data.test_x.shape[1],))
     spec = cluster if cluster is not None and not cluster.is_null else None
@@ -299,7 +300,7 @@ def build_fused_round(model, cfg: ExperimentConfig, fns: Dict, *,
         elastic=elastic is not None,
         cluster_k=1 if spec is None else spec.k,
         personalize=spec is not None and spec.personalize,
-        shared=fns["shared"], redteam=redteam_fns)
+        shared=fns["shared"], redteam=redteam_fns, tie_keys=tie_keys)
 
 
 class MeshBackends:

@@ -34,7 +34,19 @@ from the cohort's host counters; the tie-break draws are [S, S], drawn per
 round from the run's generator at the selection's width and placed in the
 selected clients' lanes (0.5, a factor of 1, in a pad lane), so at C == N
 they are the dense engine's draws and a cohort padded to a multiple of
-the ranks draws what the unpadded one does. The chaos, elastic and
+the ranks draws what the unpadded one does. That holds under a size rule:
+while the selection's sheet, S x S x 4 B (S the selected clients; the
+lanes that pad it to the ranks do not count, so the rule does not move
+with W), stays within TIE_BREAK_SHEET_BYTES, the round takes those [S, C]
+draws and the chaos re-election's [S, C] columns. Above it the tier holds
+nothing of size S x C: the round is built with keyed tie-breaks
+(fused.FusedRound `tie_keys`), each election computing on the device
+only the row of the voter it reads from (run seed, "VOTE", the absolute
+round, the voter's position in the selection, each lane's absolute
+client id), the re-election from the chaos key and "RELE" alike
+(utils/seeding.keyed_uniform_row); the run's generator draws no
+tie-break. Keyed by absolute client, a padded or W-rank cohort draws
+what W = 1 draws. The chaos, elastic and
 cluster columns are gathered at the cohort's absolute ids (the fault
 streams are keyed by absolute client, so a gathered column is the dense
 engine's); pad lanes are inert.
@@ -119,6 +131,19 @@ logger = logging.getLogger(__name__)
 COHORT_DATA_FIELDS = ("train_xb", "train_mb", "valid_xb", "valid_mb",
                       "valid_x", "valid_m", "test_x", "test_m", "test_y")
 
+# the size rule of the tie-break's sheet (module docstring): S x S x 4 B
+# within this keeps the generator's [S, C] draws; above it the elections
+# are keyed. 64 MiB is S = 4,096, above every tier run that drew its
+# sheet before the rule (the largest, chip_smoke's [tiered] (c), S = 512)
+TIE_BREAK_SHEET_BYTES = 64 << 20
+
+
+def keyed_tie_break(cfg: ExperimentConfig, n_sel: int) -> bool:
+    """Whether a tier selecting `n_sel` clients a round keys its
+    tie-breaks (the size rule; False with the tie-break off)."""
+    return bool(cfg.compat.vote_tie_break) and \
+        4 * n_sel * n_sel > TIE_BREAK_SHEET_BYTES
+
 
 @dataclasses.dataclass
 class CohortPlan:
@@ -132,7 +157,8 @@ class CohortPlan:
     ids: np.ndarray                    # [C] int64, -1 pad tail
     sel_pos: np.ndarray                # [S] int64 cohort positions
     mask: np.ndarray                   # [C] f32: 1 = a real cohort row
-    draws: Optional[torch.Tensor]      # [S, C] tie-break uniforms or None
+    draws: Optional[torch.Tensor]      # [S, C] tie-break uniforms; None
+                                       # (tie-break off, or keyed)
     rng_state: Optional[dict] = None   # the streams before this plan drew
 
 
@@ -271,6 +297,8 @@ class TieredRoundEngine(MeshBackends):
         # this rank's lanes of the cohort
         self._lanes = (mesh.block(self.cohort) if self.sharded
                        else (0, self.cohort))
+        # the size rule: above it no [S, C] tie-break sheet exists
+        self.keyed_tie_break = keyed_tie_break(cfg, self.n_sel)
 
         # ---- the membership timeline (a Markov chain over the fleet) ----
         self._elastic_np = None
@@ -328,7 +356,10 @@ class TieredRoundEngine(MeshBackends):
             data=data, ver_x=ver_x, ver_m=ver_m, priorities=priorities,
             cohort=self.n_sel, capacity=1, compact=self.compact,
             poison_fn=self.poison_fn, chaos=self.chaos, elastic=self.elastic,
-            cluster=self.cluster, mesh=self.mesh, n_global=self.cohort)
+            cluster=self.cluster, mesh=self.mesh, n_global=self.cohort,
+            tie_keys=({"vote": self.rngs.vote_key(),
+                       "reelect": self.rngs.reelect_key()}
+                      if self.keyed_tie_break else None))
         pin = self._cuda
 
         def slab(device, pinned):
@@ -427,7 +458,7 @@ class TieredRoundEngine(MeshBackends):
                 ids[j * w:j * w + srt.size] = srt
                 sel_pos[in_blk] = j * w + np.searchsorted(srt, blk)
         draws = None
-        if self.cfg.compat.vote_tie_break:
+        if self.cfg.compat.vote_tie_break and not self.keyed_tie_break:
             # the selected clients' columns from the run's generator, in
             # cohort order; 0.5 (a factor of 1) on the pad lanes
             draws = torch.full((len(sel), self.cohort), 0.5)
@@ -577,7 +608,7 @@ class TieredRoundEngine(MeshBackends):
                           straggler=np.where(pad, 0.0, m.straggler),
                           crash=m.crash,
                           bcast_drop=np.where(pad, 0.0, m.bcast_drop))
-            if self.cfg.compat.vote_tie_break:
+            if self.cfg.compat.vote_tie_break and not self.keyed_tie_break:
                 inputs["reelect_draws"] = self._reelect_columns(
                     t, rows, self.n_sel)[None]
         if self._elastic_np is not None:
@@ -608,10 +639,13 @@ class TieredRoundEngine(MeshBackends):
         agg = np.zeros(self.cohort, np.int32)
         real = plan.ids >= 0
         agg[real] = self.host.aggregation_count[plan.ids[real]]
+        keyed = {}
+        if self.keyed_tie_break:
+            keyed = {"rounds": [plan.round_index], "lane_ids": plan.ids}
         return self._round.dispatch(
             [plan.sel_pos.tolist()],
             None if plan.draws is None else plan.draws[None], agg,
-            **self._mask_kwargs(plan))
+            **self._mask_kwargs(plan), **keyed)
 
     def _fetch_states(self) -> ClientStates:
         """The round's output state on its way to the host: into the

@@ -13,13 +13,15 @@ fedmse_tpu/federation/voting.py).
     under the quota; each voter call draws fresh scores.
   * `elect_on_device`: the same election as device ops, for the fused
     round (federation/fused.py): one scoring launch, each voter's
-    tie-break drawn ahead of the round; `elect_on_device_runs` runs R
-    federations' elections at once (the batched round).
+    tie-break drawn ahead of the round ([S, N]) or, from a `KeyedDraws`
+    source, computed for the one voter the election reads (O(N));
+    `elect_on_device_runs` runs R federations' elections at once (the
+    batched round).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,9 +31,31 @@ from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.losses import safe_div
 from fedmse_tpu_torch.ops.stats import masked_mean_std
-from fedmse_tpu_torch.utils.seeding import pad_draws
+from fedmse_tpu_torch.utils.seeding import keyed_uniform_row, pad_draws
 
 VOTE_BATCH = 128
+
+
+class KeyedDraws(NamedTuple):
+    """A keyed tie-break source (utils/seeding.keyed_uniform_row): voter
+    v's uniforms are a hash of (key, round, v, the lanes' absolute ids),
+    computed on the device for the voter an election reads. All three are
+    device buffers a captured body reads: key int64 [K] (key_words of the
+    stream key), round int64 0-d (the absolute round), ids int64 [N] (-1:
+    a pad lane, factor 1)."""
+
+    key: torch.Tensor
+    round: torch.Tensor
+    ids: torch.Tensor
+
+    def rows(self, voter_pos: torch.Tensor) -> torch.Tensor:
+        """The uniforms of the voters at selection positions `voter_pos`
+        ([k] int64): [k, N]."""
+        return keyed_uniform_row(self.key, self.round, voter_pos[:, None],
+                                 self.ids)
+
+
+TieBreak = Union[torch.Tensor, KeyedDraws, None]
 
 
 def make_mse_scores_fn(model, restandardize: bool = True,
@@ -107,7 +131,7 @@ def tie_break_jitter(scores: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return scores * (1.0 + (u - 0.5) * 0.0002)
 
 
-def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
+def elect_on_device(base: torch.Tensor, draws: TieBreak,
                     sel: torch.Tensor, sel_mask: torch.Tensor,
                     agg_count: torch.Tensor, max_threshold: int,
                     voters: Optional[torch.Tensor] = None,
@@ -121,7 +145,8 @@ def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
 
     base [N]: the vote scores without tie-break (`make_mse_scores_fn` is
     deterministic, so one launch serves every voter); draws [S, N]: voter
-    i's tie-break uniforms, or None when the tie-break is off; sel [S]
+    i's tie-break uniforms, or a KeyedDraws that computes only the
+    winning voter's row, or None when the tie-break is off; sel [S]
     int64: the selection in selection order; agg_count [N] int32: the
     quota. Voter i ranks the selected clients but itself that are under
     the quota; NaN ranks worst, and equal scores go to the earliest
@@ -169,8 +194,12 @@ def elect_on_device(base: torch.Tensor, draws: Optional[torch.Tensor],
     first = found.to(torch.int32).argmax().view(1)  # a device index
     won = found.any()
     voter = sel.index_select(0, first)               # [1]
-    scores = (base if draws is None
-              else tie_break_jitter(base, draws.index_select(0, first)[0]))
+    if draws is None:
+        scores = base
+    else:
+        u = (draws.rows(first) if isinstance(draws, KeyedDraws)
+             else draws.index_select(0, first))
+        scores = tie_break_jitter(base, u[0])
     cand = elig & (ids != voter)
     if cluster_in is not None:
         cand = cand & (cluster_in == cluster_in.index_select(0, voter))

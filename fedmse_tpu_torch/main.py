@@ -79,11 +79,14 @@ CUDA use (parallel/multihost.initialize): NCCL between cards, gloo under
 --device cpu. A mesh is built only when the world size is above 1 (at
 world 1 the run is the plain run, bit for bit); the client axis is padded
 to a multiple of the ranks, every rank trains its block, and only rank 0
-writes results, checkpoints and snapshots, from the gathered states. A
-padded run is the unpadded federation (utils/seeding.py): the init and
-the tie-breaks are drawn at the real client count, so any W makes the
-one-card run's draws and elections; only the merge's summation order
-moves with W.
+writes results, checkpoints and snapshots, from the gathered states.
+Padding draws nothing (utils/seeding.py): the init and the tie-breaks
+are drawn at the real client count, so any W makes the one-card run's
+draws and selections. The merge sums the ranks' partials in rank order
+(as the JAX package's psum does), so only its last bits move with W:
+with the tie-break off the elections are the one-card run's; with it on
+round 1's are, and a later one may flip where Adam on a loss plateau
+turns those bits into another ranking.
 `--state-layout tiered --use-mesh` shards each round's cohort over the
 ranks, and `--host-sharded true` keeps each rank's block of the fleet's
 tier on its own host (federation/tiered.py). The red team is ported

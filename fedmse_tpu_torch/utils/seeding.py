@@ -35,13 +35,23 @@ is never a candidate).
 
 `make_run_rngs` gives the R runs of a combination their streams, each
 exactly the sequential driver's run r (federation/batched.py).
+
+`keyed_uniform_row` is a stateless tie-break stream for elections whose
+[voters, clients] sheet would not fit (federation/tiered.py's size
+rule): voter v's uniform for absolute client i at absolute round t is a
+counter-based hash of (run seed, stream tag, t, v, i), computed on the
+device for the one voter an election reads. It consumes nothing, so
+prefetch, rewind, resume and padding cannot shift it, and the CPU and
+the card give the same bits (integer ops only). This mirrors the JAX
+package's rule of `fold_in` per voter, then per absolute client;
+`keyed_uniform_row_np` is its numpy twin.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import random
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +64,10 @@ ATTACK_STREAM_TAG = 0x41545441
 REDTEAM_STREAM_TAG = 0x52454454
 # "IPAD": the pad clients' init (ExperimentRngs.init_pad_key)
 INIT_PAD_STREAM_TAG = 0x49504144
+# "VOTE": the keyed vote tie-break (ExperimentRngs.vote_key); "RELE": the
+# chaos stream's keyed crash re-election (ExperimentRngs.reelect_key)
+VOTE_STREAM_TAG = 0x564F5445
+REELECT_STREAM_TAG = 0x52454C45
 
 StreamKey = Tuple[int, int]  # (run seed, stream tag)
 
@@ -65,6 +79,112 @@ def stream_rng(key: StreamKey, *ids: int) -> np.random.Generator:
     within a stream."""
     return np.random.Generator(np.random.PCG64(np.random.SeedSequence(
         [int(key[0]), int(key[1])] + [int(i) for i in ids])))
+
+
+_M32 = 0xFFFFFFFF
+# MurmurHash3 (x86, 32-bit) constants
+_C1, _C2, _C3 = 0xCC9E2D51, 0x1B873593, 0xE6546B64
+_F1, _F2 = 0x85EBCA6B, 0xC2B2AE35
+
+
+def key_words(key: Sequence[int]) -> List[int]:
+    """A stream key's ints as 32-bit words, low half then high half each
+    (the words keyed_uniform_row hashes)."""
+    out: List[int] = []
+    for k in key:
+        k = int(k)
+        out += [k & _M32, (k >> 32) & _M32]
+    return out
+
+
+def _mul32(a, c: int):
+    """(a c) mod 2^32 for int64 a in [0, 2^32): two 16-bit halves of c, so
+    no product leaves int64 (torch has no uint64)."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _rotl32(a, r: int):
+    return ((a << r) & _M32) | (a >> (32 - r))
+
+
+def _absorb(h, w):
+    """One 32-bit word into the MurmurHash3 state h (both in [0, 2^32);
+    every shift is of a non-negative value, so `>>` is logical)."""
+    k = _mul32(_rotl32(_mul32(w, _C1), 15), _C2)
+    h = _rotl32(h ^ k, 13)
+    return (_mul32(h, 5) + _C3) & _M32
+
+
+def _fmix32(h):
+    h = h ^ (h >> 16)
+    h = _mul32(h, _F1)
+    h = h ^ (h >> 13)
+    h = _mul32(h, _F2)
+    return h ^ (h >> 16)
+
+
+def keyed_uniform_row(key: torch.Tensor, round_t: torch.Tensor,
+                      voter_pos: torch.Tensor, ids: torch.Tensor
+                      ) -> torch.Tensor:
+    """Voter `voter_pos`'s tie-break uniforms at absolute round `round_t`,
+    f32 [..., N]: MurmurHash3 over the words of `key` (key_words of (run
+    seed, stream tag, ...), int64 [K]), the round, the voter's position in
+    the selection and each lane's absolute client id `ids` (int64 [N]; low
+    and high words), the top 24 bits times 2^-24. A pad lane (id < 0)
+    gives 0.5, a factor of exactly 1 (pad_draws). round_t and voter_pos
+    are int64 device tensors broadcast against ids (voter_pos [S, 1] gives
+    the [S, N] sheet); nothing is read on the host, so a captured body
+    replays it with whatever its buffers hold. Integer ops only: the CPU
+    and the card give the same bits."""
+    h = torch.zeros((), dtype=torch.int64, device=ids.device)
+    for j in range(key.shape[0]):
+        h = _absorb(h, key[j])
+    h = _absorb(h, round_t & _M32)
+    h = _absorb(h, voter_pos & _M32)
+    lane = torch.clamp(ids, min=0)
+    h = _absorb(h, lane & _M32)
+    h = _absorb(h, (lane >> 32) & _M32)
+    h = _fmix32(h ^ (4 * (key.shape[0] + 4)))
+    u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return torch.where(ids >= 0, u, 0.5)
+
+
+def keyed_uniform_row_np(key: Sequence[int], round_t: int, voter_pos,
+                         ids) -> np.ndarray:
+    """keyed_uniform_row in numpy uint64 (its twin for the tests): `key`
+    the stream key's ints (key_words splits them), `voter_pos` an int or
+    an array broadcast against `ids`."""
+    m = np.uint64(_M32)
+
+    def mul(a, c):
+        return (a * np.uint64(c)) & m
+
+    def rotl(a, r):
+        return ((a << np.uint64(r)) & m) | (a >> np.uint64(32 - r))
+
+    def absorb(h, w):
+        k = mul(rotl(mul(np.asarray(w, np.uint64), _C1), 15), _C2)
+        h = rotl(h ^ k, 13)
+        return (mul(h, 5) + np.uint64(_C3)) & m
+
+    words = key_words(key)
+    ids = np.asarray(ids, dtype=np.int64)
+    lane = np.maximum(ids, 0).astype(np.uint64)
+    h = np.uint64(0)
+    for w in words:
+        h = absorb(h, np.uint64(w))
+    h = absorb(h, np.uint64(int(round_t) & _M32))
+    h = absorb(h, np.asarray(voter_pos, np.int64).astype(np.uint64) & m)
+    h = absorb(h, lane & m)
+    h = absorb(h, (lane >> np.uint64(32)) & m)
+    h = h ^ np.uint64(4 * (len(words) + 4))
+    h = h ^ (h >> np.uint64(16))
+    h = mul(h, _F1)
+    h = h ^ (h >> np.uint64(13))
+    h = mul(h, _F2)
+    h = h ^ (h >> np.uint64(16))
+    u = (h >> np.uint64(8)).astype(np.float32) * np.float32(1.0 / (1 << 24))
+    return np.where(ids >= 0, u, np.float32(0.5)).astype(np.float32)
 
 
 def pad_draws(draws: torch.Tensor, width: Optional[int] = None
@@ -108,6 +228,17 @@ class ExperimentRngs:
         """The key of this run's pad-client init stream (state.
         init_client_states); calling it consumes nothing."""
         return (self.run_seed, INIT_PAD_STREAM_TAG)
+
+    def vote_key(self) -> StreamKey:
+        """The key of this run's keyed vote tie-break (keyed_uniform_row);
+        calling it consumes nothing."""
+        return (self.run_seed, VOTE_STREAM_TAG)
+
+    def reelect_key(self) -> Tuple[int, int, int]:
+        """The key of this run's keyed crash re-election tie-break: the
+        chaos key and a re-election tag (keyed_uniform_row); calling it
+        consumes nothing."""
+        return self.chaos_key() + (REELECT_STREAM_TAG,)
 
     def chaos_key(self) -> StreamKey:
         """The key of this run's chaos stream (chaos/masks.py); calling it

@@ -72,6 +72,19 @@ def data_source(shards: Optional[str], n_clients: int) -> str:
             f"1,700 normal / 3,300 abnormal rows a client, seed 0)")
 
 
+def tie_break_phrase(cfg, n_sel: int) -> str:
+    """The `protocol` phrase naming a tier run's vote tie-break: off, the
+    generator's [S, S] sheet, or keyed rows (federation/tiered.py's size
+    rule, at `n_sel` clients selected a round)."""
+    from fedmse_tpu_torch.federation.tiered import keyed_tie_break
+    if not cfg.compat.vote_tie_break:
+        return "vote tie-break off"
+    if keyed_tie_break(cfg, n_sel):
+        return ("vote tie-break on (keyed rows: only the voter the "
+                "election reads)")
+    return "vote tie-break on (the generator's [S, S] sheet)"
+
+
 def light_clients(n_clients: int, dim: int, rows_train: int = 16,
                   rows_valid: int = 4, rows_test: int = 10, seed: int = 0
                   ) -> Tuple[List[ClientData], np.ndarray]:

@@ -1848,3 +1848,35 @@ def test_realdata_driver_run_on_card(cuda, tmp_path):
             assert fused_forward_stats.launches > before[1]
     assert np.isfinite(finals["cuda"]).all()
     assert abs(finals["cuda"].mean() - finals["cpu"].mean()) <= 2e-3
+
+
+@pytest.mark.parametrize("key", [(987654321, 0x564F5445),
+                                 (10000, 0x4348414F, 0x52454C45)])
+def test_keyed_tie_break_row_on_card_is_the_cpu_bits(cuda, key):
+    """The keyed tie-break (utils/seeding.keyed_uniform_row) on the card:
+    the same bits as on the CPU and as its numpy twin, at 100,000 lanes
+    with pad ids, under a captured graph too (the tier's `leave` body
+    computes it there, reading the round from a device buffer)."""
+    from fedmse_tpu_torch.ops.graphs import CapturedBody
+    from fedmse_tpu_torch.utils.seeding import (key_words,
+                                                keyed_uniform_row,
+                                                keyed_uniform_row_np)
+    ids = np.arange(100_000, dtype=np.int64) * 21_473 % (2 ** 33)
+    ids[::97] = -1
+    k = torch.tensor(key_words(key), dtype=torch.int64)
+    voters = torch.tensor([[0], [1], [4095], [99_999]])
+    rounds = torch.zeros((), dtype=torch.int64, device=cuda)
+    out = torch.empty((4, ids.size), device=cuda)
+    args = (k.to(cuda), rounds, voters.to(cuda),
+            torch.from_numpy(ids).to(cuda))
+    body = CapturedBody(lambda: out.copy_(keyed_uniform_row(*args)), cuda,
+                        "keyed row")
+    for t in (3, 17):  # the eager first call, then a replay
+        rounds.fill_(t)
+        body()
+        torch.cuda.synchronize()
+        cpu = keyed_uniform_row(k, torch.tensor(t), voters,
+                                torch.from_numpy(ids))
+        assert torch.equal(out.cpu().view(torch.int32), cpu.view(torch.int32))
+        np.testing.assert_array_equal(
+            cpu.numpy(), keyed_uniform_row_np(key, t, voters.numpy(), ids))

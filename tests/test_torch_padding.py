@@ -17,7 +17,8 @@ the unpadded run draws:
     the JAX test's own bar (2e-3, the same aggregator) beside them;
   * the batched runs (R = 3) padded against unpadded, likewise;
   * the tier on a one-host 2-rank mesh whose cohort of 3 pads to 4 lanes
-    against the tier at world 1 (tests/torch_mesh_jobs.py `tier_odd`);
+    against the tier at world 1 (tests/torch_mesh_jobs.py `tier_odd`),
+    also above the tie-break's size rule (`tier_odd_keyed`);
   * an unpadded run draws what it always drew: its init is
     init_stacked_params(model, n, gen) and its draws torch.rand((R, S, n),
     generator=gen), so runs recorded before padding stopped mattering stay
@@ -233,6 +234,28 @@ def test_tier_odd_cohort_on_two_ranks_matches_world_one(sessions):
     assert abs(np.nanmean(got["final"]) - np.nanmean(want["final"])) <= 2e-3
     for r in ranks[1:]:
         np.testing.assert_array_equal(r["tier_odd"]["params"], got["params"])
+
+
+def test_keyed_tier_odd_cohort_on_two_ranks_matches_world_one(sessions):
+    """The same above the tie-break's size rule (lowered to 0): keyed rows
+    read absolute client ids, so the cohort of 3 padded to 4 lanes on 2
+    ranks elects what world 1 elects, round 1's winning scores bit for
+    bit, with no [S, C] draws on either side."""
+    ranks, _ = sessions[2]
+    got = ranks[0]["tier_odd_keyed"]
+    want = jobs.run_tier(None, ratio=0.25, tie_break=True, sheet_bytes=0)
+    assert got["keyed"] and want["keyed"]
+    assert got["cohort"] == 4 and want["cohort"] == 3
+    for a, b in zip(got["results"], want["results"], strict=True):
+        assert a["selected"] == b["selected"]
+        assert a["aggregator"] == b["aggregator"]
+        assert a["verification_results"] == b["verification_results"]
+    np.testing.assert_array_equal(got["results"][0]["mse_scores"],
+                                  want["results"][0]["mse_scores"])
+    close(got["params"], want["params"], 1e-6)
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r["tier_odd_keyed"]["params"],
+                                      got["params"])
 
 
 # ------------------------------------- an unpadded run's draws, pinned ----

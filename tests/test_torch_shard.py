@@ -537,6 +537,32 @@ def test_padded_mesh_trains_the_unpadded_federation(sessions, run):
     close(pick(4)["params"][:10], pick(2)["params"], 1e-6)
 
 
+@pytest.mark.parametrize("run", ["rounds_tie", "phase_tie"])
+def test_mesh_with_the_tie_break_holds_draws_selections_and_round_one(
+        sessions, run):
+    """What a mesh holds with the tie-break on, at W = 2 against the
+    dense run from the port's own init, fused and per-phase: the run's
+    generator draws the same uniforms (it ends in the dense run's state),
+    every round selects the same clients, round 1 elects the same
+    aggregator and its params agree within 1e-6 scale-normalized. Later
+    elections are not part of the claim: the exact merge sums the ranks'
+    partials in rank order (as the JAX package's psum sums in device
+    order), and Adam on a plateau can turn that ulp into another
+    election (it did on an H100)."""
+    from fedmse_tpu_torch.config import CompatConfig
+    got = _ranks(sessions, 2)[0][run]
+    dense = jobs.run_engine(None, jobs.config(compat=CompatConfig(
+        vote_tie_break=True)), fused=run == "rounds_tie")
+    np.testing.assert_array_equal(got["generator"], dense["generator"])
+    for a, b in zip(got["results"], dense["results"], strict=True):
+        assert a["selected"] == b["selected"]
+    assert got["results"][0]["aggregator"] == \
+        dense["results"][0]["aggregator"]
+    close(got["params1"], dense["params1"], 1e-6)
+    for r in _ranks(sessions, 2)[1:]:
+        np.testing.assert_array_equal(r[run]["generator"], got["generator"])
+
+
 def _pkg_warnings(caplog):
     return [r.getMessage() for r in caplog.records
             if "inert" in r.getMessage()]

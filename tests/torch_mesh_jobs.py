@@ -151,6 +151,7 @@ def run_engine(mesh, cfg, n_real=N_CLIENTS, pad_to=0, init=None,
     return {"results": [_result(r) for r in res], "params1": p1,
             "params": eng.gathered_states().params.numpy(),
             "final": eng.evaluate(), "compact": eng.compact,
+            "generator": eng.rngs.generator.get_state().numpy(),
             "backend": eng.agg_backend,
             "plan": None if eng._merge_plan is None
             else eng._merge_plan["chosen"],
@@ -284,12 +285,23 @@ def _nbytes(tensors) -> int:
 def run_tier(mesh, host_sharded: bool = False, ratio: float = 1.0,
              resume_dir=None, cluster_refit: int = 0, n: int = 12,
              rounds: int = 3, hosts=None, local_data: bool = False,
-             tie_break: bool = False) -> Dict:
+             tie_break: bool = False, sheet_bytes=None) -> Dict:
     """The tier over `mesh`; `hosts` names the ranks' hosts in place of
     the mesh's own (the same process group), `local_data` hands each
-    rank only its block of client rows, and `tie_break` turns the vote's
-    tie-break on."""
+    rank only its block of client rows, `tie_break` turns the vote's
+    tie-break on and `sheet_bytes` replaces the tier's size rule
+    (federation/tiered.TIE_BREAK_SHEET_BYTES; 0 keys every tie-break)."""
     import dataclasses
+    from fedmse_tpu_torch.federation import tiered
+    if sheet_bytes is not None:
+        rule = tiered.TIE_BREAK_SHEET_BYTES
+        tiered.TIE_BREAK_SHEET_BYTES = sheet_bytes
+        try:
+            return run_tier(mesh, host_sharded, ratio, resume_dir,
+                            cluster_refit, n, rounds, hosts, local_data,
+                            tie_break)
+        finally:
+            tiered.TIE_BREAK_SHEET_BYTES = rule
     from fedmse_tpu_torch.checkpointing import CheckpointManager
     from fedmse_tpu_torch.cluster import ClusterSpec
     from fedmse_tpu_torch.federation.tiered import (COHORT_DATA_FIELDS,
@@ -330,7 +342,8 @@ def run_tier(mesh, host_sharded: bool = False, ratio: float = 1.0,
             "host_bytes": eng.store.host_bytes(),
             "params": eng.store.host.params.numpy().copy(),
             "cluster_fitted_round": eng.cluster_fitted_round,
-            "cohort": eng.cohort, "rounds_run": out["rounds_run"]}
+            "cohort": eng.cohort, "rounds_run": out["rounds_run"],
+            "keyed": eng.keyed_tie_break}
 
 
 # ---- serving, the plan, the driver ---- #
@@ -488,6 +501,9 @@ def session(mesh, init_path: str = "", ckpt_dir: str = "",
     out["tier_local"] = run_tier(mesh, host_sharded=True, local_data=True)
     # a cohort of 3 pads to 4 lanes on 2 ranks (tests/test_torch_padding)
     out["tier_odd"] = run_tier(mesh, ratio=0.25, tie_break=True)
+    # the same above the tie-break's size rule: keyed rows, no [S, C] sheet
+    out["tier_odd_keyed"] = run_tier(mesh, ratio=0.25, tie_break=True,
+                                     sheet_bytes=0)
     out["serving"] = serving(mesh)
     out["plan"] = plan(mesh, cache_path)
     if dataset:
