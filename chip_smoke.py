@@ -137,14 +137,22 @@ build/fedmse_tpu_torch/), then:
                 time, the host's peak RSS and MemAvailable, and the peak
                 device bytes beside cohort_bytes(), which must agree
                 within 5% across N; (d) the dense fused engine at 100,000
-                gateways and C = 512, sec/round and peak device bytes,
+                gateways and C = 512 (the tie-break keyed: above the size
+                rule at (C, N)), sec/round and peak device bytes,
                 recorded; (f) the --podscale drivers' federation (8/6/3,
                 100,000 bulk gateways, full participation, 2 rounds)
                 with the vote tie-break on, above the tier's size rule:
                 no [S, C] tie-break tensor on the host or the card, the
                 peak device bytes within 5% of the same run with the
                 tie-break off, the keyed row on the card the CPU's bits,
-                and the keyed hash's device time at N;
+                and the keyed hash's device time at N; (g) the dense
+                fused engine at 100,000 bulk gateways at 8/6/3, batch 16,
+                full participation, a warm round and 2 timed ones with
+                the tie-break on (keyed: no S x N buffer, the generator
+                untouched, the card's row the CPU's bits) and off, peak
+                device bytes within 1%, both kernels launched; then 3
+                batched keyed runs of 10,000 gateways, each run's
+                election the run's alone on the card;
      flywheel   (after the main path) the flywheel control loop
                 (--flywheel) on the trained hybrid / mse_avg checkpoint:
                 (a) the kernels at its shapes (the fine-tune's train step
@@ -3930,6 +3938,15 @@ TIERED_PEAK_TOL = 0.05             # (c): peak device bytes, N vs N
 # podscale_config), 2 rounds at full participation
 TIERED_KEYED_DIMS = (8, 6, 3)
 TIERED_KEYED_ROUNDS = 2
+# (g): the dense fused engine at the largest N, full participation, at
+# (f)'s widths: one warm round, then TIERED_DENSE_TIMED_ROUNDS timed, the
+# tie-break on (keyed) and off, peak device bytes within
+# TIERED_DENSE_PEAK_TOL; then R = TIERED_BATCH_RUNS batched keyed runs at
+# TIERED_BATCH_N gateways against each run alone
+TIERED_DENSE_TIMED_ROUNDS = 2
+TIERED_DENSE_PEAK_TOL = 0.01
+TIERED_BATCH_N = 10_000
+TIERED_BATCH_RUNS = 3
 
 
 def bulk_federation(torch, n, dim, batch, seed):
@@ -4276,7 +4293,8 @@ def _host_seconds(engine) -> dict:
 def tiered_dense_at_scale(torch, device, cfg, bulk, n, smi):
     """(d) The dense fused engine at the same N and C, recorded with no
     limit: a warm round, then TIERED_TIMED_ROUNDS rounds in one chunk
-    (sec/round) and the peak device bytes."""
+    (sec/round) and the peak device bytes. The vote tie-break is on, and
+    its [C, N] sheet is above the size rule: the rounds are keyed."""
     from fedmse_tpu_torch.federation import RoundEngine
     from fedmse_tpu_torch.models import make_model
     from fedmse_tpu_torch.utils.seeding import ExperimentRngs
@@ -4299,10 +4317,11 @@ def tiered_dense_at_scale(torch, device, cfg, bulk, n, smi):
     if not all(np.isfinite(r.client_metrics).all() for r in res):
         raise AssertionError("[tiered] (d) dense metrics not finite")
     out = {"n": n, "cohort": c, "device": smi, "init_s": init_s,
-           "sec_per_round": sec,
+           "sec_per_round": sec, "keyed": eng.keyed_tie_break,
            "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
                                  - base) if device.type == "cuda" else None}
-    log(f"[tiered] (d) dense fused engine at N = {n}, C = {c} ({smi}): "
+    log(f"[tiered] (d) dense fused engine at N = {n}, C = {c} ({smi}), "
+        f"tie-break keyed {out['keyed']}: "
         f"init {init_s:.3f} s, {sec:.4f} s/round over "
         f"{TIERED_TIMED_ROUNDS} rounds in one chunk, peak device "
         f"{out['peak_device_bytes']} B")
@@ -4318,8 +4337,7 @@ def _keyed_run(torch, device, tc, bulk, n, before):
     from fedmse_tpu_torch.federation.tiered import TieredRoundEngine
     from fedmse_tpu_torch.federation.voting import KeyedDraws
     from fedmse_tpu_torch.models import make_model
-    from fedmse_tpu_torch.utils.seeding import (ExperimentRngs,
-                                                keyed_uniform_row_np)
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
 
     class Spied(TieredRoundEngine):
         """Records whether each plan drew a tie-break sheet."""
@@ -4357,32 +4375,21 @@ def _keyed_run(torch, device, tc, bulk, n, before):
             raise AssertionError(f"[tiered] (f) the keyed run never "
                                  f"launched {name}")
     f = eng._round
-    sheet = [name for name, t in list(vars(f).items())
-             + list(f.round_in.items()) + list(f.chunk_in.items())
-             if isinstance(t, torch.Tensor) and t.dim() >= 2
-             and tuple(t.shape[-2:]) == (n, n)]
+    sheet = _round_sheets(torch, f, n, n)
     if not (eng.keyed_tie_break and f.u is None and f.u_all is None
             and not sheet and not any(eng.plan_sheets)
             and torch.equal(eng.rngs.generator.get_state(), init_gen)):
         raise AssertionError(f"[tiered] (f) the keyed path was not taken: "
                              f"sheets {sheet}, plan sheets "
                              f"{eng.plan_sheets}")
-    src = KeyedDraws(f.tie_key["vote"], f.round_t, f.lane_ids)
-    voters = torch.tensor([0, 1, 2, n // 2, n - 1], device=device)
-    card = src.rows(voters)
-    cpu = KeyedDraws(src.key.cpu(), src.round.cpu(),
-                     src.ids.cpu()).rows(voters.cpu())
-    twin = keyed_uniform_row_np(eng.rngs.vote_key(), int(src.round),
-                                voters.cpu().numpy()[:, None],
-                                src.ids.cpu().numpy())
-    run["row_bits_equal"] = bool(
-        torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32))
-        and np.array_equal(cpu.numpy().view(np.int32), twin.view(np.int32)))
+    run["row_bits_equal"] = _keyed_row_bits(torch, f, eng.rngs.vote_key(),
+                                            n, device)
     if not run["row_bits_equal"]:
         raise AssertionError("[tiered] (f) the keyed row on the card "
                              "differs from the CPU's")
     if device.type == "cuda":
-        first = voters[:1]
+        src = KeyedDraws(f.tie_key["vote"], f.round_t, f.lane_ids)
+        first = torch.zeros(1, dtype=torch.int64, device=device)
         run["hash_ms"] = cuda_ms(lambda: src.rows(first), 50)
         # as a node stretch of the captured `leave` graph runs it
         run["hash_graph_ms"] = graph_ms(torch, lambda: src.rows(first),
@@ -4400,14 +4407,10 @@ def tiered_keyed_tie_break(torch, device, cfg, n, smi):
     row of the round's own buffers on the card bit-equal to the CPU's
     and the numpy twin's for the same (key, round, voter, ids), and the
     one [N] hash an election computes, timed on the card."""
-    from fedmse_tpu_torch.config import CompatConfig
     from fedmse_tpu_torch.federation.tiered import keyed_tie_break
     dim, hid, lat = TIERED_KEYED_DIMS
-    kc = cfg.replace(dim_features=dim, hidden_neus=hid, latent_dim=lat,
-                     network_size=n, epochs=2, batch_size=16,
-                     num_rounds=TIERED_KEYED_ROUNDS, num_participants=1.0,
-                     state_layout="tiered",
-                     compat=CompatConfig(shared_last_client_val=False))
+    kc = _keyed_config(cfg, n, True, num_rounds=TIERED_KEYED_ROUNDS,
+                       state_layout="tiered")
     if not keyed_tie_break(kc, n):
         raise AssertionError(f"[tiered] (f) N = {n} is under the size rule")
     bulk = bulk_federation(torch, n, dim, kc.batch_size, SEED + 22)
@@ -4415,8 +4418,8 @@ def tiered_keyed_tie_break(torch, device, cfg, n, smi):
            "rounds": TIERED_KEYED_ROUNDS, "device": smi}
     before = dict(TIERED_LAUNCHES)
     for tie in (True, False):
-        tc = kc.replace(compat=CompatConfig(shared_last_client_val=False,
-                                            vote_tie_break=tie))
+        tc = _keyed_config(cfg, n, tie, num_rounds=TIERED_KEYED_ROUNDS,
+                           state_layout="tiered")
         held = _clear_card(torch, device)
         run = _keyed_run(torch, device, tc, bulk, n, before)
         # bytes the run left allocated once it was freed (0 expected)
@@ -4442,6 +4445,228 @@ def tiered_keyed_tie_break(torch, device, cfg, n, smi):
         f"{out['on'].get('hash_graph_ms')} ms as a graph replay; aggregators "
         f"{out['on']['aggregators']} on, {out['off']['aggregators']} off; "
         f"the keyed run's launches {json.dumps(out['on']['launches'])}")
+    del bulk
+    return out
+
+
+def _keyed_config(cfg, n, tie, **kw):
+    """(f)'s and (g)'s federation config: the --podscale drivers' widths,
+    batch 16, 2 epochs, every client selected, the tie-break on or off."""
+    from fedmse_tpu_torch.config import CompatConfig
+    dim, hid, lat = TIERED_KEYED_DIMS
+    return cfg.replace(dim_features=dim, hidden_neus=hid, latent_dim=lat,
+                       network_size=n, epochs=2, batch_size=16,
+                       num_participants=1.0,
+                       compat=CompatConfig(shared_last_client_val=False,
+                                           vote_tie_break=tie), **kw)
+
+
+def _keyed_row_bits(torch, f, key, n, device) -> bool:
+    """A keyed round's vote row, from its own device buffers, at five
+    voter positions: the card's bits are the CPU's and the numpy twin's."""
+    from fedmse_tpu_torch.federation.voting import KeyedDraws
+    from fedmse_tpu_torch.utils.seeding import keyed_uniform_row_np
+    src = KeyedDraws(f.tie_key["vote"], f.round_t, f.lane_ids)
+    voters = torch.tensor([0, 1, 2, n // 2, n - 1], device=device)
+    card = src.rows(voters)
+    cpu = KeyedDraws(src.key.cpu(), src.round.cpu(),
+                     src.ids.cpu()).rows(voters.cpu())
+    twin = keyed_uniform_row_np(key, int(src.round),
+                                voters.cpu().numpy()[:, None],
+                                src.ids.cpu().numpy())
+    return bool(
+        torch.equal(card.cpu().view(torch.int32), cpu.view(torch.int32))
+        and np.array_equal(cpu.numpy().view(np.int32), twin.view(np.int32)))
+
+
+def _round_sheets(torch, f, s, n):
+    """The names of a fused round's tensors whose last two axes are the
+    [S, N] tie-break sheet's."""
+    return [name for name, t in list(vars(f).items())
+            + list(f.round_in.items()) + list(f.chunk_in.items())
+            if isinstance(t, torch.Tensor) and t.dim() >= 2
+            and tuple(t.shape[-2:]) == (s, n)]
+
+
+def _dense_keyed_run(torch, device, tc, bulk, n):
+    """One (g) run (tiered_dense_keyed): a warm round, then
+    TIERED_DENSE_TIMED_ROUNDS rounds in one chunk; its record (with its
+    own kernel launches), and with the tie-break on the keyed path's
+    checks: no sheet, the generator untouched, the round's absolute
+    index the last round's, the card's row the CPU's bits and both
+    kernels launched in this run. Everything it builds dies at its
+    return."""
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    tie = tc.compat.vote_tie_break
+    base = _clear_card(torch, device)
+    data = _federation_rows(bulk, n, device)
+    launches = {}
+    with counted_launches(launches):
+        t0 = time.perf_counter()
+        eng = RoundEngine(make_model("hybrid", *TIERED_KEYED_DIMS,
+                                     tc.shrink_lambda, device=device), tc,
+                          data, n, ExperimentRngs(run=0), "hybrid",
+                          "mse_avg", fused=True)
+        init_s = time.perf_counter() - t0
+        init_gen = eng.rngs.generator.get_state()
+        t1 = time.perf_counter()
+        res = eng.run_rounds(0, 1)
+        _sync(torch, device)
+        warm_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        res += eng.run_rounds(1, TIERED_DENSE_TIMED_ROUNDS)
+        _sync(torch, device)
+        sec = (time.perf_counter() - t2) / TIERED_DENSE_TIMED_ROUNDS
+    run = {"keyed": eng.keyed_tie_break, "launches": launches,
+           "init_s": init_s,
+           "warm_round_s": warm_s, "sec_per_round": sec,
+           "peak_device_bytes": (torch.cuda.max_memory_allocated(device)
+                                 - base) if device.type == "cuda" else None,
+           "aggregators": [r.aggregator for r in res]}
+    for r in res:
+        if not np.isfinite(r.client_metrics).all():
+            raise AssertionError(f"[tiered] (g) tie-break {tie}: round "
+                                 f"{r.round_index} metrics not finite")
+    if not tie:
+        return run
+    f = eng.fused_round()
+    sheet = _round_sheets(torch, f, eng.cohort_size(), n)
+    if not (eng.keyed_tie_break and f.tie_keys is not None and f.u is None
+            and f.u_all is None and not sheet
+            and torch.equal(eng.rngs.generator.get_state(), init_gen)):
+        raise AssertionError(f"[tiered] (g) the keyed path was not taken: "
+                             f"sheets {sheet}")
+    if int(f.round_t) != TIERED_DENSE_TIMED_ROUNDS:
+        raise AssertionError(f"[tiered] (g) the keyed round's index is "
+                             f"{int(f.round_t)} after absolute round "
+                             f"{TIERED_DENSE_TIMED_ROUNDS}")
+    for name in ("fused_ae_forward", "fused_ae_train"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"[tiered] (g) the keyed run never "
+                                 f"launched {name}")
+    run["row_bits_equal"] = _keyed_row_bits(torch, f, eng.rngs.vote_key(),
+                                            n, device)
+    if not run["row_bits_equal"]:
+        raise AssertionError("[tiered] (g) the keyed row on the card "
+                             "differs from the CPU's")
+    return run
+
+
+def tiered_batched_keyed(torch, device, cfg, bulk, n):
+    """(g)'s batched half: R = TIERED_BATCH_RUNS runs of N = n gateways,
+    every client selected, the tie-break on (each run above the rule at
+    (S, n_real)), one round batched and each run alone: the keyed path
+    taken (no [R, S, N] buffer) and each run's selection and election
+    the run's alone; the launches of both in the record."""
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.federation.batched import BatchedRunEngine
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    runs = TIERED_BATCH_RUNS
+    tc = _keyed_config(cfg, n, True, num_rounds=1)
+    data = _federation_rows(bulk, n, device)
+    model = make_model("hybrid", *TIERED_KEYED_DIMS, tc.shrink_lambda,
+                       device=device)
+    _clear_card(torch, device)
+    launches = {}
+    with counted_launches(launches):
+        t0 = time.perf_counter()
+        bat = BatchedRunEngine(model, tc, data, n, runs, "hybrid",
+                               "mse_avg")
+        outs, sched, _ = bat.run_schedule_chunk(0, 1, np.ones(runs, bool))
+        _sync(torch, device)
+        batched_s = time.perf_counter() - t0
+        f = bat.fused_round()
+        sheet = _round_sheets(torch, f, bat.cohort_size(), n)
+        if not (bat.keyed_tie_break and f.u is None and f.u_all is None
+                and not sheet):
+            raise AssertionError(f"[tiered] (g) the batched keyed path was "
+                                 f"not taken: sheets {sheet}")
+        del bat, f
+        alone = []
+        for r in range(runs):
+            eng = RoundEngine(model, tc, data, n,
+                              ExperimentRngs(run=r, data_seed=tc.data_seed,
+                                             run_seed_stride=tc.
+                                             run_seed_stride),
+                              "hybrid", "mse_avg", fused=True)
+            res = eng.run_rounds(0, 1)[0]
+            alone.append((res.selected, res.aggregator))
+            del eng
+    out = {"n": n, "runs": runs, "batched_s": batched_s,
+           "launches": launches,
+           "batched": [None if o.aggregator < 0 else o.aggregator
+                       for o in outs[0]],
+           "alone": [a for _, a in alone]}
+    for r in range(runs):
+        if list(sched[0][r]) != list(alone[r][0]) \
+                or out["batched"][r] != alone[r][1]:
+            raise AssertionError(f"[tiered] (g) batched run {r} elected "
+                                 f"{out['batched'][r]}, alone "
+                                 f"{alone[r][1]}")
+    return out
+
+
+def tiered_dense_keyed(torch, device, cfg, n, smi):
+    """(g) The dense fused engine at N = n bulk gateways at (f)'s widths,
+    batch 16, every client selected (S = N), hybrid / mse_avg: a warm
+    round and TIERED_DENSE_TIMED_ROUNDS timed rounds with the vote
+    tie-break on (above the size rule at (S, N): keyed rows, no [S, N]
+    sheet) and off. Raises unless the keyed path was taken (no S x N
+    buffer in the round, the generator untouched by tie-breaks), a keyed
+    row on the card is the CPU's bits, the peak device bytes with the
+    tie-break on are within TIERED_DENSE_PEAK_TOL of off, and both
+    kernels launched in the keyed run; then tiered_batched_keyed at
+    TIERED_BATCH_N. The record's launches are the three runs' sum."""
+    from fedmse_tpu_torch.federation.voting import keyed_tie_break
+    kc = _keyed_config(cfg, n, True,
+                       num_rounds=1 + TIERED_DENSE_TIMED_ROUNDS)
+    if not keyed_tie_break(kc, n, n):
+        raise AssertionError(f"[tiered] (g) N = {n} is under the size rule")
+    t0 = time.perf_counter()
+    bulk = bulk_federation(torch, n, TIERED_KEYED_DIMS[0], kc.batch_size,
+                           SEED + 23)
+    out = {"n": n, "cohort": n, "dims": list(TIERED_KEYED_DIMS),
+           "timed_rounds": TIERED_DENSE_TIMED_ROUNDS, "device": smi,
+           "launches": {}}
+    for tie in (True, False):
+        tc = _keyed_config(cfg, n, tie,
+                           num_rounds=1 + TIERED_DENSE_TIMED_ROUNDS)
+        out["on" if tie else "off"] = _dense_keyed_run(
+            torch, device, tc, bulk, n)
+    _clear_card(torch, device)
+    if device.type == "cuda":
+        on, off = (out[k]["peak_device_bytes"] for k in ("on", "off"))
+        out["peak_spread"] = abs(on - off) / off
+        if out["peak_spread"] > TIERED_DENSE_PEAK_TOL:
+            raise AssertionError(f"[tiered] (g) peak device bytes {on} with "
+                                 f"the tie-break on against {off} off")
+    out["batched"] = tiered_batched_keyed(torch, device, cfg, bulk,
+                                          min(TIERED_BATCH_N, n))
+    for part in (out["on"], out["off"], out["batched"]):
+        for name, k in part["launches"].items():
+            out["launches"][name] = out["launches"].get(name, 0) + k
+    out["seconds"] = time.perf_counter() - t0
+    b = out["batched"]
+    log(f"[tiered] (g) dense fused engine at N = S = {n}, "
+        f"{'/'.join(map(str, TIERED_KEYED_DIMS))}, batch 16 ({smi}): "
+        f"tie-break on through keyed rows (no [S, N] buffer, the generator "
+        f"untouched, the card's row the CPU's bits) "
+        f"{out['on']['sec_per_round']:.4f} s/round over "
+        f"{TIERED_DENSE_TIMED_ROUNDS} rounds (warm "
+        f"{out['on']['warm_round_s']:.3f} s), off "
+        f"{out['off']['sec_per_round']:.4f} s/round (warm "
+        f"{out['off']['warm_round_s']:.3f} s); peak device "
+        f"{out['on']['peak_device_bytes']} B on against "
+        f"{out['off']['peak_device_bytes']} B off (spread "
+        f"{out.get('peak_spread')}, limit {TIERED_DENSE_PEAK_TOL}); "
+        f"aggregators {out['on']['aggregators']} on, "
+        f"{out['off']['aggregators']} off; batched R = {b['runs']} at "
+        f"N = {b['n']} keyed elected {b['batched']}, each run alone "
+        f"{b['alone']} ({b['batched_s']:.3f} s batched); launches "
+        f"{json.dumps(out['launches'])}; {out['seconds']:.1f} s")
     del bulk
     return out
 
@@ -4486,6 +4711,7 @@ def phase_tiered(torch, device, cfg, clients, data, smi):
     report["dense_at_scale"] = tiered_dense_at_scale(torch, device, cfg,
                                                      bulk, big, smi)
     del bulk
+    report["dense_keyed"] = tiered_dense_keyed(torch, device, cfg, big, smi)
     report["seconds"] = time.perf_counter() - t0
     log(f"[tiered] done in {report['seconds']:.1f} s")
     return report
@@ -5458,8 +5684,11 @@ def net_capacity(torch, device, smi):
     gate): a tier-0 stream as fast as one client sends measures what the
     socket path sustains, the admission capacity is set to the smaller of
     that and the probe, and open-loop streams of 1024-row bursts (tiers
-    0, 1, 2 in turn) run at 0.5x and 2x it: nothing shed at 0.5x; at 2x
-    rows shed, tier 0 never, the lowest tier most."""
+    0, 1, 2 in turn) run at 0.5x and 2x it: the bucket sheds nothing at
+    0.5x; at 2x rows shed, tier 0 never, the lowest tier most. What the
+    staleness gate sheds at 0.5x (bursts that queued past their tier's
+    limit, which a host that other work slows produces at any load) is
+    watched against 0, as the cell's p99 is, and not asserted."""
     from fedmse_tpu_torch.net import (AdmissionController, FrontHandle,
                                       NetFront, Router)
     from fedmse_tpu_torch.net.server import build_synthetic_replicas
@@ -5490,8 +5719,11 @@ def net_capacity(torch, device, smi):
         capacity = min(caps[2], sustained)
         for name, x in (("half", 0.5), ("double", 2.0)):
             admission.set_capacity(capacity)
+            stale = admission.stale_shed.copy()
             cells[name] = _open_loop(handle.port, x * capacity, NET_CELL_S,
                                      rows, gws, tiers)
+            cells[name]["stale_shed_by_tier"] = (admission.stale_shed
+                                                 - stale).tolist()
     finally:
         gc.unfreeze()
         handle.stop()
@@ -5506,10 +5738,13 @@ def net_capacity(torch, device, smi):
     watched("request p99 ms over TCP at 0.5x capacity",
             cells["half"]["request_p99_ms"], 25.0, False)
     half, double = cells["half"], cells["double"]
+    watched("rows shed by the staleness gate over TCP at 0.5x capacity",
+            sum(half["stale_shed_by_tier"]), 0.0, False)
     shed = double["shed_by_tier"]
     if not (all(c["exactly_once"] for c in cells.values())
             and cells["saturation"]["statuses"]["shed"] == 0
-            and half["statuses"]["shed"] == 0
+            and half["shed_by_tier"] == half["stale_shed_by_tier"]
+            and half["shed_by_tier"][0] == 0
             and double["statuses"]["shed"] > 0 and shed[0] == 0
             and shed[2] >= shed[1]):
         raise AssertionError(f"[net] (c) shedding: {json.dumps(out)}")
@@ -7519,6 +7754,8 @@ def run(torch, cfg, smi, t_start) -> int:
         kernel["redteam_path_launches"] = redteam["launches"][kernel["name"]]
         kernel["batch_path_launches"] = batch["launches"][kernel["name"]]
         kernel["tiered_path_launches"] = tiered["launches"][kernel["name"]]
+        kernel["tiered_dense_keyed_launches"] = \
+            tiered["dense_keyed"]["launches"].get(kernel["name"], 0)
         kernel["flywheel_path_launches"] = \
             flywheel["launches"][kernel["name"]]
         kernel["net_path_launches"] = net["launches"][kernel["name"]]

@@ -13,9 +13,12 @@ Determinism: client i's draws at round t come from
 `stream_rng(chaos_key, 1, t, 0)`, with t and i absolute, so the masks do
 not depend on chunking or on padding of the client axis. Outside the
 [start_round, stop_round) window every mask is all-clear, and a zero
-probability never fires (u < 0 is false for u in [0, 1)). The
+probability never fires (u < 0 is false for u in [0, 1)). Below the
+vote tie-break's size rule (federation/voting.keyed_tie_break) the
 re-election's tie-break draws come from the same stream
-(`reelection_draws`). `chaos_columns` and `reelection_columns` draw one
+(`reelection_draws`); above it the engines build no [T, S, N] horizon
+and the re-election reads keyed rows under the chaos key
+(utils/seeding.ExperimentRngs.reelect_key), one voter's row at a time. `chaos_columns` and `reelection_columns` draw one
 round at given absolute clients only (a tiered cohort's); the whole-fleet
 masks are made of them.
 `make_batched_chaos_masks` stacks R runs' masks,

@@ -13,7 +13,10 @@ sequentially.
 Each run stays the sequential driver's run r:
   * its own streams (utils/seeding.make_run_rngs): selections from run r's
     `select_rng` in round order, tie-break draws from its `generator` a
-    chunk at a time, init from its generator
+    chunk at a time (above the size rule, voting.keyed_tie_break, applied
+    per run at (S, n_real) as run r alone applies it: none drawn, each
+    election computing its voter's row from run r's keys), init from its
+    generator
     (state.init_batched_client_states), and its chaos, elastic and attack
     streams from its own keys;
   * its own states, verification history, rejected counters, quota and
@@ -59,12 +62,13 @@ from fedmse_tpu_torch.federation.fused import BatchedFusedRound
 from fedmse_tpu_torch.federation.local_training import make_local_train_all
 from fedmse_tpu_torch.federation.pipeline import InFlightChunk
 from fedmse_tpu_torch.federation.rounds import (RoundResult,
-                                                absorb_fused_out,
+                                                absorb_fused_out, lane_ids,
                                                 verification_tensors)
 from fedmse_tpu_torch.federation.state import (ClientStates, HostState,
                                                init_batched_client_states)
 from fedmse_tpu_torch.federation.verification import make_verify_fn
-from fedmse_tpu_torch.federation.voting import make_mse_scores_fn
+from fedmse_tpu_torch.federation.voting import (keyed_tie_break,
+                                                make_mse_scores_fn)
 from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.ops.fused_train import cluster_size
 from fedmse_tpu_torch.utils.seeding import make_run_rngs
@@ -163,6 +167,12 @@ class BatchedRunEngine:
     def cohort_size(self) -> int:
         return max(1, int(self.cfg.num_participants * self.n_real))
 
+    @property
+    def keyed_tie_break(self) -> bool:
+        """Whether the runs' rounds key their tie-breaks: the size rule
+        per run, at (S, n_real), never at R x S x N."""
+        return keyed_tie_break(self.cfg, self.cohort_size(), self.n_real)
+
     def select_clients(self, run: int) -> List[int]:
         """Run r's selection from its own host stream."""
         return self.rngs[run].select_rng.sample(range(self.n_real),
@@ -233,7 +243,7 @@ class BatchedRunEngine:
             out.update(self._attack_inputs(start_round, k))
         if self.chaos is not None:
             out.update(self._chaos_masks(start_round, k)._asdict())
-            if self.cfg.compat.vote_tie_break:
+            if self.cfg.compat.vote_tie_break and not self.keyed_tie_break:
                 out["reelect_draws"] = self._reelect_draws(start_round, k)
         if self.elastic is not None:
             out.update(self._elastic_masks(start_round, k)._asdict())
@@ -283,7 +293,10 @@ class BatchedRunEngine:
                 compact=self.compact, tie_break=cfg.compat.vote_tie_break,
                 metric_shape=metric_shape, poison=self.poison_fn,
                 chaos=self.chaos is not None,
-                elastic=self.elastic is not None)
+                elastic=self.elastic is not None,
+                tie_keys=({"vote": [r.vote_key() for r in self.rngs],
+                           "reelect": [r.reelect_key() for r in self.rngs]}
+                          if self.keyed_tie_break else None))
             self._fused = f
             self.states = f.states
         elif self.states is not f.states:
@@ -303,19 +316,28 @@ class BatchedRunEngine:
         fired. Selections and draws come from each run's streams in round
         order (k successive sequential rounds per run) unless `schedule`
         ([k][R][S]) / `draws` replay recorded ones with a tighter
-        `active_rounds` [k, R]. `agg_count`: None uploads the host's quota,
-        a previous chunk's device quota (InFlightChunk.agg_count) carries
-        on, an [R, N] array (a replay's entry quota) is uploaded.
+        `active_rounds` [k, R]; keyed rounds draw nothing and replay the
+        same keyed rounds (`draws` None). `agg_count`: None uploads the
+        host's quota, a previous chunk's device quota
+        (InFlightChunk.agg_count) carries on, an [R, N] array (a replay's
+        entry quota) is uploaded.
         `snapshot=True` keeps the chunk-entry states for a rewind."""
         if schedule is None:
             schedule = [[self.select_clients(r) for r in range(self.runs)]
                         for _ in range(k)]
-            if self.cfg.compat.vote_tie_break:
+            if self.cfg.compat.vote_tie_break and not self.keyed_tie_break:
                 draws = torch.stack([
                     r.vote_draws(k, self.cohort_size(), self.n_real,
                                  width=self.n_pad)
                     for r in self.rngs], dim=1)
         f = self.fused_round(k)
+        keyed = {}
+        if self.keyed_tie_break:
+            if f.tie_keys is None:
+                raise RuntimeError("above the tie-break's size rule the "
+                                   "batched round must be keyed")
+            keyed = {"rounds": range(start_round, start_round + k),
+                     "lane_ids": lane_ids(self.n_real, self.n_pad)}
         if active_rounds is None:
             active_rounds = np.broadcast_to(np.asarray(active, bool),
                                             (k, self.runs))
@@ -326,7 +348,7 @@ class BatchedRunEngine:
         snap = self.states.clone() if snapshot else None
         t0 = time.time()
         harvest = f.dispatch(schedule, draws, quota, active_rounds,
-                             self._hook_inputs(start_round, k))
+                             self._hook_inputs(start_round, k), **keyed)
         return InFlightChunk(start_round=start_round, n_rounds=k,
                              schedule=schedule, draws=draws,
                              agg_count=f.agg_count, harvest=harvest,

@@ -100,16 +100,19 @@ when clustered). At `leave`:
 Clean, the semantics are the per-phase path's exactly, bit for bit with
 the tie-break off; with it on,
 the per-phase path draws each voter's uniforms when the voter votes and
-the fused one draws every voter's per round ahead of it
-(ExperimentRngs.vote_draws), as the JAX package's fused and per-phase
-paths differ only in their key bookkeeping.
+the fused one, below the size rule, draws every voter's per round ahead
+of it (ExperimentRngs.vote_draws), as the JAX package's fused and
+per-phase paths differ only in their key bookkeeping.
 
-A round built with `tie_keys` (the tier above its size rule,
-federation/tiered.py) holds no [S, N] draws: its tie-break and its
-crash re-election read a keyed stream (voting.KeyedDraws), each round's
-absolute index and the lanes' absolute client ids uploaded per chunk
-into device buffers like the selections, the keys written into device
-buffers once. The election computes the one row it reads.
+A round built with `tie_keys` (above the size rule, voting.
+keyed_tie_break: the dense, meshed and batched rounds of a RoundEngine or
+BatchedRunEngine, and the tier) holds no [S, N] draws: its tie-break and
+its crash re-election read a keyed stream (voting.KeyedDraws), each
+round's absolute index and the lanes' absolute client ids uploaded per
+chunk into device buffers like the selections, the keys written into
+device buffers once (one key per run in the batched round). The election
+computes the one row it reads, so the round's tie-break memory is O(N)
+at any cohort, as the JAX fused election's `fold_in` per voter is.
 """
 
 from __future__ import annotations
@@ -307,26 +310,46 @@ class FusedRound:
                              self.chaos, self.elastic)
         self.out_stack = torch.zeros((cap, self.out.width), device=dev)
 
-    def _tie_buffers(self, width: int, tie_break: bool) -> None:
+    def _tie_buffers(self, width: int, tie_break: bool,
+                     runs: Tuple[int, ...] = ()) -> None:
         """The tie-break's buffers over `width` lanes: the chunk's [cap, S,
         width] draws and the round's [S, width] (u_all, u); or, keyed,
-        the stream keys, the chunk's absolute rounds, the round's, and
-        the lanes' absolute ids, nothing of size S x width."""
+        the stream keys ([K] words; [R, K] with `runs` = (R,), each run's
+        own key), the chunk's absolute rounds, the round's, and the
+        lanes' absolute ids, nothing of size S x width. `runs` = (R,)
+        gives the draws a run axis after the chunk's."""
         cap, cohort, dev = self.capacity, self.cohort_size, self.device
         keyed, i64 = self.tie_keys is not None, torch.int64
         dense = tie_break and not keyed
-        self.u_all = (torch.zeros((cap, cohort, width), device=dev)
+        sheet = runs + (cohort, width)
+        self.u_all = (torch.zeros((cap,) + sheet, device=dev)
                       if dense else None)
-        self.u = torch.zeros((cohort, width), device=dev) if dense else None
+        self.u = torch.zeros(sheet, device=dev) if dense else None
         self.round_all = (torch.zeros(cap, dtype=i64, device=dev) if keyed
                           else None)
         self.round_t = (torch.zeros((), dtype=i64, device=dev) if keyed
                         else None)
         self.lane_ids = (torch.full((width,), -1, dtype=i64, device=dev)
                          if keyed else None)
-        self.tie_key = {name: torch.tensor(key_words(key), dtype=i64,
-                                           device=dev)
+        self.tie_key = {name: self._key_words(key).to(dev)
                         for name, key in (self.tie_keys or {}).items()}
+
+    @staticmethod
+    def _key_words(key) -> torch.Tensor:
+        """A stream key's words int64 [K], or R keys' [R, K]."""
+        many = isinstance(key[0], (tuple, list))
+        return torch.tensor([key_words(k) for k in key] if many
+                            else key_words(key), dtype=torch.int64)
+
+    def set_tie_keys(self, tie_keys: Dict[str, Sequence[int]]) -> None:
+        """Point a keyed round at the stream keys of the engine's current
+        streams (another run's, after the engine's `rngs` was replaced):
+        the key buffers rewritten in place, outside any replay."""
+        if tie_keys == self.tie_keys:
+            return
+        for name, key in tie_keys.items():
+            self._up(self.tie_key[name], self._key_words(key))
+        self.tie_keys = dict(tie_keys)
 
     def _draws(self, name: str) -> TieBreak:
         """The tie-break source of the election `name` ("vote" or
@@ -663,21 +686,32 @@ class FusedRound:
         if self.clustered != (cluster_in is not None):
             raise ValueError("a clustered round takes the assignment "
                              "cluster_in, and only a clustered round does")
-        if (self.tie_keys is not None) != (rounds is not None
-                                           and lane_ids is not None):
-            raise ValueError("a keyed tie-break takes the rounds and the "
-                             "lane ids, and only a keyed one does")
+        self._upload_keyed(k, draws, rounds, lane_ids)
         self._upload(schedule, draws, agg_count, inputs)
-        if rounds is not None:
-            self._up(self.round_all[:k], torch.as_tensor(
-                np.asarray(rounds, dtype=np.int64)))
-            self._up(self.lane_ids, torch.as_tensor(
-                np.asarray(lane_ids, dtype=np.int64)))
         if cluster_in is not None:
             self._up(self.cluster_in, torch.as_tensor(
                 np.asarray(cluster_in, dtype=np.int64)))
         return self._replay(k, lambda rows: [self.out.unpack(row)
                                              for row in rows])
+
+    def _upload_keyed(self, k: int, draws, rounds, lane_ids) -> None:
+        """A keyed round's k absolute rounds and the lanes' ids into their
+        buffers. A keyed round takes no draws, and only a keyed round
+        takes rounds and lane ids."""
+        keyed = self.tie_keys is not None
+        if keyed != (rounds is not None and lane_ids is not None) or (
+                keyed and draws is not None):
+            raise ValueError("a keyed tie-break takes the rounds and the "
+                             "lane ids and no draws, and only a keyed one "
+                             "takes rounds and lane ids")
+        if keyed:
+            if len(rounds) != k:
+                raise ValueError(f"{len(rounds)} absolute rounds for a "
+                                 f"chunk of {k}")
+            self._up(self.round_all[:k], torch.as_tensor(
+                np.asarray(rounds, dtype=np.int64)))
+            self._up(self.lane_ids, torch.as_tensor(
+                np.asarray(lane_ids, dtype=np.int64)))
 
     def _up(self, dst: torch.Tensor, src: torch.Tensor) -> None:
         """A host tensor into a device buffer (through pinned memory on the
@@ -753,10 +787,11 @@ class BatchedFusedRound(FusedRound):
     run:
 
       * the selections [R, S] (each run's own client ids), the tie-break
-        draws [R, S, N] and the quota `agg_count` [R, N];
+        draws [R, S, N] (keyed: each run's own key [R, K], the rounds and
+        lanes shared) and the quota `agg_count` [R, N];
       * the vote tensor (each run's first effective selected client's
-        valid split), and the election (voting.elect_on_device_runs over
-        [R, S, N]); a crash bit [R] per run;
+        valid split), and the election (voting.elect_on_device_runs: each
+        run's winning voter's row only); a crash bit [R] per run;
       * the merge (aggregation.make_runs_aggregate_fn: the dev scoring one
         launch, each run normalized and merged on its own rows), then
         each client verifies its own run's merge ([R·N, P], one routed
@@ -768,6 +803,10 @@ class BatchedFusedRound(FusedRound):
         (ClientStates.where_, a select: NaN stays NaN, nothing is
         multiplied by 0) and its quota does not move, so its federation
         is frozen bit for bit.
+
+    Keyed (`tie_keys` {"vote": [R keys], "reelect": [R keys]}, each run's
+    vote_key() / reelect_key()), every run's election computes its own
+    winning voter's row: no [R, S, N] buffer exists.
 
     The outputs are [R] rows per round: the harvest returns, per round,
     each run's FusedRoundOut. Clustering and the red team are refused
@@ -797,8 +836,7 @@ class BatchedFusedRound(FusedRound):
         self.offset = torch.arange(runs, device=dev) * n
         self.sel_all = torch.zeros((cap, runs, cohort), dtype=i64,
                                    device=dev)
-        self.u_all = (torch.zeros((cap, runs, cohort, n), device=dev)
-                      if tie_break else None)
+        self._tie_buffers(n, tie_break, runs=(runs,))
         self.active_all = torch.zeros((cap, runs), dtype=torch.bool,
                                       device=dev)
         self.slot = torch.zeros((), dtype=i64, device=dev)
@@ -807,8 +845,6 @@ class BatchedFusedRound(FusedRound):
         self.sel = torch.zeros((runs, cohort), dtype=i64, device=dev)
         self.sel_rows = torch.zeros(runs * cohort, dtype=i64, device=dev)
         self.sel_mask = torch.zeros(rows, device=dev)
-        self.u = (torch.zeros((runs, cohort, n), device=dev) if tie_break
-                  else None)
         self.active = torch.zeros(runs, dtype=torch.bool, device=dev)
         self._hook_buffers(n, p, tie_break)
         self._cohort_buffers(
@@ -823,8 +859,8 @@ class BatchedFusedRound(FusedRound):
     def _hook_buffers(self, n: int, p: int, tie_break: bool) -> None:
         """The hooks' [capacity, ...] chunk inputs: per client [R·N] (a
         run's N slots after another's), per run [R] for the crash bit,
-        [R, S, N] for the re-election's draws and [R, P] for the attack
-        noise; the attack bit is one per round."""
+        [R, S, N] for the re-election's draws (none when keyed) and [R, P]
+        for the attack noise; the attack bit is one per round."""
         cap, dev, runs = self.capacity, self.device, self.runs
         rows = runs * n
         shapes = {}
@@ -837,7 +873,7 @@ class BatchedFusedRound(FusedRound):
                           straggler=((rows,), torch.float32),
                           crash=((runs,), torch.bool),
                           bcast_drop=((rows,), torch.float32))
-            if tie_break:
+            if tie_break and self.tie_keys is None:
                 shapes["reelect_draws"] = ((runs, self.cohort_size, n),
                                            torch.float32)
         if self.elastic:
@@ -860,8 +896,7 @@ class BatchedFusedRound(FusedRound):
         self.sel_mask.index_fill_(0, self.sel_rows, 1.0)
         if self.compact:
             self.co.idx.copy_(torch.sort(self.sel_rows).values)
-        if self.u is not None:
-            self.u.copy_(self.u_all.index_select(0, at)[0])
+        self._take_draws(at)
         self.active.copy_(self.active_all.index_select(0, at)[0])
         for k, buf in self.round_in.items():
             buf.copy_(self.chunk_in[k].index_select(0, at)[0])
@@ -904,7 +939,7 @@ class BatchedFusedRound(FusedRound):
         base = base.view(runs, n)
         voters = eff_r if self.faults else None
         aggregator, scores = elect_on_device_runs(
-            base, self.u, self.sel, eff_r, self.agg_count,
+            base, self._draws("vote"), self.sel, eff_r, self.agg_count,
             self.max_threshold, voters=voters)
         crashed, agg_mask = None, eff_r
         if self.chaos:
@@ -912,7 +947,7 @@ class BatchedFusedRound(FusedRound):
             mask2 = torch.where(self.local_ids[None, :] == aggregator[:, None],
                                 0.0, eff_r)
             again, scores2 = elect_on_device_runs(
-                base, r.get("reelect_draws"), self.sel, mask2,
+                base, self._draws("reelect"), self.sel, mask2,
                 self.agg_count, self.max_threshold, voters=mask2)
             crashed = torch.where(crash_now, aggregator, -1)
             aggregator = torch.where(crash_now, again, aggregator)
@@ -980,13 +1015,17 @@ class BatchedFusedRound(FusedRound):
                  draws: Optional[torch.Tensor],
                  agg_count: Optional[np.ndarray],
                  active: np.ndarray,
-                 inputs: Optional[Dict[str, np.ndarray]] = None
+                 inputs: Optional[Dict[str, np.ndarray]] = None,
+                 rounds: Optional[Sequence[int]] = None,
+                 lane_ids: Optional[np.ndarray] = None
                  ) -> Callable[[], list]:
         """Run len(schedule) rounds of every run: schedule [k][R][S] (each
         run's own client ids), draws [k, R, S, N] or None, the quota [R, N]
         (None: the device carries it from the last chunk), `active` [k, R]
         bool (a False freezes run r at round i) and the hooks' inputs ([k,
-        R, ...] each). Returns the harvest: per round, the R runs'
+        R, ...] each); a keyed round takes the rounds' absolute indices
+        `rounds` (every run's) and the lanes' ids `lane_ids` [N] in place
+        of `draws`. Returns the harvest: per round, the R runs'
         FusedRoundOuts."""
         k = len(schedule)
         if k > self.capacity or any(
@@ -995,6 +1034,7 @@ class BatchedFusedRound(FusedRound):
             raise ValueError(f"a chunk of {k} rounds of {self.runs} runs x "
                              f"{self.cohort_size} clients fits these "
                              f"buffers")
+        self._upload_keyed(k, draws, rounds, lane_ids)
         self._upload(schedule, draws, agg_count, inputs)
         self._up(self.active_all[:k], torch.as_tensor(np.array(active,
                                                                dtype=bool)))

@@ -32,6 +32,18 @@ the membership timeline. The membership timeline is a Markov chain, so
 the engine expands it from round 0 for the whole horizon and slices it
 (`_elastic_masks`); the memoryless chaos masks are cached the same way.
 
+The fused round's vote tie-break follows the size rule (voting.
+keyed_tie_break at (S, n_real): the REAL clients, so a padded axis or W
+ranks key exactly when the unpadded run on one card does). Within it a
+chunk's [R, S, N] uniforms come from the run's generator
+(ExperimentRngs.vote_draws) and the crash re-election's from the chaos
+stream (chaos.reelection_draws), and a rewind replays the recorded
+sheet. Above it nothing of S x N exists: the round is built with the
+run's keys (`vote_key`, `reelect_key`) and each election computes the
+row of the one voter it reads on the device, from the chunk's absolute
+rounds and the lanes' absolute ids; the generator draws no tie-break,
+and a rewind replays the same keyed rounds.
+
 Clustered federation (`cluster=` a ClusterSpec, cluster/) is fused-only
 too. The gateway -> cluster assignment is fitted on the host at a chunk's
 entry from the current states (cluster.fit_from_states: one probe-encode
@@ -99,6 +111,7 @@ from fedmse_tpu_torch.federation.state import (ClientStates, HostState,
                                                shard_client_states)
 from fedmse_tpu_torch.federation.verification import make_verify_fn
 from fedmse_tpu_torch.federation.voting import (elect_aggregator,
+                                                keyed_tie_break,
                                                 make_mse_scores_fn)
 from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.redteam.adversary import (make_redteam_fns,
@@ -258,6 +271,14 @@ def make_round_fns(model, cfg: ExperimentConfig, model_type: str,
                                         cluster.shared_modules,
                                         device=device)
     return fns
+
+
+def lane_ids(n_real: int, n_pad: int) -> np.ndarray:
+    """A keyed round's lanes: the padded axis' absolute client ids, -1 on
+    the pad lanes (a jitter factor of 1)."""
+    ids = np.arange(n_pad, dtype=np.int64)
+    ids[n_real:] = -1
+    return ids
 
 
 def build_fused_round(model, cfg: ExperimentConfig, fns: Dict, *,
@@ -628,7 +649,8 @@ class RoundEngine(MeshBackends):
                 compact=self.compact, poison_fn=self.poison_fn,
                 chaos=self.chaos, elastic=self.elastic,
                 cluster=self.cluster, redteam_fns=self._redteam_fns,
-                mesh=self.mesh, n_global=self.n_pad)
+                mesh=self.mesh, n_global=self.n_pad,
+                tie_keys=self._tie_keys() if self._keyed(cohort) else None)
             self._fused = f
             self.states = f.states
         elif self.states is not f.states:
@@ -637,6 +659,23 @@ class RoundEngine(MeshBackends):
             f.states.copy_(self.states)
             self.states = f.states
         return f
+
+    # ---- the vote tie-break's size rule (voting.keyed_tie_break) ---- #
+
+    def _keyed(self, cohort: Optional[int] = None) -> bool:
+        """Whether a fused round of `cohort` selected clients (default
+        cohort_size()) keys its tie-breaks: the rule at (S, n_real)."""
+        cohort = self.cohort_size() if cohort is None else cohort
+        return keyed_tie_break(self.cfg, cohort, self.n_real)
+
+    @property
+    def keyed_tie_break(self) -> bool:
+        """Whether the engine's fused rounds key their tie-breaks."""
+        return self._keyed()
+
+    def _tie_keys(self) -> Dict:
+        return {"vote": self.rngs.vote_key(),
+                "reelect": self.rngs.reelect_key()}
 
     # ---- the fault hooks' per-round inputs ---- #
 
@@ -779,13 +818,14 @@ class RoundEngine(MeshBackends):
     def _hook_inputs(self, start_round: int, n_rounds: int,
                      cohort: int) -> dict:
         """Every built-in hook's inputs for rounds [start_round, +n_rounds),
-        by FusedRound.input_names."""
+        by FusedRound.input_names (a keyed round's crash re-election reads
+        the keyed stream: no draws)."""
         out = {}
         if self.poison_fn is not None:
             out.update(self._attack_inputs(start_round, n_rounds))
         if self.chaos is not None:
             out.update(self._chaos_masks(start_round, n_rounds)._asdict())
-            if self.cfg.compat.vote_tie_break:
+            if self.cfg.compat.vote_tie_break and not self._keyed(cohort):
                 out["reelect_draws"] = self._reelect_draws(
                     start_round, n_rounds, cohort)
         if self.elastic is not None:
@@ -906,7 +946,9 @@ class RoundEngine(MeshBackends):
         are read (federation/pipeline.py). Selections and tie-break draws
         come from the host streams, in the order of n_rounds successive
         run_round_fused calls, unless `schedule` / `draws` replay recorded
-        ones. `agg_count` is a previous chunk's device quota
+        ones; above the size rule the rounds are keyed and draw nothing
+        (`draws` must then be None: a keyed round holds no sheet).
+        `agg_count` is a previous chunk's device quota
         (InFlightChunk.agg_count) to carry on; None uploads the host's.
         `snapshot=True` keeps a device copy of the chunk-entry states for
         an early stop's rewind. A clustered engine fits the assignment
@@ -919,7 +961,15 @@ class RoundEngine(MeshBackends):
         if schedule is None:
             schedule = [self.select_clients() for _ in range(n_rounds)]
         f = self.fused_round(n_rounds, len(schedule[0]))
-        if draws is None and self.cfg.compat.vote_tie_break:
+        keyed = {}
+        if self._keyed(f.cohort_size):
+            if f.tie_keys is None:
+                raise RuntimeError("above the tie-break's size rule the "
+                                   "fused round must be keyed")
+            f.set_tie_keys(self._tie_keys())
+            keyed = {"rounds": range(start_round, start_round + n_rounds),
+                     "lane_ids": lane_ids(self.n_real, self.n_pad)}
+        elif draws is None and self.cfg.compat.vote_tie_break:
             draws = self.rngs.vote_draws(n_rounds, f.cohort_size,
                                          self.n_real, width=self.n_pad)
         if cluster_in is None:
@@ -930,7 +980,7 @@ class RoundEngine(MeshBackends):
         harvest = f.dispatch(
             schedule, draws,
             None if agg_count is f.agg_count else self._host_agg_count(),
-            inputs, cluster_in=cluster_in)
+            inputs, cluster_in=cluster_in, **keyed)
         return InFlightChunk(start_round=start_round, n_rounds=n_rounds,
                              schedule=schedule, draws=draws,
                              agg_count=f.agg_count, harvest=harvest,

@@ -34,10 +34,11 @@ from the cohort's host counters; the tie-break draws are [S, S], drawn per
 round from the run's generator at the selection's width and placed in the
 selected clients' lanes (0.5, a factor of 1, in a pad lane), so at C == N
 they are the dense engine's draws and a cohort padded to a multiple of
-the ranks draws what the unpadded one does. That holds under a size rule:
-while the selection's sheet, S x S x 4 B (S the selected clients; the
-lanes that pad it to the ranks do not count, so the rule does not move
-with W), stays within TIE_BREAK_SHEET_BYTES, the round takes those [S, C]
+the ranks draws what the unpadded one does. That holds under the size
+rule (voting.keyed_tie_break at (S, S)): while the selection's sheet,
+S x S x 4 B (S the selected clients; the lanes that pad it to the ranks
+do not count, so the rule does not move with W), stays within
+voting.TIE_BREAK_SHEET_BYTES, the round takes those [S, C]
 draws and the chaos re-election's [S, C] columns. Above it the tier holds
 nothing of size S x C: the round is built with keyed tie-breaks
 (fused.FusedRound `tie_keys`), each election computing on the device
@@ -46,7 +47,9 @@ round, the voter's position in the selection, each lane's absolute
 client id), the re-election from the chaos key and "RELE" alike
 (utils/seeding.keyed_uniform_row); the run's generator draws no
 tie-break. Keyed by absolute client, a padded or W-rank cohort draws
-what W = 1 draws. The chaos, elastic and
+what W = 1 draws, and at C == N the tier keys when the dense engine does
+(its rule at (S, N)) and computes the dense engine's rows. The chaos,
+elastic and
 cluster columns are gathered at the cohort's absolute ids (the fault
 streams are keyed by absolute client, so a gathered column is the dense
 engine's); pad lanes are inert.
@@ -103,6 +106,7 @@ from fedmse_tpu_torch.cluster import assign as cluster_assign
 from fedmse_tpu_torch.config import ExperimentConfig
 from fedmse_tpu_torch.data.stacking import FederatedData
 from fedmse_tpu_torch.device import DeviceLike, resolve_device
+from fedmse_tpu_torch.federation import voting
 from fedmse_tpu_torch.federation.attack import noise_draws
 from fedmse_tpu_torch.federation.elastic import (MembershipMasks,
                                                  apply_membership_transitions,
@@ -131,18 +135,13 @@ logger = logging.getLogger(__name__)
 COHORT_DATA_FIELDS = ("train_xb", "train_mb", "valid_xb", "valid_mb",
                       "valid_x", "valid_m", "test_x", "test_m", "test_y")
 
-# the size rule of the tie-break's sheet (module docstring): S x S x 4 B
-# within this keeps the generator's [S, C] draws; above it the elections
-# are keyed. 64 MiB is S = 4,096, above every tier run that drew its
-# sheet before the rule (the largest, chip_smoke's [tiered] (c), S = 512)
-TIE_BREAK_SHEET_BYTES = 64 << 20
-
-
 def keyed_tie_break(cfg: ExperimentConfig, n_sel: int) -> bool:
     """Whether a tier selecting `n_sel` clients a round keys its
-    tie-breaks (the size rule; False with the tie-break off)."""
-    return bool(cfg.compat.vote_tie_break) and \
-        4 * n_sel * n_sel > TIE_BREAK_SHEET_BYTES
+    tie-breaks: the size rule at (S, S), S x S x 4 B above
+    voting.TIE_BREAK_SHEET_BYTES (64 MiB: S = 4,096, above every tier run
+    that drew its sheet before the rule; the largest, chip_smoke's
+    [tiered] (c), S = 512). False with the tie-break off."""
+    return voting.keyed_tie_break(cfg, n_sel, n_sel)
 
 
 @dataclasses.dataclass

@@ -16,7 +16,13 @@ fedmse_tpu/federation/voting.py).
     tie-break drawn ahead of the round ([S, N]) or, from a `KeyedDraws`
     source, computed for the one voter the election reads (O(N));
     `elect_on_device_runs` runs R federations' elections at once (the
-    batched round).
+    batched round), O(R (S + N)) alike.
+  * `keyed_tie_break`: the size rule. A fused round whose tie-break
+    sheet, S voters x N clients x 4 B, exceeds TIE_BREAK_SHEET_BYTES
+    holds no sheet: its elections read a KeyedDraws source. The dense
+    and meshed rounds apply it at (S, the REAL clients), so padding and
+    ranks do not move it; the batched round per run; the tier at
+    (S, S).
 """
 
 from __future__ import annotations
@@ -35,14 +41,29 @@ from fedmse_tpu_torch.utils.seeding import keyed_uniform_row, pad_draws
 
 VOTE_BATCH = 128
 
+# the size rule of a fused round's tie-break sheet (module docstring):
+# voters x width x 4 B within this keeps the generator's draws; above it
+# the elections are keyed. 64 MiB is S = N = 4,096, above every run that
+# drew its sheet before the rule
+TIE_BREAK_SHEET_BYTES = 64 << 20
+
+
+def keyed_tie_break(cfg, voters: int, width: int) -> bool:
+    """Whether a fused round of `voters` selected clients over `width`
+    real clients keys its tie-breaks: the tie-break is on and the [voters,
+    width] f32 sheet exceeds TIE_BREAK_SHEET_BYTES."""
+    return bool(cfg.compat.vote_tie_break) and \
+        4 * voters * width > TIE_BREAK_SHEET_BYTES
+
 
 class KeyedDraws(NamedTuple):
     """A keyed tie-break source (utils/seeding.keyed_uniform_row): voter
     v's uniforms are a hash of (key, round, v, the lanes' absolute ids),
     computed on the device for the voter an election reads. All three are
     device buffers a captured body reads: key int64 [K] (key_words of the
-    stream key), round int64 0-d (the absolute round), ids int64 [N] (-1:
-    a pad lane, factor 1)."""
+    stream key), or [R, K] for R runs' keys (the batched round), round
+    int64 0-d (the absolute round), ids int64 [N] (-1: a pad lane,
+    factor 1)."""
 
     key: torch.Tensor
     round: torch.Tensor
@@ -50,8 +71,11 @@ class KeyedDraws(NamedTuple):
 
     def rows(self, voter_pos: torch.Tensor) -> torch.Tensor:
         """The uniforms of the voters at selection positions `voter_pos`
-        ([k] int64): [k, N]."""
-        return keyed_uniform_row(self.key, self.round, voter_pos[:, None],
+        ([k] int64; [R, k] with R keys, each run's own): [k, N] ([R, k,
+        N])."""
+        lead = self.key.shape[:-1]
+        key = self.key.reshape(lead + (1, 1, self.key.shape[-1]))
+        return keyed_uniform_row(key, self.round, voter_pos[..., None],
                                  self.ids)
 
 
@@ -217,42 +241,50 @@ def elect_on_device(base: torch.Tensor, draws: TieBreak,
     return aggregator, torch.where(won, scores, torch.zeros_like(base))
 
 
-def elect_on_device_runs(base: torch.Tensor, draws: Optional[torch.Tensor],
+def elect_on_device_runs(base: torch.Tensor, draws: TieBreak,
                          sel: torch.Tensor, sel_mask: torch.Tensor,
                          agg_count: torch.Tensor, max_threshold: int,
                          voters: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`elect_on_device` of R independent federations at once (the batched
     round, federation/fused.py BatchedFusedRound): base [R, N], draws
-    [R, S, N] or None, sel [R, S] (each run's own client ids), sel_mask,
-    agg_count and voters [R, N]. Run r's election is `elect_on_device` of
-    its rows, op for op in exact arithmetic. Returns (aggregator [R]
-    int64, -1 where a run found none; scores [R, N])."""
+    [R, S, N], a KeyedDraws of R keys, or None, sel [R, S] (each run's own
+    client ids), sel_mask, agg_count and voters [R, N]. Run r's election
+    is `elect_on_device` of its rows, op for op in exact arithmetic: only
+    each run's first voter with a candidate is ranked, so nothing of
+    R x S x N is formed (O(R (S + N))). Returns (aggregator [R] int64, -1
+    where a run found none; scores [R, N])."""
     runs, s = sel.shape
     n = base.shape[1]
     dev = base.device
     ids = torch.arange(n, device=dev)
-    scores = (base[:, None, :].expand(runs, s, n) if draws is None
-              else tie_break_jitter(base[:, None, :], draws))
     sel_pos = torch.full((runs, n), s, dtype=torch.int64,
                          device=dev).scatter(
         1, sel, torch.arange(s, device=dev).expand(runs, s).contiguous())
-    cand = ((sel_mask > 0) & (agg_count < max_threshold))[:, None, :] \
-        & (ids[None, None, :] != sel[:, :, None])
-    found = cand.any(dim=2)
+    elig = (sel_mask > 0) & (agg_count < max_threshold)  # [R, N]
+    # voter i has a candidate iff its run holds more eligible ids than its
+    # own
+    found = elig.sum(dim=1, keepdim=True) > elig.gather(1, sel).to(
+        torch.int64)
     if voters is not None:
         found = found & (voters.gather(1, sel) > 0)
-    masked = torch.where(cand & ~torch.isnan(scores), scores,
-                         torch.full_like(scores, float("inf")))
-    tie = cand & (masked == masked.min(dim=2, keepdim=True).values)
-    pick = torch.where(tie, sel_pos[:, None, :],
-                       torch.full_like(tie, s + 1, dtype=torch.int64)
-                       ).argmin(dim=2)
     first = found.to(torch.int32).argmax(dim=1, keepdim=True)  # [R, 1]
     won = found.any(dim=1)
-    aggregator = torch.where(won, pick.gather(1, first)[:, 0], -1)
-    winner = scores.gather(1, first[:, :, None].expand(runs, 1, n))[:, 0]
-    return aggregator, torch.where(won[:, None], winner,
+    voter = sel.gather(1, first)                               # [R, 1]
+    if draws is None:
+        scores = base
+    else:
+        u = (draws.rows(first) if isinstance(draws, KeyedDraws)
+             else draws.gather(1, first[:, :, None].expand(runs, 1, n)))
+        scores = tie_break_jitter(base, u[:, 0])
+    cand = elig & (ids[None, :] != voter)
+    masked = torch.where(cand & ~torch.isnan(scores), scores,
+                         torch.full_like(scores, float("inf")))
+    tie = cand & (masked == masked.min(dim=1, keepdim=True).values)
+    pick = torch.where(tie, sel_pos, torch.full_like(sel_pos, s + 1)
+                       ).argmin(dim=1)
+    aggregator = torch.where(won, pick, -1)
+    return aggregator, torch.where(won[:, None], scores,
                                    torch.zeros_like(base))
 
 

@@ -113,6 +113,9 @@ class AdmissionController:
         self.offered = np.zeros(tiers, np.int64)
         self.admitted = np.zeros(tiers, np.int64)
         self.shed = np.zeros(tiers, np.int64)
+        # the part of `shed` the staleness gate shed, by tier (the rest
+        # the bucket shed); kept out of stats(), which is the JAX one's
+        self.stale_shed = np.zeros(tiers, np.int64)
         self.shed_events = 0
 
     # ---------------------------- capacity ------------------------------- #
@@ -171,6 +174,8 @@ class AdmissionController:
                 tiers == 0, np.inf,
                 self.stale_after_s * (self.tiers - tiers.astype(np.int64)))
             mask &= age_s <= limit
+            self.stale_shed += np.bincount(
+                tiers[~mask], minlength=self.tiers)[:self.tiers]
         live = tiers[mask]
         if self.capacity_rows_per_sec is not None and len(live):
             self._refill(now)

@@ -8,7 +8,9 @@
   * `generator`  a CPU torch.Generator seeded with run * run_seed_stride
                  (987654321 for run 0): the real clients' model init and
                  vote tie-breaks (per voter call on the per-phase path;
-                 `vote_draws` for a chunk of fused rounds).
+                 `vote_draws` for a chunk of fused rounds below the
+                 tie-break's size rule; above it no tie-break is drawn
+                 here: `keyed_uniform_row`).
 
 The first two are the JAX package's streams exactly, so data splits and
 client selections are the same draws there and here. The third replaces
@@ -37,12 +39,12 @@ is never a candidate).
 exactly the sequential driver's run r (federation/batched.py).
 
 `keyed_uniform_row` is a stateless tie-break stream for elections whose
-[voters, clients] sheet would not fit (federation/tiered.py's size
-rule): voter v's uniform for absolute client i at absolute round t is a
-counter-based hash of (run seed, stream tag, t, v, i), computed on the
-device for the one voter an election reads. It consumes nothing, so
-prefetch, rewind, resume and padding cannot shift it, and the CPU and
-the card give the same bits (integer ops only). This mirrors the JAX
+[voters, clients] sheet would not fit (federation/voting.py's size rule,
+`keyed_tie_break`): voter v's uniform for absolute client i at absolute
+round t is a counter-based hash of (run seed, stream tag, t, v, i),
+computed on the device for the one voter an election reads. It consumes
+nothing, so prefetch, rewind, resume and padding cannot shift it, and the
+CPU and the card give the same bits (integer ops only). This mirrors the JAX
 package's rule of `fold_in` per voter, then per absolute client;
 `keyed_uniform_row_np` is its numpy twin.
 """
@@ -128,23 +130,24 @@ def keyed_uniform_row(key: torch.Tensor, round_t: torch.Tensor,
                       ) -> torch.Tensor:
     """Voter `voter_pos`'s tie-break uniforms at absolute round `round_t`,
     f32 [..., N]: MurmurHash3 over the words of `key` (key_words of (run
-    seed, stream tag, ...), int64 [K]), the round, the voter's position in
-    the selection and each lane's absolute client id `ids` (int64 [N]; low
+    seed, stream tag, ...), int64 [..., K]: one key per leading index,
+    e.g. [R, 1, 1, K] for R runs), the round, the voter's position in the
+    selection and each lane's absolute client id `ids` (int64 [N]; low
     and high words), the top 24 bits times 2^-24. A pad lane (id < 0)
     gives 0.5, a factor of exactly 1 (pad_draws). round_t and voter_pos
-    are int64 device tensors broadcast against ids (voter_pos [S, 1] gives
-    the [S, N] sheet); nothing is read on the host, so a captured body
-    replays it with whatever its buffers hold. Integer ops only: the CPU
-    and the card give the same bits."""
-    h = torch.zeros((), dtype=torch.int64, device=ids.device)
-    for j in range(key.shape[0]):
-        h = _absorb(h, key[j])
+    are int64 device tensors broadcast against the key's leading shape
+    and ids (voter_pos [S, 1] gives the [S, N] sheet); nothing is read on
+    the host, so a captured body replays it with whatever its buffers
+    hold. Integer ops only: the CPU and the card give the same bits."""
+    h = torch.zeros(key.shape[:-1], dtype=torch.int64, device=ids.device)
+    for j in range(key.shape[-1]):
+        h = _absorb(h, key[..., j])
     h = _absorb(h, round_t & _M32)
     h = _absorb(h, voter_pos & _M32)
     lane = torch.clamp(ids, min=0)
     h = _absorb(h, lane & _M32)
     h = _absorb(h, (lane >> 32) & _M32)
-    h = _fmix32(h ^ (4 * (key.shape[0] + 4)))
+    h = _fmix32(h ^ (4 * (key.shape[-1] + 4)))
     u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
     return torch.where(ids >= 0, u, 0.5)
 

@@ -1880,3 +1880,63 @@ def test_keyed_tie_break_row_on_card_is_the_cpu_bits(cuda, key):
         assert torch.equal(out.cpu().view(torch.int32), cpu.view(torch.int32))
         np.testing.assert_array_equal(
             cpu.numpy(), keyed_uniform_row_np(key, t, voters.numpy(), ids))
+
+
+@pytest.mark.parametrize("kind", ["dense", "batched"])
+def test_keyed_fused_round_rows_on_card_are_the_cpu_bits(cuda, kind,
+                                                         monkeypatch):
+    """A fused round above the tie-break's size rule (voting.
+    TIE_BREAK_SHEET_BYTES lowered to 0: keyed) on the card, 4 clients, 2
+    rounds: it holds no draws, and the vote and re-election rows its
+    elections computed from its own device buffers (each run's key in the
+    batched round) are the CPU's bits and the numpy twin's."""
+    from fedmse_tpu_torch.config import CompatConfig, ExperimentConfig
+    from fedmse_tpu_torch.federation import RoundEngine, voting
+    from fedmse_tpu_torch.federation.batched import BatchedRunEngine
+    from fedmse_tpu_torch.utils.seeding import (ExperimentRngs,
+                                                keyed_uniform_row_np)
+    monkeypatch.setattr(voting, "TIE_BREAK_SHEET_BYTES", 0)
+    n = 4
+    cfg = ExperimentConfig(dim_features=16, hidden_neus=8, latent_dim=3,
+                           network_size=n, epochs=2, num_participants=1.0,
+                           compat=CompatConfig(vote_tie_break=True))
+    clients = synthetic_clients(n_clients=n, dim=16, n_normal=240,
+                                n_abnormal=120, seed=0)
+    dev_x = np.concatenate([c.dev_raw for c in clients])[:200].astype(
+        np.float32)
+    data = stack_clients(clients, dev_x, 12, device=cuda)
+    model = make_model("hybrid", 16, 8, 3, cfg.shrink_lambda, device=cuda)
+    if kind == "dense":
+        eng = RoundEngine(model, cfg, data, n_real=n,
+                          rngs=ExperimentRngs(run=0), model_type="hybrid",
+                          update_type="mse_avg", fused=True)
+        res = eng.run_rounds(0, 2)
+        keys = {"vote": [eng.rngs.vote_key()],
+                "reelect": [eng.rngs.reelect_key()]}
+    else:
+        eng = BatchedRunEngine(model, cfg, data, n_real=n, runs=3,
+                               model_type="hybrid", update_type="mse_avg")
+        outs, _, _ = eng.run_schedule_chunk(0, 2, np.ones(3, bool))
+        res = [o for row in outs for o in row]
+        keys = {"vote": [r.vote_key() for r in eng.rngs],
+                "reelect": [r.reelect_key() for r in eng.rngs]}
+    assert eng.keyed_tie_break
+    f = eng.fused_round()
+    assert f.u is None and f.u_all is None
+    assert all(np.isfinite(r.client_metrics if kind == "dense"
+                           else r.metrics).all() for r in res)
+    torch.cuda.synchronize()
+    assert int(f.round_t) == 1
+    voters = torch.arange(n, device=cuda)
+    for name, key_list in keys.items():
+        src = voting.KeyedDraws(f.tie_key[name], f.round_t, f.lane_ids)
+        pos = voters if kind == "dense" else voters.expand(3, n)
+        card = src.rows(pos).cpu()
+        cpu = voting.KeyedDraws(src.key.cpu(), src.round.cpu(),
+                                src.ids.cpu()).rows(pos.cpu())
+        assert torch.equal(card.view(torch.int32), cpu.view(torch.int32))
+        for r, key in enumerate(key_list):
+            twin = keyed_uniform_row_np(key, 1, np.arange(n)[:, None],
+                                        np.arange(n))
+            row = cpu if kind == "dense" else cpu[r]
+            np.testing.assert_array_equal(row.numpy(), twin)

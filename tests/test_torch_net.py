@@ -333,6 +333,36 @@ def test_staleness_shed_is_tier_ordered_and_spares_tier0():
     assert st["shed_by_tier"][1] <= st["shed_by_tier"][2]
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_stale_shed_counts_the_staleness_gate_alone(seed):
+    """`stale_shed` holds, by tier, the rows the staleness gate shed: the
+    rows of bursts older than their tier's limit, never tier 0. The rest
+    of `shed` is the bucket's, which sheds nothing while the offered rate
+    stays under capacity however old the bursts are."""
+    rng = np.random.default_rng(seed)
+    adm = AdmissionController(tiers=3, stale_after_s=0.025, headroom=0.9,
+                              burst_s=0.25, clock=lambda: 0.0)
+    adm.set_capacity(10_000.0)
+    want = np.zeros(3, np.int64)
+    now = 0.0
+    for _ in range(200):
+        now += 0.05        # 50 rows every 50 ms: a tenth of capacity
+        t = rng.integers(0, 3, 50).astype(np.uint8)
+        age = float(rng.uniform(0.0, 0.1))
+        mask = adm.admit(t, now=now, age_s=age)
+        stale = (t > 0) & (age > 0.025 * (3 - t.astype(np.int64)))
+        np.testing.assert_array_equal(mask, ~stale)
+        want += np.bincount(t[stale], minlength=3)
+    assert want.sum() > 0
+    np.testing.assert_array_equal(adm.stale_shed, want)
+    np.testing.assert_array_equal(adm.shed, want)
+    # overload with fresh bursts: the bucket sheds, the gate does not
+    for _ in range(20):
+        adm.admit(np.full(5_000, 2, np.uint8), now=now, age_s=0.0)
+    np.testing.assert_array_equal(adm.stale_shed, want)
+    assert adm.shed[2] > want[2] and adm.shed[0] == 0
+
+
 def test_constructor_capacity_arms_a_full_bucket():
     adm = AdmissionController(tiers=3, capacity_rows_per_sec=100.0,
                               headroom=1.0, burst_s=1.0, clock=lambda: 0.0)

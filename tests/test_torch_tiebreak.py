@@ -1,6 +1,6 @@
 """The keyed vote tie-break (fedmse_tpu_torch/utils/seeding.py
 `keyed_uniform_row`, federation/voting.py `KeyedDraws`) and the tier's
-size rule (federation/tiered.py `TIE_BREAK_SHEET_BYTES`) on the CPU, at
+size rule (federation/voting.py `TIE_BREAK_SHEET_BYTES`) on the CPU, at
 width 16 / 8 / 3:
 
   * the keyed row in torch is its numpy uint64 twin bit for bit, over
@@ -35,7 +35,7 @@ from fedmse_tpu_torch.chaos import ChaosSpec
 from fedmse_tpu_torch.cluster import ClusterSpec
 from fedmse_tpu_torch.config import CompatConfig, ExperimentConfig
 from fedmse_tpu_torch.data import stack_clients, synthetic_clients
-from fedmse_tpu_torch.federation import tiered
+from fedmse_tpu_torch.federation import tiered, voting
 from fedmse_tpu_torch.federation.elastic import ElasticSpec
 from fedmse_tpu_torch.federation.tiered import TieredRoundEngine
 from fedmse_tpu_torch.federation.voting import KeyedDraws, elect_on_device
@@ -271,7 +271,7 @@ def test_keyed_tier_is_the_tier_fed_the_keyed_sheet(name, monkeypatch):
     want_eng = _tier(cfg, n=6, cls=SheetTier, **kw)
     assert not want_eng.keyed_tie_break
     want = _run(want_eng, 4)
-    monkeypatch.setattr(tiered, "TIE_BREAK_SHEET_BYTES", 0)
+    monkeypatch.setattr(voting, "TIE_BREAK_SHEET_BYTES", 0)
     got_eng = _tier(cfg, n=6, **kw)
     assert got_eng.keyed_tie_break
     got = _run(got_eng, 4)
@@ -318,7 +318,7 @@ def test_above_the_rule_the_tier_holds_no_cohort_sheet(name, monkeypatch):
     sheet = (6, 6)
     for keyed in (False, True):
         if keyed:
-            monkeypatch.setattr(tiered, "TIE_BREAK_SHEET_BYTES", 0)
+            monkeypatch.setattr(voting, "TIE_BREAK_SHEET_BYTES", 0)
         eng = _tier(cfg, n=6, **kw)
         after_init = eng.rngs.generator.get_state()
         plans = []
@@ -344,7 +344,7 @@ def test_keyed_tier_padded_four_to_eight_elects_what_four_elect(monkeypatch):
     selections, elections, verification rows, results and real states
     bit for bit (the keyed row reads absolute ids, not the padded
     width)."""
-    monkeypatch.setattr(tiered, "TIE_BREAK_SHEET_BYTES", 0)
+    monkeypatch.setattr(voting, "TIE_BREAK_SHEET_BYTES", 0)
     for participants in (1.0, 0.5):
         cfg = _cfg(num_participants=participants)
         a, b = _tier(cfg), _tier(cfg, data=_data(pad_to=PAD))
@@ -385,7 +385,7 @@ def test_below_the_rule_the_tier_draws_the_generator_sheet():
 
 def test_the_rule_is_the_selection_sheet_bytes():
     cfg = _cfg()
-    assert tiered.TIE_BREAK_SHEET_BYTES == 64 << 20
+    assert voting.TIE_BREAK_SHEET_BYTES == 64 << 20
     assert not tiered.keyed_tie_break(cfg, 4096)
     assert tiered.keyed_tie_break(cfg, 4097)
     assert tiered.keyed_tie_break(cfg, 100_000)
@@ -457,7 +457,7 @@ def test_churn_podscale_through_the_keyed_path(tmp_path, monkeypatch):
     """churn_sweep_torch --podscale on a 64-gateway tier with the rule
     lowered: every round keyed (no sheet, no draws), the tie-break on,
     the null-elastic pin and the acceptance block written."""
-    monkeypatch.setattr(tiered, "TIE_BREAK_SHEET_BYTES", 0)
+    monkeypatch.setattr(voting, "TIE_BREAK_SHEET_BYTES", 0)
     seen = _count_keyed(monkeypatch)
     out = tmp_path / "pod.json"
     churn_sweep_torch.main(["--podscale", "--device", "cpu", "--clients",
@@ -477,7 +477,7 @@ def test_cluster_podscale_through_the_keyed_path(tmp_path, monkeypatch):
     """cluster_sweep_torch --podscale on a 64-gateway tier with the rule
     lowered: every round keyed, the K = 1 pin bit for bit, the
     assignment over every gateway and the acceptance block written."""
-    monkeypatch.setattr(tiered, "TIE_BREAK_SHEET_BYTES", 0)
+    monkeypatch.setattr(voting, "TIE_BREAK_SHEET_BYTES", 0)
     seen = _count_keyed(monkeypatch)
     out = tmp_path / "pod.json"
     cluster_sweep_torch.main(["--podscale", "--device", "cpu", "--clients",

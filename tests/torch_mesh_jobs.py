@@ -148,7 +148,11 @@ def run_engine(mesh, cfg, n_real=N_CLIENTS, pad_to=0, init=None,
     p1 = eng.gathered_states().params.numpy()
     if rounds > 1:
         res += _rounds(eng, 1, rounds - 1)
+    f = eng._fused
     return {"results": [_result(r) for r in res], "params1": p1,
+            "keyed": eng.keyed_tie_break,
+            "sheet": f is not None and (f.u is not None
+                                        or "reelect_draws" in f.chunk_in),
             "params": eng.gathered_states().params.numpy(),
             "final": eng.evaluate(), "compact": eng.compact,
             "generator": eng.rngs.generator.get_state().numpy(),
@@ -157,6 +161,30 @@ def run_engine(mesh, cfg, n_real=N_CLIENTS, pad_to=0, init=None,
             else eng._merge_plan["chosen"],
             "plan_cached": None if eng._merge_plan is None
             else eng._merge_plan["cached"]}
+
+
+def run_engine_keyed(mesh, cfg, **kw) -> Dict:
+    """run_engine above the dense rounds' tie-break size rule (federation/
+    voting.TIE_BREAK_SHEET_BYTES lowered to 0: every tie-break keyed)."""
+    from fedmse_tpu_torch.federation import voting
+    rule = voting.TIE_BREAK_SHEET_BYTES
+    voting.TIE_BREAK_SHEET_BYTES = 0
+    try:
+        return run_engine(mesh, cfg, **kw)
+    finally:
+        voting.TIE_BREAK_SHEET_BYTES = rule
+
+
+def keyed_chaos_config() -> ExperimentConfig:
+    """The keyed mesh check's config: the tie-break on, every client
+    selected, a crash re-election most rounds."""
+    return config(num_participants=1.0, num_rounds=3,
+                  compat=CompatConfig(vote_tie_break=True))
+
+
+def keyed_chaos_spec():
+    from fedmse_tpu_torch.chaos import ChaosSpec
+    return ChaosSpec(dropout_p=0.2, crash_p=0.7)
 
 
 def quota_run(mesh, pad_to: int = 0) -> Dict:
@@ -289,19 +317,19 @@ def run_tier(mesh, host_sharded: bool = False, ratio: float = 1.0,
     """The tier over `mesh`; `hosts` names the ranks' hosts in place of
     the mesh's own (the same process group), `local_data` hands each
     rank only its block of client rows, `tie_break` turns the vote's
-    tie-break on and `sheet_bytes` replaces the tier's size rule
-    (federation/tiered.TIE_BREAK_SHEET_BYTES; 0 keys every tie-break)."""
+    tie-break on and `sheet_bytes` replaces the size rule
+    (federation/voting.TIE_BREAK_SHEET_BYTES; 0 keys every tie-break)."""
     import dataclasses
-    from fedmse_tpu_torch.federation import tiered
+    from fedmse_tpu_torch.federation import voting
     if sheet_bytes is not None:
-        rule = tiered.TIE_BREAK_SHEET_BYTES
-        tiered.TIE_BREAK_SHEET_BYTES = sheet_bytes
+        rule = voting.TIE_BREAK_SHEET_BYTES
+        voting.TIE_BREAK_SHEET_BYTES = sheet_bytes
         try:
             return run_tier(mesh, host_sharded, ratio, resume_dir,
                             cluster_refit, n, rounds, hosts, local_data,
                             tie_break)
         finally:
-            tiered.TIE_BREAK_SHEET_BYTES = rule
+            voting.TIE_BREAK_SHEET_BYTES = rule
     from fedmse_tpu_torch.checkpointing import CheckpointManager
     from fedmse_tpu_torch.cluster import ClusterSpec
     from fedmse_tpu_torch.federation.tiered import (COHORT_DATA_FIELDS,
@@ -485,6 +513,9 @@ def session(mesh, init_path: str = "", ckpt_dir: str = "",
         mesh, config(num_rounds=4, aggregation_backend="quantized",
                      quant_hosts=2, quant_block_size=BLOCK), pad_to=pad,
         rounds=4, cluster=ClusterSpec(k=2, personalize=True, refit_every=2))
+    # the tie-break keyed above the dense rounds' size rule (lowered to 0)
+    out["rounds_keyed"] = run_engine_keyed(
+        mesh, keyed_chaos_config(), pad_to=pad, chaos=keyed_chaos_spec())
     out["early_stop"] = early_stop_run(mesh)
     out["adam"] = sharded_adam(mesh)
     out["tier_plain"] = run_tier(mesh, ratio=0.5)
