@@ -348,7 +348,8 @@ class BatchedRunEngine:
         snap = self.states.clone() if snapshot else None
         t0 = time.time()
         harvest = f.dispatch(schedule, draws, quota, active_rounds,
-                             self._hook_inputs(start_round, k), **keyed)
+                             self._hook_inputs(start_round, k),
+                             start_round=start_round, **keyed)
         return InFlightChunk(start_round=start_round, n_rounds=k,
                              schedule=schedule, draws=draws,
                              agg_count=f.agg_count, harvest=harvest,

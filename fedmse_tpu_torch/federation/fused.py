@@ -113,6 +113,16 @@ chunk into device buffers like the selections, the keys written into
 device buffers once (one key per run in the batched round). The election
 computes the one row it reads, so the round's tie-break memory is O(N)
 at any cohort, as the JAX fused election's `fold_in` per voter is.
+
+The round's ledger (utils/profiling.RoundLedger, always on) records a
+timing event on the stream before and after every body replay, between
+the graphs and never inside one; the harvest resolves them after its
+wait, so nothing waits for the card: each round's device ms of `enter`,
+of the epochs that trained, of the speculative epoch and of `leave`, the
+card's idle between them, and the train lanes replayed and active
+(`utils/profiling.recent_chunks`). While a profiler records, the chunk's
+dispatch, uploads, rounds, bodies, flag waits and harvest are program
+spans `fused.<name>@<round>` (utils/profiling.span).
 """
 
 from __future__ import annotations
@@ -141,6 +151,7 @@ from fedmse_tpu_torch.federation.voting import (KeyedDraws, TieBreak,
 from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.ops.graphs import CapturedBody
 from fedmse_tpu_torch.redteam.adversary import RedteamFns
+from fedmse_tpu_torch.utils.profiling import RoundLedger, span
 from fedmse_tpu_torch.utils.seeding import key_words
 
 
@@ -203,6 +214,20 @@ class OutLayout:
         """R runs' rows [R, width], each value with a leading [R] axis."""
         return torch.cat([values[name].to(torch.float32).reshape(runs, -1)
                           for name, _ in self.parts()], dim=1)
+
+    def active_lanes(self, rows: np.ndarray) -> np.ndarray:
+        """Per round of a chunk's rows [k, width] (or [k, R, width]): the
+        `tracking` entries whose active column is 1, i.e. the train lanes
+        in which a selected client trained (NaN rows, unselected, count
+        none)."""
+        at = 0
+        for name, shape in self.parts():
+            if name == "tracking":
+                break
+            at += int(np.prod(shape))
+        size = self.n * self.epochs * 3
+        block = rows.reshape(rows.shape[0], -1, self.width)[:, :, at:at + size]
+        return (block.reshape(rows.shape[0], -1, 3)[:, :, 2] == 1).sum(axis=1)
 
     def unpack(self, row: np.ndarray) -> FusedRoundOut:
         out, at = {}, 0
@@ -285,6 +310,12 @@ class FusedRound:
         self.host_reads = 0
         # the epochs each round ran (its speculative no-op epoch not counted)
         self.epochs_run: List[int] = []
+        # the flight recorder (utils/profiling.py): markers around every
+        # body replay of the chunk being dispatched (`_chunk`), resolved
+        # at its harvest (the sharded round's `_replay` records none)
+        self.ledger = RoundLedger(dev)
+        self._chunk = None
+        self._round_at = 0  # the absolute round being dispatched
 
     def _buffers(self, n: int, p: int, tie_break: bool,
                  metric_shape: Tuple[int, ...]) -> None:
@@ -630,11 +661,19 @@ class FusedRound:
 
     # ---- the host side ---- #
 
+    def _marker(self):
+        """The ledger's marker event, recorded now (None off a card or
+        without a chunk being recorded)."""
+        return None if self._chunk is None else self._chunk.marker()
+
     def _mark(self):
-        """After an epoch: its flags on their way to the host."""
+        """After an epoch: its flags on their way to the host, behind an
+        event (the ledger's epoch end marker when it records)."""
         if self.go_host is None:
             return None
         self.go_host.copy_(self.co.go, non_blocking=True)
+        if self._chunk is not None:
+            return self._chunk.marker()
         event = torch.cuda.Event()
         event.record()
         return event
@@ -644,21 +683,43 @@ class FusedRound:
         self.host_reads += 1
         if event is None:
             return bool(self.co.go[e])
-        event.synchronize()
+        with span("fused.flag_wait", self._round_at):
+            event.synchronize()
         return bool(self.go_host[e])
 
+    def _body(self, body: Callable[[], None], name: str,
+              end: Optional[Callable] = None):
+        """One replay of a body in its span, between two ledger markers
+        (the second `end()`'s where given); returns the second."""
+        start = self._marker()
+        with span("fused." + name, self._round_at):
+            body()
+        stop = self._marker() if end is None else end()
+        if self._chunk is not None:
+            self._chunk.body(name, start, stop)
+        return stop
+
     def _epochs(self) -> None:
-        marks = [None] * self.trainer.epochs
-        self.epoch()
-        marks[0] = self._mark()
+        marks = [self._body(self.epoch, "epoch", self._mark)]
         ran = 1
         for e in range(1, self.trainer.epochs):
-            self.epoch()  # speculative until go[e - 1] is read
-            marks[e] = self._mark()
+            # speculative until go[e - 1] is read
+            marks.append(self._body(self.epoch, "epoch", self._mark))
             if not self._go(marks[e - 1], e - 1):
                 break
             ran += 1
         self.epochs_run.append(ran)
+        if self._chunk is not None:
+            self._chunk.trained(ran)
+
+    def _rounds(self, first: int, k: int) -> None:
+        """The bodies of rounds first .. first + k - 1, each in its span."""
+        for i in range(k):
+            self._round_at = first + i
+            with span("fused.round", self._round_at):
+                self._body(self.enter, "enter")
+                self._epochs()
+                self._body(self.leave, "leave")
 
     def dispatch(self, schedule: Sequence[Sequence[int]],
                  draws: Optional[torch.Tensor],
@@ -666,8 +727,8 @@ class FusedRound:
                  inputs: Optional[Dict[str, np.ndarray]] = None,
                  cluster_in: Optional[np.ndarray] = None,
                  rounds: Optional[Sequence[int]] = None,
-                 lane_ids: Optional[np.ndarray] = None
-                 ) -> Callable[[], list]:
+                 lane_ids: Optional[np.ndarray] = None,
+                 start_round: int = 0) -> Callable[[], list]:
         """Run len(schedule) rounds: upload the selections and draws, the
         hooks' `inputs` ([k, ...] each, by `input_names`), the assignment
         [N] of a clustered round, and the quota (unless None: then the
@@ -675,8 +736,9 @@ class FusedRound:
         round and start one copy of the output stack to the host. A keyed
         round (`tie_keys`) takes the rounds' absolute indices `rounds`
         and the lanes' absolute ids `lane_ids` [N] (-1: a pad lane) in
-        place of `draws`. Returns the harvest: a call that waits for that
-        copy and returns the rounds' FusedRoundOuts."""
+        place of `draws`. `start_round` is the chunk's first absolute round
+        (the ledger's and the spans' index). Returns the harvest: a call
+        that waits for that copy and returns the rounds' FusedRoundOuts."""
         k = len(schedule)
         if k > self.capacity or any(len(s) != self.cohort_size
                                     for s in schedule):
@@ -686,13 +748,15 @@ class FusedRound:
         if self.clustered != (cluster_in is not None):
             raise ValueError("a clustered round takes the assignment "
                              "cluster_in, and only a clustered round does")
-        self._upload_keyed(k, draws, rounds, lane_ids)
-        self._upload(schedule, draws, agg_count, inputs)
-        if cluster_in is not None:
-            self._up(self.cluster_in, torch.as_tensor(
-                np.asarray(cluster_in, dtype=np.int64)))
-        return self._replay(k, lambda rows: [self.out.unpack(row)
-                                             for row in rows])
+        with span("fused.dispatch", start_round):
+            with span("fused.upload", start_round):
+                self._upload_keyed(k, draws, rounds, lane_ids)
+                self._upload(schedule, draws, agg_count, inputs)
+                if cluster_in is not None:
+                    self._up(self.cluster_in, torch.as_tensor(
+                        np.asarray(cluster_in, dtype=np.int64)))
+            return self._replay(start_round, k, lambda rows: [
+                self.out.unpack(row) for row in rows])
 
     def _upload_keyed(self, k: int, draws, rounds, lane_ids) -> None:
         """A keyed round's k absolute rounds and the lanes' ids into their
@@ -738,16 +802,19 @@ class FusedRound:
             self._up(self.agg_count, torch.as_tensor(
                 np.asarray(agg_count, dtype=np.int32)))
 
-    def _replay(self, k: int, unpack: Callable[[np.ndarray], list]
-                ) -> Callable[[], list]:
-        """Replay the bodies round by round for k rounds and start one copy
-        of the output stack to the host; returns the harvest, which waits
-        for that copy and unpacks it."""
+    def _replay(self, first: int, k: int,
+                unpack: Callable[[np.ndarray], list]) -> Callable[[], list]:
+        """Replay the bodies round by round for k rounds from the absolute
+        round `first` and start one copy of the output stack to the host;
+        returns the harvest, which waits for that copy, resolves the
+        chunk's ledger record and unpacks the rows."""
         self.slot.zero_()
-        for _ in range(k):
-            self.enter()
-            self._epochs()
-            self.leave()
+        chunk = self._chunk = self.ledger.open(first, self.co.p.shape[0])
+        try:
+            self._rounds(first, k)
+        finally:
+            self._chunk = None
+        chunk.sealed()
         if self.device.type == "cuda":
             host = torch.empty(tuple(self.out_stack[:k].shape),
                                pin_memory=True)
@@ -758,9 +825,12 @@ class FusedRound:
             host, done = self.out_stack[:k].clone(), None
 
         def harvest() -> list:
-            if done is not None:
-                done.synchronize()
-            return unpack(host.numpy())
+            with span("fused.harvest", first):
+                if done is not None:
+                    done.synchronize()
+                rows = host.numpy()
+                chunk.close(self.out.active_lanes(rows))
+                return unpack(rows)
 
         return harvest
 
@@ -1017,8 +1087,8 @@ class BatchedFusedRound(FusedRound):
                  active: np.ndarray,
                  inputs: Optional[Dict[str, np.ndarray]] = None,
                  rounds: Optional[Sequence[int]] = None,
-                 lane_ids: Optional[np.ndarray] = None
-                 ) -> Callable[[], list]:
+                 lane_ids: Optional[np.ndarray] = None,
+                 start_round: int = 0) -> Callable[[], list]:
         """Run len(schedule) rounds of every run: schedule [k][R][S] (each
         run's own client ids), draws [k, R, S, N] or None, the quota [R, N]
         (None: the device carries it from the last chunk), `active` [k, R]
@@ -1034,13 +1104,14 @@ class BatchedFusedRound(FusedRound):
             raise ValueError(f"a chunk of {k} rounds of {self.runs} runs x "
                              f"{self.cohort_size} clients fits these "
                              f"buffers")
-        self._upload_keyed(k, draws, rounds, lane_ids)
-        self._upload(schedule, draws, agg_count, inputs)
-        self._up(self.active_all[:k], torch.as_tensor(np.array(active,
-                                                               dtype=bool)))
-        return self._replay(k, lambda rows: [[self.out.unpack(row)
-                                              for row in runs]
-                                             for runs in rows])
+        with span("fused.dispatch", start_round):
+            with span("fused.upload", start_round):
+                self._upload_keyed(k, draws, rounds, lane_ids)
+                self._upload(schedule, draws, agg_count, inputs)
+                self._up(self.active_all[:k], torch.as_tensor(
+                    np.array(active, dtype=bool)))
+            return self._replay(start_round, k, lambda rows: [
+                [self.out.unpack(row) for row in runs] for runs in rows])
 
 
 # the hooks' inputs with a leading client axis [N, ...]; the others are
@@ -1319,16 +1390,14 @@ class ShardedFusedRound(FusedRound):
                                for name, _ in self.out_all.parts()])
         return self.out_all.unpack(flat)
 
-    def _replay(self, k: int, unpack: Callable[[np.ndarray], list]
-                ) -> Callable[[], list]:
+    def _replay(self, first: int, k: int,
+                unpack: Callable[[np.ndarray], list]) -> Callable[[], list]:
         """The bodies for k rounds, then the ranks' output rows gathered
         (one collective, every rank together): at world > 1 the harvest is
-        synchronous, as the JAX package's multi-process seam is."""
+        synchronous, as the JAX package's multi-process seam is. The
+        spans are the dense round's; the ledger records nothing here."""
         self.slot.zero_()
-        for _ in range(k):
-            self.enter()
-            self._epochs()
-            self.leave()
+        self._rounds(first, k)
         rows = self.mesh.all_gather(self.out_stack[:k]).cpu().numpy()
         outs = [self._assemble(rows[:, i]) for i in range(k)]
         return lambda: outs

@@ -65,6 +65,8 @@ from typing import Any, Callable, List, Optional
 
 import numpy as np
 
+from fedmse_tpu_torch.utils.profiling import span
+
 
 @dataclasses.dataclass
 class InFlightChunk:
@@ -96,7 +98,6 @@ class PipelineStats:
         gaps = self.host_gaps
         return {"chunks": self.chunks, "host_gap_s": gaps,
                 "redispatches": self.redispatches,
-                "host_gap_mean_s": float(np.mean(gaps)) if gaps else None,
                 # every next dispatch was enqueued before the previous
                 # harvest completed
                 "overlapped": bool(gaps) and all(g <= 0 for g in gaps)}
@@ -186,7 +187,8 @@ def run_pipelined_schedule(engine, start_round: int, num_rounds: int,
         if successor is not None:
             stats.host_gaps.append(successor.t_dispatch - t_done)
         sec = (t_done - chunk.t_dispatch) / chunk.n_rounds
-        stop = consume(results, sec)
+        with span("fused.pipeline.consume", chunk.start_round):
+            stop = consume(results, sec)
         if stop is None:
             return None
         done = stop + 1
@@ -285,8 +287,9 @@ def run_pipelined_batched(engine, num_rounds: int, chunk_size: int,
         if successor is not None:
             stats.host_gaps.append(successor.t_dispatch - t_done)
         sec = (t_done - chunk.t_dispatch) / chunk.n_rounds
-        stop_pos = consume(outs, schedule, chunk.start_round, chunk.n_rounds,
-                           sec, chunk.active)
+        with span("fused.pipeline.consume", chunk.start_round):
+            stop_pos = consume(outs, schedule, chunk.start_round,
+                               chunk.n_rounds, sec, chunk.active)
         fired = fix_states(chunk, stop_pos, successor)
         for r in range(runs):
             if stop_pos[r] is not None:

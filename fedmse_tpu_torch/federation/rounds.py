@@ -511,7 +511,9 @@ class RoundEngine(MeshBackends):
                                 device=data.train_xb.device)
         if fused and profile:
             logger.warning("profile=True forces the per-phase round path; "
-                           "a fused round is not phase-attributable")
+                           "a fused round's device time is kept per body "
+                           "(enter, epoch, leave), not per phase, in "
+                           "utils/profiling.recent_chunks()")
         self.device = data.train_xb.device
         self.layout = ParamLayout.of(model)
         # compact gathers would cross ranks on a sharded axis: off there
@@ -980,7 +982,7 @@ class RoundEngine(MeshBackends):
         harvest = f.dispatch(
             schedule, draws,
             None if agg_count is f.agg_count else self._host_agg_count(),
-            inputs, cluster_in=cluster_in, **keyed)
+            inputs, cluster_in=cluster_in, start_round=start_round, **keyed)
         return InFlightChunk(start_round=start_round, n_rounds=n_rounds,
                              schedule=schedule, draws=draws,
                              agg_count=f.agg_count, harvest=harvest,

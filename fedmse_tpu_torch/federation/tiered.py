@@ -644,7 +644,8 @@ class TieredRoundEngine(MeshBackends):
         return self._round.dispatch(
             [plan.sel_pos.tolist()],
             None if plan.draws is None else plan.draws[None], agg,
-            **self._mask_kwargs(plan), **keyed)
+            **self._mask_kwargs(plan), start_round=plan.round_index,
+            **keyed)
 
     def _fetch_states(self) -> ClientStates:
         """The round's output state on its way to the host: into the

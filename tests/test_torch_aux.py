@@ -231,11 +231,35 @@ def test_phase_timer_accumulates():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    """The exported trace holds the block's ops and, of a fused round run
+    inside it, the program's `fused.*` spans with the round's index."""
+    from fedmse_tpu_torch.config import ExperimentConfig
+    from fedmse_tpu_torch.data import (build_dev_dataset, stack_clients,
+                                       synthetic_clients)
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.models import make_model
     from fedmse_tpu_torch.utils.profiling import trace
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    cfg = ExperimentConfig(dim_features=8, network_size=3, epochs=1,
+                           batch_size=8)
+    clients = synthetic_clients(n_clients=3, dim=8, n_normal=60,
+                                n_abnormal=20)
+    rngs = ExperimentRngs(run=0)
+    data = stack_clients(clients, build_dev_dataset(clients, rngs.data_rng),
+                         8, device="cpu")
+    eng = RoundEngine(make_model("hybrid", 8, shrink_lambda=1.0,
+                                 device="cpu"), cfg, data, n_real=3,
+                      rngs=rngs, model_type="hybrid", update_type="avg",
+                      fused=True)
     with trace(str(tmp_path / "tr")):
         torch.ones(64, 64) @ torch.ones(64, 64)
+        eng.run_round(0)
     with open(tmp_path / "tr" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "aten::mm" in names
+    assert {"fused.dispatch@0", "fused.round@0", "fused.enter@0",
+            "fused.epoch@0", "fused.leave@0", "fused.harvest@0"} <= names
 
 
 def test_round_engine_phase_timings_accumulate():

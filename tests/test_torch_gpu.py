@@ -1940,3 +1940,53 @@ def test_keyed_fused_round_rows_on_card_are_the_cpu_bits(cuda, kind,
                                         np.arange(n))
             row = cpu if kind == "dense" else cpu[r]
             np.testing.assert_array_equal(row.numpy(), twin)
+
+
+def test_round_ledger_tiles_each_chunk_on_card(cuda):
+    """The fused round's ledger on the card (utils/profiling.py): in each
+    chunk the rounds' body and idle device ms add up to the chunk's
+    marker-to-marker device span within 1%, every field is finite and
+    >= 0, and the chunks chain their edges; rounds that stop early count
+    one speculative epoch."""
+    import time
+
+    from fedmse_tpu_torch.config import CompatConfig, ExperimentConfig
+    from fedmse_tpu_torch.federation import (RoundEngine,
+                                             run_pipelined_schedule)
+    from fedmse_tpu_torch.utils import profiling
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    cfg = ExperimentConfig(dim_features=12, hidden_neus=8, latent_dim=3,
+                           network_size=6, epochs=4, patience=1,
+                           lr_rate=0.2, batch_size=8,
+                           compat=CompatConfig(vote_tie_break=False))
+    clients = synthetic_clients(n_clients=6, dim=12, n_normal=120,
+                                n_abnormal=60, seed=3)
+    dev_x = np.concatenate([c.dev_raw for c in clients])[:100].astype(
+        np.float32)
+    data = stack_clients(clients, dev_x, 8, device=cuda)
+    eng = RoundEngine(make_model("hybrid", 12, 8, 3, cfg.shrink_lambda,
+                                 device=cuda), cfg, data, n_real=6,
+                      rngs=ExperimentRngs(run=0), model_type="hybrid",
+                      update_type="mse_avg", fused=True)
+    t0 = time.perf_counter()
+    run_pipelined_schedule(eng, 0, 9, 3, lambda rs, sec: None,
+                           can_rewind=False)
+    seconds = time.perf_counter() - t0
+    chunks = [c for c in profiling.recent_chunks() if c["t_dispatch"] >= t0]
+    assert [c["first_round"] for c in chunks] == [0, 3, 6]
+    for c in chunks:
+        parts = [r[k] for r in c["rounds"] for k in profiling.ROUND_MS]
+        assert all(np.isfinite(v) and v >= 0 for v in parts)
+        assert c["span_ms"] > 0
+        assert sum(parts) == pytest.approx(c["span_ms"], rel=0.01)
+        for r in c["rounds"]:
+            spec = r["epoch_replays"] - r["epochs_run"]
+            assert spec in (0, 1) and (r["speculative_ms"] > 0) == (spec > 0)
+    for a, b in zip(chunks, chunks[1:]):
+        assert b["edge_from"] == a["seq"]
+        assert np.isfinite(b["idle_chunk_edge_ms"])
+        assert b["idle_chunk_edge_ms"] >= 0
+    window = profiling.ledger_window(t0, seconds)
+    assert window["rounds"] == 9
+    assert eng._fused.epochs_run == [r["epochs_run"] for c in chunks
+                                     for r in c["rounds"]]
