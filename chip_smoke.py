@@ -7549,6 +7549,160 @@ def report_train(torch, device, launches, worst):
     }
 
 
+UPDATE_SHAPES = ((5, False), (5, True), (250, False), (250, True))
+
+
+def update_bound(s: int, p: int, fedprox: bool) -> float:
+    """Least time (ms) of the step's update on an H100: params, grads and
+    both moments read (and the FedProx anchors), params and moments
+    written, f32, plus 16 bytes a row, over HBM bandwidth."""
+    return ((8 if fedprox else 7) * s * p * 4 + 16 * s) / PEAK_BYTES * 1e3
+
+
+def update_inputs(torch, s, p, fedprox, gen, device):
+    """(args, kwargs) of one step's update of S rows, every row stepping."""
+    params = ((torch.rand((s, p), generator=gen) - 0.5) * 0.2).to(device)
+    grads = (torch.randn((s, p), generator=gen) * 1e-2).to(device)
+    state = (torch.zeros(s, dtype=torch.int32, device=device),
+             torch.zeros((s, p), device=device),
+             torch.zeros((s, p), device=device))
+    step = torch.ones(s, dtype=torch.bool, device=device)
+    prev = params + 1e-2 if fedprox else None
+    kw = dict(active=step, loss=torch.ones(s, device=device),
+              loss_sum=torch.zeros(s, device=device), prev=prev,
+              prox_mu=1e-3)
+    return (params, state, grads, 1e-3, step), kw
+
+
+def epoch_graph_nodes(torch, device, model_type, fedprox):
+    """The local-training epoch of 5 of 10 paper-width gateways captured as
+    a CUDA graph at two batch counts: {"nodes": {NB: nodes},
+    "nodes_per_step", "kernels_per_replay"} (the wrappers' kernels at the
+    larger NB). Only LocalTrainer and CapturedBody, so it reads a parent
+    tree's epoch graph too."""
+    from fedmse_tpu_torch.data import stack_clients, synthetic_clients
+    from fedmse_tpu_torch.federation.local_training import LocalTrainer
+    from fedmse_tpu_torch.federation.state import init_client_states
+    from fedmse_tpu_torch.models import make_model
+    from fedmse_tpu_torch.ops.graphs import CapturedBody
+    model = make_model(model_type, *DIMS, 5.0, device=device)
+    nodes, kernels = {}, {}
+    for n_normal in (1_200, 2_400):
+        clients = synthetic_clients(n_clients=10, dim=DIMS[0],
+                                    n_normal=n_normal, n_abnormal=300,
+                                    seed=SEED)
+        dev_x = np.concatenate([c.dev_raw for c in clients])[:2000].astype(
+            np.float32)
+        data = stack_clients(clients, dev_x, 12, device=device)
+        states = init_client_states(model, 10,
+                                    torch.Generator().manual_seed(SEED),
+                                    device=device)
+        trainer = LocalTrainer(model, epochs=2, patience=1, fedprox=fedprox,
+                               mu=0.001, lr=1e-3)
+        co = trainer.cohort(torch.arange(0, 10, 2, device=device),
+                            states.params, data.train_xb, data.train_mb,
+                            data.valid_xb, data.valid_mb)
+        trainer.begin(co, states.params, states.opt_state,
+                      states.prev_global, data.train_xb, data.train_mb,
+                      data.valid_xb, data.valid_mb)
+        body = CapturedBody(lambda: trainer.epoch(co), device, "epoch")
+        body()
+        nb = int(data.train_xb.shape[1])
+        nodes[nb], kernels = body.nodes, dict(body.kernels)
+    (nb1, n1), (nb2, n2) = sorted(nodes.items())
+    return {"nodes": nodes, "nodes_per_step": (n2 - n1) / (nb2 - nb1),
+            "kernels_per_replay": kernels}
+
+
+def report_update(torch, device, launches):
+    """The step update kernel (csrc/adam_update.cu) at the cells' cohorts
+    (5 and 250 rows of the paper's 6,764 parameters, FedProx off and on):
+    bit-equal to its plain version in params, moments and count, its time
+    per call in a 16-call graph of 16 input sets beside its bound, and on
+    one set, the plain version's time (eager and in a 16-call graph), and
+    the epoch graph's nodes per step and kernels per replay."""
+    from fedmse_tpu_torch.models.flat import ParamLayout
+    from fedmse_tpu_torch.ops.adam_update import (adam_update,
+                                                  adam_update_plain, row_ctas)
+    gen = torch.Generator().manual_seed(SEED + 26)
+    p = ParamLayout(*DIMS).size
+    rows_out = []
+    for s, fedprox in UPDATE_SHAPES:
+        args, kw = update_inputs(torch, s, p, fedprox, gen, device)
+        got = [t.clone() for t in (args[0], *args[1])]
+        copies = [t.clone() for t in (args[0], *args[1])]
+        adam_update(*args, **kw)
+        adam_update_plain(copies[0], copies[1:], *args[2:], **{
+            **kw, "loss_sum": kw["loss_sum"].clone()})
+        for a, b in zip((args[0], *args[1]), copies):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"update kernel S={s} fedprox="
+                                     f"{fedprox}: not the plain bits")
+        for t, g in zip((args[0], *args[1]), got):
+            t.copy_(g)
+        # the time of record: each call of the graph on its own inputs, so
+        # that at S = 250 the 16 sets outgrow the L2 and every call reads
+        # device memory; "warm" repeats one set, which the L2 holds
+        sets = [(args, kw)] + [
+            update_inputs(torch, s, p, fedprox, gen, device)
+            for _ in range(GRAPH_CALLS - 1)]
+        at = [0]
+
+        def rotating():
+            a, k = sets[at[0] % len(sets)]
+            at[0] += 1
+            adam_update(*a, **k)
+
+        call = lambda: adam_update(*args, **kw)  # noqa: E731
+        plain = lambda: adam_update_plain(*args, **kw)  # noqa: E731
+        b_ms = update_bound(s, p, fedprox)
+        g_ms = graph_time(torch, rotating, device, 300, b_ms)
+        warm = graph_ms(torch, call, device, 300, GRAPH_CALLS)
+        p_ms = cuda_ms(plain, 100)
+        p_graph = graph_ms(torch, plain, device, 50, GRAPH_CALLS)
+        rows_out.append({"rows": s, "params": p, "fedprox": fedprox,
+                         "ctas": s * row_ctas(p), **g_ms,
+                         "warm_graph_ms_calls": warm, "plain_ms": p_ms,
+                         "plain_graph_ms_calls": p_graph, "bound_ms": b_ms,
+                         "roofline": (b_ms / g_ms["graph_ms_calls"]
+                                      if g_ms["graph_ms_calls"] else None)})
+        log(f"[report] step update S={s} P={p} fedprox={fedprox} "
+            f"({s * row_ctas(p)} CTAs): one-call graph replay "
+            f"{_graph_text(g_ms)}, one input set (L2-warm) {warm:.5f} ms a "
+            f"call, plain {p_ms:.5f} ms eager, "
+            f"{p_graph:.5f} ms a call in a {GRAPH_CALLS}-call graph, bound "
+            f"{b_ms:.6f} ms (bytes)")
+    epochs = {f"{m}/{'fedprox' if f else 'mse_avg'}": epoch_graph_nodes(
+        torch, device, m, f) for m, f in (("hybrid", False),
+                                          ("autoencoder", True))}
+    for what, e in epochs.items():
+        log(f"[report] epoch graph {what}: {e['nodes']} nodes at those "
+            f"batch counts, {e['nodes_per_step']:.2f} a step, kernels per "
+            f"replay {json.dumps(e['kernels_per_replay'])}")
+        if e["nodes_per_step"] != 2:
+            raise AssertionError(f"the epoch graph {what} runs "
+                                 f"{e['nodes_per_step']} nodes a step, not "
+                                 "the train kernel and the update")
+    main = rows_out[0]
+    return {
+        "name": "adam_update",
+        "route": "cuda",
+        "source": "fedmse_tpu_torch/csrc/adam_update.cu",
+        "replaces": "none (optax's update was XLA's fusion on the TPU)",
+        "launches": launches,
+        "graph_ms": main["graph_ms"],
+        "graph_ms_calls": main["graph_ms_calls"],
+        "graph_calls": GRAPH_CALLS,
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the FedProx term, "
+                        "Adam and the loss sum",
+        "shapes": rows_out,
+        "epoch_graphs": epochs,
+    }
+
+
 def phase_report(torch, device, launches, worst):
     """The forward kernel's wrapper-call time (CUDA events, back to back),
     its one-call graph's replay time (graph_time: CUDA events, a reading
@@ -7669,6 +7823,7 @@ def run(torch, cfg, smi, t_start) -> int:
     from fedmse_tpu_torch.data import synthetic_clients
     from fedmse_tpu_torch.ops import native
     from fedmse_tpu_torch.knn import dist_tiles
+    from fedmse_tpu_torch.ops.adam_update import adam_update
     from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
     from fedmse_tpu_torch.ops.fused_train import fused_train_grads
     device = torch.device("cuda", 0)
@@ -7697,6 +7852,7 @@ def run(torch, cfg, smi, t_start) -> int:
     fused_forward_stats.launches = 0
     fused_train_grads.launches = 0
     dist_tiles.launches = 0
+    adam_update.launches = 0
     evaluated, knn_eval = phase_evaluate(torch, device, cfg, clients)
     if knn_eval["hybrid/knn/approx/f32"]["test_rows"] != eval_rows:
         raise AssertionError("the evaluation's distance launch is not the "
@@ -7713,7 +7869,8 @@ def run(torch, cfg, smi, t_start) -> int:
     torch.cuda.synchronize()
     launches = {"fused_ae_forward": fused_forward_stats.launches,
                 "fused_ae_train": fused_train_grads.launches,
-                "dist_tiles": dist_tiles.launches}
+                "dist_tiles": dist_tiles.launches,
+                "adam_update": adam_update.launches}
     # ... and ends here
     for name, n in launches.items():
         if n < 1:
@@ -7748,6 +7905,8 @@ def run(torch, cfg, smi, t_start) -> int:
                                         worst_train))
     line["kernels"].append(report_dist(
         torch, device, launches["dist_tiles"], worst_dist, eval_rows))
+    line["update_kernel"] = report_update(torch, device,
+                                          launches["adam_update"])
     for kernel in line["kernels"]:
         kernel["fault_path_launches"] = robust["launches"][kernel["name"]]
         kernel["cluster_path_launches"] = cluster["launches"][kernel["name"]]

@@ -19,11 +19,12 @@ Here `LocalTrainer` keeps one cohort's training in static buffers
   * `begin` gathers the cohort's rows (its clients' params, Adam state,
     anchors and data, at `Cohort.idx`) and resets the early-stop state;
   * `epoch` runs one epoch: every batch step is ONE fused train-kernel
-    launch over the whole cohort (ops/fused_train.py) followed by the
-    stacked in-place Adam update (optim.adam_step_) on [S, P], then one
-    fused forward launch validates every cohort client. A per-client
-    `active` flag plays the vmapped while_loop's frozen lanes: an
-    early-stopped client keeps its params, state and curve. The epoch
+    launch over the whole cohort (ops/fused_train.py) followed by ONE
+    update launch (optim.adam_step_ -> ops/adam_update.py: the FedProx
+    term, the stacked in-place Adam update on [S, P] and the loss sum),
+    then one fused forward launch validates every cohort client. A
+    per-client `active` flag plays the vmapped while_loop's frozen lanes:
+    an early-stopped client keeps its params, state and curve. The epoch
     index lives on the device, and the epoch writes `go[e]`: whether any
     client is still active for epoch e + 1. Nothing in it reads the host,
     so a CUDA graph captures it (federation/fused.py);
@@ -175,17 +176,17 @@ class LocalTrainer:
         # the first epoch always runs (the scan version's patience=0)
         active = (co.worse < self.patience) | (co.epoch == 0)
         loss_sum = torch.zeros(s, device=p.device)
+        prev = co.prev if self.fedprox else None
         for b in range(nb_max):
             loss, grads = fused_train_grads(
                 p, co.train_xb[:, b], co.train_mb[:, b], layout=self.layout,
                 shrink_lambda=self.lam, compute_dtype=self.cdt,
                 ctas=self.ctas)
-            if self.fedprox:
-                loss = loss + mu * prox_term(p, co.prev)
-                grads = grads + mu * (2.0 * (p - co.prev))
-            # a padded batch is skipped entirely, no Adam time step
-            adam_step_(p, co.opt, grads, co.has_b[:, b] & active, self.lr)
-            loss_sum = loss_sum + torch.where(co.has_b[:, b], loss, 0.0)
+            # the FedProx term, Adam and the loss sum in one update; a
+            # padded batch is skipped entirely, no Adam time step
+            adam_step_(p, co.opt, grads, co.has_b[:, b], self.lr,
+                       active=active, loss=loss, loss_sum=loss_sum,
+                       prev=prev, prox_mu=mu)
         train_loss = loss_sum / co.nb
         v_loss = self._valid_loss(co)
         improved = (v_loss < co.min_v) & active

@@ -1,8 +1,8 @@
 """Adam over a stacked [S, P] f32 parameter buffer, one optimizer state per
 client (the port of `optax.adam(lr)` as the round engine vmaps it).
 
-optax's arithmetic, written out in f32: b1 0.9, b2 0.999, eps 1e-8,
-eps_root 0;
+optax's arithmetic, written out in f32 (ops/adam_update.py): b1 0.9, b2
+0.999, eps 1e-8, eps_root 0;
     mu = (1 - b1) g + b1 mu          nu = (1 - b2) g^2 + b2 nu
     count += 1 (int32, saturating)
     mu_hat = mu / (1 - b1^count)     nu_hat = nu / (1 - b2^count)
@@ -14,15 +14,13 @@ through unchanged.
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fedmse_tpu_torch.models.flat import ParamLayout
-
-B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
-_COUNT_MAX = np.iinfo(np.int32).max
+from fedmse_tpu_torch.ops.adam_update import adam_update
 
 
 class AdamState(NamedTuple):
@@ -59,26 +57,21 @@ def adam_init(params: torch.Tensor) -> AdamState:
 
 
 def adam_step_(params: torch.Tensor, state: AdamState,
-               grads: torch.Tensor, step: torch.Tensor, lr: float) -> None:
-    """One Adam update of the rows where `step` [S] is true, in place:
-    params and the state's buffers take the new values there and keep
-    theirs elsewhere. In place, so a CUDA graph that captured it feeds each
-    replay from the last (federation/fused.py)."""
-    mu = (1 - B1) * grads + B1 * state.mu
-    nu = (1 - B2) * (grads * grads) + B2 * state.nu
-    count = torch.where(state.count < _COUNT_MAX, state.count + 1,
-                        state.count)
-    cf = count.to(torch.float32)
-    bc1 = 1 - torch.pow(torch.full_like(cf, B1), cf)
-    bc2 = 1 - torch.pow(torch.full_like(cf, B2), cf)
-    mu_hat = mu / bc1[:, None]
-    nu_hat = nu / bc2[:, None]
-    updates = (-lr) * (mu_hat / (torch.sqrt(nu_hat + EPS_ROOT) + EPS))
-    keep = step[:, None]
-    torch.where(keep, params + updates, params, out=params)
-    torch.where(step, count, state.count, out=state.count)
-    torch.where(keep, mu, state.mu, out=state.mu)
-    torch.where(keep, nu, state.nu, out=state.nu)
+               grads: torch.Tensor, step: torch.Tensor, lr: float, *,
+               active: Optional[torch.Tensor] = None,
+               loss: Optional[torch.Tensor] = None,
+               loss_sum: Optional[torch.Tensor] = None,
+               prev: Optional[torch.Tensor] = None,
+               prox_mu: float = 0.0) -> None:
+    """One Adam update of the rows where `step` [S] (and `active`, if
+    given) is true, in place: params and the state's buffers take the new
+    values there and keep theirs elsewhere. In place, so a CUDA graph that
+    captured it feeds each replay from the last (federation/fused.py).
+    The local training's step passes its batch's loss, the epoch's
+    loss_sum and, under FedProx, the anchors `prev` and `prox_mu`
+    (ops/adam_update.py). On a card it is one kernel, csrc/adam_update.cu."""
+    adam_update(params, state, grads, lr, step, active=active, loss=loss,
+                loss_sum=loss_sum, prev=prev, prox_mu=prox_mu)
 
 
 def adam_step(params: torch.Tensor, state: AdamState, grads: torch.Tensor,

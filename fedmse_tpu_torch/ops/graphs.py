@@ -57,13 +57,15 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from fedmse_tpu_torch.knn.score import dist_tiles
+from fedmse_tpu_torch.ops.adam_update import adam_update
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.fused_train import fused_train_grads
 
 # every kernel wrapper of the port, by the name chip_smoke reports
 WRAPPERS = {"fused_ae_forward": fused_forward_stats,
             "fused_ae_train": fused_train_grads,
-            "dist_tiles": dist_tiles}
+            "dist_tiles": dist_tiles,
+            "adam_update": adam_update}
 
 
 def _new_graph():

@@ -37,7 +37,7 @@ from typing import Dict, Sequence
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "fedmse_tpu_torch"
-KERNEL_SOURCES = ("fused_ae", "fused_train", "dist_tiles")
+KERNEL_SOURCES = ("fused_ae", "fused_train", "dist_tiles", "adam_update")
 # an earlier design kept as the yardstick of its successor: chip_smoke.py
 # times it beside csrc/dist_tiles.cu; nothing in the package calls it
 BASELINE_SOURCES = ("dist_tiles_baseline",)

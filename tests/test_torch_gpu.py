@@ -1990,3 +1990,204 @@ def test_round_ledger_tiles_each_chunk_on_card(cuda):
     assert window["rounds"] == 9
     assert eng._fused.epochs_run == [r["epochs_run"] for c in chunks
                                      for r in c["rounds"]]
+
+
+# -- the local-training step's update (csrc/adam_update.cu) -----------------
+
+UPDATE_LR, UPDATE_MU = 1e-3, 0.001
+
+
+def _update_inputs(s, p, device, seed=0):
+    """A step's update inputs on `device`: params, Adam state (some counts
+    at int32's max), grads, anchors, the batch's losses, a running loss sum,
+    and has_b / active flags with NaN grads and losses in rows that do not
+    step (an all-masked batch)."""
+    from fedmse_tpu_torch.federation.optim import AdamState
+    gen = torch.Generator().manual_seed(seed)
+    params = (torch.rand((s, p), generator=gen) - 0.5) * 0.4
+    grads = torch.randn((s, p), generator=gen) * 1e-2
+    opt = AdamState(torch.randint(0, 400, (s,), generator=gen,
+                                  dtype=torch.int32),
+                    torch.randn((s, p), generator=gen) * 1e-3,
+                    torch.rand((s, p), generator=gen) * 1e-5)
+    opt.count[1::7] = np.iinfo(np.int32).max
+    prev = params + torch.randn((s, p), generator=gen) * 1e-2
+    loss = torch.rand(s, generator=gen) + 0.5
+    loss_sum = torch.rand(s, generator=gen) * 5
+    has = torch.rand(s, generator=gen) < 0.8
+    active = torch.rand(s, generator=gen) < 0.8
+    has[0], active[0] = True, True
+    grads[~has | ~active] = float("nan")
+    loss[~has] = float("nan")
+    move = lambda t: t.to(device)  # noqa: E731
+    return (move(params), AdamState(*map(move, opt)), move(grads),
+            move(prev), move(loss), move(loss_sum), move(has), move(active))
+
+
+def _run_update(fn, inputs, fedprox, place=torch.clone):
+    """fn on copies of `inputs` made by `place`: (params, count, mu, nu,
+    loss_sum)."""
+    from fedmse_tpu_torch.federation.optim import AdamState
+    params, opt, grads, prev, loss, loss_sum, has, active = inputs
+    params, loss_sum = place(params), loss_sum.clone()
+    opt = AdamState(opt.count.clone(), *(place(t) for t in opt[1:]))
+    fn(params, opt, grads, UPDATE_LR, has, active=active, loss=loss,
+       loss_sum=loss_sum, prev=prev if fedprox else None,
+       prox_mu=UPDATE_MU)
+    return params, *opt, loss_sum
+
+
+def _prox_sum_bound(inputs, result):
+    """How far summation order alone moves the FedProx loss sum, per row:
+    two orders of a sum of P non-negative terms each lie within
+    (P - 1) 2^-24 of it, so mu times their gap, plus a rounding flip in
+    each of the three roundings after the sum (mu x, loss +, loss_sum +):
+    3 ulp of the loss sum, which is the largest of the three."""
+    params, _, _, prev, _, _, _, _ = inputs
+    p = params.shape[1]
+    prox = ((params.double() - prev.double()) ** 2).sum(dim=1).float()
+    out = result.abs()
+    ulp = torch.nextafter(out, torch.full_like(out, float("inf"))) - out
+    return 2 * (p - 1) * 2.0 ** -24 * UPDATE_MU * prox + 3 * ulp
+
+
+@pytest.mark.parametrize("fedprox", [False, True])
+@pytest.mark.parametrize("p", [6764, 339])
+@pytest.mark.parametrize("s", [5, 250, 512])
+def test_update_kernel_matches_plain_bit_for_bit(cuda, s, p, fedprox):
+    """The kernel against the op sequence it replaces (the plain version on
+    the card): p, mu, nu and count bit for bit; the loss sum bit for bit
+    without FedProx and within the prox sum's reordering bound under it
+    (the one sum the kernel takes in its own order, fixed by P). Rows that
+    do not step keep every bit, NaN grads there included. P = 339 takes the
+    scalar path (P % 4 != 0)."""
+    from fedmse_tpu_torch.ops.adam_update import (adam_update,
+                                                  adam_update_plain)
+    inputs = _update_inputs(s, p, cuda, seed=s + p)
+    before = adam_update.launches
+    got = _run_update(adam_update, inputs, fedprox)
+    assert adam_update.launches == before + 1
+    want = _run_update(adam_update_plain, inputs, fedprox)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("params", "count", "mu", "nu"), got, want):
+        assert torch.equal(_bits(a), _bits(b)), name
+    if fedprox:
+        gap = (got[-1] - want[-1]).abs()
+        assert (gap <= _prox_sum_bound(inputs, want[-1])).all()
+    else:
+        assert torch.equal(_bits(got[-1]), _bits(want[-1]))
+    params, opt, *_, has, active = inputs
+    still = ~(has & active)
+    assert still.any()
+    for a, b in zip(got[:4], (params, *opt)):
+        assert torch.equal(_bits(a[still]), _bits(b[still]))
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[-1]).all()
+
+
+@pytest.mark.parametrize("fedprox", [False, True])
+def test_update_kernel_row_alone_equals_row_in_cohort(cuda, fedprox):
+    """A row's bits are the same updated alone as inside a cohort of 250,
+    and with misaligned buffers (the scalar path): the FedProx sum's order
+    is fixed by P alone."""
+    from fedmse_tpu_torch.ops.adam_update import adam_update
+    inputs = _update_inputs(250, 6764, cuda, seed=5)
+    whole = _run_update(adam_update, inputs, fedprox)
+
+    def misaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    shifted = list(inputs)
+    shifted[2], shifted[3] = misaligned(inputs[2]), misaligned(inputs[3])
+    assert shifted[2].data_ptr() % 16 != 0
+    again = _run_update(adam_update, shifted, fedprox, place=misaligned)
+    for a, b in zip(whole, again):
+        assert torch.equal(_bits(a), _bits(b))
+    has, active = inputs[-2], inputs[-1]
+    rows = [0, int((~active).nonzero()[0]), int((~has).nonzero()[0])]
+    opt = inputs[1]
+    for k in rows:
+        one = [t[k:k + 1] for t in inputs]
+        one[1] = type(opt)(*(t[k:k + 1] for t in opt))
+        alone = _run_update(adam_update, one, fedprox)
+        for a, b in zip(alone, whole):
+            assert torch.equal(_bits(a), _bits(b[k:k + 1])), k
+
+
+def test_update_kernel_graph_replay_equals_eager(cuda):
+    """The update captured in a CUDA graph (one kernel node, counted as
+    one adam_update a replay) gives the eager call's bits."""
+    from fedmse_tpu_torch.federation.optim import AdamState
+    from fedmse_tpu_torch.ops.adam_update import adam_update
+    inputs = _update_inputs(250, 6764, cuda, seed=6)
+    want = _run_update(adam_update, inputs, True)
+    params, opt, grads, prev, loss, loss_sum, has, active = inputs
+    work = [params.clone(), AdamState(*(t.clone() for t in opt)),
+            loss_sum.clone()]
+
+    def body():
+        work[0].copy_(params)
+        work[1].copy_(opt)
+        work[2].copy_(loss_sum)
+        adam_update(work[0], work[1], grads, UPDATE_LR, has, active=active,
+                    loss=loss, loss_sum=work[2], prev=prev,
+                    prox_mu=UPDATE_MU)
+
+    graphed = _captured(body, [work[0]])
+    graphed()  # the eager warm-up and the capture
+    assert graphed.kernels == {"adam_update": 1}
+    for _ in range(2):
+        work[0].zero_()
+        graphed()
+        torch.cuda.synchronize()
+        for a, b in zip((work[0], *work[1], work[2]), want):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+def test_update_kernel_refused_launch_raises(cuda, monkeypatch):
+    """A launch the card refuses (a cluster of 16 CTAs, above the portable
+    8 the kernel is not allowed beyond) raises at the call."""
+    from fedmse_tpu_torch.ops import adam_update as mod
+    inputs = _update_inputs(5, 6764, cuda, seed=7)
+    monkeypatch.setattr(mod, "row_ctas", lambda p: 16)
+    before = mod.adam_update.launches
+    with pytest.raises(RuntimeError, match="adam_update launch failed"):
+        _run_update(mod.adam_update, inputs, True)
+    assert mod.adam_update.launches == before
+
+
+def test_epoch_graph_runs_two_kernels_a_step(cuda):
+    """The local-training epoch captured as a graph: each batch step adds
+    exactly two nodes (the train kernel and the update), and the graph
+    counts one fused_ae_train and one adam_update a step."""
+    from fedmse_tpu_torch.federation.local_training import LocalTrainer
+    from fedmse_tpu_torch.federation.state import init_client_states
+    model = make_model("autoencoder", 16, 8, 3, device=cuda)
+    counts = {}
+    for n_normal in (200, 400):
+        clients = synthetic_clients(n_clients=4, dim=16, n_normal=n_normal,
+                                    n_abnormal=40, seed=1)
+        dev_x = np.concatenate([c.dev_raw for c in clients])[:100].astype(
+            np.float32)
+        data = stack_clients(clients, dev_x, 12, device=cuda)
+        states = init_client_states(model, 4,
+                                    torch.Generator().manual_seed(2),
+                                    device=cuda)
+        trainer = LocalTrainer(model, epochs=2, patience=1, fedprox=True,
+                               mu=0.001, lr=1e-3)
+        idx = torch.tensor([0, 2, 3], device=cuda)
+        co = trainer.cohort(idx, states.params, data.train_xb,
+                            data.train_mb, data.valid_xb, data.valid_mb)
+        trainer.begin(co, states.params, states.opt_state,
+                      states.prev_global, data.train_xb, data.train_mb,
+                      data.valid_xb, data.valid_mb)
+        graphed = _captured(lambda: trainer.epoch(co), [co.p])
+        graphed()
+        nb = data.train_xb.shape[1]
+        assert graphed.kernels == {"fused_ae_train": nb, "adam_update": nb,
+                                   "fused_ae_forward": 1}
+        counts[nb] = graphed.nodes
+    (nb1, n1), (nb2, n2) = sorted(counts.items())
+    assert nb2 > nb1 and n2 - n1 == 2 * (nb2 - nb1)
