@@ -309,6 +309,22 @@ build/fedmse_tpu_torch/), then:
                 within 2e-3; (d) the three kernels at
                 the padded shapes (G = 12, each rank's block) against
                 their plain versions;
+     kitnet     (after the main path, after padding) KitNET
+                (models/kitnet.py): (a) main.run_combination with
+                model_type 'kitnet', scaler minmax, fedprox, on the fused,
+                pipelined schedule over 40 gateways in N-BaIoT's layout
+                (23 statistics x 5 windows), every launch counter set to
+                0 just before and read just after: the KitNET kernels and
+                the update launched, the update once a train step, the
+                autoencoder's kernels never; final AUC above 0.9; (b)
+                both KitNET kernels against their plain twins (TF32 off)
+                under the run's feature map, at the train steps of 250
+                and 5 clients of 12 rows and at the 500-gateway cell's
+                evaluation forward (500 models x 3,000 rows), within
+                1e-5 scale-normalized (the statistics within 1e-6), one
+                launch a call, timed per call in a 16-call graph over 16
+                input sets beside the bound of
+                benchmark/roofline_kitnet.py;
   6. card-cpu   one combination's first round, cut to one epoch, on the
                 card and on the CPU (the plain versions) from one init;
   7. report     kernel time (per wrapper call by CUDA events; per replay
@@ -2579,7 +2595,7 @@ def phase_robust(torch, device, cfg, clients, data):
     slice's main path: every kernel's launch counter is set to 0 before
     them and read after, and each must have launched. Then (a), (c), (d)
     and (e) hold the path to its references."""
-    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    WRAPPERS = family_wrappers("autoencoder")
     n = len(clients)
     t0 = time.perf_counter()
     for w in WRAPPERS.values():
@@ -3142,7 +3158,7 @@ def phase_cluster(torch, device, cfg):
     references, and the clustered round is timed beside the clean one."""
     from fedmse_tpu_torch.federation import init_client_states
     from fedmse_tpu_torch.models import make_model
-    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    WRAPPERS = family_wrappers("autoencoder")
     t0 = time.perf_counter()
     data, cpu_data = cluster_fleet(cfg, (device, torch.device("cpu")))
     n = CLUSTER_FLEET["n_clients"]
@@ -3586,7 +3602,7 @@ def phase_redteam(torch, device, cfg):
     the clustered path's shapes)."""
     from fedmse_tpu_torch.federation import init_client_states
     from fedmse_tpu_torch.models import make_model
-    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    WRAPPERS = family_wrappers("autoencoder")
     t0 = time.perf_counter()
     data, cpu_data = cluster_fleet(cfg, (device, torch.device("cpu")))
     n = CLUSTER_FLEET["n_clients"]
@@ -3716,7 +3732,7 @@ def batch_vs_sequential(torch, cfg, data, n, model_type="hybrid",
     from fedmse_tpu_torch.main import (run_batched_combination,
                                        run_combination)
     from fedmse_tpu_torch.models.flat import ParamLayout
-    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    WRAPPERS = family_wrappers("autoencoder")
     c = cfg.replace(num_runs=BATCH_RUNS)
     seq = [run_combination(c, data, n, model_type, update_type, r,
                            early_stop=_early(c)) for r in range(BATCH_RUNS)]
@@ -4745,11 +4761,18 @@ FLYWHEEL_TOL = 1e-4      # (c): one fine-tune epoch, card vs CPU
 FLYWHEEL_LAUNCHES = {}   # the flywheel path's kernel launches, by wrapper
 
 
+def family_wrappers(family: str) -> dict:
+    """The wrappers of the kernels a model family's main path launches
+    (ops/graphs.FAMILY_KERNELS), by name."""
+    from fedmse_tpu_torch.ops.graphs import FAMILY_KERNELS, WRAPPERS
+    return {k: WRAPPERS[k] for k in FAMILY_KERNELS[family]}
+
+
 @contextlib.contextmanager
 def counted_launches(store):
     """Count the kernel launches of the work inside: every count set to 0
     just before and read just after, added into `store`."""
-    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    WRAPPERS = family_wrappers("autoencoder")
     import torch
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -7487,6 +7510,263 @@ def phase_padding(torch, device, cfg, smi):
     return report
 
 
+# KitNET (models/kitnet.py): a federation in N-BaIoT's layout, 23 statistics
+# x 5 damped windows (the benchmark's fleet-500gw-windowed traffic, cut to
+# 40 gateways), for the main path's run
+KITNET_FLEET = {"gateways": 40, "normal_rows": 3000, "abnormal_rows": 600,
+                "stream_stats": (3, 3, 7, 3, 7), "windows": 5}
+# the train steps of the 500-gateway cell's cohort (250 clients) and of a
+# 10-gateway federation's (5), 12 rows each; the 500-gateway cell's
+# evaluation forward: 500 models x 3,000 test rows (1.5M rows)
+KITNET_STEPS = (250, 5)
+KITNET_EVAL = (500, 3000)
+
+
+def kitnet_fleet(torch, device):
+    """KITNET_FLEET's federation (FederatedData on `device`): a normal row
+    x_{j,w} = sqrt(0.9) u_j + sqrt(0.1) eps_{j,w} (the windows of one
+    statistic correlated at 0.9), an abnormal row 4 + 2 x (the same);
+    40% of the normal rows train, 10% validate, 10% test beside every
+    abnormal row, all min-max scaled by the gateway's train rows, in
+    batches of 12."""
+    from fedmse_tpu_torch.data.stacking import FederatedData
+    f = KITNET_FLEET
+    n, rows = f["gateways"], f["normal_rows"]
+    cols, first = [], 0
+    for count in f["stream_stats"]:
+        cols += [first + i for _ in range(f["windows"]) for i in range(count)]
+        first += count
+    stat_of = torch.tensor(cols)
+    gen = torch.Generator().manual_seed(SEED + 27)
+
+    def windowed(k):
+        u = torch.randn((n, k, first), generator=gen)
+        eps = torch.randn((n, k, len(cols)), generator=gen)
+        return 0.9 ** 0.5 * u[:, :, stat_of] + 0.1 ** 0.5 * eps
+
+    normal = windowed(rows)
+    abnormal = 4.0 + 2.0 * windowed(f["abnormal_rows"])
+    tr, va = int(0.4 * rows), int(0.1 * rows)
+    train = normal[:, :tr]
+    lo = train.amin(dim=1, keepdim=True)
+    span = train.amax(dim=1, keepdim=True) - lo
+
+    def scaled(t):
+        return ((t - lo) / span).contiguous()
+
+    def batches(t):
+        nb = -(-t.shape[1] // 12)
+        xb = torch.nn.functional.pad(t, (0, 0, 0, nb * 12 - t.shape[1]))
+        mb = (torch.arange(nb * 12) < t.shape[1]).float()
+        return (xb.view(n, nb, 12, -1).contiguous(),
+                mb.view(1, nb, 12).expand(n, -1, -1).contiguous())
+
+    valid = scaled(normal[:, tr:tr + va])
+    test = torch.cat([scaled(normal[:, tr + va:tr + 2 * va]),
+                      scaled(abnormal)], dim=1)
+    txb, tmb = batches(scaled(train))
+    vxb, vmb = batches(valid)
+    labels = torch.cat([torch.zeros(va), torch.ones(f["abnormal_rows"])])
+    data = FederatedData(
+        train_xb=txb, train_mb=tmb, valid_xb=vxb, valid_mb=vmb,
+        valid_x=valid, valid_m=torch.ones(n, va), test_x=test,
+        test_m=torch.ones(n, test.shape[1]),
+        test_y=labels.expand(n, -1).contiguous(),
+        dev_x=valid.reshape(-1, len(cols))[:1000].contiguous(),
+        client_mask=torch.ones(n))
+    return FederatedData(**{k: getattr(data, k).to(device)
+                            for k in data.__dataclass_fields__})
+
+
+def kitnet_models(torch, layout, g, gen, device):
+    """g KitNET models on dyadic grids (params k/64 in (-1, 1), statistics
+    k/64 with lo < hi), the last with nothing seen (hi < lo)."""
+    from fedmse_tpu_torch.models import kitnet
+    flat = torch.randint(-63, 64, (g, layout.size), generator=gen) / 64.0
+    lo = torch.randint(0, 16, (g, layout.k), generator=gen) / 64.0
+    hi = lo + torch.randint(1, 48, (g, layout.k), generator=gen) / 64.0
+    stats = torch.cat([lo, hi], dim=1)
+    stats[-1] = kitnet.fresh_stats(1, layout, "cpu")[0]
+    return flat.to(device), stats.to(device)
+
+
+def kitnet_main_path(torch, device, cfg):
+    """(a): run_combination on KITNET_FLEET, every wrapper's launch
+    counter set to 0 just before and read just after."""
+    from fedmse_tpu_torch.main import run_combination
+    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    data = kitnet_fleet(torch, device)
+    n = KITNET_FLEET["gateways"]
+    c = cfg.replace(scaler="minmax")
+    rows = []
+
+    def on_round(result, sec):
+        auc = result.client_metrics
+        if not np.isfinite(auc).all():
+            raise AssertionError(f"kitnet: AUC not finite: {auc}")
+        rows.append({"round": result.round_index + 1,
+                     "aggregator": result.aggregator,
+                     "mean_auc": float(np.mean(auc)), "seconds": sec})
+        log(f"[kitnet] round {result.round_index + 1}: aggregator "
+            f"{result.aggregator}, mean AUC {np.mean(auc):.6f}, {sec:.4f} s")
+
+    torch.cuda.synchronize()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = run_combination(c, data, n, "kitnet", "fedprox", 0,
+                          on_round=on_round)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    log(f"[kitnet] main path launches {json.dumps(launches)}")
+    for name in family_wrappers("kitnet"):
+        if launches[name] < 1:
+            raise AssertionError(f"the KitNET path never launched {name}")
+    for name in family_wrappers("autoencoder"):
+        if name not in family_wrappers("kitnet") and launches[name]:
+            raise AssertionError(f"the KitNET path launched {name}")
+    if launches["adam_update"] != launches["kitnet_train"]:
+        raise AssertionError("the KitNET path's updates are not one a "
+                             f"train step: {launches}")
+    engine = out["engine"]
+    fused = engine.fused_round().stats()
+    auc = float(np.mean(out["final_metrics"]))
+    if auc < 0.9:
+        raise AssertionError(f"kitnet: final mean AUC {auc} (the abnormal "
+                             "rows lie far outside the min-max range)")
+    fmap = engine.layout.feature_map
+    log(f"[kitnet] {n} gateways, fedprox: final mean AUC {auc:.6f} in "
+        f"{seconds:.2f} s; map of {len(fmap)} autoencoders "
+        f"{[len(a) for a in fmap]}, P {engine.layout.size}; epochs "
+        f"{fused['epochs_run']}, graphs {json.dumps(fused['graphs'])}")
+    return engine.layout, {"rounds": rows, "final_mean_auc": auc,
+                           "seconds": seconds, "launches": launches,
+                           "feature_map_sizes": [len(a) for a in fmap],
+                           "params": engine.layout.size,
+                           "fused": fused}
+
+
+def _kitnet_close(torch, got, want, tol, what):
+    """Scale-normalized: max |got - want| / max |want| over the finite
+    entries (NaN and the infinities where `want` has them)."""
+    if not torch.equal(torch.isnan(got), torch.isnan(want)) or \
+            not torch.equal(torch.isinf(got), torch.isinf(want)):
+        raise AssertionError(f"{what}: NaN or inf where the plain twin "
+                             "has none")
+    ok = torch.isfinite(want)
+    err = scaled_err(got[ok], want[ok])
+    if err > tol:
+        raise AssertionError(f"{what}: {err:.3e} > {tol:g} scale-normalized")
+    return err
+
+
+def kitnet_kernels(torch, device, layout):
+    """(b): both KitNET kernels against their plain twins under the run's
+    map, each one launch a call, timed per call in a GRAPH_CALLS-call
+    graph over GRAPH_CALLS input sets beside the bound of
+    benchmark/roofline_kitnet.py, the twins' times beside them."""
+    from benchmark import roofline_kitnet
+    from fedmse_tpu_torch.ops import kitnet as ops
+    fmap = [list(a) for a in layout.feature_map]
+    beta = layout.hidden_ratio
+    gen = torch.Generator().manual_seed(SEED + 28)
+    tol = TOL["f32"]
+    rows_out = []
+    for s in KITNET_STEPS:
+        sets = []
+        for _ in range(GRAPH_CALLS):
+            flat, stats = kitnet_models(torch, layout, s, gen, device)
+            x = (torch.randint(0, 65, (s, 12, layout.dim), generator=gen)
+                 / 64.0).to(device)
+            m = torch.ones((s, 12), device=device)
+            m[min(1, s - 1), 9:] = 0.0
+            active = torch.ones(s, dtype=torch.bool, device=device)
+            active[0] = False
+            sets.append((flat, stats, x, m, active))
+        flat, stats, x, m, active = sets[0]
+        got_stats, want_stats = stats.clone(), stats.clone()
+        before = ops.kitnet_train_grads.launches
+        loss, grads = ops.kitnet_train_grads(flat, got_stats, x, m,
+                                             layout=layout, active=active)
+        if ops.kitnet_train_grads.launches != before + 1:
+            raise AssertionError("the KitNET train step is not one launch")
+        w_loss, w_grads = ops.kitnet_train_grads_plain(
+            flat, want_stats, x, m, layout=layout, active=active)
+        errs = {"loss": _kitnet_close(torch, loss, w_loss, tol,
+                                      f"KitNET train S={s} loss"),
+                "stats": _kitnet_close(torch, got_stats, want_stats, 1e-6,
+                                       f"KitNET train S={s} stats")}
+        errs["grads"] = max(_kitnet_close(
+            torch, grads[:, sl], w_grads[:, sl], tol,
+            f"KitNET train S={s} leaf {i}")
+            for i, sl in enumerate(layout.slices()))
+        at = [0]
+
+        def rotating(sets=sets):
+            f, st, xx, mm, act = sets[at[0] % len(sets)]
+            at[0] += 1
+            ops.kitnet_train_grads(f, st, xx, mm, layout=layout, active=act)
+
+        b_ms, b_by = roofline_kitnet.train_bound(12, s, fmap, beta)
+        g_ms = graph_time(torch, rotating, device, 300, b_ms)
+        p_ms = cuda_ms(lambda: ops.kitnet_train_grads_plain(
+            flat, stats.clone(), x, m, layout=layout, active=active), 20)
+        rows_out.append({"name": "kitnet_train", "clients": s, "rows": 12,
+                         "errs": errs, **g_ms, "plain_ms": p_ms,
+                         "bound_ms": b_ms, "bound_by": b_by})
+        log(f"[kitnet] train step S={s} R=12, k={layout.k}, "
+            f"P={layout.size}: scale-normalized errs {json.dumps(errs)}; "
+            f"one-call graph replay {_graph_text(g_ms)}, plain "
+            f"{p_ms:.5f} ms eager, bound {b_ms:.6f} ms ({b_by})")
+    models, each = KITNET_EVAL
+    rows = models * each
+    x = (torch.randint(0, 65, (rows, layout.dim), generator=gen)
+         / 64.0).to(device)
+    idx = torch.arange(models, dtype=torch.int32,
+                       device=device).repeat_interleave(each)
+    sets = []
+    for _ in range(GRAPH_CALLS):
+        flat, stats = kitnet_models(torch, layout, models, gen, device)
+        sets.append(layout.tree(flat, stats=stats))
+    before = ops.kitnet_forward_stats.launches
+    got = ops.kitnet_forward_stats(sets[0], x, idx)
+    if ops.kitnet_forward_stats.launches != before + 1:
+        raise AssertionError("the KitNET forward is not one launch")
+    want = ops.kitnet_forward_stats_plain(sets[0], x, idx)
+    errs = {name: _kitnet_close(torch, a, b, tol, f"KitNET forward {name}")
+            for name, a, b in zip(("statistic", "loss"), got, want)}
+    at = [0]
+
+    def rotating_fwd():
+        p = sets[at[0] % len(sets)]
+        at[0] += 1
+        ops.kitnet_forward_stats(p, x, idx)
+
+    b_ms, b_by = roofline_kitnet.forward_bound(rows, models, fmap, beta)
+    g_ms = graph_time(torch, rotating_fwd, device, 20, b_ms)
+    p_ms = cuda_ms(lambda: ops.kitnet_forward_stats_plain(sets[0], x, idx),
+                   1)
+    rows_out.append({"name": "kitnet_forward", "models": models,
+                     "rows": rows, "errs": errs, **g_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by})
+    log(f"[kitnet] forward {rows} rows of {models} models: scale-normalized "
+        f"errs {json.dumps(errs)}; one-call graph replay {_graph_text(g_ms)}"
+        f", plain {p_ms:.3f} ms eager, bound {b_ms:.6f} ms ({b_by})")
+    return rows_out
+
+
+def phase_kitnet(torch, device, cfg, smi):
+    """KitNET's main path and its two kernels ((a) and (b) above)."""
+    t0 = time.perf_counter()
+    layout, report = kitnet_main_path(torch, device, cfg)
+    report["kernels"] = kitnet_kernels(torch, device, layout)
+    log(f"[kitnet] kernels {json.dumps(report['kernels'])}")
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[kitnet] done in {report['seconds']:.1f} s ({smi})")
+    return report
+
+
 def report_train(torch, device, launches, worst):
     """The train kernel's and its plain version's times and bounds at the
     main path's step shape (5 clients x 12 rows) and at 512 clients."""
@@ -7892,6 +8172,7 @@ def run(torch, cfg, smi, t_start) -> int:
     sweeps = phase_sweeps(torch, device, cfg)
     studies = phase_studies(torch, device, cfg, study_shards)
     padding = phase_padding(torch, device, cfg, smi)
+    kitnet = phase_kitnet(torch, device, cfg, smi)
     training["orders"] = phase_train_orders(torch, cfg, datas, len(clients),
                                             training)
     training["fused_hold"] = phase_fused_hold(torch, device, cfg, clients)
@@ -7944,6 +8225,7 @@ def run(torch, cfg, smi, t_start) -> int:
     line["sweeps"] = sweeps
     line["studies"] = studies
     line["padding"] = padding
+    line["kitnet"] = kitnet
     line["evaluate_knn"] = knn_eval
     line["serving"] = serve
     line["training"] = training

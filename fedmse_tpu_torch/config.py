@@ -110,12 +110,18 @@ class ExperimentConfig:
     # local and global early stopping
     patience: int = 1
     global_patience: int = 1
-    # sweep axes and model topology (the paper's width)
+    # sweep axes and model topology (the paper's width); model type
+    # 'kitnet' is Kitsune's KitNET (models/kitnet.py), which needs
+    # scaler 'minmax'
     model_types: Tuple[str, ...] = ("hybrid", "autoencoder")
     update_types: Tuple[str, ...] = ("avg", "fedprox", "mse_avg")
     dim_features: int = 115
     hidden_neus: int = 27
     latent_dim: int = 7
+    # KitNET: at most this many features an ensemble member (Kitsune's m)
+    # and its hidden units per input (Kitsune's beta)
+    kitnet_max_ae: int = 10
+    kitnet_hidden_ratio: float = 0.75
     # verification of the broadcast and the aggregation quota
     verification_method: str = "val"  # "val" | "dev"
     verification_threshold: float = 3.0

@@ -43,12 +43,19 @@ METRICS = ("AUC", "classification", "scores", "time")
 
 def resolve_score_kind(model_type: str, score_kind: str) -> str:
     """'auto' keeps the reference pairing (autoencoder -> 'mse', hybrid ->
-    'centroid'); 'mse' / 'centroid' / 'knn' force that score."""
+    'centroid'; kitnet -> 'mse', its output autoencoder's per-row
+    statistic, the only score it has); 'mse' / 'centroid' / 'knn' force
+    that score."""
     if score_kind not in ("auto", "mse", "centroid", "knn"):
         raise ValueError(f"unknown score_kind {score_kind!r}; expected "
                          "'auto' | 'mse' | 'centroid' | 'knn'")
+    if model_type == "kitnet" and score_kind not in ("auto", "mse"):
+        raise ValueError(f"model_type 'kitnet' scores by its output "
+                         f"autoencoder ('auto' or 'mse'), not "
+                         f"{score_kind!r}")
     if score_kind == "auto":
-        return "mse" if model_type == "autoencoder" else "centroid"
+        return "mse" if model_type in ("autoencoder", "kitnet") \
+            else "centroid"
     return score_kind
 
 

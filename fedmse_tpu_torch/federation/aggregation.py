@@ -49,19 +49,23 @@ def make_raw_weights_fn(model, update_type: str, runs: int = 1) -> Callable:
     models are R runs' cohorts in run order, still one launch, and each
     run's dev MSEs are averaged over its own [S, M] slice: a mean's
     summation order on the card depends on how many rows it reduces, so
-    a run gets the bits of the run alone."""
+    a run gets the bits of the run alone. KitNET's models score with their
+    running statistics `stats` [N, 2k]."""
     layout = ParamLayout.of(model)
     cdt = model.compute_dtype
 
     def raw_weights(params: torch.Tensor, sel_mask: torch.Tensor,
                     dev_x: torch.Tensor,
-                    sel_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    sel_idx: Optional[torch.Tensor] = None,
+                    stats: Optional[torch.Tensor] = None) -> torch.Tensor:
         if update_type != "mse_avg":
             return sel_mask
         sub = params if sel_idx is None else params.index_select(0, sel_idx)
+        if stats is not None and sel_idx is not None:
+            stats = stats.index_select(0, sel_idx)
         s, (m, d) = sub.shape[0], dev_x.shape
         _, mse, _ = fused_forward_stats(
-            layout.tree(sub, cdt), dev_x.to(cdt).repeat(s, 1),
+            layout.tree(sub, cdt, stats=stats), dev_x.to(cdt).repeat(s, 1),
             client_index(s, m, params.device), compute_dtype=cdt)
         if runs == 1:
             mses = mse.view(s, m).mean(dim=1)
@@ -109,9 +113,12 @@ def make_runs_aggregate_fn(model, update_type: str, runs: int,
 
 
 def make_aggregate_fn(model, update_type: str) -> Callable:
-    """fn(params [N, P], sel_mask [N], dev_x [M, D], sel_idx=None) ->
-    (merged [P], weights [N]). sel_idx restricts mse_avg's dev scoring to
-    the cohort (the weights are the same either way)."""
+    """fn(params [N, P], sel_mask [N], dev_x [M, D], sel_idx=None,
+    stats=None) -> (merged [P], weights [N]). sel_idx restricts mse_avg's
+    dev scoring to the cohort (the weights are the same either way);
+    `stats` are KitNET's running statistics, which its dev scoring reads
+    (the merged statistics are models/kitnet.merge_stats of the
+    weights)."""
     if update_type not in UPDATE_TYPES:
         raise ValueError(f"unknown update_type {update_type!r}; expected "
                          f"one of {UPDATE_TYPES}")
@@ -120,9 +127,10 @@ def make_aggregate_fn(model, update_type: str) -> Callable:
     @torch.no_grad()
     def aggregate(params: torch.Tensor, sel_mask: torch.Tensor,
                   dev_x: torch.Tensor,
-                  sel_idx: Optional[torch.Tensor] = None
+                  sel_idx: Optional[torch.Tensor] = None,
+                  stats: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        raw = raw_weights(params, sel_mask, dev_x, sel_idx)
+        raw = raw_weights(params, sel_mask, dev_x, sel_idx, stats=stats)
         weights = raw / raw.sum()
         return weighted_mean(params, weights), weights
 
@@ -138,9 +146,11 @@ def real_rows_merge(merge: Callable, n_real: int) -> Callable:
     on the card alike."""
     def merge_real(params: torch.Tensor, sel_mask: torch.Tensor,
                    dev_x: torch.Tensor, *cluster_in: torch.Tensor,
-                   sel_idx: Optional[torch.Tensor] = None):
+                   sel_idx: Optional[torch.Tensor] = None, **stats):
+        # `stats`: the dense merge's running statistics [N, Q], cut alike
         out = merge(params[:n_real], sel_mask[:n_real], dev_x,
-                    *(c[:n_real] for c in cluster_in), sel_idx=sel_idx)
+                    *(c[:n_real] for c in cluster_in), sel_idx=sel_idx,
+                    **{k: v[:n_real] for k, v in stats.items()})
         weights = torch.nn.functional.pad(out[1],
                                           (0, params.shape[0] - n_real))
         return (out[0], weights, *out[2:])

@@ -149,6 +149,7 @@ from fedmse_tpu_torch.federation.voting import (KeyedDraws, TieBreak,
                                                 elect_on_device,
                                                 elect_on_device_runs)
 from fedmse_tpu_torch.models.flat import ParamLayout
+from fedmse_tpu_torch.models.kitnet import merge_stats
 from fedmse_tpu_torch.ops.graphs import CapturedBody
 from fedmse_tpu_torch.redteam.adversary import RedteamFns
 from fedmse_tpu_torch.utils.profiling import RoundLedger, span
@@ -467,7 +468,8 @@ class FusedRound:
         if self.elastic:
             self._join_and_leave()
         self.trainer.begin(self.co, st.params, st.opt_state, st.prev_global,
-                           d.train_xb, d.train_mb, d.valid_xb, d.valid_mb)
+                           d.train_xb, d.train_mb, d.valid_xb, d.valid_mb,
+                           st.stats)
 
     def _join_and_leave(self) -> None:
         """The slot pool's entry transitions, in place (JAX fused.py
@@ -512,7 +514,8 @@ class FusedRound:
             opt_state=res.opt_state.where(~lost, st.opt_state),
             best_params=res.best_params,
             min_valid=torch.where(lost, nan, res.min_valid),
-            tracking=torch.where(lost[:, None, None], nan, res.tracking))
+            tracking=torch.where(lost[:, None, None], nan, res.tracking),
+            stats=tree_select_clients(lost, st.stats, res.stats))
 
     def _reelect(self, base, eff, aggregator, scores):
         """A crash fells the elected aggregator: the others elect again on
@@ -574,7 +577,7 @@ class FusedRound:
             and self.redteam.merge_fn is not None
         if not self.clustered:
             merged, weights = self.aggregate(st.params, agg_mask, d.dev_x,
-                                             sel_idx=sel_idx)
+                                             sel_idx=sel_idx, stats=st.stats)
             if self.poison is not None:
                 merged = self.poison(merged, r["attack"], r.get("noise"))
             if rt_merge:
@@ -596,7 +599,7 @@ class FusedRound:
     def _leave(self) -> None:
         d, st, r = self.data, self.states, self.round_in
         res = self.trainer.finish(self.co, st.params, st.opt_state,
-                                  self.sel_mask)
+                                  self.sel_mask, st.stats)
         eff = self.sel_mask
         if self.faults:
             eff, res = self._effective(res)
@@ -607,6 +610,7 @@ class FusedRound:
                 r.get("rt_update_noise")))
         st.params.copy_(res.params)
         st.opt_state.copy_(res.opt_state)
+        st.stats.copy_(res.stats)
         # the vote tensor: the first (effective) selected client's valid split
         if self.faults:
             first = (eff.index_select(0, self.sel) > 0).to(
@@ -616,7 +620,8 @@ class FusedRound:
             voter0 = self.sel[:1]
         base = self.base_scores(st.params,
                                 d.valid_x.index_select(0, voter0)[0],
-                                d.valid_m.index_select(0, voter0)[0])
+                                d.valid_m.index_select(0, voter0)[0],
+                                stats=st.stats)
         aggregator, scores = elect_on_device(
             base, self._draws("vote"), self.sel, eff, self.agg_count,
             self.max_threshold, voters=eff if self.faults else None,
@@ -629,16 +634,20 @@ class FusedRound:
         won = aggregator >= 0
         merged, weights, has_update = self._merge(st, agg_mask, aggregator)
         is_agg = self.ids == aggregator  # all false for -1
+        agg_stats = None if self.clustered else merge_stats(
+            st.stats, weights, self._round_at)
         outcome = self.verify(st, merged, self.ver_x, self.ver_m,
-                              is_agg.to(torch.float32), d.client_mask)
+                              is_agg.to(torch.float32), d.client_mask,
+                              agg_stats)
         new = outcome.states
         if self.faults or self.clustered:
             new = new.select(self._received(aggregator, crashed,
                                             has_update), st)
         st.where_(won, new)
         self.agg_count += (is_agg & won).to(torch.int32)
-        metrics = self.evaluate_all(self.layout.tree(st.params), d.test_x,
-                                    d.test_m, d.test_y, d.train_xb,
+        metrics = self.evaluate_all(self.layout.tree(st.params,
+                                                     stats=st.stats),
+                                    d.test_x, d.test_m, d.test_y, d.train_xb,
                                     d.train_mb, priorities=self.priorities)
         hooks = {}
         if self.faults:
@@ -1314,7 +1323,8 @@ class ShardedFusedRound(FusedRound):
                 opt_state=res.opt_state.where(~lost, st.opt_state),
                 best_params=res.best_params,
                 min_valid=torch.where(lost, nan, res.min_valid),
-                tracking=torch.where(lost[:, None, None], nan, res.tracking))
+                tracking=torch.where(lost[:, None, None], nan, res.tracking),
+                stats=tree_select_clients(lost, st.stats, res.stats))
         if self.redteam is not None and self.redteam.update_fn is not None:
             res = res._replace(params=self.redteam.update_fn(
                 res.params, loc["rt_adv"] * eff, r["rt_active"],

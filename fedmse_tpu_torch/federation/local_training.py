@@ -30,6 +30,14 @@ Here `LocalTrainer` keeps one cohort's training in static buffers
     so a CUDA graph captures it (federation/fused.py);
   * `finish` scatters the results back into new [N, ...] tensors.
 
+The cohort also gathers its clients' running statistics (`Cohort.stats`,
+[C, Q]; Q = 0 for the autoencoders, so the gather and scatter are empty):
+KitNET's (models/kitnet.py) train step, reached through the same
+`fused_train_grads` name, updates them where the client is active before
+it normalises, and `finish` scatters them back. They are never restored
+to a best copy. Validation reads each row's loss terms
+(`fused_loss_terms`), without a statistics update.
+
 Once every client is inactive an epoch changes nothing (Adam is masked
 by `has_b & active`, `improved` is false, `tracking` keeps its rows), so
 running one more epoch than needed is exact. The per-round call
@@ -47,7 +55,7 @@ import torch
 from fedmse_tpu_torch.evaluation.evaluator import client_index
 from fedmse_tpu_torch.federation.optim import AdamState, adam_step_
 from fedmse_tpu_torch.models.flat import ParamLayout
-from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
+from fedmse_tpu_torch.ops.fused_ae import fused_loss_terms
 from fedmse_tpu_torch.ops.fused_train import fused_train_grads
 from fedmse_tpu_torch.ops.losses import prox_term, safe_div
 
@@ -58,6 +66,7 @@ class LocalTrainResult(NamedTuple):
     best_params: torch.Tensor  # best-valid-loss params [N, P]
     min_valid: torch.Tensor    # [N] best valid loss (NaN: not selected)
     tracking: torch.Tensor     # [N, E, 3] (train loss, valid loss, active)
+    stats: torch.Tensor        # [N, Q] running statistics (Q = 0: none)
 
 
 @dataclasses.dataclass
@@ -81,6 +90,7 @@ class Cohort:
     tracking: torch.Tensor  # [C, E, 3]
     epoch: torch.Tensor     # int64 0-d: the next epoch's index
     go: torch.Tensor        # [E] bool: go[e] = some client active in e + 1
+    stats: torch.Tensor     # [C, Q] KitNET's running statistics (Q = 0: none)
 
 
 class LocalTrainer:
@@ -130,15 +140,19 @@ class LocalTrainer:
             worse=like(params[:, 0], torch.int32),
             tracking=torch.empty((c, self.epochs, 3), device=dev),
             epoch=torch.zeros((), dtype=torch.int64, device=dev),
-            go=torch.zeros(self.epochs, dtype=torch.bool, device=dev))
+            go=torch.zeros(self.epochs, dtype=torch.bool, device=dev),
+            stats=torch.empty((c, self.layout.stats_width), device=dev))
 
     def begin(self, co: Cohort, params, opt_state: AdamState, prev_global,
-              train_xb, train_mb, valid_xb, valid_mb) -> None:
-        """Gather the cohort's rows and reset its early-stop state."""
+              train_xb, train_mb, valid_xb, valid_mb,
+              stats: Optional[torch.Tensor] = None) -> None:
+        """Gather the cohort's rows and running statistics (None: the
+        model keeps none) and reset its early-stop state."""
         idx = co.idx
         for full, mine in ((params, co.p), (prev_global, co.prev),
                            (train_xb, co.train_xb), (train_mb, co.train_mb),
                            (valid_xb, co.valid_xb), (valid_mb, co.valid_mb),
+                           (_stats_of(params, stats), co.stats),
                            *zip(opt_state, co.opt)):
             torch.index_select(full, 0, idx, out=mine)
         co.has_b.copy_((co.train_mb > 0).any(dim=2))
@@ -155,8 +169,9 @@ class LocalTrainer:
     def _valid_loss(self, co: Cohort) -> torch.Tensor:
         s, nvb_max, b, d = co.valid_xb.shape
         lam, p = self.lam, co.p
-        _, mse, zn = fused_forward_stats(
-            self.layout.tree(p, self.cdt), co.valid_xb.reshape(-1, d),
+        mse, zn = fused_loss_terms(
+            self.layout.tree(p, self.cdt, stats=co.stats),
+            co.valid_xb.reshape(-1, d),
             client_index(s, nvb_max * b, p.device), compute_dtype=self.cdt)
         m = co.valid_mb
         msum = m.sum(dim=2)
@@ -181,7 +196,7 @@ class LocalTrainer:
             loss, grads = fused_train_grads(
                 p, co.train_xb[:, b], co.train_mb[:, b], layout=self.layout,
                 shrink_lambda=self.lam, compute_dtype=self.cdt,
-                ctas=self.ctas)
+                ctas=self.ctas, stats=co.stats, active=active)
             # the FedProx term, Adam and the loss sum in one update; a
             # padded batch is skipped entirely, no Adam time step
             adam_step_(p, co.opt, grads, co.has_b[:, b], self.lr,
@@ -203,11 +218,13 @@ class LocalTrainer:
         co.epoch += 1
 
     def finish(self, co: Cohort, params, opt_state: AdamState,
-               sel_mask: torch.Tensor) -> LocalTrainResult:
+               sel_mask: torch.Tensor,
+               stats: Optional[torch.Tensor] = None) -> LocalTrainResult:
         """The cohort's results scattered into the federation's rows:
-        selected clients take theirs, the others keep params and state,
-        with NaN min_valid and tracking."""
+        selected clients take theirs, the others keep params, state and
+        running statistics, with NaN min_valid and tracking."""
         n, idx = params.shape[0], co.idx
+        stats = _stats_of(params, stats)
         sel = sel_mask > 0
         nan = float("nan")
         nanmask = torch.where(sel, 1.0, nan)
@@ -221,22 +238,31 @@ class LocalTrainer:
                 0, idx, co.min_v) * nanmask,
             torch.full((n,) + co.tracking.shape[1:], nan,
                        device=params.device).index_copy(
-                0, idx, co.tracking) * nanmask[:, None, None])
+                0, idx, co.tracking) * nanmask[:, None, None],
+            torch.where(rows, stats.index_copy(0, idx, co.stats), stats))
 
     def __call__(self, params, opt_state, prev_global, sel_mask, train_xb,
                  train_mb, valid_xb, valid_mb,
-                 sel_idx: Optional[torch.Tensor] = None) -> LocalTrainResult:
+                 sel_idx: Optional[torch.Tensor] = None,
+                 stats: Optional[torch.Tensor] = None) -> LocalTrainResult:
         idx = (torch.arange(params.shape[0], device=params.device)
                if sel_idx is None else sel_idx.to(params.device).long())
         co = self.cohort(idx, params, train_xb, train_mb, valid_xb,
                          valid_mb)
         self.begin(co, params, opt_state, prev_global, train_xb, train_mb,
-                   valid_xb, valid_mb)
+                   valid_xb, valid_mb, stats)
         for e in range(self.epochs):
             if e > 0 and not bool(co.go[e - 1]):
                 break
             self.epoch(co)
-        return self.finish(co, params, opt_state, sel_mask)
+        return self.finish(co, params, opt_state, sel_mask, stats)
+
+
+def _stats_of(params: torch.Tensor,
+              stats: Optional[torch.Tensor]) -> torch.Tensor:
+    """The running statistics [N, Q] of the models params [N, P] (None:
+    none, Q = 0)."""
+    return params.new_zeros((params.shape[0], 0)) if stats is None else stats
 
 
 def make_local_train_all(model, epochs: int, patience: int, fedprox: bool,

@@ -114,6 +114,7 @@ from fedmse_tpu_torch.federation.voting import (elect_aggregator,
                                                 keyed_tie_break,
                                                 make_mse_scores_fn)
 from fedmse_tpu_torch.models.flat import ParamLayout
+from fedmse_tpu_torch.models.kitnet import check_supported, merge_stats
 from fedmse_tpu_torch.redteam.adversary import (make_redteam_fns,
                                                 merge_noise, update_noise)
 from fedmse_tpu_torch.redteam.masks import RedteamMasks, make_redteam_masks
@@ -391,9 +392,29 @@ class MeshBackends:
         return fns
 
     def model_params(self):
-        """The clients' params as the stacked flax-layout tree."""
-        return self.layout.tree(self.states.params)
+        """The clients' params as the stacked flax-layout tree (KitNET's:
+        the params with their running statistics)."""
+        return self.layout.tree(self.states.params, stats=self.states.stats)
 
+
+def _check_kitnet(cfg: ExperimentConfig, mesh, chaos, elastic, cluster,
+                  redteam) -> None:
+    """Raise on what a KitNET federation does not run: beyond
+    models/kitnet.check_supported, a client mesh, metric 'time' and the
+    fault hooks that revert or re-tenant client state (chaos, elastic
+    membership, clustered federation, the red team), which would have to
+    carry its running statistics too."""
+    check_supported(cfg, use_mesh=mesh is not None and mesh.sharded)
+    hooks = [name for name, spec in (("chaos", chaos), ("elastic", elastic),
+                                     ("redteam", redteam))
+             if spec is not None]
+    if cluster is not None and not cluster.is_null:
+        hooks.append("cluster")
+    if cfg.metric == "time":
+        hooks.append("metric 'time'")
+    if hooks:
+        raise ValueError("model_type 'kitnet' does not support "
+                         + ", ".join(hooks))
 
 
 class RoundEngine(MeshBackends):
@@ -475,6 +496,8 @@ class RoundEngine(MeshBackends):
             raise ValueError(f"unknown aggregation_backend "
                              f"{cfg.aggregation_backend!r} (auto | einsum | "
                              f"shard_map | quantized)")
+        if model_type == "kitnet":
+            _check_kitnet(cfg, mesh, chaos, elastic, cluster, redteam)
         self.mesh = mesh
         self.sharded = mesh is not None and mesh.sharded
         self._warned_backend_off = False
@@ -1079,9 +1102,11 @@ class RoundEngine(MeshBackends):
             res = self.train_all(self.states.params, self.states.opt_state,
                                  self.states.prev_global, sel_mask,
                                  data.train_xb, data.train_mb, data.valid_xb,
-                                 data.valid_mb, sel_idx=sel_idx)
+                                 data.valid_mb, sel_idx=sel_idx,
+                                 stats=self.states.stats)
             self.states = self.states.replace(params=res.params,
-                                              opt_state=res.opt_state)
+                                              opt_state=res.opt_state,
+                                              stats=res.stats)
 
         with timer.phase("vote"):
             # the first selected client's valid split is the vote tensor
@@ -1090,7 +1115,7 @@ class RoundEngine(MeshBackends):
             def fresh_scores() -> np.ndarray:
                 return self._fleet(self.scores_fn(
                     self.states.params, vote_x, vote_m, self.rngs.generator,
-                    fleet=(lo, self.n_real)))
+                    fleet=(lo, self.n_real), stats=self.states.stats))
 
             aggregator, scores = elect_aggregator(
                 selected, fresh_scores, self.host.aggregation_count,
@@ -1103,7 +1128,9 @@ class RoundEngine(MeshBackends):
             with timer.phase("aggregate"):
                 merged, weights = self._phase_merge()(
                     self.states.params, sel_mask, data.dev_x,
-                    sel_idx=sel_idx)
+                    sel_idx=sel_idx, stats=self.states.stats)
+                agg_stats = merge_stats(self.states.stats, weights,
+                                        round_index)
                 if self.poison_fn is not None:  # the malicious aggregator
                     attack = {k: torch.as_tensor(v[0]).to(dev) for k, v in
                               self._attack_inputs(round_index, 1).items()}
@@ -1116,7 +1143,8 @@ class RoundEngine(MeshBackends):
                 onehot = (torch.arange(lo, hi, device=dev)
                           == aggregator).to(torch.float32)
                 outcome = self.verify(self.states, merged, self._ver_x,
-                                      self._ver_m, onehot, data.client_mask)
+                                      self._ver_m, onehot, data.client_mask,
+                                      agg_stats)
                 self.states = outcome.states
                 rejected = self._fleet(self.states.rejected)
             rows = verification_rows(rejected, aggregator, self.n_real,

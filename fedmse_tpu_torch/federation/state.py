@@ -15,6 +15,13 @@ history: each update of the round is a few ops on one tensor.
   rejected     consecutive rejected broadcasts
   waived       cumulative Frobenius movement accepted through the hardened
                verifier's recovery waiver
+  stats        the model's running statistics beside its params, [N, Q]:
+               KitNET's min-max normalisation (lo, hi) of its members'
+               RMSEs, Q = 2k (models/kitnet.py); Q = 0 for the
+               autoencoders, whose gathers, scatters and merges of it
+               are then empty. Training updates it, a merge takes the min
+               and max over the merged clients, an accepted broadcast
+               brings the merge's, a rejected one keeps the client's own
 
 `HostState` keeps the election's counters on the host.
 `TieredClientStore` keeps the same ClientStates as CPU tensors: the whole
@@ -39,6 +46,7 @@ The per-client selects and the divergence observable of the fault hooks
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -66,6 +74,11 @@ class ClientStates:
     hist_seen: torch.Tensor    # [N] bool
     rejected: torch.Tensor     # [N] int32
     waived: torch.Tensor       # [N] f32
+    stats: Optional[torch.Tensor] = None  # [N, Q] f32; None: Q = 0
+
+    def __post_init__(self):
+        if self.stats is None:
+            self.stats = self.params.new_zeros((self.params.shape[0], 0))
 
     def replace(self, **kw: Any) -> "ClientStates":
         return dataclasses.replace(self, **kw)
@@ -118,11 +131,13 @@ class ClientStates:
         return self.apply(lambda t: t.to(dev))
 
     def tensors(self) -> List[torch.Tensor]:
-        """Every tensor in field order, the Adam state's flattened."""
+        """Every tensor with data in a row, in field order, the Adam
+        state's flattened (a width-0 `stats` has none)."""
         out: List[torch.Tensor] = []
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            out.extend(v if isinstance(v, AdamState) else [v])
+            out.extend(t for t in (v if isinstance(v, AdamState) else [v])
+                       if math.prod(t.shape[1:]))
         return out
 
     def empty_rows(self, rows: int, *, device: Optional[torch.device] = None,
@@ -153,9 +168,11 @@ class HostState:
                          np.zeros(n_real, dtype=np.int64), [])
 
 
-def fresh_states(params: torch.Tensor) -> ClientStates:
+def fresh_states(params: torch.Tensor,
+                 stats: Optional[torch.Tensor] = None) -> ClientStates:
     """States of clients that start at `params` [N, P]: zero Adam state,
-    prev_global = params, empty verifier history."""
+    prev_global = params, empty verifier history; running statistics
+    `stats` [N, Q] (KitNET's; None: Q = 0)."""
     n = params.shape[0]
     dev = params.device
     return ClientStates(
@@ -164,7 +181,7 @@ def fresh_states(params: torch.Tensor) -> ClientStates:
         hist_perf=torch.zeros(n, device=dev),
         hist_seen=torch.zeros(n, dtype=torch.bool, device=dev),
         rejected=torch.zeros(n, dtype=torch.int32, device=dev),
-        waived=torch.zeros(n, device=dev))
+        waived=torch.zeros(n, device=dev), stats=stats)
 
 
 def init_client_states(model, n_clients: int,
@@ -182,7 +199,8 @@ def init_client_states(model, n_clients: int,
     where the unpadded init leaves it. With a sharded `mesh`
     (parallel.ClientMesh) the padded fleet is made on the CPU and the rank
     keeps its block on its device: the dense init's bits, the generator
-    advanced alike on every rank."""
+    advanced alike on every rank. A KitNET model draws Kitsune's init
+    (models/kitnet.init_flat) and starts from empty statistics."""
     n_pad = n_clients if n_pad is None else n_pad
     if mesh is not None and mesh.sharded:
         return shard_client_states(
@@ -190,15 +208,27 @@ def init_client_states(model, n_clients: int,
                                pad_key=pad_key, device="cpu"), mesh)
     dev = resolve_device(device)
     layout = ParamLayout.of(model)
-    params = layout.flatten(init_stacked_params(model, n_clients, generator,
-                                                device=dev))
+    stats = None
+    if layout.family == "kitnet":
+        from fedmse_tpu_torch.models import kitnet
+        params = kitnet.init_flat(layout, n_clients, generator, device=dev)
+        stats = kitnet.fresh_stats(n_pad, layout, dev)
+
+        def pad(ids):
+            return kitnet.init_pad_flat(layout, ids, pad_key, device=dev)
+    else:
+        params = layout.flatten(init_stacked_params(model, n_clients,
+                                                    generator, device=dev))
+
+        def pad(ids):
+            return layout.flatten(init_pad_params(model, ids, pad_key,
+                                                  device=dev))
     if n_pad > n_clients:
         if pad_key is None:
             raise ValueError(f"{n_pad - n_clients} pad clients need a "
                              "pad_key (ExperimentRngs.init_pad_key)")
-        params = torch.cat([params, layout.flatten(init_pad_params(
-            model, range(n_clients, n_pad), pad_key, device=dev))])
-    return fresh_states(params)
+        params = torch.cat([params, pad(range(n_clients, n_pad))])
+    return fresh_states(params, stats)
 
 
 def init_batched_client_states(model, generators: Sequence[torch.Generator],

@@ -27,6 +27,11 @@ cluster's merge; the Frobenius deltas are taken row by row). All the
 performances of one call are ONE fused forward launch: with per-client
 broadcasts the N broadcasts, and under the hardened rule the N own models
 too, are 2N models each row routed to its own.
+
+A broadcast comes with the merge's running statistics (`agg_stats`,
+KitNET's; width 0 for the autoencoders): its performance is measured
+under them, a client that loads the broadcast takes them with the params
+and one that rejects it keeps its own. The deltas read the params only.
 """
 
 from __future__ import annotations
@@ -65,19 +70,24 @@ def make_verify_fn(model, verification_threshold: float = 3.0,
                    recovery_delta_cap: Optional[float] = None,
                    recovery_budget: Optional[float] = None) -> Callable:
     """fn(states, agg [P] or [N, P], ver_x [V, D] or [N, V, D], ver_m [V]
-    or [N, V], agg_onehot [N], client_mask [N]) -> VerifyOutcome."""
+    or [N, V], agg_onehot [N], client_mask [N], agg_stats=None) ->
+    VerifyOutcome; agg_stats ([Q], or [N, Q] with [N, P] broadcasts) is
+    the broadcast's running statistics (None: the model keeps none)."""
     if recovery_delta_cap is None:
         recovery_delta_cap = 10.0 * verification_threshold
     layout = ParamLayout.of(model)
     cdt = model.compute_dtype
 
     def perfs(models: torch.Tensor, model_of: torch.Tensor,
-              x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+              x: torch.Tensor, m: torch.Tensor,
+              stats: torch.Tensor) -> torch.Tensor:
         """1 / (1 + masked MSE) of each row set x[k] [V, D] (mask m[k])
-        under model model_of[k], in one launch."""
+        under model model_of[k] (with the models' running `stats`), in one
+        launch."""
         k, v, d = x.shape
         _, mse, _ = fused_forward_stats(
-            layout.tree(models, cdt), x.reshape(k * v, d).to(cdt),
+            layout.tree(models, cdt, stats=stats),
+            x.reshape(k * v, d).to(cdt),
             model_of.to(torch.int32)[:, None].repeat(1, v).view(-1),
             compute_dtype=cdt)
         loss = safe_div((mse.view(k, v) * m).sum(dim=1), m.sum(dim=1))
@@ -86,8 +96,11 @@ def make_verify_fn(model, verification_threshold: float = 3.0,
     @torch.no_grad()
     def verify(states: ClientStates, agg: torch.Tensor, ver_x: torch.Tensor,
                ver_m: torch.Tensor, agg_onehot: torch.Tensor,
-               client_mask: torch.Tensor) -> VerifyOutcome:
+               client_mask: torch.Tensor,
+               agg_stats: Optional[torch.Tensor] = None) -> VerifyOutcome:
         n = states.params.shape[0]
+        if agg_stats is None:
+            agg_stats = agg.new_zeros(agg.shape[:-1] + (0,))
         dev = agg.device
         shared = ver_x.dim() == 2
         x = ver_x[None] if shared else ver_x
@@ -102,10 +115,11 @@ def make_verify_fn(model, verification_threshold: float = 3.0,
             if hardened:
                 p = perfs(torch.cat([agg, states.params]),
                           torch.cat([ids, ids + n]),
-                          torch.cat([xs, xs]), torch.cat([ms, ms]))
+                          torch.cat([xs, xs]), torch.cat([ms, ms]),
+                          torch.cat([agg_stats, states.stats]))
                 new_perf, own_perf = p[:n], p[n:]
             else:
-                new_perf = perfs(agg, ids, xs, ms)
+                new_perf = perfs(agg, ids, xs, ms, agg_stats)
         elif hardened:
             # agg is model n; each client's own model scores its own rows
             k = x.shape[0]
@@ -114,12 +128,13 @@ def make_verify_fn(model, verification_threshold: float = 3.0,
                       torch.cat([torch.full((k,), n, device=dev),
                                  torch.arange(n, device=dev)]),
                       torch.cat([x, x.expand(n, -1, -1)]),
-                      torch.cat([m, m.expand(n, -1)]))
+                      torch.cat([m, m.expand(n, -1)]),
+                      torch.cat([states.stats, agg_stats[None]]))
             new_perf = p[:k].expand(n)
             own_perf = p[k:]
         else:
             new_perf = perfs(agg[None], torch.zeros(x.shape[0], device=dev),
-                             x, m).expand(n)
+                             x, m, agg_stats[None]).expand(n)
         if hardened:
             delta = frob_delta(layout, states.params, agg)
             perf_change = new_perf - own_perf
@@ -154,7 +169,8 @@ def make_verify_fn(model, verification_threshold: float = 3.0,
                                             states.hist_params),
             hist_perf=torch.where(attempted, new_perf, states.hist_perf),
             hist_seen=states.hist_seen | attempted,
-            rejected=rejected, waived=waived)
+            rejected=rejected, waived=waived,
+            stats=tree_select_clients(load, agg_stats, states.stats))
         return VerifyOutcome(out, accepted | is_agg,
                              torch.where(attempted, perf_change, 0.0),
                              torch.where(attempted, delta, 0.0))

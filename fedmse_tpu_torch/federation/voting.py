@@ -94,7 +94,9 @@ def make_mse_scores_fn(model, restandardize: bool = True,
     vote tensors val_x [R, V, D], val_m [R, V] (the batched round,
     tie_break off) score the N = R x n models run by run: model r n + i
     scores run r's rows, restandardized with run r's own statistics, in
-    the same one launch."""
+    the same one launch. KitNET's models score with their running
+    statistics `stats` [N, 2k] (its per-row statistic in place of the
+    MSE)."""
     layout = ParamLayout.of(model)
     cdt = model.compute_dtype
 
@@ -102,8 +104,8 @@ def make_mse_scores_fn(model, restandardize: bool = True,
     def scores_all(params: torch.Tensor, val_x: torch.Tensor,
                    val_m: torch.Tensor,
                    generator: Optional[torch.Generator] = None,
-                   fleet: Optional[Tuple[int, int]] = None
-                   ) -> torch.Tensor:
+                   fleet: Optional[Tuple[int, int]] = None,
+                   stats: Optional[torch.Tensor] = None) -> torch.Tensor:
         n = params.shape[0]
         v, d = val_x.shape[-2:]
         per_run = val_x.dim() == 3
@@ -118,7 +120,7 @@ def make_mse_scores_fn(model, restandardize: bool = True,
         else:
             rows = x.to(cdt).repeat(n, 1)
         _, mse, _ = fused_forward_stats(
-            layout.tree(params, cdt), rows,
+            layout.tree(params, cdt, stats=stats), rows,
             client_index(n, v, params.device), compute_dtype=cdt)
         nb = -(-v // VOTE_BATCH)
         pad = nb * VOTE_BATCH - v

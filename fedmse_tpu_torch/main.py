@@ -17,6 +17,12 @@ reference's results artifacts (port of fedmse_tpu/main.py).
     round; a stop inside a chunk rewinds to the chunk's entry and replays
     its prefix with the same selections and draws;
   * `run_experiment` sweeps every combination and writes the summary.
+  * `--model-types kitnet` trains Kitsune's KitNET (models/kitnet.py) on
+    the same round; it needs `--scaler minmax`, and the federation's
+    feature map is computed once from the gateways' train rows at the
+    combination's set-up. It runs the dense layout without the fault
+    hooks, batched runs, a mesh, snapshots or serving (each refused by
+    name).
 
   * the fault path: `--attack-*` (a malicious aggregator,
     federation/attack.py), `--chaos-*` (churn, stragglers, aggregator
@@ -70,7 +76,9 @@ CLI (runs on the card unless --device cpu):
         [--quant-hosts G] [--quant-block-size B]]
         [--serve [--serve-rows N] [--serve-warmup] [--serve-continuous]]
         [--flywheel [--flywheel-rounds 3 --flywheel-async true ...]]
-        [--serve-net [--net-replicas N --net-port P]] ...
+        [--serve-net [--net-replicas N --net-port P]]
+        [--model-types kitnet --scaler minmax [--kitnet-max-ae 10]
+        [--kitnet-hidden-ratio 0.75]] ...
 Many ranks: `--use-mesh` shards the client axis over the ranks of a
 torch.distributed launch (parallel/; `torchrun --nproc-per-node W -m
 fedmse_tpu_torch.main --use-mesh ...` on a host with W cards, or the
@@ -133,7 +141,7 @@ from fedmse_tpu_torch.federation.pipeline import (run_pipelined_batched,
                                                   run_pipelined_schedule)
 from fedmse_tpu_torch.federation.tiered import run_tiered_combination
 from fedmse_tpu_torch.flywheel import run_flywheel_smoke
-from fedmse_tpu_torch.models import make_model
+from fedmse_tpu_torch.models import kitnet, make_model
 from fedmse_tpu_torch.net.smoke import run_net_smoke
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.precision import get_policy
@@ -247,6 +255,14 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
     sharded = mesh is not None and mesh.sharded
     device = data.train_xb.device if device is None else \
         resolve_device(device)
+    feature_map = None
+    if model_type == "kitnet":
+        kitnet.check_supported(cfg, use_mesh=sharded,
+                               resume=resume is not None)
+        feature_map = kitnet.federated_feature_map(
+            data.train_xb, data.train_mb, data.client_mask, cfg.kitnet_max_ae)
+        logger.info("KitNET feature map: %d autoencoders of %s features",
+                    len(feature_map), [len(c) for c in feature_map])
     if cfg.state_layout == "tiered":
         if profile:
             raise ValueError("profile=True times the per-phase round; the "
@@ -268,7 +284,9 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
                           run_seed_stride=cfg.run_seed_stride)
     model = make_model(model_type, cfg.dim_features, cfg.hidden_neus,
                        cfg.latent_dim, cfg.shrink_lambda,
-                       precision=cfg.precision, device=device)
+                       precision=cfg.precision, device=device,
+                       feature_map=feature_map,
+                       hidden_ratio=cfg.kitnet_hidden_ratio)
     engine = RoundEngine(model, cfg, data, n_real=n_real, rngs=rngs,
                          model_type=model_type, update_type=update_type,
                          states=states, profile=profile,
@@ -405,9 +423,9 @@ def run_combination(cfg: ExperimentConfig, data, n_real: int,
         params = engine.gathered_states().params.to(device)
     if writer is not None and save_checkpoints and device_names:
         n = n_real
+        tree = engine.layout.saved_tree(params[:n], engine.states.stats[:n])
         save_client_models(writer, run, model_type, update_type,
-                           device_names,
-                           engine.layout.tree(params[:n]))
+                           device_names, tree)
         if all_tracking:
             save_training_tracking(writer, run, model_type, update_type,
                                    device_names,
@@ -606,6 +624,11 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
     passes then run on rank 0 only)."""
     dev = resolve_device(device)
     check_layout(cfg)
+    if "kitnet" in cfg.model_types:
+        kitnet.check_supported(
+            cfg, batch_runs=batch_runs, use_mesh=use_mesh,
+            serving=serve or flywheel or serve_net,
+            resume=resume_dir is not None)
     mesh = None
     if use_mesh:
         mesh = client_mesh(device=dev if dev.type == "cpu" else None)
@@ -753,7 +776,10 @@ def run_experiment(cfg: ExperimentConfig, dataset: DatasetConfig,
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="FedMSE training sweep on the PyTorch + CUDA port")
+        description="FedMSE training sweep on the PyTorch + CUDA port",
+        epilog="--model-types takes hybrid, autoencoder and kitnet "
+               "(Kitsune's KitNET: needs --scaler minmax; its ensemble "
+               "by --kitnet-max-ae and --kitnet-hidden-ratio)")
     p.add_argument("--dataset-config", required=True,
                    help="reference-format dataset JSON")
     p.add_argument("--data-root", default=None,

@@ -176,9 +176,20 @@ def make_model(model_type: str, dim_features: int, hidden_neus: int = 27,
                latent_dim: int = 7, shrink_lambda: float = 10.0,
                precision: Union[str, PrecisionPolicy] = "f32", *,
                n_models: int = 1, generator: Optional[torch.Generator] = None,
-               device: DeviceLike = "cuda") -> Autoencoder:
-    """'hybrid' -> ShrinkAutoencoder, 'autoencoder' -> Autoencoder;
-    `precision` picks the compute dtype, params stay f32."""
+               device: DeviceLike = "cuda",
+               feature_map=None, hidden_ratio: float = 0.75) -> Autoencoder:
+    """'hybrid' -> ShrinkAutoencoder, 'autoencoder' -> Autoencoder,
+    'kitnet' -> models/kitnet.Kitnet of `feature_map` (the federation's,
+    models/kitnet.federated_feature_map) and `hidden_ratio`; `precision`
+    picks the compute dtype, params stay f32."""
+    if model_type == "kitnet":
+        from fedmse_tpu_torch.models.kitnet import Kitnet
+        if feature_map is None:
+            raise ValueError("model_type 'kitnet' needs the federation's "
+                             "feature map (models/kitnet."
+                             "federated_feature_map)")
+        return Kitnet(feature_map, hidden_ratio,
+                      compute_dtype=get_policy(precision).compute_dtype)
     kw = dict(n_models=n_models, generator=generator, device=device,
               compute_dtype=get_policy(precision).compute_dtype)
     if model_type == "hybrid":

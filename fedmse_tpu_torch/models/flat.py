@@ -12,12 +12,26 @@ deltas and the aggregation's weighted mean then each run as a few ops on
 one tensor, and the fused train kernel (csrc/fused_train.cu) reads a
 client's row as it is. `ParamLayout.tree` gives the stacked flax-named tree
 the forward kernel and the checkpoint writer take.
+
+The model gives the layout (`ParamLayout.of`): a model that carries its
+own `param_layout` has that one. KitNET's (`KitnetLayout`,
+models/kitnet.py) lays out its ensemble of tied-weight autoencoders, one
+per cluster of the feature map, and then its output autoencoder, each as
+
+    W [n, h], b [h] (hidden bias), c [n] (visible bias)
+
+n the autoencoder's inputs and h = ceil(hidden_ratio n) its hidden units.
+Its models also carry running statistics that are no parameter: the
+min-max normalisation (lo, hi) of each ensemble member's RMSE, [2k] a
+client beside its [P] row (`stats_width`). Its `tree` is an
+ops/kitnet.KitnetParams, the kernels' operand.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+import math
+from typing import Any, ClassVar, Dict, List, Optional, Tuple
 
 import torch
 
@@ -33,9 +47,16 @@ class ParamLayout:
     dim: int
     hidden: int
     latent: int
+    family: ClassVar[str] = "autoencoder"
+    stats_width: ClassVar[int] = 0  # running statistics a client: none
 
     @staticmethod
     def of(model) -> "ParamLayout":
+        """The model's own layout where it carries one (KitNET's), else the
+        D -> H -> L autoencoder's."""
+        own = getattr(model, "param_layout", None)
+        if own is not None:
+            return own
         return ParamLayout(model.input_dim, model.hidden_neus, model.latent_dim)
 
     def layer_shapes(self) -> List[Tuple[int, int]]:
@@ -89,15 +110,121 @@ class ParamLayout:
         return out
 
     def tree(self, flat: torch.Tensor,
-             compute_dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+             compute_dtype: torch.dtype = torch.float32,
+             stats: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """The same tree as contiguous tensors, kernels in `compute_dtype`
         and biases in f32: what the forward kernel takes
-        (ops/precision.cast_params)."""
+        (ops/precision.cast_params). `stats` is KitNET's (ignored)."""
         return {coder: {dense: {
             leaf: t.to(compute_dtype if leaf == "kernel"
                        else torch.float32).contiguous()
             for leaf, t in layer.items()} for dense, layer in layers.items()}
             for coder, layers in self.views(flat).items()}
+
+    def saved_tree(self, flat: torch.Tensor,
+                   stats: torch.Tensor) -> Dict[str, Any]:
+        """What a checkpoint saves of the models flat [G, P] with their
+        running statistics [G, 0] (none): `tree`."""
+        return self.tree(flat)
+
+
+@dataclasses.dataclass(frozen=True)
+class KitnetLayout:
+    """Offsets of each leaf in a flat row of a KitNET model (the module
+    docstring): the ensemble autoencoders in map order, then the output
+    autoencoder over their k RMSEs. `feature_map` partitions the D
+    features into k clusters (each the inputs of one ensemble member, in
+    the map's order)."""
+
+    feature_map: Tuple[Tuple[int, ...], ...]
+    hidden_ratio: float = 0.75
+    family: ClassVar[str] = "kitnet"
+
+    def __post_init__(self):
+        flat = [f for cluster in self.feature_map for f in cluster]
+        if not self.feature_map or any(not c for c in self.feature_map) \
+                or sorted(flat) != list(range(len(flat))):
+            raise ValueError("a KitNET feature map partitions the features "
+                             "0 .. D - 1 into non-empty clusters")
+
+    @property
+    def dim(self) -> int:
+        return sum(len(c) for c in self.feature_map)
+
+    @property
+    def k(self) -> int:
+        return len(self.feature_map)
+
+    def hidden(self, n: int) -> int:
+        """Hidden units of an autoencoder of n inputs: ceil(ratio n)."""
+        return max(1, int(math.ceil(self.hidden_ratio * n)))
+
+    def autoencoders(self) -> List[Tuple[str, int, int]]:
+        """(name, inputs, hidden units) of each autoencoder, layout order:
+        the ensemble's, then the output one."""
+        out = [(f"ensemble_{a}", len(c), self.hidden(len(c)))
+               for a, c in enumerate(self.feature_map)]
+        return out + [("output", self.k, self.hidden(self.k))]
+
+    @property
+    def stats_width(self) -> int:
+        """Running statistics a client: lo [k] then hi [k]."""
+        return 2 * self.k
+
+    def leaves(self) -> List[Tuple[Tuple[str, str], int, Tuple[int, ...]]]:
+        """(path, offset, shape) of every leaf in layout order."""
+        out, off = [], 0
+        for name, n, h in self.autoencoders():
+            for leaf, shape in (("W", (n, h)), ("b", (h,)), ("c", (n,))):
+                out.append(((name, leaf), off, shape))
+                off += _numel(shape)
+        return out
+
+    @property
+    def size(self) -> int:
+        _, off, shape = self.leaves()[-1]
+        return off + shape[0]
+
+    def slices(self) -> List[slice]:
+        return [slice(off, off + _numel(shape))
+                for _, off, shape in self.leaves()]
+
+    def views(self, flat: torch.Tensor) -> Dict[str, Any]:
+        """{autoencoder: {"W", "b", "c"}} of a [G, P] buffer, as views."""
+        if flat.dim() != 2 or flat.shape[1] != self.size:
+            raise ValueError(f"flat params must be [G, {self.size}], got "
+                             f"{tuple(flat.shape)}")
+        out: Dict[str, Any] = {}
+        g = flat.shape[0]
+        for (name, leaf), off, shape in self.leaves():
+            out.setdefault(name, {})[leaf] = \
+                flat[:, off:off + _numel(shape)].view((g,) + shape)
+        return out
+
+    def flatten(self, tree: Dict[str, Any]) -> torch.Tensor:
+        """[G, P] f32 from a stacked tree as `views` gives it."""
+        return torch.cat([torch.as_tensor(tree[name][leaf]).reshape(
+            len(tree[name][leaf]), -1).to(torch.float32)
+            for (name, leaf), _, _ in self.leaves()], dim=1)
+
+    def tree(self, flat: torch.Tensor,
+             compute_dtype: torch.dtype = torch.float32,
+             stats: Optional[torch.Tensor] = None):
+        """The kernels' operand (ops/kitnet.KitnetParams): these params
+        with their statistics."""
+        from fedmse_tpu_torch.ops.kitnet import KitnetParams
+        if compute_dtype != torch.float32:
+            raise ValueError("KitNET computes in float32 only")
+        if stats is None:
+            raise ValueError("KitNET models are read with their running "
+                             "statistics (stats [G, 2k])")
+        return KitnetParams(flat, stats, self)
+
+    def saved_tree(self, flat: torch.Tensor,
+                   stats: torch.Tensor) -> Dict[str, Any]:
+        """What a checkpoint saves: the autoencoders' leaves (`views`) and
+        the running statistics [G, 2k] under norm/stats."""
+        return dict(self.views(flat), norm={"stats": stats})
 
 
 def _numel(shape: Tuple[int, ...]) -> int:

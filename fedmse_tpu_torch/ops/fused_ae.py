@@ -25,6 +25,13 @@ CPU; a CUDA tensor launches the kernel or raises. `fused_forward_stats.launches`
 counts kernel launches (`.captured` the kernels a CUDA graph recorded).
 `encode_rows` is the one launch that encodes every gateway's rows under
 its own model (kNN banks, centroid fits).
+
+KitNET's models (an ops/kitnet.KitnetParams in place of the tree) take
+its own kernel (ops/kitnet.py): the call returns (an empty latent [R, 0],
+the per-row statistic the federation reads as the MSE, the latent norm 0),
+so the vote, the merge, verification and evaluation reach both families
+through this one name. `fused_loss_terms` gives a row's terms of the
+training loss (validation's), for both families alike.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from fedmse_tpu_torch.ops import native
+from fedmse_tpu_torch.ops.kitnet import KitnetParams, kitnet_forward_stats
 from fedmse_tpu_torch.ops.precision import cast_params
 
 MAX_WIDTH = 128  # D, H <= 128 and L + 2 <= 128: at least what the TPU entry takes
@@ -214,7 +222,12 @@ def fused_forward_stats(params: Dict[str, Any], x: torch.Tensor,
     non-contiguous tensors. CPU tensors run `fused_forward_stats_plain`;
     CUDA tensors launch csrc/fused_ae.cu once, on their device's current
     stream, over the tiles of `tile_plan`. R = 0 returns empty tensors
-    without a launch."""
+    without a launch. KitNET's models (`KitnetParams`) run
+    ops/kitnet.kitnet_forward_stats (module docstring)."""
+    if isinstance(params, KitnetParams):
+        stat, _ = _kitnet_rows(params, x, model_idx, compute_dtype)
+        return (x.new_empty((x.shape[0], 0), dtype=torch.float32), stat,
+                torch.zeros_like(stat))
     g, d, h, lat = _check(params, x, model_idx, compute_dtype)
     if x.device.type == "cpu":
         return fused_forward_stats_plain(params, x, model_idx,
@@ -251,6 +264,32 @@ def fused_forward_stats(params: Dict[str, Any], x: torch.Tensor,
 
 fused_forward_stats.launches = 0
 fused_forward_stats.captured = 0
+
+
+def _kitnet_rows(params: KitnetParams, x: torch.Tensor,
+                 model_idx: Optional[torch.Tensor],
+                 compute_dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
+    if compute_dtype != torch.float32:
+        raise ValueError("KitNET computes in float32 only")
+    return kitnet_forward_stats(params, x, model_idx)
+
+
+def fused_loss_terms(params, x: torch.Tensor,
+                     model_idx: Optional[torch.Tensor] = None, *,
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's terms of its model's training loss, (reconstruction [R],
+    latent norm [R]) f32, in one launch and without a statistics update:
+    an autoencoder's loss is the mean of its reconstruction MSE plus
+    shrink_lambda times the mean latent norm (`fused_forward_stats`);
+    KitNET's is the mean of its summed reconstruction cross-entropies,
+    with no latent to shrink (norm 0)."""
+    if isinstance(params, KitnetParams):
+        _, loss = _kitnet_rows(params, x, model_idx, compute_dtype)
+        return loss, torch.zeros_like(loss)
+    _, mse, znorm = fused_forward_stats(params, x, model_idx,
+                                        compute_dtype=compute_dtype)
+    return mse, znorm
 
 
 def client_index(n: int, rows_each: int, device) -> torch.Tensor:

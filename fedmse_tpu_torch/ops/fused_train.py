@@ -33,6 +33,11 @@ CUDA tensor launches the kernel or raises. `fused_train_grads.launches`
 counts kernel launches. `FusedTrainLoss` is the port of
 `make_fused_train_loss`: a torch.autograd.Function whose backward returns
 the kernel's gradients.
+
+A KitNET layout (models/flat.KitnetLayout) takes KitNET's train kernel
+(ops/kitnet.kitnet_train_grads) with the clients' running statistics
+(`stats`, updated in place where `active`): local training reaches both
+families through this one name.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 
 from fedmse_tpu_torch.models.flat import ParamLayout
 from fedmse_tpu_torch.ops import native
+from fedmse_tpu_torch.ops.kitnet import kitnet_train_grads
 from fedmse_tpu_torch.ops.losses import safe_div
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -188,10 +194,13 @@ def fused_train_grads(params_flat: torch.Tensor, x: torch.Tensor,
                       mask: torch.Tensor, *, layout: ParamLayout,
                       shrink_lambda: float = 0.0,
                       compute_dtype: torch.dtype = torch.float32,
-                      ctas: Optional[int] = None
+                      ctas: Optional[int] = None,
+                      stats: Optional[torch.Tensor] = None,
+                      active: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss [G], grads [G, P]), both f32, of G clients' batches in one
-    fused pass.
+    fused pass. A KitNET `layout` runs ops/kitnet.kitnet_train_grads on
+    `stats` [G, 2k] and `active` (module docstring).
 
     params_flat: [G, P] f32 (models/flat.ParamLayout). x: [G, R, D] in
     `compute_dtype`, rows contiguous (any client stride). mask: [G, R] f32
@@ -204,6 +213,11 @@ def fused_train_grads(params_flat: torch.Tensor, x: torch.Tensor,
     clients get the bits of the run alone), and nothing runs after it (it raises ValueError for a model too wide for the kernel's
     shared memory). R = 0 or G = 0 launches nothing: every loss and
     gradient is then NaN, as an all-masked client's."""
+    if layout.family == "kitnet":
+        if compute_dtype != torch.float32:
+            raise ValueError("KitNET computes in float32 only")
+        return kitnet_train_grads(params_flat, stats, x, mask, layout=layout,
+                                  active=active)
     _check(params_flat, x, mask, layout, compute_dtype)
     lam = float(shrink_lambda)
     if x.device.type == "cpu":

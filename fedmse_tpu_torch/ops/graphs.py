@@ -60,12 +60,21 @@ from fedmse_tpu_torch.knn.score import dist_tiles
 from fedmse_tpu_torch.ops.adam_update import adam_update
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.fused_train import fused_train_grads
+from fedmse_tpu_torch.ops.kitnet import (kitnet_forward_stats,
+                                         kitnet_train_grads)
 
 # every kernel wrapper of the port, by the name chip_smoke reports
 WRAPPERS = {"fused_ae_forward": fused_forward_stats,
             "fused_ae_train": fused_train_grads,
             "dist_tiles": dist_tiles,
-            "adam_update": adam_update}
+            "adam_update": adam_update,
+            "kitnet_forward": kitnet_forward_stats,
+            "kitnet_train": kitnet_train_grads}
+# the kernels each model family's main path launches, by those names
+FAMILY_KERNELS = {"autoencoder": ("fused_ae_forward", "fused_ae_train",
+                                  "dist_tiles", "adam_update"),
+                  "kitnet": ("kitnet_forward", "kitnet_train",
+                             "adam_update")}
 
 
 def _new_graph():

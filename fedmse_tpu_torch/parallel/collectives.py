@@ -162,12 +162,13 @@ def _flat_aggregate(model, update_type: str, mesh: ClientMesh,
 
     @torch.no_grad()
     def aggregate(params: torch.Tensor, sel_mask: torch.Tensor,
-                  dev_x: torch.Tensor, sel_idx=None
+                  dev_x: torch.Tensor, sel_idx=None, stats=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
         del sel_idx  # each rank scores its own block: no cross-rank gather
         _note_merge(backend, params.shape[1], n_devices=mesh.world_size,
                     **note)
-        w = _global_weights(mesh, raw_weights(params, sel_mask, dev_x))
+        w = _global_weights(mesh, raw_weights(params, sel_mask, dev_x,
+                                              stats=stats))
         merged = reduce(weighted_mean(params, w)[None])[0]
         return merged.to(params.dtype), w
 

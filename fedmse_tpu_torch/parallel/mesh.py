@@ -330,6 +330,10 @@ def host_fetch(tree: Any, mesh: Optional[ClientMesh] = None) -> Any:
     def fetch(leaf):
         t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(
             np.asarray(leaf))
+        if t.numel() == 0:  # a leaf of width 0 on every rank: no bytes
+            a = t.detach().cpu().numpy()
+            return np.empty((mesh.world_size * t.shape[0],) + a.shape[1:],
+                            dtype=a.dtype)
         local = t.numel() * t.element_size()
         seam.add_host_collective("host_fetch_allgather", local,
                                  (mesh.world_size - 1) * local)

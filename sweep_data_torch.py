@@ -20,7 +20,6 @@ CUDA device it raises. No driver falls back to the CPU.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import subprocess
 import time
@@ -208,13 +207,7 @@ def sync(device) -> None:
 def states_equal(a, b) -> bool:
     """Whether two ClientStates hold the same bits in every tensor (the
     params, the Adam state, prev_global and the verifier history)."""
-    def tensors(s):
-        out = []
-        for f in dataclasses.fields(s):
-            v = getattr(s, f.name)
-            out.extend(v if isinstance(v, tuple) else [v])
-        return out
-    return all(torch.equal(x, y) for x, y in zip(tensors(a), tensors(b)))
+    return all(torch.equal(x, y) for x, y in zip(a.tensors(), b.tensors()))
 
 
 def timed(fn, *args, **kw):

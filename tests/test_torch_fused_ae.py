@@ -146,7 +146,8 @@ def test_module_imports_without_cuda_or_nvcc():
     tensor that reaches the wrapper."""
     assert fused_ae._library.cache_info().currsize == 0
     assert fused_ae.native.KERNEL_SOURCES == ("fused_ae", "fused_train",
-                                              "dist_tiles", "adam_update")
+                                              "dist_tiles", "adam_update",
+                                              "kitnet")
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])

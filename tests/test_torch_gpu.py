@@ -2191,3 +2191,206 @@ def test_epoch_graph_runs_two_kernels_a_step(cuda):
         counts[nb] = graphed.nodes
     (nb1, n1), (nb2, n2) = sorted(counts.items())
     assert nb2 > nb1 and n2 - n1 == 2 * (nb2 - nb1)
+
+
+# ---- KitNET (ops/kitnet.py, csrc/kitnet.cu) ---- #
+
+def _kitnet_federation(device, n=10, rows=600, seed=0):
+    """A federation of n gateways in N-BaIoT's layout (23 statistics x 5
+    windows, the windows of one statistic correlated at 0.9), min-max
+    scaled by each gateway's train rows; returns (data, feature map)."""
+    from fedmse_tpu_torch.data.stacking import FederatedData
+    from fedmse_tpu_torch.models import kitnet
+    g = torch.Generator().manual_seed(seed)
+    stat_of = torch.tensor([s for first, count in ((0, 3), (3, 3), (6, 7),
+                                                   (13, 3), (16, 7))
+                            for _ in range(5)
+                            for s in range(first, first + count)])
+
+    def rows_of(k):
+        u = torch.randn((n, k, 23), generator=g)
+        eps = torch.randn((n, k, 115), generator=g)
+        return 0.9 ** 0.5 * u[:, :, stat_of] + 0.1 ** 0.5 * eps
+    normal, abnormal = rows_of(rows), 4.0 + 2.0 * rows_of(rows // 5)
+    tr = int(0.4 * rows)
+    train = normal[:, :tr]
+    lo, hi = train.amin(1, keepdim=True), train.amax(1, keepdim=True)
+    scale = lambda t: (t - lo) / (hi - lo)  # noqa: E731
+
+    def batches(t):
+        nb = -(-t.shape[1] // 12)
+        xb = torch.nn.functional.pad(t, (0, 0, 0, nb * 12 - t.shape[1]))
+        mb = (torch.arange(nb * 12) < t.shape[1]).float()
+        return (xb.view(n, nb, 12, 115).contiguous(),
+                mb.view(1, nb, 12).expand(n, nb, 12).contiguous())
+    txb, tmb = batches(scale(train))
+    va = scale(normal[:, tr:tr + rows // 10])
+    vxb, vmb = batches(va)
+    test = torch.cat([scale(normal[:, tr + rows // 10:]), scale(abnormal)],
+                     dim=1)
+    t_norm = test.shape[1] - abnormal.shape[1]
+    data = FederatedData(
+        train_xb=txb, train_mb=tmb, valid_xb=vxb, valid_mb=vmb,
+        valid_x=va.contiguous(), valid_m=torch.ones(n, va.shape[1]),
+        test_x=test.contiguous(), test_m=torch.ones(n, test.shape[1]),
+        test_y=torch.cat([torch.zeros(t_norm),
+                          torch.ones(abnormal.shape[1])]).expand(
+            n, -1).contiguous(),
+        dev_x=va.reshape(-1, 115)[:200].contiguous(),
+        client_mask=torch.ones(n))
+    fmap = kitnet.federated_feature_map(txb, tmb, data.client_mask, 10)
+    data = FederatedData(**{k: getattr(data, k).to(device)
+                            for k in data.__dataclass_fields__})
+    return data, fmap
+
+
+def _kitnet_models(layout, s, device, seed=4):
+    """s models on dyadic grids (params k/64 in (-1, 1), statistics k/64
+    with lo < hi), one client with nothing seen (hi < lo)."""
+    from fedmse_tpu_torch.models import kitnet
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randint(-63, 64, (s, layout.size), generator=g) / 64.0
+    lo = torch.randint(0, 16, (s, layout.k), generator=g) / 64.0
+    hi = lo + torch.randint(1, 48, (s, layout.k), generator=g) / 64.0
+    stats = torch.cat([lo, hi], dim=1)
+    stats[-1] = kitnet.fresh_stats(1, layout, "cpu")[0]
+    return flat.to(device), stats.to(device)
+
+
+@pytest.mark.parametrize("s", [250, 5])
+def test_kitnet_kernels_match_plain_at_the_cells_shapes(cuda, s):
+    """Both KitNET kernels against their plain twins at the cell's shapes
+    (S clients of 12-row batches, the 115-feature map), inputs on dyadic
+    grids: the statistic, the loss and every leaf's gradient within 1e-5
+    scale-normalized (f32 summation order and the kernels' FMAs), the
+    updated statistics within 1e-6; one launch a call."""
+    from fedmse_tpu_torch.models.flat import KitnetLayout
+    from fedmse_tpu_torch.ops import kitnet as ops
+    data, fmap = _kitnet_federation(cuda)
+    layout = KitnetLayout(fmap)
+    flat, stats = _kitnet_models(layout, s, cuda)
+    g = torch.Generator().manual_seed(5)
+    x = (torch.randint(0, 65, (s, 12, 115), generator=g) / 64.0).to(cuda)
+    m = torch.ones((s, 12), device=cuda)
+    m[1, 9:] = 0.0
+    active = torch.ones(s, dtype=torch.bool, device=cuda)
+    active[0] = False
+    before = ops.kitnet_train_grads.launches
+    got_stats = stats.clone()
+    loss, grads = ops.kitnet_train_grads(flat, got_stats, x, m,
+                                         layout=layout, active=active)
+    assert ops.kitnet_train_grads.launches == before + 1
+    want_stats = stats.clone()
+    w_loss, w_grads = ops.kitnet_train_grads_plain(
+        flat, want_stats, x, m, layout=layout, active=active)
+    assert torch.equal(got_stats[0], stats[0])
+    assert (got_stats - want_stats).abs().max() <= 1e-6 * \
+        want_stats.abs().max()
+    assert (loss - w_loss).abs().max() <= 1e-5 * w_loss.abs().max()
+    for sl in layout.slices():
+        assert (grads[:, sl] - w_grads[:, sl]).abs().max() <= \
+            1e-5 * w_grads[:, sl].abs().max()
+    params = layout.tree(flat, stats=stats)
+    rows = x.reshape(-1, 115)
+    for idx in (torch.arange(s, dtype=torch.int32, device=cuda)
+                .repeat_interleave(12),
+                torch.randint(-1, s + 1, (rows.shape[0],), generator=g,
+                              dtype=torch.int32).to(cuda)):
+        before = ops.kitnet_forward_stats.launches
+        got = ops.kitnet_forward_stats(params, rows, idx)
+        assert ops.kitnet_forward_stats.launches == before + 1
+        want = ops.kitnet_forward_stats_plain(params, rows, idx)
+        for a, b in zip(got, want):
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+            a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def test_kitnet_train_kernel_is_bitwise_repeatable(cuda):
+    from fedmse_tpu_torch.models.flat import KitnetLayout
+    from fedmse_tpu_torch.ops import kitnet as ops
+    _, fmap = _kitnet_federation(cuda)
+    layout = KitnetLayout(fmap)
+    flat, stats = _kitnet_models(layout, 250, cuda)
+    x = torch.rand((250, 12, 115), device=cuda)
+    m = torch.ones((250, 12), device=cuda)
+    outs = []
+    for _ in range(2):
+        st = stats.clone()
+        outs.append(ops.kitnet_train_grads(flat, st, x, m, layout=layout)
+                    + (st,))
+    for a, b in zip(*outs):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_kitnet_main_path_launches_its_kernels(cuda):
+    """model_type 'kitnet' through main.run_combination on the card: the
+    fused, pipelined schedule launches the KitNET kernels and the update
+    and never the autoencoder's; the epoch graph holds one train kernel
+    and one update a step and one forward; AUC and params within 2e-3
+    and 1e-4 per leaf of the same run on the CPU twins."""
+    from fedmse_tpu_torch.config import CompatConfig, ExperimentConfig
+    from fedmse_tpu_torch.main import run_combination
+    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    cfg = ExperimentConfig(scaler="minmax", num_rounds=3, epochs=2,
+                           fused_schedule_chunk=2,
+                           compat=CompatConfig(vote_tie_break=False))
+    outs = {}
+    for device in ("cpu", cuda):
+        data, _ = _kitnet_federation(device)
+        before = {k: w.launches for k, w in WRAPPERS.items()}
+        out = run_combination(cfg, data, 10, "kitnet", "fedprox", 0)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        outs[str(device)] = (out, {k: w.launches - before[k]
+                                   for k, w in WRAPPERS.items()})
+    (cpu, _), (gpu, launched) = outs["cpu"], outs[str(cuda)]
+    assert launched["kitnet_train"] > 0 and launched["kitnet_forward"] > 0
+    assert launched["adam_update"] == launched["kitnet_train"]
+    assert launched["fused_ae_train"] == launched["fused_ae_forward"] == 0
+    eng = gpu["engine"]
+    nb = eng.data.train_xb.shape[1]
+    assert eng.fused_round().epoch.kernels == {
+        "kitnet_train": nb, "adam_update": nb, "kitnet_forward": 1}
+    a, b = eng.states.params.cpu(), cpu["engine"].states.params
+    for sl in eng.layout.slices():
+        assert (a[:, sl] - b[:, sl]).abs().max() <= \
+            1e-4 * b[:, sl].abs().max()
+    np.testing.assert_allclose(gpu["final_metrics"], cpu["final_metrics"],
+                               atol=2e-3)
+
+
+def test_kitnet_fused_round_matches_per_phase_round_on_card(cuda):
+    """The fused KitNET round (CUDA graphs) against the per-phase round
+    from one state and cohort, tie-break off: the same aggregator and
+    verification rows; params, statistics and AUC within 1e-6
+    scale-normalized (the same kernels in the same order: expected
+    bit-equal)."""
+    from fedmse_tpu_torch.config import CompatConfig, ExperimentConfig
+    from fedmse_tpu_torch.federation import RoundEngine
+    from fedmse_tpu_torch.utils.seeding import ExperimentRngs
+    cfg = ExperimentConfig(scaler="minmax", epochs=2,
+                           compat=CompatConfig(vote_tie_break=False))
+    data, fmap = _kitnet_federation(cuda)
+
+    def engine(fused):
+        model = make_model("kitnet", 115, feature_map=fmap, device=cuda)
+        return RoundEngine(model, cfg, data, n_real=10,
+                           rngs=ExperimentRngs(run=0), model_type="kitnet",
+                           update_type="fedprox", fused=fused)
+    per, fus = engine(False), engine(True)
+    for r in range(2):
+        selected = per.select_clients()
+        want = per.run_round(r, selected=selected)
+        got = fus.run_round(r, selected=selected)
+        assert got.aggregator == want.aggregator
+        assert got.verification_results == want.verification_results
+        np.testing.assert_allclose(got.client_metrics, want.client_metrics,
+                                   atol=1e-6)
+    for name in ("params", "stats", "prev_global", "hist_params"):
+        a = getattr(fus.states, name).cpu()
+        b = getattr(per.states, name).cpu()
+        assert torch.equal(torch.isinf(a), torch.isinf(b))
+        a, b = torch.nan_to_num(a, posinf=0, neginf=0), \
+            torch.nan_to_num(b, posinf=0, neginf=0)
+        assert (a - b).abs().max() <= 1e-6 * b.abs().max().clamp_min(1e-30)

@@ -48,8 +48,9 @@ def _port_modules():
 # the red team's round half, the batched runs, the tiered layout, the
 # flywheel with its slow-drift adversary, the autotuner, the network
 # serving plane, the gateway ingest plane, the red team's ingest half, the
-# client mesh with its rank entry, and the real-data pipeline (the host
-# CSV reader, the shard builder, the host utilities and the plots)
+# client mesh with its rank entry, the real-data pipeline (the host
+# CSV reader, the shard builder, the host utilities and the plots), and
+# KitNET (its model, its kernels' wrappers and its plain reference)
 NEW_MODULES = ("redteam", "redteam.spec", "redteam.masks",
                "redteam.adversary", "redteam.mimicry", "federation.batched",
                "federation.tiered", "flywheel", "flywheel.buffer",
@@ -64,7 +65,8 @@ NEW_MODULES = ("redteam", "redteam.spec", "redteam.masks",
                "parallel.multihost", "parallel.costmodel",
                "parallel.collectives", "parallel.launch",
                "data.fast_csv", "data.prep", "utils.similarity",
-               "utils.profiling", "utils.platform", "visualization")
+               "utils.profiling", "utils.platform", "visualization",
+               "models.kitnet", "ops.kitnet", "models.kitnet_reference")
 EXAMPLES = ("minimal_federation_torch", "real_data_federation_torch",
             "serving_demo_torch", "flywheel_demo_torch")
 
@@ -191,6 +193,16 @@ def test_chip_smoke_and_port_sources_import_neither_jax_nor_reference():
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_kitnet_reference_imports_nothing_of_the_port():
+    """The plain reference the KitNET tests hold the port to imports
+    torch, numpy and scipy only: no kernel, op or model of the port."""
+    path = os.path.join(REPO, "fedmse_tpu_torch", "models",
+                        "kitnet_reference.py")
+    roots = {n.split(".")[0] for n in _imported_roots(path)}
+    assert roots <= {"__future__", "math", "typing", "numpy", "torch",
+                     "scipy"}, roots
 
 
 def test_entry_points_refuse_cpu_fallback(no_cuda, tmp_path):
