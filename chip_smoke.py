@@ -370,9 +370,11 @@ and the two ranks, the parallel path ("parallel_path_launches"), and
 the realdata phase's training run and kNN evaluation the real-data path
 ("realdata_path_launches"), and the sweeps phase's driver calls (a) to
 (d) the sweep path ("sweep_path_launches"; no sweep scores by kNN, so
-the distance kernel's count there is 0), and the padding phase's padded
+the kNN score's count there is 0), and the padding phase's padded
 runs in (a) to (c), summed over this process and the two ranks, the
-padded path ("padding_path_launches"). A launch
+padded path ("padding_path_launches"). Each path, the main path too,
+also counts the standalone distance kernel (dist_tiles), which must stay
+at 0 there: the kNN score is one pass. A launch
 inside a replayed CUDA graph counts: each graph keeps the kernels it
 captured, and each replay adds them (ops/graphs.py). Prints,
 as its last three lines, the card's name and power limit, one JSON line
@@ -920,6 +922,41 @@ def dist_bound(rows: int, bank: int, banks_read: int, lat: int = DIMS[2]):
                                        else "bytes")
 
 
+def knn_bound(rows: int, bank: int, banks_read: int, lat: int = DIMS[2]):
+    """Least time (ms) for the one-pass kNN score on an H100: the cross
+    term's 2 L T B f32 FLOPs over the f32 peak, or the bytes (q [T, L],
+    the bank index and the score [T] once each, each distinct bank [B, L]
+    once) over HBM bandwidth."""
+    flops = 2.0 * lat * rows * bank
+    nbytes = 4.0 * (rows * (lat + 2) + banks_read * bank * lat)
+    t_ops, t_bytes = flops / PEAK_FLOPS["f32"], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def knn_check(torch, q, banks, gw, what, count=None):
+    """The one-pass kNN score (knn_score) against its composition
+    (dist_tiles, mask, top-k, k-th) on the same inputs, bit for bit, in
+    exact and approximate top-k at the config's k; ragged counts in [0, B]
+    unless `count` is given. Leaves the kernels' launch counts as they
+    were, so a path that checks its shapes counts only its own launches."""
+    from fedmse_tpu_torch.knn.score import (dist_tiles, knn_score,
+                                            knn_score_composed)
+    n, b = banks.shape[0], banks.shape[1]
+    if count is None:
+        gen = torch.Generator().manual_seed(SEED + q.shape[0] + b)
+        count = torch.randint(0, b + 1, (n,), generator=gen,
+                              dtype=torch.int32).to(q.device)
+    counts = (knn_score.launches, dist_tiles.launches)
+    for topk in ("exact", "approx"):
+        got = knn_score(q, banks, gw, count, KNN["knn_k"], topk)
+        want = knn_score_composed(q, banks, gw, count, KNN["knn_k"], topk)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"knn score {what} {topk}: not the "
+                                 "composition's bits")
+    knn_score.launches, dist_tiles.launches = counts
+
+
 def main_dist_shapes(eval_rows):
     """(what, banks N, rows T, bank-index kind) of the distance launches on
     the main path, each against 512-slot banks at L = 7."""
@@ -947,8 +984,9 @@ def dist_inputs(torch, n, rows, bank, lat, gw_kind, gen, device, cdt):
 
 def dist_check(torch, q, banks, gw, what):
     """One distance launch against its plain version on the same inputs;
-    raises past DIST_TOL. Returns (kernel output, abs error, scaled
-    error)."""
+    raises past DIST_TOL. Then the one-pass kNN score on the same inputs
+    against its composition, bit for bit (knn_check). Returns (kernel
+    output, abs error, scaled error)."""
     from fedmse_tpu_torch.knn.score import dist_tiles, dist_tiles_plain
     got = dist_tiles(q, banks, gw)
     want = dist_tiles_plain(q, banks, gw)
@@ -962,6 +1000,7 @@ def dist_check(torch, q, banks, gw, what):
     if err > DIST_TOL:
         raise AssertionError(f"dist kernel vs plain {what}: scaled error "
                              f"{err:.3e} > {DIST_TOL:.1e}")
+    knn_check(torch, q, banks, gw, what)
     return got, (got - want).abs().max().item(), err
 
 
@@ -1026,7 +1065,9 @@ def phase_dist_kernels(torch, device, eval_rows):
                 raise AssertionError(f"dist {what} {cdt}: routed rows "
                                      "differ from client-major rows")
     log(f"[kernels] {len(cases)} dist-kernel-vs-plain cases agree, each "
-        f"bitwise equal to a second call; one CUDA kernel per call in f32 "
+        f"bitwise equal to a second call, and the one-pass kNN score equals "
+        f"its composition's bits in each (exact and approx, ragged "
+        f"counts); one CUDA kernel per call in f32 "
         f"and bf16 at the main path's shapes; routed = client-major bits "
         f"at the evaluation; worst {json.dumps(worst)}")
     return worst
@@ -1035,10 +1076,11 @@ def phase_dist_kernels(torch, device, eval_rows):
 def phase_evaluate(torch, device, cfg, clients):
     """Both model types x both precisions over the 10-gateway federation,
     each with its own score and with the kNN score (exact and approximate
-    top-k); every kNN evaluation is one distance launch."""
+    top-k); every kNN evaluation is one kNN-score launch and no launch of
+    the standalone distance kernel."""
     from fedmse_tpu_torch.data import stack_clients
     from fedmse_tpu_torch.evaluation import make_evaluate_all
-    from fedmse_tpu_torch.knn import dist_tiles
+    from fedmse_tpu_torch.knn import dist_tiles, knn_score
     from fedmse_tpu_torch.models import init_stacked_params, make_model
     from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
     dev_x = np.concatenate([c.dev_raw[:100] for c in clients]).astype(
@@ -1062,6 +1104,7 @@ def phase_evaluate(torch, device, cfg, clients):
                       dict(score_kind="knn", knn_topk=score[4:], **KNN))
                 before = fused_forward_stats.launches
                 before_dist = dist_tiles.launches
+                before_knn = knn_score.launches
                 t0 = time.perf_counter()
                 auc = make_evaluate_all(model, model_type, **kw)(params,
                                                                  *args)
@@ -1069,12 +1112,15 @@ def phase_evaluate(torch, device, cfg, clients):
                 secs = time.perf_counter() - t0
                 launched = fused_forward_stats.launches - before
                 dist_launched = dist_tiles.launches - before_dist
+                knn_launched = knn_score.launches - before_knn
                 if launched < 1:
                     raise AssertionError("evaluation did not launch the "
                                          "kernel")
-                if dist_launched != (0 if score == "own" else 1):
+                if knn_launched != (0 if score == "own" else 1) or \
+                        dist_launched != 0:
                     raise AssertionError(f"{score} evaluation launched the "
-                                         f"distance kernel {dist_launched}"
+                                         f"kNN score {knn_launched} and the"
+                                         f" distance kernel {dist_launched}"
                                          " times")
                 if auc.shape != (len(clients),) or \
                         not torch.isfinite(auc).all():
@@ -1085,7 +1131,7 @@ def phase_evaluate(torch, device, cfg, clients):
                     + (data.train_xb.shape[1] * data.train_xb.shape[2]
                        if model_type == "hybrid" or score != "own" else 0))
                 log(f"[evaluate] {model_type} {score} {precision}: "
-                    f"{launched} forward + {dist_launched} distance "
+                    f"{launched} forward + {knn_launched} kNN-score "
                     f"launch(es) over {rows} rows in {secs * 1e3:.3f} ms; "
                     f"per-client AUC "
                     f"{np.round(aucs[(score, precision)], 6).tolist()}")
@@ -1248,7 +1294,7 @@ def phase_serve_knn(torch, device, cfg, evaluated, smi):
     plain CPU path on the refreshed bank)."""
     from fedmse_tpu_torch.data import stack_clients, synthetic_clients
     from fedmse_tpu_torch.evaluation import make_evaluate_all
-    from fedmse_tpu_torch.knn import (build_banks, dist_tiles,
+    from fedmse_tpu_torch.knn import (build_banks, knn_score,
                                       routed_kth_distance)
     from fedmse_tpu_torch.models import init_stacked_params, make_model
     from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
@@ -1278,7 +1324,7 @@ def phase_serve_knn(torch, device, cfg, evaluated, smi):
             raise AssertionError(f"{what} off its oracle by {err:.3e}")
         return err
 
-    before = dist_tiles.launches
+    before = knn_score.launches
     batcher = MicroBatcher(engine, max_batch=cfg.serve_max_batch,
                            max_wait_ms=cfg.serve_latency_budget_ms,
                            calibration=calib)
@@ -1294,7 +1340,7 @@ def phase_serve_knn(torch, device, cfg, evaluated, smi):
         "latency_p50_ms": st["latency_p50_ms"],
         "latency_p99_ms": st["latency_p99_ms"],
         "dispatches": st["dispatches"],
-        "dist_launches": dist_tiles.launches - before,
+        "knn_launches": knn_score.launches - before,
         "max_err_vs_oracle": err}
     log(f"[serve] knn 10 gateways sync on {smi}: {len(tickets)} rows in "
         f"{st['dispatches']} buckets, {len(tickets) / wall:.1f} rows/s, "
@@ -1382,7 +1428,7 @@ def phase_serve_knn(torch, device, cfg, evaluated, smi):
     rows = test_x[gws, ridx]
     served = np.empty(len(rows), np.float32)
     bucket_s = []
-    before = dist_tiles.launches
+    before = knn_score.launches
     for s0 in range(0, len(rows), 1024):
         t0 = time.perf_counter()
         served[s0:s0 + 1024] = engine.score(rows[s0:s0 + 1024],
@@ -1395,7 +1441,7 @@ def phase_serve_knn(torch, device, cfg, evaluated, smi):
         "rows_per_s": len(rows) / sum(bucket_s),
         "bucket_p50_ms": float(np.percentile(ms, 50)),
         "bucket_p99_ms": float(np.percentile(ms, 99)),
-        "dist_launches": dist_tiles.launches - before,
+        "knn_launches": knn_score.launches - before,
         "max_err_vs_oracle": err}
     log(f"[serve] knn 512 gateways gather on {smi}: {len(rows)} rows in "
         f"{len(bucket_s)} buckets of 1024, {len(rows) / sum(bucket_s):.1f} "
@@ -1731,7 +1777,7 @@ def phase_serve_pass(torch, cfg, data, writer, names):
     --serve-warmup: the bank npz and the calibration JSON must be written.
     First, one forced full collection timed with and without the freeze
     the pass puts around its stream; each pass records every GC pause."""
-    from fedmse_tpu_torch.knn import dist_tiles, load_bank
+    from fedmse_tpu_torch.knn import knn_score, load_bank
     from fedmse_tpu_torch.serving import run_serve_smoke
     c = cfg.replace(score_kind="knn", **KNN)
     gc_ms = forced_gc_ms()
@@ -1743,7 +1789,7 @@ def phase_serve_pass(torch, cfg, data, writer, names):
     out = {"forced_gc_ms": gc_ms, "cold_passes": []}
     for tag in ("cold", "cold", "cold", "warm"):
         warmup = tag == "warm"
-        before = dist_tiles.launches
+        before = knn_score.launches
         pauses = []  # the garbage collector's pauses during the pass
 
         def on_gc(phase, info, pauses=pauses, t=[0.0]):
@@ -1782,7 +1828,7 @@ def phase_serve_pass(torch, cfg, data, writer, names):
             "mean_batch": rep["batcher"]["mean_batch"],
             "verdict_label_agreement": rep["verdict_label_agreement"],
             "drifted_gateways": rep["drift"]["drifted_gateways"],
-            "dist_launches": dist_tiles.launches - before,
+            "knn_launches": knn_score.launches - before,
             "latency_max_ms_by_eighth": rep["latency_max_ms_by_eighth"],
             "warmup_sec_per_bucket": rep["warmup_sec_per_bucket"],
             "gc_pauses": len(pauses),
@@ -1833,14 +1879,15 @@ def report_dist(torch, device, launches, worst, eval_rows):
     times and the bound at the main path's shapes: the 10-gateway
     evaluation (its `eval_rows` test rows client-major against 512-slot
     banks) and the two serving buckets. At each shape also the kNN score
-    around the kernel (routed_kth_distance with exact and approximate
-    top-k: the launch, the padding mask, the top-k and the gather) on the
+    composed around the kernel (knn_score_composed with exact and
+    approximate top-k: the launch, the padding mask, the top-k and the
+    gather; the main path scores in one pass since, report_knn) on the
     device, the kernel's share of it, and a one-element fill as the floor
     of any launch. Each timed call's output is first held to the plain
-    version on the same inputs."""
-    from fedmse_tpu_torch.knn.bank import ReferenceBank
+    version on the same inputs. `launches`: the main path's, 0 since the
+    kNN score runs in one pass."""
     from fedmse_tpu_torch.knn.score import (dist_tiles, dist_tiles_plain,
-                                            routed_kth_distance)
+                                            knn_score_composed)
     gen = torch.Generator().manual_seed(SEED + 8)
     bank = KNN["knn_bank_size"]
     parent = baseline_dist(torch)
@@ -1882,12 +1929,11 @@ def report_dist(torch, device, launches, worst, eval_rows):
                 qb, banks, compute_mode="use_mm_for_euclid_dist"), 50)
         count = torch.randint(bank // 2, bank + 1, (n,), generator=gen,
                               dtype=torch.int32).to(device)
-        ref = ReferenceBank(latents=banks, count=count)
         g = gw if gw is not None else torch.zeros(rows, dtype=torch.int32,
                                                   device=device)
         path_ms = {topk: all_device_ms(torch, lambda topk=topk:
-                                       routed_kth_distance(
-                                           q, g, ref, KNN["knn_k"],
+                                       knn_score_composed(
+                                           q, banks, g, count, KNN["knn_k"],
                                            topk=topk), 20)
                    for topk in ("exact", "approx")}
         rows_out.append({
@@ -1907,7 +1953,8 @@ def report_dist(torch, device, launches, worst, eval_rows):
             f"(torch.profiler, a cross-check) {d_ms:.5f} / {d2_ms:.5f} "
             f"ms against its predecessor's {parent_ms:.5f} (same bits), "
             f"plain {p_ms:.5f} ms, torch.cdist {lib_ms} ms, bound "
-            f"{b_ms:.6f} ms ({b_by}); kNN score on the device "
+            f"{b_ms:.6f} ms ({b_by}); kNN score composed around it on the "
+            f"device "
             f"{path_ms['exact']:.5f} (exact) / {path_ms['approx']:.5f} "
             f"(approx) ms, the kernel {d_ms / path_ms['exact']:.1%} / "
             f"{d_ms / path_ms['approx']:.1%} of it; scaled error vs plain "
@@ -1938,6 +1985,80 @@ def report_dist(torch, device, launches, worst, eval_rows):
         "max_abs_err_by_dtype": {p: worst[p]["abs"] for p in worst},
         "max_scaled_err_by_dtype": {p: worst[p]["scaled"] for p in worst},
         "tolerance_scaled": DIST_TOL,
+        "shapes": rows_out,
+    }
+
+
+def knn_shapes(eval_rows):
+    """(what, banks N, rows T, bank-index kind) of the kNN score at the
+    hybrid cells' evaluations (3,000 test rows a gateway, client-major) and
+    at the main path's: its evaluation and the two serving buckets, each
+    against 512-slot banks at L = 7."""
+    return (("evaluate, 500 gateways (the benchmark's fleet)", 500,
+             1_500_000, "client_major"),
+            ("evaluate, 10 gateways (the benchmark's paper fleet)", 10,
+             30_000, "client_major")) + main_dist_shapes(eval_rows)
+
+
+def report_knn(torch, device, launches, eval_rows):
+    """The one-pass kNN score (knn_score, csrc/dist_tiles.cu) at the shapes
+    of knn_shapes: held to its composition (knn_score_composed: the
+    distance kernel, the mask, torch.topk and the gather) bit for bit in
+    exact and approximate top-k with ragged counts and at full banks, one
+    CUDA kernel per call, then timed at the config's approximate top-k and
+    full banks per call in a graph of GRAPH_CALLS calls (the time of
+    record) beside its bound (knn_bound) and the composition's time (CUDA
+    events around eager calls: it allocates its [T, B] tiles per call),
+    the yardstick."""
+    from fedmse_tpu_torch.knn.score import knn_score, knn_score_composed
+    gen = torch.Generator().manual_seed(SEED + 9)
+    bank, k, topk = KNN["knn_bank_size"], KNN["knn_k"], "approx"
+    rows_out = []
+    for what, n, rows, gw_kind in knn_shapes(eval_rows):
+        q, banks, gw = dist_inputs(torch, n, rows, bank, DIMS[2], gw_kind,
+                                   gen, device, torch.float32)
+        full = torch.full((n,), bank, dtype=torch.int32, device=device)
+        knn_check(torch, q, banks, gw, f"timed {what}")
+        knn_check(torch, q, banks, gw, f"timed {what}, full banks", full)
+        call = lambda: knn_score(q, banks, gw, full, k, topk)  # noqa: E731
+        nodes, ran = kernels_of_one_call(torch, call, device)
+        if nodes != 1 or ran != {"knn_score": 1}:
+            raise AssertionError(f"knn {what}: one call ran {nodes} graph "
+                                 f"nodes, kernels {ran}")
+        used = n if gw is None else int(torch.unique(gw).numel())
+        b_ms, b_by = knn_bound(rows, bank, used)
+        reps = 20 if rows > 100_000 else 200
+        g_ms = graph_time(torch, call, device, reps, b_ms)
+        c_ms = cuda_ms(lambda: knn_score_composed(q, banks, gw, full, k,
+                                                  topk), 5 if rows > 100_000
+                       else 50)
+        t_ms = g_ms["graph_ms_calls"]
+        rows_out.append({
+            "what": what, "rows": rows, "banks": n, "bank_size": bank,
+            "k": k, "topk": topk, **g_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "composed_ms": c_ms,
+            "share_of_bound": None if t_ms is None else b_ms / t_ms,
+            "speedup_vs_composed": None if t_ms is None else c_ms / t_ms})
+        log(f"[report] knn {what} T={rows} B={bank} N={n} k={k} {topk}: "
+            f"one-call graph replay {_graph_text(g_ms)}, bound {b_ms:.6f} "
+            f"ms ({b_by}), the composition (dist_tiles, mask, torch.topk, "
+            f"gather) {c_ms:.5f} ms; bits = the composition's, one kernel")
+        del q, banks, gw
+        torch.cuda.empty_cache()
+    main = rows_out[0]
+    return {
+        "name": "knn_score",
+        "route": "cuda",
+        "source": "fedmse_tpu_torch/csrc/dist_tiles.cu",
+        "replaces": "the composition dist_tiles -> mask -> top-k -> k-th "
+                    "(knn/score.py knn_score_composed; the JAX package's "
+                    "_dist_kernel and its XLA top-k)",
+        "launches": launches,
+        "graph_ms": main["graph_ms"],
+        "graph_ms_calls": main["graph_ms_calls"],
+        "graph_calls": GRAPH_CALLS,
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "composed_ms": main["composed_ms"],
         "shapes": rows_out,
     }
 
@@ -2595,7 +2716,7 @@ def phase_robust(torch, device, cfg, clients, data):
     slice's main path: every kernel's launch counter is set to 0 before
     them and read after, and each must have launched. Then (a), (c), (d)
     and (e) hold the path to its references."""
-    WRAPPERS = family_wrappers("autoencoder")
+    WRAPPERS = path_wrappers()
     n = len(clients)
     t0 = time.perf_counter()
     for w in WRAPPERS.values():
@@ -2606,7 +2727,7 @@ def phase_robust(torch, device, cfg, clients, data):
     _sync(torch, device)
     launches = {k: w.launches for k, w in WRAPPERS.items()}
     log(f"[robust] fault path launches {json.dumps(launches)}")
-    for name, count in launches.items():
+    for name, count in check_off_path(launches, "fault").items():
         if count < 1:
             raise AssertionError(f"the fault path never launched {name}")
     report["launches"] = launches
@@ -3158,7 +3279,7 @@ def phase_cluster(torch, device, cfg):
     references, and the clustered round is timed beside the clean one."""
     from fedmse_tpu_torch.federation import init_client_states
     from fedmse_tpu_torch.models import make_model
-    WRAPPERS = family_wrappers("autoencoder")
+    WRAPPERS = path_wrappers()
     t0 = time.perf_counter()
     data, cpu_data = cluster_fleet(cfg, (device, torch.device("cpu")))
     n = CLUSTER_FLEET["n_clients"]
@@ -3179,7 +3300,7 @@ def phase_cluster(torch, device, cfg):
     _sync(torch, device)
     launches = {k: w.launches for k, w in WRAPPERS.items()}
     log(f"[cluster] clustered path launches {json.dumps(launches)}")
-    for name, count in launches.items():
+    for name, count in check_off_path(launches, "clustered").items():
         if count < 1:
             raise AssertionError(f"the clustered path never launched {name}")
     report["launches"] = launches
@@ -3602,7 +3723,7 @@ def phase_redteam(torch, device, cfg):
     the clustered path's shapes)."""
     from fedmse_tpu_torch.federation import init_client_states
     from fedmse_tpu_torch.models import make_model
-    WRAPPERS = family_wrappers("autoencoder")
+    WRAPPERS = path_wrappers()
     t0 = time.perf_counter()
     data, cpu_data = cluster_fleet(cfg, (device, torch.device("cpu")))
     n = CLUSTER_FLEET["n_clients"]
@@ -3622,7 +3743,7 @@ def phase_redteam(torch, device, cfg):
     _sync(torch, device)
     launches = {k: w.launches for k, w in WRAPPERS.items()}
     log(f"[redteam] red path launches {json.dumps(launches)}")
-    for name, count in launches.items():
+    for name, count in check_off_path(launches, "red").items():
         if count < 1:
             raise AssertionError(f"the red path never launched {name}")
     report["launches"] = launches
@@ -3732,7 +3853,7 @@ def batch_vs_sequential(torch, cfg, data, n, model_type="hybrid",
     from fedmse_tpu_torch.main import (run_batched_combination,
                                        run_combination)
     from fedmse_tpu_torch.models.flat import ParamLayout
-    WRAPPERS = family_wrappers("autoencoder")
+    WRAPPERS = path_wrappers()
     c = cfg.replace(num_runs=BATCH_RUNS)
     seq = [run_combination(c, data, n, model_type, update_type, r,
                            early_stop=_early(c)) for r in range(BATCH_RUNS)]
@@ -3747,7 +3868,7 @@ def batch_vs_sequential(torch, cfg, data, n, model_type="hybrid",
                                   data, n, model_type, update_type)
     _sync(torch, data.train_xb.device)
     launches = {k: w.launches for k, w in WRAPPERS.items()}
-    for name, count in launches.items():
+    for name, count in check_off_path(launches, "batched").items():
         if count < 1:
             raise AssertionError(f"the batched path never launched {name}")
     if not all(np.isfinite(o["final_metrics"]).all() for o in knn):
@@ -4768,11 +4889,32 @@ def family_wrappers(family: str) -> dict:
     return {k: WRAPPERS[k] for k in FAMILY_KERNELS[family]}
 
 
+OFF_PATH = "dist_tiles"  # the standalone distance kernel: no path launches it
+
+
+def path_wrappers() -> dict:
+    """The wrappers an autoencoder path counts: the family's kernels, and
+    the standalone distance kernel, which the path must not launch (the
+    kNN score is one pass; check_off_path)."""
+    from fedmse_tpu_torch.ops.graphs import WRAPPERS
+    return {**family_wrappers("autoencoder"), OFF_PATH: WRAPPERS[OFF_PATH]}
+
+
+def check_off_path(launches: dict, path: str) -> dict:
+    """Raises if a path's counted launches include the standalone distance
+    kernel; returns the family kernels' counts, each to be >= 1."""
+    if launches[OFF_PATH] != 0:
+        raise AssertionError(f"the {path} path launched the distance kernel "
+                             f"{launches[OFF_PATH]} times")
+    return {k: n for k, n in launches.items() if k != OFF_PATH}
+
+
 @contextlib.contextmanager
 def counted_launches(store):
     """Count the kernel launches of the work inside: every count set to 0
-    just before and read just after, added into `store`."""
-    WRAPPERS = family_wrappers("autoencoder")
+    just before and read just after, added into `store`; raises if the
+    work launched the standalone distance kernel."""
+    WRAPPERS = path_wrappers()
     import torch
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -4783,6 +4925,7 @@ def counted_launches(store):
         torch.cuda.synchronize()
     for k, w in WRAPPERS.items():
         store[k] = store.get(k, 0) + w.launches
+    check_off_path(store, "counted")
 
 
 def routed_kernel_shapes(torch, device, tag, g, buckets, dist_rows=()):
@@ -5271,7 +5414,7 @@ def phase_flywheel(torch, device, cfg, data, writer, names, smi):
                                                      **cell)
                               for cell in RECOVERY_CELLS]
     report["launches"] = dict(FLYWHEEL_LAUNCHES)
-    for name, k in report["launches"].items():
+    for name, k in check_off_path(report["launches"], "flywheel").items():
         if k < 1:
             raise AssertionError(f"the flywheel path never launched {name}")
     log(f"[flywheel] flywheel path launches "
@@ -5797,7 +5940,7 @@ def phase_net(torch, device, cfg, data, names, smi):
     report["a"] = net_serve_pass(torch, device, cfg, data, names,
                                  NET_LAUNCHES)
     report["launches"] = dict(NET_LAUNCHES)
-    for name, k in report["launches"].items():
+    for name, k in check_off_path(report["launches"], "--serve-net").items():
         if k < 1:
             raise AssertionError(f"the --serve-net path never launched "
                                  f"{name}")
@@ -6383,7 +6526,7 @@ def phase_parallel_e(dense, fused, outs, smi):
                 raise AssertionError(f"[parallel] (e) rank {r['rank']}'s "
                                      f"phase seconds {secs}")
         got = r["launches"]["e"]
-        for name in ("fused_ae_forward", "fused_ae_train", "dist_tiles"):
+        for name in ("fused_ae_forward", "fused_ae_train", "knn_score"):
             if got.get(name, 0) < 1:
                 raise AssertionError(f"[parallel] (e) rank {r['rank']} "
                                      f"never launched {name}: {got}")
@@ -6582,9 +6725,9 @@ def phase_parallel(torch, device, cfg, smi):
         raise AssertionError("[parallel] (d) the meshed engine's scores are "
                              "not the unsharded engine's bits")
     for r in outs:
-        if r["launches"]["d"].get("dist_tiles", 0) < 1:
+        if r["launches"]["d"].get("knn_score", 0) < 1:
             raise AssertionError(f"[parallel] rank {r['rank']}'s meshed kNN "
-                                 "engine never launched the distances")
+                                 "engine never launched the kNN score")
         for part in r["launches"].values():
             for k, v in part.items():
                 PARALLEL_LAUNCHES[k] = PARALLEL_LAUNCHES.get(k, 0) + v
@@ -6594,7 +6737,7 @@ def phase_parallel(torch, device, cfg, smi):
         f"{json.dumps(report['kernels_vs_plain'])}")
     report["launches"] = dict(PARALLEL_LAUNCHES)
     log(f"[parallel] parallel path launches {json.dumps(report['launches'])}")
-    for name in ("fused_ae_forward", "fused_ae_train", "dist_tiles"):
+    for name in ("fused_ae_forward", "fused_ae_train", "knn_score"):
         if report["launches"].get(name, 0) < 1:
             raise AssertionError(f"the parallel path never launched {name}")
     report["seconds"] = time.perf_counter() - t0
@@ -6894,7 +7037,7 @@ def phase_realdata(torch, device, cfg, smi, keep=None):
         report["launches"] = dict(REALDATA_LAUNCHES)
         log(f"[realdata] real-data path launches "
             f"{json.dumps(report['launches'])}")
-        for name in ("fused_ae_forward", "fused_ae_train", "dist_tiles"):
+        for name in ("fused_ae_forward", "fused_ae_train", "knn_score"):
             if report["launches"].get(name, 0) < 1:
                 raise AssertionError(f"the real-data path never launched "
                                      f"{name}")
@@ -7502,7 +7645,7 @@ def phase_padding(torch, device, cfg, smi):
             PADDING_LAUNCHES[k] = PADDING_LAUNCHES.get(k, 0) + v
     report["launches"] = dict(PADDING_LAUNCHES)
     log(f"[padding] padded path launches {json.dumps(report['launches'])}")
-    for name in ("fused_ae_forward", "fused_ae_train", "dist_tiles"):
+    for name in ("fused_ae_forward", "fused_ae_train", "knn_score"):
         if report["launches"].get(name, 0) < 1:
             raise AssertionError(f"the padded path never launched {name}")
     report["seconds"] = time.perf_counter() - t0
@@ -8102,7 +8245,7 @@ def run(torch, cfg, smi, t_start) -> int:
     """The phases, from the kernels' build on."""
     from fedmse_tpu_torch.data import synthetic_clients
     from fedmse_tpu_torch.ops import native
-    from fedmse_tpu_torch.knn import dist_tiles
+    from fedmse_tpu_torch.knn import dist_tiles, knn_score
     from fedmse_tpu_torch.ops.adam_update import adam_update
     from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
     from fedmse_tpu_torch.ops.fused_train import fused_train_grads
@@ -8132,10 +8275,11 @@ def run(torch, cfg, smi, t_start) -> int:
     fused_forward_stats.launches = 0
     fused_train_grads.launches = 0
     dist_tiles.launches = 0
+    knn_score.launches = 0
     adam_update.launches = 0
     evaluated, knn_eval = phase_evaluate(torch, device, cfg, clients)
     if knn_eval["hybrid/knn/approx/f32"]["test_rows"] != eval_rows:
-        raise AssertionError("the evaluation's distance launch is not the "
+        raise AssertionError("the evaluation's kNN-score launch is not the "
                              f"{eval_rows} rows phase_dist_kernels held")
     serve = phase_serve(torch, device, cfg, evaluated, smi)
     serve.update(phase_serve_knn(torch, device, cfg, evaluated, smi))
@@ -8149,13 +8293,19 @@ def run(torch, cfg, smi, t_start) -> int:
     torch.cuda.synchronize()
     launches = {"fused_ae_forward": fused_forward_stats.launches,
                 "fused_ae_train": fused_train_grads.launches,
-                "dist_tiles": dist_tiles.launches,
+                "knn_score": knn_score.launches,
                 "adam_update": adam_update.launches}
-    # ... and ends here
+    # ... and ends here: the kNN score in one pass, never the distance
+    # tiles and a top-k after them
     for name, n in launches.items():
         if n < 1:
             raise AssertionError(f"the main path never launched {name}")
-    log(f"[main path] launches {json.dumps(launches)}")
+    if dist_tiles.launches != 0:
+        raise AssertionError(f"the main path launched the distance kernel "
+                             f"{dist_tiles.launches} times")
+    main_dist = dist_tiles.launches
+    log(f"[main path] launches {json.dumps(launches)}, the distance kernel "
+        f"alone {main_dist}")
     robust = phase_robust(torch, device, cfg, clients, data)
     cluster = phase_cluster(torch, device, cfg)
     redteam = phase_redteam(torch, device, cfg)
@@ -8185,7 +8335,9 @@ def run(torch, cfg, smi, t_start) -> int:
                                         launches["fused_ae_train"],
                                         worst_train))
     line["kernels"].append(report_dist(
-        torch, device, launches["dist_tiles"], worst_dist, eval_rows))
+        torch, device, main_dist, worst_dist, eval_rows))
+    line["kernels"].append(report_knn(torch, device, launches["knn_score"],
+                                      eval_rows))
     line["update_kernel"] = report_update(torch, device,
                                           launches["adam_update"])
     for kernel in line["kernels"]:

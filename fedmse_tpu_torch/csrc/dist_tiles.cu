@@ -74,6 +74,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <climits>
 
 namespace {
 
@@ -110,8 +111,8 @@ __device__ __forceinline__ float clamp_dist(float qn, float cross, float bn) {
 }
 
 // One element of a query row as f32 (bf16 upcast, which is exact), through
-// the read-only path: every lane of a warp reads the same row, so a load is
-// one broadcast.
+// the read-only path (in dist_tiles_kernel every lane of a warp reads the
+// same row, so a load is one broadcast).
 __device__ __forceinline__ float load_q(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_q(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
@@ -330,6 +331,440 @@ int plan_groups(int B) {
   return groups;
 }
 
+// ---------------------------------------------------------------------------
+// The kNN score in one pass (knn_score): for every query row i, its
+// distances to the slots of its own bank g = gw[i] as above, the count mask
+// (slot >= count -> +inf), the bin minima (approximate top-k; exact top-k is
+// one slot a bin), the k-th smallest candidate, sqrt. Only the [T] score is
+// written: no [T, B] tile, mask copy, bin array or torch.topk. It replaces
+// the composition dist_tiles -> _mask_padding -> _smallest_k ->
+// _kth_of_smallest of knn/score.py (the JAX package's Pallas distance
+// kernel followed by its XLA top-k), and gives the same bits:
+//   - each distance is the fmaf chain of dist_tiles_kernel (clamp_dist,
+//     load_q, qn / bn / cross over l = 0 .. L-1 from 0);
+//   - slot s lies in bin s % bins; a bin keeps its minimum, NaN winning (as
+//     amin); the candidates (bins, or slots when exact) are padded with
+//     +inf up to k (as _pad_inf), and the one at rank min(count, k) - 1,
+//     NaN ranking above +inf (as torch.topk(largest=False)), is the k-th;
+//   - sqrt of it; 0 for an empty bank; NaN for a bank index outside [0, N).
+// Distances are >= +0 (never -0), +inf or NaN, so their bit patterns as
+// unsigned integers order them as torch.topk does, NaN above +inf: the
+// selection runs on those keys and returns the selected value's own bits.
+//
+// Bound on an H100 SXM: compute. 2 L T B FLOP for the cross term (14 a row
+// and slot at L = 7) with nothing streamed out; bytes 4 T L (2 T L in bf16)
+// of q, 4 T of bank index and score, 4 B L a distinct bank. At the hybrid
+// evaluation's 1.5M rows x 512 slots x 500 banks that is 10.75 GFLOP, 0.16
+// ms at 67 TFLOP/s, against 0.02 ms of bytes.
+//
+// Design (knn/score.py knn_plan, checked here).
+//   - A warp walks its own contiguous run of rows 32 at a time (lane t
+//     loads row t's bank index, count and q); CTAs of 4 warps, one wave,
+//     at least one row a warp, so a serving bucket spreads over hundreds of
+//     warps. Each batch takes one of two paths.
+//   - The lane path, for a batch of 16 rows or more in ONE bank (the
+//     evaluation's client-major rows): one LANE per row, so the selection
+//     needs no exchange between lanes. The warp stages the bank once in its
+//     shared memory as [B][LP] floats (the L values, zeros up to 7 or 8,
+//     and |b|^2: LP = 8, or 12 at L = 8) and every lane reads the same slot
+//     at the same time, a broadcast, 16 bytes at a time: one load of a slot
+//     serves 32 rows. The stage is reloaded only when the batch's bank
+//     changes. A lane walks
+//     its row's bank bin by bin, keeps each bin's minimum in a register and
+//     inserts it into a sorted list of the KP smallest keys (KP = 8 or 32
+//     >= k) in registers, 4 bins' loads and fmaf chains at a time and no
+//     branch between them. The k-th is the list's entry at rank
+//     min(count, k) - 1.
+//   - The warp path, for every other batch (routed rows of a serving
+//     bucket, a batch across a bank boundary, a short run, L > 8): the
+//     whole warp on one row at a time, lane l on bins l, l + 32, ..., so a
+//     load instruction reads 32 neighbouring slots; each lane keeps the KP
+//     smallest of its bins, and the warp pops the k-th off the lanes'
+//     sorted lists (a warp minimum a rank). |b|^2 is formed on the way, the
+//     same fmaf chain; L > 8 streams q and the bank, as dist_tiles does.
+// No atomics, no tensor cores, no fast math: a row's score is the same bits
+// whichever path and batch computes it.
+
+constexpr int kScoreWarps = 4;         // knn_plan's warps per CTA
+constexpr int kScoreBlocksPerSM = 4;   // at most 16 warps an SM
+constexpr int kMaxK = 32;
+constexpr int kStageWarpBytes = 32 << 10;  // knn_plan's STAGE_WARP_BYTES
+constexpr int kStageSMBytes = 192 << 10;   // knn_plan's STAGE_SM_BYTES
+constexpr int kLaneRows = 16;  // a batch takes the lane path from 16 rows
+constexpr unsigned kInfKey = 0x7f800000u;  // +inf
+constexpr unsigned kAbsentKey = 0xffffffffu;  // above every distance's key
+
+struct ScoreArgs {
+  const void* q;
+  const float* banks;
+  const int32_t* gw;
+  const void* counts;  // null: count_value for every row
+  int counts_i64, count_per_bank, count_value;
+  float* out;
+  int per_warp, extra;  // rows = per_warp * warps + extra
+  int n_banks, B, L, k, bins, pads;
+  int q_bf16;           // q is bf16, else f32
+  int stage;            // warp-uniform batches stage their bank
+};
+
+// The latent width a kernel holds in registers: L <= 7 as 7 and L = 8 as
+// 8, the values past L zero (so 6 kernels build, not 36); 0: streamed. A
+// zero term adds fmaf(0, 0, x) = x to each chain (x is never -0: every
+// chain starts at +0), so the chains keep dist_tiles_kernel's bits.
+constexpr int latent_regs(int L) { return L <= 7 ? 7 : (L == 8 ? 8 : 0); }
+
+// the floats a staged slot takes: its LC values, |b|^2, padded to float4s
+template <int LC>
+struct StageFloats {
+  static constexpr int value = (LC + 4) & ~3;
+};
+
+// element i of q as f32 (bf16 upcast, which is exact)
+__device__ __forceinline__ float q_at(const ScoreArgs& a, long long i) {
+  return a.q_bf16 ? load_q(static_cast<const __nv_bfloat16*>(a.q) + i)
+                  : load_q(static_cast<const float*>(a.q) + i);
+}
+
+// min of two keys with NaN winning, as amin
+__device__ __forceinline__ unsigned nan_min(unsigned a, unsigned b) {
+  const unsigned hi = max(a, b), lo = min(a, b);
+  return hi > kInfKey ? hi : lo;
+}
+
+// key into the ascending list of the KP smallest (the largest drops out)
+template <int KP>
+__device__ __forceinline__ void insert(unsigned (&list)[KP], unsigned key) {
+#pragma unroll
+  for (int i = 0; i < KP; ++i) {
+    const unsigned lo = min(list[i], key);
+    key = max(list[i], key);
+    list[i] = lo;
+  }
+}
+
+// one slot's key: its distance's bits, +inf past the count
+template <int LC, bool STAGED>
+__device__ __forceinline__ unsigned slot_key(
+    const ScoreArgs& a, const float4* stage, const float* bank, int s,
+    const float (&q)[LC > 0 ? LC : 1], float qn, int cnt) {
+  float cross = 0.f, bn = 0.f;
+  if constexpr (STAGED) {
+    constexpr int LP = StageFloats<LC>::value;
+    float b[LP];
+#pragma unroll
+    for (int v = 0; v < LP / 4; ++v) {
+      const float4 x = stage[s * (LP / 4) + v];
+      b[4 * v] = x.x;
+      b[4 * v + 1] = x.y;
+      b[4 * v + 2] = x.z;
+      b[4 * v + 3] = x.w;
+    }
+#pragma unroll
+    for (int l = 0; l < LC; ++l) cross = fmaf(q[l], b[l], cross);
+    bn = b[LC];
+  } else {
+    const float* __restrict__ bk = bank + static_cast<long long>(s) * a.L;
+#pragma unroll
+    for (int l = 0; l < LC; ++l) {
+      const float v = l < a.L ? __ldg(bk + l) : 0.f;
+      cross = fmaf(q[l], v, cross);
+      bn = fmaf(v, v, bn);
+    }
+  }
+  const float d = clamp_dist(qn, cross, bn);
+  return s < cnt ? __float_as_uint(d) : kInfKey;
+}
+
+// L > 8: q (row elements from q0 on) and the bank streamed per slot
+__device__ __forceinline__ unsigned slot_key_streamed(
+    const ScoreArgs& a, long long q0, const float* bank, int s, float qn,
+    int cnt) {
+  const float* __restrict__ bk = bank + static_cast<long long>(s) * a.L;
+  float cross = 0.f, bn = 0.f;
+  for (int l = 0; l < a.L; ++l) {
+    const float ql = q_at(a, q0 + l);
+    const float v = __ldg(bk + l);
+    cross = fmaf(ql, v, cross);
+    bn = fmaf(v, v, bn);
+  }
+  const float d = clamp_dist(qn, cross, bn);
+  return s < cnt ? __float_as_uint(d) : kInfKey;
+}
+
+// The minima of the U bins bin0 + u * stride (u < U) of a row, bin b
+// holding slots b, b + bins, b + 2 bins, ...: key(s) is slot s's key, a bin
+// at or past `bins` gives kAbsentKey. The U bins' loads and fmaf chains are
+// independent, for the scheduler to overlap.
+template <int U, typename KeyOf>
+__device__ __forceinline__ void bin_minima(unsigned (&m)[U], int bin0,
+                                           int stride, int bins, int per_bin,
+                                           KeyOf key) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int b = bin0 + u * stride;
+    m[u] = b < bins ? key(b) : kAbsentKey;
+  }
+  for (int t = 1; t < per_bin; ++t) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int b = bin0 + u * stride;
+      if (b < bins) m[u] = nan_min(m[u], key(b + t * bins));
+    }
+  }
+}
+
+constexpr int kBinsAtOnce = 4;
+
+// The lane path: every lane its own row, the warp's bank staged. The KP
+// smallest candidates of the lane's row, ascending: its bins' minima and
+// the +inf pads.
+template <int LC, int KP>
+__device__ __forceinline__ void select_lane_row(
+    const ScoreArgs& a, const float4* stage, const float (&q)[LC], float qn,
+    int cnt, unsigned (&list)[KP]) {
+#pragma unroll
+  for (int i = 0; i < KP; ++i) list[i] = kAbsentKey;
+  const int per_bin = a.B / a.bins;
+  const auto key = [&](int s) {
+    return slot_key<LC, true>(a, stage, nullptr, s, q, qn, cnt);
+  };
+  for (int j = 0; j < a.bins; j += kBinsAtOnce) {
+    unsigned m[kBinsAtOnce];
+    bin_minima<kBinsAtOnce>(m, j, 1, a.bins, per_bin, key);
+#pragma unroll
+    for (int u = 0; u < kBinsAtOnce; ++u) insert<KP>(list, m[u]);
+  }
+  for (int p = 0; p < a.pads; ++p) insert<KP>(list, kInfKey);
+}
+
+// The warp path: the whole warp on one row, lane l on bins l, l + 32, ...
+// (each bin's slots its own), then the candidate at `rank` of the union of
+// the lanes' sorted lists, popped off their heads in rank order. The
+// score's bits, as the lane path's.
+template <int LC, int KP>
+__device__ __forceinline__ unsigned select_warp_row(
+    const ScoreArgs& a, const float* bank, long long q0,
+    const float (&q)[LC > 0 ? LC : 1], float qn, int cnt, int rank,
+    int lane) {
+  unsigned list[KP];
+#pragma unroll
+  for (int i = 0; i < KP; ++i) list[i] = kAbsentKey;
+  const int per_bin = a.B / a.bins;
+  const auto key = [&](int s) {
+    if constexpr (LC > 0)
+      return slot_key<LC, false>(a, nullptr, bank, s, q, qn, cnt);
+    else
+      return slot_key_streamed(a, q0, bank, s, qn, cnt);
+  };
+  for (int b0 = 0; b0 < a.bins; b0 += 32 * kBinsAtOnce) {
+    unsigned m[kBinsAtOnce];  // a lane past the last bin adds nothing
+    bin_minima<kBinsAtOnce>(m, b0 + lane, 32, a.bins, per_bin, key);
+#pragma unroll
+    for (int u = 0; u < kBinsAtOnce; ++u) insert<KP>(list, m[u]);
+  }
+  if (lane == 0)
+    for (int p = 0; p < a.pads; ++p) insert<KP>(list, kInfKey);
+  unsigned key_at = kAbsentKey;
+  for (int i = 0; i <= rank; ++i) {
+    key_at = __reduce_min_sync(0xffffffffu, list[0]);
+    const unsigned holders = __ballot_sync(0xffffffffu, list[0] == key_at);
+    if (lane == __ffs(holders) - 1) {  // one holder pops its head
+#pragma unroll
+      for (int x = 0; x + 1 < KP; ++x) list[x] = list[x + 1];
+      list[KP - 1] = kAbsentKey;
+    }
+  }
+  return key_at;
+}
+
+// the score of a selected candidate, as _kth_of_smallest: sqrt, or 0 for
+// an empty bank
+__device__ __forceinline__ float score_of(unsigned key, int cnt) {
+  return cnt > 0 ? sqrtf(__uint_as_float(key)) : 0.f;
+}
+
+template <int LC, int KP>
+__global__ void __launch_bounds__(kScoreWarps * 32, kScoreBlocksPerSM)
+    knn_score_kernel(const ScoreArgs a) {
+  extern __shared__ float4 stages[];  // each warp's staged bank
+  constexpr int LP = StageFloats<LC>::value;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4* stage = stages + static_cast<size_t>(warp) * a.B * (LP / 4);
+  // the warp's run of rows: per_warp, one more for the first `extra` warps
+  const int w = blockIdx.x * kScoreWarps + warp;
+  const int n = a.per_warp + (w < a.extra ? 1 : 0);
+  const long long begin =
+      static_cast<long long>(w) * a.per_warp + (w < a.extra ? w : a.extra);
+  const long long q0 = begin * a.L;  // the run's first element of q
+  const int32_t* __restrict__ gw = a.gw != nullptr ? a.gw + begin : nullptr;
+  float* __restrict__ out = a.out + begin;
+  const float nan = __int_as_float(0x7fc00000);
+  int staged = -1;  // the bank the warp's stage holds
+
+  // The warp takes its rows 32 at a time: lane t loads row t's bank index,
+  // count and q and forms its |q|^2.
+  for (int r0 = 0; r0 < n; r0 += 32) {
+    const int r = r0 + lane;
+    const int rows = min(32, n - r0);
+    const bool active = lane < rows;
+    int g = -1, cnt = 0;
+    float qv[LC > 0 ? LC : 1] = {};
+    float qn = 0.f;
+    const long long qr = q0 + static_cast<long long>(active ? r : 0) * a.L;
+    if (active) {
+      const int gi = gw != nullptr ? __ldg(gw + r) : 0;
+      if (gi >= 0 && gi < a.n_banks) g = gi;
+    }
+    if (g >= 0) {
+      if (a.counts == nullptr) {
+        cnt = a.count_value;
+      } else {
+        const int ci = a.count_per_bank ? g : 0;
+        cnt = a.counts_i64
+                  ? static_cast<int>(max(min(
+                        __ldg(static_cast<const long long*>(a.counts) + ci),
+                        static_cast<long long>(INT_MAX)),
+                        static_cast<long long>(INT_MIN)))
+                  : __ldg(static_cast<const int32_t*>(a.counts) + ci);
+      }
+    }
+    if constexpr (LC > 0) {
+#pragma unroll
+      for (int l = 0; l < LC; ++l)
+        qv[l] = active && l < a.L ? q_at(a, qr + l) : 0.f;
+#pragma unroll
+      for (int l = 0; l < LC; ++l) qn = fmaf(qv[l], qv[l], qn);
+    } else {
+      if (active)
+        for (int l = 0; l < a.L; ++l) {
+          const float v = q_at(a, qr + l);
+          qn = fmaf(v, v, qn);
+        }
+    }
+    if constexpr (LC > 0) {
+      // a batch of enough rows in one bank: the lane path
+      const int lo = __reduce_min_sync(0xffffffffu, g >= 0 ? g : INT_MAX);
+      const int hi = __reduce_max_sync(0xffffffffu, g);
+      if (a.stage && lo == hi && rows >= kLaneRows) {
+        if (staged != lo) {
+          __syncwarp();  // every lane is done with the old stage
+          // the bank's B L floats read in order (coalesced), then each
+          // slot's zeros up to LC and its |b|^2
+          const float* src = a.banks + static_cast<long long>(lo) * a.B * a.L;
+          float* st = reinterpret_cast<float*>(stage);
+          for (int e = lane; e < a.B * a.L; e += 32) {
+            const int s = e / a.L;
+            st[s * LP + e - s * a.L] = __ldg(src + e);
+          }
+          __syncwarp();
+          for (int s = lane; s < a.B; s += 32) {
+            float bn = 0.f;
+#pragma unroll
+            for (int l = 0; l < LC; ++l) {
+              if (l >= a.L) st[s * LP + l] = 0.f;
+              bn = fmaf(st[s * LP + l], st[s * LP + l], bn);
+            }
+            st[s * LP + LC] = bn;
+          }
+          __syncwarp();
+          staged = lo;
+        }
+        unsigned list[KP];
+        select_lane_row<LC, KP>(a, stage, qv, qn, cnt, list);
+        if (active) {
+          // the candidate at rank min(count, k) - 1, as _kth_of_smallest
+          const int rank = max(min(cnt, a.k) - 1, 0);
+          unsigned key = list[0];
+#pragma unroll
+          for (int i = 1; i < KP; ++i)
+            if (i == rank) key = list[i];
+          out[r] = g < 0 ? nan : score_of(key, cnt);
+        }
+        continue;
+      }
+    }
+    // else the warp path, row by row
+    for (int j = 0; j < rows; ++j) {
+      const int gj = __shfl_sync(0xffffffffu, g, j);
+      const int cj = __shfl_sync(0xffffffffu, cnt, j);
+      if (gj < 0) {
+        if (lane == 0) out[r0 + j] = nan;
+        continue;
+      }
+      float qj[LC > 0 ? LC : 1];
+#pragma unroll
+      for (int l = 0; l < (LC > 0 ? LC : 1); ++l)
+        qj[l] = __shfl_sync(0xffffffffu, qv[l], j);
+      const float qnj = __shfl_sync(0xffffffffu, qn, j);
+      const float* bank = a.banks + static_cast<long long>(gj) * a.B * a.L;
+      const int rank = max(min(cj, a.k) - 1, 0);
+      const unsigned key = select_warp_row<LC, KP>(
+          a, bank, q0 + static_cast<long long>(r0 + j) * a.L, qj, qnj, cj,
+          rank, lane);
+      if (lane == 0) out[r0 + j] = score_of(key, cj);
+    }
+  }
+}
+
+template <int LC, int KP>
+cudaError_t score_one(const ScoreArgs& a, int ctas, cudaStream_t st) {
+  const size_t smem =
+      a.stage ? static_cast<size_t>(kScoreWarps) * a.B *
+                    StageFloats<LC>::value * sizeof(float)
+              : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_score_kernel<LC, KP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  knn_score_kernel<LC, KP><<<ctas, kScoreWarps * 32, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int KP>
+cudaError_t score_launch(const ScoreArgs& a, int ctas, cudaStream_t st) {
+  switch (latent_regs(a.L)) {
+    case 7: return score_one<7, KP>(a, ctas, st);
+    case 8: return score_one<8, KP>(a, ctas, st);
+    default: return score_one<0, KP>(a, ctas, st);
+  }
+}
+
+// knn_plan's stage rule: a warp's [B][LP] stage for L <= 8, up to
+// kStageWarpBytes; 0 when the bank is not staged
+long long stage_warp_bytes(int B, int L) {
+  if (latent_regs(L) == 0) return 0;
+  const long long bytes = 4LL * B *
+      (latent_regs(L) == 7 ? StageFloats<7>::value : StageFloats<8>::value);
+  return bytes <= kStageWarpBytes ? bytes : 0;
+}
+
+// Runs launch(sms) with `device` current, its SM count read once and
+// kept, then makes the caller's device current again; returns the first
+// error (0 on success).
+template <typename Launch>
+int on_device(int device, Launch launch) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return static_cast<int>(err);
+  int rc = 0;
+  int sms = g_sms[device].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err == cudaSuccess)
+      g_sms[device].store(sms, std::memory_order_relaxed);
+    else
+      rc = static_cast<int>(err);
+  }
+  if (rc == 0) rc = launch(sms);
+  if (current != device) cudaSetDevice(current);
+  return rc;
+}
+
 }  // namespace
 
 extern "C" {
@@ -351,31 +786,14 @@ int dist_tiles(const void* q, const void* banks, const void* gw, void* out,
       device >= kMaxDevices || groups != plan_groups(B) || ctas < 1 ||
       streaming != (4LL * rows * B > kStreamBytes ? 1 : 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  int current = -1;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess)
-    return static_cast<int>(err);
-  int rc = 0;
-  int sms = g_sms[device].load(std::memory_order_relaxed);
-  if (sms == 0) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err == cudaSuccess)
-      g_sms[device].store(sms, std::memory_order_relaxed);
-    else
-      rc = static_cast<int>(err);
-  }
-  if (rc == 0) {
+  return on_device(device, [&](int sms) {
     const long long row_step = kWarps / (groups / 32);
     long long want = (rows + row_step - 1) / row_step;
     if (want > static_cast<long long>(kBlocksPerSM) * sms)
       want = static_cast<long long>(kBlocksPerSM) * sms;
     // a CTA's run of rows is indexed in 32 bits
     if (ctas != want || rows / ctas >= (1LL << 30))
-      rc = static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (rc == 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
     Args a;
     a.q = q;
     a.banks = static_cast<const float*>(banks);
@@ -392,11 +810,71 @@ int dist_tiles(const void* q, const void* banks, const void* gw, void* out,
             (reinterpret_cast<uintptr_t>(out) & 15) == 0;
     a.streaming = streaming;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    rc = static_cast<int>(q_bf16 ? launch<__nv_bfloat16>(a, ctas, st)
-                                 : launch<float>(a, ctas, st));
-  }
-  if (current != device) cudaSetDevice(current);
-  return rc;
+    return static_cast<int>(q_bf16 ? launch<__nv_bfloat16>(a, ctas, st)
+                                   : launch<float>(a, ctas, st));
+  });
+}
+
+// Launches the kNN score on `stream` of `device` as `ctas` CTAs of 4 warps:
+// out[i] = the k-th neighbour distance of row i in bank gw[i] (bank 0 when
+// gw is null) over `bins` strided bins (bins == B: exact), as knn_score's
+// header says. counts: null (count_value for every row), or int32 (int64
+// when counts_i64) read at the row's bank (count_per_bank) or at 0. The
+// plan (ctas, stage) must be the one knn/score.py knn_plan gives for
+// (rows, B, L, k) on this device, and 1 <= k <= 32, bins a divisor of B:
+// the entry refuses anything else with cudaErrorInvalidValue, before it
+// touches a pointer. The caller guarantees contiguous q [rows, L], banks
+// [n_banks, B, L] and out [rows].
+int knn_score(const void* q, const void* banks, const void* gw,
+              const void* counts, int counts_i64, int count_per_bank,
+              int count_value, void* out, long long rows, int n_banks,
+              int B, int L, int q_bf16, int k, int bins, int ctas,
+              int stage, int device, void* stream) {
+  const long long stage_bytes = stage_warp_bytes(B, L);
+  if (rows < 1 || n_banks < 1 || B < 1 || L < 1 || L > kMaxLatent ||
+      (q_bf16 & ~1) != 0 || (counts_i64 & ~1) != 0 ||
+      (count_per_bank & ~1) != 0 || k < 1 || k > kMaxK || bins < 1 ||
+      bins > B || B % bins != 0 || (stage & ~1) != 0 ||
+      stage != (stage_bytes > 0 ? 1 : 0) || device < 0 ||
+      device >= kMaxDevices || ctas < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return on_device(device, [&](int sms) {
+    long long per_sm = kScoreBlocksPerSM;
+    if (stage) {
+      per_sm = kStageSMBytes / (kScoreWarps * stage_bytes);
+      if (per_sm > kScoreBlocksPerSM) per_sm = kScoreBlocksPerSM;
+      if (per_sm < 1) per_sm = 1;
+    }
+    long long want = (rows + kScoreWarps - 1) / kScoreWarps;
+    if (want > per_sm * sms) want = per_sm * sms;
+    // a warp's run of rows is indexed in 32 bits
+    if (ctas != want || rows / (static_cast<long long>(ctas) * kScoreWarps)
+                            >= (1LL << 30))
+      return static_cast<int>(cudaErrorInvalidValue);
+    ScoreArgs a;
+    a.q = q;
+    a.banks = static_cast<const float*>(banks);
+    a.gw = static_cast<const int32_t*>(gw);
+    a.counts = counts;
+    a.counts_i64 = counts_i64;
+    a.count_per_bank = count_per_bank;
+    a.count_value = count_value;
+    a.out = static_cast<float*>(out);
+    const long long warps = static_cast<long long>(ctas) * kScoreWarps;
+    a.per_warp = static_cast<int>(rows / warps);
+    a.extra = static_cast<int>(rows % warps);
+    a.n_banks = n_banks;
+    a.B = B;
+    a.L = L;
+    a.k = k;
+    a.bins = bins;
+    a.pads = k > bins ? k - bins : 0;
+    a.q_bf16 = q_bf16;
+    a.stage = stage;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return static_cast<int>(k <= 8 ? score_launch<8>(a, ctas, st)
+                                   : score_launch<kMaxK>(a, ctas, st));
+  });
 }
 
 const char* dist_tiles_error_string(int code) {

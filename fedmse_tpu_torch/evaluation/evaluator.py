@@ -14,8 +14,8 @@
 The forward always goes through `ops.fused_ae.fused_forward_stats`, ONE
 launch over all clients' rows ([N, T] test rows, plus the [N, S] train
 rows for the centroid fit or the banks, each row routed to its client's
-model). The kNN distances are ONE launch of knn.dist_tiles over all N x T
-test rows, each against its own client's bank. Scores
+model). The kNN score is ONE launch of knn.knn_score over all N x T test
+rows, each against its own client's bank. Scores
 get the reference's nan_to_num guard; the metric is the per-client AUC,
 (f1, precision, recall) or the raw scores. metric='time' is the
 reference's inference-latency mode: each client's scoring, one launch per
@@ -70,8 +70,8 @@ def make_evaluate_all(model, model_type: str, metric: str = "AUC",
     'classification', the nan_to_num'd scores [N, T] for 'scores' (the
     serving engine's oracle), or the steady-state seconds of one client's
     scoring [N] (float64, on the CPU) for 'time'. Runs where the tensors
-    are: on the card through the fused kernel (and, for 'knn', the
-    distance kernel). The knn_* arguments configure score_kind 'knn';
+    are: on the card through the fused kernel (and, for 'knn', the kNN
+    score kernel). The knn_* arguments configure score_kind 'knn';
     client i's bank draw is seeded from (knn_seed, i), as knn.build_banks
     seeds it. The draw is made on the CPU; a caller that evaluates again
     and again (the fused round, whose CUDA graph cannot copy from the

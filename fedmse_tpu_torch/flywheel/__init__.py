@@ -4,7 +4,7 @@ FedMSE trains on normal-only traffic; the flywheel turns that premise into
 a closed loop over the pieces the port already has:
 
     serve     (serving/continuous.py: the forward and, for the kNN score,
-               the distance kernel per bucket)
+               the kNN score kernel per bucket)
       -> buffer    (buffer.py: rows verdicted normal enter per-gateway host
                     reservoirs through the front's intake tap, one call
                     per harvested batch)

@@ -5,9 +5,10 @@ k-th nearest neighbour in a bank of its own normal latents.
   bank.py   fixed-capacity per-gateway banks [N, B, L] + count [N]; the
             priority-trick downsample; the existing= refresh; npz
             persistence beside the checkpoint tree
-  score.py  distance tiles on the CUDA kernel csrc/dist_tiles.cu (one launch
-            for all rows, each against its own bank), exact and approximate
-            top-k
+  score.py  the score in one pass on the CUDA kernel knn_score of
+            csrc/dist_tiles.cu (distances, count mask, exact or approximate
+            top-k, one launch for all rows, each against its own bank), and
+            the distance tiles alone (dist_tiles)
 
 Wired into the evaluator (score_kind='knn'), every round's evaluation, the
 serving engine (gather, dense and single-tenant), its hot swap and the
@@ -18,7 +19,8 @@ from fedmse_tpu_torch.knn.bank import (ReferenceBank, bank_path, build_banks,
                                        downsample_latents, load_bank,
                                        pow2_bank_size, save_bank)
 from fedmse_tpu_torch.knn.score import (dist_tiles, knn_kth_distance,
-                                        knn_smallest_k, routed_kth_distance)
+                                        knn_score, knn_smallest_k,
+                                        routed_kth_distance)
 
 __all__ = [
     "ReferenceBank",
@@ -27,6 +29,7 @@ __all__ = [
     "dist_tiles",
     "downsample_latents",
     "knn_kth_distance",
+    "knn_score",
     "knn_smallest_k",
     "load_bank",
     "pow2_bank_size",

@@ -1,5 +1,5 @@
-"""kNN anomaly scoring: distance tiles on a hand-written CUDA kernel, then
-partial top-k (port of fedmse_tpu/knn/score.py).
+"""kNN anomaly scoring on hand-written CUDA kernels (port of
+fedmse_tpu/knn/score.py).
 
 Score = Euclidean distance to the k-th nearest latent in the row's gateway
 bank (knn/bank.py).
@@ -15,10 +15,16 @@ bank (knn/bank.py).
   * **exact top-k**: per-block partial top-k, then top-k over the survivors.
   * **approximate top-k**: each STRIDED bin (slot i -> bin i % bins) keeps its
     minimum, then top-k over the bin minima; bins = pow2(k * 32).
+  * **the score in one pass** (`knn_score`, the kernel `knn_score` of
+    csrc/dist_tiles.cu): distances, count mask (slot >= count of the row's
+    bank -> +inf), bin minima and the k-th candidate in registers, writing
+    only the [T] score. It gives the bits of the composition
+    `knn_score_composed` (dist_tiles, then the mask and the top-k as torch
+    ops, as the JAX code runs them outside its Pallas kernel), which CPU
+    tensors run as its plain twin. `routed_kth_distance` (the evaluator,
+    serving buckets) and `knn_kth_distance` (one bank) go through it.
 
-Masking (slot >= count of the row's bank -> +inf) and the top-k run as torch
-ops after the kernel, as the JAX code runs them outside its Pallas kernel.
-`dist_tiles.launches` counts kernel launches.
+`dist_tiles.launches` and `knn_score.launches` count kernel launches.
 """
 
 from __future__ import annotations
@@ -137,6 +143,9 @@ def _library() -> ctypes.CDLL:
     lib.dist_tiles.argtypes = ([ptr] * 4 + [ctypes.c_longlong] + [i32] * 8
                                + [ptr])
     lib.dist_tiles.restype = i32
+    lib.knn_score.argtypes = ([ptr] * 4 + [i32] * 3 + [ptr]
+                              + [ctypes.c_longlong] + [i32] * 9 + [ptr])
+    lib.knn_score.restype = i32
     lib.dist_tiles_error_string.argtypes = [i32]
     lib.dist_tiles_error_string.restype = ctypes.c_char_p
     return lib
@@ -223,6 +232,13 @@ def _blocked_smallest_k(d: torch.Tensor, k: int, block: int) -> torch.Tensor:
     return _smallest(_pad_inf(part.reshape(t, -1), k), k)
 
 
+def _bins(bank: int, bins: int) -> int:
+    """The strided bins of a B-slot bank: `bins` capped at B, and B itself
+    (one slot a bin) when B % bins != 0."""
+    bins = min(bins, bank)
+    return bank if bank % bins else bins
+
+
 def _binned_smallest_k(d: torch.Tensor, k: int, bins: int) -> torch.Tensor:
     """[T, B] -> [T, k] approximate smallest: each STRIDED bin (slot i ->
     bin i % bins) keeps its minimum, top-k over the bin minima. A ragged
@@ -230,9 +246,7 @@ def _binned_smallest_k(d: torch.Tensor, k: int, bins: int) -> torch.Tensor:
     them over every bin, and when count <= bins each valid row is its own
     candidate (the approximation is exact)."""
     t, b = d.shape
-    bins = min(bins, b)
-    if b % bins:
-        bins = b
+    bins = _bins(b, bins)
     mins = d.reshape(t, b // bins, bins).amin(dim=1)
     return _smallest(_pad_inf(mins, k), k)
 
@@ -283,13 +297,170 @@ def _kth_of_smallest(smallest: torch.Tensor,
     return torch.where(counts > 0, torch.sqrt(kth), torch.zeros_like(kth))
 
 
+# ------------------------- the score in one pass ------------------------- #
+
+MAX_K = 32  # the kernel keeps at most 32 candidates a row in registers
+SCORE_WARPS, SCORE_BLOCKS_PER_SM = 4, 4
+STAGE_WARP_BYTES = 32 << 10  # a warp's staged bank, at most
+STAGE_SM_BYTES = 192 << 10   # the stages of an SM's CTAs, at most
+
+
+def _stage_bytes(bank: int, lat: int) -> int:
+    """A warp's staged bank, [B][8] f32 for L <= 7 ([B][12] at L = 8: the
+    latent held as 7 or 8 values and |b|^2, padded to 16 bytes), up to
+    STAGE_WARP_BYTES; 0 when the bank is not staged (L > 8)."""
+    if lat > 8:
+        return 0
+    size = 4 * bank * (12 if lat == 8 else 8)
+    return size if size <= STAGE_WARP_BYTES else 0
+
+
+def knn_plan(rows: int, bank: int, lat: int, k: int, sms: int
+             ) -> Tuple[int, bool]:
+    """(CTAs, staged banks) of one kNN-score launch over `rows` rows of
+    `bank` slots at latent width `lat` and k = `k` on a card of `sms` SMs;
+    csrc/dist_tiles.cu's knn_score refuses any other plan.
+
+    CTAs of 4 warps, each warp an equal contiguous run of rows, one wave:
+    a warp for every row, up to 4 CTAs an SM, or as many as STAGE_SM_BYTES
+    holds of 4 warps' stages when the banks are staged (L <= 8 and a stage
+    (`_stage_bytes`) of at most STAGE_WARP_BYTES: at the evaluation's 512
+    slots and L = 7, 16 KB a warp, 3 CTAs an SM). A warp's batch of 32 rows takes the lane
+    path (a lane a row, the bank staged) when 16 or more of its rows share
+    a staged bank, else the warp path (the warp on one row at a time), as
+    the kernel's header says."""
+    if (rows < 1 or bank < 1 or not 1 <= lat <= MAX_LATENT
+            or not 1 <= k <= MAX_K or sms < 1):
+        raise ValueError(f"no kNN score plan for rows={rows}, bank={bank}, "
+                         f"latent_dim={lat}, k={k}, sms={sms}")
+    stage = _stage_bytes(bank, lat)
+    per_sm = SCORE_BLOCKS_PER_SM
+    if stage:
+        per_sm = max(1, min(per_sm, STAGE_SM_BYTES // (SCORE_WARPS * stage)))
+    ctas = min(-(-rows // SCORE_WARPS), per_sm * sms)
+    if rows // (ctas * SCORE_WARPS) >= 1 << 30:  # 32-bit rows a warp
+        raise ValueError(f"no kNN score plan for rows={rows}: over 2**30 "
+                         f"rows a warp")
+    return ctas, stage > 0
+
+
+def _score_bins(bank: int, k: int, topk: str, approx_oversample: int) -> int:
+    """The candidates' bins: B (one slot each) when exact, else
+    _binned_smallest_k's bins = pow2(k * approx_oversample)."""
+    if topk == "exact":
+        return bank
+    if topk == "approx":
+        return _bins(bank, pow2_bank_size(k * approx_oversample))
+    raise ValueError(f"unknown topk {topk!r}; expected 'exact' | 'approx'")
+
+
+def _row_counts(count: Union[int, torch.Tensor], gw: Optional[torch.Tensor],
+                rows: int, n_banks: int, device) -> torch.Tensor:
+    """The valid counts the mask compares with: the banks' counts [N] taken
+    at each row's bank (bank 0 without gw), else the count as it is."""
+    count = torch.as_tensor(count, device=device)
+    if count.dim() == 1 and count.shape[0] == n_banks:
+        if gw is None:
+            return count[torch.zeros(rows, dtype=torch.long, device=device)]
+        return count[gw.long()]
+    return count
+
+
+def knn_score_composed(q: torch.Tensor, banks: torch.Tensor,
+                       gw: Optional[torch.Tensor],
+                       count: Union[int, torch.Tensor], k: int,
+                       topk: str = "exact", block: int = 512,
+                       approx_oversample: int = 32) -> torch.Tensor:
+    """knn_score as a composition: dist_tiles, the count mask, the top-k and
+    the k-th candidate as torch ops. On the CPU it is knn_score's plain
+    twin; on the card, with the distance kernel, the yardstick it is held
+    to bit for bit."""
+    d = dist_tiles(q, banks, gw)
+    n_banks = banks.shape[0] if banks.dim() == 3 else 1
+    counts = _row_counts(count, gw, q.shape[0], n_banks, d.device)
+    return _kth_of_smallest(_smallest_k(_mask_padding(d, counts), k, topk,
+                                        block, approx_oversample), counts, k)
+
+
+def knn_score(q: torch.Tensor, banks: torch.Tensor,
+              gw: Optional[torch.Tensor], count: Union[int, torch.Tensor],
+              k: int, topk: str = "exact", block: int = 512,
+              approx_oversample: int = 32) -> torch.Tensor:
+    """The k-th neighbour score [T] f32 of each query row in its own bank.
+
+    q: [T, L] f32 or bf16. banks: [N, B, L] f32 (or one bank [B, L]). gw:
+    int32 [T], each row's bank (None: bank 0); a row outside [0, N) scores
+    NaN. count: an int, or an int32/int64 tensor on q's device, either the
+    banks' counts [N] (taken at each row's bank) or one count () for every
+    row. topk, block and approx_oversample as `_smallest_k` (block changes
+    nothing: the exact top-k is exact). CPU tensors run
+    `knn_score_composed`; CUDA tensors launch csrc/dist_tiles.cu's
+    knn_score once, on their device's current stream over the plan of
+    `knn_plan`, or raise (k > 32, L > 128, counts of another shape or type,
+    non-contiguous operands, a failed build or launch). T = 0 returns an
+    empty tensor without a launch."""
+    banks = _check(q, banks, gw)
+    if q.device.type == "cpu":
+        return knn_score_composed(q, banks, gw, count, k, topk, block,
+                                  approx_oversample)
+    if q.device.type != "cuda":
+        raise ValueError(f"the kNN score runs on cuda or cpu, got {q.device}")
+    rows, lat = q.shape
+    n, b, _ = banks.shape
+    bins = _score_bins(b, k, topk, approx_oversample)
+    out = torch.empty((rows,), dtype=torch.float32, device=q.device)
+    if rows == 0:
+        return out
+    counts, value, per_bank = None, 0, 0
+    if isinstance(count, torch.Tensor):
+        if count.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"count must be int32 or int64, got "
+                             f"{count.dtype}")
+        if count.device != q.device:
+            raise ValueError(f"count is on {count.device}, q on {q.device}")
+        if count.dim() == 1 and count.shape[0] == n:
+            per_bank = 1
+        elif count.dim() != 0:
+            raise ValueError(f"count must be the banks' [N] = [{n}] or one "
+                             f"count, got {tuple(count.shape)}")
+        counts = count
+    else:
+        value = int(count)
+        if not -2 ** 31 <= value < 2 ** 31:
+            raise ValueError(f"count {value} outside int32")
+    operands = (q, banks) + ((gw,) if gw is not None else ())
+    if not all(t.is_contiguous() for t in operands) or (
+            counts is not None and not counts.is_contiguous()):
+        raise ValueError("the kNN score kernel takes contiguous tensors")
+    lib = _library()
+    index = q.device.index
+    ctas, stage = knn_plan(rows, b, lat, k, _sm_count(index))
+    rc = lib.knn_score(q.data_ptr(), banks.data_ptr(),
+                       None if gw is None else gw.data_ptr(),
+                       None if counts is None else counts.data_ptr(),
+                       int(counts is not None
+                           and counts.dtype == torch.int64),
+                       per_bank, value, out.data_ptr(), rows, n, b, lat,
+                       int(q.dtype == torch.bfloat16), k, bins, ctas,
+                       int(stage), index,
+                       torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError("knn_score launch failed: "
+                           + lib.dist_tiles_error_string(rc).decode())
+    native.count_launch(knn_score)
+    return out
+
+
+knn_score.launches = 0
+knn_score.captured = 0
+
+
 def knn_kth_distance(q: torch.Tensor, bank: torch.Tensor,
                      count: Union[int, torch.Tensor], k: int,
                      topk: str = "exact", block: int = 512) -> torch.Tensor:
     """The anomaly score [T]: Euclidean distance to the k-th nearest latent
-    of one bank [B, L], f32."""
-    smallest = knn_smallest_k(q, bank, count, k, topk=topk, block=block)
-    return _kth_of_smallest(smallest, count, k)
+    of one bank [B, L], f32 (knn_score with every row on that bank)."""
+    return knn_score(q, bank, None, count, k, topk=topk, block=block)
 
 
 def routed_kth_distance(latents: torch.Tensor, gw: torch.Tensor,
@@ -297,12 +468,9 @@ def routed_kth_distance(latents: torch.Tensor, gw: torch.Tensor,
                         block: int = 512, approx_oversample: int = 32,
                         max_onehot_cols: int = 4096) -> torch.Tensor:
     """Multi-tenant k-th distance: row i scores against bank gw[i] of a
-    stacked ReferenceBank, in ONE distance launch with gw as the per-row
-    bank index whatever N * L is (the JAX one-hot / gather split was a TPU
-    shape). `max_onehot_cols` is kept for the JAX API and ignored."""
+    stacked ReferenceBank, in ONE launch with gw as the per-row bank index
+    whatever N * L is (the JAX one-hot / gather split was a TPU shape).
+    `max_onehot_cols` is kept for the JAX API and ignored."""
     del max_onehot_cols
-    d = dist_tiles(latents, bank.latents, gw)
-    counts = bank.count[gw.long()]
-    d = _mask_padding(d, counts)
-    return _kth_of_smallest(_smallest_k(d, k, topk, block, approx_oversample),
-                            counts, k)
+    return knn_score(latents, bank.latents, gw, bank.count, k, topk=topk,
+                     block=block, approx_oversample=approx_oversample)

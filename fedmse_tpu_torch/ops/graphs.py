@@ -56,7 +56,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from fedmse_tpu_torch.knn.score import dist_tiles
+from fedmse_tpu_torch.knn.score import dist_tiles, knn_score
 from fedmse_tpu_torch.ops.adam_update import adam_update
 from fedmse_tpu_torch.ops.fused_ae import fused_forward_stats
 from fedmse_tpu_torch.ops.fused_train import fused_train_grads
@@ -67,12 +67,13 @@ from fedmse_tpu_torch.ops.kitnet import (kitnet_forward_stats,
 WRAPPERS = {"fused_ae_forward": fused_forward_stats,
             "fused_ae_train": fused_train_grads,
             "dist_tiles": dist_tiles,
+            "knn_score": knn_score,
             "adam_update": adam_update,
             "kitnet_forward": kitnet_forward_stats,
             "kitnet_train": kitnet_train_grads}
 # the kernels each model family's main path launches, by those names
 FAMILY_KERNELS = {"autoencoder": ("fused_ae_forward", "fused_ae_train",
-                                  "dist_tiles", "adam_update"),
+                                  "knn_score", "adam_update"),
                   "kitnet": ("kitnet_forward", "kitnet_train",
                              "adam_update")}
 

@@ -1,7 +1,7 @@
 """Online anomaly scoring over a trained federation.
 
   engine.py       bucketed scorer: multi-tenant (per-row gateway routing in
-                  the fused kernel and the distance kernel) and
+                  the fused kernel and the kNN score kernel) and
                   single-global; state {params, centroids, banks} as a
                   per-launch operand -> hot swap; non-blocking dispatch /
                   harvest

@@ -14,7 +14,7 @@
   * **Score parity**: AE-MSE straight from the kernel; hybrid centroid
     density of the kernel's latent against the row's gateway centroid; kNN
     k-th distance of the kernel's latent to the row's gateway bank (one
-    launch of the distance kernel per bucket, knn/score.py); the
+    launch of the kNN score kernel per bucket, knn/score.py); the
     evaluator's nan_to_num guard. `make_evaluate_all(..., metric="scores")`
     is the oracle.
   * **State as an operand**: the resident state {params, centroids, banks}

@@ -15,9 +15,12 @@ reloads from routing) it prints one JSON line of:
     per CTA, and the CTA count, of one launch;
   * hints: the device time (torch.profiler) of the kernel with plain and
     with evict-first output stores (a copy whose entry takes either), alone
-    and as the kNN score's first launch (routed_kth_distance's mask, top-k
-    and gather after it, exact top-k), beside the predecessor's time in the
-    same process.
+    and as the first launch of the kNN score's old composition (the mask,
+    top-k and gather of knn_score_composed after it, exact top-k), beside
+    the predecessor's time in the same process;
+  * knn_score: the main path's one-pass kNN score (csrc/dist_tiles.cu
+    knn_score, exact top-k) on the same inputs, its device time and its
+    time by CUDA events, which the composition's path times compare with.
 
 A stamped copy is a diagnostic: its clock reads cost time, so only the
 split between phases is read from it, never a speed.
@@ -190,7 +193,8 @@ def main() -> int:
     import chip_smoke as cs
     from fedmse_tpu_torch.knn.bank import ReferenceBank
     from fedmse_tpu_torch.knn.score import (_kth_of_smallest, _mask_padding,
-                                            _smallest_k, dist_tiles_plain)
+                                            _smallest_k, dist_tiles_plain,
+                                            knn_score)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -271,6 +275,11 @@ def main() -> int:
         entry["bit_equal_to_baseline"] = all(
             torch.equal(v.view(torch.int32), got["baseline"].view(torch.int32))
             for v in got.values())
+        fused = lambda: knn_score(q, banks, g, ref.count,  # noqa: E731
+                                  cs.KNN["knn_k"], "exact")
+        entry["knn_score"] = {
+            "device_ms": cs.device_ms(fused, "knn_score", 50),
+            "ms": cs.cuda_ms(fused, 50)}
         result["shapes"].append(entry)
         print(json.dumps(entry), flush=True)
     line = json.dumps(result)

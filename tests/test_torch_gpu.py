@@ -11,6 +11,8 @@ whole training run on the card against the CPU, 1e-4 per leaf and 2e-3
 AUC (summation order compounded over the run's Adam steps).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -484,7 +486,7 @@ def test_dist_kernel_edges(cuda):
 
 @pytest.mark.parametrize("topk", ["exact", "approx"])
 def test_knn_evaluation_and_serving_on_card_match_cpu(cuda, topk):
-    from fedmse_tpu_torch.knn.score import dist_tiles
+    from fedmse_tpu_torch.knn.score import dist_tiles, knn_score
     clients = synthetic_clients(n_clients=3, dim=20, n_normal=400,
                                 n_abnormal=50, seed=2)
     out = {}
@@ -497,11 +499,12 @@ def test_knn_evaluation_and_serving_on_card_match_cpu(cuda, topk):
                              device=device)
         kw = dict(score_kind="knn", knn_bank_size=64, knn_k=8,
                   knn_topk=topk)
-        before = dist_tiles.launches
+        before = (knn_score.launches, dist_tiles.launches)
         scores = make_evaluate_all(model, "hybrid", metric="scores", **kw)(
             params, data.test_x, data.test_m, data.test_y, data.train_xb,
             data.train_mb).cpu()
-        launched = dist_tiles.launches - before
+        launched = (knn_score.launches - before[0],
+                    dist_tiles.launches - before[1])
         engine = ServingEngine.from_federation(
             model, "hybrid", params, data.train_xb, data.train_mb,
             max_bucket=64, device=device, **kw)
@@ -510,7 +513,8 @@ def test_knn_evaluation_and_serving_on_card_match_cpu(cuda, topk):
                             engine.banks.latents.cpu())
     (s_cpu, e_cpu, n_cpu, b_cpu) = out["cpu"]
     (s_gpu, e_gpu, n_gpu, b_gpu) = out[str(cuda)]
-    assert n_cpu == 0 and n_gpu == 1
+    # one kNN-score launch and no distance tiles on the evaluator's path
+    assert n_cpu == (0, 0) and n_gpu == (1, 0)
     # the bank draw is made on the CPU: the same rows on both, up to the
     # latents' summation order
     torch.testing.assert_close(b_gpu, b_cpu, rtol=1e-5, atol=1e-5)
@@ -654,6 +658,175 @@ def test_dist_entry_refuses_plans_dist_plan_would_not_give(cuda, change):
     assert lib.dist_tiles_error_string(rc) == b"invalid argument"
 
 
+# ---------------- the kNN score in one pass (knn_score) ------------------ #
+
+def _knn_case(b, lat, cdt, seed, n=6, t=70_000):
+    """n banks of b slots with counts b, 0, 5, b, b - 3 and 1, a NaN slot
+    in bank 3, client-major rows with a NaN query, and the gw of each: at
+    70,000 rows a warp's run holds full 32-row batches in one bank (the
+    lane path where the bank is staged), a batch across a bank boundary
+    and a short last batch (the warp path)."""
+    gen = torch.Generator().manual_seed(seed)
+    q = (torch.randn((t, lat), generator=gen) * 1.5).to(cdt)
+    banks = torch.randn((n, b, lat), generator=gen)
+    banks[3, min(2, b - 1), 0] = float("nan")
+    q[5, 0] = float("nan")
+    count = torch.tensor([b, 0, min(b, 5), b, max(b - 3, 1), 1][:n],
+                         dtype=torch.int32)
+    gw = torch.arange(n, dtype=torch.int32).repeat_interleave(-(-t // n))[:t]
+    return q, banks, count, gw
+
+
+# B x L x k: 16, 100 (ragged bins), 512 (the main path) and 1,024 slots;
+# L = 3, 7, 8 (q in bf16) and 12 (streamed); k = 1, 8 and 32
+KNN_GRID = [(b, lat, k) for b in (16, 100, 512, 1024) for lat in (3, 7, 8, 12)
+            for k in (1, 8, 32)]
+
+
+@pytest.mark.parametrize("topk", ["exact", "approx"])
+@pytest.mark.parametrize("case", range(len(KNN_GRID)))
+def test_knn_score_matches_composition_bitwise(cuda, case, topk):
+    """The one-pass kernel against dist_tiles -> mask -> top-k -> k-th on
+    the card, bit for bit (NaN included), on client-major rows, the same
+    rows permuted (routed, banks differing within a warp) and one bank;
+    banks with counts 0, 1, < k, = B and ragged, a NaN bank slot and a NaN
+    query; a row whose bank index lies outside [0, N) scores NaN."""
+    from fedmse_tpu_torch.knn.score import knn_score, knn_score_composed
+    b, lat, k = KNN_GRID[case]
+    cdt = torch.bfloat16 if lat == 8 else torch.float32
+    q, banks, count, gw = (t.to(cuda) for t in _knn_case(b, lat, cdt, case))
+    before = knn_score.launches
+    got = knn_score(q, banks, gw, count, k, topk)
+    assert knn_score.launches == before + 1
+    want = knn_score_composed(q, banks, gw, count, k, topk)
+    assert got.shape == (q.shape[0],) and got.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(want))
+    perm = torch.randperm(q.shape[0], generator=torch.Generator()
+                          .manual_seed(case)).to(cuda)
+    routed = knn_score(q[perm].contiguous(), banks, gw[perm].contiguous(),
+                       count, k, topk)
+    assert torch.equal(_bits(routed), _bits(got[perm]))
+    one = knn_score(q, banks[3], None, count[3], k, topk)
+    assert torch.equal(_bits(one), _bits(
+        knn_score_composed(q, banks[3], None, count[3], k, topk)))
+    assert torch.equal(_bits(knn_score(q, banks[3], None, int(count[3]), k,
+                                       topk)), _bits(one))
+    bad = gw.clone()
+    bad[::7] = torch.tensor([-1, banks.shape[0]], dtype=torch.int32,
+                            device=cuda).repeat(q.shape[0])[:bad[::7].numel()]
+    out = knn_score(q, banks, bad, count, k, topk)
+    off = (bad < 0) | (bad >= banks.shape[0])
+    assert torch.isnan(out[off]).all()
+    assert torch.equal(_bits(out[~off]), _bits(got[~off]))
+
+
+@pytest.mark.parametrize("topk", ["exact", "approx"])
+@pytest.mark.parametrize("case", range(3))
+def test_knn_score_matches_stored_jax_scores(cuda, case, topk):
+    """The one-pass kernel against the JAX package's kNN scores, stored
+    with their inputs in tests/data/knn_jax_scores.npz (tests/
+    knn_jax_scores.py writes it; a CPU test checks it is still the JAX
+    package's output), at 1e-5 scaled by the largest score, as the
+    distances are held (summation order only): client-major rows,
+    the same rows permuted, and one bank; counts 0, 1, < k, = B and ragged;
+    B 512 with 256 strided bins, 100 (ragged bins) and 1,024 at L 7, 12
+    (streamed) and 3, k 8, 32 and 1."""
+    from fedmse_tpu_torch.knn import (ReferenceBank, knn_kth_distance,
+                                      knn_score, routed_kth_distance)
+    z = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "data", "knn_jax_scores.npz"))
+    one_bank = int(z["one_bank"])
+    q, banks, count, gw = (torch.from_numpy(z[f"{n}{case}"]).to(cuda)
+                           for n in ("q", "banks", "count", "gw"))
+    k = int(z[f"k{case}"])
+    want = z[f"routed{case}_{topk}"]
+    bank = ReferenceBank(banks, count)
+    before = knn_score.launches
+    got = routed_kth_distance(q, gw, bank, k, topk=topk)
+    assert knn_score.launches == before + 1
+    assert _scaled_err(got.cpu().numpy(), want) <= 1e-5
+    perm = torch.randperm(q.shape[0], generator=torch.Generator()
+                          .manual_seed(case)).to(cuda)
+    routed = routed_kth_distance(q[perm].contiguous(), gw[perm].contiguous(),
+                                 bank, k, topk=topk)
+    assert torch.equal(_bits(routed), _bits(got[perm]))
+    one = knn_kth_distance(q, banks[one_bank], count[one_bank], k, topk=topk)
+    assert _scaled_err(one.cpu().numpy(), z[f"one{case}_{topk}"]) <= 1e-5
+
+
+def _scaled_err(got, want) -> float:
+    """Largest absolute error over the reference's largest magnitude."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("topk", ["exact", "approx"])
+@pytest.mark.parametrize("shape", [(10, 30_000, 512, 7), (500, 1024, 512, 7),
+                                   (10, 256, 512, 7)])
+def test_knn_score_main_path_shapes_bitwise(cuda, topk, shape):
+    """The evaluation's 30,000 client-major rows and a serving bucket routed
+    over 500 banks, f32 and bf16 queries, against the composition bit for
+    bit, at the config's k = 8; each also one CUDA kernel per call."""
+    from fedmse_tpu_torch.knn.score import knn_score, knn_score_composed
+    n, t, b, lat = shape
+    for cdt in (torch.float32, torch.bfloat16):
+        q, banks, gw = _dist_case(n, t, b, lat, cdt,
+                                  "client_major" if t > 1024 else "random",
+                                  cuda)
+        count = torch.full((n,), b, dtype=torch.int32, device=cuda)
+        count[1] = 3
+        got = knn_score(q, banks, gw, count, 8, topk)
+        want = knn_score_composed(q, banks, gw, count, 8, topk)
+        assert torch.equal(_bits(got), _bits(want))
+        _assert_one_kernel(lambda: knn_score(q, banks, gw, count, 8, topk),
+                           "knn_score", knn_score)
+
+
+@pytest.mark.parametrize("change", ["ctas", "ctas_zero", "stage", "k",
+                                    "k_zero", "bins", "bins_big", "q_bf16",
+                                    "device"])
+def test_knn_entry_refuses_plans_knn_plan_would_not_give(cuda, change):
+    """The C entry takes only knn_plan's plan for (rows, B, L, k) on this
+    card, k in 1..32 and bins dividing B, and refuses anything else before
+    it touches a pointer."""
+    from fedmse_tpu_torch.knn import score
+    rows, b, lat = 1_500_000, 512, 7
+    ctas, stage = score.knn_plan(rows, b, lat, 8, score._sm_count(cuda.index))
+    args = dict(ctas=ctas, stage=int(stage), k=8, bins=256, q_bf16=0,
+                device=cuda.index)
+    args.update({"ctas": dict(ctas=ctas - 1), "ctas_zero": dict(ctas=0),
+                 "stage": dict(stage=1 - int(stage)), "k": dict(k=33),
+                 "k_zero": dict(k=0), "bins": dict(bins=96),
+                 "bins_big": dict(bins=1024), "q_bf16": dict(q_bf16=2),
+                 "device": dict(device=64)}[change])
+    lib = score._library()
+    rc = lib.knn_score(None, None, None, None, 0, 1, 0, None, rows, 500, b,
+                       lat, args["q_bf16"], args["k"], args["bins"],
+                       args["ctas"], args["stage"], args["device"], None)
+    assert lib.dist_tiles_error_string(rc) == b"invalid argument"
+
+
+def test_knn_score_edges(cuda):
+    from fedmse_tpu_torch.knn.score import knn_score
+    banks = torch.randn((2, 16, 7), device=cuda)
+    q = torch.randn((5, 7), device=cuda)
+    count = torch.tensor([16, 4], dtype=torch.int32, device=cuda)
+    gw = torch.zeros(5, dtype=torch.int32, device=cuda)
+    before = knn_score.launches
+    assert knn_score(q[:0], banks, gw[:0], count, 8).shape == (0,)
+    assert knn_score.launches == before
+    with pytest.raises(ValueError, match="no kNN score plan"):
+        knn_score(q, banks, gw, count, 33)
+    with pytest.raises(ValueError, match="count must be"):
+        knn_score(q, banks, gw, count.float(), 8)
+    with pytest.raises(ValueError, match="count must be"):
+        knn_score(q, banks, gw, count[:1], 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        knn_score(torch.randn((7, 5), device=cuda).T, banks, gw, count, 8)
+    assert torch.equal(knn_score(q, banks, gw, count.long(), 8),
+                       knn_score(q, banks, gw, count, 8))
+
+
 # ---- CUDA graphs: the kernels and the fused round captured and replayed ----
 
 def _bits(t):
@@ -669,7 +842,7 @@ def _captured(fn, outs):
 
 
 @pytest.mark.parametrize("kernel", ["fused_ae_forward", "fused_ae_train",
-                                    "dist_tiles"])
+                                    "dist_tiles", "knn_score"])
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 def test_wrapper_captured_alone_replays_its_call(cuda, kernel, cdt):
     """Each wrapper captured alone in a CUDA graph: the replay gives a
@@ -697,8 +870,11 @@ def test_wrapper_captured_alone_replays_its_call(cuda, kernel, cdt):
         banks = torch.randn((10, 512, 7), device=cuda)
         gw = torch.randint(0, 10, (10 * 300,), dtype=torch.int32,
                            device=cuda)
+        count = torch.full((10,), 512, dtype=torch.int32, device=cuda)
 
         def call():
+            if kernel == "knn_score":
+                return (wrapper(q, banks, gw, count, 8, "approx"),)
             return (dist_tiles(q, banks, gw),)
     want = [t.clone() for t in call()]
     outs = [torch.empty_like(t) for t in want]
